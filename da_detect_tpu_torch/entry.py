@@ -1,0 +1,101 @@
+"""Entry points of the PyTorch port: the flagship model's eval forward.
+
+``entry(device=None)`` is the counterpart of ``__graft_entry__.entry()``: it
+returns ``(fn, example_args)`` for the eval forward of DA-Faster R-CNN on
+R-50-C4 with 9 Cityscapes classes. It runs on the card unless the caller asks
+for ``device="cpu"``; with no card and no explicit CPU it raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .config import get_cfg
+from .models import build_detection_model
+from .structures.image_batch import ImageBatch, Targets
+
+
+def flagship_cfg(canvas=(320, 640), train_tops=(600, 128),
+                 test_tops=(600, 128)):
+    """The flagship configuration at a given canvas, in float32 (the port's
+    compute dtype)."""
+    cfg = get_cfg()
+    cfg.MODEL.DOMAIN_ADAPTATION_ON = True
+    cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES = 9
+    cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 256
+    cfg.MODEL.ROI_HEADS.NMS = 0.3
+    cfg.MODEL.RPN.PRE_NMS_TOP_N_TRAIN = train_tops[0]
+    cfg.MODEL.RPN.POST_NMS_TOP_N_TRAIN = train_tops[1]
+    cfg.MODEL.RPN.PRE_NMS_TOP_N_TEST = test_tops[0]
+    cfg.MODEL.RPN.POST_NMS_TOP_N_TEST = test_tops[1]
+    cfg.TPU.IMAGE_SHAPE = canvas
+    cfg.TPU.MAX_GT_BOXES = 24
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    return cfg
+
+
+def make_batch(cfg, b: int, seed: int = 0, is_source: bool = True,
+               device="cpu") -> tuple[ImageBatch, Targets]:
+    """A synthetic batch of b images with padded targets, drawn from
+    ``np.random.RandomState(seed)`` in the same order as the JAX package's
+    ``__graft_entry__._batch``, so both see the same pixels and boxes."""
+    h, w = cfg.TPU.IMAGE_SHAPE
+    g = cfg.TPU.MAX_GT_BOXES
+    rng = np.random.RandomState(seed)
+    x1 = rng.uniform(0, w - 60, (b, g)).astype(np.float32)
+    y1 = rng.uniform(0, h - 60, (b, g)).astype(np.float32)
+    boxes = np.stack([x1, y1, x1 + rng.uniform(10, 50, (b, g)),
+                      y1 + rng.uniform(10, 50, (b, g))], -1).astype(np.float32)
+    images = rng.randn(b, h, w, 3).astype(np.float32)
+    labels = rng.randint(1, 9, (b, g))
+    valid = rng.rand(b, g) > 0.3
+    batch = ImageBatch(
+        # NHWC memory viewed as NCHW: channels_last, no copy
+        images=torch.from_numpy(images).permute(0, 3, 1, 2),
+        sizes=torch.from_numpy(np.tile([[h, w]], (b, 1)).astype(np.int32)),
+        orig_sizes=torch.from_numpy(
+            np.tile([[h * 2, w * 2]], (b, 1)).astype(np.int32)),
+        is_source=torch.full((b,), is_source),
+    ).to(device)
+    targets = Targets(boxes=torch.from_numpy(boxes).to(device),
+                      labels=torch.from_numpy(labels).to(device),
+                      valid=torch.from_numpy(valid).to(device))
+    return batch, targets
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card. Raises rather than run on the CPU unasked."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port's entry points run on the card; pass "
+            "device='cpu' to run its plain versions on the CPU")
+    return device
+
+
+def prepare_model(model, device):
+    """Move a model to ``device`` in channels-last memory, and make float32
+    convolutions and matmuls on the card full float32 (cuDNN defaults to
+    TF32 for convolutions)."""
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return model.to(device=device, memory_format=torch.channels_last).eval()
+
+
+def entry(device: Optional[str] = None, seed: int = 0, cfg=None):
+    """(fn, example_args): the eval forward of the flagship model (or of
+    ``cfg``), ``fn(model, batch) -> Detections``, with random weights drawn
+    from ``seed``."""
+    device = resolve_device(device)
+    cfg = flagship_cfg() if cfg is None else cfg
+    model = prepare_model(build_detection_model(cfg, seed=seed), device)
+    batch, _ = make_batch(cfg, 1, seed, device=device)
+
+    def forward(model, batch):
+        return model(batch)
+
+    return forward, (model, batch)

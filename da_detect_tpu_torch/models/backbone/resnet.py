@@ -1,0 +1,147 @@
+"""ResNe[X]t body and res5 head (port of
+``da_detect_tpu/models/backbone/resnet.py``, FrozenBatchNorm bodies).
+
+Stem + stages of bottleneck blocks with the Caffe2 ``stride_in_1x1``
+convention and FrozenBatchNorm. Module names follow maskrcnn-benchmark's
+state_dict (``stem.conv1``, ``layer1.0.conv1``, ``layer1.0.downsample.0``),
+so ``utils/weights.py`` maps the JAX package's variables onto them one to
+one. Activations are logical NCHW in ``torch.channels_last`` memory.
+"""
+
+from __future__ import annotations
+
+import torch.nn.functional as F
+from torch import nn
+
+from ...layers import FrozenBatchNorm
+
+
+def _conv(cin, cout, k, stride=1, padding=0, dilation=1, groups=1):
+    return nn.Conv2d(cin, cout, k, stride=stride, padding=padding,
+                     dilation=dilation, groups=groups, bias=False)
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, in_channels: int, bottleneck_channels: int,
+                 out_channels: int, stride: int = 1, dilation: int = 1,
+                 num_groups: int = 1, stride_in_1x1: bool = True):
+        super().__init__()
+        stride_1x1, stride_3x3 = ((stride, 1) if stride_in_1x1
+                                  else (1, stride))
+        self.downsample = None
+        if in_channels != out_channels or stride != 1:
+            self.downsample = nn.Sequential(
+                _conv(in_channels, out_channels, 1, stride=stride),
+                FrozenBatchNorm(out_channels))
+        self.conv1 = _conv(in_channels, bottleneck_channels, 1,
+                           stride=stride_1x1)
+        self.bn1 = FrozenBatchNorm(bottleneck_channels)
+        self.conv2 = _conv(bottleneck_channels, bottleneck_channels, 3,
+                           stride=stride_3x3, padding=dilation,
+                           dilation=dilation, groups=num_groups)
+        self.bn2 = FrozenBatchNorm(bottleneck_channels)
+        self.conv3 = _conv(bottleneck_channels, out_channels, 1)
+        self.bn3 = FrozenBatchNorm(out_channels)
+
+    def forward(self, x):
+        shortcut = x if self.downsample is None else self.downsample(x)
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        return F.relu(out + shortcut)
+
+
+class Stem(nn.Module):
+    def __init__(self, out_channels: int = 64):
+        super().__init__()
+        self.conv1 = _conv(3, out_channels, 7, stride=2, padding=3)
+        self.bn1 = FrozenBatchNorm(out_channels)
+
+    def forward(self, x):
+        x = F.relu(self.bn1(self.conv1(x)))
+        return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
+
+
+class ResStage(nn.Sequential):
+    """A sequence of bottleneck blocks (reference resnet.py _make_stage)."""
+
+    def __init__(self, block_count: int, in_channels: int,
+                 bottleneck_channels: int, out_channels: int,
+                 first_stride: int, dilation: int = 1, num_groups: int = 1,
+                 stride_in_1x1: bool = True):
+        blocks = []
+        for i in range(block_count):
+            blocks.append(Bottleneck(
+                in_channels if i == 0 else out_channels, bottleneck_channels,
+                out_channels, stride=first_stride if i == 0 else 1,
+                dilation=dilation, num_groups=num_groups,
+                stride_in_1x1=stride_in_1x1))
+        super().__init__(*blocks)
+
+
+# blocks per stage for R-50, R-101, R-152
+_BLOCK_COUNTS = {
+    50: (3, 4, 6, 3),
+    101: (3, 4, 23, 3),
+    152: (3, 8, 36, 3),
+}
+
+
+class ResNet(nn.Module):
+    """cfg-driven ResNet body returning the last stage's map (C4: 3 stages).
+
+    Stages before ``freeze_at`` (the stem is stage 1) take no gradient, as
+    maskrcnn-benchmark's ``_freeze_backbone`` does."""
+
+    def __init__(self, depth: int = 50, stages: int = 4, num_groups: int = 1,
+                 width_per_group: int = 64, stem_out_channels: int = 64,
+                 res2_out_channels: int = 256, stride_in_1x1: bool = True,
+                 res5_dilation: int = 1, freeze_at: int = 0):
+        super().__init__()
+        self.stem = Stem(stem_out_channels)
+        counts = _BLOCK_COUNTS[depth]
+        in_ch = stem_out_channels
+        self.stage_names = []
+        for idx in range(stages):
+            stage2_relative = 2 ** idx
+            out_ch = res2_out_channels * stage2_relative
+            first_stride = (1 if idx == 0 or (idx == 3 and res5_dilation == 2)
+                            else 2)
+            name = f"layer{idx + 1}"
+            self.add_module(name, ResStage(
+                counts[idx], in_ch,
+                num_groups * width_per_group * stage2_relative, out_ch,
+                first_stride, dilation=res5_dilation if idx == 3 else 1,
+                num_groups=num_groups, stride_in_1x1=stride_in_1x1))
+            self.stage_names.append(name)
+            in_ch = out_ch
+        for i in range(freeze_at):
+            (self.stem if i == 0 else getattr(self, f"layer{i}")
+             ).requires_grad_(False)
+
+    def forward(self, x):
+        x = self.stem(x)
+        for name in self.stage_names:
+            x = getattr(self, name)(x)
+        return [x]
+
+
+class ResNetHead(nn.Module):
+    """The res5 stage used as the C4 box-head feature extractor: pooled ROI
+    features [N, 1024, 14, 14] -> [N, 2048, 7, 7]."""
+
+    def __init__(self, depth: int = 50, num_groups: int = 1,
+                 width_per_group: int = 64, res2_out_channels: int = 256,
+                 stride_in_1x1: bool = True, first_stride: int = 2,
+                 dilation: int = 1):
+        super().__init__()
+        stage2_relative = 8  # res5
+        self.layer4 = ResStage(
+            _BLOCK_COUNTS[depth][3], res2_out_channels * 4,
+            num_groups * width_per_group * stage2_relative,
+            res2_out_channels * stage2_relative, first_stride,
+            dilation=dilation, num_groups=num_groups,
+            stride_in_1x1=stride_in_1x1)
+
+    def forward(self, x):
+        return self.layer4(x)

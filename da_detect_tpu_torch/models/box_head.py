@@ -1,0 +1,152 @@
+"""ROI box head for eval: the C4 feature extractor, the predictor and the
+detection post-processing (port of ``da_detect_tpu/models/box_head.py``).
+
+Training-time sampling and losses are the next slice; the FPN extractors and
+predictor are later slices and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from ..ops import box_ops
+from ..ops.nms import nms_topk
+from .backbone.resnet import ResNetHead
+from .poolers import pool_rois, pooler_config
+
+
+class ResNet50Conv5ROIFeatureExtractor(nn.Module):
+    """C4: pool 14x14 from the single C4 map, run res5 ->
+    [B, R, 2048, 7, 7] (reference roi_box_feature_extractors.py:13-45)."""
+
+    def __init__(self, pooler: dict, depth: int = 50, num_groups: int = 1,
+                 width_per_group: int = 64, res2_out_channels: int = 256,
+                 stride_in_1x1: bool = True, dilation: int = 1):
+        super().__init__()
+        self.pooler = pooler
+        self.head = ResNetHead(depth=depth, num_groups=num_groups,
+                               width_per_group=width_per_group,
+                               res2_out_channels=res2_out_channels,
+                               stride_in_1x1=stride_in_1x1,
+                               first_stride=2 if dilation == 1 else 1,
+                               dilation=dilation)
+
+    def forward(self, features, rois, *, impl: str):
+        x = pool_rois(features, rois, **self.pooler, impl=impl)
+        b, r = x.shape[:2]
+        x = x.reshape((b * r,) + x.shape[2:]).contiguous(
+            memory_format=torch.channels_last)
+        x = self.head(x)
+        return x.reshape((b, r) + x.shape[1:])
+
+
+class FastRCNNPredictor(nn.Module):
+    """C4 predictor: global average pool + linear cls/bbox heads."""
+
+    def __init__(self, in_channels: int, num_classes: int,
+                 cls_agnostic: bool = False):
+        super().__init__()
+        num_bbox = 2 if cls_agnostic else num_classes
+        self.cls_score = nn.Linear(in_channels, num_classes)
+        self.bbox_pred = nn.Linear(in_channels, num_bbox * 4)
+
+    def forward(self, x):
+        # x [B, R, C, 7, 7] -> average pool
+        x = x.mean(dim=(-2, -1))
+        return self.cls_score(x), self.bbox_pred(x)
+
+
+class Detections(NamedTuple):
+    boxes: torch.Tensor   # [B, D, 4]
+    scores: torch.Tensor  # [B, D]
+    labels: torch.Tensor  # [B, D] int64 (1..C-1)
+    valid: torch.Tensor   # [B, D]
+
+
+def postprocess_detections(class_logits, box_regression, proposal_boxes,
+                           proposal_valid, image_sizes, *, score_thresh,
+                           nms_thresh, detections_per_img, reg_weights,
+                           cls_agnostic=False, pre_nms_candidates=2048,
+                           impl: str):
+    """Softmax -> per-class decode -> threshold -> per-class NMS (one NMS over
+    class-offset boxes, equivalent to the reference's per-class loop) -> top
+    detections_per_img. Batched over images; inputs [B, P, ...]."""
+    b, p, num_classes = class_logits.shape
+    probs = torch.softmax(class_logits.float(), dim=-1)            # [B, P, C]
+    deltas = box_regression.float()
+    if cls_agnostic:
+        boxes1 = box_ops.decode_boxes(deltas[..., 4:8], proposal_boxes,
+                                      reg_weights)
+        boxes = boxes1[:, :, None, :].expand(-1, -1, num_classes, -1)
+    else:
+        boxes = box_ops.decode_boxes(deltas, proposal_boxes, reg_weights
+                                     ).reshape(b, p, num_classes, 4)
+    boxes = box_ops.clip_boxes(boxes, image_sizes[:, 0, None, None],
+                               image_sizes[:, 1, None, None])
+
+    # drop the background column, flatten (box, class) pairs
+    cls_ids = torch.arange(num_classes, device=probs.device).expand(b, p, -1)
+    flat_scores = probs[:, :, 1:].reshape(b, -1)
+    flat_boxes = boxes[:, :, 1:, :].reshape(b, -1, 4)
+    flat_cls = cls_ids[:, :, 1:].reshape(b, -1)
+    flat_valid = proposal_valid[:, :, None].expand(-1, -1, num_classes - 1
+                                                   ).reshape(b, -1)
+    flat_valid = flat_valid & (flat_scores > score_thresh)
+
+    k = min(pre_nms_candidates, flat_scores.shape[1])
+    top_scores, top_idx = torch.sort(
+        torch.where(flat_valid, flat_scores, -1.0), dim=1, descending=True,
+        stable=True)
+    top_scores, top_idx = top_scores[:, :k], top_idx[:, :k]
+    cand_boxes = torch.gather(flat_boxes, 1,
+                              top_idx[..., None].expand(-1, -1, 4))
+    cand_cls = torch.gather(flat_cls, 1, top_idx)
+    cand_valid = top_scores > 0.0
+    # per-class NMS via coordinate offset; offset unit = max coordinate + 1
+    # (a huge constant would eat float32 precision for high classes)
+    unit = torch.where(cand_valid[..., None], cand_boxes, 0.0
+                       ).amax(dim=(1, 2)) + 1.0                    # [B]
+    offset = cand_cls.float()[..., None] * unit[:, None, None]
+    keep_idx, keep_valid = nms_topk(cand_boxes + offset, top_scores,
+                                    cand_valid, nms_thresh,
+                                    min(detections_per_img, k), impl=impl)
+    return Detections(
+        boxes=torch.gather(cand_boxes, 1,
+                           keep_idx[..., None].expand(-1, -1, 4)),
+        scores=torch.where(keep_valid, torch.gather(top_scores, 1, keep_idx),
+                           0.0),
+        labels=torch.where(keep_valid, torch.gather(cand_cls, 1, keep_idx),
+                           0),
+        valid=keep_valid)
+
+
+def make_box_feature_extractor(cfg):
+    """Returns (extractor, its output channels)."""
+    name = cfg.MODEL.ROI_BOX_HEAD.FEATURE_EXTRACTOR
+    h = cfg.MODEL.ROI_BOX_HEAD
+    r = cfg.MODEL.RESNETS
+    if name != "ResNet50Conv5ROIFeatureExtractor":
+        raise NotImplementedError(
+            f"feature extractor {name}: the port builds the C4 "
+            "ResNet50Conv5ROIFeatureExtractor only; the others are later "
+            "slices")
+    if h.USE_GN:
+        raise NotImplementedError("GroupNorm box heads are a later slice")
+    return ResNet50Conv5ROIFeatureExtractor(
+        pooler_config(cfg, "ROI_BOX_HEAD"), depth=50,
+        num_groups=r.NUM_GROUPS, width_per_group=r.WIDTH_PER_GROUP,
+        res2_out_channels=r.RES2_OUT_CHANNELS,
+        stride_in_1x1=r.STRIDE_IN_1X1, dilation=h.DILATION
+    ), r.RES2_OUT_CHANNELS * 8
+
+
+def make_box_predictor(cfg, in_channels: int):
+    name = cfg.MODEL.ROI_BOX_HEAD.PREDICTOR
+    if name != "FastRCNNPredictor":
+        raise NotImplementedError(
+            f"predictor {name}: the port builds FastRCNNPredictor only")
+    return FastRCNNPredictor(in_channels, cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES,
+                             cls_agnostic=cfg.MODEL.CLS_AGNOSTIC_BBOX_REG)

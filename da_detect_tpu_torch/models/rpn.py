@@ -1,0 +1,106 @@
+"""Region Proposal Network head and fixed-shape proposal selection (port of
+``da_detect_tpu/models/rpn.py``, eval path).
+
+Every dynamic-shape stage (top-k -> NMS -> variable proposal counts) is a
+fixed-capacity tensor with a validity mask, as in the JAX package. Ties in
+every top-k break by lower index first, as ``lax.top_k`` does: the port sorts
+with ``torch.sort(stable=True)`` (``torch.topk`` orders ties arbitrarily on
+the card).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import box_ops
+from ..ops.nms import nms_topk
+
+
+class RPNHead(nn.Module):
+    """3x3 conv + twin 1x1 convs (``rpn.head`` in the state_dict). Returns
+    per-level (logits [B, A, H, W], deltas [B, A*4, H, W])."""
+
+    def __init__(self, in_channels: int, num_anchors: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, in_channels, 3, padding=1)
+        self.cls_logits = nn.Conv2d(in_channels, num_anchors, 1)
+        self.bbox_pred = nn.Conv2d(in_channels, num_anchors * 4, 1)
+
+    def forward(self, features: list[torch.Tensor]):
+        logits, deltas = [], []
+        for f in features:
+            t = F.relu(self.conv(f))
+            logits.append(self.cls_logits(t))
+            deltas.append(self.bbox_pred(t))
+        return logits, deltas
+
+
+class Proposals(NamedTuple):
+    boxes: torch.Tensor   # [B, P, 4]
+    scores: torch.Tensor  # [B, P] (sigmoid objectness)
+    valid: torch.Tensor   # [B, P]
+
+
+def _select_level(anchors, obj, deltas, image_sizes, pre_nms, post_nms,
+                  nms_thresh, min_size, impl):
+    """All images, one level. anchors [N, 4], obj [B, N] logits,
+    deltas [B, N, 4], image_sizes [B, 2] (h, w)."""
+    n = anchors.shape[0]
+    k1 = min(pre_nms, n)
+    scores = torch.sigmoid(obj.float())
+    top_scores, top_idx = torch.sort(scores, dim=1, descending=True,
+                                     stable=True)
+    top_scores, top_idx = top_scores[:, :k1], top_idx[:, :k1]
+    top_deltas = torch.gather(deltas.float(), 1,
+                              top_idx[..., None].expand(-1, -1, 4))
+    boxes = box_ops.decode_boxes(top_deltas, anchors[top_idx])
+    boxes = box_ops.clip_boxes(boxes, image_sizes[:, 0, None],
+                               image_sizes[:, 1, None])
+    valid = box_ops.min_size_mask(boxes, float(min_size))
+    # the sorted top-k is already score-descending -> skip the NMS sort
+    keep_idx, keep_valid = nms_topk(boxes, top_scores, valid, nms_thresh,
+                                    post_nms, presorted=True, impl=impl)
+    kept_boxes = torch.gather(boxes, 1, keep_idx[..., None].expand(-1, -1, 4))
+    kept_scores = torch.gather(top_scores, 1, keep_idx)
+    return kept_boxes, torch.where(keep_valid, kept_scores, 0.0), keep_valid
+
+
+def select_proposals(level_anchors, level_logits, level_deltas, image_sizes,
+                     *, pre_nms_top_n, post_nms_top_n, fpn_post_nms_top_n,
+                     nms_thresh, min_size, is_train, impl):
+    """Batched proposal selection. level_anchors: list of [N_l, 4];
+    level_logits: list of [B, A, H, W]; level_deltas: list of
+    [B, A*4, H, W]. Returns Proposals with capacity post_nms_top_n.
+
+    Single level only (C4). ``fpn_post_nms_top_n`` and ``is_train`` only
+    matter across levels, which are a later slice."""
+    if len(level_logits) != 1:
+        raise NotImplementedError(
+            "multi-level (FPN) proposal selection is a later slice")
+    logits, deltas = level_logits[0], level_deltas[0]
+    b = logits.shape[0]
+    # [B, A, H, W] -> [B, H*W*A], the anchors' (h, w, a) order
+    obj = logits.permute(0, 2, 3, 1).reshape(b, -1)
+    dl = deltas.permute(0, 2, 3, 1).reshape(b, -1, 4)
+    return Proposals(*_select_level(
+        level_anchors[0], obj, dl, image_sizes, pre_nms_top_n,
+        post_nms_top_n, nms_thresh, min_size, impl))
+
+
+def rpn_config(cfg, is_train: bool) -> dict:
+    rpn = cfg.MODEL.RPN
+    return dict(
+        pre_nms_top_n=(rpn.PRE_NMS_TOP_N_TRAIN if is_train
+                       else rpn.PRE_NMS_TOP_N_TEST),
+        post_nms_top_n=(rpn.POST_NMS_TOP_N_TRAIN if is_train
+                        else rpn.POST_NMS_TOP_N_TEST),
+        fpn_post_nms_top_n=(rpn.FPN_POST_NMS_TOP_N_TRAIN if is_train
+                            else rpn.FPN_POST_NMS_TOP_N_TEST),
+        nms_thresh=rpn.NMS_THRESH,
+        min_size=rpn.MIN_SIZE,
+        is_train=is_train,
+    )

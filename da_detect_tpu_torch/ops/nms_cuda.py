@@ -1,0 +1,74 @@
+"""Greedy NMS keep mask as a hand-written CUDA kernel for Hopper (port of
+``da_detect_tpu/ops/nms_pallas.py``; source ``kernels/csrc/nms.cu``).
+
+``nms_mask_sorted`` takes score-descending boxes, like
+``nms_mask_pallas_sorted``. On a CUDA tensor it launches the kernel or
+raises; on a CPU tensor it runs the plain version, ``ops.nms.nms_mask_sorted``.
+Callers reach it through ``ops.nms.nms_mask``/``nms_topk`` with
+``impl="cuda"``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import kernels
+from .nms import nms_mask_sorted as nms_mask_sorted_plain
+
+KERNEL = "nms"
+
+# the removed-bitmap of one image must fit the reduce block's shared memory
+MAX_BOXES = 48 * 1024 // 8 * 64
+
+_fn = None
+
+
+def _launcher():
+    global _fn
+    if _fn is None:
+        fn = kernels.load(KERNEL).nms_keep_mask
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def nms_mask_sorted(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
+                    iou_threshold: float) -> torch.Tensor:
+    """Keep mask over score-descending boxes [B, N, 4] f32 with valid [B, N]
+    bool -> [B, N] bool. Legacy +1 widths; IoU > threshold suppresses."""
+    device = boxes_sorted.device
+    if device.type == "cpu":
+        return nms_mask_sorted_plain(boxes_sorted, valid_sorted, iou_threshold)
+    if device.type != "cuda":
+        raise ValueError(f"NMS kernel: unsupported device {device}")
+    if boxes_sorted.dtype != torch.float32 or boxes_sorted.dim() != 3 \
+            or boxes_sorted.shape[2] != 4:
+        raise ValueError("NMS kernel: boxes must be float32 [B, N, 4], got "
+                         f"{boxes_sorted.dtype} {tuple(boxes_sorted.shape)}")
+    batch, n = boxes_sorted.shape[:2]
+    if valid_sorted.shape != (batch, n) or valid_sorted.device != device:
+        raise ValueError("NMS kernel: valid must be [B, N] on the boxes' "
+                         f"device, got {tuple(valid_sorted.shape)}")
+    if n > MAX_BOXES:
+        raise ValueError(f"NMS kernel: N={n} exceeds {MAX_BOXES}")
+    keep = torch.empty((batch, n), dtype=torch.uint8, device=device)
+    if batch == 0 or n == 0:
+        return keep.bool()
+    boxes = boxes_sorted.contiguous()
+    valid = valid_sorted.to(torch.uint8).contiguous()
+    col_blocks = -(-n // 64)
+    mask = torch.empty((batch, n, col_blocks), dtype=torch.int64,
+                       device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _launcher()(boxes.data_ptr(), valid.data_ptr(),
+                         float(iou_threshold), batch, n, mask.data_ptr(),
+                         keep.data_ptr(), stream)
+    kernels.check(rc, KERNEL)
+    kernels.LAUNCHES[KERNEL] += 1
+    return keep.bool()

@@ -1,0 +1,134 @@
+"""Ground rules of the PyTorch port: it imports no JAX and nothing of the JAX
+package, its entry points never carry on quietly on the CPU, its weight
+loader is strict, its kernel build raises without nvcc, and its config copy
+parses every YAML of the repository."""
+
+import ast
+import glob
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import da_detect_tpu_torch
+from da_detect_tpu_torch import entry, kernels
+from da_detect_tpu_torch.config import get_cfg
+from da_detect_tpu_torch.ops import nms_cuda, roi_align_cuda
+from da_detect_tpu_torch.utils.weights import load_jax_variables, torch_name
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_FILES = sorted(
+    glob.glob(os.path.join(os.path.dirname(da_detect_tpu_torch.__file__),
+                           "**", "*.py"), recursive=True)
+    + [os.path.join(REPO, "chip_smoke.py")])
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "da_detect_tpu")
+YAMLS = sorted(glob.glob(os.path.join(REPO, "configs", "**", "*.yaml"),
+                         recursive=True))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _threads():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__") and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[os.path.relpath(p, REPO) for p in PORT_FILES])
+def test_port_imports_no_jax(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_entry_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry.entry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry.resolve_device("cuda")
+    assert entry.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_weight_loader_raises_on_unknown_key():
+    from da_detect_tpu_torch.models import build_detection_model
+
+    cfg = entry.flagship_cfg(canvas=(64, 96), test_tops=(64, 16))
+    model = build_detection_model(cfg)
+    with pytest.raises(KeyError, match="no counterpart"):
+        load_jax_variables(model, {"params": {"mystery_head": {
+            "kernel": np.zeros((3, 3), np.float32)}}})
+    with pytest.raises(KeyError, match="no port counterpart"):
+        load_jax_variables(model, {"params": {"backbone": {"body": {
+            "layer9": {"block0": {"conv1": {
+                "kernel": np.zeros((1, 1, 4, 4), np.float32)}}}}}}})
+    with pytest.raises(KeyError, match="collections"):
+        load_jax_variables(model, {"batch_stats": {}})
+    # the DA heads act in training only: skipped, not an error, but every
+    # model entry must still be set
+    with pytest.raises(RuntimeError, match="Missing key"):
+        load_jax_variables(model, {"params": {"da_heads": {"imghead": {
+            "kernel": np.zeros((1, 1, 4, 4), np.float32)}}}})
+    assert torch_name("feature_extractor/head/layer4/block2/downsample_bn/"
+                      "scale") == ("roi_heads.box.feature_extractor.head."
+                                   "layer4.2.downsample.1.weight")
+
+
+def test_unsupported_configs_raise():
+    from da_detect_tpu_torch.models import build_detection_model
+
+    cfg = get_cfg()
+    with pytest.raises(NotImplementedError, match="bf16 compute"):
+        build_detection_model(cfg)  # default COMPUTE_DTYPE is bfloat16
+    for key, value in (("MODEL.BACKBONE.CONV_BODY", "R-50-FPN"),
+                       ("MODEL.MASK_ON", True), ("MODEL.RETINANET_ON", True),
+                       ("MODEL.BACKBONE.USE_GN", True)):
+        cfg = entry.flagship_cfg()
+        cfg.merge_from_list([key, value])
+        with pytest.raises(NotImplementedError):
+            build_detection_model(cfg)
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.build()
+
+
+def test_wrappers_refuse_other_devices():
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        nms_cuda.nms_mask_sorted(torch.empty(1, 8, 4, **meta),
+                                 torch.empty(1, 8, dtype=torch.bool, **meta),
+                                 0.5)
+    with pytest.raises(ValueError, match="unsupported device"):
+        roi_align_cuda.roi_align(torch.empty(1, 4, 5, 5, **meta),
+                                 torch.empty(1, 3, 4, **meta),
+                                 spatial_scale=1.0, output_size=2)
+
+
+@pytest.mark.parametrize("path", YAMLS,
+                         ids=[os.path.relpath(p, REPO) for p in YAMLS])
+def test_config_copy_parses_yaml(path):
+    cfg = get_cfg()
+    cfg.merge_from_file(path)
+    cfg.freeze()
