@@ -5,15 +5,19 @@
 
 Phases, one JSON line each:
   1. env       torch, CUDA and nvcc versions, the card's name and power limit
-  2. build     both CUDA kernels, compiled from csrc/ for sm_90a
+  2. build     the three CUDA kernels, compiled from csrc/ for sm_90a
   3. kernels   each kernel against its plain PyTorch version on the card, at
-               the slice's shapes and on the CPU tests' edge cases
+               the main paths' shapes and on the CPU tests' edge cases
   4. slice     the flagship R-50-C4 config (its YAML) at the 608x1216 canvas
                in float32, random weights from a seed, answers 4 eval requests
                of batch 1 through ``entry()``; launch counts show the kernels
                ran; one request again with impl="plain" must agree
-  5. times     kernel and plain times on the inputs the main path gave the
+  5. times     kernel and plain times on the inputs the eval path gave the
                kernels, the forward's latency and stages, peak memory
+  6. train     the flagship triplet-DA train step through ``train_entry()``:
+               kernel-run against plain-run step 1, timed steps with launch
+               counts, the step's split and profile, 2 aligned steps
+  7. train_times  kernel and plain times on the train path's kernel inputs
 Then a line with every kernel's numbers, the nvidia-smi line of the card, and
 last ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. With no CUDA device it exits 1 at once.
@@ -27,6 +31,7 @@ rounding, which the res5 head carries into the scores).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -64,12 +69,25 @@ ROI_SAMPLE_OPS = 8
 # launches a forward makes: NMS in the RPN and in the box head; ROIAlign in
 # the box head
 PER_FORWARD = {"nms": 2, "roi_align_fwd": 1}
+# launches a train step makes: NMS in the source's and the positive target's
+# RPN; ROIAlign forward and backward in their box-head passes; the aligned
+# variant (instance triplet on) re-pools the source and negative members too
+PER_TRAIN_STEP = {"nms": 2, "roi_align_fwd": 2, "roi_align_bwd": 2}
+PER_ALIGNED_STEP = {"nms": 2, "roi_align_fwd": 4, "roi_align_bwd": 4}
+TRAIN_STEPS, ALIGNED_STEPS, SPLIT_STEPS, PROFILE_STEPS = 6, 2, 5, 3
+# the train step's kernel shapes: RPN NMS 12000 -> 2000 at IoU 0.7, ROIAlign
+# of the 256 sampled ROIs an image
+TRAIN_NMS_BOXES, TRAIN_ROIS = 12000, 256
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL, TRAIN_GRAD_FLOOR = 1e-4, 1e-3, 1e-6
+ROI_BWD_REL = 1e-5
 
 SOURCES = {
     "nms": ("da_detect_tpu_torch/kernels/csrc/nms.cu",
             "da_detect_tpu/ops/nms_pallas.py:117"),
     "roi_align_fwd": ("da_detect_tpu_torch/kernels/csrc/roi_align_fwd.cu",
                       "da_detect_tpu/ops/roi_align_pallas.py:108"),
+    "roi_align_bwd": ("da_detect_tpu_torch/kernels/csrc/roi_align_bwd.cu",
+                      "da_detect_tpu/ops/roi_align_pallas.py:138"),
 }
 
 
@@ -155,14 +173,16 @@ def nms_work(valid: torch.Tensor, keep: torch.Tensor) -> tuple[float, float]:
     return b * n * (16 + 1 + 1), IOU_OPS * pairs + AREA_OPS * int(v.sum())
 
 
-def roi_align_work(features, rois, *, spatial_scale, output_size,
+def roi_align_work(features_shape, rois, *, spatial_scale, output_size,
                    sampling_ratio, max_samples) -> tuple[float, float]:
     """(bytes, operations) ROIAlign needs on these inputs: the map and ROIs
     read once, the output written once; 8 flops a channel for each sample
-    that lies in bounds, and the average."""
+    that lies in bounds, and the average. The backward moves the same bytes
+    (the gradient read once, the ROIs read once, dF written once) and does
+    the same operations (a multiply and an add into each of 4 corners)."""
     from da_detect_tpu_torch.ops.roi_align import _roi_grid
 
-    b, c, h, w = features.shape
+    b, c, h, w = features_shape
     r, p = rois.shape[1], output_size
     s = sampling_ratio if sampling_ratio > 0 else max_samples
     start_h, start_w, bin_h, bin_w, grid_h, grid_w = _roi_grid(
@@ -180,7 +200,7 @@ def roi_align_work(features, rois, *, spatial_scale, output_size,
     ny = in_bounds(start_h, bin_h, grid_h, h)
     nx = in_bounds(start_w, bin_w, grid_w, w)
     samples = float((ny[..., :, None] * nx[..., None, :]).sum())
-    nbytes = 4 * (features.numel() + rois.numel() + b * r * p * p * c)
+    nbytes = 4 * (b * c * h * w + rois.numel() + b * r * p * p * c)
     return nbytes, ROI_SAMPLE_OPS * c * samples + b * r * p * p * c
 
 
@@ -208,6 +228,66 @@ def check_roi_align(features, rois, **kw) -> float:
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **ROI_TOL)
     return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def check_roi_align_backward(rois, grad, height, width,
+                             **kw) -> tuple[float, float]:
+    """Backward kernel against autograd of the plain version
+    (``roi_align_grad``); raises past ROI_BWD_REL of the largest |dF|.
+    Returns (max abs error, max |dF|)."""
+    from da_detect_tpu_torch.ops import roi_align, roi_align_cuda
+
+    got = roi_align_cuda.roi_align_backward(grad, rois, height=height,
+                                            width=width, **kw)
+    want = roi_align.roi_align_grad(grad, rois, height=height, width=width,
+                                    **kw)
+    torch.cuda.synchronize()
+    if not want.numel():
+        return 0.0, 0.0
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not err <= ROI_BWD_REL * scale:
+        raise AssertionError(f"ROIAlign backward kernel differs from the "
+                             f"plain version by {err:.3e} (max |dF| "
+                             f"{scale:.3e}, grad {tuple(grad.shape)})")
+    return err, scale
+
+
+@contextlib.contextmanager
+def record_kernel_inputs():
+    """While open, each kernel wrapper's inputs are recorded on the way (the
+    kernels' inputs as a main path gives them): yields a dict kernel name ->
+    list of inputs."""
+    from da_detect_tpu_torch.ops import nms_cuda, roi_align_cuda
+
+    captured = {name: [] for name in SOURCES}
+    nms_kernel = nms_cuda.nms_mask_sorted
+    fwd_kernel = roi_align_cuda.roi_align_forward
+    bwd_kernel = roi_align_cuda.roi_align_backward
+
+    def nms_rec(boxes, valid, thresh):
+        captured["nms"].append((boxes.clone(), valid.clone(), thresh))
+        return nms_kernel(boxes, valid, thresh)
+
+    def fwd_rec(features, rois, **kw):
+        captured["roi_align_fwd"].append((features.detach().clone(),
+                                          rois.clone(), kw))
+        return fwd_kernel(features, rois, **kw)
+
+    def bwd_rec(grad, rois, *, height, width, **kw):
+        captured["roi_align_bwd"].append((grad.clone(), rois.clone(),
+                                          height, width, kw))
+        return bwd_kernel(grad, rois, height=height, width=width, **kw)
+
+    nms_cuda.nms_mask_sorted = nms_rec
+    roi_align_cuda.roi_align_forward = fwd_rec
+    roi_align_cuda.roi_align_backward = bwd_rec
+    try:
+        yield captured
+    finally:
+        nms_cuda.nms_mask_sorted = nms_kernel
+        roi_align_cuda.roi_align_forward = fwd_kernel
+        roi_align_cuda.roi_align_backward = bwd_kernel
 
 
 def match_detections(a, b) -> dict:
@@ -331,12 +411,41 @@ def phase_kernels(dev) -> dict:
     for cap in (8, 4):
         roi_case(f"roi_wide_cap{cap}", rng.randn(1, *c4, 8).astype(np.float32),
                  wide, max_samples=cap, **kw14)
+
+    def bwd_case(name, map_shape, rois, **kw):
+        """map_shape (B, C, H, W); a random upstream gradient."""
+        b, c, h, w = map_shape
+        p = kw["output_size"]
+        grad = torch.from_numpy(rng.randn(b, rois.shape[1], c, p, p).astype(
+            np.float32)).to(dev)
+        err, scale = check_roi_align_backward(torch.from_numpy(rois).to(dev),
+                                              grad, h, w, **kw)
+        results[name] = dict(max_abs_err=err, max_abs_dF=scale,
+                             features=list(map_shape), rois=list(rois.shape),
+                             **kw)
+
+    # the train step's shape: 256 ROIs on the C4 map, P = 14
+    bwd_case("bwd_train", (1, C4_CHANNELS, *c4),
+             random_rois(rng, 1, TRAIN_ROIS, CANVAS, 900.0), max_samples=8,
+             **kw14)
+    bwd_case("bwd_p7_s2_r11", (2, 128, 10, 16),
+             random_rois(rng, 2, 11, (160, 256), 80.0), spatial_scale=1 / 16,
+             output_size=7, sampling_ratio=2, max_samples=8)
+    for sr in (2, 0):  # off the map, degenerate (zero size) and inverted
+        bwd_case(f"bwd_out_of_bounds_s{sr}", (1, 16, 10, 16), oob,
+                 spatial_scale=1 / 16, output_size=7, sampling_ratio=sr,
+                 max_samples=8)
+    bwd_case("bwd_empty", (1, 16, 10, 16), np.zeros((1, 0, 4), np.float32),
+             spatial_scale=1 / 16, output_size=7, sampling_ratio=2,
+             max_samples=8)
     emit("kernels", **results)
     return dict(
         nms=max(r["mismatches"] for k, r in results.items()
                 if k.startswith("nms")),
         roi_align_fwd=max(r["max_abs_err"] for k, r in results.items()
-                          if k.startswith("roi")))
+                          if k.startswith("roi")),
+        roi_align_bwd=max(r["max_abs_err"] for k, r in results.items()
+                          if k.startswith("bwd")))
 
 
 def flagship_model(dev):
@@ -357,31 +466,6 @@ def flagship_model(dev):
     return cfg, fn, model, batches
 
 
-def capture_kernel_inputs(fn, model, batch):
-    """One request with each kernel wrapper's inputs recorded on the way:
-    the kernels' inputs as the main path gives them."""
-    from da_detect_tpu_torch.ops import nms_cuda, roi_align_cuda
-
-    captured = {"nms": [], "roi_align_fwd": []}
-    nms_kernel, roi_kernel = nms_cuda.nms_mask_sorted, roi_align_cuda.roi_align
-
-    def nms_rec(boxes, valid, thresh):
-        captured["nms"].append((boxes.clone(), valid.clone(), thresh))
-        return nms_kernel(boxes, valid, thresh)
-
-    def roi_rec(features, rois, **kw):
-        captured["roi_align_fwd"].append((features.clone(), rois.clone(), kw))
-        return roi_kernel(features, rois, **kw)
-
-    nms_cuda.nms_mask_sorted, roi_align_cuda.roi_align = nms_rec, roi_rec
-    try:
-        dets = fn(model, batch)
-    finally:
-        nms_cuda.nms_mask_sorted, roi_align_cuda.roi_align = (nms_kernel,
-                                                              roi_kernel)
-    return dets, captured
-
-
 def phase_slice(dev):
     from da_detect_tpu_torch import kernels
 
@@ -393,7 +477,8 @@ def phase_slice(dev):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {name: kernels.LAUNCHES[name] for name in kernels.SOURCES}
-    for name, n in PER_FORWARD.items():
+    for name, n in {**dict.fromkeys(kernels.SOURCES, 0),
+                    **PER_FORWARD}.items():
         if launches[name] != n * REQUESTS:
             raise AssertionError(f"kernel {name} launched {launches[name]} "
                                  f"times in {REQUESTS} requests, expected "
@@ -414,7 +499,8 @@ def phase_slice(dev):
                             labels=sorted(set(dets.labels[dets.valid]
                                               .tolist()))))
 
-    dets_k, captured = capture_kernel_inputs(fn, model, batches[0])
+    with record_kernel_inputs() as captured:
+        dets_k = fn(model, batches[0])
     rerun_identical = all(torch.equal(x, y)
                           for x, y in zip(dets_k, answers[0]))
     dets_p = model(batches[0], impl="plain")
@@ -484,32 +570,53 @@ def stage_times(model, batch, runs: int = 10) -> dict:
     return {k: statistics.median(v) for k, v in samples.items()}
 
 
-def phase_times(model, fn, batches, captured) -> list:
+def time_sites(captured, path: str, nms_sites) -> list:
+    """Kernel and plain times, and the bound, of each kernel launch a main
+    path made (``captured`` from ``record_kernel_inputs``), on its inputs."""
     from da_detect_tpu_torch.ops import nms, nms_cuda, roi_align, roi_align_cuda
 
     sites = []
-    for (boxes, valid, thresh), site in zip(captured["nms"],
-                                            ("rpn", "box_head")):
+    for (boxes, valid, thresh), site in zip(captured["nms"], nms_sites):
         keep = nms_cuda.nms_mask_sorted(boxes, valid, thresh)
         nbytes, ops = nms_work(valid, keep)
         bound_ms, by = bound(nbytes, ops)
         sites.append(dict(
-            kernel="nms", site=site, shape=list(boxes.shape), iou=thresh,
-            kept=int(keep.sum()), bytes=nbytes, operations=ops,
+            kernel="nms", path=path, site=site, shape=list(boxes.shape),
+            iou=thresh, kept=int(keep.sum()), bytes=nbytes, operations=ops,
             ms=time_ms(lambda: nms_cuda.nms_mask_sorted(boxes, valid, thresh)),
             plain_ms=time_ms(lambda: nms.nms_mask_sorted(boxes, valid, thresh),
                              runs=20),
             bound_ms=bound_ms, bound_by=by))
-    for feats, rois, kw in captured["roi_align_fwd"]:
-        nbytes, ops = roi_align_work(feats, rois, **kw)
+    for i, (feats, rois, kw) in enumerate(captured["roi_align_fwd"]):
+        nbytes, ops = roi_align_work(feats.shape, rois, **kw)
         bound_ms, by = bound(nbytes, ops)
         sites.append(dict(
-            kernel="roi_align_fwd", site="box_head", features=list(feats.shape),
-            rois=list(rois.shape), bytes=nbytes, operations=ops,
-            ms=time_ms(lambda: roi_align_cuda.roi_align(feats, rois, **kw)),
+            kernel="roi_align_fwd", path=path, site=f"pool{i}",
+            features=list(feats.shape), rois=list(rois.shape), bytes=nbytes,
+            operations=ops,
+            ms=time_ms(lambda: roi_align_cuda.roi_align_forward(feats, rois,
+                                                                **kw)),
             plain_ms=time_ms(lambda: roi_align.roi_align(feats, rois, **kw),
                              runs=20),
             bound_ms=bound_ms, bound_by=by))
+    for i, (grad, rois, h, w, kw) in enumerate(captured["roi_align_bwd"]):
+        shape = (grad.shape[0], grad.shape[2], h, w)
+        nbytes, ops = roi_align_work(shape, rois, **kw)
+        bound_ms, by = bound(nbytes, ops)
+        sites.append(dict(
+            kernel="roi_align_bwd", path=path, site=f"grad{i}",
+            grad=list(grad.shape), features=list(shape),
+            rois=list(rois.shape), bytes=nbytes, operations=ops,
+            ms=time_ms(lambda: roi_align_cuda.roi_align_backward(
+                grad, rois, height=h, width=w, **kw)),
+            plain_ms=time_ms(lambda: roi_align.roi_align_grad(
+                grad, rois, height=h, width=w, **kw), runs=20),
+            bound_ms=bound_ms, bound_by=by))
+    return sites
+
+
+def phase_times(model, fn, batches, captured) -> list:
+    sites = time_sites(captured, "eval", ("rpn", "box_head"))
     batch = batches[0]
     forward_ms = host_ms(lambda: fn(model, batch))
     forward_plain_ms = host_ms(lambda: model(batch, impl="plain"))
@@ -525,23 +632,287 @@ def phase_times(model, fn, batches, captured) -> list:
     return sites
 
 
-def kernel_line(sites, launches, errs) -> dict:
+# ---------------------------------------------------------------- training
+
+def train_cfg(aligned: bool):
+    """The flagship YAML at the 608x1216 canvas in float32. ``aligned``: the
+    aligned variant with its instance triplet on (weight 1.0), as the
+    reference's aligned triplet trainer runs it; the YAML's weight 0 would
+    leave the re-pooled members unused."""
+    from da_detect_tpu_torch.config import get_cfg
+
+    cfg = get_cfg()
+    cfg.merge_from_file(FLAGSHIP_YAML)
+    cfg.TPU.IMAGE_SHAPE = CANVAS
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    if aligned:
+        cfg.MODEL.DA_HEADS.ALIGNMENT = True
+        cfg.MODEL.DA_HEADS.DA_TRIPLET_INS_WEIGHT = 1.0
+    cfg.freeze()
+    return cfg
+
+
+def train_step_one(state, args, impl: str, seed: int = 1):
+    """Step 1's losses and gradients without the update, dropout off, the
+    sampling priorities from a generator seeded with ``seed``."""
+    model = state.model
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator(device=args[0].images.device).manual_seed(seed)
+    losses, _ = model.train_forward(args[0], args[1], state.da_state,
+                                    *args[2:], deterministic=True,
+                                    generator=gen, impl=impl)
+    sum(losses.values()).backward()
+    torch.cuda.synchronize()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.requires_grad}
+    model.zero_grad(set_to_none=True)
+    return {k: v.item() for k, v in losses.items()}, grads
+
+
+def compare_steps(kernel, plain) -> dict:
+    (lk, gk), (lp, gp) = kernel, plain
+    if set(lk) != set(lp):
+        raise AssertionError(f"loss names differ: {sorted(lk)} {sorted(lp)}")
+    loss_rel = {k: abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-30) for k in lp}
+    bad = {k: (lk[k], lp[k]) for k in lp
+           if abs(lk[k] - lp[k]) > TRAIN_LOSS_RTOL * abs(lp[k])}
+    if bad:
+        raise AssertionError(f"kernel-run step-1 losses differ from the "
+                             f"plain run beyond rtol {TRAIN_LOSS_RTOL}: {bad}")
+    floor = TRAIN_GRAD_FLOOR * max(float(g.abs().max()) for g in gp.values())
+    worst, worst_name = 0.0, None
+    for n, g in gp.items():
+        err = float((gk[n] - g).abs().max())
+        ratio = err / (TRAIN_GRAD_REL * float(g.abs().max()) + floor)
+        if ratio > worst:
+            worst, worst_name = ratio, n
+    if worst > 1.0:
+        raise AssertionError(f"kernel-run step-1 gradient of {worst_name} "
+                             f"differs from the plain run: {worst:.3f} x "
+                             "its tolerance")
+    return dict(losses=lk, max_loss_rel_err=max(loss_rel.values()),
+                leaves=len(gp), worst_grad_tolerance_used=worst,
+                worst_grad_leaf=worst_name)
+
+
+def train_split(step, state, args, runs: int) -> dict:
+    """Median device spans of ``runs`` calls of the entry's own train step
+    (dropout on): forward (``zero_grad`` and ``train_forward``), backward
+    (the loss sum and ``backward``), optimizer (``DetectronSGD.step``) and
+    the whole step, from CUDA events recorded when the model's
+    ``train_forward`` returns and around the optimizer's ``step``, both
+    wrapped for these calls only."""
+    model, opt = state.model, state.optimizer
+    forward, update = model.train_forward, opt.step
+    marks: dict[str, torch.cuda.Event] = {}
+
+    def record(key):
+        marks[key] = torch.cuda.Event(enable_timing=True)
+        marks[key].record()
+
+    def timed_forward(*a, **kw):
+        out = forward(*a, **kw)
+        record("forward")
+        return out
+
+    def timed_update(*a, **kw):
+        record("backward")
+        update(*a, **kw)
+        record("optimizer")
+
+    spans = {"forward": ("start", "forward"),
+             "backward": ("forward", "backward"),
+             "optimizer": ("backward", "optimizer"), "step": ("start", "end")}
+    samples = {k: [] for k in spans}
+    model.train_forward, opt.step = timed_forward, timed_update
+    try:
+        for _ in range(runs):
+            record("start")
+            state, _ = step(state, *args)
+            record("end")
+            torch.cuda.synchronize()
+            for k, (a, b) in spans.items():
+                samples[k].append(marks[a].elapsed_time(marks[b]))
+    finally:
+        del model.train_forward, opt.step
+    return {k: statistics.median(v) for k, v in samples.items()}
+
+
+# kernel-name fragments -> group, for the profile's breakdown (first match)
+KERNEL_GROUPS = (
+    ("roi_align_bwd", ("roi_align_bwd",)),
+    ("roi_align_fwd", ("roi_align_fwd",)),
+    ("nms", ("nms_",)),
+    ("convolution", ("conv", "cudnn", "xmma", "fprop", "dgrad", "wgrad",
+                     "implicit", "winograd", "fft")),
+    ("matmul", ("gemm", "cutlass", "cublas")),
+    ("sort, top-k, scan", ("sort", "radix", "topk", "scan", "cumsum")),
+    ("reduction", ("reduce",)),
+    ("elementwise, copy", ("elementwise", "vectorized", "copy", "fill",
+                           "cat", "index", "gather", "scatter", "where")),
+)
+
+
+def train_profile(step, state, args, runs: int) -> dict:
+    """``runs`` train steps under ``torch.profiler``: device time by kernel
+    group and the top kernels, and the device's busy share of the host's
+    wall clock (both under the profiler's own overhead)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            state, _ = step(state, *args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    groups: dict[str, float] = {}
+    for e in kern:
+        name = e.key.lower()
+        group = next((g for g, frags in KERNEL_GROUPS
+                      if any(f in name for f in frags)), "other")
+        groups[group] = groups.get(group, 0.0) + (
+            e.self_device_time_total / 1e3 / runs)
+    busy_ms = sum(groups.values())
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
+    return dict(
+        steps=runs, wall_ms_per_step=wall_ms / runs,
+        device_ms_per_step=busy_ms,
+        device_busy_share=busy_ms * runs / wall_ms,
+        groups_ms_per_step=dict(sorted(groups.items(),
+                                       key=lambda kv: -kv[1])),
+        top_kernels=[dict(name=e.key[:100], calls_per_step=e.count / runs,
+                          ms_per_step=e.self_device_time_total / 1e3 / runs)
+                     for e in top])
+
+
+def run_steps(step, state, args, n: int, expected: dict, label: str):
+    """The main path: counts set to 0, ``n`` steps through the train step,
+    each timed on the host clock to its synchronize, counts read. Raises if
+    a kernel ran another number of times than ``expected`` per step, or a
+    loss is not finite."""
+    from da_detect_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.LAUNCHES.clear()
+    times, metrics = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, m = step(state, *args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    launches = {name: kernels.LAUNCHES[name] for name in kernels.SOURCES}
+    for name in kernels.SOURCES:
+        if launches[name] != expected.get(name, 0) * n:
+            raise AssertionError(
+                f"{label}: kernel {name} launched {launches[name]} times in "
+                f"{n} steps, expected {expected.get(name, 0) * n}")
+    totals = [float(m["loss_total"]) for m in metrics]
+    if not all(np.isfinite(totals)):
+        raise AssertionError(f"{label}: non-finite loss: {totals}")
+    return state, launches, times, metrics
+
+
+def phase_train(dev):
+    from da_detect_tpu_torch import entry
+
+    cfg = train_cfg(aligned=False)
+    step, (state, args) = entry.train_entry(device=str(dev), seed=0, cfg=cfg)
+    agreement = compare_steps(train_step_one(state, args, "cuda"),
+                              train_step_one(state, args, "plain"))
+    state, launches, times, metrics = run_steps(
+        step, state, args, TRAIN_STEPS, PER_TRAIN_STEP, "train")
+    split = train_split(step, state, args, SPLIT_STEPS)
+    profile = train_profile(step, state, args, PROFILE_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with record_kernel_inputs() as captured:
+        state, _ = step(state, *args)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    # the main path's own kernel inputs, kernel against plain
+    errs = {"nms": 0, "roi_align_fwd": 0.0, "roi_align_bwd": 0.0}
+    for boxes, valid, thresh in captured["nms"]:
+        errs["nms"] = max(errs["nms"], check_nms(boxes, valid, thresh)[0])
+    for feats, rois, kw in captured["roi_align_fwd"]:
+        errs["roi_align_fwd"] = max(errs["roi_align_fwd"],
+                                    check_roi_align(feats, rois, **kw))
+    for grad, rois, h, w, kw in captured["roi_align_bwd"]:
+        errs["roi_align_bwd"] = max(errs["roi_align_bwd"],
+                                    check_roi_align_backward(rois, grad, h, w,
+                                                             **kw)[0])
+    margins = float(state.da_state.margin_img)
+    del step, state
+
+    a_cfg = train_cfg(aligned=True)
+    a_step, (a_state, a_args) = entry.train_entry(device=str(dev), seed=0,
+                                                  cfg=a_cfg)
+    a_state, a_launches, a_times, a_metrics = run_steps(
+        a_step, a_state, a_args, ALIGNED_STEPS, PER_ALIGNED_STEP, "aligned")
+    del a_step, a_state
+    emit("train", config=os.path.relpath(FLAGSHIP_YAML, REPO),
+         canvas=list(CANVAS), steps=TRAIN_STEPS, launches=launches,
+         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+         step_ms=times, step_ms_median=statistics.median(times),
+         split_ms=split, profile=profile, max_memory_allocated=peak,
+         losses=[{k: float(v) for k, v in m.items()} for m in metrics],
+         margin_img=margins, plain_agreement=agreement,
+         main_path_inputs={
+             "nms": [dict(shape=list(b.shape), iou=t, valid=int(v.sum()))
+                     for b, v, t in captured["nms"]],
+             "roi_align_fwd": [dict(features=list(f.shape),
+                                    rois=list(r.shape), **kw)
+                               for f, r, kw in captured["roi_align_fwd"]],
+             "roi_align_bwd": [dict(grad=list(g.shape), rois=list(r.shape),
+                                    height=h, width=w, **kw)
+                               for g, r, h, w, kw in
+                               captured["roi_align_bwd"]]},
+         max_abs_err=errs,
+         aligned=dict(steps=ALIGNED_STEPS, launches=a_launches,
+                      step_ms=a_times,
+                      losses=[{k: float(v) for k, v in m.items()}
+                              for m in a_metrics]))
+    return captured, launches, errs
+
+
+def kernel_line(eval_sites, train_sites, eval_launches, train_launches,
+                errs) -> dict:
+    """One row a kernel. ``launches`` is the train path's count (the
+    slice's main path, TRAIN_STEPS steps); ms, plain_ms and the bound are
+    one train step's launches summed over their call sites; the eval path's
+    sums stand beside them."""
     rows = []
     for name, (source, replaces) in SOURCES.items():
-        mine = [s for s in sites if s["kernel"] == name]
-        nbytes = sum(s["bytes"] for s in mine)
-        ops = sum(s["operations"] for s in mine)
-        bound_ms, by = bound(nbytes, ops)
-        rows.append(dict(
+        mine = [s for s in train_sites if s["kernel"] == name]
+        ev = [s for s in eval_sites if s["kernel"] == name]
+        bound_ms, by = bound(sum(s["bytes"] for s in mine),
+                             sum(s["operations"] for s in mine))
+        row = dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], launches_per_forward=PER_FORWARD[name],
+            launches=train_launches[name],
+            launches_per_train_step=PER_TRAIN_STEP[name],
+            launches_eval=eval_launches[name],
+            launches_per_forward=PER_FORWARD.get(name, 0),
             max_abs_err=errs[name],
-            # one forward's launches of the kernel, summed over call sites
             ms=sum(s["ms"] for s in mine),
             plain_ms=sum(s["plain_ms"] for s in mine),
-            bound_ms=bound_ms, bound_by=by, library_ms=None,
-            sites=[{k: s[k] for k in ("site", "ms", "plain_ms", "bound_ms",
-                                      "bound_by")} for s in mine]))
+            bound_ms=bound_ms, bound_by=by, library_ms=None)
+        if ev:
+            eb, eby = bound(sum(s["bytes"] for s in ev),
+                            sum(s["operations"] for s in ev))
+            row.update(eval_ms=sum(s["ms"] for s in ev),
+                       eval_plain_ms=sum(s["plain_ms"] for s in ev),
+                       eval_bound_ms=eb, eval_bound_by=eby)
+        row["sites"] = [{k: s[k] for k in ("path", "site", "ms", "plain_ms",
+                                           "bound_ms", "bound_by")}
+                        for s in ev + mine]
+        rows.append(row)
     return {"kernels": rows}
 
 
@@ -556,11 +927,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = phase_env()
     phase_build()
-    synthetic_errs = phase_kernels(dev)
-    model, fn, batches, captured, launches, errs = phase_slice(dev)
-    errs = {k: max(v, synthetic_errs[k]) for k, v in errs.items()}
-    sites = phase_times(model, fn, batches, captured)
-    print(json.dumps(kernel_line(sites, launches, errs)))
+    errs = phase_kernels(dev)
+    model, fn, batches, captured, eval_launches, eval_errs = phase_slice(dev)
+    eval_sites = phase_times(model, fn, batches, captured)
+    del model, fn, batches, captured
+    captured, train_launches, train_errs = phase_train(dev)
+    train_sites = time_sites(captured, "train", ("rpn_source", "rpn_target"))
+    emit("train_times", sites=train_sites)
+    for part in (eval_errs, train_errs):
+        for k, v in part.items():
+            errs[k] = max(errs[k], v)
+    print(json.dumps(kernel_line(eval_sites, train_sites, eval_launches,
+                                 train_launches, errs)))
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,130 @@
+"""Training engine (port of ``da_detect_tpu/engine/trainer.py``).
+
+One step: the training forward over all domains, the sum of the losses, the
+backward, one Detectron-SGD update and the new ``DAState``. The host loop
+feeds batches, logs windowed metrics and checkpoints. It reads the losses on
+the host only at log and checkpoint boundaries, where it also stops on a
+non-finite loss, so the steps in between queue on the card without a sync.
+Unlike the JAX package's pure step, the port updates the model, the
+optimizer and the ``TrainState`` in place (no second copy of the weights).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import math
+import time
+from typing import Callable, Optional
+
+import torch
+
+from ..models.da import DAState
+from ..solver.optim import DetectronSGD, make_optimizer
+from ..utils.metric_logger import MetricLogger, eta_string
+
+log = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int                   # updates made so far
+    model: torch.nn.Module
+    optimizer: DetectronSGD
+    da_state: DAState
+    generator: torch.Generator  # sampling priorities and DA dropout
+
+
+def create_train_state(cfg, model: torch.nn.Module, seed: int = 0,
+                       schedule_kind: str = "multistep") -> TrainState:
+    """A TrainState at step 0 for ``model`` (already on its device): the
+    optimizer, ``DAState`` seeded from ``TRIPLET_MARGIN_IMG/INS`` and a
+    generator on the model's device seeded with ``seed``."""
+    dev = next(model.parameters()).device
+    da = cfg.MODEL.DA_HEADS
+    return TrainState(
+        step=0, model=model,
+        optimizer=make_optimizer(cfg, model, schedule_kind),
+        da_state=DAState.create(da.TRIPLET_MARGIN_IMG, da.TRIPLET_MARGIN_INS,
+                                device=dev),
+        generator=torch.Generator(device=dev).manual_seed(seed))
+
+
+def make_train_step(model: torch.nn.Module, optimizer: DetectronSGD, *,
+                    aligned: bool = False,
+                    deterministic: bool = False) -> Callable:
+    """Returns ``step(state, batch_s, targets_s[, batch_t, targets_t[,
+    batch_n, targets_n]]) -> (state, metrics)``: metrics are the losses and
+    ``loss_total``, detached 0-d tensors on the device. ``deterministic``
+    turns the DA dropout off (parity tests)."""
+
+    def step(state: TrainState, batch_s, targets_s, *rest):
+        optimizer.zero_grad()
+        losses, new_da = model.train_forward(
+            batch_s, targets_s, state.da_state, *rest, aligned=aligned,
+            deterministic=deterministic, generator=state.generator)
+        total = sum(v.float() for v in losses.values())
+        total.backward()
+        optimizer.step(state.step)
+        state.step += 1
+        state.da_state = new_da
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["loss_total"] = total.detach()
+        return state, metrics
+
+    return step
+
+
+def _finite_total(metrics, iteration: int) -> float:
+    total = float(metrics["loss_total"])
+    if not math.isfinite(total):
+        log.error("loss diverged to %s at iteration %d; aborting", total,
+                  iteration)
+        raise FloatingPointError(f"non-finite loss at {iteration}")
+    return total
+
+
+def do_train(state: TrainState, data_iter, *, max_iter: int,
+             checkpointer=None, checkpoint_period: int = 2500,
+             meters: Optional[MetricLogger] = None, aligned: bool = False,
+             log_period: int = 20) -> TrainState:
+    """The host loop from ``state.step`` to ``max_iter``: ``data_iter``
+    yields tuples in ``train_forward``'s order, already on the device. The
+    loss is read on the host only at log and checkpoint boundaries (a
+    non-finite one raises ``FloatingPointError`` there, and no checkpoint of
+    it is written). Timing is averaged over each log window, because the
+    steps between two reads queue on the card."""
+    meters = meters or MetricLogger()
+    train_step = make_train_step(state.model, state.optimizer,
+                                 aligned=aligned)
+    start_iter = state.step
+    log.info("start training at iteration %d", start_iter)
+    start = last = window_start = time.perf_counter()
+    window_iters, window_data = 0, 0.0
+    for iteration in range(start_iter, max_iter):
+        batch_args = next(data_iter)
+        window_data += time.perf_counter() - last
+        state, metrics = train_step(state, *batch_args)
+        window_iters += 1
+        if iteration % log_period == 0 or iteration == max_iter - 1:
+            _finite_total(metrics, iteration)
+            now = time.perf_counter()
+            meters.update(time=(now - window_start) / window_iters,
+                          data=window_data / window_iters,
+                          **{k: float(v) for k, v in metrics.items()})
+            window_start, window_iters, window_data = now, 0, 0.0
+            eta = eta_string(meters.meters["time"].global_avg,
+                             max_iter - iteration)
+            log.info("eta: %s  iter: %d  %s", eta, iteration, str(meters))
+        last = time.perf_counter()
+        if checkpointer is not None \
+                and (iteration + 1) % checkpoint_period == 0:
+            _finite_total(metrics, iteration)
+            checkpointer.save(iteration + 1, state)
+    if checkpointer is not None:
+        checkpointer.save(max_iter, state)
+    total_time = time.perf_counter() - start
+    log.info("total training time: %s (%.4f s/it)",
+             eta_string(1.0, int(total_time)),
+             total_time / max(max_iter - start_iter, 1))
+    return state

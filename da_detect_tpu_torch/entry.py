@@ -1,19 +1,25 @@
-"""Entry points of the PyTorch port: the flagship model's eval forward.
+"""Entry points of the PyTorch port: the flagship model's eval forward and
+its triplet-DA training step.
 
 ``entry(device=None)`` is the counterpart of ``__graft_entry__.entry()``: it
 returns ``(fn, example_args)`` for the eval forward of DA-Faster R-CNN on
-R-50-C4 with 9 Cityscapes classes. It runs on the card unless the caller asks
-for ``device="cpu"``; with no card and no explicit CPU it raises.
+R-50-C4 with 9 Cityscapes classes. ``train_entry(device=None)`` is the
+single-device counterpart of ``__graft_entry__._dryrun_impl``: one
+(source, positive, negative) triple and a train step over it. Both run on the
+card unless the caller asks for ``device="cpu"``; with no card and no
+explicit CPU they raise.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .config import get_cfg
+from .engine.trainer import create_train_state, make_train_step
 from .models import build_detection_model
 from .structures.image_batch import ImageBatch, Targets
 
@@ -79,11 +85,36 @@ def resolve_device(device=None) -> torch.device:
 def prepare_model(model, device):
     """Move a model to ``device`` in channels-last memory, and make float32
     convolutions and matmuls on the card full float32 (cuDNN defaults to
-    TF32 for convolutions)."""
+    TF32 for convolutions). The port's modules behave the same in train and
+    eval mode (FrozenBN; the DA dropout follows ``deterministic``)."""
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     return model.to(device=device, memory_format=torch.channels_last).eval()
+
+
+def triplet_batches(cfg, k: int = 1, seed: int = 0, device="cpu") -> tuple:
+    """(batch_s, targets_s, batch_p, targets_s, batch_n, targets_s): k source
+    images from ``make_batch``, the positive target a pixel copy of them (the
+    aligned-data contract), the negative target the source + 200, all three
+    with the source's targets, as ``__graft_entry__._dryrun_impl`` builds
+    them."""
+    b_s, t_s = make_batch(cfg, k, seed, is_source=True, device=device)
+    b_p = dataclasses.replace(b_s, is_source=torch.zeros_like(b_s.is_source))
+    b_n = dataclasses.replace(b_p, images=b_s.images + 200.0)
+    return b_s, t_s, b_p, t_s, b_n, t_s
+
+
+def train_cfg():
+    """``_dryrun_impl``'s configuration: the flagship at canvas 64x96 with
+    64 -> 16 training proposals, 8 GT boxes, 16 sampled ROIs an image, and
+    the adaptive image margin live (max 3.0, start -0.5)."""
+    cfg = flagship_cfg(canvas=(64, 96), train_tops=(64, 16))
+    cfg.TPU.MAX_GT_BOXES = 8
+    cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 16
+    cfg.MODEL.DA_HEADS.TRIPLET_MAX_MARGIN = 3.0
+    cfg.MODEL.DA_HEADS.TRIPLET_MARGIN_IMG = -0.5
+    return cfg
 
 
 def entry(device: Optional[str] = None, seed: int = 0, cfg=None):
@@ -99,3 +130,20 @@ def entry(device: Optional[str] = None, seed: int = 0, cfg=None):
         return model(batch)
 
     return forward, (model, batch)
+
+
+def train_entry(device: Optional[str] = None, seed: int = 0, cfg=None,
+                aligned: Optional[bool] = None):
+    """(step_fn, (state, batch_args)): the triplet-DA train step of ``cfg``
+    (default ``train_cfg()``) on one (source, positive, negative) triple,
+    ``step_fn(state, *batch_args) -> (state, metrics)``, with random weights
+    drawn from ``seed`` and the triplet trainer's cosine schedule.
+    ``aligned`` defaults to ``MODEL.DA_HEADS.ALIGNMENT``."""
+    device = resolve_device(device)
+    cfg = train_cfg() if cfg is None else cfg
+    if aligned is None:
+        aligned = cfg.MODEL.DA_HEADS.ALIGNMENT
+    model = prepare_model(build_detection_model(cfg, seed=seed), device)
+    state = create_train_state(cfg, model, seed, "cosine")
+    step = make_train_step(model, state.optimizer, aligned=aligned)
+    return step, (state, triplet_batches(cfg, 1, seed, device=device))

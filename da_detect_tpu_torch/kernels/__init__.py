@@ -5,7 +5,8 @@ Each source under ``csrc/`` is compiled by its own ``nvcc`` process for
 with ``ctypes``. Sources that include PyTorch's headers take minutes to
 compile; these take seconds. All sources build in parallel, at first use,
 into ``build/`` beside this file (listed in ``.gitignore``). A library's file
-name carries a hash of its source and flags, so an edited source rebuilds.
+name carries a hash of its source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds.
 
 Nothing here falls back: on a machine with a card, a missing ``nvcc`` or a
 failed build raises. Importing this module builds nothing.
@@ -28,6 +29,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 SOURCES = {
     "nms": "nms.cu",
     "roi_align_fwd": "roi_align_fwd.cu",
+    "roi_align_bwd": "roi_align_bwd.cu",
 }
 
 # -fmad=false: no FMA contraction, so the kernels round exactly like the plain
@@ -65,8 +67,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for part in [SOURCES[name], *headers]:
+        with open(os.path.join(CSRC_DIR, part), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -6,12 +6,8 @@
 // Same function: features [B, H, W, C] (channels-last), rois [B, R, 4] xyxy
 // in image coordinates -> out [B, R, P, P, C].
 //
-// Semantics are those of ops/roi_align.py::_roi_grid and _interp_matrix:
-// ROI sizes clamped to >= 1; sampling_ratio > 0 gives that many samples a
-// bin side, 0 gives ceil(roi / P) capped at max_samples; a sample whose
-// coordinate on an axis lies outside [-1, size] weighs 0, otherwise the
-// coordinate is clamped to [0, size - 1] and interpolated bilinearly; each
-// bin is the mean over grid_h * grid_w samples.
+// Semantics: roi_align_common.cuh, shared with the backward kernel
+// (roi_align_bwd.cu), so the two sample the same points.
 //
 // Design. The TPU kernel contracts separable interpolation matrices on the
 // MXU. On Hopper a gather is the natural form: one thread per
@@ -29,29 +25,11 @@
 
 #include <cuda_runtime.h>
 
+#include "roi_align_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-// bilinear corner indices and weights of one sample coordinate on one axis;
-// false when the sample lies out of bounds (weight 0)
-__device__ __forceinline__ bool axis_weights(float coord, int size, int* lo,
-                                             int* hi, float* w_lo,
-                                             float* w_hi) {
-  if (coord < -1.0f || coord > static_cast<float>(size)) return false;
-  const float c = fminf(fmaxf(coord, 0.0f), static_cast<float>(size - 1));
-  const int l = static_cast<int>(floorf(c));
-  *lo = l;
-  *w_lo = 1.0f - (c - static_cast<float>(l));
-  if (l + 1 <= size - 1) {
-    *hi = l + 1;
-    *w_hi = 1.0f - (static_cast<float>(l + 1) - c);
-  } else {
-    *hi = l;
-    *w_hi = 0.0f;
-  }
-  return true;
-}
 
 __device__ __forceinline__ void fma4(float4* acc, float w, const float4& v) {
   acc->x += w * v.x;
@@ -77,47 +55,29 @@ __global__ void roi_align_fwd_kernel(const float4* __restrict__ features,
   const int roi = static_cast<int>(t % r);
   const int b = static_cast<int>(t / r);
 
-  // _roi_grid
-  const float* box = rois + (static_cast<size_t>(b) * r + roi) * 4;
-  const float start_w = box[0] * spatial_scale;
-  const float start_h = box[1] * spatial_scale;
-  const float roi_w = fmaxf(box[2] * spatial_scale - start_w, 1.0f);
-  const float roi_h = fmaxf(box[3] * spatial_scale - start_h, 1.0f);
-  const float pf = static_cast<float>(p);
-  const float bin_w = roi_w / pf;
-  const float bin_h = roi_h / pf;
-  float grid_h, grid_w;
-  if (sampling_ratio > 0) {
-    grid_h = grid_w = static_cast<float>(sampling_ratio);
-  } else {
-    const float cap = static_cast<float>(max_samples);
-    grid_h = fminf(fmaxf(ceilf(roi_h / pf), 1.0f), cap);
-    grid_w = fminf(fmaxf(ceilf(roi_w / pf), 1.0f), cap);
-  }
-  const int gh = static_cast<int>(grid_h);
-  const int gw = static_cast<int>(grid_w);
+  const roi_align::RoiGrid g = roi_align::roi_grid(
+      rois + (static_cast<size_t>(b) * r + roi) * 4, spatial_scale, p,
+      sampling_ratio, max_samples);
 
   const float4* fmap = features + static_cast<size_t>(b) * h * w * c4 + cv;
   float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int iy = 0; iy < gh; ++iy) {
-    const float y = start_h + static_cast<float>(ph) * bin_h
-                    + (static_cast<float>(iy) + 0.5f) * bin_h / grid_h;
+  for (int iy = 0; iy < g.gh; ++iy) {
+    const float y = roi_align::sample_coord(g.start_h, g.bin_h, g.grid_h, ph, iy);
     int y0, y1;
     float wy0, wy1;
-    if (!axis_weights(y, h, &y0, &y1, &wy0, &wy1)) continue;
-    for (int ix = 0; ix < gw; ++ix) {
-      const float x = start_w + static_cast<float>(pw) * bin_w
-                      + (static_cast<float>(ix) + 0.5f) * bin_w / grid_w;
+    if (!roi_align::axis_weights(y, h, &y0, &y1, &wy0, &wy1)) continue;
+    for (int ix = 0; ix < g.gw; ++ix) {
+      const float x = roi_align::sample_coord(g.start_w, g.bin_w, g.grid_w, pw, ix);
       int x0, x1;
       float wx0, wx1;
-      if (!axis_weights(x, w, &x0, &x1, &wx0, &wx1)) continue;
+      if (!roi_align::axis_weights(x, w, &x0, &x1, &wx0, &wx1)) continue;
       fma4(&acc, wy0 * wx0, fmap[(static_cast<size_t>(y0) * w + x0) * c4]);
       fma4(&acc, wy0 * wx1, fmap[(static_cast<size_t>(y0) * w + x1) * c4]);
       fma4(&acc, wy1 * wx0, fmap[(static_cast<size_t>(y1) * w + x0) * c4]);
       fma4(&acc, wy1 * wx1, fmap[(static_cast<size_t>(y1) * w + x1) * c4]);
     }
   }
-  const float inv = 1.0f / (grid_h * grid_w);
+  const float inv = 1.0f / (g.grid_h * g.grid_w);
   out[idx] = make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
 }
 

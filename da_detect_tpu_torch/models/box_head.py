@@ -1,8 +1,12 @@
-"""ROI box head for eval: the C4 feature extractor, the predictor and the
-detection post-processing (port of ``da_detect_tpu/models/box_head.py``).
+"""ROI box head: the C4 feature extractor, the predictor, training-time
+sampling and losses, and the detection post-processing (port of
+``da_detect_tpu/models/box_head.py``).
 
-Training-time sampling and losses are the next slice; the FPN extractors and
-predictor are later slices and raise ``NotImplementedError``.
+Sampling carries a per-ROI domain mask (True on source images) and makes
+every proposal of a target image background, so target images sample an
+unsupervised subset; the classification and regression losses count source
+rows only. The FPN extractors and predictor are later slices and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -13,7 +17,10 @@ import torch
 from torch import nn
 
 from ..ops import box_ops
+from ..ops.losses import smooth_l1_loss, softmax_cross_entropy
+from ..ops.matcher import match_proposals
 from ..ops.nms import nms_topk
+from ..ops.sampler import balanced_sample, selection_to_indices
 from .backbone.resnet import ResNetHead
 from .poolers import pool_rois, pooler_config
 
@@ -57,6 +64,77 @@ class FastRCNNPredictor(nn.Module):
         # x [B, R, C, 7, 7] -> average pool
         x = x.mean(dim=(-2, -1))
         return self.cls_score(x), self.bbox_pred(x)
+
+
+class SampledRois(NamedTuple):
+    rois: torch.Tensor         # [B, S, 4]
+    valid: torch.Tensor        # [B, S]
+    labels: torch.Tensor       # [B, S] int64 class (0 = background)
+    reg_targets: torch.Tensor  # [B, S, 4]
+    domain_mask: torch.Tensor  # [B, S] bool (True = source image)
+
+
+def _take(x, idx):
+    """x [B, P, ...] rows at idx [B, S]."""
+    idx = idx.reshape(idx.shape + (1,) * (x.dim() - 2))
+    return torch.gather(x, 1, idx.expand(idx.shape[:2] + x.shape[2:]))
+
+
+def subsample_proposals(proposals_boxes, proposals_valid, gt_boxes,
+                        gt_labels, gt_valid, is_source, *, fg_iou, bg_iou,
+                        batch_per_image, positive_fraction, reg_weights,
+                        generator=None, priorities=None) -> SampledRois:
+    """Match proposals [B, P] to GT [B, G], label them, and sample
+    S = batch_per_image per image, positives first. ``generator`` or
+    ``priorities`` (a pair of [B, P] tensors) feed the sampler."""
+    iou = box_ops.box_iou(proposals_boxes, gt_boxes)              # [B, P, G]
+    iou = torch.where(proposals_valid[..., None], iou, -1.0)
+    matches = match_proposals(iou, gt_valid, fg_iou, bg_iou, False)
+    safe = matches.clamp(min=0)
+    matched_gt = _take(gt_boxes, safe)
+    labels = torch.gather(gt_labels.long(), 1, safe)
+    labels = torch.where(matches == -1, 0, labels)        # below low -> bg
+    labels = torch.where(matches == -2, -1, labels)       # between -> ignore
+    labels = torch.where(proposals_valid, labels, -1)     # padded -> ignore
+    # a target image: every proposal is background, so sampling picks an
+    # unsupervised subset
+    labels = torch.where(is_source[:, None], labels,
+                         torch.where(proposals_valid, 0, -1))
+    reg = box_ops.encode_boxes(matched_gt, proposals_boxes, reg_weights)
+    pos_m, neg_m = balanced_sample(labels, batch_per_image, positive_fraction,
+                                   generator=generator, priorities=priorities)
+    idx, is_pos, valid = selection_to_indices(pos_m, neg_m, batch_per_image)
+    return SampledRois(
+        rois=_take(proposals_boxes, idx),
+        valid=valid,
+        labels=torch.where(is_pos, torch.gather(labels, 1, idx), 0),
+        reg_targets=_take(reg, idx),
+        domain_mask=is_source[:, None] & valid)
+
+
+def fast_rcnn_loss(class_logits, box_regression, sampled: SampledRois,
+                   cls_agnostic: bool = False):
+    """Classification and box losses over source rows only, each normalized
+    by the number of source rows. class_logits [B, S, K], box_regression
+    [B, S, 4K] (or [B, S, 8] class-agnostic)."""
+    logits = class_logits.reshape(-1, class_logits.shape[-1]).float()
+    deltas = box_regression.reshape(-1, box_regression.shape[-1]).float()
+    labels = sampled.labels.reshape(-1)
+    reg_targets = sampled.reg_targets.reshape(-1, 4)
+    dom = (sampled.domain_mask & sampled.valid).reshape(-1)
+    w = dom.float()
+    cls_loss = softmax_cross_entropy(logits, labels, w)
+    pos = dom & (labels > 0)
+    if cls_agnostic:
+        pos_deltas = deltas[:, 4:8]
+    else:
+        idx = 4 * labels[:, None] + torch.arange(4, device=labels.device)
+        pos_deltas = torch.gather(deltas, 1, idx)
+    n_dom = w.sum().clamp(min=1.0)
+    box_loss = smooth_l1_loss(pos_deltas, reg_targets, beta=1.0,
+                              weights=pos[:, None].float(),
+                              reduction="sum") / n_dom
+    return cls_loss, box_loss
 
 
 class Detections(NamedTuple):

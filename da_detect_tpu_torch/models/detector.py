@@ -1,15 +1,21 @@
-"""GeneralizedRCNN eval forward (port of ``da_detect_tpu/models/detector.py``).
+"""GeneralizedRCNN: the eval forward and the training forward (port of
+``da_detect_tpu/models/detector.py``), for the C4 Faster R-CNN bodies with
+and without the domain-adaptation heads. Module names follow
+maskrcnn-benchmark's state_dict: ``backbone.body``, ``rpn.head``,
+``roi_heads.box.feature_extractor``, ``roi_heads.box.predictor`` and
+``da_heads``.
 
-Backbone -> RPN -> proposal selection -> box head -> detections, for the C4
-Faster R-CNN bodies, with and without the domain-adaptation heads (those act
-in training only, the next slice). Module names follow maskrcnn-benchmark's
-state_dict: ``backbone.body``, ``rpn.head``, ``roi_heads.box.feature_extractor``
-and ``roi_heads.box.predictor``.
+``train_forward`` takes the domains as separate batches of k images each:
+source only, + positive target (classic 2-domain DA), + negative target (the
+triplet). Detection losses and RPN supervision come from the source batch;
+the target's RPN runs only to select proposals, and the negative batch runs
+only the backbone. The DA instance features reuse the detection pass's
+pooled features, as the JAX package does.
 
-``impl`` picks the kernels: "cuda" runs NMS and ROIAlign through the
-hand-written CUDA kernels' wrappers, "plain" through their plain versions.
-The default is resolved from the model's device: "cuda" on the card, "plain"
-on the CPU.
+``impl`` picks the kernels: "cuda" runs NMS and ROIAlign (forward and
+backward) through the hand-written CUDA kernels' wrappers, "plain" through
+their plain versions. The default is resolved from the model's device:
+"cuda" on the card, "plain" on the CPU.
 """
 
 from __future__ import annotations
@@ -21,9 +27,19 @@ from torch import nn
 
 from ..structures.image_batch import ImageBatch
 from .anchors import AnchorGenerator, make_anchor_generator
-from .box_head import (Detections, make_box_feature_extractor,
-                       make_box_predictor, postprocess_detections)
-from .rpn import RPNHead, rpn_config, select_proposals
+from .box_head import (Detections, fast_rcnn_loss, make_box_feature_extractor,
+                       make_box_predictor, postprocess_detections,
+                       subsample_proposals)
+from .da import DAState, make_da_heads
+from .rpn import (RPNHead, append_gt_proposals, rpn_config, rpn_loss,
+                  select_proposals)
+
+
+def _interleave(a_s: torch.Tensor, a_t: torch.Tensor) -> torch.Tensor:
+    """[k, ...] source and target rows -> [2k, ...] as (s0, t0, s1, t1, ...),
+    the JAX package's row order for the DA heads."""
+    return torch.stack([a_s, a_t], dim=1).reshape((2 * a_s.shape[0],)
+                                                  + a_s.shape[1:])
 
 
 class GeneralizedRCNN(nn.Module):
@@ -31,7 +47,12 @@ class GeneralizedRCNN(nn.Module):
                  feature_extractor: Optional[nn.Module],
                  predictor: Optional[nn.Module], *, rpn_only: bool,
                  anchor_generator: AnchorGenerator, rpn_test: dict,
-                 post_cfg: dict, pixel_mean=(102.9801, 115.9465, 122.7717),
+                 post_cfg: dict, da_heads: Optional[nn.Module] = None,
+                 rpn_train: Optional[dict] = None,
+                 rpn_loss_cfg: Optional[dict] = None,
+                 sample_cfg: Optional[dict] = None,
+                 share_positive_pool: bool = False,
+                 pixel_mean=(102.9801, 115.9465, 122.7717),
                  pixel_std=(1.0, 1.0, 1.0), to_bgr255: bool = True):
         super().__init__()
         self.backbone = backbone
@@ -39,9 +60,14 @@ class GeneralizedRCNN(nn.Module):
         box = {} if rpn_only else {"feature_extractor": feature_extractor,
                                    "predictor": predictor}
         self.roi_heads = nn.ModuleDict({"box": nn.ModuleDict(box)})
+        self.da_heads = da_heads
         self.rpn_only = rpn_only
         self.anchor_generator = anchor_generator
         self.rpn_test = rpn_test
+        self.rpn_train = rpn_train
+        self.rpn_loss_cfg = rpn_loss_cfg
+        self.sample_cfg = sample_cfg
+        self.share_positive_pool = share_positive_pool
         self.post_cfg = post_cfg
         self.pixel_mean = tuple(pixel_mean)
         self.pixel_std = tuple(pixel_std)
@@ -83,6 +109,119 @@ class GeneralizedRCNN(nn.Module):
                                       props.valid, sizes, **self.post_cfg,
                                       impl=impl)
 
+    # -- training ----------------------------------------------------------
+    def _rpn_and_proposals(self, batch, targets, *, append_gt: bool,
+                           with_rpn_loss: bool, impl: str):
+        """Backbone, RPN head and proposal selection of one domain's batch.
+        Selection runs on detached logits and deltas; a batch that takes no
+        RPN loss runs its RPN head without autograd."""
+        feats = self.backbone(batch.normalized(
+            self.pixel_mean, self.pixel_std, self.to_bgr255))
+        with torch.set_grad_enabled(with_rpn_loss
+                                    and torch.is_grad_enabled()):
+            logits, deltas = self.rpn["head"](feats)
+        props = select_proposals(
+            self.anchors(feats), [l.detach() for l in logits],
+            [d.detach() for d in deltas], batch.sizes.float(),
+            **self.rpn_train, impl=impl)
+        if append_gt:
+            props = append_gt_proposals(props, targets.boxes, targets.valid,
+                                        batch.is_source)
+        return feats, logits, deltas, props
+
+    def _subsample_and_extract(self, feats, props, targets, is_source,
+                               generator, impl):
+        sampled = subsample_proposals(
+            props.boxes, props.valid, targets.boxes, targets.labels,
+            targets.valid, is_source, **self.sample_cfg, generator=generator)
+        x = self.roi_heads["box"]["feature_extractor"](feats, sampled.rois,
+                                                       impl=impl)
+        return sampled, x
+
+    def train_forward(self, batch_s: ImageBatch, targets_s: Targets,
+                      da_state: DAState, batch_t: Optional[ImageBatch] = None,
+                      targets_t: Optional[Targets] = None,
+                      batch_n: Optional[ImageBatch] = None,
+                      targets_n: Optional[Targets] = None, *,
+                      aligned: bool = False, deterministic: bool = False,
+                      generator: Optional[torch.Generator] = None,
+                      impl: Optional[str] = None):
+        """Returns (losses dict of 0-d tensors, new DAState).
+
+        Only ``batch_s``: source-only training; + ``batch_t``: 2-domain DA;
+        + ``batch_n``: the triplet. With ``aligned`` the triplet's instance
+        member re-pools the positive batch's proposals from each domain's
+        features. ``generator`` draws the sampling priorities and the DA
+        dropout (on the model's device); ``deterministic`` turns dropout off.
+        """
+        impl = impl or self.default_impl()
+        b = batch_s.images.shape[0]
+        dev = batch_s.images.device
+        ones = torch.ones(b, dtype=torch.bool, device=dev)
+        zeros = torch.zeros(b, dtype=torch.bool, device=dev)
+
+        feats_s, logits_s, deltas_s, props_s = self._rpn_and_proposals(
+            batch_s, targets_s, append_gt=True, with_rpn_loss=True, impl=impl)
+        # RPN supervision comes from the source batch alone; (h, w, a) order
+        obj = logits_s[0].permute(0, 2, 3, 1).reshape(b, -1)
+        dl = deltas_s[0].permute(0, 2, 3, 1).reshape(b, -1, 4)
+        loss_obj, loss_rpn_box = rpn_loss(
+            self.anchors(feats_s)[0], obj, dl, targets_s.boxes,
+            targets_s.valid, ones, batch_s.sizes.float(),
+            **self.rpn_loss_cfg, generator=generator)
+        if self.rpn_only:
+            return {"loss_objectness": loss_obj,
+                    "loss_rpn_box_reg": loss_rpn_box}, da_state
+
+        box = self.roi_heads["box"]
+        sampled_s, x_s = self._subsample_and_extract(
+            feats_s, props_s, targets_s, ones, generator, impl)
+        cls_logits, box_deltas = box["predictor"](x_s)
+        loss_cls, loss_box = fast_rcnn_loss(
+            cls_logits, box_deltas, sampled_s,
+            cls_agnostic=self.post_cfg["cls_agnostic"])
+        losses = {"loss_objectness": loss_obj,
+                  "loss_rpn_box_reg": loss_rpn_box,
+                  "loss_classifier": loss_cls,
+                  "loss_box_reg": loss_box}
+        if self.da_heads is None or batch_t is None:
+            return losses, da_state
+
+        feats_t, _, _, props_t = self._rpn_and_proposals(
+            batch_t, targets_t, append_gt=False, with_rpn_loss=False,
+            impl=impl)
+        sampled_t, x_t = self._subsample_and_extract(
+            feats_t, props_t, targets_t, zeros, generator, impl)
+        img_fea_set = da_ins_set = None
+        if batch_n is not None:
+            feats_n = self.backbone(batch_n.normalized(
+                self.pixel_mean, self.pixel_std, self.to_bgr255))
+            img_fea_set = (feats_s[0], feats_t[0], feats_n[0])
+            if aligned and self.da_heads.triplet_ins_weight > 0:
+                # the positive batch's proposals pooled from each domain's
+                # features, an independent subsample each; with
+                # share_positive_pool the positive member reuses x_t
+                da_ins_set = []
+                for fd, tg, src, is_pos in ((feats_s, targets_s, ones, False),
+                                            (feats_t, targets_t, zeros, True),
+                                            (feats_n, targets_n, zeros,
+                                             False)):
+                    if self.share_positive_pool and is_pos:
+                        da_ins_set.append(x_t)
+                        continue
+                    _, x = self._subsample_and_extract(
+                        fd, props_t, tg, src, generator, impl)
+                    da_ins_set.append(x)
+        da_losses, new_state = self.da_heads(
+            [_interleave(fs, ft) for fs, ft in zip(feats_s, feats_t)],
+            _interleave(x_s, x_t),
+            _interleave(sampled_s.valid, torch.zeros_like(sampled_t.valid)),
+            _interleave(sampled_s.valid, sampled_t.valid),
+            da_ins_set, img_fea_set, _interleave(ones, zeros), da_state,
+            deterministic=deterministic, generator=generator)
+        losses.update(da_losses)
+        return losses, new_state
+
 
 def _check_supported(cfg) -> None:
     m = cfg.MODEL
@@ -107,8 +246,9 @@ def init_parameters(model: GeneralizedRCNN,
     """Random init from ``generator``, with the JAX package's initializer
     scales: convs of the body and res5 head lecun-normal (std
     1/sqrt(fan_in)), the RPN head normal(0.01), the predictor's cls_score
-    normal(0.01) and bbox_pred normal(0.001), biases 0, FrozenBN scale 1 and
-    bias 0."""
+    normal(0.01) and bbox_pred normal(0.001), the DA heads' convs
+    normal(0.001) and fc1/fc2/fc3 normal(0.01/0.01/0.05), biases 0, FrozenBN
+    scale 1 and bias 0."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.Conv2d) and m.bias is None:
@@ -120,25 +260,35 @@ def init_parameters(model: GeneralizedRCNN,
         if not model.rpn_only:
             pred = model.roi_heads["box"]["predictor"]
             layers += [(pred.cls_score, 0.01), (pred.bbox_pred, 0.001)]
+        if model.da_heads is not None:
+            img, ins = model.da_heads.imghead, model.da_heads.inshead
+            layers += [(img.conv1_da, 0.001), (img.conv2_da, 0.001),
+                       (ins.fc1_da, 0.01), (ins.fc2_da, 0.01),
+                       (ins.fc3_da, 0.05)]
         for layer, std in layers:
             layer.weight.normal_(0.0, std, generator=generator)
             layer.bias.zero_()
 
 
 def build_detection_model(cfg, seed: int = 0) -> GeneralizedRCNN:
-    """The eval model for ``cfg``, on the CPU, with random weights drawn from
-    ``torch.Generator().manual_seed(seed)``. Move it with ``.to(device)``;
+    """The model for ``cfg`` (with DA heads when
+    ``MODEL.DOMAIN_ADAPTATION_ON``), on the CPU, with random weights drawn
+    from ``torch.Generator().manual_seed(seed)``. Move it with ``.to(device)``;
     load trained or bridged weights with ``utils.weights``."""
     from .backbone import build_backbone
 
     _check_supported(cfg)
     backbone, spec = build_backbone(cfg)
+    da_heads = None
     if cfg.MODEL.RPN_ONLY:
         extractor, predictor = None, None
     else:
         extractor, ext_ch = make_box_feature_extractor(cfg)
         predictor = make_box_predictor(cfg, ext_ch)
+        if cfg.MODEL.DOMAIN_ADAPTATION_ON:
+            da_heads = make_da_heads(cfg, spec.out_channels, ext_ch)
     gen = make_anchor_generator(cfg)
+    rpn = cfg.MODEL.RPN
     roi = cfg.MODEL.ROI_HEADS
     model = GeneralizedRCNN(
         backbone,
@@ -147,6 +297,19 @@ def build_detection_model(cfg, seed: int = 0) -> GeneralizedRCNN:
         rpn_only=cfg.MODEL.RPN_ONLY,
         anchor_generator=gen,
         rpn_test=rpn_config(cfg, False),
+        rpn_train=rpn_config(cfg, True),
+        rpn_loss_cfg=dict(
+            fg_iou=rpn.FG_IOU_THRESHOLD, bg_iou=rpn.BG_IOU_THRESHOLD,
+            batch_per_image=rpn.BATCH_SIZE_PER_IMAGE,
+            positive_fraction=rpn.POSITIVE_FRACTION,
+            straddle_thresh=rpn.STRADDLE_THRESH),
+        sample_cfg=dict(
+            fg_iou=roi.FG_IOU_THRESHOLD, bg_iou=roi.BG_IOU_THRESHOLD,
+            batch_per_image=roi.BATCH_SIZE_PER_IMAGE,
+            positive_fraction=roi.POSITIVE_FRACTION,
+            reg_weights=tuple(roi.BBOX_REG_WEIGHTS)),
+        da_heads=da_heads,
+        share_positive_pool=cfg.TPU.SHARE_POSITIVE_POOL,
         post_cfg=dict(
             score_thresh=roi.SCORE_THRESH, nms_thresh=roi.NMS,
             detections_per_img=roi.DETECTIONS_PER_IMG,

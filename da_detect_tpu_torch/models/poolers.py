@@ -1,8 +1,9 @@
 """ROI pooling (port of ``da_detect_tpu/models/poolers.py``, single level).
 
-``impl`` picks the ROIAlign: "cuda" goes through the kernel's wrapper
-(``ops/roi_align_cuda.py``), "plain" through the plain version
-(``ops/roi_align.py``). Multi-level (FPN) pooling is a later slice.
+``impl`` picks the ROIAlign: "cuda" goes through the kernels' autograd
+function (``ops/roi_align_cuda.py``: forward and backward kernels), "plain"
+through the plain version (``ops/roi_align.py``, differentiated by
+autograd). Multi-level (FPN) pooling is a later slice.
 """
 
 from __future__ import annotations

@@ -1,11 +1,12 @@
-"""Region Proposal Network head and fixed-shape proposal selection (port of
-``da_detect_tpu/models/rpn.py``, eval path).
+"""Region Proposal Network head, fixed-shape proposal selection, GT append
+and loss (port of ``da_detect_tpu/models/rpn.py``).
 
-Every dynamic-shape stage (top-k -> NMS -> variable proposal counts) is a
-fixed-capacity tensor with a validity mask, as in the JAX package. Ties in
-every top-k break by lower index first, as ``lax.top_k`` does: the port sorts
-with ``torch.sort(stable=True)`` (``torch.topk`` orders ties arbitrarily on
-the card).
+Every dynamic-shape stage (top-k -> NMS -> variable proposal counts -> GT
+append) is a fixed-capacity tensor with a validity mask, as in the JAX
+package. Ties in every top-k break by lower index first, as ``lax.top_k``
+does: the port sorts with ``torch.sort(stable=True)`` (``torch.topk`` orders
+ties arbitrarily on the card). GT boxes are appended, and RPN supervision
+given, for source-domain images only.
 """
 
 from __future__ import annotations
@@ -17,7 +18,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import box_ops
+from ..ops.losses import bce_with_logits, smooth_l1_loss
+from ..ops.matcher import match_proposals
 from ..ops.nms import nms_topk
+from ..ops.sampler import balanced_sample
 
 
 class RPNHead(nn.Module):
@@ -89,6 +93,58 @@ def select_proposals(level_anchors, level_logits, level_deltas, image_sizes,
     return Proposals(*_select_level(
         level_anchors[0], obj, dl, image_sizes, pre_nms_top_n,
         post_nms_top_n, nms_thresh, min_size, impl))
+
+
+def append_gt_proposals(proposals: Proposals, gt_boxes, gt_valid,
+                        is_source) -> Proposals:
+    """Append the GT boxes [B, G, 4] of source images as proposals with
+    objectness 1; target images' GT rows are appended invalid."""
+    gt_ok = gt_valid & is_source[:, None]
+    return Proposals(
+        boxes=torch.cat([proposals.boxes, gt_boxes], dim=1),
+        scores=torch.cat([proposals.scores, gt_ok.to(proposals.scores.dtype)],
+                         dim=1),
+        valid=torch.cat([proposals.valid, gt_ok], dim=1))
+
+
+def rpn_loss(anchors, objectness, deltas, gt_boxes, gt_valid, is_source,
+             image_sizes, *, fg_iou, bg_iou, batch_per_image,
+             positive_fraction, straddle_thresh, generator=None,
+             priorities=None):
+    """RPN losses. anchors [N, 4]; objectness [B, N] logits; deltas
+    [B, N, 4]; gt_* padded [B, G]; is_source [B]; image_sizes [B, 2] (h, w).
+    ``generator``/``priorities`` feed the sampler. Returns
+    (loss_objectness, loss_rpn_box_reg): a BCE weighted mean over the sampled
+    anchors, and the positives' smooth-L1 sum over the batch's sampled
+    count."""
+    objectness = objectness.float()
+    deltas = deltas.float()
+    iou = box_ops.box_iou(anchors, gt_boxes)                    # [B, N, G]
+    matches = match_proposals(iou, gt_valid, fg_iou, bg_iou, True)
+    labels = torch.where(matches >= 0, 1, torch.where(matches == -1, 0, -1))
+    if straddle_thresh >= 0:
+        sizes = image_sizes.float()
+        inside = ((anchors[:, 0] >= -straddle_thresh)
+                  & (anchors[:, 1] >= -straddle_thresh)
+                  & (anchors[:, 2] < sizes[:, 1, None] + straddle_thresh)
+                  & (anchors[:, 3] < sizes[:, 0, None] + straddle_thresh))
+        labels = torch.where(inside, labels, -1)
+    # target-domain images contribute no RPN supervision
+    labels = torch.where(is_source[:, None], labels, -1)
+    matched_gt = torch.gather(
+        gt_boxes, 1, matches.clamp(min=0)[..., None].expand(-1, -1, 4))
+    reg_targets = box_ops.encode_boxes(matched_gt, anchors)
+    pos_mask, neg_mask = balanced_sample(
+        labels, batch_per_image, positive_fraction, generator=generator,
+        priorities=priorities)
+    sampled = pos_mask | neg_mask
+    n_sampled = sampled.sum().clamp(min=1)
+    box_loss = smooth_l1_loss(deltas, reg_targets, beta=1.0 / 9,
+                              weights=pos_mask[..., None].float(),
+                              reduction="sum") / n_sampled
+    obj_loss = bce_with_logits(objectness, (labels == 1).float(),
+                               weights=sampled.float(), reduction="mean")
+    return obj_loss, box_loss
 
 
 def rpn_config(cfg, is_train: bool) -> dict:

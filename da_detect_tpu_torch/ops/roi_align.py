@@ -93,10 +93,29 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor, *,
               spatial_scale: float, output_size: int, sampling_ratio: int = 0,
               max_samples: int = 8) -> torch.Tensor:
     """Batched ROIAlign: features [B, C, H, W], rois [B, R, 4] ->
-    [B, R, C, P, P]."""
+    [B, R, C, P, P]. Differentiable in ``features`` by autograd."""
     return torch.stack([
         roi_align_image(f, r, spatial_scale=spatial_scale,
                         output_size=output_size,
                         sampling_ratio=sampling_ratio,
                         max_samples=max_samples)
         for f, r in zip(features, rois)])
+
+
+def roi_align_grad(grad: torch.Tensor, rois: torch.Tensor, *, height: int,
+                   width: int, spatial_scale: float, output_size: int,
+                   sampling_ratio: int = 0,
+                   max_samples: int = 8) -> torch.Tensor:
+    """d features of ``roi_align`` for the upstream gradient grad
+    [B, R, C, P, P] -> [B, C, H, W]: autograd of ``roi_align`` itself, which
+    is linear in the features, so a zero map of the shape stands for any.
+    The plain version of the CUDA backward kernel; ROIs take no gradient."""
+    with torch.enable_grad():
+        f = grad.new_zeros((grad.shape[0], grad.shape[2], height, width),
+                           requires_grad=True)
+        out = roi_align(f, rois.detach(), spatial_scale=spatial_scale,
+                        output_size=output_size,
+                        sampling_ratio=sampling_ratio,
+                        max_samples=max_samples)
+        (dfeat,) = torch.autograd.grad(out, f, grad.detach())
+    return dfeat

@@ -1,13 +1,21 @@
-"""ROIAlign forward as a hand-written CUDA kernel for Hopper (port of
-``da_detect_tpu/ops/roi_align_pallas.py``, forward only; source
-``kernels/csrc/roi_align_fwd.cu``).
+"""ROIAlign forward and backward as hand-written CUDA kernels for Hopper
+(port of ``da_detect_tpu/ops/roi_align_pallas.py``: ``_pool_fwd_impl`` and
+``_pool_bwd``; sources ``kernels/csrc/roi_align_fwd.cu`` and
+``roi_align_bwd.cu``).
 
-``roi_align`` takes the plain version's arguments. On a CUDA tensor it
-launches the kernel or raises; on a CPU tensor it runs the plain version,
-``ops.roi_align.roi_align``. The kernel reads the feature map in
-``torch.channels_last`` memory and writes [B, R, P, P, C]; the result is
+``roi_align`` on CUDA features is a ``torch.autograd.Function`` whose
+forward is ``roi_align_forward`` and whose backward is
+``roi_align_backward``, the gradient of the features; the ROIs take none
+(proposals are stop-gradient). On CPU features it is the plain version
+(``ops.roi_align``), which autograd differentiates. Each of the two kernel
+wrappers launches its kernel on a CUDA tensor or raises, and runs its plain
+version (``roi_align`` or ``roi_align_grad``) on a CPU tensor. The forward
+kernel reads the
+feature map in ``torch.channels_last`` memory and writes [B, R, P, P, C],
 returned as the logical [B, R, C, P, P] view of that memory, so that
-``reshape(B * R, C, P, P)`` is a channels-last batch for the res5 head.
+``reshape(B * R, C, P, P)`` is a channels-last batch for the res5 head. The
+backward takes the gradient in any strides, makes it [B, R, P, P, C] memory,
+and returns dF [B, C, H, W] in channels-last memory, like the features.
 """
 
 from __future__ import annotations
@@ -18,66 +26,154 @@ import torch
 
 from .. import kernels
 from .roi_align import roi_align as roi_align_plain
+from .roi_align import roi_align_grad as roi_align_grad_plain
 
-KERNEL = "roi_align_fwd"
+FORWARD, BACKWARD = "roi_align_fwd", "roi_align_bwd"
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_float,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
-_fn = None
+_fns: dict = {}
 
 
-def _launcher():
-    global _fn
-    if _fn is None:
-        fn = kernels.load(KERNEL).roi_align_fwd
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+def _launcher(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(kernels.load(name), name)
+        fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
+
+
+def _check_cuda(name: str, x: torch.Tensor, what: str, rois: torch.Tensor,
+                sampling_ratio: int, max_samples: int) -> None:
+    """Raise on what the kernels do not take; ``x`` is the operand with the
+    channels last (the features' NHWC view, or the gradient)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"ROIAlign kernel {name}: unsupported device "
+                         f"{x.device}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"ROIAlign kernel {name}: {what} must be float32, "
+                         f"got {x.dtype}")
+    if x.shape[-1] % 4 or x.data_ptr() % 16:
+        raise ValueError(f"ROIAlign kernel {name}: needs C % 4 == 0 and "
+                         f"16-byte aligned {what} (C={x.shape[-1]})")
+    if rois.dtype != torch.float32 or rois.dim() != 3 \
+            or rois.shape[0] != x.shape[0] or rois.shape[2] != 4 \
+            or rois.device != x.device:
+        raise ValueError(f"ROIAlign kernel {name}: rois must be float32 "
+                         f"[B, R, 4] on the {what} device, got {rois.dtype} "
+                         f"{tuple(rois.shape)} on {rois.device}")
+    if sampling_ratio <= 0 and max_samples <= 0:
+        raise ValueError(f"ROIAlign kernel {name}: max_samples must be "
+                         "positive")
+
+
+def _launch(name: str, src: torch.Tensor, rois: torch.Tensor,
+            dst: torch.Tensor, h: int, w: int, c: int, p: int,
+            spatial_scale: float, sampling_ratio: int,
+            max_samples: int) -> None:
+    device = src.device
+    rois = rois.contiguous()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _launcher(name)(src.data_ptr(), rois.data_ptr(), dst.data_ptr(),
+                             rois.shape[0], h, w, c, rois.shape[1], p,
+                             float(spatial_scale), int(sampling_ratio),
+                             int(max_samples), stream)
+    kernels.check(rc, name)
+    kernels.LAUNCHES[name] += 1
+
+
+def roi_align_forward(features: torch.Tensor, rois: torch.Tensor, *,
+                      spatial_scale: float, output_size: int,
+                      sampling_ratio: int = 0,
+                      max_samples: int = 8) -> torch.Tensor:
+    """Batched ROIAlign: features [B, C, H, W] f32 (channels-last memory),
+    rois [B, R, 4] f32 -> [B, R, C, P, P]. Not differentiable itself."""
+    kw = dict(spatial_scale=spatial_scale, output_size=output_size,
+              sampling_ratio=sampling_ratio, max_samples=max_samples)
+    if features.device.type == "cpu":
+        return roi_align_plain(features, rois, **kw)
+    if features.dim() != 4:
+        raise ValueError("ROIAlign kernel: features must be [B, C, H, W], "
+                         f"got {tuple(features.shape)}")
+    batch, c, h, w = features.shape
+    _check_cuda(FORWARD, features.permute(0, 2, 3, 1), "features", rois,
+                sampling_ratio, max_samples)
+    if not features.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("ROIAlign kernel: features must be channels_last")
+    r, p = rois.shape[1], output_size
+    out = torch.empty((batch, r, p, p, c), dtype=torch.float32,
+                      device=features.device)
+    if out.numel():
+        _launch(FORWARD, features, rois, out, h, w, c, p, spatial_scale,
+                sampling_ratio, max_samples)
+    return out.permute(0, 1, 4, 2, 3)
+
+
+def roi_align_backward(grad: torch.Tensor, rois: torch.Tensor, *,
+                       height: int, width: int, spatial_scale: float,
+                       output_size: int, sampling_ratio: int = 0,
+                       max_samples: int = 8) -> torch.Tensor:
+    """d features of ROIAlign: grad [B, R, C, P, P] f32 (any strides),
+    rois [B, R, 4] f32 -> dF [B, C, H, W] f32 in channels-last memory."""
+    kw = dict(spatial_scale=spatial_scale, output_size=output_size,
+              sampling_ratio=sampling_ratio, max_samples=max_samples)
+    if grad.device.type == "cpu":
+        return roi_align_grad_plain(grad, rois, height=height, width=width,
+                                    **kw)
+    if grad.dim() != 5 or grad.shape[3] != output_size \
+            or grad.shape[4] != output_size:
+        raise ValueError("ROIAlign backward kernel: grad must be "
+                         f"[B, R, C, {output_size}, {output_size}], got "
+                         f"{tuple(grad.shape)}")
+    batch, r, c = grad.shape[:3]
+    # [B, R, P, P, C] memory, whatever strides autograd hands over
+    g = grad.permute(0, 1, 3, 4, 2).contiguous()
+    _check_cuda(BACKWARD, g, "grad", rois, sampling_ratio, max_samples)
+    dfeat = torch.zeros((batch, height, width, c), dtype=torch.float32,
+                        device=grad.device)
+    if g.numel() and dfeat.numel():
+        _launch(BACKWARD, g, rois, dfeat, height, width, c, output_size,
+                spatial_scale, sampling_ratio, max_samples)
+    return dfeat.permute(0, 3, 1, 2)
+
+
+class _RoIAlign(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features, rois, spatial_scale, output_size,
+                sampling_ratio, max_samples):
+        ctx.kw = dict(height=features.shape[2], width=features.shape[3],
+                      spatial_scale=spatial_scale, output_size=output_size,
+                      sampling_ratio=sampling_ratio, max_samples=max_samples)
+        ctx.save_for_backward(rois)
+        return roi_align_forward(features, rois, spatial_scale=spatial_scale,
+                                 output_size=output_size,
+                                 sampling_ratio=sampling_ratio,
+                                 max_samples=max_samples)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (rois,) = ctx.saved_tensors
+        dfeat = None
+        if ctx.needs_input_grad[0]:
+            dfeat = roi_align_backward(grad, rois, **ctx.kw)
+        return dfeat, None, None, None, None, None
 
 
 def roi_align(features: torch.Tensor, rois: torch.Tensor, *,
               spatial_scale: float, output_size: int, sampling_ratio: int = 0,
               max_samples: int = 8) -> torch.Tensor:
-    """Batched ROIAlign: features [B, C, H, W] f32 (channels-last memory),
-    rois [B, R, 4] f32 -> [B, R, C, P, P]."""
-    device = features.device
-    if device.type == "cpu":
-        return roi_align_plain(features, rois, spatial_scale=spatial_scale,
+    """Differentiable batched ROIAlign through the kernels: features
+    [B, C, H, W] f32, rois [B, R, 4] f32 -> [B, R, C, P, P]."""
+    if features.device.type == "cpu":
+        return roi_align_plain(features, rois.detach(),
+                               spatial_scale=spatial_scale,
                                output_size=output_size,
                                sampling_ratio=sampling_ratio,
                                max_samples=max_samples)
-    if device.type != "cuda":
-        raise ValueError(f"ROIAlign kernel: unsupported device {device}")
-    if features.dtype != torch.float32 or features.dim() != 4:
-        raise ValueError("ROIAlign kernel: features must be float32 "
-                         f"[B, C, H, W], got {features.dtype} "
-                         f"{tuple(features.shape)}")
-    batch, c, h, w = features.shape
-    if not features.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError("ROIAlign kernel: features must be channels_last")
-    if c % 4 or features.data_ptr() % 16:
-        raise ValueError("ROIAlign kernel: needs C % 4 == 0 and a 16-byte "
-                         f"aligned map (C={c})")
-    if rois.dtype != torch.float32 or rois.dim() != 3 \
-            or rois.shape[0] != batch or rois.shape[2] != 4 \
-            or rois.device != device:
-        raise ValueError("ROIAlign kernel: rois must be float32 [B, R, 4] on "
-                         f"the features' device, got {rois.dtype} "
-                         f"{tuple(rois.shape)} on {rois.device}")
-    if sampling_ratio <= 0 and max_samples <= 0:
-        raise ValueError("ROIAlign kernel: max_samples must be positive")
-    r, p = rois.shape[1], output_size
-    out = torch.empty((batch, r, p, p, c), dtype=torch.float32, device=device)
-    if out.numel():
-        rois = rois.contiguous()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = _launcher()(features.data_ptr(), rois.data_ptr(),
-                             out.data_ptr(), batch, h, w, c, r, p,
-                             float(spatial_scale), int(sampling_ratio),
-                             int(max_samples), stream)
-        kernels.check(rc, KERNEL)
-        kernels.LAUNCHES[KERNEL] += 1
-    return out.permute(0, 1, 4, 2, 3)
+    return _RoIAlign.apply(features, rois.detach(), spatial_scale,
+                           output_size, sampling_ratio, max_samples)

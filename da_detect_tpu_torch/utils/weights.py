@@ -14,10 +14,18 @@ checkpoint converter uses in the other direction:
     params/feature_extractor/head/...    -> roi_heads.box.feature_extractor.head...
     params/predictor/cls_score/kernel    -> roi_heads.box.predictor.cls_score.weight
                                             ([in, out] -> [out, in])
+    params/da_heads/imghead/conv1_da/kernel -> da_heads.imghead.conv1_da.weight
+    params/da_heads/inshead/fc1_da/kernel   -> da_heads.inshead.fc1_da.weight
 
-The domain-adaptation heads act in training only and are skipped by
-``SKIPPED_PREFIXES``. Any other key that names nothing in the model raises, as
-does any model entry left unset or a shape that disagrees.
+Any key that names nothing in the model raises, as does any model entry left
+unset or a shape that disagrees, with one exception: variables with no
+``da_heads`` subtree at all (what the JAX package's eval ``init`` creates,
+since the DA heads act in training only) leave the port's DA heads as they
+are.
+
+``load_jax_train_state(state, jax_state)`` carries a JAX ``TrainState``
+(params, frozen, ``DAState``, step, SGD momentum) into the port's, so that a
+run started with the JAX package continues here.
 """
 
 from __future__ import annotations
@@ -27,13 +35,12 @@ import re
 import numpy as np
 import torch
 
-SKIPPED_PREFIXES = ("da_heads/",)
-
 _PREFIXES = (
     ("backbone/", "backbone."),
     ("rpn_head/", "rpn.head."),
     ("feature_extractor/", "roi_heads.box.feature_extractor."),
     ("predictor/", "roi_heads.box.predictor."),
+    ("da_heads/", "da_heads."),
 )
 
 _PARTS = {
@@ -80,9 +87,7 @@ def jax_state_dict(variables: dict) -> dict[str, torch.Tensor]:
     state = {}
     for collection in ("params", "frozen"):
         for path, value in _flatten(variables.get(collection, {})):
-            if path.startswith(SKIPPED_PREFIXES):
-                continue
-            value = _to_torch_layout(path, np.asarray(value, np.float32))
+            value = _to_torch_layout(path, np.array(value, np.float32))
             state[torch_name(path)] = torch.from_numpy(
                 np.ascontiguousarray(value))
     return state
@@ -99,4 +104,30 @@ def load_jax_variables(model: torch.nn.Module, variables: dict) -> None:
         if tuple(value.shape) != tuple(own[name].shape):
             raise ValueError(f"{name}: JAX shape {tuple(value.shape)} vs "
                              f"port {tuple(own[name].shape)}")
+    if not any(name.startswith("da_heads.") for name in state):
+        # eval variables: the DA heads keep their own weights
+        state.update({k: v for k, v in own.items()
+                      if k.startswith("da_heads.")})
     model.load_state_dict(state, strict=True)
+
+
+def load_jax_train_state(state, jax_state) -> None:
+    """Carry a JAX ``TrainState`` (``step``, ``params``, ``frozen``,
+    ``da_state``, ``opt_state`` = (step, SGDState(momentum))) into the port's
+    ``TrainState`` in place: the model's weights, the four ``DAState``
+    scalars, the step and the momentum of every trainable parameter. The
+    JAX key has no PyTorch counterpart; the generator is left as it is."""
+    model = state.model
+    load_jax_variables(model, {"params": jax_state.params,
+                               "frozen": jax_state.frozen})
+    dev = next(model.parameters()).device
+    da = jax_state.da_state
+    state.da_state = type(state.da_state)(**{
+        f: torch.tensor(np.asarray(getattr(da, f), np.float32), device=dev)
+        for f in ("margin_img", "margin_ins", "last_triplet_img",
+                  "last_triplet_ins")})
+    state.step = int(np.asarray(jax_state.step))
+    momentum = jax_state_dict({"params": jax_state.opt_state[1].momentum})
+    trainable = dict(model.named_parameters())
+    state.optimizer.set_momentum_buffers(
+        {k: v for k, v in momentum.items() if trainable[k].requires_grad})

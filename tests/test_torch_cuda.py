@@ -6,14 +6,17 @@ with one (which need not have JAX, so tests/conftest.py is left out):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 NMS keep masks must agree exactly; ROIAlign to rtol = atol = 1e-5 (float32
-sums in another order).
+sums in another order); the ROIAlign backward within 1e-5 of the largest
+|dF| (its atomics add in an order that changes from run to run); one train
+step through the kernels against the same step through the plain versions:
+losses rtol 1e-4, gradients within 1e-3 of each leaf's largest |g|.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from da_detect_tpu_torch import kernels
+from da_detect_tpu_torch import entry, kernels
 from da_detect_tpu_torch.ops import nms, nms_cuda, roi_align, roi_align_cuda
 
 pytestmark = pytest.mark.cuda
@@ -109,3 +112,90 @@ def test_roi_align_kernel_refuses_other_layouts(dev):
         roi_align_cuda.roi_align(
             torch.zeros(1, 5, 5, 6, device=dev).permute(0, 3, 1, 2), rois,
             spatial_scale=1.0, output_size=2)
+
+
+OFF_MAP = [[-40.0, -30.0, 60.0, 50.0], [200.0, 120.0, 300.0, 200.0],
+           [-100.0, -100.0, -50.0, -50.0], [1e4, 1e4, 2e4, 2e4],
+           [30.0, 40.0, 30.0, 40.0], [80.0, 90.0, 20.0, 10.0],
+           [-16.0, 0.0, 1300.0, 700.0]]
+
+
+@pytest.mark.parametrize("case", ["slice", "p7_s2_r11", "off_map_s0",
+                                  "off_map_s2", "empty"])
+def test_roi_align_backward_kernel_matches_plain(dev, case):
+    """At the train step's shapes ([1,1024,38,76], R = 256, P = 14) and on
+    the edge cases: ROIs off the map, degenerate and inverted, and none."""
+    gen = torch.Generator().manual_seed(11)
+    b, c, h, w, p, sr = 1, 1024, 38, 76, 14, 0
+    if case == "p7_s2_r11":
+        b, c, h, w, p, sr = 2, 128, 10, 16, 7, 2
+    elif case.startswith("off_map"):
+        c, sr = 64, int(case[-1])
+    rois = _rois(3, b, 256 if case == "slice" else 11, h, w, 900.0)
+    if case.startswith("off_map"):
+        rois = torch.tensor([OFF_MAP], dtype=torch.float32)
+    elif case == "empty":
+        rois = torch.zeros(1, 0, 4)
+    rois = rois.to(dev)
+    kw = dict(spatial_scale=1.0 / 16, output_size=p, sampling_ratio=sr,
+              max_samples=8)
+    g = torch.randn(b, rois.shape[1], c, p, p, generator=gen).to(dev)
+    before = kernels.LAUNCHES["roi_align_bwd"]
+    got = roi_align_cuda.roi_align_backward(g, rois, height=h, width=w, **kw)
+    want = roi_align.roi_align_grad(g, rois, height=h, width=w, **kw)
+    assert kernels.LAUNCHES["roi_align_bwd"] == before + (case != "empty")
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+    if case == "empty":
+        assert not got.any()
+
+
+def test_roi_align_autograd_function_on_card(dev):
+    """The pooler's route: forward kernel, then backward kernel on the
+    gradient autograd hands over (a permuted view)."""
+    gen = torch.Generator().manual_seed(12)
+    feats = torch.randn(1, 38, 76, 64, generator=gen).to(dev).permute(
+        0, 3, 1, 2).requires_grad_()
+    rois = _rois(4, 1, 40, 38, 76, 900.0).to(dev)
+    kw = dict(spatial_scale=1.0 / 16, output_size=14, sampling_ratio=0,
+              max_samples=8)
+    g = torch.randn(1, 40, 64, 14, 14, generator=gen).to(dev)
+    before = dict(kernels.LAUNCHES)
+    out = roi_align_cuda.roi_align(feats, rois, **kw)
+    (got,) = torch.autograd.grad((out * g).sum(), feats)
+    assert kernels.LAUNCHES["roi_align_fwd"] == before.get("roi_align_fwd",
+                                                           0) + 1
+    assert kernels.LAUNCHES["roi_align_bwd"] == before.get("roi_align_bwd",
+                                                           0) + 1
+    want = roi_align.roi_align_grad(g, rois, height=38, width=76, **kw)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_train_step_kernels_match_plain(dev):
+    """One train step of the narrowed flagship through the kernels against
+    the same step through the plain versions, same weights and draws."""
+    step, (state, args) = entry.train_entry(device="cuda", aligned=True)
+    model = state.model
+    results = []
+    for impl in ("cuda", "plain"):
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        losses, _ = model.train_forward(*args[:2], state.da_state, *args[2:],
+                                        aligned=True, deterministic=True,
+                                        generator=gen, impl=impl)
+        sum(losses.values()).backward()
+        results.append(({k: v.item() for k, v in losses.items()},
+                        {n: p.grad.clone() for n, p in model.named_parameters()
+                         if p.requires_grad}))
+    (lk, gk), (lp, gp) = results
+    assert set(lk) == set(lp)
+    for k in lp:
+        assert lk[k] == pytest.approx(lp[k], rel=1e-4), (k, lk, lp)
+    # leaves whose terms cancel to near zero: a floor of 1e-6 of the
+    # model's largest gradient
+    floor = 1e-6 * max(float(g.abs().max()) for g in gp.values())
+    for n, g in gp.items():
+        torch.testing.assert_close(gk[n], g, rtol=0,
+                                   atol=1e-3 * float(g.abs().max()) + floor)

@@ -1,7 +1,8 @@
 """Ground rules of the PyTorch port: it imports no JAX and nothing of the JAX
-package, its entry points never carry on quietly on the CPU, its weight
-loader is strict, its kernel build raises without nvcc, and its config copy
-parses every YAML of the repository."""
+package, its entry points (eval and train) never carry on quietly on the CPU,
+its weight loader is strict (the DA heads included), its kernel wrappers
+refuse other devices, its kernel builds raise without nvcc, and its config
+copy parses every YAML of the repository."""
 
 import ast
 import glob
@@ -15,7 +16,8 @@ import da_detect_tpu_torch
 from da_detect_tpu_torch import entry, kernels
 from da_detect_tpu_torch.config import get_cfg
 from da_detect_tpu_torch.ops import nms_cuda, roi_align_cuda
-from da_detect_tpu_torch.utils.weights import load_jax_variables, torch_name
+from da_detect_tpu_torch.utils.weights import (jax_state_dict,
+                                               load_jax_variables, torch_name)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_FILES = sorted(
@@ -67,6 +69,12 @@ def test_entry_raises_without_cuda(monkeypatch):
     assert entry.resolve_device("cpu") == torch.device("cpu")
 
 
+def test_train_entry_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry.train_entry()
+
+
 def test_weight_loader_raises_on_unknown_key():
     from da_detect_tpu_torch.models import build_detection_model
 
@@ -81,14 +89,48 @@ def test_weight_loader_raises_on_unknown_key():
                 "kernel": np.zeros((1, 1, 4, 4), np.float32)}}}}}}})
     with pytest.raises(KeyError, match="collections"):
         load_jax_variables(model, {"batch_stats": {}})
-    # the DA heads act in training only: skipped, not an error, but every
-    # model entry must still be set
-    with pytest.raises(RuntimeError, match="Missing key"):
+    # the DA heads are mapped now: a name under them that the port lacks
+    # raises like any other
+    with pytest.raises(KeyError, match="no port counterpart"):
         load_jax_variables(model, {"params": {"da_heads": {"imghead": {
             "kernel": np.zeros((1, 1, 4, 4), np.float32)}}}})
+    # and every model entry must still be set
+    conv1 = model.da_heads.imghead.conv1_da.weight
+    with pytest.raises(RuntimeError, match="Missing key"):
+        load_jax_variables(model, {"params": {"da_heads": {"imghead": {
+            "conv1_da": {"kernel": np.zeros(
+                (1, 1, conv1.shape[1], conv1.shape[0]), np.float32)}}}}})
     assert torch_name("feature_extractor/head/layer4/block2/downsample_bn/"
                       "scale") == ("roi_heads.box.feature_extractor.head."
                                    "layer4.2.downsample.1.weight")
+
+
+def test_weight_loader_maps_da_heads():
+    """JAX da_heads variables land on the port's DA heads: 1x1 HWIO convs
+    as OIHW, Dense [in, out] as [out, in]. (Eval variables, which carry no
+    da_heads, load into a model with DA heads in tests/test_torch_slice.py.)
+    """
+    from da_detect_tpu_torch.models import build_detection_model
+
+    cfg = entry.flagship_cfg(canvas=(64, 96), test_tops=(64, 16))
+    model = build_detection_model(cfg)
+    own = model.state_dict()
+    rng = np.random.RandomState(0)
+    kernel = rng.randn(1, 1, 1024, 512).astype(np.float32)
+    dense = rng.randn(2048, 1024).astype(np.float32)
+    state = jax_state_dict({"params": {"da_heads": {
+        "imghead": {"conv1_da": {"kernel": kernel}},
+        "inshead": {"fc1_da": {"kernel": dense}}}}})
+    np.testing.assert_array_equal(
+        state["da_heads.imghead.conv1_da.weight"].numpy(),
+        kernel.transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(
+        state["da_heads.inshead.fc1_da.weight"].numpy(), dense.T)
+    assert set(k for k in own if k.startswith("da_heads.")) == {
+        f"da_heads.{head}.{layer}.{kind}"
+        for head, layers in (("imghead", ("conv1_da", "conv2_da")),
+                             ("inshead", ("fc1_da", "fc2_da", "fc3_da")))
+        for layer in layers for kind in ("weight", "bias")}
 
 
 def test_unsupported_configs_raise():
@@ -106,12 +148,14 @@ def test_unsupported_configs_raise():
             build_detection_model(cfg)
 
 
-def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+@pytest.mark.parametrize("names", [None, ["roi_align_bwd"]])
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path, names):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build"))
+    assert "roi_align_bwd" in kernels.SOURCES
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        kernels.build()
+        kernels.build(names)
 
 
 def test_wrappers_refuse_other_devices():
@@ -124,6 +168,10 @@ def test_wrappers_refuse_other_devices():
         roi_align_cuda.roi_align(torch.empty(1, 4, 5, 5, **meta),
                                  torch.empty(1, 3, 4, **meta),
                                  spatial_scale=1.0, output_size=2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        roi_align_cuda.roi_align_backward(
+            torch.empty(1, 3, 4, 2, 2, **meta), torch.empty(1, 3, 4, **meta),
+            height=5, width=5, spatial_scale=1.0, output_size=2)
 
 
 @pytest.mark.parametrize("path", YAMLS,

@@ -1,7 +1,9 @@
 """The port's ROIAlign (da_detect_tpu_torch/ops/roi_align.py and the CPU
 branch of the kernel wrapper ops/roi_align_cuda.py) against the JAX
-package's Pallas kernel (interpret mode) and its einsum roi_align_image.
-Tolerance rtol = atol = 1e-5: the same float32 sums in another order."""
+package's Pallas kernel (interpret mode) and its einsum roi_align_image,
+forward and backward (d features, against jax.grad of both). Tolerance
+rtol = atol = 1e-5: the same float32 sums in another order. The plain
+version's gradient is also checked numerically in float64 (gradcheck)."""
 
 import jax
 import jax.numpy as jnp
@@ -111,3 +113,91 @@ def test_roi_align_image_matches_jax():
     got = tra.roi_align_image(nhwc_to_torch(feats)[0],
                               torch.from_numpy(rois[0]), **kw)
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, **TOL)
+
+
+OOB_ROIS = np.asarray([[[-40.0, -30.0, 60.0, 50.0], [200.0, 120.0, 300.0, 200.0],
+                        [-100.0, -100.0, -50.0, -50.0], [1e4, 1e4, 2e4, 2e4],
+                        [30.0, 40.0, 30.0, 40.0], [80.0, 90.0, 20.0, 10.0],
+                        [-16.0, 0.0, 256.0, 160.0]]], np.float32)
+
+
+def _port_grads(feats, rois, g, **kw):
+    """d features [B, H, W, C] of sum(roi_align * g) (g [B, R, P, P, C]) by
+    three routes: autograd of the plain version, autograd of the kernel
+    wrapper (the plain version on the CPU), and the backward kernel's
+    wrapper called directly (its plain branch, ``roi_align_grad``)."""
+    gt = torch.from_numpy(g).permute(0, 1, 4, 2, 3)
+    rt = torch.from_numpy(rois)
+    out = []
+    for fn in (tra.roi_align, roi_align_cuda.roi_align):
+        f = nhwc_to_torch(feats).requires_grad_()
+        (fn(f, rt, **kw) * gt).sum().backward()
+        out.append(f.grad.permute(0, 2, 3, 1).numpy())
+    direct = roi_align_cuda.roi_align_backward(
+        gt, rt, height=feats.shape[1], width=feats.shape[2], **kw)
+    out.append(direct.permute(0, 2, 3, 1).numpy())
+    return out
+
+
+def _jax_grad(fn, feats, rois, g):
+    return np.asarray(jax.grad(lambda f: jnp.sum(fn(f) * g))(
+        jnp.asarray(feats)))
+
+
+@pytest.mark.parametrize("p,sampling_ratio", [(7, 2), (14, 0)])
+def test_roi_align_backward_matches_jax(p, sampling_ratio):
+    """R = 11, not a multiple of the Pallas kernel's ROI block."""
+    feats, rois = _random_case(5)
+    kw = dict(spatial_scale=1.0 / 16, output_size=p,
+              sampling_ratio=sampling_ratio, max_samples=4)
+    g = np.random.RandomState(6).randn(2, 11, p, p, 128).astype(np.float32)
+    want_pallas = _jax_grad(lambda f: rap.roi_align_pallas(
+        f, jnp.asarray(rois), **kw), feats, rois, g)
+    want_einsum = _jax_grad(lambda f: jax.vmap(
+        lambda fi, ri: jra.roi_align_image(fi, ri, **kw))(
+            f, jnp.asarray(rois)), feats, rois, g)
+    np.testing.assert_allclose(want_pallas, want_einsum, **TOL)
+    for got in _port_grads(feats, rois, g, **kw):
+        np.testing.assert_allclose(got, want_pallas, **TOL)
+
+
+@pytest.mark.parametrize("sampling_ratio", [2, 0])
+def test_roi_align_backward_out_of_bounds_rois(sampling_ratio):
+    """ROIs off the map, degenerate and inverted scatter nothing outside
+    [-1, size] and clamp at the edges, as the forward reads."""
+    feats, _ = _random_case(7, b=1, c=16)
+    kw = dict(spatial_scale=1.0 / 16, output_size=7,
+              sampling_ratio=sampling_ratio, max_samples=8)
+    g = np.random.RandomState(8).randn(1, 7, 7, 7, 16).astype(np.float32)
+    want = _jax_grad(lambda f: jax.vmap(
+        lambda fi, ri: jra.roi_align_image(fi, ri, **kw))(
+            f, jnp.asarray(OOB_ROIS)), feats, OOB_ROIS, g)
+    for got in _port_grads(feats, OOB_ROIS, g, **kw):
+        assert np.all(np.isfinite(got))
+        np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_roi_align_backward_empty_rois():
+    feats, _ = _random_case(9, b=1, c=8)
+    kw = dict(spatial_scale=1.0 / 16, output_size=7, sampling_ratio=2)
+    rois = np.zeros((1, 0, 4), np.float32)
+    g = np.zeros((1, 0, 7, 7, 8), np.float32)
+    for got in _port_grads(feats, rois, g, **kw):
+        assert got.shape == feats.shape and not got.any()
+
+
+@pytest.mark.parametrize("fn", [tra.roi_align, roi_align_cuda.roi_align],
+                         ids=["plain", "autograd_function"])
+def test_roi_align_gradcheck_float64(fn):
+    """The analytic gradient against finite differences in float64 (the
+    forward is linear in the features, so the check is exact up to
+    rounding)."""
+    rng = np.random.RandomState(10)
+    feats = torch.from_numpy(rng.randn(1, 3, 6, 7)).requires_grad_()
+    rois = torch.from_numpy(np.concatenate(
+        [_random_case(11, b=1, r=3, h=6, w=7, c=3)[1], OOB_ROIS[:, [0, 4]]],
+        axis=1))
+    for sr in (0, 2):
+        assert torch.autograd.gradcheck(
+            lambda f: fn(f, rois, spatial_scale=1.0 / 16, output_size=3,
+                         sampling_ratio=sr, max_samples=4), (feats,))
