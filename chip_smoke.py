@@ -5,7 +5,7 @@
 
 Phases, one JSON line each:
   1. env       torch, CUDA and nvcc versions, the card's name and power limit
-  2. build     the three CUDA kernels, compiled from csrc/ for sm_90a
+  2. build     the five CUDA kernels, compiled from csrc/ for sm_90a
   3. kernels   each kernel against its plain PyTorch version on the card, at
                the main paths' shapes and on the CPU tests' edge cases
   4. slice     the flagship R-50-C4 config (its YAML) at the 608x1216 canvas
@@ -18,15 +18,24 @@ Phases, one JSON line each:
                kernel-run against plain-run step 1, timed steps with launch
                counts, the step's split and profile, 2 aligned steps
   7. train_times  kernel and plain times on the train path's kernel inputs
+  8. dcn       the X-101-32x8d-FPN-DCN YAML at 608x1216 in float32 through
+               ``entry(cfg=dcn_cfg())``: 4 requests with exact launch counts
+               (row_gather 270 a forward, NMS 6, ROIAlign 4), one request with
+               impl="plain" and one with TPU.DCN_GATHER "quad" (row_gather_bulk
+               270) that must agree with it
+  9. dcn_times  each gather's kernel, plain and ``torch.index_select`` times
+               on the path's inputs, summed a forward, with the byte bound;
+               forward latency, stage split, profile and peak memory
 Then a line with every kernel's numbers, the nvidia-smi line of the card, and
 last ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. With no CUDA device it exits 1 at once.
 
 Tolerances: NMS keep masks exactly; ROIAlign rtol = atol = 1e-5 (float32 sums
-in another order); kernel-run against plain-run detections: the same valid
-count, and each detection has a twin with the same label, boxes within
-1e-2 pixels and scores within 1e-4 (the pooled features differ by float32
-rounding, which the res5 head carries into the scores).
+in another order); the row gathers bit for bit (copies); kernel-run against
+plain-run detections, and "quad" against "four": the same valid count, and
+each detection has a twin with the same label, boxes within 1e-2 pixels and
+scores within 1e-4 (the pooled features differ by float32 rounding, which
+the box head carries into the scores).
 """
 
 from __future__ import annotations
@@ -81,6 +90,32 @@ TRAIN_NMS_BOXES, TRAIN_ROIS = 12000, 256
 TRAIN_LOSS_RTOL, TRAIN_GRAD_REL, TRAIN_GRAD_FLOOR = 1e-4, 1e-3, 1e-6
 ROI_BWD_REL = 1e-5
 
+# the DCN model: launches a forward makes. A row gather a tap of each of the
+# 30 deformable convs (res3 4, res4 23, res5 3 blocks; 9 taps); NMS in the
+# RPN's 5 levels (P2-P6) and the box head; ROIAlign from each of P2-P5
+PER_DCN_FORWARD = {"row_gather": 270, "nms": 6, "roi_align_fwd": 4}
+PER_QUAD_FORWARD = {"row_gather_bulk": 270, "nms": 6, "roi_align_fwd": 4}
+# conv_offset kernels drawn from this seed, each scaled so that its offsets
+# have this standard deviation (pixels): samples spread over about +-2 px
+DCN_SEED, DCN_OFFSET_STD = 0, 1.0
+DCN_PROFILE_RUNS, GATHER_TIMING_RUNS = 3, 10
+# row gathers against the plain version at the DCN path's shapes, 608x1216:
+# name -> (S table rows, C, P indices, row stride or None)
+GATHER_CASES = {
+    "probe": (76 * 152, 512, 4 * 76 * 152, None),  # the TPU probe's own shape
+    "res3_block0": (152 * 304, 512, 4 * 76 * 152, None),  # stride-2 conv2
+    "res4_block0": (76 * 152, 1024, 4 * 38 * 76, None),
+    "res4": (38 * 76, 1024, 4 * 38 * 76, None),
+    "res5_block0": (38 * 76, 2048, 4 * 19 * 38, None),
+    "res5": (19 * 38, 2048, 4 * 19 * 38, None),
+    "quad_res3": (76 * 152 - 1 - 152, 4 * 512, 76 * 152, None),
+    "quad_res3_block0": (152 * 304 - 1 - 304, 4 * 512, 76 * 152, None),
+    "c6_scalar": (50, 6, 333, None),        # rows of 24 B: no 16-byte vectors
+    "column_slice": (40, 16, 257, 48),      # one deformable group's columns
+    "empty": (10, 8, 0, None),
+}
+GATHER_BF16_CASES = ("probe", "quad_res3", "column_slice")
+
 SOURCES = {
     "nms": ("da_detect_tpu_torch/kernels/csrc/nms.cu",
             "da_detect_tpu/ops/nms_pallas.py:117"),
@@ -88,7 +123,15 @@ SOURCES = {
                       "da_detect_tpu/ops/roi_align_pallas.py:108"),
     "roi_align_bwd": ("da_detect_tpu_torch/kernels/csrc/roi_align_bwd.cu",
                       "da_detect_tpu/ops/roi_align_pallas.py:138"),
+    "row_gather": ("da_detect_tpu_torch/kernels/csrc/row_gather.cu",
+                   "scripts/bench_gather_pallas.py:35"),
+    "row_gather_bulk": ("da_detect_tpu_torch/kernels/csrc/row_gather_bulk.cu",
+                        "scripts/bench_gather_pallas.py:75"),
 }
+# the path whose run gives each kernel's launches and times in the last line
+MAIN_PATH = {"nms": "train", "roi_align_fwd": "train",
+             "roi_align_bwd": "train", "row_gather": "dcn",
+             "row_gather_bulk": "dcn_quad"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -253,17 +296,43 @@ def check_roi_align_backward(rois, grad, height, width,
     return err, scale
 
 
+def check_gather(name: str, table, idx) -> float:
+    """The named gather kernel against the plain version: bit for bit."""
+    from da_detect_tpu_torch.ops import gather, gather_cuda
+
+    got = getattr(gather_cuda, name)(table, idx)
+    want = gather.row_gather(table, idx)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        bad = int((got != want).any(-1).sum()) if got.shape == want.shape \
+            else "all"
+        raise AssertionError(f"gather kernel {name} differs from the plain "
+                             f"version in {bad} of {idx.numel()} rows (table "
+                             f"{tuple(table.shape)} {table.dtype})")
+    return float((got.float() - want.float()).abs().max()) \
+        if got.numel() else 0.0
+
+
 @contextlib.contextmanager
 def record_kernel_inputs():
     """While open, each kernel wrapper's inputs are recorded on the way (the
     kernels' inputs as a main path gives them): yields a dict kernel name ->
-    list of inputs."""
-    from da_detect_tpu_torch.ops import nms_cuda, roi_align_cuda
+    list of inputs. A gather's table is kept by reference (no copy): the
+    forward writes no tensor in place."""
+    from da_detect_tpu_torch.ops import gather_cuda, nms_cuda, roi_align_cuda
 
     captured = {name: [] for name in SOURCES}
     nms_kernel = nms_cuda.nms_mask_sorted
     fwd_kernel = roi_align_cuda.roi_align_forward
     bwd_kernel = roi_align_cuda.roi_align_backward
+    gathers = {name: getattr(gather_cuda, name)
+               for name in ("row_gather", "row_gather_bulk")}
+
+    def gather_rec(name):
+        def rec(table, idx):
+            captured[name].append((table, idx.clone()))
+            return gathers[name](table, idx)
+        return rec
 
     def nms_rec(boxes, valid, thresh):
         captured["nms"].append((boxes.clone(), valid.clone(), thresh))
@@ -282,12 +351,38 @@ def record_kernel_inputs():
     nms_cuda.nms_mask_sorted = nms_rec
     roi_align_cuda.roi_align_forward = fwd_rec
     roi_align_cuda.roi_align_backward = bwd_rec
+    for name in gathers:
+        setattr(gather_cuda, name, gather_rec(name))
     try:
         yield captured
     finally:
         nms_cuda.nms_mask_sorted = nms_kernel
         roi_align_cuda.roi_align_forward = fwd_kernel
         roi_align_cuda.roi_align_backward = bwd_kernel
+        for name, fn in gathers.items():
+            setattr(gather_cuda, name, fn)
+
+
+def check_captured(captured) -> dict:
+    """Each kernel against its plain version on a main path's own inputs
+    (``captured`` from ``record_kernel_inputs``): the largest error a
+    kernel."""
+    errs = {}
+    for boxes, valid, thresh in captured["nms"]:
+        errs["nms"] = max(errs.get("nms", 0),
+                          check_nms(boxes, valid, thresh)[0])
+    for feats, rois, kw in captured["roi_align_fwd"]:
+        errs["roi_align_fwd"] = max(errs.get("roi_align_fwd", 0.0),
+                                    check_roi_align(feats, rois, **kw))
+    for grad, rois, h, w, kw in captured["roi_align_bwd"]:
+        errs["roi_align_bwd"] = max(
+            errs.get("roi_align_bwd", 0.0),
+            check_roi_align_backward(rois, grad, h, w, **kw)[0])
+    for name in ("row_gather", "row_gather_bulk"):
+        for table, idx in captured[name]:
+            errs[name] = max(errs.get(name, 0.0),
+                             check_gather(name, table, idx))
+    return errs
 
 
 def match_detections(a, b) -> dict:
@@ -438,6 +533,34 @@ def phase_kernels(dev) -> dict:
     bwd_case("bwd_empty", (1, 16, 10, 16), np.zeros((1, 0, 4), np.float32),
              spatial_scale=1 / 16, output_size=7, sampling_ratio=2,
              max_samples=8)
+
+    from da_detect_tpu_torch.ops import gather_cuda
+
+    gather_errs = {"row_gather": 0.0, "row_gather_bulk": 0.0}
+    for case, (s, c, p, stride) in GATHER_CASES.items():
+        for dtype in ((torch.float32, torch.bfloat16)
+                      if case in GATHER_BF16_CASES else (torch.float32,)):
+            wide = torch.from_numpy(rng.randn(s, stride or c).astype(
+                np.float32)).to(dev, dtype)
+            table = wide[:, 8:8 + c] if stride else wide
+            # a tenth of the indices out of range on either side: clamped
+            idx = torch.from_numpy(rng.randint(
+                -s // 10 - 1, s + s // 10 + 1, p).astype(np.int32)).to(dev)
+            for name in gather_errs:
+                key = f"{name}_{case}_{str(dtype)[6:]}"
+                if name == "row_gather_bulk" and (c * table.element_size()
+                                                  ) % 16:
+                    try:
+                        gather_cuda.row_gather_bulk(table, idx)
+                    except ValueError:
+                        results[key] = dict(refused="rows not 16-byte "
+                                                    "aligned")
+                        continue
+                    raise AssertionError(f"{key}: unaligned rows accepted")
+                err = check_gather(name, table, idx)
+                gather_errs[name] = max(gather_errs[name], err)
+                results[key] = dict(max_abs_err=err, table=[s, c],
+                                    row_stride=table.stride(0), indices=p)
     emit("kernels", **results)
     return dict(
         nms=max(r["mismatches"] for k, r in results.items()
@@ -445,7 +568,8 @@ def phase_kernels(dev) -> dict:
         roi_align_fwd=max(r["max_abs_err"] for k, r in results.items()
                           if k.startswith("roi")),
         roi_align_bwd=max(r["max_abs_err"] for k, r in results.items()
-                          if k.startswith("bwd")))
+                          if k.startswith("bwd")),
+        **gather_errs)
 
 
 def flagship_model(dev):
@@ -466,10 +590,12 @@ def flagship_model(dev):
     return cfg, fn, model, batches
 
 
-def phase_slice(dev):
+def serve_requests(fn, model, batches, per_forward: dict, label: str):
+    """The main path: counts set to 0, one request a batch through ``fn``,
+    counts read. Raises if a kernel ran another number of times than
+    ``per_forward`` a request. Returns (answers, launches, seconds)."""
     from da_detect_tpu_torch import kernels
 
-    cfg, fn, model, batches = flagship_model(dev)
     torch.cuda.synchronize()
     kernels.LAUNCHES.clear()
     t0 = time.perf_counter()
@@ -477,27 +603,35 @@ def phase_slice(dev):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {name: kernels.LAUNCHES[name] for name in kernels.SOURCES}
-    for name, n in {**dict.fromkeys(kernels.SOURCES, 0),
-                    **PER_FORWARD}.items():
-        if launches[name] != n * REQUESTS:
-            raise AssertionError(f"kernel {name} launched {launches[name]} "
-                                 f"times in {REQUESTS} requests, expected "
-                                 f"{n * REQUESTS}")
-    summary = []
-    for dets in answers:
-        if tuple(dets.boxes.shape) != (1, cfg.MODEL.ROI_HEADS.DETECTIONS_PER_IMG,
-                                       4):
-            raise AssertionError(f"detections {tuple(dets.boxes.shape)}")
-        if not (torch.isfinite(dets.boxes).all()
-                and torch.isfinite(dets.scores).all()):
-            raise AssertionError("non-finite detections")
-        n_valid = int(dets.valid.sum())
-        if n_valid == 0:
-            raise AssertionError("a request returned no detection")
-        summary.append(dict(valid=n_valid,
-                            top_score=float(dets.scores.max()),
-                            labels=sorted(set(dets.labels[dets.valid]
-                                              .tolist()))))
+    n = len(batches)
+    for name in kernels.SOURCES:
+        if launches[name] != per_forward.get(name, 0) * n:
+            raise AssertionError(f"{label}: kernel {name} launched "
+                                 f"{launches[name]} times in {n} requests, "
+                                 f"expected {per_forward.get(name, 0) * n}")
+    return answers, launches, seconds
+
+
+def check_detections(cfg, dets) -> dict:
+    """Shape, finiteness and at least one valid detection; a summary."""
+    if tuple(dets.boxes.shape) != (1, cfg.MODEL.ROI_HEADS.DETECTIONS_PER_IMG,
+                                   4):
+        raise AssertionError(f"detections {tuple(dets.boxes.shape)}")
+    if not (torch.isfinite(dets.boxes).all()
+            and torch.isfinite(dets.scores).all()):
+        raise AssertionError("non-finite detections")
+    n_valid = int(dets.valid.sum())
+    if n_valid == 0:
+        raise AssertionError("a request returned no detection")
+    return dict(valid=n_valid, top_score=float(dets.scores.max()),
+                labels=sorted(set(dets.labels[dets.valid].tolist())))
+
+
+def phase_slice(dev):
+    cfg, fn, model, batches = flagship_model(dev)
+    answers, launches, seconds = serve_requests(fn, model, batches,
+                                                PER_FORWARD, "slice")
+    summary = [check_detections(cfg, dets) for dets in answers]
 
     with record_kernel_inputs() as captured:
         dets_k = fn(model, batches[0])
@@ -505,13 +639,7 @@ def phase_slice(dev):
                           for x, y in zip(dets_k, answers[0]))
     dets_p = model(batches[0], impl="plain")
     agreement = match_detections(dets_k, dets_p)
-    # the main path's own kernel inputs, kernel against plain
-    errs = {"nms": 0, "roi_align_fwd": 0.0}
-    for boxes, valid, thresh in captured["nms"]:
-        errs["nms"] = max(errs["nms"], check_nms(boxes, valid, thresh)[0])
-    for feats, rois, kw in captured["roi_align_fwd"]:
-        errs["roi_align_fwd"] = max(errs["roi_align_fwd"],
-                                    check_roi_align(feats, rois, **kw))
+    errs = check_captured(captured)
     emit("slice", config=os.path.relpath(FLAGSHIP_YAML, REPO),
          canvas=list(CANVAS), requests=REQUESTS, seconds=seconds,
          launches=launches, detections=summary,
@@ -526,14 +654,11 @@ def phase_slice(dev):
     return model, fn, batches, captured, launches, errs
 
 
-def stage_times(model, batch, runs: int = 10) -> dict:
+def stage_times(model, batch, marks, spans, runs: int = 10) -> dict:
     """Median device time of each stage of the forward, from CUDA events
-    recorded by module hooks."""
-    box = model.roi_heads["box"]
-    marks = [("backbone", model.backbone), ("rpn_head", model.rpn["head"]),
-             ("extractor", box["feature_extractor"]),
-             ("res5_head", box["feature_extractor"].head),
-             ("predictor", box["predictor"])]
+    recorded by module hooks: ``marks`` names modules (events "name.in" and
+    "name.out" around each; "start" and "end" around the forward), ``spans``
+    maps a stage to its (first event, last event)."""
     events: dict[str, torch.cuda.Event] = {}
 
     def rec(key):
@@ -546,14 +671,6 @@ def stage_times(model, batch, runs: int = 10) -> dict:
     for name, mod in marks:
         handles.append(mod.register_forward_pre_hook(rec(name + ".in")))
         handles.append(mod.register_forward_hook(rec(name + ".out")))
-    spans = {"normalize": ("start", "backbone.in"),
-             "backbone": ("backbone.in", "backbone.out"),
-             "rpn_head": ("rpn_head.in", "rpn_head.out"),
-             "proposals_with_nms": ("rpn_head.out", "extractor.in"),
-             "roi_align": ("extractor.in", "res5_head.in"),
-             "res5_head": ("res5_head.in", "res5_head.out"),
-             "predictor": ("predictor.in", "predictor.out"),
-             "postprocess_with_nms": ("predictor.out", "end")}
     samples = {k: [] for k in spans}
     try:
         for i in range(runs + 2):
@@ -573,7 +690,8 @@ def stage_times(model, batch, runs: int = 10) -> dict:
 def time_sites(captured, path: str, nms_sites) -> list:
     """Kernel and plain times, and the bound, of each kernel launch a main
     path made (``captured`` from ``record_kernel_inputs``), on its inputs."""
-    from da_detect_tpu_torch.ops import nms, nms_cuda, roi_align, roi_align_cuda
+    from da_detect_tpu_torch.ops import (gather, gather_cuda, nms, nms_cuda,
+                                         roi_align, roi_align_cuda)
 
     sites = []
     for (boxes, valid, thresh), site in zip(captured["nms"], nms_sites):
@@ -612,6 +730,32 @@ def time_sites(captured, path: str, nms_sites) -> list:
             plain_ms=time_ms(lambda: roi_align.roi_align_grad(
                 grad, rois, height=h, width=w, **kw), runs=20),
             bound_ms=bound_ms, bound_by=by))
+    for name in ("row_gather", "row_gather_bulk"):
+        kernel = getattr(gather_cuda, name)
+        for i, (table, idx) in enumerate(captured[name]):
+            s = table.shape[0]
+            if idx.numel() and not (0 <= int(idx.min())
+                                    and int(idx.max()) < s):
+                raise AssertionError(f"{path}: a {name} index of the main "
+                                     f"path lies outside its table of {s}")
+            # bytes: each distinct row read once, the indices, the output
+            rows = int(torch.unique(idx).numel())
+            row_bytes = table.shape[1] * table.element_size()
+            nbytes = rows * row_bytes + 4 * idx.numel() \
+                + idx.numel() * row_bytes
+            bound_ms, by = bound(nbytes, 0)
+            sites.append(dict(
+                kernel=name, path=path, site=f"tap{i}",
+                table=list(table.shape), row_stride=table.stride(0),
+                indices=idx.numel(), distinct_rows=rows, bytes=nbytes,
+                operations=0,
+                ms=time_ms(lambda: kernel(table, idx),
+                           runs=GATHER_TIMING_RUNS),
+                plain_ms=time_ms(lambda: gather.row_gather(table, idx),
+                                 runs=GATHER_TIMING_RUNS),
+                library_ms=time_ms(lambda: torch.index_select(table, 0, idx),
+                                   runs=GATHER_TIMING_RUNS),
+                bound_ms=bound_ms, bound_by=by))
     return sites
 
 
@@ -620,7 +764,20 @@ def phase_times(model, fn, batches, captured) -> list:
     batch = batches[0]
     forward_ms = host_ms(lambda: fn(model, batch))
     forward_plain_ms = host_ms(lambda: model(batch, impl="plain"))
-    stages = stage_times(model, batch)
+    box = model.roi_heads["box"]
+    marks = [("backbone", model.backbone), ("rpn_head", model.rpn["head"]),
+             ("extractor", box["feature_extractor"]),
+             ("res5_head", box["feature_extractor"].head),
+             ("predictor", box["predictor"])]
+    spans = {"normalize": ("start", "backbone.in"),
+             "backbone": ("backbone.in", "backbone.out"),
+             "rpn_head": ("rpn_head.in", "rpn_head.out"),
+             "proposals_with_nms": ("rpn_head.out", "extractor.in"),
+             "roi_align": ("extractor.in", "res5_head.in"),
+             "res5_head": ("res5_head.in", "res5_head.out"),
+             "predictor": ("predictor.in", "predictor.out"),
+             "postprocess_with_nms": ("predictor.out", "end")}
+    stages = stage_times(model, batch, marks, spans)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fn(model, batch)
@@ -743,6 +900,8 @@ KERNEL_GROUPS = (
     ("roi_align_bwd", ("roi_align_bwd",)),
     ("roi_align_fwd", ("roi_align_fwd",)),
     ("nms", ("nms_",)),
+    ("row_gather_bulk", ("row_gather_bulk",)),
+    ("row_gather", ("row_gather",)),
     ("convolution", ("conv", "cudnn", "xmma", "fprop", "dgrad", "wgrad",
                      "implicit", "winograd", "fft")),
     ("matmul", ("gemm", "cutlass", "cublas")),
@@ -753,10 +912,11 @@ KERNEL_GROUPS = (
 )
 
 
-def train_profile(step, state, args, runs: int) -> dict:
-    """``runs`` train steps under ``torch.profiler``: device time by kernel
-    group and the top kernels, and the device's busy share of the host's
-    wall clock (both under the profiler's own overhead)."""
+def device_profile(run, runs: int) -> dict:
+    """``runs`` calls of ``run()`` (a train step or a forward) under
+    ``torch.profiler``: device time a call by kernel group and the top
+    kernels, and the device's busy share of the host's wall clock (both
+    under the profiler's own overhead)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -765,7 +925,7 @@ def train_profile(step, state, args, runs: int) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(runs):
-            state, _ = step(state, *args)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kern = [e for e in prof.key_averages()
@@ -781,13 +941,13 @@ def train_profile(step, state, args, runs: int) -> dict:
     busy_ms = sum(groups.values())
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
     return dict(
-        steps=runs, wall_ms_per_step=wall_ms / runs,
-        device_ms_per_step=busy_ms,
+        runs=runs, wall_ms_per_run=wall_ms / runs,
+        device_ms_per_run=busy_ms,
         device_busy_share=busy_ms * runs / wall_ms,
-        groups_ms_per_step=dict(sorted(groups.items(),
-                                       key=lambda kv: -kv[1])),
-        top_kernels=[dict(name=e.key[:100], calls_per_step=e.count / runs,
-                          ms_per_step=e.self_device_time_total / 1e3 / runs)
+        groups_ms_per_run=dict(sorted(groups.items(),
+                                      key=lambda kv: -kv[1])),
+        top_kernels=[dict(name=e.key[:100], calls_per_run=e.count / runs,
+                          ms_per_run=e.self_device_time_total / 1e3 / runs)
                      for e in top])
 
 
@@ -829,24 +989,20 @@ def phase_train(dev):
     state, launches, times, metrics = run_steps(
         step, state, args, TRAIN_STEPS, PER_TRAIN_STEP, "train")
     split = train_split(step, state, args, SPLIT_STEPS)
-    profile = train_profile(step, state, args, PROFILE_STEPS)
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], *args)
+
+    profile = device_profile(one_step, PROFILE_STEPS)
+    state = holder[0]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with record_kernel_inputs() as captured:
         state, _ = step(state, *args)
         torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    # the main path's own kernel inputs, kernel against plain
-    errs = {"nms": 0, "roi_align_fwd": 0.0, "roi_align_bwd": 0.0}
-    for boxes, valid, thresh in captured["nms"]:
-        errs["nms"] = max(errs["nms"], check_nms(boxes, valid, thresh)[0])
-    for feats, rois, kw in captured["roi_align_fwd"]:
-        errs["roi_align_fwd"] = max(errs["roi_align_fwd"],
-                                    check_roi_align(feats, rois, **kw))
-    for grad, rois, h, w, kw in captured["roi_align_bwd"]:
-        errs["roi_align_bwd"] = max(errs["roi_align_bwd"],
-                                    check_roi_align_backward(rois, grad, h, w,
-                                                             **kw)[0])
+    errs = check_captured(captured)
     margins = float(state.da_state.margin_img)
     del step, state
 
@@ -881,37 +1037,247 @@ def phase_train(dev):
     return captured, launches, errs
 
 
-def kernel_line(eval_sites, train_sites, eval_launches, train_launches,
-                errs) -> dict:
-    """One row a kernel. ``launches`` is the train path's count (the
-    slice's main path, TRAIN_STEPS steps); ms, plain_ms and the bound are
-    one train step's launches summed over their call sites; the eval path's
-    sums stand beside them."""
+# ---------------------------------------------------------------- DCN
+
+DCN_NMS_SITES = ("rpn_p2", "rpn_p3", "rpn_p4", "rpn_p5", "rpn_p6",
+                 "box_head")
+
+
+def dcn_model(dev, gather_mode: str):
+    """The X-101-32x8d-FPN-DCN YAML at the 608x1216 canvas in float32 with
+    ``TPU.DCN_GATHER`` = ``gather_mode``, through ``entry(cfg=...)`` with
+    random weights from seed 0."""
+    from da_detect_tpu_torch import entry
+
+    cfg = entry.dcn_cfg(CANVAS)
+    cfg.TPU.DCN_GATHER = gather_mode
+    cfg.freeze()
+    fn, (model, _) = entry.entry(device=str(dev), seed=0, cfg=cfg)
+    return cfg, fn, model
+
+
+def spread_dcn(model, batch) -> list:
+    """What the script changes in the random model: the score layers x 30,
+    as for the flagship, and every ``conv_offset`` kernel (zero in the
+    package's init, which puts each sample on the grid with corner weights
+    (1, 0, 0, 0)) drawn normal from DCN_SEED, then scaled in one forward,
+    layer by layer in forward order, so that its offsets have a standard
+    deviation of DCN_OFFSET_STD pixels. Returns each layer's offset std
+    before scaling."""
+    from da_detect_tpu_torch.layers import DeformConv2d
+
+    gen = torch.Generator().manual_seed(DCN_SEED)
+    raw = []
+
+    def calibrate(mod, _inputs, out):
+        raw.append(float(out.std()))
+        mod.weight.mul_(DCN_OFFSET_STD / raw[-1])   # the bias is zero
+        return out * (DCN_OFFSET_STD / raw[-1])
+
+    handles = []
+    with torch.no_grad():
+        model.rpn["head"].cls_logits.weight.mul_(SCORE_SCALE)
+        model.roi_heads["box"]["predictor"].cls_score.weight.mul_(SCORE_SCALE)
+        for m in model.modules():
+            if isinstance(m, DeformConv2d):
+                w = m.conv_offset.weight
+                w.copy_(torch.randn(w.shape, generator=gen))
+                handles.append(m.conv_offset.register_forward_hook(calibrate))
+        try:
+            model(batch)
+        finally:
+            for h in handles:
+                h.remove()
+    return raw
+
+
+def phase_dcn(dev):
+    from da_detect_tpu_torch import entry
+
+    cfg, fn, model = dcn_model(dev, "four")
+    batches = [entry.make_batch(cfg, 1, seed=s, device=dev)[0]
+               for s in range(REQUESTS)]
+    raw_std = spread_dcn(model, batches[0])
+    answers, launches, seconds = serve_requests(fn, model, batches,
+                                                PER_DCN_FORWARD, "dcn")
+    summary = [check_detections(cfg, dets) for dets in answers]
+    # peak memory of one request, before any input is recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    fn(model, batches[0])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+
+    with record_kernel_inputs() as captured:
+        dets_k = fn(model, batches[0])
+    rerun_identical = all(torch.equal(x, y)
+                          for x, y in zip(dets_k, answers[0]))
+    agreement = match_detections(dets_k, model(batches[0], impl="plain"))
+
+    q_cfg, q_fn, q_model = dcn_model(dev, "quad")
+    q_model.load_state_dict(model.state_dict())
+    with record_kernel_inputs() as q_captured:
+        (dets_q,), q_launches, _ = serve_requests(
+            q_fn, q_model, batches[:1], PER_QUAD_FORWARD, "dcn_quad")
+    check_detections(q_cfg, dets_q)
+    quad_agreement = match_detections(dets_q, dets_k)
+    errs = check_captured(captured)
+    for k, v in check_captured(q_captured).items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    emit("dcn", config=os.path.relpath(entry.DCN_YAML, REPO),
+         canvas=list(CANVAS), requests=REQUESTS, seconds=seconds,
+         launches=launches, quad_launches=q_launches, detections=summary,
+         offset_std_before_scaling=dict(min=min(raw_std), max=max(raw_std),
+                                        layers=len(raw_std)),
+         rerun_identical=rerun_identical, plain_agreement=agreement,
+         quad_agreement=quad_agreement, resident_bytes=resident,
+         max_memory_allocated=peak,
+         main_path_inputs={
+             "nms": [dict(shape=list(b.shape), iou=t, valid=int(v.sum()))
+                     for b, v, t in captured["nms"]],
+             "roi_align_fwd": [dict(features=list(f.shape),
+                                    rois=list(r.shape), **kw)
+                               for f, r, kw in captured["roi_align_fwd"]]},
+         max_abs_err=errs)
+    return (model, fn, q_model, q_fn, batches[0], captured, q_captured,
+            launches, q_launches, errs)
+
+
+def gather_device_ms(inputs, name: str) -> dict:
+    """Device time of one forward's gathers (``inputs``: the (table, idx)
+    of each recorded launch), for the kernel, the plain version and
+    ``torch.index_select``: each variant called once per input,
+    GATHER_TIMING_RUNS times over under ``torch.profiler`` after a warm-up
+    pass, its kernels' own device time summed per pass. Unlike CUDA events
+    around each call, this leaves out the host's launch overhead, which is
+    as long as a small gather itself."""
+    from da_detect_tpu_torch.ops import gather, gather_cuda
+
+    variants = {"ms": getattr(gather_cuda, name),
+                "plain_ms": gather.row_gather,
+                "library_ms": lambda t, i: torch.index_select(t, 0, i)}
+    out = {}
+    for key, fn in variants.items():
+        def run():
+            for table, idx in inputs:
+                fn(table, idx)
+        run()
+        prof = device_profile(run, GATHER_TIMING_RUNS)
+        out[key] = prof["device_ms_per_run"]
+        out[key.replace("ms", "busy_share")] = prof["device_busy_share"]
+    return out
+
+
+def gather_groups(sites) -> dict:
+    """The gather sites of one forward summed by kernel and shape."""
+    groups = {}
+    for s in sites:
+        if not s["kernel"].startswith("row_gather"):
+            continue
+        key = (f"{s['kernel']} table {s['table'][0]}x{s['table'][1]} "
+               f"P {s['indices']}")
+        g = groups.setdefault(key, dict(taps=0, ms=0.0, plain_ms=0.0,
+                                        library_ms=0.0, bytes=0))
+        g["taps"] += 1
+        for k in ("ms", "plain_ms", "library_ms", "bytes"):
+            g[k] += s[k]
+    for g in groups.values():
+        g["bound_ms"] = bound(g["bytes"], 0)[0]
+    return groups
+
+
+def phase_dcn_times(model, fn, q_model, q_fn, batch, captured,
+                    q_captured) -> tuple[list, list]:
+    sites = time_sites(captured, "dcn", DCN_NMS_SITES)
+    q_sites = time_sites(q_captured, "dcn_quad", DCN_NMS_SITES)
+    forward_ms = host_ms(lambda: fn(model, batch))
+    quad_forward_ms = host_ms(lambda: q_fn(q_model, batch))
+    forward_plain_ms = host_ms(lambda: model(batch, impl="plain"), runs=5,
+                               warmup=1)
+    body, box = model.backbone.body, model.roi_heads["box"]
+    marks = [("stem", body.stem), ("res2", body.layer1),
+             ("res3", body.layer2), ("res4", body.layer3),
+             ("res5", body.layer4), ("fpn", model.backbone.fpn),
+             ("rpn_head", model.rpn["head"]),
+             ("extractor", box["feature_extractor"]),
+             ("fc6", box["feature_extractor"].fc6),
+             ("predictor", box["predictor"])]
+    spans = {"normalize": ("start", "stem.in"),
+             "body_to_res2": ("stem.in", "res2.out"),
+             "res3": ("res3.in", "res3.out"),
+             "res4": ("res4.in", "res4.out"),
+             "res5": ("res5.in", "res5.out"),
+             "fpn": ("fpn.in", "fpn.out"),
+             "rpn_and_proposals": ("rpn_head.in", "extractor.in"),
+             "pooler": ("extractor.in", "fc6.in"),
+             "box_head": ("fc6.in", "predictor.out"),
+             "postprocess": ("predictor.out", "end")}
+    stages = stage_times(model, batch, marks, spans)
+    profile = device_profile(lambda: fn(model, batch), DCN_PROFILE_RUNS)
+    device = {"row_gather": gather_device_ms(captured["row_gather"],
+                                             "row_gather"),
+              "row_gather_bulk": gather_device_ms(
+                  q_captured["row_gather_bulk"], "row_gather_bulk")}
+    emit("dcn_times", forward_ms=forward_ms, quad_forward_ms=quad_forward_ms,
+         forward_plain_ms=forward_plain_ms, stages_ms=stages,
+         profile=profile, gather_device_ms=device,
+         gather_call_ms={"four": gather_groups(sites),
+                         "quad": gather_groups(q_sites)},
+         sites=[s for s in sites + q_sites
+                if not s["kernel"].startswith("row_gather")])
+    return sites, q_sites, device
+
+
+# ---------------------------------------------------------------- summary
+
+def path_summary(sites, launches: int, device=None) -> dict:
+    """A kernel's launches in a path's run, and its times and bound summed
+    over the sites of one forward or step of that path: CUDA events around
+    each call or, where ``device`` gives them (the gathers), device times
+    from the profiler, the event times then kept as ``*call_ms``."""
+    bound_ms, by = bound(sum(s["bytes"] for s in sites),
+                         sum(s["operations"] for s in sites))
+    library = [s.get("library_ms") for s in sites]
+    out = dict(
+        launches=launches, ms=sum(s["ms"] for s in sites),
+        plain_ms=sum(s["plain_ms"] for s in sites), bound_ms=bound_ms,
+        bound_by=by,
+        library_ms=(sum(library) if library and None not in library
+                    else None))
+    if device:
+        for key in ("ms", "plain_ms", "library_ms"):
+            out[key.replace("ms", "call_ms")] = out[key]
+            out[key] = device[key]
+    return out
+
+
+def kernel_line(paths: dict, errs: dict) -> dict:
+    """One row a kernel. ``paths``: path -> (sites of one forward or step,
+    launches of the path's run, device times by kernel). The row's own
+    numbers are those of the kernel's MAIN_PATH: ``launches`` counts that
+    path's whole run (train: 6 steps; dcn: 4 requests; dcn_quad: 1
+    request), ms, plain_ms, library_ms and the bound sum one step's or
+    forward's launches. Every path the kernel ran on stands under
+    ``paths``."""
     rows = []
     for name, (source, replaces) in SOURCES.items():
-        mine = [s for s in train_sites if s["kernel"] == name]
-        ev = [s for s in eval_sites if s["kernel"] == name]
-        bound_ms, by = bound(sum(s["bytes"] for s in mine),
-                             sum(s["operations"] for s in mine))
-        row = dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=train_launches[name],
-            launches_per_train_step=PER_TRAIN_STEP[name],
-            launches_eval=eval_launches[name],
-            launches_per_forward=PER_FORWARD.get(name, 0),
-            max_abs_err=errs[name],
-            ms=sum(s["ms"] for s in mine),
-            plain_ms=sum(s["plain_ms"] for s in mine),
-            bound_ms=bound_ms, bound_by=by, library_ms=None)
-        if ev:
-            eb, eby = bound(sum(s["bytes"] for s in ev),
-                            sum(s["operations"] for s in ev))
-            row.update(eval_ms=sum(s["ms"] for s in ev),
-                       eval_plain_ms=sum(s["plain_ms"] for s in ev),
-                       eval_bound_ms=eb, eval_bound_by=eby)
-        row["sites"] = [{k: s[k] for k in ("path", "site", "ms", "plain_ms",
-                                           "bound_ms", "bound_by")}
-                        for s in ev + mine]
+        per_path = {}
+        for path, (sites, launches, device) in paths.items():
+            mine = [s for s in sites if s["kernel"] == name]
+            if mine or launches.get(name):
+                per_path[path] = path_summary(mine, launches.get(name, 0),
+                                              device.get(name))
+        row = dict(name=name, route="cuda", source=source,
+                   replaces=replaces, **per_path[MAIN_PATH[name]],
+                   max_abs_err=errs[name], main_path=MAIN_PATH[name],
+                   paths=per_path)
+        if not name.startswith("row_gather"):
+            row["sites"] = [
+                {k: s[k] for k in ("path", "site", "ms", "plain_ms",
+                                   "bound_ms", "bound_by")}
+                for sites, _, _ in paths.values() for s in sites
+                if s["kernel"] == name]
         rows.append(row)
     return {"kernels": rows}
 
@@ -934,11 +1300,19 @@ def main() -> int:
     captured, train_launches, train_errs = phase_train(dev)
     train_sites = time_sites(captured, "train", ("rpn_source", "rpn_target"))
     emit("train_times", sites=train_sites)
-    for part in (eval_errs, train_errs):
+    del captured
+    (model, fn, q_model, q_fn, batch, captured, q_captured, dcn_launches,
+     quad_launches, dcn_errs) = phase_dcn(dev)
+    dcn_sites, quad_sites, device = phase_dcn_times(
+        model, fn, q_model, q_fn, batch, captured, q_captured)
+    for part in (eval_errs, train_errs, dcn_errs):
         for k, v in part.items():
             errs[k] = max(errs[k], v)
-    print(json.dumps(kernel_line(eval_sites, train_sites, eval_launches,
-                                 train_launches, errs)))
+    print(json.dumps(kernel_line(
+        {"eval": (eval_sites, eval_launches, {}),
+         "train": (train_sites, train_launches, {}),
+         "dcn": (dcn_sites, dcn_launches, device),
+         "dcn_quad": (quad_sites, quad_launches, device)}, errs)))
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi)
     print(json.dumps({"ok": True, "device": {

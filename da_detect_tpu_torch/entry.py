@@ -1,9 +1,11 @@
 """Entry points of the PyTorch port: the flagship model's eval forward and
-its triplet-DA training step.
+its triplet-DA training step, and the eval forward of the X-101-32x8d FPN
+DCN configuration.
 
 ``entry(device=None)`` is the counterpart of ``__graft_entry__.entry()``: it
 returns ``(fn, example_args)`` for the eval forward of DA-Faster R-CNN on
-R-50-C4 with 9 Cityscapes classes. ``train_entry(device=None)`` is the
+R-50-C4 with 9 Cityscapes classes; ``entry(cfg=dcn_cfg())`` serves the
+X-101-32x8d-FPN model with deformable res3-res5 instead. ``train_entry(device=None)`` is the
 single-device counterpart of ``__graft_entry__._dryrun_impl``: one
 (source, positive, negative) triple and a train step over it. Both run on the
 card unless the caller asks for ``device="cpu"``; with no card and no
@@ -13,6 +15,7 @@ explicit CPU they raise.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -21,7 +24,14 @@ import torch
 from .config import get_cfg
 from .engine.trainer import create_train_state, make_train_step
 from .models import build_detection_model
+from .models.detector import eval_only
 from .structures.image_batch import ImageBatch, Targets
+
+DCN_YAML = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs",
+    "da_faster_rcnn",
+    "e2e_triplet_da_faster_rcnn_X_101_32x8d_FPN_dcn_cityscapes_to_foggy_"
+    "cityscapes.yaml")
 
 
 def flagship_cfg(canvas=(320, 640), train_tops=(600, 128),
@@ -39,6 +49,19 @@ def flagship_cfg(canvas=(320, 640), train_tops=(600, 128),
     cfg.MODEL.RPN.POST_NMS_TOP_N_TEST = test_tops[1]
     cfg.TPU.IMAGE_SHAPE = canvas
     cfg.TPU.MAX_GT_BOXES = 24
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    return cfg
+
+
+def dcn_cfg(canvas=(608, 1216)):
+    """The X-101-32x8d-FPN-DCN triplet-DA YAML of the repository's configs
+    (DCN in res3-res5, FPN 256, MLP head 1024, 9 classes), read with the
+    port's config copy, at a given canvas in float32. Its TEST.BBOX_AUG
+    (test-time augmentation, a dataset-level loop) is not part of the model
+    forward that ``entry`` serves."""
+    cfg = get_cfg()
+    cfg.merge_from_file(DCN_YAML)
+    cfg.TPU.IMAGE_SHAPE = canvas
     cfg.TPU.COMPUTE_DTYPE = "float32"
     return cfg
 
@@ -141,6 +164,10 @@ def train_entry(device: Optional[str] = None, seed: int = 0, cfg=None,
     ``aligned`` defaults to ``MODEL.DA_HEADS.ALIGNMENT``."""
     device = resolve_device(device)
     cfg = train_cfg() if cfg is None else cfg
+    if eval_only(cfg):
+        raise NotImplementedError(
+            "training an FPN or deformable-conv model is the FPN/DCN "
+            "training slice of the port")
     if aligned is None:
         aligned = cfg.MODEL.DA_HEADS.ALIGNMENT
     model = prepare_model(build_detection_model(cfg, seed=seed), device)

@@ -30,6 +30,8 @@ SOURCES = {
     "nms": "nms.cu",
     "roi_align_fwd": "roi_align_fwd.cu",
     "roi_align_bwd": "roi_align_bwd.cu",
+    "row_gather": "row_gather.cu",
+    "row_gather_bulk": "row_gather_bulk.cu",
 }
 
 # -fmad=false: no FMA contraction, so the kernels round exactly like the plain

@@ -60,14 +60,22 @@ def grid_anchors(cell: np.ndarray, stride: int, fh: int, fw: int) -> np.ndarray:
 
 
 class AnchorGenerator:
-    """Per-level anchors for a fixed canvas (single level: one stride and
-    every size on it, the C4 layout)."""
+    """Per-level anchors for a fixed canvas: one stride and every size on it
+    (the C4 layout), or one stride a level with that level's size (FPN)."""
 
     def __init__(self, sizes, aspect_ratios, strides):
-        if len(strides) != 1:
-            raise NotImplementedError(
-                "multi-level (FPN) anchors are a later slice of the port")
-        self.cells = [generate_cell_anchors(strides[0], sizes, aspect_ratios)]
+        if len(strides) == 1:
+            self.cells = [generate_cell_anchors(strides[0], sizes,
+                                                aspect_ratios)]
+        else:
+            if len(strides) != len(sizes):
+                raise ValueError("FPN anchors need one size per stride, got "
+                                 f"{len(sizes)} sizes for {len(strides)} "
+                                 "strides")
+            self.cells = [
+                generate_cell_anchors(
+                    s, (sz,) if np.isscalar(sz) else sz, aspect_ratios)
+                for s, sz in zip(strides, sizes)]
         self.strides = tuple(strides)
 
     @property

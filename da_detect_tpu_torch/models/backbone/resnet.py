@@ -6,6 +6,11 @@ convention and FrozenBatchNorm. Module names follow maskrcnn-benchmark's
 state_dict (``stem.conv1``, ``layer1.0.conv1``, ``layer1.0.downsample.0``),
 so ``utils/weights.py`` maps the JAX package's variables onto them one to
 one. Activations are logical NCHW in ``torch.channels_last`` memory.
+
+ResNeXt's grouped ``conv2`` is ``nn.Conv2d(groups=...)``: the JAX package's
+block-diagonal dense lowering (``BlockDiagGroupedConv``) computes the same
+function with the same parameter layout. Stages in ``stage_with_dcn`` put a
+``DeformConv2d`` in ``conv2``; ``impl`` reaches it through ``forward``.
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ from __future__ import annotations
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import FrozenBatchNorm
+from ...layers import DeformConv2d, FrozenBatchNorm
 
 
 def _conv(cin, cout, k, stride=1, padding=0, dilation=1, groups=1):
@@ -24,7 +29,9 @@ def _conv(cin, cout, k, stride=1, padding=0, dilation=1, groups=1):
 class Bottleneck(nn.Module):
     def __init__(self, in_channels: int, bottleneck_channels: int,
                  out_channels: int, stride: int = 1, dilation: int = 1,
-                 num_groups: int = 1, stride_in_1x1: bool = True):
+                 num_groups: int = 1, stride_in_1x1: bool = True,
+                 with_dcn: bool = False, with_modulated_dcn: bool = False,
+                 deformable_groups: int = 1, dcn_gather: str = "four"):
         super().__init__()
         stride_1x1, stride_3x3 = ((stride, 1) if stride_in_1x1
                                   else (1, stride))
@@ -36,17 +43,28 @@ class Bottleneck(nn.Module):
         self.conv1 = _conv(in_channels, bottleneck_channels, 1,
                            stride=stride_1x1)
         self.bn1 = FrozenBatchNorm(bottleneck_channels)
-        self.conv2 = _conv(bottleneck_channels, bottleneck_channels, 3,
-                           stride=stride_3x3, padding=dilation,
-                           dilation=dilation, groups=num_groups)
+        if with_dcn:
+            self.conv2 = DeformConv2d(
+                bottleneck_channels, bottleneck_channels, 3,
+                stride=stride_3x3, dilation=dilation, groups=num_groups,
+                deformable_groups=deformable_groups,
+                modulated=with_modulated_dcn, gather_mode=dcn_gather)
+        else:
+            self.conv2 = _conv(bottleneck_channels, bottleneck_channels, 3,
+                               stride=stride_3x3, padding=dilation,
+                               dilation=dilation, groups=num_groups)
         self.bn2 = FrozenBatchNorm(bottleneck_channels)
         self.conv3 = _conv(bottleneck_channels, out_channels, 1)
         self.bn3 = FrozenBatchNorm(out_channels)
 
-    def forward(self, x):
+    def forward(self, x, impl: str = "cuda"):
         shortcut = x if self.downsample is None else self.downsample(x)
         out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
+        if isinstance(self.conv2, DeformConv2d):
+            out = self.conv2(out, impl=impl)
+        else:
+            out = self.conv2(out)
+        out = F.relu(self.bn2(out))
         out = self.bn3(self.conv3(out))
         return F.relu(out + shortcut)
 
@@ -68,15 +86,20 @@ class ResStage(nn.Sequential):
     def __init__(self, block_count: int, in_channels: int,
                  bottleneck_channels: int, out_channels: int,
                  first_stride: int, dilation: int = 1, num_groups: int = 1,
-                 stride_in_1x1: bool = True):
+                 stride_in_1x1: bool = True, **dcn):
         blocks = []
         for i in range(block_count):
             blocks.append(Bottleneck(
                 in_channels if i == 0 else out_channels, bottleneck_channels,
                 out_channels, stride=first_stride if i == 0 else 1,
                 dilation=dilation, num_groups=num_groups,
-                stride_in_1x1=stride_in_1x1))
+                stride_in_1x1=stride_in_1x1, **dcn))
         super().__init__(*blocks)
+
+    def forward(self, x, impl: str = "cuda"):
+        for block in self:
+            x = block(x, impl=impl)
+        return x
 
 
 # blocks per stage for R-50, R-101, R-152
@@ -88,16 +111,23 @@ _BLOCK_COUNTS = {
 
 
 class ResNet(nn.Module):
-    """cfg-driven ResNet body returning the last stage's map (C4: 3 stages).
+    """cfg-driven ResNet body returning the last stage's map (C4: 3 stages),
+    or with ``return_all`` every stage's map (FPN).
 
     Stages before ``freeze_at`` (the stem is stage 1) take no gradient, as
-    maskrcnn-benchmark's ``_freeze_backbone`` does."""
+    maskrcnn-benchmark's ``_freeze_backbone`` does. ``stage_with_dcn`` has
+    one flag a stage (res2..res5)."""
 
     def __init__(self, depth: int = 50, stages: int = 4, num_groups: int = 1,
                  width_per_group: int = 64, stem_out_channels: int = 64,
                  res2_out_channels: int = 256, stride_in_1x1: bool = True,
-                 res5_dilation: int = 1, freeze_at: int = 0):
+                 res5_dilation: int = 1, freeze_at: int = 0,
+                 return_all: bool = False,
+                 stage_with_dcn=(False, False, False, False),
+                 with_modulated_dcn: bool = False, deformable_groups: int = 1,
+                 dcn_gather: str = "four"):
         super().__init__()
+        self.return_all = return_all
         self.stem = Stem(stem_out_channels)
         counts = _BLOCK_COUNTS[depth]
         in_ch = stem_out_channels
@@ -112,18 +142,23 @@ class ResNet(nn.Module):
                 counts[idx], in_ch,
                 num_groups * width_per_group * stage2_relative, out_ch,
                 first_stride, dilation=res5_dilation if idx == 3 else 1,
-                num_groups=num_groups, stride_in_1x1=stride_in_1x1))
+                num_groups=num_groups, stride_in_1x1=stride_in_1x1,
+                with_dcn=bool(stage_with_dcn[idx]),
+                with_modulated_dcn=with_modulated_dcn,
+                deformable_groups=deformable_groups, dcn_gather=dcn_gather))
             self.stage_names.append(name)
             in_ch = out_ch
         for i in range(freeze_at):
             (self.stem if i == 0 else getattr(self, f"layer{i}")
              ).requires_grad_(False)
 
-    def forward(self, x):
+    def forward(self, x, impl: str = "cuda"):
         x = self.stem(x)
+        outputs = []
         for name in self.stage_names:
-            x = getattr(self, name)(x)
-        return [x]
+            x = getattr(self, name)(x, impl=impl)
+            outputs.append(x)
+        return outputs if self.return_all else outputs[-1:]
 
 
 class ResNetHead(nn.Module):

@@ -5,7 +5,10 @@ sampling and losses, and the detection post-processing (port of
 Sampling carries a per-ROI domain mask (True on source images) and makes
 every proposal of a target image background, so target images sample an
 unsupervised subset; the classification and regression losses count source
-rows only. The FPN extractors and predictor are later slices and raise
+rows only. The extractors are the C4 res5 head and the FPN two-layer MLP
+(``FPN2MLPFeatureExtractor``, whose fc6 reads the pooled [C, P, P] map
+flattened in maskrcnn-benchmark's (C, H, W) order); the FPN conv head
+(``FPNXconv1fcFeatureExtractor``) is a later slice and raises
 ``NotImplementedError``.
 """
 
@@ -14,6 +17,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops import box_ops
@@ -50,6 +54,24 @@ class ResNet50Conv5ROIFeatureExtractor(nn.Module):
         return x.reshape((b, r) + x.shape[1:])
 
 
+class FPN2MLPFeatureExtractor(nn.Module):
+    """FPN: pool P x P from the assigned level, flatten (C, H, W), then
+    fc6 and fc7 with ReLU -> [B, R, mlp_dim] (reference
+    roi_box_feature_extractors.py:48-79)."""
+
+    def __init__(self, pooler: dict, in_channels: int, mlp_dim: int = 1024):
+        super().__init__()
+        self.pooler = pooler
+        p = pooler["output_size"]
+        self.fc6 = nn.Linear(in_channels * p * p, mlp_dim)
+        self.fc7 = nn.Linear(mlp_dim, mlp_dim)
+
+    def forward(self, features, rois, *, impl: str):
+        x = pool_rois(features, rois, **self.pooler, impl=impl)
+        x = x.reshape(x.shape[0], x.shape[1], -1)
+        return F.relu(self.fc7(F.relu(self.fc6(x))))
+
+
 class FastRCNNPredictor(nn.Module):
     """C4 predictor: global average pool + linear cls/bbox heads."""
 
@@ -63,6 +85,20 @@ class FastRCNNPredictor(nn.Module):
     def forward(self, x):
         # x [B, R, C, 7, 7] -> average pool
         x = x.mean(dim=(-2, -1))
+        return self.cls_score(x), self.bbox_pred(x)
+
+
+class FPNPredictor(nn.Module):
+    """FPN predictor: linear cls/bbox heads on the MLP features."""
+
+    def __init__(self, in_channels: int, num_classes: int,
+                 cls_agnostic: bool = False):
+        super().__init__()
+        num_bbox = 2 if cls_agnostic else num_classes
+        self.cls_score = nn.Linear(in_channels, num_classes)
+        self.bbox_pred = nn.Linear(in_channels, num_bbox * 4)
+
+    def forward(self, x):
         return self.cls_score(x), self.bbox_pred(x)
 
 
@@ -201,30 +237,39 @@ def postprocess_detections(class_logits, box_regression, proposal_boxes,
         valid=keep_valid)
 
 
-def make_box_feature_extractor(cfg):
-    """Returns (extractor, its output channels)."""
+def make_box_feature_extractor(cfg, in_channels: int):
+    """Returns (extractor, its output channels); ``in_channels`` is the
+    backbone's (the FPN levels' width)."""
     name = cfg.MODEL.ROI_BOX_HEAD.FEATURE_EXTRACTOR
     h = cfg.MODEL.ROI_BOX_HEAD
     r = cfg.MODEL.RESNETS
-    if name != "ResNet50Conv5ROIFeatureExtractor":
-        raise NotImplementedError(
-            f"feature extractor {name}: the port builds the C4 "
-            "ResNet50Conv5ROIFeatureExtractor only; the others are later "
-            "slices")
     if h.USE_GN:
         raise NotImplementedError("GroupNorm box heads are a later slice")
-    return ResNet50Conv5ROIFeatureExtractor(
-        pooler_config(cfg, "ROI_BOX_HEAD"), depth=50,
-        num_groups=r.NUM_GROUPS, width_per_group=r.WIDTH_PER_GROUP,
-        res2_out_channels=r.RES2_OUT_CHANNELS,
-        stride_in_1x1=r.STRIDE_IN_1X1, dilation=h.DILATION
-    ), r.RES2_OUT_CHANNELS * 8
+    pooler = pooler_config(cfg, "ROI_BOX_HEAD")
+    if name == "ResNet50Conv5ROIFeatureExtractor":
+        return ResNet50Conv5ROIFeatureExtractor(
+            pooler, depth=50, num_groups=r.NUM_GROUPS,
+            width_per_group=r.WIDTH_PER_GROUP,
+            res2_out_channels=r.RES2_OUT_CHANNELS,
+            stride_in_1x1=r.STRIDE_IN_1X1, dilation=h.DILATION
+        ), r.RES2_OUT_CHANNELS * 8
+    if name == "FPN2MLPFeatureExtractor":
+        return FPN2MLPFeatureExtractor(pooler, in_channels, h.MLP_HEAD_DIM
+                                       ), h.MLP_HEAD_DIM
+    raise NotImplementedError(
+        f"feature extractor {name}: the port builds "
+        "ResNet50Conv5ROIFeatureExtractor and FPN2MLPFeatureExtractor; the "
+        "others are later slices")
+
+
+_PREDICTORS = {"FastRCNNPredictor": FastRCNNPredictor,
+               "FPNPredictor": FPNPredictor}
 
 
 def make_box_predictor(cfg, in_channels: int):
     name = cfg.MODEL.ROI_BOX_HEAD.PREDICTOR
-    if name != "FastRCNNPredictor":
+    if name not in _PREDICTORS:
         raise NotImplementedError(
-            f"predictor {name}: the port builds FastRCNNPredictor only")
-    return FastRCNNPredictor(in_channels, cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES,
+            f"predictor {name}: the port builds {', '.join(_PREDICTORS)}")
+    return _PREDICTORS[name](in_channels, cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES,
                              cls_agnostic=cfg.MODEL.CLS_AGNOSTIC_BBOX_REG)

@@ -1,6 +1,8 @@
 """GeneralizedRCNN: the eval forward and the training forward (port of
 ``da_detect_tpu/models/detector.py``), for the C4 Faster R-CNN bodies with
-and without the domain-adaptation heads. Module names follow
+and without the domain-adaptation heads; the eval forward also for the FPN
+bodies with deformable stages (X-101-32x8d-FPN-DCN), whose training is a
+later slice. Module names follow
 maskrcnn-benchmark's state_dict: ``backbone.body``, ``rpn.head``,
 ``roi_heads.box.feature_extractor``, ``roi_heads.box.predictor`` and
 ``da_heads``.
@@ -12,9 +14,9 @@ the target's RPN runs only to select proposals, and the negative batch runs
 only the backbone. The DA instance features reuse the detection pass's
 pooled features, as the JAX package does.
 
-``impl`` picks the kernels: "cuda" runs NMS and ROIAlign (forward and
-backward) through the hand-written CUDA kernels' wrappers, "plain" through
-their plain versions. The default is resolved from the model's device:
+``impl`` picks the kernels: "cuda" runs NMS, ROIAlign (forward and
+backward) and the deformable convolutions' row gathers through the
+hand-written CUDA kernels' wrappers, "plain" through their plain versions. The default is resolved from the model's device:
 "cuda" on the card, "plain" on the CPU.
 """
 
@@ -25,9 +27,11 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..layers import DeformConv2d
 from ..structures.image_batch import ImageBatch
 from .anchors import AnchorGenerator, make_anchor_generator
-from .box_head import (Detections, fast_rcnn_loss, make_box_feature_extractor,
+from .box_head import (Detections, FPN2MLPFeatureExtractor, fast_rcnn_loss,
+                       make_box_feature_extractor,
                        make_box_predictor, postprocess_detections,
                        subsample_proposals)
 from .da import DAState, make_da_heads
@@ -53,7 +57,8 @@ class GeneralizedRCNN(nn.Module):
                  sample_cfg: Optional[dict] = None,
                  share_positive_pool: bool = False,
                  pixel_mean=(102.9801, 115.9465, 122.7717),
-                 pixel_std=(1.0, 1.0, 1.0), to_bgr255: bool = True):
+                 pixel_std=(1.0, 1.0, 1.0), to_bgr255: bool = True,
+                 eval_only: bool = False):
         super().__init__()
         self.backbone = backbone
         self.rpn = nn.ModuleDict({"head": rpn_head})
@@ -72,6 +77,7 @@ class GeneralizedRCNN(nn.Module):
         self.pixel_mean = tuple(pixel_mean)
         self.pixel_std = tuple(pixel_std)
         self.to_bgr255 = to_bgr255
+        self.eval_only = eval_only
         self._anchors = {}  # (feature shapes, device) -> anchors per level
 
     def anchors(self, feats) -> list[torch.Tensor]:
@@ -93,7 +99,7 @@ class GeneralizedRCNN(nn.Module):
         impl = impl or self.default_impl()
         images = batch.normalized(self.pixel_mean, self.pixel_std,
                                   self.to_bgr255)
-        feats = self.backbone(images)
+        feats = self.backbone(images, impl=impl)
         logits, deltas = self.rpn["head"](feats)
         sizes = batch.sizes.float()
         props = select_proposals(self.anchors(feats), logits, deltas, sizes,
@@ -154,6 +160,11 @@ class GeneralizedRCNN(nn.Module):
         features. ``generator`` draws the sampling priorities and the DA
         dropout (on the model's device); ``deterministic`` turns dropout off.
         """
+        if self.eval_only:
+            raise NotImplementedError(
+                "training an FPN or deformable-conv model is the FPN/DCN "
+                "training slice of the port (the gathers' adjoint, a "
+                "scatter-add, has no kernel yet)")
         impl = impl or self.default_impl()
         b = batch_s.images.shape[0]
         dev = batch_s.images.device
@@ -235,10 +246,16 @@ def _check_supported(cfg) -> None:
         if m[key]:
             raise NotImplementedError(
                 f"MODEL.{key}: that head is a later slice of the port")
-    if m.RPN.USE_FPN or m.ROI_HEADS.USE_FPN:
-        raise NotImplementedError("FPN models are a later slice of the port")
     if m.RPN.RPN_HEAD != "SingleConvRPNHead":
         raise NotImplementedError(f"RPN_HEAD {m.RPN.RPN_HEAD}: later slice")
+
+
+def eval_only(cfg) -> bool:
+    """True for the configurations whose eval forward the port runs but not
+    their training: FPN bodies and deformable stages."""
+    m = cfg.MODEL
+    return bool(m.RPN.USE_FPN or m.ROI_HEADS.USE_FPN
+                or any(m.RESNETS.STAGE_WITH_DCN))
 
 
 def init_parameters(model: GeneralizedRCNN,
@@ -248,12 +265,32 @@ def init_parameters(model: GeneralizedRCNN,
     1/sqrt(fan_in)), the RPN head normal(0.01), the predictor's cls_score
     normal(0.01) and bbox_pred normal(0.001), the DA heads' convs
     normal(0.001) and fc1/fc2/fc3 normal(0.01/0.01/0.05), biases 0, FrozenBN
-    scale 1 and bias 0."""
+    scale 1 and bias 0; deformable convs he-normal (std sqrt(2/fan_in)) with
+    their offset predictors zero; the FPN convs and the MLP head's fc6/fc7
+    kaiming-uniform with a=1 (bound sqrt(3/fan_in)), biases 0."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.Conv2d) and m.bias is None:
                 fan_in = m.weight[0].numel()
                 m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
+            elif isinstance(m, DeformConv2d):
+                fan_in = m.weight[0].numel()
+                m.weight.normal_(0.0, (2.0 / fan_in) ** 0.5,
+                                 generator=generator)
+                m.conv_offset.weight.zero_()
+                m.conv_offset.bias.zero_()
+        uniform = []
+        if model.backbone.fpn is not None:
+            uniform += list(model.backbone.fpn.children())
+        if not model.rpn_only and isinstance(
+                model.roi_heads["box"]["feature_extractor"],
+                FPN2MLPFeatureExtractor):
+            ext = model.roi_heads["box"]["feature_extractor"]
+            uniform += [ext.fc6, ext.fc7]
+        for layer in uniform:
+            bound = (3.0 / layer.weight[0].numel()) ** 0.5
+            layer.weight.uniform_(-bound, bound, generator=generator)
+            layer.bias.zero_()
         head = model.rpn["head"]
         layers = [(head.conv, 0.01), (head.cls_logits, 0.01),
                   (head.bbox_pred, 0.01)]
@@ -283,7 +320,8 @@ def build_detection_model(cfg, seed: int = 0) -> GeneralizedRCNN:
     if cfg.MODEL.RPN_ONLY:
         extractor, predictor = None, None
     else:
-        extractor, ext_ch = make_box_feature_extractor(cfg)
+        extractor, ext_ch = make_box_feature_extractor(cfg,
+                                                       spec.out_channels)
         predictor = make_box_predictor(cfg, ext_ch)
         if cfg.MODEL.DOMAIN_ADAPTATION_ON:
             da_heads = make_da_heads(cfg, spec.out_channels, ext_ch)
@@ -318,6 +356,7 @@ def build_detection_model(cfg, seed: int = 0) -> GeneralizedRCNN:
         pixel_mean=cfg.INPUT.PIXEL_MEAN,
         pixel_std=cfg.INPUT.PIXEL_STD,
         to_bgr255=cfg.INPUT.TO_BGR255,
+        eval_only=eval_only(cfg),
     )
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model

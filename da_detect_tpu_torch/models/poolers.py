@@ -1,38 +1,62 @@
-"""ROI pooling (port of ``da_detect_tpu/models/poolers.py``, single level).
+"""ROI pooling (port of ``da_detect_tpu/models/poolers.py``).
 
 ``impl`` picks the ROIAlign: "cuda" goes through the kernels' autograd
 function (``ops/roi_align_cuda.py``: forward and backward kernels), "plain"
 through the plain version (``ops/roi_align.py``, differentiated by
-autograd). Multi-level (FPN) pooling is a later slice.
+autograd).
+
+Multi-level (FPN) pooling takes the JAX package's fixed-shape form: every
+ROI is pooled from every level (one ROIAlign launch a level) and the level
+that FPN's Eqn. 1 assigns it is kept by a mask sum, so there is no host
+sync and no data-dependent shape.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
 
+from ..ops import box_ops
 from ..ops import roi_align as roi_align_plain
 from ..ops import roi_align_cuda
+
+
+def assign_levels(rois: torch.Tensor, k_min: int, k_max: int
+                  ) -> torch.Tensor:
+    """rois [..., 4] -> level index in [0, k_max - k_min] (int64):
+    floor(4 + log2(sqrt(area) / 224 + 1e-6)) with the legacy +1 area, in
+    float32 (a 224 x 224 ROI is canonical, on level 4)."""
+    s = torch.sqrt(box_ops.box_area(rois).clamp(min=0.0))
+    lvl = torch.floor(4 + torch.log2(s / 224 + 1e-6))
+    return (lvl.clamp(k_min, k_max) - k_min).long()
 
 
 def pool_rois(features: Sequence[torch.Tensor], rois: torch.Tensor, *,
               scales: Sequence[float], output_size: int, sampling_ratio: int,
               max_samples: int = 8, impl: str) -> torch.Tensor:
-    """features: per-level [B, C, H_l, W_l]; rois [B, R, 4] (image coords).
-    Returns [B, R, C, P, P]."""
-    if len(features) != 1:
-        raise NotImplementedError(
-            "multi-level (FPN) ROI pooling is a later slice")
+    """features: per-level [B, C, H_l, W_l] (levels past ``scales`` are not
+    pooled); rois [B, R, 4] (image coords). Returns [B, R, C, P, P]."""
     if impl == "cuda":
         fn = roi_align_cuda.roi_align
     elif impl == "plain":
         fn = roi_align_plain.roi_align
     else:
         raise ValueError(f"unknown ROIAlign impl: {impl!r}")
-    return fn(features[0], rois, spatial_scale=scales[0],
-              output_size=output_size, sampling_ratio=sampling_ratio,
+    kw = dict(output_size=output_size, sampling_ratio=sampling_ratio,
               max_samples=max_samples)
+    if len(scales) == 1:
+        return fn(features[0], rois, spatial_scale=scales[0], **kw)
+    k_min = -int(math.log2(scales[0]))
+    k_max = -int(math.log2(scales[-1]))
+    levels = assign_levels(rois, k_min, k_max)                 # [B, R]
+    out = None
+    for i, (feat, scale) in enumerate(zip(features, scales)):
+        pooled = fn(feat, rois, spatial_scale=scale, **kw)
+        sel = (levels == i).to(pooled.dtype)[..., None, None, None]
+        out = pooled * sel if out is None else out + pooled * sel
+    return out
 
 
 def pooler_config(cfg, head: str = "ROI_BOX_HEAD") -> dict:

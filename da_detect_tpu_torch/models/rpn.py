@@ -76,23 +76,43 @@ def _select_level(anchors, obj, deltas, image_sizes, pre_nms, post_nms,
 def select_proposals(level_anchors, level_logits, level_deltas, image_sizes,
                      *, pre_nms_top_n, post_nms_top_n, fpn_post_nms_top_n,
                      nms_thresh, min_size, is_train, impl):
-    """Batched proposal selection. level_anchors: list of [N_l, 4];
-    level_logits: list of [B, A, H, W]; level_deltas: list of
-    [B, A*4, H, W]. Returns Proposals with capacity post_nms_top_n.
+    """Batched proposal selection over all levels. level_anchors: list of
+    [N_l, 4]; level_logits: list of [B, A, H, W]; level_deltas: list of
+    [B, A*4, H, W]. Returns Proposals with capacity post_nms_top_n (one
+    level) or fpn_post_nms_top_n (FPN).
 
-    Single level only (C4). ``fpn_post_nms_top_n`` and ``is_train`` only
-    matter across levels, which are a later slice."""
-    if len(level_logits) != 1:
+    Across levels (eval): each level's post-NMS survivors, concatenated,
+    then the top fpn_post_nms_top_n of each image. The training form
+    (a top-k over the whole batch) is the FPN training slice's."""
+    if is_train and len(level_logits) > 1:
         raise NotImplementedError(
-            "multi-level (FPN) proposal selection is a later slice")
-    logits, deltas = level_logits[0], level_deltas[0]
-    b = logits.shape[0]
-    # [B, A, H, W] -> [B, H*W*A], the anchors' (h, w, a) order
-    obj = logits.permute(0, 2, 3, 1).reshape(b, -1)
-    dl = deltas.permute(0, 2, 3, 1).reshape(b, -1, 4)
-    return Proposals(*_select_level(
-        level_anchors[0], obj, dl, image_sizes, pre_nms_top_n,
-        post_nms_top_n, nms_thresh, min_size, impl))
+            "multi-level (FPN) proposal selection for training is the "
+            "FPN/DCN training slice")
+    b = level_logits[0].shape[0]
+    per_level = []
+    for anchors, logits, deltas in zip(level_anchors, level_logits,
+                                       level_deltas):
+        # [B, A, H, W] -> [B, H*W*A], the anchors' (h, w, a) order
+        obj = logits.permute(0, 2, 3, 1).reshape(b, -1)
+        dl = deltas.permute(0, 2, 3, 1).reshape(b, -1, 4)
+        per_level.append(Proposals(*_select_level(
+            anchors, obj, dl, image_sizes, pre_nms_top_n, post_nms_top_n,
+            nms_thresh, min_size, impl)))
+    if len(per_level) == 1:
+        return per_level[0]
+    boxes = torch.cat([p.boxes for p in per_level], dim=1)
+    scores = torch.cat([p.scores for p in per_level], dim=1)
+    valid = torch.cat([p.valid for p in per_level], dim=1)
+    k = min(fpn_post_nms_top_n, boxes.shape[1])
+    masked = torch.where(valid, scores, float("-inf"))
+    top_scores, order = torch.sort(masked, dim=1, descending=True,
+                                   stable=True)
+    top_scores, order = top_scores[:, :k], order[:, :k]
+    finite = torch.isfinite(top_scores)
+    return Proposals(
+        boxes=torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)),
+        scores=torch.where(finite, top_scores, 0.0),
+        valid=finite)
 
 
 def append_gt_proposals(proposals: Proposals, gt_boxes, gt_valid,

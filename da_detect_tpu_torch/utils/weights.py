@@ -14,6 +14,12 @@ checkpoint converter uses in the other direction:
     params/feature_extractor/head/...    -> roi_heads.box.feature_extractor.head...
     params/predictor/cls_score/kernel    -> roi_heads.box.predictor.cls_score.weight
                                             ([in, out] -> [out, in])
+    params/backbone/fpn/fpn_inner1/kernel   -> backbone.fpn.fpn_inner1.weight
+    params/backbone/body/layer2/block0/conv2/conv_offset/kernel
+        -> backbone.body.layer2.0.conv2.conv_offset.weight
+    params/feature_extractor/fc6/kernel  -> roi_heads.box.feature_extractor.fc6.weight
+        (its input rows permuted from JAX's (H, W, C) flatten of the pooled
+        map to maskrcnn-benchmark's (C, H, W), then [in, out] -> [out, in])
     params/da_heads/imghead/conv1_da/kernel -> da_heads.imghead.conv1_da.weight
     params/da_heads/inshead/fc1_da/kernel   -> da_heads.inshead.fc1_da.weight
 
@@ -71,7 +77,15 @@ def torch_name(path: str) -> str:
     raise KeyError(f"JAX variable {path!r} has no counterpart in the port")
 
 
-def _to_torch_layout(path: str, value: np.ndarray) -> np.ndarray:
+def _to_torch_layout(path: str, value: np.ndarray,
+                     fc6_chw=None) -> np.ndarray:
+    if path == "feature_extractor/fc6/kernel":
+        if fc6_chw is None:
+            raise ValueError("an fc6 kernel needs the pooled (C, P, P) shape "
+                             "to reorder its inputs")
+        c, ph, pw = fc6_chw
+        value = value.reshape(ph, pw, c, -1).transpose(2, 0, 1, 3).reshape(
+            c * ph * pw, -1)
     if path.endswith("/kernel") and value.ndim == 4:
         return value.transpose(3, 2, 0, 1)      # HWIO -> OIHW
     if path.endswith("/kernel") and value.ndim == 2:
@@ -79,23 +93,37 @@ def _to_torch_layout(path: str, value: np.ndarray) -> np.ndarray:
     return value
 
 
-def jax_state_dict(variables: dict) -> dict[str, torch.Tensor]:
-    """The port's state_dict entries for the JAX ``variables``."""
+def jax_state_dict(variables: dict,
+                   fc6_chw=None) -> dict[str, torch.Tensor]:
+    """The port's state_dict entries for the JAX ``variables``.
+    ``fc6_chw``: the (C, P, P) pooled map an FPN MLP head's fc6 reads."""
     unknown = set(variables) - {"params", "frozen"}
     if unknown:
         raise KeyError(f"unknown variable collections: {sorted(unknown)}")
     state = {}
     for collection in ("params", "frozen"):
         for path, value in _flatten(variables.get(collection, {})):
-            value = _to_torch_layout(path, np.array(value, np.float32))
+            value = _to_torch_layout(path, np.array(value, np.float32),
+                                     fc6_chw)
             state[torch_name(path)] = torch.from_numpy(
                 np.ascontiguousarray(value))
     return state
 
 
+def fc6_chw(model: torch.nn.Module):
+    """The (C, P, P) pooled map the model's FPN MLP head flattens into fc6,
+    or None for a model without one."""
+    box = model.roi_heads["box"]
+    ext = box["feature_extractor"] if "feature_extractor" in box else None
+    if ext is None or not hasattr(ext, "fc6"):
+        return None
+    p = ext.pooler["output_size"]
+    return ext.fc6.in_features // (p * p), p, p
+
+
 def load_jax_variables(model: torch.nn.Module, variables: dict) -> None:
     """Load the JAX model's variables into ``model`` in place, strictly."""
-    state = jax_state_dict(variables)
+    state = jax_state_dict(variables, fc6_chw(model))
     own = model.state_dict()
     extra = sorted(set(state) - set(own))
     if extra:

@@ -9,7 +9,9 @@ NMS keep masks must agree exactly; ROIAlign to rtol = atol = 1e-5 (float32
 sums in another order); the ROIAlign backward within 1e-5 of the largest
 |dF| (its atomics add in an order that changes from run to run); one train
 step through the kernels against the same step through the plain versions:
-losses rtol 1e-4, gradients within 1e-3 of each leaf's largest |g|.
+losses rtol 1e-4, gradients within 1e-3 of each leaf's largest |g|. The two
+row gathers are copies and must equal the plain version bit for bit; a
+deformable convolution through them agrees with its plain run to 1e-5.
 """
 
 import numpy as np
@@ -17,7 +19,8 @@ import pytest
 import torch
 
 from da_detect_tpu_torch import entry, kernels
-from da_detect_tpu_torch.ops import nms, nms_cuda, roi_align, roi_align_cuda
+from da_detect_tpu_torch.ops import (gather, gather_cuda, nms, nms_cuda,
+                                     roi_align, roi_align_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -199,3 +202,68 @@ def test_train_step_kernels_match_plain(dev):
     for n, g in gp.items():
         torch.testing.assert_close(gk[n], g, rtol=0,
                                    atol=1e-3 * float(g.abs().max()) + floor)
+
+
+GATHER_CASES = {
+    # name: (S, C, P, row stride or None)
+    "probe": (76 * 152, 512, 4 * 76 * 152, None),   # the TPU probe's shape
+    "res5_tap": (19 * 38, 2048, 4 * 722, None),
+    "quad_res3": (46208 - 1 - 304, 4 * 512, 11552, None),
+    "c6_scalar": (50, 6, 333, None),                # no 16-byte vectors
+    "column_slice": (40, 16, 257, 48),              # a deformable group
+    "empty": (10, 8, 0, None),
+}
+
+
+def _gather_inputs(case, dtype, dev):
+    s, c, p, stride = GATHER_CASES[case]
+    gen = torch.Generator().manual_seed(s + p)
+    wide = torch.randn(s, stride or c, generator=gen).to(dtype)
+    table = wide[:, 8:8 + c] if stride else wide
+    # a tenth of the indices out of range on either side: clamped
+    idx = torch.randint(-s // 10 - 1, s + s // 10 + 1, (p,), generator=gen,
+                        dtype=torch.int32)
+    return table.to(dev), idx.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+@pytest.mark.parametrize("name", ["row_gather", "row_gather_bulk"])
+def test_row_gather_kernels_match_plain(dev, name, case, dtype):
+    table, idx = _gather_inputs(case, dtype, dev)
+    fn = getattr(gather_cuda, name)
+    if name == "row_gather_bulk" and case == "c6_scalar":
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(table, idx)
+        return
+    before = kernels.LAUNCHES[name]
+    got = fn(table, idx)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + (case != "empty")
+    want = gather.row_gather(table, idx)
+    assert got.shape == want.shape and got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("gather_mode,kernel", [("four", "row_gather"),
+                                                ("quad", "row_gather_bulk")])
+def test_deform_conv_kernels_match_plain(dev, gather_mode, kernel):
+    """A res4-like deformable conv (32 groups, offsets of a few pixels, so
+    corners fall between pixels and off the map): one gather launch a tap,
+    and the same output as the plain gathers to 1e-5."""
+    from da_detect_tpu_torch.layers import DeformConv2d
+
+    torch.manual_seed(0)
+    m = DeformConv2d(256, 256, 3, stride=2, groups=32,
+                     gather_mode=gather_mode).to(dev)
+    with torch.no_grad():
+        m.conv_offset.weight.normal_(0.0, 0.05)
+    x = torch.randn(1, 256, 19, 38, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    before = kernels.LAUNCHES[kernel]
+    with torch.no_grad():
+        got = m(x, impl="cuda")
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[kernel] == before + 9
+        want = m(x, impl="plain")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

@@ -15,7 +15,7 @@ import torch
 import da_detect_tpu_torch
 from da_detect_tpu_torch import entry, kernels
 from da_detect_tpu_torch.config import get_cfg
-from da_detect_tpu_torch.ops import nms_cuda, roi_align_cuda
+from da_detect_tpu_torch.ops import gather_cuda, nms_cuda, roi_align_cuda
 from da_detect_tpu_torch.utils.weights import (jax_state_dict,
                                                load_jax_variables, torch_name)
 
@@ -139,7 +139,7 @@ def test_unsupported_configs_raise():
     cfg = get_cfg()
     with pytest.raises(NotImplementedError, match="bf16 compute"):
         build_detection_model(cfg)  # default COMPUTE_DTYPE is bfloat16
-    for key, value in (("MODEL.BACKBONE.CONV_BODY", "R-50-FPN"),
+    for key, value in (("MODEL.BACKBONE.CONV_BODY", "R-50-FPN-RETINANET"),
                        ("MODEL.MASK_ON", True), ("MODEL.RETINANET_ON", True),
                        ("MODEL.BACKBONE.USE_GN", True)):
         cfg = entry.flagship_cfg()
@@ -153,7 +153,8 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path, names):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build"))
-    assert "roi_align_bwd" in kernels.SOURCES
+    assert {"nms", "roi_align_fwd", "roi_align_bwd", "row_gather",
+            "row_gather_bulk"} == set(kernels.SOURCES)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernels.build(names)
 
@@ -172,6 +173,10 @@ def test_wrappers_refuse_other_devices():
         roi_align_cuda.roi_align_backward(
             torch.empty(1, 3, 4, 2, 2, **meta), torch.empty(1, 3, 4, **meta),
             height=5, width=5, spatial_scale=1.0, output_size=2)
+    for gather in (gather_cuda.row_gather, gather_cuda.row_gather_bulk):
+        with pytest.raises(ValueError, match="unsupported device"):
+            gather(torch.empty(6, 8, **meta),
+                   torch.empty(4, dtype=torch.int32, **meta))
 
 
 @pytest.mark.parametrize("path", YAMLS,
