@@ -7,31 +7,39 @@ Phases, one JSON line each:
   1. env       torch, CUDA and nvcc versions, the card's name and power limit
   2. build     the five CUDA kernels, compiled from csrc/ for sm_90a
   3. kernels   each kernel against its plain PyTorch version on the card, at
-               the main paths' shapes and on the CPU tests' edge cases
+               the main paths' shapes and on edge cases (NMS: 1 to 12000
+               boxes, invalid rows, a ragged batch, max_keep truncation;
+               ROIAlign backward: whole C4 and P2 maps, map edges, C = 4 and
+               12, a map that needs more than 48 KB a block, a strided
+               gradient)
   4. slice     the flagship R-50-C4 config (its YAML) at the 608x1216 canvas
                in float32, random weights from a seed, answers 4 eval requests
                of batch 1 through ``entry()``; launch counts show the kernels
                ran; one request again with impl="plain" must agree
   5. times     kernel and plain times on the inputs the eval path gave the
-               kernels, the forward's latency and stages, peak memory
+               kernels (NMS also split into its mask launch and its walk by
+               torch.profiler), the forward's latency and stages, peak memory
   6. train     the flagship triplet-DA train step through ``train_entry()``:
                kernel-run against plain-run step 1, timed steps with launch
                counts, the step's split and profile, 2 aligned steps
-  7. train_times  kernel and plain times on the train path's kernel inputs
+  7. train_times  kernel and plain times on the train path's kernel inputs,
+               with the NMS split
   8. dcn       the X-101-32x8d-FPN-DCN YAML at 608x1216 in float32 through
                ``entry(cfg=dcn_cfg())``: 4 requests with exact launch counts
                (row_gather 270 a forward, NMS 6, ROIAlign 4), one request with
                impl="plain" and one with TPU.DCN_GATHER "quad" (row_gather_bulk
                270) that must agree with it
-  9. dcn_times  each gather's kernel, plain and ``torch.index_select`` times
-               on the path's inputs, summed a forward, with the byte bound;
-               forward latency, stage split, profile and peak memory
+  9. dcn_times  each gather's kernel, plain and ``torch.index_select`` device
+               times on the path's inputs, summed a forward, from 3
+               profiles taken in turns (median and spread), with the byte
+               bound; forward latency, stage split, profile and peak memory
 Then a line with every kernel's numbers, the nvidia-smi line of the card, and
 last ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. With no CUDA device it exits 1 at once.
 
-Tolerances: NMS keep masks exactly; ROIAlign rtol = atol = 1e-5 (float32 sums
-in another order); the row gathers bit for bit (copies); kernel-run against
+Tolerances: NMS keep masks exactly, truncated ones (``max_keep``) too;
+ROIAlign rtol = atol = 1e-5 (float32 sums in another order), its backward
+1e-5 of max |dF|; the row gathers bit for bit (copies); kernel-run against
 plain-run detections, and "quad" against "four": the same valid count, and
 each detection has a twin with the same label, boxes within 1e-2 pixels and
 scores within 1e-4 (the pooled features differ by float32 rounding, which
@@ -98,7 +106,10 @@ PER_QUAD_FORWARD = {"row_gather_bulk": 270, "nms": 6, "roi_align_fwd": 4}
 # conv_offset kernels drawn from this seed, each scaled so that its offsets
 # have this standard deviation (pixels): samples spread over about +-2 px
 DCN_SEED, DCN_OFFSET_STD = 0, 1.0
-DCN_PROFILE_RUNS, GATHER_TIMING_RUNS = 3, 10
+DCN_PROFILE_RUNS, GATHER_TIMING_RUNS, GATHER_PROFILES = 3, 10, 3
+# calls of each NMS and ROIAlign-backward site under torch.profiler for the
+# device time of its kernels (NMS: the mask launch and the walk apart)
+KERNEL_PROFILE_RUNS = 10
 # row gathers against the plain version at the DCN path's shapes, 608x1216:
 # name -> (S table rows, C, P indices, row stride or None)
 GATHER_CASES = {
@@ -204,16 +215,32 @@ def random_rois(rng, b: int, r: int, hw, max_side: float) -> np.ndarray:
 
 # ---------------------------------------------------------------- bounds
 
-def nms_work(valid: torch.Tensor, keep: torch.Tensor) -> tuple[float, float]:
-    """(bytes, operations) greedy NMS needs on these inputs: boxes and valid
-    read once, keep written once; an IoU test of every kept box against each
-    valid box after it, and one area a valid box."""
+def nms_stops(keep: torch.Tensor, max_keep) -> np.ndarray:
+    """Where greedy NMS ends in each image: after the max_keep-th kept box
+    where the image has that many, else after its last box."""
+    k = keep.cpu().numpy()
+    stops = np.full(k.shape[0], k.shape[1])
+    if max_keep:
+        for i, row in enumerate(k):
+            if row.sum() == max_keep:
+                stops[i] = np.flatnonzero(row)[-1] + 1
+    return stops
+
+
+def nms_work(valid: torch.Tensor, keep: torch.Tensor,
+             max_keep) -> tuple[float, float]:
+    """(bytes, operations) greedy NMS needs on these inputs, each image up
+    to its stop (``nms_stops``): the boxes and valid rows up to there read
+    once, keep written once; an IoU test of every kept box against each
+    valid box after it up to the stop, and one area a valid box there."""
     b, n = valid.shape
-    v = valid.cpu().numpy().astype(np.int64)
+    stops = nms_stops(keep, max_keep)
+    v = valid.cpu().numpy().astype(np.int64) * (np.arange(n) < stops[:, None])
     k = keep.cpu().numpy().astype(np.int64)
     after = np.cumsum(v[:, ::-1], axis=1)[:, ::-1] - v
     pairs = int((after * k).sum())
-    return b * n * (16 + 1 + 1), IOU_OPS * pairs + AREA_OPS * int(v.sum())
+    return (int(stops.sum()) * (16 + 1) + b * n,
+            IOU_OPS * pairs + AREA_OPS * int(v.sum()))
 
 
 def roi_align_work(features_shape, rois, *, spatial_scale, output_size,
@@ -249,17 +276,19 @@ def roi_align_work(features_shape, rois, *, spatial_scale, output_size,
 
 # ---------------------------------------------------------------- checks
 
-def check_nms(boxes, valid, thresh) -> tuple[int, torch.Tensor]:
+def check_nms(boxes, valid, thresh,
+              max_keep=None) -> tuple[int, torch.Tensor]:
     from da_detect_tpu_torch.ops import nms, nms_cuda
 
-    got = nms_cuda.nms_mask_sorted(boxes, valid, thresh)
-    want = nms.nms_mask_sorted(boxes, valid, thresh)
+    got = nms_cuda.nms_mask_sorted(boxes, valid, thresh, max_keep)
+    want = nms.nms_mask_sorted(boxes, valid, thresh, max_keep)
     torch.cuda.synchronize()
     mismatches = int((got != want).sum())
     if mismatches:
         raise AssertionError(f"NMS kernel keep mask differs from the plain "
                              f"version in {mismatches} of {got.numel()} rows "
-                             f"(shape {tuple(boxes.shape)}, IoU {thresh})")
+                             f"(shape {tuple(boxes.shape)}, IoU {thresh}, "
+                             f"max_keep {max_keep})")
     return mismatches, got
 
 
@@ -334,9 +363,10 @@ def record_kernel_inputs():
             return gathers[name](table, idx)
         return rec
 
-    def nms_rec(boxes, valid, thresh):
-        captured["nms"].append((boxes.clone(), valid.clone(), thresh))
-        return nms_kernel(boxes, valid, thresh)
+    def nms_rec(boxes, valid, thresh, max_keep=None):
+        captured["nms"].append((boxes.clone(), valid.clone(), thresh,
+                                max_keep))
+        return nms_kernel(boxes, valid, thresh, max_keep)
 
     def fwd_rec(features, rois, **kw):
         captured["roi_align_fwd"].append((features.detach().clone(),
@@ -344,8 +374,11 @@ def record_kernel_inputs():
         return fwd_kernel(features, rois, **kw)
 
     def bwd_rec(grad, rois, *, height, width, **kw):
-        captured["roi_align_bwd"].append((grad.clone(), rois.clone(),
-                                          height, width, kw))
+        # the clone keeps the gradient's strides; and whether the kernel
+        # wrapper reads it in place or copies it
+        captured["roi_align_bwd"].append((
+            grad.clone(), rois.clone(), height, width, kw,
+            roi_align_cuda.grad_view(grad)[1]))
         return bwd_kernel(grad, rois, height=height, width=width, **kw)
 
     nms_cuda.nms_mask_sorted = nms_rec
@@ -368,13 +401,13 @@ def check_captured(captured) -> dict:
     (``captured`` from ``record_kernel_inputs``): the largest error a
     kernel."""
     errs = {}
-    for boxes, valid, thresh in captured["nms"]:
+    for boxes, valid, thresh, max_keep in captured["nms"]:
         errs["nms"] = max(errs.get("nms", 0),
-                          check_nms(boxes, valid, thresh)[0])
+                          check_nms(boxes, valid, thresh, max_keep)[0])
     for feats, rois, kw in captured["roi_align_fwd"]:
         errs["roi_align_fwd"] = max(errs.get("roi_align_fwd", 0.0),
                                     check_roi_align(feats, rois, **kw))
-    for grad, rois, h, w, kw in captured["roi_align_bwd"]:
+    for grad, rois, h, w, kw, _ in captured["roi_align_bwd"]:
         errs["roi_align_bwd"] = max(
             errs.get("roi_align_bwd", 0.0),
             check_roi_align_backward(rois, grad, h, w, **kw)[0])
@@ -455,12 +488,13 @@ def phase_kernels(dev) -> dict:
     rng = np.random.RandomState(0)
     results = {}
 
-    def nms_case(name, boxes, valid, thresh):
+    def nms_case(name, boxes, valid, thresh, max_keep=None):
         boxes = torch.from_numpy(boxes).to(dev)
         valid = torch.from_numpy(valid).to(dev)
-        mism, keep = check_nms(boxes, valid, thresh)
+        mism, keep = check_nms(boxes, valid, thresh, max_keep)
         results[name] = dict(mismatches=mism, kept=int(keep.sum()),
-                             shape=list(boxes.shape), iou=thresh)
+                             shape=list(boxes.shape), iou=thresh,
+                             max_keep=max_keep)
 
     # RPN: 6000 -> NMS at 0.7, two images
     nms_case("nms_rpn", *cluster_boxes(rng, 2, RPN_NMS_BOXES, CANVAS), 0.7)
@@ -475,6 +509,36 @@ def phase_kernels(dev) -> dict:
     nms_case("nms_n65_b3", *cluster_boxes(rng, 3, 65, (120, 160)), 0.5)
     b, _ = cluster_boxes(rng, 1, 300, (120, 160))
     nms_case("nms_all_invalid", b, np.zeros((1, 300), bool), 0.5)
+    nms_case("nms_n63_b2", *cluster_boxes(rng, 2, 63, (120, 160)), 0.7)
+    nms_case("nms_n64_b2", *cluster_boxes(rng, 2, 64, (120, 160)), 0.3)
+    # a ragged batch: all, about half and none of the boxes valid
+    boxes, valid = cluster_boxes(rng, 3, 1000, CANVAS)
+    valid[0], valid[1], valid[2] = True, rng.rand(1000) > 0.5, False
+    nms_case("nms_ragged_b3", boxes, valid, 0.5)
+    # the train RPN's shape, whole and stopped after k kept (nms_topk's
+    # max_keep; k past the survivors gives the whole mask)
+    boxes, valid = cluster_boxes(rng, 1, TRAIN_NMS_BOXES, CANVAS)
+    nms_case("nms_train", boxes, valid, 0.7)
+    for k in (1, 100, 2000, TRAIN_NMS_BOXES + 1):
+        nms_case(f"nms_train_max_keep_{k}", boxes, valid, 0.7, max_keep=k)
+    # nms_topk through the kernel's early stop against the top k of the
+    # plain version's whole mask
+    from da_detect_tpu_torch.ops import nms
+
+    boxes, valid = torch.from_numpy(boxes).to(dev), torch.from_numpy(
+        valid).to(dev)
+    scores = torch.linspace(1.0, 0.0, TRAIN_NMS_BOXES, device=dev)[None]
+    whole = nms.nms_mask_sorted(boxes, valid, 0.7)
+    for k in (100, 2000):
+        got = nms.nms_topk(boxes, scores, valid, 0.7, k, impl="cuda",
+                           presorted=True)
+        want = nms.topk_survivors(whole, scores, k)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"nms_topk(k={k}) through the kernel's "
+                                 "max_keep differs from the top k of the "
+                                 "whole mask")
+        results[f"nms_topk_{k}"] = dict(mismatches=0,
+                                        valid=int(got[1].sum()))
 
     def roi_case(name, feats_nhwc, rois, **kw):
         feats = torch.from_numpy(feats_nhwc).to(dev).permute(0, 3, 1, 2)
@@ -507,16 +571,25 @@ def phase_kernels(dev) -> dict:
         roi_case(f"roi_wide_cap{cap}", rng.randn(1, *c4, 8).astype(np.float32),
                  wide, max_samples=cap, **kw14)
 
-    def bwd_case(name, map_shape, rois, **kw):
-        """map_shape (B, C, H, W); a random upstream gradient."""
+    def bwd_case(name, map_shape, rois, strided=False, **kw):
+        """map_shape (B, C, H, W); a random upstream gradient, [B, R, C, P,
+        P] contiguous, or with ``strided`` an R slice of a channels-last one
+        (as autograd hands it over: read in place)."""
+        from da_detect_tpu_torch.ops import roi_align_cuda
+
         b, c, h, w = map_shape
-        p = kw["output_size"]
-        grad = torch.from_numpy(rng.randn(b, rois.shape[1], c, p, p).astype(
-            np.float32)).to(dev)
+        p, r = kw["output_size"], rois.shape[1]
+        if strided:
+            grad = torch.from_numpy(rng.randn(b, r + 3, p, p, c).astype(
+                np.float32)).to(dev).permute(0, 1, 4, 2, 3)[:, 1:r + 1]
+        else:
+            grad = torch.from_numpy(rng.randn(b, r, c, p, p).astype(
+                np.float32)).to(dev)
         err, scale = check_roi_align_backward(torch.from_numpy(rois).to(dev),
                                               grad, h, w, **kw)
         results[name] = dict(max_abs_err=err, max_abs_dF=scale,
                              features=list(map_shape), rois=list(rois.shape),
+                             grad_copied=roi_align_cuda.grad_view(grad)[1],
                              **kw)
 
     # the train step's shape: 256 ROIs on the C4 map, P = 14
@@ -533,6 +606,32 @@ def phase_kernels(dev) -> dict:
     bwd_case("bwd_empty", (1, 16, 10, 16), np.zeros((1, 0, 4), np.float32),
              spatial_scale=1 / 16, output_size=7, sampling_ratio=2,
              max_samples=8)
+    whole = np.asarray([[[0.0, 0.0, 1216.0, 608.0],
+                         [-30.0, -20.0, 1250.0, 640.0]]], np.float32)
+    bwd_case("bwd_whole_c4", (1, C4_CHANNELS, *c4), whole, max_samples=8,
+             **kw14)
+    # FPN P2 at 608x1216 (the DCN YAML's pooler: P 7, sampling ratio 2)
+    bwd_case("bwd_whole_p2", (1, 256, CANVAS[0] // 4, CANVAS[1] // 4),
+             whole[:, :1], spatial_scale=1 / 4, output_size=7,
+             sampling_ratio=2, max_samples=8)
+    edges = np.asarray([[[-100.0, 100.0, 200.0, 300.0],
+                         [100.0, -100.0, 300.0, 200.0],
+                         [1100.0, 100.0, 1400.0, 300.0],
+                         [100.0, 500.0, 300.0, 800.0],
+                         [-50.0, -50.0, 60.0, 40.0],
+                         [1150.0, 560.0, 1300.0, 700.0]]], np.float32)
+    bwd_case("bwd_map_edges", (1, 64, *c4), edges, max_samples=8, **kw14)
+    for c in (4, 12):  # the last 32-channel slice partly empty
+        bwd_case(f"bwd_c{c}", (1, c, *c4),
+                 random_rois(rng, 1, 20, CANVAS, 900.0), max_samples=8,
+                 **kw14)
+    # 800 rows: Ay alone passes the 48 KB target
+    tall = np.asarray([[[0.0, 0.0, 128.0, 12800.0],
+                        [10.0, 300.0, 90.0, 5000.0]]], np.float32)
+    bwd_case("bwd_tall_map", (1, 8, 800, 8), tall, max_samples=8, **kw14)
+    bwd_case("bwd_strided_grad", (1, C4_CHANNELS, *c4),
+             random_rois(rng, 1, 40, CANVAS, 900.0), strided=True,
+             max_samples=8, **kw14)
 
     from da_detect_tpu_torch.ops import gather_cuda
 
@@ -645,8 +744,9 @@ def phase_slice(dev):
          launches=launches, detections=summary,
          rerun_identical=rerun_identical, plain_agreement=agreement,
          main_path_inputs={
-             "nms": [dict(shape=list(b.shape), iou=t, valid=int(v.sum()))
-                     for b, v, t in captured["nms"]],
+             "nms": [dict(shape=list(b.shape), iou=t, valid=int(v.sum()),
+                          max_keep=k)
+                     for b, v, t, k in captured["nms"]],
              "roi_align_fwd": [dict(features=list(f.shape),
                                     rois=list(r.shape), **kw)
                                for f, r, kw in captured["roi_align_fwd"]]},
@@ -687,6 +787,25 @@ def stage_times(model, batch, marks, spans, runs: int = 10) -> dict:
     return {k: statistics.median(v) for k, v in samples.items()}
 
 
+def nms_split(boxes, valid, thresh, max_keep, keep) -> dict:
+    """One NMS call's device time split into its two launches, the IoU mask
+    and the walk, and the walk's steps: the 64-box blocks it resolved, up to
+    the block of its stop (the slowest image of the batch)."""
+    from da_detect_tpu_torch.ops import nms_cuda
+
+    ms = device_profile(
+        lambda: nms_cuda.nms_mask_sorted(boxes, valid, thresh, max_keep),
+        KERNEL_PROFILE_RUNS,
+        kernels=("nms_mask_kernel", "nms_walk_kernel"))["kernel_ms_per_run"]
+    mask_ms, walk_ms = ms["nms_mask_kernel"], ms["nms_walk_kernel"]
+    steps = int(-(-nms_stops(keep, max_keep).max() // 64))
+    return dict(
+        device_ms=None if None in (mask_ms, walk_ms) else mask_ms + walk_ms,
+        mask_device_ms=mask_ms, walk_device_ms=walk_ms, walk_steps=steps,
+        walk_us_per_step=None if walk_ms is None
+        else walk_ms * 1e3 / max(steps, 1))
+
+
 def time_sites(captured, path: str, nms_sites) -> list:
     """Kernel and plain times, and the bound, of each kernel launch a main
     path made (``captured`` from ``record_kernel_inputs``), on its inputs."""
@@ -694,17 +813,20 @@ def time_sites(captured, path: str, nms_sites) -> list:
                                          roi_align, roi_align_cuda)
 
     sites = []
-    for (boxes, valid, thresh), site in zip(captured["nms"], nms_sites):
-        keep = nms_cuda.nms_mask_sorted(boxes, valid, thresh)
-        nbytes, ops = nms_work(valid, keep)
+    for (boxes, valid, thresh, k), site in zip(captured["nms"], nms_sites):
+        keep = nms_cuda.nms_mask_sorted(boxes, valid, thresh, k)
+        nbytes, ops = nms_work(valid, keep, k)
         bound_ms, by = bound(nbytes, ops)
         sites.append(dict(
             kernel="nms", path=path, site=site, shape=list(boxes.shape),
-            iou=thresh, kept=int(keep.sum()), bytes=nbytes, operations=ops,
-            ms=time_ms(lambda: nms_cuda.nms_mask_sorted(boxes, valid, thresh)),
-            plain_ms=time_ms(lambda: nms.nms_mask_sorted(boxes, valid, thresh),
-                             runs=20),
-            bound_ms=bound_ms, bound_by=by))
+            iou=thresh, max_keep=k, kept=int(keep.sum()), bytes=nbytes,
+            operations=ops,
+            ms=time_ms(lambda: nms_cuda.nms_mask_sorted(boxes, valid, thresh,
+                                                        k)),
+            plain_ms=time_ms(lambda: nms.nms_mask_sorted(boxes, valid, thresh,
+                                                         k), runs=20),
+            bound_ms=bound_ms, bound_by=by,
+            **nms_split(boxes, valid, thresh, k, keep)))
     for i, (feats, rois, kw) in enumerate(captured["roi_align_fwd"]):
         nbytes, ops = roi_align_work(feats.shape, rois, **kw)
         bound_ms, by = bound(nbytes, ops)
@@ -717,18 +839,24 @@ def time_sites(captured, path: str, nms_sites) -> list:
             plain_ms=time_ms(lambda: roi_align.roi_align(feats, rois, **kw),
                              runs=20),
             bound_ms=bound_ms, bound_by=by))
-    for i, (grad, rois, h, w, kw) in enumerate(captured["roi_align_bwd"]):
+    for i, (grad, rois, h, w, kw, copied) in enumerate(
+            captured["roi_align_bwd"]):
         shape = (grad.shape[0], grad.shape[2], h, w)
         nbytes, ops = roi_align_work(shape, rois, **kw)
         bound_ms, by = bound(nbytes, ops)
         sites.append(dict(
             kernel="roi_align_bwd", path=path, site=f"grad{i}",
-            grad=list(grad.shape), features=list(shape),
+            grad=list(grad.shape), grad_copied=copied, features=list(shape),
             rois=list(rois.shape), bytes=nbytes, operations=ops,
             ms=time_ms(lambda: roi_align_cuda.roi_align_backward(
                 grad, rois, height=h, width=w, **kw)),
             plain_ms=time_ms(lambda: roi_align.roi_align_grad(
                 grad, rois, height=h, width=w, **kw), runs=20),
+            device_ms=device_profile(
+                lambda: roi_align_cuda.roi_align_backward(
+                    grad, rois, height=h, width=w, **kw),
+                KERNEL_PROFILE_RUNS, kernels=("roi_align_bwd_kernel",)
+            )["kernel_ms_per_run"]["roi_align_bwd_kernel"],
             bound_ms=bound_ms, bound_by=by))
     for name in ("row_gather", "row_gather_bulk"):
         kernel = getattr(gather_cuda, name)
@@ -912,25 +1040,35 @@ KERNEL_GROUPS = (
 )
 
 
-def device_profile(run, runs: int) -> dict:
-    """``runs`` calls of ``run()`` (a train step or a forward) under
-    ``torch.profiler``: device time a call by kernel group and the top
-    kernels, and the device's busy share of the host's wall clock (both
-    under the profiler's own overhead)."""
+def device_profile(run, runs: int, kernels=(), attempts: int = 3) -> dict:
+    """``runs`` calls of ``run()`` (a train step, a forward, one kernel's
+    wrapper) under ``torch.profiler``: device time a call by kernel group,
+    the top kernels and the kernels whose names hold each of ``kernels``,
+    and the device's busy share of the host's wall clock (under the
+    profiler's own overhead). Unlike CUDA events around a call, device
+    times leave out the host's launch work. Now and then a profile records
+    no launch of a kernel that ran: it is then taken again, up to
+    ``attempts`` times, and a time still missing is None, not 0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(runs):
-            run()
+    for _ in range(attempts):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(runs):
+                run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        named = {name: sum(e.self_device_time_total for e in kern
+                           if name in e.key) / 1e3 / runs
+                 for name in kernels}
+        if all(named.values()):
+            break
     groups: dict[str, float] = {}
     for e in kern:
         name = e.key.lower()
@@ -948,7 +1086,8 @@ def device_profile(run, runs: int) -> dict:
                                       key=lambda kv: -kv[1])),
         top_kernels=[dict(name=e.key[:100], calls_per_run=e.count / runs,
                           ms_per_run=e.self_device_time_total / 1e3 / runs)
-                     for e in top])
+                     for e in top],
+        kernel_ms_per_run={name: t or None for name, t in named.items()})
 
 
 def run_steps(step, state, args, n: int, expected: dict, label: str):
@@ -1020,14 +1159,16 @@ def phase_train(dev):
          losses=[{k: float(v) for k, v in m.items()} for m in metrics],
          margin_img=margins, plain_agreement=agreement,
          main_path_inputs={
-             "nms": [dict(shape=list(b.shape), iou=t, valid=int(v.sum()))
-                     for b, v, t in captured["nms"]],
+             "nms": [dict(shape=list(b.shape), iou=t, valid=int(v.sum()),
+                          max_keep=k)
+                     for b, v, t, k in captured["nms"]],
              "roi_align_fwd": [dict(features=list(f.shape),
                                     rois=list(r.shape), **kw)
                                for f, r, kw in captured["roi_align_fwd"]],
              "roi_align_bwd": [dict(grad=list(g.shape), rois=list(r.shape),
-                                    height=h, width=w, **kw)
-                               for g, r, h, w, kw in
+                                    height=h, width=w, grad_copied=copied,
+                                    **kw)
+                               for g, r, h, w, kw, copied in
                                captured["roi_align_bwd"]]},
          max_abs_err=errs,
          aligned=dict(steps=ALIGNED_STEPS, launches=a_launches,
@@ -1134,8 +1275,9 @@ def phase_dcn(dev):
          quad_agreement=quad_agreement, resident_bytes=resident,
          max_memory_allocated=peak,
          main_path_inputs={
-             "nms": [dict(shape=list(b.shape), iou=t, valid=int(v.sum()))
-                     for b, v, t in captured["nms"]],
+             "nms": [dict(shape=list(b.shape), iou=t, valid=int(v.sum()),
+                          max_keep=k)
+                     for b, v, t, k in captured["nms"]],
              "roi_align_fwd": [dict(features=list(f.shape),
                                     rois=list(r.shape), **kw)
                                for f, r, kw in captured["roi_align_fwd"]]},
@@ -1149,23 +1291,37 @@ def gather_device_ms(inputs, name: str) -> dict:
     of each recorded launch), for the kernel, the plain version and
     ``torch.index_select``: each variant called once per input,
     GATHER_TIMING_RUNS times over under ``torch.profiler`` after a warm-up
-    pass, its kernels' own device time summed per pass. Unlike CUDA events
-    around each call, this leaves out the host's launch overhead, which is
-    as long as a small gather itself."""
+    pass, its kernels' own device time summed per pass. GATHER_PROFILES
+    such profiles, the three variants in turns; the median and every
+    profile's number are kept. Unlike CUDA events around each call, this
+    leaves out the host's launch overhead, which is as long as a small
+    gather itself."""
     from da_detect_tpu_torch.ops import gather, gather_cuda
 
     variants = {"ms": getattr(gather_cuda, name),
                 "plain_ms": gather.row_gather,
                 "library_ms": lambda t, i: torch.index_select(t, 0, i)}
-    out = {}
-    for key, fn in variants.items():
+
+    def runner(fn):
         def run():
             for table, idx in inputs:
                 fn(table, idx)
-        run()
-        prof = device_profile(run, GATHER_TIMING_RUNS)
-        out[key] = prof["device_ms_per_run"]
-        out[key.replace("ms", "busy_share")] = prof["device_busy_share"]
+        return run
+
+    for fn in variants.values():
+        runner(fn)()
+    profiles = {key: [] for key in variants}
+    busy = {key: [] for key in variants}
+    for _ in range(GATHER_PROFILES):
+        for key, fn in variants.items():
+            prof = device_profile(runner(fn), GATHER_TIMING_RUNS)
+            profiles[key].append(prof["device_ms_per_run"])
+            busy[key].append(prof["device_busy_share"])
+    out = {}
+    for key in variants:
+        out[key] = statistics.median(profiles[key])
+        out[key.replace("ms", "profiles_ms")] = profiles[key]
+        out[key.replace("ms", "busy_share")] = statistics.median(busy[key])
     return out
 
 
@@ -1245,6 +1401,9 @@ def path_summary(sites, launches: int, device=None) -> dict:
         bound_by=by,
         library_ms=(sum(library) if library and None not in library
                     else None))
+    if sites and all(s.get("device_ms") is not None for s in sites):
+        # the kernels' own device time (profiler) beside the event time
+        out["device_ms"] = sum(s["device_ms"] for s in sites)
     if device:
         for key in ("ms", "plain_ms", "library_ms"):
             out[key.replace("ms", "call_ms")] = out[key]
@@ -1274,8 +1433,9 @@ def kernel_line(paths: dict, errs: dict) -> dict:
                    paths=per_path)
         if not name.startswith("row_gather"):
             row["sites"] = [
-                {k: s[k] for k in ("path", "site", "ms", "plain_ms",
-                                   "bound_ms", "bound_by")}
+                {k: s[k] for k in ("path", "site", "ms", "device_ms",
+                                   "plain_ms", "bound_ms", "bound_by")
+                 if k in s}
                 for sites, _, _ in paths.values() for s in sites
                 if s["kernel"] == name]
         rows.append(row)

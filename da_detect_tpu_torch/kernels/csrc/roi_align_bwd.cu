@@ -7,100 +7,293 @@
 // in float32 (channels-last). The ROIs take no gradient: the proposals they
 // come from are stop-gradient, and _pool_bwd returns zeros for them.
 //
-// It is the adjoint of roi_align_fwd.cu, not a copy of the TPU kernel: each
-// sample the forward reads (same geometry, roi_align_common.cuh: the same
-// [-1, size] out-of-bounds rule, edge clamp and 1 / (grid_h * grid_w) mean)
-// scatters w * g into the four corners it interpolated from.
+// It is the adjoint of roi_align_fwd.cu: the same samples (geometry in
+// roi_align_common.cuh: the same [-1, size] out-of-bounds rule, edge clamp
+// and 1 / (grid_h * grid_w) mean), each scattering w * g into the corners it
+// interpolated from. Bilinear sampling is separable, so with
+// out = inv * Ay F Ax^T per ROI and channel (Ay [P, H], Ax [P, W] the
+// per-bin sums of the samples' corner weights on each axis),
 //
-// Design. The TPU kernel accumulates dF in a VMEM block across the
-// sequential ROI grid axis, as two matrix products per ROI block. Hopper's
-// blocks run in parallel and in no order, so the sum across ROIs is made with
-// atomics: one thread per (roi, ph, pw, 4-channel vector) reads its float4
-// of g (neighbouring threads, neighbouring 16-byte words) and adds
-// w * g / (grid_h * grid_w) into the four corners of every in-bounds sample
-// with one float4 atomicAdd each (a vector reduction in L2 on sm_90). dF
-// (C4 at 608x1216: 38x76x1024 f32, 11.8 MB) stays in the 50 MB L2 while the
-// atomics land. The caller zeroes dF first.
-// Bound: bytes. g (256 ROIs: 256*14*14*1024*4 B = 205.5 MB) is read once
-// and dominates the traffic to device memory.
+//     dF[y, x, c] += inv * sum_ph Ay[ph, y] * sum_pw Ax[pw, x] * g[ph, pw, c]
 //
-// Numerics: the atomics add in an order that changes from run to run, so dF
-// agrees with the plain version to float32 rounding (~1e-6 relative), not
-// bitwise, and is not bitwise reproducible itself.
+// as the TPU kernel computes it (two matrix products a ROI block).
+//
+// What bounds it on this card. The bytes: g (train step, 256 ROIs at P = 14,
+// C = 1024: 205.5 MB) is read once, dF (11.8 MB) written. The sum across
+// ROIs lands in dF by atomics in L2, whose count sets the time unless it is
+// kept near the number of touched pixels: a ROI touches only its footprint,
+// (rows and columns its samples' corners reach, ~22 x 22 for a ROI 20
+// feature pixels wide), against P^2 * grid_h * grid_w * 4 corner updates
+// (3,136 at P = 14 and a 2 x 2 grid) when each sample scatters itself.
+//
+// Design. One 256-thread block per (32-channel slice, ROI, image); 8
+// threads span the slice as float4s, so g is read and dF updated in
+// coalesced 16-byte words.
+//   0. The block stages its slice of the ROI's g (P^2 x 32 floats, 25 KB at
+//      P = 14) in shared memory with cp.async, every 16-byte copy in flight
+//      at once: g is read from device memory once, in one round trip, while
+//      the block computes its tables.
+//   1. The block computes the ROI's samples on each axis (two corners and
+//      their weights each) into shared memory, and the footprint: the first
+//      and last row and column a corner reaches.
+//   2. Ay over the footprint rows, dense in shared memory [P, rows], and for
+//      each row the range of bins with a non-zero weight.
+//   3. The footprint's columns in tiles of tile_cols (the wrapper sizes the
+//      tile to the shared memory). For each tile: Ax [P, cols] and each
+//      column's range of bins; then U[ph, x, c] = sum_pw Ax[pw, x] g[ph, pw, c]
+//      into shared memory, one thread a (ph, x, 4 channels), a gather over
+//      the bins that reach x from the staged g; then, one thread a (y, x, 4
+//      channels), inv * sum_ph Ay[ph, y] U[ph, x, c] in registers and one
+//      float4 atomicAdd (a vector reduction in L2 on sm_90) into dF. So each
+//      (ROI, footprint pixel, 4 channels) takes exactly one global atomic,
+//      and a pixel no sample reaches takes none.
+// Shared memory: the layout below; the wrapper (ops/roi_align_cuda.py::
+// bwd_tiling) sizes it, within 48 KB unless the map is so tall that Ay
+// alone passes that, and the launcher sets the kernel's limit to it (needed
+// past 48 KB).
+//
+// The gradient may come in any strides with the channels contiguous
+// (strides in elements, multiples of 4, 16-byte aligned base): autograd's
+// channels-last gradient is read in place. The caller zeroes dF first.
+//
+// Numerics: within a ROI the sums run in a fixed order (over pw, then ph),
+// not the forward's sample order; across ROIs the atomics add in an order
+// that changes from run to run. dF agrees with the plain version to float32
+// rounding (~1e-6 relative), not bitwise, and is not bitwise reproducible.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "roi_align_common.cuh"
 
 namespace {
 
+constexpr int kChannels = 32;               // a block's channel slice
+constexpr int kVec = kChannels / 4;         // float4 lanes across the slice
 constexpr int kThreads = 256;
+constexpr int kItems = kThreads / kVec;     // (row or bin, column) items a pass
 
-// dst += w * v, for the 4 channels at dst (16-byte aligned, global memory)
-__device__ __forceinline__ void scatter4(float* dst, float w, const float4& v) {
-  atomicAdd(reinterpret_cast<float4*>(dst),
-            make_float4(w * v.x, w * v.y, w * v.z, w * v.w));
+// one sample on one axis: its two corners and their weights; lo = -1 when
+// the sample lies out of bounds
+struct Corners {
+  int lo, hi;
+  float w_lo, w_hi;
+};
+
+// 16 bytes global -> shared, asynchronously (L2 only: no reuse in L1)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
 }
 
-__global__ void roi_align_bwd_kernel(const float4* __restrict__ grad,
-                                     const float* __restrict__ rois,
-                                     float* __restrict__ dfeat, int h, int w,
-                                     int c4, int r, int p, long long total,
-                                     float spatial_scale, int sampling_ratio,
-                                     int max_samples) {
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int cv = static_cast<int>(idx % c4);
-  long long t = idx / c4;
-  const int pw = static_cast<int>(t % p);
-  t /= p;
-  const int ph = static_cast<int>(t % p);
-  t /= p;
-  const int roi = static_cast<int>(t % r);
-  const int b = static_cast<int>(t / r);
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// weight of axis position `pos` in bin `bin`: its samples' corner weights
+__device__ __forceinline__ float bin_weight(const Corners* samples, int grid,
+                                            int bin, int pos) {
+  float sum = 0.0f;
+  for (int i = 0; i < grid; ++i) {
+    const Corners s = samples[bin * grid + i];
+    if (s.lo == pos) sum += s.w_lo;
+    if (s.hi == pos) sum += s.w_hi;
+  }
+  return sum;
+}
+
+__device__ __forceinline__ void add4(float4* acc, float w, const float4& v) {
+  acc->x += w * v.x;
+  acc->y += w * v.y;
+  acc->z += w * v.z;
+  acc->w += w * v.w;
+}
+
+__global__ void __launch_bounds__(kThreads) roi_align_bwd_kernel(
+    const float* __restrict__ grad, long long stride_b, long long stride_r,
+    long long stride_ph, long long stride_pw, const float* __restrict__ rois,
+    float* __restrict__ dfeat, int h, int w, int c, int r, int p,
+    float spatial_scale, int sampling_ratio, int max_samples, int samples,
+    int tile_cols) {
+  // layout: g [p * p][kVec] float4 | U [p][tile_cols][kVec] float4 |
+  // x samples [p * samples] | y samples [p * samples] | column bins
+  // [tile_cols] int2 | row bins [h] int2 | Ax [p][tile_cols] | Ay [p][h]
+  extern __shared__ __align__(16) float4 smem[];
+  float4* gs = smem;
+  float4* u = gs + p * p * kVec;
+  Corners* xs = reinterpret_cast<Corners*>(u + p * tile_cols * kVec);
+  Corners* ys = xs + p * samples;
+  int2* col_bins = reinterpret_cast<int2*>(ys + p * samples);
+  int2* row_bins = col_bins + tile_cols;
+  float* ax = reinterpret_cast<float*>(row_bins + h);
+  float* ay = ax + p * tile_cols;
+  __shared__ int x_first, x_last, y_first, y_last;
+
+  const int b = blockIdx.z;
+  const int roi = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int v = tid % kVec;
+  const int cv = blockIdx.x * kVec + v;  // this thread's float4 of C
+  const bool live = cv < c / 4;
+
+  // 0. stage g[ph, pw] of the slice
+  if (live) {
+    const float* src = grad + b * stride_b + roi * stride_r + cv * 4;
+    for (int e = tid / kVec; e < p * p; e += kItems) {
+      cp_async16(gs + e * kVec + v,
+                 src + (e / p) * stride_ph + (e % p) * stride_pw);
+    }
+  }
 
   const roi_align::RoiGrid g = roi_align::roi_grid(
       rois + (static_cast<size_t>(b) * r + roi) * 4, spatial_scale, p,
       sampling_ratio, max_samples);
-  const float inv = 1.0f / (g.grid_h * g.grid_w);
-  const float4 gv = grad[idx];
-  const float4 gs = make_float4(gv.x * inv, gv.y * inv, gv.z * inv, gv.w * inv);
 
-  const int c = c4 * 4;
-  float* fmap = dfeat + static_cast<size_t>(b) * h * w * c + cv * 4;
-  for (int iy = 0; iy < g.gh; ++iy) {
-    const float y = roi_align::sample_coord(g.start_h, g.bin_h, g.grid_h, ph, iy);
-    int y0, y1;
-    float wy0, wy1;
-    if (!roi_align::axis_weights(y, h, &y0, &y1, &wy0, &wy1)) continue;
-    for (int ix = 0; ix < g.gw; ++ix) {
-      const float x = roi_align::sample_coord(g.start_w, g.bin_w, g.grid_w, pw, ix);
-      int x0, x1;
-      float wx0, wx1;
-      if (!roi_align::axis_weights(x, w, &x0, &x1, &wx0, &wx1)) continue;
-      scatter4(fmap + (static_cast<size_t>(y0) * w + x0) * c, wy0 * wx0, gs);
-      scatter4(fmap + (static_cast<size_t>(y0) * w + x1) * c, wy0 * wx1, gs);
-      scatter4(fmap + (static_cast<size_t>(y1) * w + x0) * c, wy1 * wx0, gs);
-      scatter4(fmap + (static_cast<size_t>(y1) * w + x1) * c, wy1 * wx1, gs);
-    }
+  // 1. samples and footprint
+  if (tid == 0) {
+    x_first = w;
+    x_last = -1;
+    y_first = h;
+    y_last = -1;
   }
+  __syncthreads();
+  const int nx = p * g.gw;
+  for (int s = tid; s < nx + p * g.gh; s += kThreads) {
+    const bool on_x = s < nx;
+    const int t = on_x ? s : s - nx;
+    const int grid = on_x ? g.gw : g.gh;
+    const float coord =
+        on_x ? roi_align::sample_coord(g.start_w, g.bin_w, g.grid_w, t / grid,
+                                       t % grid)
+             : roi_align::sample_coord(g.start_h, g.bin_h, g.grid_h, t / grid,
+                                       t % grid);
+    Corners k{-1, -1, 0.0f, 0.0f};
+    if (roi_align::axis_weights(coord, on_x ? w : h, &k.lo, &k.hi, &k.w_lo,
+                                &k.w_hi)) {
+      atomicMin(on_x ? &x_first : &y_first, k.lo);
+      atomicMax(on_x ? &x_last : &y_last, k.hi);
+    }
+    (on_x ? xs : ys)[t] = k;
+  }
+  __syncthreads();
+  if (x_first > x_last || y_first > y_last) {  // no sample in bounds
+    cp_async_wait_all();  // shared memory must outlive the copies
+    return;
+  }
+  const int rows = y_last - y_first + 1;
+
+  // 2. Ay over the footprint rows, and each row's bins
+  for (int e = tid; e < p * rows; e += kThreads) {
+    ay[e] = bin_weight(ys, g.gh, e / rows, y_first + e % rows);
+  }
+  cp_async_wait_all();  // this thread's copies of g; the barrier: everyone's
+  __syncthreads();
+  for (int y = tid; y < rows; y += kThreads) {
+    int2 bins = make_int2(p, -1);
+    for (int ph = 0; ph < p; ++ph) {
+      if (ay[ph * rows + y] != 0.0f) {
+        bins.x = min(bins.x, ph);
+        bins.y = ph;
+      }
+    }
+    row_bins[y] = bins;
+  }
+
+  const float inv = 1.0f / (g.grid_h * g.grid_w);
+  float* fmap = dfeat + static_cast<size_t>(b) * h * w * c + cv * 4;
+
+  // 3. column tiles
+  for (int x0 = x_first; x0 <= x_last; x0 += tile_cols) {
+    const int cols = min(tile_cols, x_last - x0 + 1);
+    for (int e = tid; e < p * cols; e += kThreads) {
+      ax[e] = bin_weight(xs, g.gw, e / cols, x0 + e % cols);
+    }
+    __syncthreads();
+    for (int x = tid; x < cols; x += kThreads) {
+      int2 bins = make_int2(p, -1);
+      for (int pw = 0; pw < p; ++pw) {
+        if (ax[pw * cols + x] != 0.0f) {
+          bins.x = min(bins.x, pw);
+          bins.y = pw;
+        }
+      }
+      col_bins[x] = bins;
+    }
+    __syncthreads();
+
+    // U[ph, x] = sum_pw Ax[pw, x] g[ph, pw]
+    for (int e = tid / kVec; e < p * cols; e += kItems) {
+      const int ph = e / cols;
+      const int x = e % cols;
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (live) {
+        const int2 bins = col_bins[x];
+        for (int pw = bins.x; pw <= bins.y; ++pw) {
+          add4(&acc, ax[pw * cols + x], gs[(ph * p + pw) * kVec + v]);
+        }
+      }
+      u[e * kVec + v] = acc;
+    }
+    __syncthreads();
+
+    // dF[y, x] += inv * sum_ph Ay[ph, y] U[ph, x]
+    for (int e = tid / kVec; e < rows * cols; e += kItems) {
+      const int y = e / cols;
+      const int x = e % cols;
+      const int2 bins = row_bins[y];
+      const int2 xbins = col_bins[x];
+      if (!live || bins.x > bins.y || xbins.x > xbins.y) continue;
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int ph = bins.x; ph <= bins.y; ++ph) {
+        add4(&acc, ay[ph * rows + y], u[(ph * cols + x) * kVec + v]);
+      }
+      float* dst =
+          fmap + (static_cast<size_t>(y_first + y) * w + x0 + x) * c;
+      atomicAdd(reinterpret_cast<float4*>(dst),
+                make_float4(inv * acc.x, inv * acc.y, inv * acc.z,
+                            inv * acc.w));
+    }
+    __syncthreads();  // U, Ax and the column bins are rewritten next tile
+  }
+}
+
+// bytes of the dynamic shared memory layout in the kernel
+long long smem_bytes(int h, int p, int samples, int tile_cols) {
+  return static_cast<long long>(p + tile_cols) * p * kVec * sizeof(float4)
+         + 2LL * p * samples * sizeof(Corners)
+         + static_cast<long long>(tile_cols + h) * sizeof(int2)
+         + static_cast<long long>(p) * (tile_cols + h) * sizeof(float);
 }
 
 }  // namespace
 
-// grad [batch, r, p, p, c] f32 (c % 4 == 0, 16-byte aligned),
-// rois [batch, r, 4] f32 -> dfeat [batch, h, w, c] f32, which the caller
-// has zeroed (16-byte aligned). Returns a cudaError_t.
-extern "C" int roi_align_bwd(const float* grad, const float* rois,
+// grad: [batch, r, p, p, c] f32 at element strides (stride_b, stride_r,
+// stride_ph, stride_pw, 1), each a multiple of 4, 16-byte aligned, c % 4 ==
+// 0; rois [batch, r, 4] f32 -> dfeat [batch, h, w, c] f32, which the caller
+// has zeroed (16-byte aligned). samples = sampling_ratio if > 0 else
+// max_samples; tile_cols and smem from the wrapper's sizing. Returns a
+// cudaError_t (cudaErrorInvalidValue if smem does not hold the layout).
+extern "C" int roi_align_bwd(const float* grad, long long stride_b,
+                             long long stride_r, long long stride_ph,
+                             long long stride_pw, const float* rois,
                              float* dfeat, int batch, int h, int w, int c,
                              int r, int p, float spatial_scale,
                              int sampling_ratio, int max_samples,
-                             cudaStream_t stream) {
-  const int c4 = c / 4;
-  const long long total = static_cast<long long>(batch) * r * p * p * c4;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  roi_align_bwd_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
-      reinterpret_cast<const float4*>(grad), rois, dfeat, h, w, c4, r, p,
-      total, spatial_scale, sampling_ratio, max_samples);
+                             int tile_cols, int smem, cudaStream_t stream) {
+  const int samples = sampling_ratio > 0 ? sampling_ratio : max_samples;
+  if (tile_cols < 1 || samples < 1 || r > 65535 || batch > 65535
+      || smem < smem_bytes(h, p, samples, tile_cols)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      roi_align_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((c / 4 + kVec - 1) / kVec, r, batch);
+  roi_align_bwd_kernel<<<grid, kThreads, smem, stream>>>(
+      grad, stride_b, stride_r, stride_ph, stride_pw, rois, dfeat, h, w, c, r,
+      p, spatial_scale, sampling_ratio, max_samples, samples, tile_cols);
   return static_cast<int>(cudaGetLastError());
 }

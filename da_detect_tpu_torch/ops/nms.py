@@ -43,10 +43,15 @@ def _resolve_chunk(candidates: torch.Tensor,
 
 
 def nms_mask_sorted(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
-                    iou_threshold: float) -> torch.Tensor:
+                    iou_threshold: float,
+                    max_keep: int | None = None) -> torch.Tensor:
     """Keep mask over score-descending boxes [B, N, 4] -> [B, N] bool.
 
-    Invalid rows may sit anywhere: they neither keep nor suppress."""
+    Invalid rows may sit anywhere: they neither keep nor suppress. With
+    ``max_keep``, the mask ends after each image's ``max_keep``-th kept box
+    in score order (later boxes are not kept)."""
+    if max_keep is not None and max_keep < 1:
+        raise ValueError(f"max_keep must be >= 1, got {max_keep}")
     batch, n = boxes_sorted.shape[:2]
     c = min(CHUNK, max(8, n))
     n_pad = -(-n // c) * c
@@ -69,34 +74,39 @@ def nms_mask_sorted(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
         hit = torch.any(keep_c[:, :, None] & (iou_cn > iou_threshold), dim=1)
         suppressed[:, c0 + c:] |= hit
         suppressed[:, c0:c0 + c] = sup_c | (v_c & ~keep_c)
-    return (vs & ~suppressed)[:, :n]
+    keep = (vs & ~suppressed)[:, :n]
+    if max_keep is not None:
+        keep &= torch.cumsum(keep, dim=1) <= max_keep
+    return keep
 
 
-def _sorted_keep(boxes_sorted, valid_sorted, iou_threshold, impl):
+def _sorted_keep(boxes_sorted, valid_sorted, iou_threshold, impl, max_keep):
     if impl == "cuda":
         from .nms_cuda import nms_mask_sorted as kernel
-        return kernel(boxes_sorted, valid_sorted, iou_threshold)
+        return kernel(boxes_sorted, valid_sorted, iou_threshold, max_keep)
     if impl == "plain":
-        return nms_mask_sorted(boxes_sorted, valid_sorted, iou_threshold)
+        return nms_mask_sorted(boxes_sorted, valid_sorted, iou_threshold,
+                               max_keep)
     raise ValueError(f"unknown NMS impl: {impl!r}")
 
 
 def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
-             iou_threshold: float, *, impl: str,
-             presorted: bool = False) -> torch.Tensor:
+             iou_threshold: float, *, impl: str, presorted: bool = False,
+             max_keep: int | None = None) -> torch.Tensor:
     """Greedy NMS. boxes [B, N, 4], scores [B, N], valid [B, N] bool.
     Returns the keep mask [B, N] in the *original* box order. Ties are broken
     by original index (stable sort), like the reference's kernel.
 
     ``presorted`` skips the sort when scores already descend among valid
-    entries (e.g. straight out of the pre-NMS top-k)."""
+    entries (e.g. straight out of the pre-NMS top-k). ``max_keep`` keeps
+    only the first ``max_keep`` survivors in score order."""
     if presorted:
-        return _sorted_keep(boxes, valid, iou_threshold, impl)
+        return _sorted_keep(boxes, valid, iou_threshold, impl, max_keep)
     masked = torch.where(valid, scores, NEG_INF)
     order = torch.sort(masked, dim=-1, descending=True, stable=True).indices
     boxes_s = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
     valid_s = torch.gather(valid, 1, order)
-    keep_s = _sorted_keep(boxes_s, valid_s, iou_threshold, impl)
+    keep_s = _sorted_keep(boxes_s, valid_s, iou_threshold, impl, max_keep)
     return torch.zeros_like(keep_s).scatter_(1, order, keep_s)
 
 
@@ -107,9 +117,17 @@ def nms_topk(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
 
     Returns (indices [B, k] into the original arrays, valid_k [B, k] bool),
     the fixed-capacity analog of the reference's ``keep[:post_nms_top_n]``.
+    The top k survivors are the first k in the NMS's own score order, so the
+    NMS stops after k kept boxes (``max_keep``).
     """
     keep = nms_mask(boxes, scores, valid, iou_threshold, impl=impl,
-                    presorted=presorted)
+                    presorted=presorted, max_keep=max(k, 1))
+    return topk_survivors(keep, scores, k)
+
+
+def topk_survivors(keep: torch.Tensor, scores: torch.Tensor, k: int):
+    """The top-k of the kept boxes by score, ties by index: (indices [B, k],
+    valid_k [B, k] bool); rows past the survivors are index 0, invalid."""
     kept_scores = torch.where(keep, scores, NEG_INF)
     k_eff = min(k, kept_scores.shape[1])
     top_scores, idx = torch.sort(kept_scores, dim=1, descending=True,

@@ -2,10 +2,11 @@
 ``da_detect_tpu/ops/nms_pallas.py``; source ``kernels/csrc/nms.cu``).
 
 ``nms_mask_sorted`` takes score-descending boxes, like
-``nms_mask_pallas_sorted``. On a CUDA tensor it launches the kernel or
-raises; on a CPU tensor it runs the plain version, ``ops.nms.nms_mask_sorted``.
-Callers reach it through ``ops.nms.nms_mask``/``nms_topk`` with
-``impl="cuda"``.
+``nms_mask_pallas_sorted``, and optionally ``max_keep``: the mask then ends
+after its ``max_keep``-th kept box, and the kernel's walk stops there. On a
+CUDA tensor it launches the kernel or raises; on a CPU tensor it runs the
+plain version, ``ops.nms.nms_mask_sorted``. Callers reach it through
+``ops.nms.nms_mask``/``nms_topk`` with ``impl="cuda"``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from .nms import nms_mask_sorted as nms_mask_sorted_plain
 
 KERNEL = "nms"
 
-# the removed-bitmap of one image must fit the reduce block's shared memory
+# the walk block keeps a word a 64 boxes (each block's kept bits) of one
+# image in shared memory: 48 KB at this limit
 MAX_BOXES = 48 * 1024 // 8 * 64
 
 _fn = None
@@ -30,20 +32,23 @@ def _launcher():
     if _fn is None:
         fn = kernels.load(KERNEL).nms_keep_mask
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
 def nms_mask_sorted(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
-                    iou_threshold: float) -> torch.Tensor:
+                    iou_threshold: float,
+                    max_keep: int | None = None) -> torch.Tensor:
     """Keep mask over score-descending boxes [B, N, 4] f32 with valid [B, N]
-    bool -> [B, N] bool. Legacy +1 widths; IoU > threshold suppresses."""
+    bool -> [B, N] bool. Legacy +1 widths; IoU > threshold suppresses. With
+    ``max_keep``, only the first ``max_keep`` kept boxes of each image."""
     device = boxes_sorted.device
     if device.type == "cpu":
-        return nms_mask_sorted_plain(boxes_sorted, valid_sorted, iou_threshold)
+        return nms_mask_sorted_plain(boxes_sorted, valid_sorted, iou_threshold,
+                                     max_keep)
     if device.type != "cuda":
         raise ValueError(f"NMS kernel: unsupported device {device}")
     if boxes_sorted.dtype != torch.float32 or boxes_sorted.dim() != 3 \
@@ -56,18 +61,22 @@ def nms_mask_sorted(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
                          f"device, got {tuple(valid_sorted.shape)}")
     if n > MAX_BOXES:
         raise ValueError(f"NMS kernel: N={n} exceeds {MAX_BOXES}")
+    if max_keep is not None and max_keep < 1:
+        raise ValueError(f"NMS kernel: max_keep must be >= 1, got {max_keep}")
     keep = torch.empty((batch, n), dtype=torch.uint8, device=device)
     if batch == 0 or n == 0:
         return keep.bool()
     boxes = boxes_sorted.contiguous()
     valid = valid_sorted.to(torch.uint8).contiguous()
     col_blocks = -(-n // 64)
-    mask = torch.empty((batch, n, col_blocks), dtype=torch.int64,
+    # one 64-word tile a (row block, column block) pair
+    mask = torch.empty((batch, col_blocks, col_blocks, 64), dtype=torch.int64,
                        device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _launcher()(boxes.data_ptr(), valid.data_ptr(),
-                         float(iou_threshold), batch, n, mask.data_ptr(),
+                         float(iou_threshold), batch, n,
+                         min(max_keep or 0, n), mask.data_ptr(),
                          keep.data_ptr(), stream)
     kernels.check(rc, KERNEL)
     kernels.LAUNCHES[KERNEL] += 1

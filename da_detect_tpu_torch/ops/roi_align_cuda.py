@@ -14,8 +14,11 @@ kernel reads the
 feature map in ``torch.channels_last`` memory and writes [B, R, P, P, C],
 returned as the logical [B, R, C, P, P] view of that memory, so that
 ``reshape(B * R, C, P, P)`` is a channels-last batch for the res5 head. The
-backward takes the gradient in any strides, makes it [B, R, P, P, C] memory,
-and returns dF [B, C, H, W] in channels-last memory, like the features.
+backward reads the gradient as a [B, R, P, P, C] view in its own strides
+when its channels are contiguous (autograd's channels-last gradient: no
+copy), copies it otherwise, and returns dF [B, C, H, W] in channels-last
+memory, like the features. ``bwd_tiling`` sizes the backward kernel's
+shared memory.
 """
 
 from __future__ import annotations
@@ -29,10 +32,22 @@ from .roi_align import roi_align as roi_align_plain
 from .roi_align import roi_align_grad as roi_align_grad_plain
 
 FORWARD, BACKWARD = "roi_align_fwd", "roi_align_bwd"
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_float,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_GEOMETRY = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
+_ARGTYPES = {
+    FORWARD: [ctypes.c_void_p] * 3 + _GEOMETRY + [ctypes.c_void_p],
+    # grad and its 4 outer strides, rois, dF, geometry, tile columns, smem
+    BACKWARD: [ctypes.c_void_p] + [ctypes.c_longlong] * 4
+              + [ctypes.c_void_p] * 2 + _GEOMETRY
+              + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+}
+
+# the backward kernel's block: a slice of BWD_CHANNELS channels
+# (kChannels in roi_align_bwd.cu); its shared memory is sized to
+# BWD_SMEM_TARGET where the map allows it, and never past SMEM_MAX, the
+# most a block may have on sm_90
+BWD_CHANNELS = 32
+BWD_SMEM_TARGET = 48 * 1024
+SMEM_MAX = 227 * 1024
 
 _fns: dict = {}
 
@@ -41,7 +56,7 @@ def _launcher(name: str):
     fn = _fns.get(name)
     if fn is None:
         fn = getattr(kernels.load(name), name)
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -71,20 +86,55 @@ def _check_cuda(name: str, x: torch.Tensor, what: str, rois: torch.Tensor,
                          "positive")
 
 
-def _launch(name: str, src: torch.Tensor, rois: torch.Tensor,
-            dst: torch.Tensor, h: int, w: int, c: int, p: int,
-            spatial_scale: float, sampling_ratio: int,
-            max_samples: int) -> None:
-    device = src.device
-    rois = rois.contiguous()
+def _launch(name: str, head: list, rois: torch.Tensor, h: int, w: int,
+            c: int, p: int, spatial_scale: float, sampling_ratio: int,
+            max_samples: int, tail: tuple = ()) -> None:
+    """Launch ``name`` on the current stream with ``head`` (the arguments
+    before the geometry: pointers, ROIs' included, and strides), the
+    geometry, then ``tail``."""
+    device = rois.device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _launcher(name)(src.data_ptr(), rois.data_ptr(), dst.data_ptr(),
-                             rois.shape[0], h, w, c, rois.shape[1], p,
+        rc = _launcher(name)(*head, rois.shape[0], h, w, c, rois.shape[1], p,
                              float(spatial_scale), int(sampling_ratio),
-                             int(max_samples), stream)
+                             int(max_samples), *tail, stream)
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 1
+
+
+def bwd_tiling(height: int, width: int, output_size: int,
+               samples: int) -> tuple[int, int]:
+    """(tile columns, dynamic shared memory bytes) of a backward block on an
+    H x W map, P = ``output_size``, ``samples`` a bin side at most. The
+    layout is roi_align_bwd.cu's: per column of the tile, U (P x
+    BWD_CHANNELS floats), Ax (P) and the column's bin range (2 ints); fixed,
+    the samples of both axes (16 B each), Ay over the rows (P x H) and each
+    row's bin range, and the staged gradient (P x P x BWD_CHANNELS floats).
+    As many columns as BWD_SMEM_TARGET holds, at least one and at most W;
+    raises if one column passes SMEM_MAX."""
+    p = output_size
+    per_col = 4 * p * BWD_CHANNELS + 4 * p + 8
+    fixed = 2 * 16 * p * samples + height * (4 * p + 8) \
+        + 4 * p * p * BWD_CHANNELS
+    cols = max(1, min(width, (BWD_SMEM_TARGET - fixed) // per_col))
+    smem = fixed + cols * per_col
+    if smem > SMEM_MAX:
+        raise ValueError(f"ROIAlign backward kernel: a {height}-row map at "
+                         f"P={p} needs {smem} B of shared memory a block, "
+                         f"more than {SMEM_MAX}")
+    return cols, smem
+
+
+def grad_view(grad: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    """The [B, R, P, P, C] view of ``grad`` [B, R, C, P, P] the backward
+    kernel reads, and whether it had to be copied: in place when the
+    channels are contiguous, the other strides multiples of 4 and the base
+    16-byte aligned (float4 reads), else a contiguous copy."""
+    g = grad.permute(0, 1, 3, 4, 2)
+    if g.stride(4) == 1 and all(s % 4 == 0 for s in g.stride()[:4]) \
+            and g.data_ptr() % 16 == 0:
+        return g, False
+    return g.contiguous(), True
 
 
 def roi_align_forward(features: torch.Tensor, rois: torch.Tensor, *,
@@ -109,7 +159,9 @@ def roi_align_forward(features: torch.Tensor, rois: torch.Tensor, *,
     out = torch.empty((batch, r, p, p, c), dtype=torch.float32,
                       device=features.device)
     if out.numel():
-        _launch(FORWARD, features, rois, out, h, w, c, p, spatial_scale,
+        rois = rois.contiguous()
+        _launch(FORWARD, [features.data_ptr(), rois.data_ptr(),
+                          out.data_ptr()], rois, h, w, c, p, spatial_scale,
                 sampling_ratio, max_samples)
     return out.permute(0, 1, 4, 2, 3)
 
@@ -131,14 +183,19 @@ def roi_align_backward(grad: torch.Tensor, rois: torch.Tensor, *,
                          f"[B, R, C, {output_size}, {output_size}], got "
                          f"{tuple(grad.shape)}")
     batch, r, c = grad.shape[:3]
-    # [B, R, P, P, C] memory, whatever strides autograd hands over
-    g = grad.permute(0, 1, 3, 4, 2).contiguous()
+    g, _ = grad_view(grad)
     _check_cuda(BACKWARD, g, "grad", rois, sampling_ratio, max_samples)
     dfeat = torch.zeros((batch, height, width, c), dtype=torch.float32,
                         device=grad.device)
     if g.numel() and dfeat.numel():
-        _launch(BACKWARD, g, rois, dfeat, height, width, c, output_size,
-                spatial_scale, sampling_ratio, max_samples)
+        cols, smem = bwd_tiling(height, width, output_size,
+                                sampling_ratio if sampling_ratio > 0
+                                else max_samples)
+        rois = rois.contiguous()
+        _launch(BACKWARD, [g.data_ptr(), *g.stride()[:4], rois.data_ptr(),
+                           dfeat.data_ptr()], rois, height, width, c,
+                output_size, spatial_scale, sampling_ratio, max_samples,
+                (cols, smem))
     return dfeat.permute(0, 3, 1, 2)
 
 

@@ -5,9 +5,10 @@ with one (which need not have JAX, so tests/conftest.py is left out):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-NMS keep masks must agree exactly; ROIAlign to rtol = atol = 1e-5 (float32
-sums in another order); the ROIAlign backward within 1e-5 of the largest
-|dF| (its atomics add in an order that changes from run to run); one train
+NMS keep masks must agree exactly, truncated ones (``max_keep``) too;
+ROIAlign to rtol = atol = 1e-5 (float32 sums in another order); the ROIAlign
+backward within 1e-5 of the largest |dF| (its sums run in another order,
+and its atomics in an order that changes from run to run); one train
 step through the kernels against the same step through the plain versions:
 losses rtol 1e-4, gradients within 1e-3 of each leaf's largest |g|. The two
 row gathers are copies and must equal the plain version bit for bit; a
@@ -47,7 +48,7 @@ def _boxes(seed, b, n):
 @pytest.mark.parametrize("b,n,thresh", [(1, 1, 0.5), (2, 63, 0.7),
                                         (3, 64, 0.3), (1, 65, 0.5),
                                         (2, 700, 0.7), (1, 2048, 0.3),
-                                        (2, 6000, 0.7)])
+                                        (2, 6000, 0.7), (1, 12000, 0.7)])
 def test_nms_kernel_matches_plain(dev, b, n, thresh):
     boxes, valid = (t.to(dev) for t in _boxes(n, b, n))
     before = kernels.LAUNCHES["nms"]
@@ -55,6 +56,41 @@ def test_nms_kernel_matches_plain(dev, b, n, thresh):
     want = nms.nms_mask_sorted(boxes, valid, thresh)
     assert kernels.LAUNCHES["nms"] == before + 1
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_nms_kernel_invalid_rows_and_ragged_batch(dev):
+    """Three images with all, about half and none of their boxes valid."""
+    boxes, _ = _boxes(3, 3, 1000)
+    valid = torch.ones(3, 1000, dtype=torch.bool)
+    valid[1] = torch.from_numpy(np.random.RandomState(4).rand(1000) > 0.5)
+    valid[2] = False
+    boxes, valid = boxes.to(dev), valid.to(dev)
+    got = nms_cuda.nms_mask_sorted(boxes, valid, 0.5)
+    torch.testing.assert_close(got, nms.nms_mask_sorted(boxes, valid, 0.5),
+                               rtol=0, atol=0)
+    assert not got[2].any() and got[0].sum() > got[1].sum() > 0
+
+
+@pytest.mark.parametrize("k", [1, 100, 2000, 10 ** 6])
+def test_nms_kernel_max_keep(dev, k):
+    """The walk's early stop at the train RPN's shape: the kernel's mask
+    equals the plain one truncated after its k-th kept box (k past the
+    survivors: the full mask), and nms_topk through it equals the top k
+    taken from the full mask."""
+    boxes, valid = (t.to(dev) for t in _boxes(12, 2, 12000))
+    full = nms.nms_mask_sorted(boxes, valid, 0.7)
+    want = full & (torch.cumsum(full, dim=1) <= k)
+    got = nms_cuda.nms_mask_sorted(boxes, valid, 0.7, max_keep=k)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(
+        nms.nms_mask_sorted(boxes, valid, 0.7, max_keep=k), want, rtol=0,
+        atol=0)
+    scores = torch.linspace(1.0, 0.0, 12000, device=dev).expand(2, -1)
+    got_k = nms.nms_topk(boxes, scores, valid, 0.7, k, impl="cuda",
+                         presorted=True)
+    want_k = nms.topk_survivors(full, scores, k)
+    for g, w in zip(got_k, want_k):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 def test_nms_topk_kernel_route_matches_plain(dev):
@@ -123,24 +159,45 @@ OFF_MAP = [[-40.0, -30.0, 60.0, 50.0], [200.0, 120.0, 300.0, 200.0],
            [-16.0, 0.0, 1300.0, 700.0]]
 
 
-@pytest.mark.parametrize("case", ["slice", "p7_s2_r11", "off_map_s0",
-                                  "off_map_s2", "empty"])
+EDGE_ROIS = [[-100.0, 100.0, 200.0, 300.0], [100.0, -100.0, 300.0, 200.0],
+             [1100.0, 100.0, 1400.0, 300.0], [100.0, 500.0, 300.0, 800.0],
+             [-50.0, -50.0, 60.0, 40.0], [1150.0, 560.0, 1300.0, 700.0]]
+WHOLE_MAP = [[0.0, 0.0, 1216.0, 608.0], [-30.0, -20.0, 1250.0, 640.0]]
+
+# case: (B, C, H, W, P, sampling ratio, spatial scale, ROIs or (B, R))
+BWD_CASES = {
+    "slice": (1, 1024, 38, 76, 14, 0, 1 / 16, (1, 256)),  # the train step
+    "p7_s2_r11": (2, 128, 10, 16, 7, 2, 1 / 16, (2, 11)),
+    "off_map_s0": (1, 64, 38, 76, 14, 0, 1 / 16, OFF_MAP),
+    "off_map_s2": (1, 64, 38, 76, 14, 2, 1 / 16, OFF_MAP),
+    "empty": (1, 1024, 38, 76, 14, 0, 1 / 16, (1, 0)),
+    "whole_c4": (1, 1024, 38, 76, 14, 0, 1 / 16, WHOLE_MAP),
+    "whole_p2": (1, 256, 152, 304, 7, 2, 1 / 4, WHOLE_MAP[:1]),
+    "edges": (1, 64, 38, 76, 14, 0, 1 / 16, EDGE_ROIS),
+    "c4": (1, 4, 38, 76, 14, 0, 1 / 16, (1, 20)),
+    "c12": (2, 12, 38, 76, 7, 2, 1 / 16, (2, 9)),
+    # 800 rows: Ay passes the 48 KB target, the kernel's limit is raised
+    "tall": (1, 8, 800, 8, 14, 0, 1 / 16, [[0.0, 0.0, 128.0, 12800.0],
+                                           [10.0, 300.0, 90.0, 5000.0]]),
+}
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES))
 def test_roi_align_backward_kernel_matches_plain(dev, case):
     """At the train step's shapes ([1,1024,38,76], R = 256, P = 14) and on
-    the edge cases: ROIs off the map, degenerate and inverted, and none."""
+    the edge cases: ROIs off the map, degenerate and inverted, none, the
+    whole C4 and P2 maps, straddling each edge, channel counts that leave
+    the last 32-channel slice partly empty, and a map tall enough to need
+    more than 48 KB of shared memory a block."""
     gen = torch.Generator().manual_seed(11)
-    b, c, h, w, p, sr = 1, 1024, 38, 76, 14, 0
-    if case == "p7_s2_r11":
-        b, c, h, w, p, sr = 2, 128, 10, 16, 7, 2
-    elif case.startswith("off_map"):
-        c, sr = 64, int(case[-1])
-    rois = _rois(3, b, 256 if case == "slice" else 11, h, w, 900.0)
-    if case.startswith("off_map"):
-        rois = torch.tensor([OFF_MAP], dtype=torch.float32)
-    elif case == "empty":
-        rois = torch.zeros(1, 0, 4)
+    b, c, h, w, p, sr, scale, rois = BWD_CASES[case]
+    if isinstance(rois, tuple):
+        rois = _rois(3, *rois, h, w, 900.0) if rois[1] else torch.zeros(
+            rois[0], 0, 4)
+    else:
+        rois = torch.tensor([rois], dtype=torch.float32)
     rois = rois.to(dev)
-    kw = dict(spatial_scale=1.0 / 16, output_size=p, sampling_ratio=sr,
+    kw = dict(spatial_scale=scale, output_size=p, sampling_ratio=sr,
               max_samples=8)
     g = torch.randn(b, rois.shape[1], c, p, p, generator=gen).to(dev)
     before = kernels.LAUNCHES["roi_align_bwd"]
@@ -152,6 +209,24 @@ def test_roi_align_backward_kernel_matches_plain(dev, case):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
     if case == "empty":
         assert not got.any()
+    else:
+        assert scale > 0
+
+
+def test_roi_align_backward_reads_strided_grad(dev):
+    """An R slice of a channels-last gradient is read in place (no copy)
+    and gives the same dF as its contiguous copy."""
+    gen = torch.Generator().manual_seed(13)
+    full = torch.randn(1, 12, 14, 14, 64, generator=gen).to(dev)
+    grad = full.permute(0, 1, 4, 2, 3)[:, 2:9]
+    assert not roi_align_cuda.grad_view(grad)[1]
+    rois = _rois(6, 1, 7, 38, 76, 900.0).to(dev)
+    kw = dict(height=38, width=76, spatial_scale=1 / 16, output_size=14,
+              sampling_ratio=0, max_samples=8)
+    got = roi_align_cuda.roi_align_backward(grad, rois, **kw)
+    want = roi_align.roi_align_grad(grad.contiguous(), rois, **kw)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
 
 
 def test_roi_align_autograd_function_on_card(dev):

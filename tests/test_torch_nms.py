@@ -136,3 +136,78 @@ def test_nms_caffe2_golden_small(thresh, want):
                          torch.ones(1, 5, dtype=bool), thresh,
                          impl="plain")[0].numpy()
     np.testing.assert_array_equal(np.flatnonzero(keep), np.array(want))
+
+
+@pytest.mark.parametrize("n,seed,thresh,k", [(300, 61, 0.7, 1),
+                                             (300, 61, 0.7, 40),
+                                             (1100, 62, 0.5, 100),
+                                             (1100, 62, 0.5, 2000),
+                                             (700, 63, 0.3, 700)])
+def test_sorted_mask_max_keep_truncates(n, seed, thresh, k):
+    """``max_keep`` = k gives the full mask cut after its k-th kept box in
+    score order (k past the survivors: the full mask), per image, through
+    the plain version and the wrapper's CPU branch alike."""
+    cases = [make_cluster_boxes(n, seed + i) for i in range(2)]
+    order = [np.argsort(-s, kind="stable") for _, s in cases]
+    bs = torch.from_numpy(np.stack([b[o] for (b, _), o in zip(cases, order)]))
+    vs = torch.from_numpy(np.random.RandomState(seed).rand(2, n) > 0.2)
+    full = tnms.nms_mask_sorted(bs, vs, thresh)
+    want = full & (torch.cumsum(full, dim=1) <= k)
+    got = tnms.nms_mask_sorted(bs, vs, thresh, max_keep=k)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(
+        nms_cuda.nms_mask_sorted(bs, vs, thresh, max_keep=k).numpy(),
+        want.numpy())
+    assert (got.sum(1) == torch.clamp(full.sum(1), max=k)).all()
+
+
+def test_max_keep_must_be_positive():
+    boxes, valid = torch.zeros(1, 3, 4), torch.ones(1, 3, dtype=torch.bool)
+    with pytest.raises(ValueError, match="max_keep"):
+        tnms.nms_mask_sorted(boxes, valid, 0.5, max_keep=0)
+
+
+@pytest.mark.parametrize("k,presorted", [(1, True), (30, True), (30, False),
+                                         (500, True), (500, False)])
+def test_nms_topk_through_max_keep_matches_pallas(k, presorted):
+    """nms_topk stops the NMS after k kept boxes; its validity and indices
+    equal the top k taken from the full keep mask and the JAX package's XLA
+    route, and the Pallas route's (interpret mode) on the valid rows (the
+    Pallas route orders the padding rows past the survivors otherwise)."""
+    n = 400
+    boxes, scores = make_cluster_boxes(n, 71)
+    valid = np.random.RandomState(72).rand(n) > 0.2
+    if presorted:
+        order = np.argsort(-scores, kind="stable")
+        boxes, scores, valid = boxes[order], scores[order], valid[order]
+    jargs = (jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid),
+             0.5, k)
+    idx_p, val_p = NP.nms_topk_pallas(*jargs, presorted=presorted)
+    idx_j, val_j = jnms.nms_topk(*jargs, presorted=presorted)
+    idx_t, val_t = tnms.nms_topk(_t(boxes), _t(scores), _t(valid), 0.5, k,
+                                 presorted=presorted, impl="plain")
+    full = tnms.nms_mask(_t(boxes), _t(scores), _t(valid), 0.5,
+                         impl="plain", presorted=presorted)
+    idx_f, val_f = tnms.topk_survivors(full, _t(scores), k)
+    for val_w in (val_p, val_j):
+        np.testing.assert_array_equal(val_t[0].numpy(), np.asarray(val_w))
+    ok = val_t[0].numpy()
+    np.testing.assert_array_equal(idx_t[0].numpy()[ok], np.asarray(idx_p)[ok])
+    np.testing.assert_array_equal(idx_t[0].numpy(), np.asarray(idx_j))
+    np.testing.assert_array_equal(val_t.numpy(), val_f.numpy())
+    np.testing.assert_array_equal(idx_t.numpy(), idx_f.numpy())
+
+
+def test_nms_mask_max_keep_in_original_order():
+    """Unsorted input: the k kept boxes are the k highest-scoring survivors,
+    scattered back to their original places."""
+    boxes, scores = make_cluster_boxes(500, 81)
+    valid = torch.from_numpy(np.random.RandomState(82).rand(1, 500) > 0.1)
+    full = tnms.nms_mask(_t(boxes), _t(scores), valid, 0.6, impl="plain")
+    got = tnms.nms_mask(_t(boxes), _t(scores), valid, 0.6, impl="plain",
+                        max_keep=25)
+    top = np.argsort(-np.where(full[0].numpy(), scores, -np.inf),
+                     kind="stable")[:25]
+    want = np.zeros(500, bool)
+    want[top] = True
+    np.testing.assert_array_equal(got[0].numpy(), want)

@@ -201,3 +201,47 @@ def test_roi_align_gradcheck_float64(fn):
         assert torch.autograd.gradcheck(
             lambda f: fn(f, rois, spatial_scale=1.0 / 16, output_size=3,
                          sampling_ratio=sr, max_samples=4), (feats,))
+
+
+@pytest.mark.parametrize("h,w,p,samples", [
+    (38, 76, 14, 8),     # C4 at 608x1216, the train step's pooler
+    (152, 304, 7, 2),    # FPN P2 at 608x1216
+    (10, 16, 7, 2),      # a map narrower than a tile
+    (800, 8, 14, 8),     # tall: Ay alone passes the 48 KB target
+])
+def test_bwd_tiling_sizes_shared_memory(h, w, p, samples):
+    """The backward kernel's column tile and shared memory: at least one
+    column and at most the map's width, within the 48 KB target whenever
+    one column fits in it, and the bytes of roi_align_bwd.cu's layout."""
+    cols, smem = roi_align_cuda.bwd_tiling(h, w, p, samples)
+    per_col = 4 * p * roi_align_cuda.BWD_CHANNELS + 4 * p + 8
+    fixed = 32 * p * samples + h * (4 * p + 8) \
+        + 4 * p * p * roi_align_cuda.BWD_CHANNELS
+    assert 1 <= cols <= w and smem == fixed + cols * per_col
+    if fixed + per_col <= roi_align_cuda.BWD_SMEM_TARGET:
+        assert smem <= roi_align_cuda.BWD_SMEM_TARGET
+        assert cols == w or smem + per_col > roi_align_cuda.BWD_SMEM_TARGET
+    else:
+        assert cols == 1 and smem <= roi_align_cuda.SMEM_MAX
+    if (h, w) == (38, 76):
+        assert (cols, smem) == (9, 47808)
+
+
+def test_bwd_tiling_refuses_a_map_too_tall():
+    with pytest.raises(ValueError, match="shared memory"):
+        roi_align_cuda.bwd_tiling(5000, 8, 14, 8)
+
+
+def test_grad_view_reads_channels_last_in_place():
+    """The backward kernel reads autograd's channels-last gradient (and an
+    R slice of it) in place; other layouts are copied to [B, R, P, P, C]."""
+    base = torch.randn(2, 5, 7, 7, 64)                  # [B, R, P, P, C]
+    cl = base.permute(0, 1, 4, 2, 3)                    # [B, R, C, P, P]
+    for grad in (cl, cl[:, 1:4]):
+        g, copied = roi_align_cuda.grad_view(grad)
+        assert not copied and g.data_ptr() == grad.data_ptr()
+        assert torch.equal(g, grad.permute(0, 1, 3, 4, 2))
+    nchw = cl.contiguous()
+    g, copied = roi_align_cuda.grad_view(nchw)
+    assert copied and g.is_contiguous()
+    assert torch.equal(g, base)
