@@ -9,9 +9,12 @@ Phases, one JSON line each:
   3. kernels   each kernel against its plain PyTorch version on the card, at
                the main paths' shapes and on edge cases (NMS: 1 to 12000
                boxes, invalid rows, a ragged batch, max_keep truncation;
-               ROIAlign backward: whole C4 and P2 maps, map edges, C = 4 and
-               12, a map that needs more than 48 KB a block, a strided
-               gradient)
+               ROIAlign forward: ROIs off the map, wide ones, the whole C4
+               map at cap 8, and one level-aware launch over the DCN
+               pooler's 4 maps, with a level that gets no ROI, two images
+               and no ROI; ROIAlign backward: whole C4 and P2 maps, map
+               edges, C = 4 and 12, a map that needs more than 48 KB a
+               block, a strided gradient)
   4. slice     the flagship R-50-C4 config (its YAML) at the 608x1216 canvas
                in float32, random weights from a seed, answers 4 eval requests
                of batch 1 through ``entry()``; launch counts show the kernels
@@ -26,13 +29,18 @@ Phases, one JSON line each:
                with the NMS split
   8. dcn       the X-101-32x8d-FPN-DCN YAML at 608x1216 in float32 through
                ``entry(cfg=dcn_cfg())``: 4 requests with exact launch counts
-               (row_gather 270 a forward, NMS 6, ROIAlign 4), one request with
+               (row_gather 270 a forward, NMS 6, ROIAlign 1: each ROI from
+               its own level of P2-P5), one request with
                impl="plain" and one with TPU.DCN_GATHER "quad" (row_gather_bulk
                270) that must agree with it
   9. dcn_times  each gather's kernel, plain and ``torch.index_select`` device
                times on the path's inputs, summed a forward, from 3
                profiles taken in turns (median and spread), with the byte
-               bound; forward latency, stage split, profile and peak memory
+               bound; forward latency, stage split, profile, the pooler's
+               device time and peak memory
+Each ROIAlign-forward site of phases 5, 7 and 9 also gives its kernel's
+device time (profiler), the corner bytes that the per-thread gather it
+replaced read through L2, and the ROIs' footprint bytes the kernel stages.
 Then a line with every kernel's numbers, the nvidia-smi line of the card, and
 last ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. With no CUDA device it exits 1 at once.
@@ -100,16 +108,21 @@ ROI_BWD_REL = 1e-5
 
 # the DCN model: launches a forward makes. A row gather a tap of each of the
 # 30 deformable convs (res3 4, res4 23, res5 3 blocks; 9 taps); NMS in the
-# RPN's 5 levels (P2-P6) and the box head; ROIAlign from each of P2-P5
-PER_DCN_FORWARD = {"row_gather": 270, "nms": 6, "roi_align_fwd": 4}
-PER_QUAD_FORWARD = {"row_gather_bulk": 270, "nms": 6, "roi_align_fwd": 4}
+# RPN's 5 levels (P2-P6) and the box head; ROIAlign from P2-P5, each ROI
+# from its own level, in one launch
+PER_DCN_FORWARD = {"row_gather": 270, "nms": 6, "roi_align_fwd": 1}
+PER_QUAD_FORWARD = {"row_gather_bulk": 270, "nms": 6, "roi_align_fwd": 1}
 # conv_offset kernels drawn from this seed, each scaled so that its offsets
 # have this standard deviation (pixels): samples spread over about +-2 px
 DCN_SEED, DCN_OFFSET_STD = 0, 1.0
 DCN_PROFILE_RUNS, GATHER_TIMING_RUNS, GATHER_PROFILES = 3, 10, 3
-# calls of each NMS and ROIAlign-backward site under torch.profiler for the
-# device time of its kernels (NMS: the mask launch and the walk apart)
+# calls of each NMS and ROIAlign site under torch.profiler for the device
+# time of its kernels (NMS: the mask launch and the walk apart), and of the
+# DCN model's whole pooler
 KERNEL_PROFILE_RUNS = 10
+# the DCN pooler's maps at 608x1216 (P2-P5) and scales
+FPN_SHAPES = ((152, 304), (76, 152), (38, 76), (19, 38))
+FPN_SCALES = (1 / 4, 1 / 8, 1 / 16, 1 / 32)
 # row gathers against the plain version at the DCN path's shapes, 608x1216:
 # name -> (S table rows, C, P indices, row stride or None)
 GATHER_CASES = {
@@ -213,6 +226,25 @@ def random_rois(rng, b: int, r: int, hw, max_side: float) -> np.ndarray:
                     -1).astype(np.float32)
 
 
+def fpn_inputs(rng, b: int, r: int, c: int, dev, empty_level=None):
+    """The DCN pooler's 4 maps (random, channels-last), ROIs of 4 to 700
+    pixels a side over the canvas and their levels by FPN's rule; with
+    ``empty_level``, the ROIs of that level are dropped."""
+    from da_detect_tpu_torch.models import poolers
+
+    maps = [torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(
+        dev).permute(0, 3, 1, 2) for h, w in FPN_SHAPES]
+    side = np.exp(rng.uniform(np.log(4), np.log(700), (b, 3 * r, 2)))
+    xy = rng.uniform(-50, (CANVAS[1], CANVAS[0]), (b, 3 * r, 2))
+    rois = torch.from_numpy(np.concatenate([xy, xy + side], -1).astype(
+        np.float32))
+    levels = poolers.assign_levels(rois, 2, 5)
+    if empty_level is not None:
+        keep = (levels != empty_level).all(0)
+        rois, levels = rois[:, keep], levels[:, keep]
+    return maps, rois[:, :r].to(dev), levels[:, :r].to(dev)
+
+
 # ---------------------------------------------------------------- bounds
 
 def nms_stops(keep: torch.Tensor, max_keep) -> np.ndarray:
@@ -243,35 +275,72 @@ def nms_work(valid: torch.Tensor, keep: torch.Tensor,
             IOU_OPS * pairs + AREA_OPS * int(v.sum()))
 
 
-def roi_align_work(features_shape, rois, *, spatial_scale, output_size,
-                   sampling_ratio, max_samples) -> tuple[float, float]:
-    """(bytes, operations) ROIAlign needs on these inputs: the map and ROIs
-    read once, the output written once; 8 flops a channel for each sample
-    that lies in bounds, and the average. The backward moves the same bytes
-    (the gradient read once, the ROIs read once, dF written once) and does
-    the same operations (a multiply and an add into each of 4 corners)."""
+def roi_align_geometry(height, width, rois, *, spatial_scale, output_size,
+                       sampling_ratio, max_samples):
+    """Per ROI [B, R] (float64): the samples that lie in bounds on this map,
+    and its footprint, the pixels of the rectangle of rows and columns its
+    in-bounds samples' corners reach."""
     from da_detect_tpu_torch.ops.roi_align import _roi_grid
 
-    b, c, h, w = features_shape
-    r, p = rois.shape[1], output_size
+    p = output_size
     s = sampling_ratio if sampling_ratio > 0 else max_samples
     start_h, start_w, bin_h, bin_w, grid_h, grid_w = _roi_grid(
         rois.float(), spatial_scale, p, sampling_ratio, max_samples)
     pos = torch.arange(p, dtype=torch.float32, device=rois.device)[:, None]
     idx = torch.arange(s, dtype=torch.float32, device=rois.device)
 
-    def in_bounds(start, bin_size, grid, size):  # [B, R, P] samples a bin
+    def axis(start, bin_size, grid, size):
         start, bin_size, grid = (t[..., None, None]
                                  for t in (start, bin_size, grid))
         coords = start + pos * bin_size + (idx + 0.5) * bin_size / grid
         ok = (idx < grid) & (coords >= -1.0) & (coords <= size)
-        return ok.sum(-1).double()
+        lo = torch.floor(coords.clamp(0.0, size - 1.0)).double()
+        hi = (lo + 1).clamp(max=size - 1)
+        first = torch.where(ok, lo, np.inf).amin((-1, -2))
+        last = torch.where(ok, hi, -np.inf).amax((-1, -2))
+        return ok.sum(-1).double(), (last - first + 1).clamp(min=0)
 
-    ny = in_bounds(start_h, bin_h, grid_h, h)
-    nx = in_bounds(start_w, bin_w, grid_w, w)
-    samples = float((ny[..., :, None] * nx[..., None, :]).sum())
-    nbytes = 4 * (b * c * h * w + rois.numel() + b * r * p * p * c)
-    return nbytes, ROI_SAMPLE_OPS * c * samples + b * r * p * p * c
+    ny, span_y = axis(start_h, bin_h, grid_h, height)
+    nx, span_x = axis(start_w, bin_w, grid_w, width)
+    return (ny[..., :, None] * nx[..., None, :]).sum((-1, -2)), span_y * span_x
+
+
+def roi_align_work(maps, rois, levels, kw) -> dict:
+    """What ROIAlign needs on these inputs: ``bytes`` (the maps, ROIs and
+    levels read once, the output written once) and ``operations`` (8 a
+    channel for each in-bounds sample of each ROI on its own level, and the
+    average); ``old_l2_bytes``, the corner reads the per-thread gather that
+    the forward kernel replaced made through L2 (4 corners of C floats an
+    in-bounds sample; with several maps it pooled every ROI from every one
+    of them); ``footprint_bytes``, the ROIs' footprints on their own maps
+    (C floats a pixel), which the forward kernel stages in shared memory.
+    ``maps``: (B, C, H, W) of each map; ``levels`` None for one map; ``kw``:
+    the wrapper's keywords (``spatial_scale`` or ``scales``). The backward
+    moves the same bytes (the gradient read once, dF written once) and does
+    the same operations (a multiply and an add into each of 4 corners)."""
+    b, c = maps[0][:2]
+    r, p = rois.shape[1], kw["output_size"]
+    scales = kw["scales"] if levels is not None else (kw["spatial_scale"],)
+    geo = dict(output_size=p, sampling_ratio=kw["sampling_ratio"],
+               max_samples=kw["max_samples"])
+    own_samples = own_footprint = 0.0
+    all_samples = 0.0
+    for i, (shape, scale) in enumerate(zip(maps, scales)):
+        samples, footprint = roi_align_geometry(
+            shape[2], shape[3], rois, spatial_scale=scale, **geo)
+        own = torch.ones_like(samples) if levels is None \
+            else (levels == i).double()
+        own_samples += float((samples * own).sum())
+        own_footprint += float((footprint * own).sum())
+        all_samples += float(samples.sum())
+    nbytes = 4 * (sum(m[0] * m[1] * m[2] * m[3] for m in maps) + rois.numel()
+                  + b * r * p * p * c)
+    if levels is not None:
+        nbytes += 8 * levels.numel()
+    return dict(bytes=nbytes,
+                operations=ROI_SAMPLE_OPS * c * own_samples + b * r * p * p * c,
+                old_l2_bytes=4 * 4 * c * all_samples,
+                footprint_bytes=4 * c * own_footprint)
 
 
 # ---------------------------------------------------------------- checks
@@ -292,14 +361,39 @@ def check_nms(boxes, valid, thresh,
     return mismatches, got
 
 
-def check_roi_align(features, rois, **kw) -> float:
+def fwd_call(maps, rois, levels, kw, plain: bool = False):
+    """The forward kernel's wrapper (or with ``plain`` its plain version) on
+    one captured input: one map, or several with each ROI's level."""
     from da_detect_tpu_torch.ops import roi_align, roi_align_cuda
 
-    got = roi_align_cuda.roi_align(features, rois, **kw)
-    want = roi_align.roi_align(features, rois, **kw)
+    if levels is None:
+        fn = roi_align.roi_align if plain else roi_align_cuda.roi_align_forward
+        return fn(maps[0], rois, **kw)
+    fn = roi_align.roi_align_levels if plain \
+        else roi_align_cuda.roi_align_levels_forward
+    return fn(maps, rois, levels, **kw)
+
+
+def check_roi_align_fwd(maps, rois, levels, kw) -> float:
+    """The forward kernel against its plain version, one map or several."""
+    got = fwd_call(maps, rois, levels, kw)
+    want = fwd_call(maps, rois, levels, kw, plain=True)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **ROI_TOL)
     return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def fwd_inputs(captured) -> list:
+    """A summary of each captured forward input, for the phase lines."""
+    out = []
+    for maps, rois, levels, kw in captured["roi_align_fwd"]:
+        row = dict(features=[list(m.shape) for m in maps],
+                   rois=list(rois.shape), **kw)
+        if levels is not None:
+            row["rois_a_level"] = [int((levels == i).sum())
+                                   for i in range(len(maps))]
+        out.append(row)
+    return out
 
 
 def check_roi_align_backward(rois, grad, height, width,
@@ -346,13 +440,15 @@ def check_gather(name: str, table, idx) -> float:
 def record_kernel_inputs():
     """While open, each kernel wrapper's inputs are recorded on the way (the
     kernels' inputs as a main path gives them): yields a dict kernel name ->
-    list of inputs. A gather's table is kept by reference (no copy): the
+    list of inputs (ROIAlign forward: the maps, ROIs, levels or None, and
+    the keywords of the one-level or the level-aware wrapper). A gather's table is kept by reference (no copy): the
     forward writes no tensor in place."""
     from da_detect_tpu_torch.ops import gather_cuda, nms_cuda, roi_align_cuda
 
     captured = {name: [] for name in SOURCES}
     nms_kernel = nms_cuda.nms_mask_sorted
     fwd_kernel = roi_align_cuda.roi_align_forward
+    levels_kernel = roi_align_cuda.roi_align_levels_forward
     bwd_kernel = roi_align_cuda.roi_align_backward
     gathers = {name: getattr(gather_cuda, name)
                for name in ("row_gather", "row_gather_bulk")}
@@ -369,9 +465,15 @@ def record_kernel_inputs():
         return nms_kernel(boxes, valid, thresh, max_keep)
 
     def fwd_rec(features, rois, **kw):
-        captured["roi_align_fwd"].append((features.detach().clone(),
-                                          rois.clone(), kw))
+        captured["roi_align_fwd"].append(([features.detach().clone()],
+                                          rois.clone(), None, kw))
         return fwd_kernel(features, rois, **kw)
+
+    def levels_rec(features, rois, levels, **kw):
+        captured["roi_align_fwd"].append((
+            [f.detach().clone() for f in features], rois.clone(),
+            levels.clone(), kw))
+        return levels_kernel(features, rois, levels, **kw)
 
     def bwd_rec(grad, rois, *, height, width, **kw):
         # the clone keeps the gradient's strides; and whether the kernel
@@ -383,6 +485,7 @@ def record_kernel_inputs():
 
     nms_cuda.nms_mask_sorted = nms_rec
     roi_align_cuda.roi_align_forward = fwd_rec
+    roi_align_cuda.roi_align_levels_forward = levels_rec
     roi_align_cuda.roi_align_backward = bwd_rec
     for name in gathers:
         setattr(gather_cuda, name, gather_rec(name))
@@ -391,6 +494,7 @@ def record_kernel_inputs():
     finally:
         nms_cuda.nms_mask_sorted = nms_kernel
         roi_align_cuda.roi_align_forward = fwd_kernel
+        roi_align_cuda.roi_align_levels_forward = levels_kernel
         roi_align_cuda.roi_align_backward = bwd_kernel
         for name, fn in gathers.items():
             setattr(gather_cuda, name, fn)
@@ -404,9 +508,10 @@ def check_captured(captured) -> dict:
     for boxes, valid, thresh, max_keep in captured["nms"]:
         errs["nms"] = max(errs.get("nms", 0),
                           check_nms(boxes, valid, thresh, max_keep)[0])
-    for feats, rois, kw in captured["roi_align_fwd"]:
+    for maps, rois, levels, kw in captured["roi_align_fwd"]:
         errs["roi_align_fwd"] = max(errs.get("roi_align_fwd", 0.0),
-                                    check_roi_align(feats, rois, **kw))
+                                    check_roi_align_fwd(maps, rois, levels,
+                                                        kw))
     for grad, rois, h, w, kw, _ in captured["roi_align_bwd"]:
         errs["roi_align_bwd"] = max(
             errs.get("roi_align_bwd", 0.0),
@@ -542,7 +647,8 @@ def phase_kernels(dev) -> dict:
 
     def roi_case(name, feats_nhwc, rois, **kw):
         feats = torch.from_numpy(feats_nhwc).to(dev).permute(0, 3, 1, 2)
-        err = check_roi_align(feats, torch.from_numpy(rois).to(dev), **kw)
+        err = check_roi_align_fwd([feats], torch.from_numpy(rois).to(dev),
+                                  None, kw)
         results[name] = dict(max_abs_err=err, features=list(feats.shape),
                              rois=list(rois.shape), **kw)
 
@@ -570,6 +676,30 @@ def phase_kernels(dev) -> dict:
     for cap in (8, 4):
         roi_case(f"roi_wide_cap{cap}", rng.randn(1, *c4, 8).astype(np.float32),
                  wide, max_samples=cap, **kw14)
+    # one C4 launch whose ROIs cover the whole map at cap 8: the widest bin
+    # rows, walked in several steps of the forward kernel's tile
+    roi_case("roi_whole_c4_cap8",
+             rng.randn(1, *c4, C4_CHANNELS).astype(np.float32),
+             np.asarray([[[0.0, 0.0, 1216.0, 608.0],
+                          [-30.0, -20.0, 1250.0, 640.0],
+                          [-400.0, 0.0, 2400.0, 600.0]]], np.float32),
+             max_samples=8, **kw14)
+
+    def levels_case(name, b, r, c, empty_level=None):
+        """The level-aware launch at the DCN pooler's maps (P 7, sampling
+        ratio 2) against every level, then the mask."""
+        maps, rois, levels = fpn_inputs(rng, b, r, c, dev, empty_level)
+        kw = dict(scales=FPN_SCALES, output_size=7, sampling_ratio=2,
+                  max_samples=8)
+        err = check_roi_align_fwd(maps, rois, levels, kw)
+        results[name] = dict(
+            max_abs_err=err, features=[list(m.shape) for m in maps],
+            rois=list(rois.shape),
+            rois_a_level=[int((levels == i).sum()) for i in range(4)], **kw)
+
+    levels_case("roi_levels_dcn", 1, SLICE_ROIS, 256)
+    levels_case("roi_levels_empty_p3_b2", 2, 300, 256, empty_level=1)
+    levels_case("roi_levels_no_roi_b2", 2, 0, 256)
 
     def bwd_case(name, map_shape, rois, strided=False, **kw):
         """map_shape (B, C, H, W); a random upstream gradient, [B, R, C, P,
@@ -747,9 +877,7 @@ def phase_slice(dev):
              "nms": [dict(shape=list(b.shape), iou=t, valid=int(v.sum()),
                           max_keep=k)
                      for b, v, t, k in captured["nms"]],
-             "roi_align_fwd": [dict(features=list(f.shape),
-                                    rois=list(r.shape), **kw)
-                               for f, r, kw in captured["roi_align_fwd"]]},
+             "roi_align_fwd": fwd_inputs(captured)},
          max_abs_err=errs)
     return model, fn, batches, captured, launches, errs
 
@@ -827,22 +955,26 @@ def time_sites(captured, path: str, nms_sites) -> list:
                                                          k), runs=20),
             bound_ms=bound_ms, bound_by=by,
             **nms_split(boxes, valid, thresh, k, keep)))
-    for i, (feats, rois, kw) in enumerate(captured["roi_align_fwd"]):
-        nbytes, ops = roi_align_work(feats.shape, rois, **kw)
-        bound_ms, by = bound(nbytes, ops)
+    for i, (maps, rois, levels, kw) in enumerate(captured["roi_align_fwd"]):
+        work = roi_align_work([m.shape for m in maps], rois, levels, kw)
+        bound_ms, by = bound(work["bytes"], work["operations"])
         sites.append(dict(
             kernel="roi_align_fwd", path=path, site=f"pool{i}",
-            features=list(feats.shape), rois=list(rois.shape), bytes=nbytes,
-            operations=ops,
-            ms=time_ms(lambda: roi_align_cuda.roi_align_forward(feats, rois,
-                                                                **kw)),
-            plain_ms=time_ms(lambda: roi_align.roi_align(feats, rois, **kw),
-                             runs=20),
+            features=[list(m.shape) for m in maps], rois=list(rois.shape),
+            levels=len(maps), **work,
+            ms=time_ms(lambda: fwd_call(maps, rois, levels, kw)),
+            plain_ms=time_ms(lambda: fwd_call(maps, rois, levels, kw,
+                                              plain=True), runs=20),
+            device_ms=device_profile(
+                lambda: fwd_call(maps, rois, levels, kw),
+                KERNEL_PROFILE_RUNS, kernels=("roi_align_fwd_kernel",)
+            )["kernel_ms_per_run"]["roi_align_fwd_kernel"],
             bound_ms=bound_ms, bound_by=by))
     for i, (grad, rois, h, w, kw, copied) in enumerate(
             captured["roi_align_bwd"]):
         shape = (grad.shape[0], grad.shape[2], h, w)
-        nbytes, ops = roi_align_work(shape, rois, **kw)
+        work = roi_align_work([shape], rois, None, kw)
+        nbytes, ops = work["bytes"], work["operations"]
         bound_ms, by = bound(nbytes, ops)
         sites.append(dict(
             kernel="roi_align_bwd", path=path, site=f"grad{i}",
@@ -1162,9 +1294,7 @@ def phase_train(dev):
              "nms": [dict(shape=list(b.shape), iou=t, valid=int(v.sum()),
                           max_keep=k)
                      for b, v, t, k in captured["nms"]],
-             "roi_align_fwd": [dict(features=list(f.shape),
-                                    rois=list(r.shape), **kw)
-                               for f, r, kw in captured["roi_align_fwd"]],
+             "roi_align_fwd": fwd_inputs(captured),
              "roi_align_bwd": [dict(grad=list(g.shape), rois=list(r.shape),
                                     height=h, width=w, grad_copied=copied,
                                     **kw)
@@ -1278,9 +1408,7 @@ def phase_dcn(dev):
              "nms": [dict(shape=list(b.shape), iou=t, valid=int(v.sum()),
                           max_keep=k)
                      for b, v, t, k in captured["nms"]],
-             "roi_align_fwd": [dict(features=list(f.shape),
-                                    rois=list(r.shape), **kw)
-                               for f, r, kw in captured["roi_align_fwd"]]},
+             "roi_align_fwd": fwd_inputs(captured)},
          max_abs_err=errs)
     return (model, fn, q_model, q_fn, batches[0], captured, q_captured,
             launches, q_launches, errs)
@@ -1323,6 +1451,23 @@ def gather_device_ms(inputs, name: str) -> dict:
         out[key.replace("ms", "profiles_ms")] = profiles[key]
         out[key.replace("ms", "busy_share")] = statistics.median(busy[key])
     return out
+
+
+def pooler_device_ms(captured) -> dict:
+    """Device time of the DCN model's whole pooler (``pool_rois``: the
+    level assignment and the ROIAlign launch) on the ROIs and maps of the
+    forward's own launch, by kernel group, KERNEL_PROFILE_RUNS calls."""
+    from da_detect_tpu_torch.models import poolers
+
+    (maps, rois, _, kw), = captured["roi_align_fwd"]
+    prof = device_profile(lambda: poolers.pool_rois(maps, rois, **kw,
+                                                    impl="cuda"),
+                          KERNEL_PROFILE_RUNS,
+                          kernels=("roi_align_fwd_kernel",))
+    return dict(device_ms=prof["device_ms_per_run"],
+                kernel_device_ms=prof["kernel_ms_per_run"][
+                    "roi_align_fwd_kernel"],
+                groups_ms=prof["groups_ms_per_run"])
 
 
 def gather_groups(sites) -> dict:
@@ -1371,13 +1516,14 @@ def phase_dcn_times(model, fn, q_model, q_fn, batch, captured,
              "postprocess": ("predictor.out", "end")}
     stages = stage_times(model, batch, marks, spans)
     profile = device_profile(lambda: fn(model, batch), DCN_PROFILE_RUNS)
+    pooler = pooler_device_ms(captured)
     device = {"row_gather": gather_device_ms(captured["row_gather"],
                                              "row_gather"),
               "row_gather_bulk": gather_device_ms(
                   q_captured["row_gather_bulk"], "row_gather_bulk")}
     emit("dcn_times", forward_ms=forward_ms, quad_forward_ms=quad_forward_ms,
          forward_plain_ms=forward_plain_ms, stages_ms=stages,
-         profile=profile, gather_device_ms=device,
+         profile=profile, pooler=pooler, gather_device_ms=device,
          gather_call_ms={"four": gather_groups(sites),
                          "quad": gather_groups(q_sites)},
          sites=[s for s in sites + q_sites

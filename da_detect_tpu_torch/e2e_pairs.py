@@ -23,7 +23,11 @@ from seed 0, as ``chip_smoke.py`` drives it:
   ``*_profiled_ms - *_host_wait_ms``, is host work: a call whose host
   waits little is host-bound and ends when the host has enqueued it,
   whatever its device time. Every CUDA runtime call's host time a call
-  stands beside them (``*_cuda_calls_ms``).
+  stands beside them (``*_cuda_calls_ms``);
+- ``pooler_device_ms``: the X-101-FPN-DCN model's pooler (``pool_rois``
+  with impl "cuda": level assignment and ROIAlign) on random P2-P5 maps of
+  the 608x1216 canvas (C 256, P 7, sampling ratio 2) and 1000 ROIs of 4 to
+  700 pixels a side from a seed, device time a call over 10 profiled calls.
 
 Prints one JSON line a process, the card's name and power limit, and last a
 summary: for each tree and metric the median over its processes and each
@@ -46,11 +50,14 @@ FLAGSHIP_YAML = os.path.join(
     "e2e_triplet_da_faster_rcnn_R_50_C4_cityscapes_to_foggy_cityscapes.yaml")
 SCORE_SCALE = 30.0
 FORWARD_RUNS, STEP_RUNS, PROFILE_RUNS, WARMUP = 20, 12, 3, 3
+POOLER_RUNS, POOLER_ROIS, FPN_CHANNELS = 10, 1000, 256
+FPN_SCALES = (1 / 4, 1 / 8, 1 / 16, 1 / 32)
 # CUDA runtime calls in which the host waits for the device
 WAIT_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpyAsync", "cudaMemcpy")
 METRICS = tuple(f"{name}_{m}" for name in ("forward", "step")
-                for m in ("ms", "profiled_ms", "device_ms", "host_wait_ms"))
+                for m in ("ms", "profiled_ms", "device_ms", "host_wait_ms")
+                ) + ("pooler_device_ms",)
 
 
 def flagship_cfg(tree: str, canvas):
@@ -104,6 +111,24 @@ def profiled(fn, runs: int, sync, cuda: bool, name: str) -> dict:
             f"{name}_cuda_calls_ms": calls_ms}
 
 
+def pooler_inputs(device: str, canvas, seed: int = 0):
+    """P2-P5 maps of ``canvas`` (channels-last) and POOLER_ROIS ROIs of 4
+    to 700 pixels a side over it, from ``seed``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    maps = [torch.from_numpy(rng.randn(
+        1, -(-canvas[0] // int(1 / s)), -(-canvas[1] // int(1 / s)),
+        FPN_CHANNELS).astype(np.float32)).to(device).permute(0, 3, 1, 2)
+        for s in FPN_SCALES]
+    side = np.exp(rng.uniform(np.log(4), np.log(700), (1, POOLER_ROIS, 2)))
+    xy = rng.uniform(-50, (canvas[1], canvas[0]), (1, POOLER_ROIS, 2))
+    rois = torch.from_numpy(np.concatenate([xy, xy + side], -1).astype(
+        np.float32)).to(device)
+    return maps, rois
+
+
 def measure(tree: str, device: str = "cuda", canvas=CANVAS) -> dict:
     """One process's numbers for the port found under ``tree``."""
     import torch
@@ -138,11 +163,25 @@ def measure(tree: str, device: str = "cuda", canvas=CANVAS) -> dict:
         holder[0], _ = step(holder[0], *args)
 
     steps = host_ms(one_step, STEP_RUNS, sync)
+    step_profile = profiled(one_step, PROFILE_RUNS, sync, cuda, "step")
+    del step, state, args, holder
+
+    from da_detect_tpu_torch.models import poolers
+
+    maps, rois = pooler_inputs(device, canvas)
+
+    def pool():
+        with torch.no_grad():
+            poolers.pool_rois(maps, rois, scales=FPN_SCALES, output_size=7,
+                              sampling_ratio=2, max_samples=8, impl="cuda")
+
+    pool()
+    pooler = profiled(pool, POOLER_RUNS, sync, cuda, "pooler")
     out = dict(tree=tree, package=os.path.dirname(entry.__file__),
                forward_ms=statistics.median(forward),
                step_ms=statistics.median(steps),
-               **forward_profile,
-               **profiled(one_step, PROFILE_RUNS, sync, cuda, "step"),
+               **forward_profile, **step_profile,
+               pooler_device_ms=pooler["pooler_device_ms"],
                forward_runs_ms=forward, step_runs_ms=steps)
     return out
 

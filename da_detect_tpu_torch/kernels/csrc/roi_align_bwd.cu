@@ -63,35 +63,18 @@
 
 #include <cuda_runtime.h>
 
-#include <cstdint>
-
 #include "roi_align_common.cuh"
 
 namespace {
+
+using roi_align::Corners;
+using roi_align::cp_async16;
+using roi_align::cp_async_wait_all;
 
 constexpr int kChannels = 32;               // a block's channel slice
 constexpr int kVec = kChannels / 4;         // float4 lanes across the slice
 constexpr int kThreads = 256;
 constexpr int kItems = kThreads / kVec;     // (row or bin, column) items a pass
-
-// one sample on one axis: its two corners and their weights; lo = -1 when
-// the sample lies out of bounds
-struct Corners {
-  int lo, hi;
-  float w_lo, w_hi;
-};
-
-// 16 bytes global -> shared, asynchronously (L2 only: no reuse in L1)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-}
 
 // weight of axis position `pos` in bin `bin`: its samples' corner weights
 __device__ __forceinline__ float bin_weight(const Corners* samples, int grid,

@@ -14,12 +14,33 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace roi_align {
 
 struct RoiGrid {
   float start_h, start_w, bin_h, bin_w, grid_h, grid_w;
   int gh, gw;
 };
+
+// one sample on one axis: its two corners and their weights; lo = -1 when
+// the sample lies out of bounds
+struct Corners {
+  int lo, hi;
+  float w_lo, w_hi;
+};
+
+// 16 bytes global -> shared, asynchronously (L2 only: no reuse in L1)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
 
 // _roi_grid of one xyxy box in image coordinates
 __device__ __forceinline__ RoiGrid roi_grid(const float* box,

@@ -1,14 +1,14 @@
 """ROI pooling (port of ``da_detect_tpu/models/poolers.py``).
 
 ``impl`` picks the ROIAlign: "cuda" goes through the kernels' autograd
-function (``ops/roi_align_cuda.py``: forward and backward kernels), "plain"
-through the plain version (``ops/roi_align.py``, differentiated by
+functions (``ops/roi_align_cuda.py``: forward and backward kernels), "plain"
+through the plain versions (``ops/roi_align.py``, differentiated by
 autograd).
 
-Multi-level (FPN) pooling takes the JAX package's fixed-shape form: every
-ROI is pooled from every level (one ROIAlign launch a level) and the level
-that FPN's Eqn. 1 assigns it is kept by a mask sum, so there is no host
-sync and no data-dependent shape.
+Multi-level (FPN) pooling assigns each ROI its level by FPN's Eqn. 1 on the
+device, with no host sync and no data-dependent shape. "cuda" pools each
+ROI from its own level in one forward launch; "plain" takes the JAX
+package's fixed-shape form (every ROI from every level, then a mask sum).
 """
 
 from __future__ import annotations
@@ -39,24 +39,20 @@ def pool_rois(features: Sequence[torch.Tensor], rois: torch.Tensor, *,
     """features: per-level [B, C, H_l, W_l] (levels past ``scales`` are not
     pooled); rois [B, R, 4] (image coords). Returns [B, R, C, P, P]."""
     if impl == "cuda":
-        fn = roi_align_cuda.roi_align
+        ops = roi_align_cuda
     elif impl == "plain":
-        fn = roi_align_plain.roi_align
+        ops = roi_align_plain
     else:
         raise ValueError(f"unknown ROIAlign impl: {impl!r}")
     kw = dict(output_size=output_size, sampling_ratio=sampling_ratio,
               max_samples=max_samples)
     if len(scales) == 1:
-        return fn(features[0], rois, spatial_scale=scales[0], **kw)
+        return ops.roi_align(features[0], rois, spatial_scale=scales[0], **kw)
     k_min = -int(math.log2(scales[0]))
     k_max = -int(math.log2(scales[-1]))
     levels = assign_levels(rois, k_min, k_max)                 # [B, R]
-    out = None
-    for i, (feat, scale) in enumerate(zip(features, scales)):
-        pooled = fn(feat, rois, spatial_scale=scale, **kw)
-        sel = (levels == i).to(pooled.dtype)[..., None, None, None]
-        out = pooled * sel if out is None else out + pooled * sel
-    return out
+    return ops.roi_align_levels(list(features[:len(scales)]), rois, levels,
+                                scales=scales, **kw)
 
 
 def pooler_config(cfg, head: str = "ROI_BOX_HEAD") -> dict:

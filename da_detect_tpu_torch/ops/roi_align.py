@@ -12,10 +12,14 @@ averaged. Numerics: no coordinate rounding, ROI sizes clamped to >= 1, the
 meaning ceil(roi / P) samples a bin side, capped at ``max_samples``.
 
 This is the plain version of the CUDA kernel in ``ops/roi_align_cuda.py``.
-Features are logical NCHW; outputs are [B, R, C, P, P].
+Features are logical NCHW; outputs are [B, R, C, P, P]. ``roi_align_levels``
+is the multi-level (FPN) form in the JAX package's fixed shape: every ROI
+pooled from every level, the ROI's own level kept by a mask sum.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -100,6 +104,24 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor, *,
                         sampling_ratio=sampling_ratio,
                         max_samples=max_samples)
         for f, r in zip(features, rois)])
+
+
+def roi_align_levels(features: Sequence[torch.Tensor], rois: torch.Tensor,
+                     levels: torch.Tensor, *, scales: Sequence[float],
+                     output_size: int, sampling_ratio: int = 0,
+                     max_samples: int = 8) -> torch.Tensor:
+    """Multi-level ROIAlign: maps [B, C, H_l, W_l] at ``scales``, rois
+    [B, R, 4], levels [B, R] (each ROI's index into the maps) ->
+    [B, R, C, P, P]. A ROI whose level is none of the maps' gets zeros."""
+    out = None
+    for i, (feat, scale) in enumerate(zip(features, scales)):
+        pooled = roi_align(feat, rois, spatial_scale=scale,
+                           output_size=output_size,
+                           sampling_ratio=sampling_ratio,
+                           max_samples=max_samples)
+        sel = (levels == i).to(pooled.dtype)[..., None, None, None]
+        out = pooled * sel if out is None else out + pooled * sel
+    return out
 
 
 def roi_align_grad(grad: torch.Tensor, rois: torch.Tensor, *, height: int,

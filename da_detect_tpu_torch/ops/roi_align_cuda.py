@@ -17,37 +17,58 @@ returned as the logical [B, R, C, P, P] view of that memory, so that
 backward reads the gradient as a [B, R, P, P, C] view in its own strides
 when its channels are contiguous (autograd's channels-last gradient: no
 copy), copies it otherwise, and returns dF [B, C, H, W] in channels-last
-memory, like the features. ``bwd_tiling`` sizes the backward kernel's
-shared memory.
+memory, like the features. ``bwd_tiling`` and ``fwd_tiling`` size the
+kernels' shared memory.
+
+FPN pooling is one forward launch: ``roi_align_levels_forward`` takes up
+to four levels and each ROI's level, and pools each ROI from its own level
+only (plain version: ``ops.roi_align.roi_align_levels``, every ROI from
+every level, then a mask). ``roi_align_levels`` is its autograd function;
+its backward runs the backward kernel once a level on the gradient masked
+to that level's ROIs.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Sequence
 
 import torch
 
 from .. import kernels
 from .roi_align import roi_align as roi_align_plain
 from .roi_align import roi_align_grad as roi_align_grad_plain
+from .roi_align import roi_align_levels as roi_align_levels_plain
 
 FORWARD, BACKWARD = "roi_align_fwd", "roi_align_bwd"
-_GEOMETRY = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int]
 _ARGTYPES = {
-    FORWARD: [ctypes.c_void_p] * 3 + _GEOMETRY + [ctypes.c_void_p],
-    # grad and its 4 outer strides, rois, dF, geometry, tile columns, smem
+    # per-level pointers, heights, widths and scales, the level count, each
+    # ROI's level, rois, out, batch, C, R, P, sampling ratio, max samples,
+    # tile pixels, smem, slices a block
+    FORWARD: [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+              ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float),
+              ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+             + [ctypes.c_void_p],
+    # grad and its 4 outer strides, rois, dF, batch, H, W, C, R, P, scale,
+    # sampling ratio, max samples, tile columns, smem
     BACKWARD: [ctypes.c_void_p] + [ctypes.c_longlong] * 4
-              + [ctypes.c_void_p] * 2 + _GEOMETRY
-              + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+              + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+              + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 }
 
-# the backward kernel's block: a slice of BWD_CHANNELS channels
-# (kChannels in roi_align_bwd.cu); its shared memory is sized to
-# BWD_SMEM_TARGET where the map allows it, and never past SMEM_MAX, the
+# both kernels' block: a slice of BWD_CHANNELS channels (kChannels in the
+# sources); their shared memory is sized to BWD_SMEM_TARGET and
+# FWD_SMEM_TARGET where the map allows it, and never past SMEM_MAX, the
 # most a block may have on sm_90
 BWD_CHANNELS = 32
 BWD_SMEM_TARGET = 48 * 1024
+FWD_SMEM_TARGET = 48 * 1024
 SMEM_MAX = 227 * 1024
+# the levels one forward launch takes (kMaxLevels in roi_align_fwd.cu)
+MAX_LEVELS = 4
+# forward blocks a launch aims at: a few waves of the 4 blocks an H100 SM
+# holds (132 SMs); fewer ROIs or channels give fewer blocks
+FWD_BLOCKS_TARGET = 4 * 4 * 132
 
 _fns: dict = {}
 
@@ -86,20 +107,35 @@ def _check_cuda(name: str, x: torch.Tensor, what: str, rois: torch.Tensor,
                          "positive")
 
 
-def _launch(name: str, head: list, rois: torch.Tensor, h: int, w: int,
-            c: int, p: int, spatial_scale: float, sampling_ratio: int,
-            max_samples: int, tail: tuple = ()) -> None:
-    """Launch ``name`` on the current stream with ``head`` (the arguments
-    before the geometry: pointers, ROIs' included, and strides), the
-    geometry, then ``tail``."""
-    device = rois.device
+def _launch(name: str, device: torch.device, args: list) -> None:
+    """Launch ``name`` with ``args`` on the current stream of ``device``."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _launcher(name)(*head, rois.shape[0], h, w, c, rois.shape[1], p,
-                             float(spatial_scale), int(sampling_ratio),
-                             int(max_samples), *tail, stream)
+        rc = _launcher(name)(*args, stream)
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 1
+
+
+def fwd_tiling(height: int, width: int, output_size: int,
+               samples: int) -> tuple[int, int]:
+    """(tile pixels, dynamic shared memory bytes) of a forward block on an
+    H x W map, P = ``output_size``, ``samples`` a bin side at most. The
+    layout is roi_align_fwd.cu's: two buffers of the tile's pixels
+    (BWD_CHANNELS floats each), the samples of both axes (16 B each) and
+    each bin's span on both axes (8 B each). As many pixels as
+    FWD_SMEM_TARGET holds, at least one and at most H x W; raises if one
+    pixel passes SMEM_MAX."""
+    p = output_size
+    per_pixel = 2 * 4 * BWD_CHANNELS
+    fixed = 2 * 16 * p * samples + 2 * 8 * p
+    tile = max(1, min(height * width,
+                      (FWD_SMEM_TARGET - fixed) // per_pixel))
+    smem = fixed + tile * per_pixel
+    if smem > SMEM_MAX:
+        raise ValueError(f"ROIAlign forward kernel: P={p} at {samples} "
+                         f"samples a bin side needs {smem} B of shared "
+                         f"memory a block, more than {SMEM_MAX}")
+    return tile, smem
 
 
 def bwd_tiling(height: int, width: int, output_size: int,
@@ -125,6 +161,15 @@ def bwd_tiling(height: int, width: int, output_size: int,
     return cols, smem
 
 
+def fwd_slices(channels: int, rois: int, batch: int) -> int:
+    """BWD_CHANNELS-channel slices a forward block pools: as many as keep
+    the launch at FWD_BLOCKS_TARGET blocks or more, spread evenly over the
+    blocks of a ROI (the ROI's geometry is computed once a block)."""
+    n = -(-channels // BWD_CHANNELS)
+    runs = -(-n // max(1, min(n, n * rois * batch // FWD_BLOCKS_TARGET)))
+    return -(-n // runs)
+
+
 def grad_view(grad: torch.Tensor) -> tuple[torch.Tensor, bool]:
     """The [B, R, P, P, C] view of ``grad`` [B, R, C, P, P] the backward
     kernel reads, and whether it had to be copied: in place when the
@@ -137,33 +182,89 @@ def grad_view(grad: torch.Tensor) -> tuple[torch.Tensor, bool]:
     return g.contiguous(), True
 
 
+def _pool(features: Sequence[torch.Tensor], rois: torch.Tensor,
+          levels: torch.Tensor | None, scales: Sequence[float],
+          output_size: int, sampling_ratio: int,
+          max_samples: int) -> torch.Tensor:
+    """One forward launch over 1 to MAX_LEVELS maps [B, C, H_l, W_l] f32
+    (channels-last memory) pooled at ``scales``; ``levels`` [B, R] (int32
+    or int64; None: every ROI on the first map) -> [B, R, C, P, P]."""
+    if not 1 <= len(features) <= MAX_LEVELS or len(scales) != len(features):
+        raise ValueError(f"ROIAlign kernel: 1 to {MAX_LEVELS} maps, one "
+                         f"scale each, got {len(features)} maps and "
+                         f"{len(scales)} scales")
+    for f in features:
+        if f.dim() != 4:
+            raise ValueError("ROIAlign kernel: features must be "
+                             f"[B, C, H, W], got {tuple(f.shape)}")
+        _check_cuda(FORWARD, f.permute(0, 2, 3, 1), "features", rois,
+                    sampling_ratio, max_samples)
+        if not f.is_contiguous(memory_format=torch.channels_last):
+            raise ValueError("ROIAlign kernel: features must be "
+                             "channels_last")
+    batch, c = features[0].shape[:2]
+    if any(f.shape[:2] != (batch, c) or f.device != rois.device
+           for f in features):
+        raise ValueError("ROIAlign kernel: the levels must share B, C and "
+                         "the device, got "
+                         f"{[tuple(f.shape) for f in features]}")
+    r, p = rois.shape[1], output_size
+    if levels is not None:
+        if levels.shape != (batch, r) or levels.device != rois.device \
+                or levels.dtype not in (torch.int32, torch.int64):
+            raise ValueError("ROIAlign kernel: levels must be int32 or int64 "
+                             f"[B, R] on the ROIs' device, got {levels.dtype} "
+                             f"{tuple(levels.shape)} on {levels.device}")
+        levels = levels.to(torch.int64).contiguous()
+    out = torch.empty((batch, r, p, p, c), dtype=torch.float32,
+                      device=rois.device)
+    if out.numel():
+        samples = sampling_ratio if sampling_ratio > 0 else max_samples
+        tile, smem = max(fwd_tiling(f.shape[2], f.shape[3], p, samples)
+                         for f in features)
+        n = len(features)
+        rois = rois.contiguous()
+        _launch(FORWARD, rois.device, [
+            (ctypes.c_void_p * n)(*[f.data_ptr() for f in features]),
+            (ctypes.c_int * n)(*[f.shape[2] for f in features]),
+            (ctypes.c_int * n)(*[f.shape[3] for f in features]),
+            (ctypes.c_float * n)(*[float(s) for s in scales]), n,
+            None if levels is None else levels.data_ptr(), rois.data_ptr(),
+            out.data_ptr(), batch, c, r, p, int(sampling_ratio),
+            int(max_samples), tile, smem, fwd_slices(c, r, batch)])
+    return out.permute(0, 1, 4, 2, 3)
+
+
 def roi_align_forward(features: torch.Tensor, rois: torch.Tensor, *,
                       spatial_scale: float, output_size: int,
                       sampling_ratio: int = 0,
                       max_samples: int = 8) -> torch.Tensor:
     """Batched ROIAlign: features [B, C, H, W] f32 (channels-last memory),
     rois [B, R, 4] f32 -> [B, R, C, P, P]. Not differentiable itself."""
-    kw = dict(spatial_scale=spatial_scale, output_size=output_size,
-              sampling_ratio=sampling_ratio, max_samples=max_samples)
     if features.device.type == "cpu":
-        return roi_align_plain(features, rois, **kw)
-    if features.dim() != 4:
-        raise ValueError("ROIAlign kernel: features must be [B, C, H, W], "
-                         f"got {tuple(features.shape)}")
-    batch, c, h, w = features.shape
-    _check_cuda(FORWARD, features.permute(0, 2, 3, 1), "features", rois,
-                sampling_ratio, max_samples)
-    if not features.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError("ROIAlign kernel: features must be channels_last")
-    r, p = rois.shape[1], output_size
-    out = torch.empty((batch, r, p, p, c), dtype=torch.float32,
-                      device=features.device)
-    if out.numel():
-        rois = rois.contiguous()
-        _launch(FORWARD, [features.data_ptr(), rois.data_ptr(),
-                          out.data_ptr()], rois, h, w, c, p, spatial_scale,
-                sampling_ratio, max_samples)
-    return out.permute(0, 1, 4, 2, 3)
+        return roi_align_plain(features, rois, spatial_scale=spatial_scale,
+                               output_size=output_size,
+                               sampling_ratio=sampling_ratio,
+                               max_samples=max_samples)
+    return _pool([features], rois, None, [spatial_scale], output_size,
+                 sampling_ratio, max_samples)
+
+
+def roi_align_levels_forward(features: Sequence[torch.Tensor],
+                             rois: torch.Tensor, levels: torch.Tensor, *,
+                             scales: Sequence[float], output_size: int,
+                             sampling_ratio: int = 0,
+                             max_samples: int = 8) -> torch.Tensor:
+    """Multi-level ROIAlign in one launch: maps [B, C, H_l, W_l] f32
+    (channels-last memory) at ``scales``, rois [B, R, 4] f32, levels [B, R]
+    (each ROI's index into the maps) -> [B, R, C, P, P], each ROI pooled
+    from its own level. Not differentiable itself."""
+    kw = dict(scales=scales, output_size=output_size,
+              sampling_ratio=sampling_ratio, max_samples=max_samples)
+    if features[0].device.type == "cpu":
+        return roi_align_levels_plain(features, rois, levels, **kw)
+    return _pool(features, rois, levels, scales, output_size, sampling_ratio,
+                 max_samples)
 
 
 def roi_align_backward(grad: torch.Tensor, rois: torch.Tensor, *,
@@ -192,10 +293,10 @@ def roi_align_backward(grad: torch.Tensor, rois: torch.Tensor, *,
                                 sampling_ratio if sampling_ratio > 0
                                 else max_samples)
         rois = rois.contiguous()
-        _launch(BACKWARD, [g.data_ptr(), *g.stride()[:4], rois.data_ptr(),
-                           dfeat.data_ptr()], rois, height, width, c,
-                output_size, spatial_scale, sampling_ratio, max_samples,
-                (cols, smem))
+        _launch(BACKWARD, rois.device, [
+            g.data_ptr(), *g.stride()[:4], rois.data_ptr(), dfeat.data_ptr(),
+            batch, height, width, c, r, output_size, float(spatial_scale),
+            int(sampling_ratio), int(max_samples), cols, smem])
     return dfeat.permute(0, 3, 1, 2)
 
 
@@ -234,3 +335,43 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor, *,
                                max_samples=max_samples)
     return _RoIAlign.apply(features, rois.detach(), spatial_scale,
                            output_size, sampling_ratio, max_samples)
+
+
+class _RoIAlignLevels(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rois, levels, kw, *features):
+        ctx.kw = kw
+        ctx.shapes = [f.shape[2:] for f in features]
+        ctx.save_for_backward(rois, levels)
+        return roi_align_levels_forward(features, rois, levels, **kw)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rois, levels = ctx.saved_tensors
+        kw = dict(ctx.kw)
+        scales = kw.pop("scales")
+        dfeats = []
+        for i, ((h, w), scale) in enumerate(zip(ctx.shapes, scales)):
+            if not ctx.needs_input_grad[3 + i]:
+                dfeats.append(None)
+                continue
+            sel = (levels == i).to(grad.dtype)[..., None, None, None]
+            dfeats.append(roi_align_backward(grad * sel, rois, height=h,
+                                             width=w, spatial_scale=scale,
+                                             **kw))
+        return (None, None, None, *dfeats)
+
+
+def roi_align_levels(features: Sequence[torch.Tensor], rois: torch.Tensor,
+                     levels: torch.Tensor, *, scales: Sequence[float],
+                     output_size: int, sampling_ratio: int = 0,
+                     max_samples: int = 8) -> torch.Tensor:
+    """Differentiable multi-level ROIAlign through the kernels: maps
+    [B, C, H_l, W_l] f32 at ``scales``, rois [B, R, 4] f32, levels [B, R]
+    -> [B, R, C, P, P]; one forward launch, and a backward launch a level.
+    On CPU maps the plain version, which autograd differentiates."""
+    kw = dict(scales=tuple(scales), output_size=output_size,
+              sampling_ratio=sampling_ratio, max_samples=max_samples)
+    if features[0].device.type == "cpu":
+        return roi_align_levels_plain(features, rois.detach(), levels, **kw)
+    return _RoIAlignLevels.apply(rois.detach(), levels, kw, *features)

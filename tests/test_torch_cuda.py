@@ -6,7 +6,8 @@ with one (which need not have JAX, so tests/conftest.py is left out):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 NMS keep masks must agree exactly, truncated ones (``max_keep``) too;
-ROIAlign to rtol = atol = 1e-5 (float32 sums in another order); the ROIAlign
+ROIAlign to rtol = atol = 1e-5 (float32 sums in another order), one level
+or four in one launch; the ROIAlign
 backward within 1e-5 of the largest |dF| (its sums run in another order,
 and its atomics in an order that changes from run to run); one train
 step through the kernels against the same step through the plain versions:
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from da_detect_tpu_torch import entry, kernels
+from da_detect_tpu_torch.models import poolers
 from da_detect_tpu_torch.ops import (gather, gather_cuda, nms, nms_cuda,
                                      roi_align, roi_align_cuda)
 
@@ -122,6 +124,120 @@ def test_roi_align_kernel_matches_plain(dev, b, r, h, w, c, p, sr, cap):
     kw = dict(spatial_scale=1.0 / 16, output_size=p, sampling_ratio=sr,
               max_samples=cap)
     got = roi_align_cuda.roi_align(feats, rois, **kw)
+    torch.testing.assert_close(got, roi_align.roi_align(feats, rois, **kw),
+                               rtol=1e-5, atol=1e-5)
+
+
+# FPN P2-P5 of a 608x1216 canvas, as the DCN model's pooler reads them
+FPN_SHAPES = ((152, 304), (76, 152), (38, 76), (19, 38))
+FPN_SCALES = (1 / 4, 1 / 8, 1 / 16, 1 / 32)
+
+
+def _fpn_inputs(seed, b, r, c, dev, empty_level=None):
+    """Maps of the 4 levels, ROIs of 4 to 700 pixels a side over the canvas
+    and their levels by FPN's rule (``empty_level``: its ROIs dropped)."""
+    gen = torch.Generator().manual_seed(seed)
+    maps = [torch.randn(b, h, w, c, generator=gen).to(dev).permute(0, 3, 1, 2)
+            for h, w in FPN_SHAPES]
+    rng = np.random.RandomState(seed)
+    side = np.exp(rng.uniform(np.log(4), np.log(700), (b, 3 * r, 2)))
+    xy = rng.uniform(-50, (1216, 608), (b, 3 * r, 2))
+    rois = torch.from_numpy(np.concatenate([xy, xy + side], -1).astype(
+        np.float32))
+    levels = poolers.assign_levels(rois, 2, 5)
+    if empty_level is not None:
+        keep = (levels != empty_level).all(0)
+        rois, levels = rois[:, keep], levels[:, keep]
+    return maps, rois[:, :r].to(dev), levels[:, :r].to(dev)
+
+
+@pytest.mark.parametrize("b,r,c,sr,empty_level", [
+    (1, 1000, 256, 2, None),    # the DCN pooler's shapes
+    (2, 300, 64, 2, 1),         # two images, no ROI on P3
+    (1, 200, 12, 0, None),      # adaptive sampling; C leaves a slice partial
+    (2, 0, 64, 2, None)])       # no ROI
+def test_roi_align_levels_kernel_matches_plain(dev, b, r, c, sr, empty_level):
+    maps, rois, levels = _fpn_inputs(r + c, b, r, c, dev, empty_level)
+    kw = dict(scales=FPN_SCALES, output_size=7, sampling_ratio=sr,
+              max_samples=8)
+    before = kernels.LAUNCHES["roi_align_fwd"]
+    got = roi_align_cuda.roi_align_levels_forward(maps, rois, levels, **kw)
+    assert kernels.LAUNCHES["roi_align_fwd"] == before + (r > 0)
+    want = roi_align.roi_align_levels(maps, rois, levels, **kw)
+    assert got.shape == want.shape == (b, r, c, 7, 7)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    if empty_level is not None:
+        assert not (levels == empty_level).any()
+    # int32 levels and a level outside the maps (zeros) take the same launch
+    off = levels.to(torch.int32)
+    off[:, :3] = 7
+    got = roi_align_cuda.roi_align_levels_forward(maps, rois, off, **kw)
+    torch.testing.assert_close(
+        got, roi_align.roi_align_levels(maps, rois, off, **kw), rtol=1e-5,
+        atol=1e-5)
+
+
+def test_roi_align_levels_autograd_matches_plain(dev):
+    """dF of each level through the level-aware autograd function (one
+    forward launch, a backward launch a level on the masked gradient)
+    against autograd of the plain form."""
+    maps, rois, levels = _fpn_inputs(21, 1, 300, 64, dev)
+    kw = dict(scales=FPN_SCALES, output_size=7, sampling_ratio=2,
+              max_samples=8)
+    g = torch.randn(1, 300, 64, 7, 7, generator=torch.Generator(
+        ).manual_seed(22)).to(dev)
+    grads = []
+    for fn in (roi_align_cuda.roi_align_levels, roi_align.roi_align_levels):
+        leaves = [m.detach().clone().requires_grad_() for m in maps]
+        before = dict(kernels.LAUNCHES)
+        out = fn(leaves, rois, levels, **kw)
+        grads.append(torch.autograd.grad((out * g).sum(), leaves))
+        if fn is roi_align_cuda.roi_align_levels:
+            assert kernels.LAUNCHES["roi_align_fwd"] == before.get(
+                "roi_align_fwd", 0) + 1
+            assert kernels.LAUNCHES["roi_align_bwd"] == before.get(
+                "roi_align_bwd", 0) + 4
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("fpn", [False, True], ids=["c4", "fpn"])
+def test_pooler_launches_roi_align_once(dev, fpn):
+    """pool_rois makes one forward launch, one level (C4) or four (FPN)."""
+    if fpn:
+        maps, rois, _ = _fpn_inputs(31, 1, 500, 32, dev)
+        kw = dict(scales=FPN_SCALES, output_size=7, sampling_ratio=2)
+    else:
+        maps = [torch.randn(1, 38, 76, 64, device=dev).permute(0, 3, 1, 2)]
+        rois = _rois(31, 1, 500, 38, 76, 900.0).to(dev)
+        kw = dict(scales=(1 / 16,), output_size=14, sampling_ratio=0)
+    before = kernels.LAUNCHES["roi_align_fwd"]
+    with torch.no_grad():
+        got = poolers.pool_rois(maps, rois, **kw, impl="cuda")
+        want = poolers.pool_rois(maps, rois, **kw, impl="plain")
+    assert kernels.LAUNCHES["roi_align_fwd"] == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("target", [None, 2 * 1024, 4 * 1024])
+def test_roi_align_fwd_tiling_extremes(dev, monkeypatch, target):
+    """The forward kernel's tile at its extremes on the card: ROIs covering
+    the whole C4 map at cap 8 (its widest bin rows), and with the target cut
+    so far that the tile holds a handful of pixels, so the ROIs are walked in
+    many steps and bins wider than the tile read their corners from L2."""
+    if target is not None:
+        monkeypatch.setattr(roi_align_cuda, "FWD_SMEM_TARGET", target)
+    tile, _ = roi_align_cuda.fwd_tiling(38, 76, 14, 8)
+    assert tile == 177 if target is None else tile < 16
+    gen = torch.Generator().manual_seed(41)
+    feats = torch.randn(1, 38, 76, 64, generator=gen).to(dev).permute(
+        0, 3, 1, 2)
+    rois = torch.cat([torch.tensor([WHOLE_MAP + EDGE_ROIS]),
+                      _rois(42, 1, 60, 38, 76, 900.0)], 1).to(dev)
+    kw = dict(spatial_scale=1 / 16, output_size=14, sampling_ratio=0,
+              max_samples=8)
+    got = roi_align_cuda.roi_align_forward(feats, rois, **kw)
     torch.testing.assert_close(got, roi_align.roi_align(feats, rois, **kw),
                                rtol=1e-5, atol=1e-5)
 

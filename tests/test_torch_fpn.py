@@ -26,6 +26,8 @@ from da_detect_tpu_torch.models import box_head as pbox
 from da_detect_tpu_torch.models import poolers as ppoolers
 from da_detect_tpu_torch.models import rpn as prpn
 from da_detect_tpu_torch.models.backbone.fpn import FPN as PFPN
+from da_detect_tpu_torch.ops import roi_align as proi
+from da_detect_tpu_torch.ops import roi_align_cuda
 from da_detect_tpu_torch.utils.weights import jax_state_dict
 from tests.torch_harness import (module_state, nhwc_to_torch,
                                  random_variables, torch_to_nhwc)
@@ -157,6 +159,63 @@ def test_level_assignment_and_pooling_match_jax():
         assert got.shape == (2, 60, 8, 7, 7)
         np.testing.assert_allclose(got.permute(0, 1, 3, 4, 2).numpy(),
                                    np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def _levels_case(seed):
+    """Two images whose ROIs fall on P2, P3 and P5 and none on P4, the maps
+    the JAX pooler reads and its own level assignment."""
+    rois = _rois(seed, 2, 40)
+    lvl = np.asarray(jpoolers.assign_levels(jnp.asarray(rois), 2, 5))
+    keep = (lvl != 2).all(axis=0)                  # P4 empty in both images
+    rois = np.ascontiguousarray(rois[:, keep])
+    feats = [np.concatenate([f, 0.5 * f[..., ::-1]]) for f in _pyramid(seed, 8)]
+    return feats, rois
+
+
+@pytest.mark.parametrize("sampling_ratio", [2, 0])
+def test_roi_align_levels_matches_jax_pool_rois(sampling_ratio):
+    """The multi-level ROIAlign's plain version (every level, then a mask)
+    and the kernel wrapper's CPU branch against JAX's pool_rois, with a
+    level that gets no ROI; a level outside the maps gives zeros."""
+    feats, rois = _levels_case(12)
+    kw = dict(POOLER, sampling_ratio=sampling_ratio)
+    want = np.asarray(jpoolers.pool_rois([jnp.asarray(f) for f in feats],
+                                         jnp.asarray(rois), **kw))
+    levels = ppoolers.assign_levels(torch.from_numpy(rois), 2, 5)
+    assert set(levels.unique().tolist()) == {0, 1, 3}
+    maps = [nhwc_to_torch(f) for f in feats[:4]]
+    for fn in (proi.roi_align_levels, roi_align_cuda.roi_align_levels,
+               roi_align_cuda.roi_align_levels_forward):
+        got = fn(maps, torch.from_numpy(rois), levels, scales=SCALES,
+                 output_size=7, sampling_ratio=sampling_ratio, max_samples=8)
+        np.testing.assert_allclose(got.permute(0, 1, 3, 4, 2).numpy(), want,
+                                   rtol=1e-5, atol=1e-5)
+    off = levels.clone()
+    off[0, :5] = 4
+    got = proi.roi_align_levels(maps, torch.from_numpy(rois), off,
+                                scales=SCALES, output_size=7,
+                                sampling_ratio=sampling_ratio)
+    assert not got[0, :5].any()
+
+
+def test_roi_align_levels_gradient_matches_jax():
+    """d maps of the level-aware autograd route (its CPU branch: autograd of
+    the plain form) against jax.grad of JAX's pool_rois."""
+    feats, rois = _levels_case(13)
+    g = np.random.RandomState(14).randn(2, rois.shape[1], 7, 7, 8).astype(
+        np.float32)
+    want = jax.grad(lambda fs: jnp.sum(jpoolers.pool_rois(
+        fs, jnp.asarray(rois), **POOLER) * g))(
+            [jnp.asarray(f) for f in feats[:4]])
+    maps = [nhwc_to_torch(f).requires_grad_() for f in feats[:4]]
+    levels = ppoolers.assign_levels(torch.from_numpy(rois), 2, 5)
+    out = roi_align_cuda.roi_align_levels(maps, torch.from_numpy(rois),
+                                          levels, **POOLER)
+    (out.permute(0, 1, 3, 4, 2) * torch.from_numpy(g)).sum().backward()
+    for m, w in zip(maps, want):
+        np.testing.assert_allclose(torch_to_nhwc(m.grad), np.asarray(w),
+                                   rtol=1e-5, atol=1e-5)
+    assert not maps[2].grad.any()                  # P4 pooled no ROI
 
 
 def test_fpn_mlp_head_and_predictor_match_jax():

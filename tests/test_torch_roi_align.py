@@ -232,6 +232,65 @@ def test_bwd_tiling_refuses_a_map_too_tall():
         roi_align_cuda.bwd_tiling(5000, 8, 14, 8)
 
 
+@pytest.mark.parametrize("h,w,p,samples", [
+    (38, 76, 14, 8),     # C4 at 608x1216, the eval and train poolers
+    (152, 304, 7, 2),    # FPN P2 at 608x1216
+    (19, 38, 7, 2),      # FPN P5
+    (10, 16, 7, 2),      # a map smaller than the target's tile
+])
+def test_fwd_tiling_sizes_shared_memory(h, w, p, samples):
+    """The forward kernel's tile: at least one pixel and at most the map's,
+    within the 48 KB target, and the bytes of roi_align_fwd.cu's layout
+    (two buffers of 32-channel pixels, both axes' samples, the bins'
+    spans)."""
+    tile, smem = roi_align_cuda.fwd_tiling(h, w, p, samples)
+    per_pixel = 2 * 4 * roi_align_cuda.BWD_CHANNELS
+    fixed = 32 * p * samples + 16 * p
+    assert 1 <= tile <= h * w and smem == fixed + tile * per_pixel
+    assert smem <= roi_align_cuda.FWD_SMEM_TARGET
+    assert tile == h * w or smem + per_pixel > roi_align_cuda.FWD_SMEM_TARGET
+    if (h, w) == (38, 76):
+        assert (tile, smem) == (177, 49120)
+
+
+@pytest.mark.parametrize("c,r,b", [
+    (1024, 1000, 1),     # C4 eval
+    (1024, 256, 1),      # a train step's pooler
+    (256, 1000, 1),      # the DCN pooler
+    (256, 300, 2),
+    (12, 200, 1),        # one partial slice
+    (1024, 5, 1),        # few ROIs: a slice a block
+])
+def test_fwd_slices_spread_channels_over_blocks(c, r, b):
+    """The forward kernel's slices a block: every slice in some block, no
+    block without one, and at least FWD_BLOCKS_TARGET blocks a launch where
+    the slices allow it."""
+    n = -(-c // roi_align_cuda.BWD_CHANNELS)
+    slices = roi_align_cuda.fwd_slices(c, r, b)
+    runs = -(-n // slices)
+    assert 1 <= slices <= n and (runs - 1) * slices < n <= runs * slices
+    assert runs * r * b >= min(roi_align_cuda.FWD_BLOCKS_TARGET, n * r * b)
+    if (c, r) == (1024, 1000):
+        assert (slices, runs) == (11, 3)
+
+
+def test_fwd_tiling_refuses_too_many_samples():
+    with pytest.raises(ValueError, match="shared memory"):
+        roi_align_cuda.fwd_tiling(38, 76, 128, 64)
+
+
+def test_levels_wrappers_refuse_other_devices():
+    meta = dict(device="meta")
+    kw = dict(scales=(0.25, 0.125), output_size=2)
+    args = ([torch.empty(1, 4, 5, 5, **meta), torch.empty(1, 4, 3, 3, **meta)],
+            torch.empty(1, 3, 4, **meta),
+            torch.zeros(1, 3, dtype=torch.int64, **meta))
+    for fn in (roi_align_cuda.roi_align_levels,
+               roi_align_cuda.roi_align_levels_forward):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(*args, **kw)
+
+
 def test_grad_view_reads_channels_last_in_place():
     """The backward kernel reads autograd's channels-last gradient (and an
     R slice of it) in place; other layouts are copied to [B, R, P, P, C]."""
