@@ -5,7 +5,7 @@
 
 Phases, one JSON line each:
   1. env       torch, CUDA and nvcc versions, the card's name and power limit
-  2. build     the five CUDA kernels, compiled from csrc/ for sm_90a
+  2. build     the six CUDA kernels, compiled from csrc/ for sm_90a
   3. kernels   each kernel against its plain PyTorch version on the card, at
                the main paths' shapes and on edge cases (NMS: 1 to 12000
                boxes, invalid rows, a ragged batch, max_keep truncation;
@@ -14,7 +14,9 @@ Phases, one JSON line each:
                pooler's 4 maps, with a level that gets no ROI, two images
                and no ROI; ROIAlign backward: whole C4 and P2 maps, map
                edges, C = 4 and 12, a map that needs more than 48 KB a
-               block, a strided gradient)
+               block, a strided gradient; the row scatter-add against
+               index_add_: the DCN taps' shapes, 4C-wide rows, a column
+               slice, out-of-range indices, every index alike, none)
   4. slice     the flagship R-50-C4 config (its YAML) at the 608x1216 canvas
                in float32, random weights from a seed, answers 4 eval requests
                of batch 1 through ``entry()``; launch counts show the kernels
@@ -38,6 +40,16 @@ Phases, one JSON line each:
                profiles taken in turns (median and spread), with the byte
                bound; forward latency, stage split, profile, the pooler's
                device time and peak memory
+ 10. dcn_train  the X-101-32x8d-FPN-DCN triplet-DA train step at 608x1216
+               through ``train_entry(cfg=dcn_train_cfg())``, offsets drawn
+               as in phase 8: kernel-run against plain-run step 1 in both
+               gather modes, timed steps with exact launch counts (the
+               gathers forward and recomputed in the backward, the
+               scatter-add, NMS, ROIAlign forward and backward), peak
+               memory, a profile, and every kernel checked on the step's
+               own inputs; the scatter-add's kernel, plain and index_add_
+               device times on the step's indices (3 profiles in turns)
+               with its byte bound; the NMS and ROIAlign sites' times
 Each ROIAlign-forward site of phases 5, 7 and 9 also gives its kernel's
 device time (profiler), the corner bytes that the per-thread gather it
 replaced read through L2, and the ROIs' footprint bytes the kernel stages.
@@ -51,7 +63,10 @@ ROIAlign rtol = atol = 1e-5 (float32 sums in another order), its backward
 plain-run detections, and "quad" against "four": the same valid count, and
 each detection has a twin with the same label, boxes within 1e-2 pixels and
 scores within 1e-4 (the pooled features differ by float32 rounding, which
-the box head carries into the scores).
+the box head carries into the scores); the row scatter-add within 1e-5 of
+the largest |dst| of index_add_ (atomics add in an order that changes from
+run to run); DCN kernel-run step 1 against plain-run step 1 as the
+flagship's.
 """
 
 from __future__ import annotations
@@ -116,6 +131,42 @@ PER_QUAD_FORWARD = {"row_gather_bulk": 270, "nms": 6, "roi_align_fwd": 1}
 # have this standard deviation (pixels): samples spread over about +-2 px
 DCN_SEED, DCN_OFFSET_STD = 0, 1.0
 DCN_PROFILE_RUNS, GATHER_TIMING_RUNS, GATHER_PROFILES = 3, 10, 3
+# the DCN model's train step, "four" gathers (deformable_groups 1): each of
+# the 3 backbone passes (source, positive, negative) gathers once a tap of
+# its 30 deformable convs (270) forward and once more in the backward (the
+# tap recomputed under its checkpoint), and scatter-adds each tap's rows'
+# gradient once (270; every pass's deformable convs read an input that
+# needs a gradient: res2 is frozen, res3's conv1 is not); NMS a level
+# (P2-P6) in the source's and the positive target's RPN; ROIAlign forward
+# once a box-head pass (source, positive: each ROI from its own level) and
+# backward once a level (P2-P5) a pass
+PER_DCN_TRAIN_STEP = {"row_gather": 3 * 2 * 270, "row_scatter_add": 3 * 270,
+                      "nms": 2 * 5, "roi_align_fwd": 2, "roi_align_bwd": 2 * 4}
+PER_DCN_QUAD_TRAIN_STEP = {
+    ("row_gather_bulk" if k == "row_gather" else k): v
+    for k, v in PER_DCN_TRAIN_STEP.items()}
+DCN_TRAIN_STEPS, DCN_QUAD_TRAIN_STEPS, SCATTER_TIMING_RUNS = 4, 1, 3
+DCN_TRAIN_NMS_SITES = tuple(f"rpn_{d}_p{l}" for d in ("source", "target")
+                            for l in range(2, 7))
+SCATTER_REL = 1e-5
+# the saved rows that the recompute avoids, a step at 608x1216: a [4P, C]
+# float32 buffer a tap a pass (res3 76x152 at C 512, res4 38x76 at 1024,
+# res5 19x38 at 2048; 9 taps of 4, 23 and 3 layers), 3 passes
+SAVED_TAP_BYTES = 3 * 9 * 4 * 4 * (4 * 76 * 152 * 512 + 23 * 38 * 76 * 1024
+                                   + 3 * 19 * 38 * 2048)
+# row scatter-adds against index_add_: name -> (S, C, P, row stride or
+# None, index range or None for a tenth out of range on either side)
+SCATTER_CASES = {
+    "res3_four": (76 * 152, 512, 4 * 76 * 152, None, None),
+    "res3_block0_four": (152 * 304, 512, 4 * 76 * 152, None, None),
+    "res4_four": (38 * 76, 1024, 4 * 38 * 76, None, None),
+    "res5_four": (19 * 38, 2048, 4 * 19 * 38, None, None),
+    "quad_res3": (76 * 152 - 1 - 152, 4 * 512, 76 * 152, None, None),
+    "column_slice": (40, 16, 257, 48, None),
+    "c6_scalar": (50, 6, 333, None, None),
+    "one_hot_row": (1000, 128, 20000, None, (17, 18)),
+    "empty": (10, 8, 0, None, None),
+}
 # calls of each NMS and ROIAlign site under torch.profiler for the device
 # time of its kernels (NMS: the mask launch and the walk apart), and of the
 # DCN model's whole pooler
@@ -151,11 +202,15 @@ SOURCES = {
                    "scripts/bench_gather_pallas.py:35"),
     "row_gather_bulk": ("da_detect_tpu_torch/kernels/csrc/row_gather_bulk.cu",
                         "scripts/bench_gather_pallas.py:75"),
+    # the gathers' adjoint: no Pallas kernel behind it (XLA's autodiff of
+    # the takes in da_detect_tpu/layers/deform_conv.py::_gather_tap)
+    "row_scatter_add": ("da_detect_tpu_torch/kernels/csrc/row_scatter_add.cu",
+                        "da_detect_tpu/layers/deform_conv.py:101"),
 }
 # the path whose run gives each kernel's launches and times in the last line
 MAIN_PATH = {"nms": "train", "roi_align_fwd": "train",
              "roi_align_bwd": "train", "row_gather": "dcn",
-             "row_gather_bulk": "dcn_quad"}
+             "row_gather_bulk": "dcn_quad", "row_scatter_add": "dcn_train"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -436,14 +491,38 @@ def check_gather(name: str, table, idx) -> float:
         if got.numel() else 0.0
 
 
+def check_scatter(dst, grad, idx) -> tuple[float, float]:
+    """The scatter-add kernel adding into ``dst`` (a view, any row stride)
+    against index_add_ on a copy of it; raises past SCATTER_REL of the
+    largest |dst|. Returns (max abs error, max |dst|)."""
+    from da_detect_tpu_torch.ops import gather, gather_cuda
+
+    want = gather.row_scatter_add_(dst.clone(), grad, idx)
+    got = gather_cuda.row_scatter_add_(dst, grad, idx)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not err <= SCATTER_REL * scale:
+        raise AssertionError(f"scatter-add kernel differs from index_add_ by "
+                             f"{err:.3e} (max |dst| {scale:.3e}, dst "
+                             f"{tuple(dst.shape)} stride {dst.stride(0)}, "
+                             f"{idx.numel()} rows)")
+    return err, scale
+
+
 @contextlib.contextmanager
 def record_kernel_inputs():
     """While open, each kernel wrapper's inputs are recorded on the way (the
     kernels' inputs as a main path gives them): yields a dict kernel name ->
     list of inputs (ROIAlign forward: the maps, ROIs, levels or None, and
-    the keywords of the one-level or the level-aware wrapper). A gather's table is kept by reference (no copy): the
-    forward writes no tensor in place."""
-    from da_detect_tpu_torch.ops import gather_cuda, nms_cuda, roi_align_cuda
+    the keywords of the one-level or the level-aware wrapper). A gather's
+    table is kept by reference (no copy): the forward writes no tensor in
+    place. A scatter-add is checked where it runs, against the plain
+    version on its own gradient (kept nowhere: a step's would fill the
+    card), and recorded as its indices, its destination's shape and the
+    error and largest |dst|, both left on the device."""
+    from da_detect_tpu_torch.ops import (gather, gather_cuda, nms_cuda,
+                                         roi_align_cuda)
 
     captured = {name: [] for name in SOURCES}
     nms_kernel = nms_cuda.nms_mask_sorted
@@ -452,12 +531,21 @@ def record_kernel_inputs():
     bwd_kernel = roi_align_cuda.roi_align_backward
     gathers = {name: getattr(gather_cuda, name)
                for name in ("row_gather", "row_gather_bulk")}
+    scatter_kernel = gather_cuda.row_scatter_add
 
     def gather_rec(name):
         def rec(table, idx):
             captured[name].append((table, idx.clone()))
             return gathers[name](table, idx)
         return rec
+
+    def scatter_rec(grad, idx, num_rows):
+        got = scatter_kernel(grad, idx, num_rows)
+        want = gather.row_scatter_add(grad, idx, num_rows)
+        captured["row_scatter_add"].append(dict(
+            idx=idx.clone(), shape=(num_rows, grad.shape[1]),
+            err=(got - want).abs().max(), scale=want.abs().max()))
+        return got
 
     def nms_rec(boxes, valid, thresh, max_keep=None):
         captured["nms"].append((boxes.clone(), valid.clone(), thresh,
@@ -489,6 +577,7 @@ def record_kernel_inputs():
     roi_align_cuda.roi_align_backward = bwd_rec
     for name in gathers:
         setattr(gather_cuda, name, gather_rec(name))
+    gather_cuda.row_scatter_add = scatter_rec
     try:
         yield captured
     finally:
@@ -498,6 +587,7 @@ def record_kernel_inputs():
         roi_align_cuda.roi_align_backward = bwd_kernel
         for name, fn in gathers.items():
             setattr(gather_cuda, name, fn)
+        gather_cuda.row_scatter_add = scatter_kernel
 
 
 def check_captured(captured) -> dict:
@@ -520,6 +610,13 @@ def check_captured(captured) -> dict:
         for table, idx in captured[name]:
             errs[name] = max(errs.get(name, 0.0),
                              check_gather(name, table, idx))
+    for rec in captured["row_scatter_add"]:
+        err, scale = float(rec["err"]), float(rec["scale"])
+        if not err <= SCATTER_REL * scale:
+            raise AssertionError(f"scatter-add kernel differs from index_add_"
+                                 f" by {err:.3e} (max |dst| {scale:.3e}, dst "
+                                 f"{rec['shape']}, {rec['idx'].numel()} rows)")
+        errs["row_scatter_add"] = max(errs.get("row_scatter_add", 0.0), err)
     return errs
 
 
@@ -790,8 +887,22 @@ def phase_kernels(dev) -> dict:
                 gather_errs[name] = max(gather_errs[name], err)
                 results[key] = dict(max_abs_err=err, table=[s, c],
                                     row_stride=table.stride(0), indices=p)
+    scatter_err = 0.0
+    for case, (s, c, p, stride, span) in SCATTER_CASES.items():
+        lo, hi = span or (-s // 10 - 1, s + s // 10 + 1)
+        wide = torch.from_numpy(rng.randn(s, stride or c).astype(
+            np.float32)).to(dev)
+        dst = wide[:, 8:8 + c] if stride else wide
+        grad = torch.from_numpy(rng.randn(p, c).astype(np.float32)).to(dev)
+        idx = torch.from_numpy(rng.randint(lo, hi, p).astype(np.int32)).to(
+            dev)
+        err, scale = check_scatter(dst, grad, idx)
+        scatter_err = max(scatter_err, err)
+        results[f"row_scatter_add_{case}"] = dict(
+            max_abs_err=err, max_abs_dst=scale, dst=[s, c],
+            row_stride=dst.stride(0), indices=p)
     emit("kernels", **results)
-    return dict(
+    return dict(row_scatter_add=scatter_err,
         nms=max(r["mismatches"] for k, r in results.items()
                 if k.startswith("nms")),
         roi_align_fwd=max(r["max_abs_err"] for k, r in results.items()
@@ -1160,6 +1271,7 @@ KERNEL_GROUPS = (
     ("roi_align_bwd", ("roi_align_bwd",)),
     ("roi_align_fwd", ("roi_align_fwd",)),
     ("nms", ("nms_",)),
+    ("row_scatter_add", ("row_scatter_add",)),
     ("row_gather_bulk", ("row_gather_bulk",)),
     ("row_gather", ("row_gather",)),
     ("convolution", ("conv", "cudnn", "xmma", "fprop", "dgrad", "wgrad",
@@ -1175,7 +1287,8 @@ KERNEL_GROUPS = (
 def device_profile(run, runs: int, kernels=(), attempts: int = 3) -> dict:
     """``runs`` calls of ``run()`` (a train step, a forward, one kernel's
     wrapper) under ``torch.profiler``: device time a call by kernel group,
-    the top kernels and the kernels whose names hold each of ``kernels``,
+    the top kernels and, for the kernels whose names hold each of
+    ``kernels``, their device time and calls a run,
     and the device's busy share of the host's wall clock (under the
     profiler's own overhead). Unlike CUDA events around a call, device
     times leave out the host's launch work. Now and then a profile records
@@ -1199,6 +1312,8 @@ def device_profile(run, runs: int, kernels=(), attempts: int = 3) -> dict:
         named = {name: sum(e.self_device_time_total for e in kern
                            if name in e.key) / 1e3 / runs
                  for name in kernels}
+        calls = {name: sum(e.count for e in kern if name in e.key) / runs
+                 for name in kernels}
         if all(named.values()):
             break
     groups: dict[str, float] = {}
@@ -1219,7 +1334,8 @@ def device_profile(run, runs: int, kernels=(), attempts: int = 3) -> dict:
         top_kernels=[dict(name=e.key[:100], calls_per_run=e.count / runs,
                           ms_per_run=e.self_device_time_total / 1e3 / runs)
                      for e in top],
-        kernel_ms_per_run={name: t or None for name, t in named.items()})
+        kernel_ms_per_run={name: t or None for name, t in named.items()},
+        kernel_calls_per_run=calls)
 
 
 def run_steps(step, state, args, n: int, expected: dict, label: str):
@@ -1531,13 +1647,176 @@ def phase_dcn_times(model, fn, q_model, q_fn, batch, captured,
     return sites, q_sites, device
 
 
+# ---------------------------------------------------------------- DCN training
+
+def scatter_work(records) -> tuple[float, float]:
+    """(bytes, zero-fill bytes) of a step's scatter-adds (``records`` from
+    ``record_kernel_inputs``): each gradient row read once, each index once,
+    each distinct destination row read and written once; the zero-fill of
+    each destination, a memset of its own, apart."""
+    nbytes = memset = 0
+    for rec in records:
+        (s, c), idx = rec["shape"], rec["idx"]
+        if idx.numel() and not (0 <= int(idx.min()) and int(idx.max()) < s):
+            raise AssertionError(f"a scatter-add index of the main path lies "
+                                 f"outside its destination of {s} rows")
+        rows = int(torch.unique(idx).numel())
+        nbytes += 4 * (idx.numel() * c + idx.numel() + 2 * rows * c)
+        memset += 4 * s * c
+    return nbytes, memset
+
+
+def scatter_device_ms(records) -> dict:
+    """Device time of a step's scatter-adds on the step's own indices and
+    shapes: the kernel adding into a zeroed destination
+    (``row_scatter_add_``), the plain version (zeros, clamp, index_add_) and
+    ``index_add_`` into a zeroed destination, each variant called once a
+    record, SCATTER_TIMING_RUNS times over under ``torch.profiler`` after a
+    warm-up pass; GATHER_PROFILES such profiles, the variants in turns. The
+    gradient rows are random (the step's were checked where they ran and
+    not kept): the work, and where the atomics meet, depend on the indices
+    and shapes alone."""
+    from da_detect_tpu_torch.ops import gather, gather_cuda
+
+    dev = records[0]["idx"].device
+    most = max(r["idx"].numel() * r["shape"][1] for r in records)
+    buf = torch.randn(most, generator=torch.Generator(device=dev).manual_seed(
+        0), device=dev)
+    dsts, calls = {}, []
+    for rec in records:
+        (s, c), idx = rec["shape"], rec["idx"]
+        dst = dsts.setdefault((s, c), torch.zeros(s, c, device=dev))
+        calls.append((dst, buf[:idx.numel() * c].view(-1, c), idx))
+    variants = {
+        "ms": lambda d, g, i: gather_cuda.row_scatter_add_(d, g, i),
+        "plain_ms": lambda d, g, i: gather.row_scatter_add(g, i, d.shape[0]),
+        "library_ms": lambda d, g, i: d.index_add_(0, i, g)}
+
+    def runner(fn):
+        def run():
+            for call in calls:
+                fn(*call)
+        return run
+
+    for fn in variants.values():
+        runner(fn)()
+    profiles = {key: [] for key in variants}
+    for _ in range(GATHER_PROFILES):
+        for key, fn in variants.items():
+            profiles[key].append(device_profile(
+                runner(fn), SCATTER_TIMING_RUNS)["device_ms_per_run"])
+    out = {}
+    for key in variants:
+        out[key] = statistics.median(profiles[key])
+        out[key.replace("ms", "profiles_ms")] = profiles[key]
+    return out
+
+
+def dcn_train_model(dev, gather_mode: str):
+    """``train_entry(cfg=dcn_train_cfg())`` at the 608x1216 canvas with
+    ``TPU.DCN_GATHER`` = ``gather_mode``: (step, state, batch args)."""
+    from da_detect_tpu_torch import entry
+
+    cfg = entry.dcn_train_cfg(CANVAS)
+    cfg.TPU.DCN_GATHER = gather_mode
+    cfg.freeze()
+    step, (state, args) = entry.train_entry(device=str(dev), seed=0, cfg=cfg)
+    return step, state, args
+
+
+def phase_dcn_train(dev):
+    from da_detect_tpu_torch import entry
+
+    step, state, args = dcn_train_model(dev, "four")
+    raw_std = spread_dcn(state.model, args[0])
+    agreement = compare_steps(train_step_one(state, args, "cuda"),
+                              train_step_one(state, args, "plain"))
+    # "quad" on the same weights: step 1 against its plain run, one step
+    q_step, q_state, _ = dcn_train_model(dev, "quad")
+    q_state.model.load_state_dict(state.model.state_dict())
+    q_agreement = compare_steps(train_step_one(q_state, args, "cuda"),
+                                train_step_one(q_state, args, "plain"))
+    q_state, q_launches, q_times, q_metrics = run_steps(
+        q_step, q_state, args, DCN_QUAD_TRAIN_STEPS, PER_DCN_QUAD_TRAIN_STEP,
+        "dcn_train_quad")
+    del q_step, q_state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state, launches, times, metrics = run_steps(
+        step, state, args, DCN_TRAIN_STEPS, PER_DCN_TRAIN_STEP, "dcn_train")
+    peak = torch.cuda.max_memory_allocated()
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], *args)
+
+    profile = device_profile(one_step, 1, kernels=(
+        "row_gather_kernel", "row_scatter_add_kernel", "nms_mask_kernel",
+        "roi_align_fwd_kernel", "roi_align_bwd_kernel"))
+    with record_kernel_inputs() as captured:
+        one_step()
+        torch.cuda.synchronize()
+    errs = check_captured(captured)
+    del step, holder, state
+    records = captured.pop("row_scatter_add")
+    sites = time_sites(dict(captured, row_gather=[], row_gather_bulk=[]),
+                       "dcn_train", DCN_TRAIN_NMS_SITES)
+    nbytes, memset = scatter_work(records)
+    bound_ms, by = bound(nbytes, 0)
+    device = scatter_device_ms(records)
+    scatter = dict(
+        launches=launches["row_scatter_add"], ms=device["ms"],
+        plain_ms=device["plain_ms"], library_ms=device["library_ms"],
+        bound_ms=bound_ms, bound_by=by, bytes=nbytes, memset_bytes=memset,
+        memset_bound_ms=bound(memset, 0)[0], device_ms=device["ms"],
+        step_profile_ms=profile["groups_ms_per_run"].get("row_scatter_add"),
+        profiles_ms={k: v for k, v in device.items() if "profiles" in k})
+    shapes = {}
+    for rec in records:
+        key = f"dst {rec['shape'][0]}x{rec['shape'][1]} P {rec['idx'].numel()}"
+        shapes[key] = shapes.get(key, 0) + 1
+    emit("dcn_train", config=os.path.relpath(entry.DCN_YAML, REPO),
+         canvas=list(CANVAS), steps=DCN_TRAIN_STEPS, launches=launches,
+         launches_per_step={k: v / DCN_TRAIN_STEPS
+                            for k, v in launches.items()},
+         step_ms=times, step_ms_median=statistics.median(times),
+         resident_bytes=resident, max_memory_allocated=peak,
+         saved_tap_rows_bytes=SAVED_TAP_BYTES, profile=profile,
+         losses=[{k: float(v) for k, v in m.items()} for m in metrics],
+         offset_std_before_scaling=dict(min=min(raw_std), max=max(raw_std),
+                                        layers=len(raw_std)),
+         plain_agreement=agreement, quad_plain_agreement=q_agreement,
+         quad=dict(steps=DCN_QUAD_TRAIN_STEPS, launches=q_launches,
+                   step_ms=q_times,
+                   losses=[{k: float(v) for k, v in m.items()}
+                           for m in q_metrics]),
+         main_path_inputs={
+             "nms": [dict(shape=list(b.shape), iou=t, valid=int(v.sum()),
+                          max_keep=k)
+                     for b, v, t, k in captured["nms"]],
+             "roi_align_fwd": fwd_inputs(captured),
+             "roi_align_bwd": [dict(grad=list(g.shape), rois=list(r.shape),
+                                    height=h, width=w, grad_copied=copied)
+                               for g, r, h, w, _, copied in
+                               captured["roi_align_bwd"]],
+             "row_scatter_add": shapes},
+         scatter_add=scatter, sites=sites, max_abs_err=errs)
+    return sites, launches, scatter, errs
+
+
 # ---------------------------------------------------------------- summary
 
 def path_summary(sites, launches: int, device=None) -> dict:
     """A kernel's launches in a path's run, and its times and bound summed
     over the sites of one forward or step of that path: CUDA events around
     each call or, where ``device`` gives them (the gathers), device times
-    from the profiler, the event times then kept as ``*call_ms``."""
+    from the profiler, the event times then kept as ``*call_ms``. A path
+    that launched the kernel but timed no site of it gives its launches
+    alone."""
+    if not sites and not device:
+        return dict(launches=launches)
     bound_ms, by = bound(sum(s["bytes"] for s in sites),
                          sum(s["operations"] for s in sites))
     library = [s.get("library_ms") for s in sites]
@@ -1557,14 +1836,15 @@ def path_summary(sites, launches: int, device=None) -> dict:
     return out
 
 
-def kernel_line(paths: dict, errs: dict) -> dict:
+def kernel_line(paths: dict, errs: dict, summaries: dict) -> dict:
     """One row a kernel. ``paths``: path -> (sites of one forward or step,
-    launches of the path's run, device times by kernel). The row's own
-    numbers are those of the kernel's MAIN_PATH: ``launches`` counts that
-    path's whole run (train: 6 steps; dcn: 4 requests; dcn_quad: 1
-    request), ms, plain_ms, library_ms and the bound sum one step's or
-    forward's launches. Every path the kernel ran on stands under
-    ``paths``."""
+    launches of the path's run, device times by kernel); ``summaries``:
+    kernel -> path -> a summary made elsewhere (the scatter-add's). The
+    row's own numbers are those of the kernel's MAIN_PATH: ``launches``
+    counts that path's whole run (train: 6 steps; dcn: 4 requests;
+    dcn_quad: 1 request; dcn_train: 4 steps), ms, plain_ms, library_ms and
+    the bound sum one step's or forward's launches. Every path the kernel
+    ran on stands under ``paths``."""
     rows = []
     for name, (source, replaces) in SOURCES.items():
         per_path = {}
@@ -1573,11 +1853,12 @@ def kernel_line(paths: dict, errs: dict) -> dict:
             if mine or launches.get(name):
                 per_path[path] = path_summary(mine, launches.get(name, 0),
                                               device.get(name))
+        per_path.update(summaries.get(name, {}))
         row = dict(name=name, route="cuda", source=source,
                    replaces=replaces, **per_path[MAIN_PATH[name]],
                    max_abs_err=errs[name], main_path=MAIN_PATH[name],
                    paths=per_path)
-        if not name.startswith("row_gather"):
+        if not name.startswith("row_"):
             row["sites"] = [
                 {k: s[k] for k in ("path", "site", "ms", "device_ms",
                                    "plain_ms", "bound_ms", "bound_by")
@@ -1611,14 +1892,19 @@ def main() -> int:
      quad_launches, dcn_errs) = phase_dcn(dev)
     dcn_sites, quad_sites, device = phase_dcn_times(
         model, fn, q_model, q_fn, batch, captured, q_captured)
-    for part in (eval_errs, train_errs, dcn_errs):
+    del model, fn, q_model, q_fn, batch, captured, q_captured
+    dcn_train_sites, dcn_train_launches, scatter, dcn_train_errs = \
+        phase_dcn_train(dev)
+    for part in (eval_errs, train_errs, dcn_errs, dcn_train_errs):
         for k, v in part.items():
             errs[k] = max(errs[k], v)
     print(json.dumps(kernel_line(
         {"eval": (eval_sites, eval_launches, {}),
          "train": (train_sites, train_launches, {}),
          "dcn": (dcn_sites, dcn_launches, device),
-         "dcn_quad": (quad_sites, quad_launches, device)}, errs)))
+         "dcn_quad": (quad_sites, quad_launches, device),
+         "dcn_train": (dcn_train_sites, dcn_train_launches, {})}, errs,
+        {"row_scatter_add": {"dcn_train": scatter}})))
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi)
     print(json.dumps({"ok": True, "device": {

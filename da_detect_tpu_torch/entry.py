@@ -1,13 +1,15 @@
-"""Entry points of the PyTorch port: the flagship model's eval forward and
-its triplet-DA training step, and the eval forward of the X-101-32x8d FPN
-DCN configuration.
+"""Entry points of the PyTorch port: the eval forward and the triplet-DA
+training step of the flagship model and of the X-101-32x8d FPN DCN
+configuration.
 
 ``entry(device=None)`` is the counterpart of ``__graft_entry__.entry()``: it
 returns ``(fn, example_args)`` for the eval forward of DA-Faster R-CNN on
 R-50-C4 with 9 Cityscapes classes; ``entry(cfg=dcn_cfg())`` serves the
-X-101-32x8d-FPN model with deformable res3-res5 instead. ``train_entry(device=None)`` is the
-single-device counterpart of ``__graft_entry__._dryrun_impl``: one
-(source, positive, negative) triple and a train step over it. Both run on the
+X-101-32x8d-FPN model with deformable res3-res5 instead.
+``train_entry(device=None)`` is the single-device counterpart of
+``__graft_entry__._dryrun_impl``: one (source, positive, negative) triple and
+a train step over it; ``train_entry(cfg=dcn_train_cfg())`` trains the
+X-101-32x8d-FPN-DCN model. Both run on the
 card unless the caller asks for ``device="cpu"``; with no card and no
 explicit CPU they raise.
 """
@@ -24,7 +26,6 @@ import torch
 from .config import get_cfg
 from .engine.trainer import create_train_state, make_train_step
 from .models import build_detection_model
-from .models.detector import eval_only
 from .structures.image_batch import ImageBatch, Targets
 
 DCN_YAML = os.path.join(
@@ -63,6 +64,16 @@ def dcn_cfg(canvas=(608, 1216)):
     cfg.merge_from_file(DCN_YAML)
     cfg.TPU.IMAGE_SHAPE = canvas
     cfg.TPU.COMPUTE_DTYPE = "float32"
+    return cfg
+
+
+def dcn_train_cfg(canvas=(608, 1216)):
+    """``dcn_cfg`` for training: the YAML's DA settings (image triplet,
+    AdvGRL, instance triplet weight 0, no alignment) with the top-k of
+    proposal selection exact (``TPU.APPROX_TOPK`` off: ``approx_max_k`` is
+    TPU-only; the port's top-k is exact either way)."""
+    cfg = dcn_cfg(canvas)
+    cfg.TPU.APPROX_TOPK = False
     return cfg
 
 
@@ -164,10 +175,6 @@ def train_entry(device: Optional[str] = None, seed: int = 0, cfg=None,
     ``aligned`` defaults to ``MODEL.DA_HEADS.ALIGNMENT``."""
     device = resolve_device(device)
     cfg = train_cfg() if cfg is None else cfg
-    if eval_only(cfg):
-        raise NotImplementedError(
-            "training an FPN or deformable-conv model is the FPN/DCN "
-            "training slice of the port")
     if aligned is None:
         aligned = cfg.MODEL.DA_HEADS.ALIGNMENT
     model = prepare_model(build_detection_model(cfg, seed=seed), device)

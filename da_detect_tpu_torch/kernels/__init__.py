@@ -32,6 +32,7 @@ SOURCES = {
     "roi_align_bwd": "roi_align_bwd.cu",
     "row_gather": "row_gather.cu",
     "row_gather_bulk": "row_gather_bulk.cu",
+    "row_scatter_add": "row_scatter_add.cu",
 }
 
 # -fmad=false: no FMA contraction, so the kernels round exactly like the plain

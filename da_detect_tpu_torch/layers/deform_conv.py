@@ -1,5 +1,5 @@
 """Deformable convolution, DCNv1 and DCNv2 (port of
-``da_detect_tpu/layers/deform_conv.py``, the eval forward).
+``da_detect_tpu/layers/deform_conv.py``), forward and backward.
 
 The JAX package scans over the k*k kernel taps: each tap gathers the
 bilinear corners of every output pixel's sample from the flattened feature
@@ -25,6 +25,15 @@ computes. ``conv_offset`` predicts [B, dg*nk*(2 or 3), oh, ow]: first the
 dg*2*nk offsets ordered (group, tap, (dy, dx)), then the dg*nk mask logits.
 It is zero-initialised, so an untrained layer is a plain convolution.
 
+Training: with autograd on, each tap (its gathers, corner sum and
+contraction) runs under ``torch.utils.checkpoint`` (non-reentrant), as JAX
+runs its tap scan under ``jax.checkpoint``: the backward gathers the tap's
+rows again, and nothing of size [P, C] a tap is kept (at 608x1216 the
+X-101 model's 270 taps would keep ~14 GB a backbone pass). The gathers'
+backward is the scatter-add kernel into the map (``ops/gather_cuda.py``);
+the gradients of the offsets and the DCNv2 mask flow through the bilinear
+weights in plain autograd.
+
 ``impl``: "cuda" gathers through the kernels' wrappers (which run the plain
 version for CPU tensors), "plain" through ``ops.gather.row_gather``.
 Inputs and outputs are logical NCHW in ``torch.channels_last`` memory.
@@ -34,6 +43,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import gather, gather_cuda
 
@@ -76,12 +86,42 @@ def _quad_slot_weights(ys, xs, h: int, w: int):
     return (y0c * w + x0c).to(torch.int32), wts
 
 
-def _corner_sum(wts: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """wts [P, 4], vals [4, P, C] -> [P, C], summed left to right."""
+def _corner_sum(wts: torch.Tensor, vals) -> torch.Tensor:
+    """wts [P, 4], vals four [P, C] -> [P, C], summed left to right."""
     acc = wts[:, 0, None] * vals[0]
     for k in range(1, 4):
         acc = acc + wts[:, k, None] * vals[k]
     return acc
+
+
+def _contract(samp: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
+    """samp [P, C] with a tap's kernel slice wk [fg, C/fg, F/fg] -> [P, F],
+    group by group."""
+    if wk.shape[0] == 1:
+        return samp @ wk[0]
+    p, fg = samp.shape[0], wk.shape[0]
+    return torch.bmm(samp.view(p, fg, -1).transpose(0, 1),
+                     wk).transpose(0, 1).reshape(p, -1)
+
+
+def _tap_four(take, flat, idx, wts, wk):
+    """One tap, "four" mode: flat [N, C]; idx [dg, 4P] (corner-major);
+    wts [dg, P, 4] -> [P, F]. A gather a deformable group, of its column
+    slice."""
+    dg, p = wts.shape[:2]
+    cg = flat.shape[1] // dg
+    parts = [_corner_sum(wts[g], take(flat[:, g * cg:(g + 1) * cg],
+                                      idx[g]).view(4, p, cg).unbind(0))
+             for g in range(dg)]
+    return _contract(parts[0] if dg == 1 else torch.cat(parts, dim=-1), wk)
+
+
+def _tap_quad(take, table, idx, wts, wk):
+    """One tap, "quad" mode: table [N', 4C]; idx [P]; wts [P, 4] ->
+    [P, F]."""
+    p, c = idx.shape[0], table.shape[1] // 4
+    rows = take(table, idx).view(p, 4, c).unbind(1)
+    return _contract(_corner_sum(wts, rows), wk)
 
 
 class DeformConv2d(nn.Module):
@@ -180,25 +220,26 @@ class DeformConv2d(nn.Module):
         if quad:
             flat2 = torch.cat([flat[:-1], flat[1:]], dim=-1)
             table = torch.cat([flat2[:-w], flat2[w:]], dim=-1)
-        cg = c // dg
         cpf, fpg = c // fg, self.weight.shape[0] // fg
         # [nk, fg, C/fg, F/fg]: tap t, group g -> that group's kernel slice
         wk = self.weight.float().reshape(fg, fpg, cpf, nk).permute(3, 0, 2, 1)
         acc = torch.zeros((p, self.weight.shape[0]), dtype=torch.float32,
                           device=x.device)
+        # with autograd on, each tap runs under a non-reentrant checkpoint:
+        # the backward gathers the tap's rows again instead of keeping them
+        # (jax.checkpoint of the JAX package's tap scan), so no [P, C]
+        # buffer of a tap outlives the forward
+        recompute = torch.is_grad_enabled()
         for t in range(nk):
             if quad:
-                rows = take_wide(table, idx[t, 0]).view(p, 4, c)
-                samp = _corner_sum(wts[t, 0], rows.permute(1, 0, 2))
+                fn, args = _tap_quad, (take_wide, table, idx[t, 0],
+                                       wts[t, 0], wk[t])
             else:
-                parts = [_corner_sum(
-                    wts[t, g],
-                    take(flat[:, g * cg:(g + 1) * cg], idx[t, g]).view(
-                        4, p, cg)) for g in range(dg)]
-                samp = parts[0] if dg == 1 else torch.cat(parts, dim=-1)
-            if fg == 1:
-                acc = acc + samp @ wk[t, 0]
+                fn, args = _tap_four, (take, flat, idx[t], wts[t], wk[t])
+            if recompute:
+                part = checkpoint(fn, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
-                acc = acc + torch.bmm(samp.view(p, fg, cpf).transpose(0, 1),
-                                      wk[t]).transpose(0, 1).reshape(p, -1)
+                part = fn(*args)
+            acc = acc + part
         return acc.view(b, oh, ow, -1).permute(0, 3, 1, 2)

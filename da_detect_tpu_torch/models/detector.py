@@ -1,8 +1,7 @@
 """GeneralizedRCNN: the eval forward and the training forward (port of
-``da_detect_tpu/models/detector.py``), for the C4 Faster R-CNN bodies with
-and without the domain-adaptation heads; the eval forward also for the FPN
-bodies with deformable stages (X-101-32x8d-FPN-DCN), whose training is a
-later slice. Module names follow
+``da_detect_tpu/models/detector.py``), for the C4 and FPN Faster R-CNN
+bodies, with deformable stages (X-101-32x8d-FPN-DCN) or without, with and
+without the domain-adaptation heads. Module names follow
 maskrcnn-benchmark's state_dict: ``backbone.body``, ``rpn.head``,
 ``roi_heads.box.feature_extractor``, ``roi_heads.box.predictor`` and
 ``da_heads``.
@@ -16,8 +15,9 @@ pooled features, as the JAX package does.
 
 ``impl`` picks the kernels: "cuda" runs NMS, ROIAlign (forward and
 backward) and the deformable convolutions' row gathers through the
-hand-written CUDA kernels' wrappers, "plain" through their plain versions. The default is resolved from the model's device:
-"cuda" on the card, "plain" on the CPU.
+hand-written CUDA kernels' wrappers (the gathers' backward through the
+scatter-add kernel), "plain" through their plain versions. The default is
+resolved from the model's device: "cuda" on the card, "plain" on the CPU.
 """
 
 from __future__ import annotations
@@ -35,8 +35,8 @@ from .box_head import (Detections, FPN2MLPFeatureExtractor, fast_rcnn_loss,
                        make_box_predictor, postprocess_detections,
                        subsample_proposals)
 from .da import DAState, make_da_heads
-from .rpn import (RPNHead, append_gt_proposals, rpn_config, rpn_loss,
-                  select_proposals)
+from .rpn import (RPNHead, append_gt_proposals, level_rows, rpn_config,
+                  rpn_loss, select_proposals)
 
 
 def _interleave(a_s: torch.Tensor, a_t: torch.Tensor) -> torch.Tensor:
@@ -57,8 +57,7 @@ class GeneralizedRCNN(nn.Module):
                  sample_cfg: Optional[dict] = None,
                  share_positive_pool: bool = False,
                  pixel_mean=(102.9801, 115.9465, 122.7717),
-                 pixel_std=(1.0, 1.0, 1.0), to_bgr255: bool = True,
-                 eval_only: bool = False):
+                 pixel_std=(1.0, 1.0, 1.0), to_bgr255: bool = True):
         super().__init__()
         self.backbone = backbone
         self.rpn = nn.ModuleDict({"head": rpn_head})
@@ -77,7 +76,6 @@ class GeneralizedRCNN(nn.Module):
         self.pixel_mean = tuple(pixel_mean)
         self.pixel_std = tuple(pixel_std)
         self.to_bgr255 = to_bgr255
-        self.eval_only = eval_only
         self._anchors = {}  # (feature shapes, device) -> anchors per level
 
     def anchors(self, feats) -> list[torch.Tensor]:
@@ -122,7 +120,7 @@ class GeneralizedRCNN(nn.Module):
         Selection runs on detached logits and deltas; a batch that takes no
         RPN loss runs its RPN head without autograd."""
         feats = self.backbone(batch.normalized(
-            self.pixel_mean, self.pixel_std, self.to_bgr255))
+            self.pixel_mean, self.pixel_std, self.to_bgr255), impl=impl)
         with torch.set_grad_enabled(with_rpn_loss
                                     and torch.is_grad_enabled()):
             logits, deltas = self.rpn["head"](feats)
@@ -160,11 +158,6 @@ class GeneralizedRCNN(nn.Module):
         features. ``generator`` draws the sampling priorities and the DA
         dropout (on the model's device); ``deterministic`` turns dropout off.
         """
-        if self.eval_only:
-            raise NotImplementedError(
-                "training an FPN or deformable-conv model is the FPN/DCN "
-                "training slice of the port (the gathers' adjoint, a "
-                "scatter-add, has no kernel yet)")
         impl = impl or self.default_impl()
         b = batch_s.images.shape[0]
         dev = batch_s.images.device
@@ -173,11 +166,12 @@ class GeneralizedRCNN(nn.Module):
 
         feats_s, logits_s, deltas_s, props_s = self._rpn_and_proposals(
             batch_s, targets_s, append_gt=True, with_rpn_loss=True, impl=impl)
-        # RPN supervision comes from the source batch alone; (h, w, a) order
-        obj = logits_s[0].permute(0, 2, 3, 1).reshape(b, -1)
-        dl = deltas_s[0].permute(0, 2, 3, 1).reshape(b, -1, 4)
+        # RPN supervision comes from the source batch alone: every level's
+        # anchors, logits and deltas in (h, w, a) order, levels in order
+        obj, dl = (torch.cat(rows, dim=1) for rows in zip(
+            *map(level_rows, logits_s, deltas_s)))
         loss_obj, loss_rpn_box = rpn_loss(
-            self.anchors(feats_s)[0], obj, dl, targets_s.boxes,
+            torch.cat(self.anchors(feats_s)), obj, dl, targets_s.boxes,
             targets_s.valid, ones, batch_s.sizes.float(),
             **self.rpn_loss_cfg, generator=generator)
         if self.rpn_only:
@@ -206,7 +200,7 @@ class GeneralizedRCNN(nn.Module):
         img_fea_set = da_ins_set = None
         if batch_n is not None:
             feats_n = self.backbone(batch_n.normalized(
-                self.pixel_mean, self.pixel_std, self.to_bgr255))
+                self.pixel_mean, self.pixel_std, self.to_bgr255), impl=impl)
             img_fea_set = (feats_s[0], feats_t[0], feats_n[0])
             if aligned and self.da_heads.triplet_ins_weight > 0:
                 # the positive batch's proposals pooled from each domain's
@@ -248,14 +242,6 @@ def _check_supported(cfg) -> None:
                 f"MODEL.{key}: that head is a later slice of the port")
     if m.RPN.RPN_HEAD != "SingleConvRPNHead":
         raise NotImplementedError(f"RPN_HEAD {m.RPN.RPN_HEAD}: later slice")
-
-
-def eval_only(cfg) -> bool:
-    """True for the configurations whose eval forward the port runs but not
-    their training: FPN bodies and deformable stages."""
-    m = cfg.MODEL
-    return bool(m.RPN.USE_FPN or m.ROI_HEADS.USE_FPN
-                or any(m.RESNETS.STAGE_WITH_DCN))
 
 
 def init_parameters(model: GeneralizedRCNN,
@@ -356,7 +342,6 @@ def build_detection_model(cfg, seed: int = 0) -> GeneralizedRCNN:
         pixel_mean=cfg.INPUT.PIXEL_MEAN,
         pixel_std=cfg.INPUT.PIXEL_STD,
         to_bgr255=cfg.INPUT.TO_BGR255,
-        eval_only=eval_only(cfg),
     )
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model

@@ -73,28 +73,33 @@ def _select_level(anchors, obj, deltas, image_sizes, pre_nms, post_nms,
     return kept_boxes, torch.where(keep_valid, kept_scores, 0.0), keep_valid
 
 
+def level_rows(logits: torch.Tensor, deltas: torch.Tensor):
+    """One level's [B, A, H, W] logits and [B, A*4, H, W] deltas -> [B, N]
+    and [B, N, 4], N = H*W*A in the anchors' (h, w, a) order."""
+    b = logits.shape[0]
+    return (logits.permute(0, 2, 3, 1).reshape(b, -1),
+            deltas.permute(0, 2, 3, 1).reshape(b, -1, 4))
+
+
 def select_proposals(level_anchors, level_logits, level_deltas, image_sizes,
                      *, pre_nms_top_n, post_nms_top_n, fpn_post_nms_top_n,
                      nms_thresh, min_size, is_train, impl):
     """Batched proposal selection over all levels. level_anchors: list of
     [N_l, 4]; level_logits: list of [B, A, H, W]; level_deltas: list of
     [B, A*4, H, W]. Returns Proposals with capacity post_nms_top_n (one
-    level) or fpn_post_nms_top_n (FPN).
+    level) or min(fpn_post_nms_top_n, N_all) (FPN, N_all the survivors of
+    every level).
 
-    Across levels (eval): each level's post-NMS survivors, concatenated,
-    then the top fpn_post_nms_top_n of each image. The training form
-    (a top-k over the whole batch) is the FPN training slice's."""
-    if is_train and len(level_logits) > 1:
-        raise NotImplementedError(
-            "multi-level (FPN) proposal selection for training is the "
-            "FPN/DCN training slice")
-    b = level_logits[0].shape[0]
+    Across levels, each level's post-NMS survivors are concatenated. Eval:
+    the top fpn_post_nms_top_n of each image, scores of invalid rows 0.
+    Training keeps the reference's quirk: fpn_post_nms_top_n over the whole
+    batch. The threshold is the batch's fpn_post_nms_top_n-th largest score
+    (ties at it all kept); each image's survivors are compacted to the front
+    by a stable descending sort, with their raw scores."""
     per_level = []
     for anchors, logits, deltas in zip(level_anchors, level_logits,
                                        level_deltas):
-        # [B, A, H, W] -> [B, H*W*A], the anchors' (h, w, a) order
-        obj = logits.permute(0, 2, 3, 1).reshape(b, -1)
-        dl = deltas.permute(0, 2, 3, 1).reshape(b, -1, 4)
+        obj, dl = level_rows(logits, deltas)
         per_level.append(Proposals(*_select_level(
             anchors, obj, dl, image_sizes, pre_nms_top_n, post_nms_top_n,
             nms_thresh, min_size, impl)))
@@ -105,6 +110,18 @@ def select_proposals(level_anchors, level_logits, level_deltas, image_sizes,
     valid = torch.cat([p.valid for p in per_level], dim=1)
     k = min(fpn_post_nms_top_n, boxes.shape[1])
     masked = torch.where(valid, scores, float("-inf"))
+    if is_train:
+        flat = masked.reshape(-1)
+        kb = min(fpn_post_nms_top_n, flat.shape[0])
+        thresh = torch.topk(flat, kb).values.min()
+        sel_valid = valid & (masked >= thresh)
+        _, order = torch.sort(torch.where(sel_valid, scores, float("-inf")),
+                              dim=1, descending=True, stable=True)
+        order = order[:, :k]
+        return Proposals(
+            boxes=torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)),
+            scores=torch.gather(scores, 1, order),
+            valid=torch.gather(sel_valid, 1, order))
     top_scores, order = torch.sort(masked, dim=1, descending=True,
                                    stable=True)
     top_scores, order = top_scores[:, :k], order[:, :k]

@@ -1,15 +1,22 @@
-"""Row gathers as hand-written CUDA kernels for Hopper (port of the two TPU
-kernels of ``scripts/bench_gather_pallas.py``: ``make_gather(...).run`` and
-``make_dma_gather(...).run``; sources ``kernels/csrc/row_gather.cu`` and
-``row_gather_bulk.cu``).
+"""Row gathers and their adjoint as hand-written CUDA kernels for Hopper (port
+of the two TPU kernels of ``scripts/bench_gather_pallas.py``:
+``make_gather(...).run`` and ``make_dma_gather(...).run``; sources
+``kernels/csrc/row_gather.cu`` and ``row_gather_bulk.cu``; and the
+scatter-add that XLA's autodiff makes of a take, ``row_scatter_add.cu``).
 
-Both compute ``out[i] = table[clamp(idx[i], 0, S - 1)]`` for a table [S, C]
-in float32 or bfloat16 whose rows may lie ``table.stride(0)`` elements apart
-(a column slice of a wider map), and int32 indices [P]; they return a new
-contiguous [P, C]. ``row_gather`` moves a row with one warp's 16-byte loads;
-``row_gather_bulk`` with one bulk copy (TMA) a row and needs 16-byte aligned
-rows. On a CUDA tensor each launches its kernel or raises; on a CPU tensor
-it runs the plain version, ``ops.gather.row_gather``.
+Both gathers compute ``out[i] = table[clamp(idx[i], 0, S - 1)]`` for a table
+[S, C] in float32 or bfloat16 whose rows may lie ``table.stride(0)`` elements
+apart (a column slice of a wider map), and int32 indices [P]; they return a
+new contiguous [P, C]. ``row_gather`` moves a row with one warp's 16-byte
+loads; ``row_gather_bulk`` with one bulk copy (TMA) a row and needs 16-byte
+aligned rows. Both are differentiable with respect to the table: the
+backward is the scatter-add kernel into a zero [S, C]
+(``row_scatter_add``), float32 only. ``row_scatter_add_`` adds into a
+caller's [S, C] view in place (any row stride).
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
+it runs the plain version (``ops/gather.py``), which autograd
+differentiates.
 """
 
 from __future__ import annotations
@@ -20,8 +27,10 @@ import torch
 
 from .. import kernels
 from .gather import row_gather as row_gather_plain
+from .gather import row_scatter_add as row_scatter_add_plain
+from .gather import row_scatter_add_ as row_scatter_add_plain_
 
-GATHER, BULK = "row_gather", "row_gather_bulk"
+GATHER, BULK, SCATTER = "row_gather", "row_gather_bulk", "row_scatter_add"
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
@@ -41,6 +50,21 @@ def _launcher(name: str, dtype: torch.dtype):
     return fn
 
 
+def _check_table(name: str, table: torch.Tensor, what: str) -> None:
+    if table.dim() != 2 or table.stride(1) != 1 \
+            or table.stride(0) < table.shape[1]:
+        raise ValueError(f"kernel {name}: {what} must be [S, C] with unit "
+                         f"column stride, got {tuple(table.shape)} strides "
+                         f"{table.stride()}")
+
+
+def _check_idx(name: str, idx: torch.Tensor, device: torch.device) -> None:
+    if idx.dtype != torch.int32 or idx.dim() != 1 or idx.device != device:
+        raise ValueError(f"kernel {name}: idx must be int32 [P] on the "
+                         f"table's device, got {idx.dtype} "
+                         f"{tuple(idx.shape)} on {idx.device}")
+
+
 def _check(name: str, table: torch.Tensor, idx: torch.Tensor) -> None:
     if table.device.type != "cuda":
         raise ValueError(f"gather kernel {name}: unsupported device "
@@ -48,35 +72,56 @@ def _check(name: str, table: torch.Tensor, idx: torch.Tensor) -> None:
     if table.dtype not in _SUFFIX:
         raise ValueError(f"gather kernel {name}: table must be float32 or "
                          f"bfloat16, got {table.dtype}")
-    if table.dim() != 2 or table.stride(1) != 1 \
-            or table.stride(0) < table.shape[1]:
-        raise ValueError(f"gather kernel {name}: table must be [S, C] with "
-                         f"unit column stride, got {tuple(table.shape)} "
-                         f"strides {table.stride()}")
-    if idx.dtype != torch.int32 or idx.dim() != 1 \
-            or idx.device != table.device:
-        raise ValueError(f"gather kernel {name}: idx must be int32 [P] on "
-                         f"the table's device, got {idx.dtype} "
-                         f"{tuple(idx.shape)} on {idx.device}")
+    _check_table(name, table, "table")
+    _check_idx(name, idx, table.device)
     if table.shape[0] == 0 and idx.numel():
         raise ValueError(f"gather kernel {name}: empty table")
 
 
+def _run(name: str, dtype: torch.dtype, device: torch.device,
+         args: list) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _launcher(name, dtype)(*args, stream)
+    kernels.check(rc, name)
+    kernels.LAUNCHES[name] += 1
+
+
 def _launch(name: str, table: torch.Tensor, idx: torch.Tensor
             ) -> torch.Tensor:
-    idx = idx.contiguous()
     out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype,
                       device=table.device)
     if out.numel():
-        with torch.cuda.device(table.device):
-            stream = torch.cuda.current_stream(table.device).cuda_stream
-            rc = _launcher(name, table.dtype)(
-                table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                idx.shape[0], table.shape[0], table.shape[1],
-                table.stride(0), stream)
-        kernels.check(rc, name)
-        kernels.LAUNCHES[name] += 1
+        _run(name, table.dtype, table.device, [
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
+            table.shape[0], table.shape[1], table.stride(0)])
     return out
+
+
+class _RowGather(torch.autograd.Function):
+    """A gather kernel forward; the scatter-add kernel backward."""
+
+    @classmethod
+    def gather(cls, name: str, table: torch.Tensor, idx: torch.Tensor
+               ) -> torch.Tensor:
+        idx = idx.contiguous()
+        if torch.is_grad_enabled() and table.requires_grad:
+            return cls.apply(table, idx, name)
+        return _launch(name, table, idx)
+
+    @staticmethod
+    def forward(ctx, table, idx, name):
+        ctx.num_rows = table.shape[0]
+        ctx.save_for_backward(idx)
+        return _launch(name, table, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        dtable = None
+        if ctx.needs_input_grad[0]:
+            dtable = row_scatter_add(grad.contiguous(), idx, ctx.num_rows)
+        return dtable, None, None
 
 
 def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -84,7 +129,7 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if table.device.type == "cpu":
         return row_gather_plain(table, idx)
     _check(GATHER, table, idx)
-    return _launch(GATHER, table, idx)
+    return _RowGather.gather(GATHER, table, idx)
 
 
 def row_gather_bulk(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -104,4 +149,48 @@ def row_gather_bulk(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gather kernel {BULK}: a row of "
                          f"{table.shape[1] * item} B exceeds a block's "
                          "shared memory")
-    return _launch(BULK, table, idx)
+    return _RowGather.gather(BULK, table, idx)
+
+
+def row_scatter_add_(dst: torch.Tensor, grad: torch.Tensor,
+                     idx: torch.Tensor) -> torch.Tensor:
+    """dst [S, C] f32 (any row stride) += the rows of grad [P, C] f32 at
+    idx [P] int32 (clamped to [0, S - 1]), in place; returns dst."""
+    if dst.device.type == "cpu":
+        return row_scatter_add_plain_(dst, grad, idx)
+    if dst.device.type != "cuda":
+        raise ValueError(f"scatter kernel {SCATTER}: unsupported device "
+                         f"{dst.device}")
+    if dst.dtype != torch.float32 or grad.dtype != torch.float32:
+        raise NotImplementedError(
+            f"scatter kernel {SCATTER}: float32 only, got {dst.dtype} and "
+            f"{grad.dtype}; other dtypes are the ROADMAP item 'bf16 compute "
+            "in the port' (Queue 1)")
+    _check_table(SCATTER, dst, "dst")
+    _check_idx(SCATTER, idx, dst.device)
+    if grad.device != dst.device or grad.dim() != 2 \
+            or grad.shape != (idx.shape[0], dst.shape[1]) \
+            or not grad.is_contiguous():
+        raise ValueError(f"scatter kernel {SCATTER}: grad must be a "
+                         f"contiguous [P, C] = [{idx.shape[0]}, "
+                         f"{dst.shape[1]}] on dst's device, got "
+                         f"{tuple(grad.shape)} on {grad.device}")
+    if dst.shape[0] == 0 and idx.numel():
+        raise ValueError(f"scatter kernel {SCATTER}: empty dst")
+    if grad.numel():
+        idx = idx.contiguous()
+        _run(SCATTER, torch.float32, dst.device, [
+            grad.data_ptr(), idx.data_ptr(), dst.data_ptr(), idx.shape[0],
+            dst.shape[0], dst.shape[1], dst.stride(0)])
+    return dst
+
+
+def row_scatter_add(grad: torch.Tensor, idx: torch.Tensor,
+                    num_rows: int) -> torch.Tensor:
+    """grad [P, C] f32, idx [P] int32 -> [num_rows, C]: zeros, then
+    ``row_scatter_add_`` (the adjoint of the gathers)."""
+    if grad.device.type == "cpu":
+        return row_scatter_add_plain(grad, idx, num_rows)
+    dst = torch.zeros((num_rows, grad.shape[1]), dtype=grad.dtype,
+                      device=grad.device)
+    return row_scatter_add_(dst, grad, idx)

@@ -155,7 +155,8 @@ def load_jax_train_state(state, jax_state) -> None:
         for f in ("margin_img", "margin_ins", "last_triplet_img",
                   "last_triplet_ins")})
     state.step = int(np.asarray(jax_state.step))
-    momentum = jax_state_dict({"params": jax_state.opt_state[1].momentum})
+    momentum = jax_state_dict({"params": jax_state.opt_state[1].momentum},
+                              fc6_chw(model))
     trainable = dict(model.named_parameters())
     state.optimizer.set_momentum_buffers(
         {k: v for k, v in momentum.items() if trainable[k].requires_grad})

@@ -13,7 +13,13 @@ and its atomics in an order that changes from run to run); one train
 step through the kernels against the same step through the plain versions:
 losses rtol 1e-4, gradients within 1e-3 of each leaf's largest |g|. The two
 row gathers are copies and must equal the plain version bit for bit; a
-deformable convolution through them agrees with its plain run to 1e-5.
+deformable convolution through them agrees with its plain run to 1e-5. The
+gathers' adjoint, the scatter-add kernel, adds with atomics in an order
+that changes from run to run: within 1e-5 of the largest |dst| of
+``index_add_``, and so are the gradients of a gather and of a deformable
+convolution through it (1e-5 of each leaf's largest |g|). A narrowed
+X-101-FPN-DCN triplet step through the kernels agrees with its plain run as
+the flagship's does, with exact launch counts.
 """
 
 import numpy as np
@@ -177,14 +183,16 @@ def test_roi_align_levels_kernel_matches_plain(dev, b, r, c, sr, empty_level):
         atol=1e-5)
 
 
-def test_roi_align_levels_autograd_matches_plain(dev):
+@pytest.mark.parametrize("r,c", [(300, 64), (512, 256)])
+def test_roi_align_levels_autograd_matches_plain(dev, r, c):
     """dF of each level through the level-aware autograd function (one
     forward launch, a backward launch a level on the masked gradient)
-    against autograd of the plain form."""
-    maps, rois, levels = _fpn_inputs(21, 1, 300, 64, dev)
+    against autograd of the plain form; 512 ROIs at C 256 are the DCN
+    train step's (256 sampled ROIs an image, two box-head passes)."""
+    maps, rois, levels = _fpn_inputs(21, 1, r, c, dev)
     kw = dict(scales=FPN_SCALES, output_size=7, sampling_ratio=2,
               max_samples=8)
-    g = torch.randn(1, 300, 64, 7, 7, generator=torch.Generator(
+    g = torch.randn(1, r, c, 7, 7, generator=torch.Generator(
         ).manual_seed(22)).to(dev)
     grads = []
     for fn in (roi_align_cuda.roi_align_levels, roi_align.roi_align_levels):
@@ -458,3 +466,176 @@ def test_deform_conv_kernels_match_plain(dev, gather_mode, kernel):
         assert kernels.LAUNCHES[kernel] == before + 9
         want = m(x, impl="plain")
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+SCATTER_CASES = {
+    # name: (S, C, P, row stride or None, index range [lo, hi))
+    "res3_four": (76 * 152, 512, 4 * 76 * 152, None, None),
+    "res5_four": (19 * 38, 2048, 4 * 722, None, None),
+    "quad_res3": (46208 - 1 - 304, 4 * 512, 11552, None, None),  # 4C rows
+    "column_slice": (40, 16, 257, 48, None),        # a deformable group
+    "c6_scalar": (50, 6, 333, None, None),           # no 16-byte vectors
+    "out_of_range": (300, 64, 5000, None, (-400, 700)),
+    "one_hot_row": (1000, 128, 20000, None, (17, 18)),  # every index alike
+    "empty": (10, 8, 0, None, None),
+}
+
+
+def _scatter_inputs(case, dev):
+    """(the whole map, the [S, C] destination in it, grad, idx)."""
+    s, c, p, stride, span = SCATTER_CASES[case]
+    gen = torch.Generator().manual_seed(s + p)
+    lo, hi = span or (-s // 10 - 1, s + s // 10 + 1)
+    grad = torch.randn(p, c, generator=gen)
+    idx = torch.randint(lo, hi, (p,), generator=gen, dtype=torch.int32)
+    wide = torch.randn(s, stride or c, generator=gen).to(dev)
+    dst = wide[:, 8:8 + c] if stride else wide
+    return wide, dst, grad.to(dev), idx.to(dev)
+
+
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+def test_row_scatter_add_kernel_matches_index_add(dev, case):
+    """The kernel adds into dst (strided or not) in place; index_add_ on a
+    copy is the reference, within 1e-5 of its largest |dst|; columns
+    outside a slice untouched; one launch unless empty."""
+    wide, dst, grad, idx = _scatter_inputs(case, dev)
+    want = wide.clone()
+    cols = slice(8, 8 + dst.shape[1]) if dst is not wide else slice(None)
+    gather.row_scatter_add_(want[:, cols], grad, idx)
+    before = kernels.LAUNCHES["row_scatter_add"]
+    assert gather_cuda.row_scatter_add_(dst, grad, idx) is dst
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["row_scatter_add"] == before + (case != "empty")
+    torch.testing.assert_close(wide, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    fresh = gather_cuda.row_scatter_add(grad, idx, dst.shape[0])
+    torch.testing.assert_close(
+        fresh, gather.row_scatter_add(grad, idx, dst.shape[0]), rtol=0,
+        atol=1e-5 * max(float(fresh.abs().max()) if fresh.numel() else 0,
+                        1.0))
+
+
+def test_row_scatter_add_refuses_other_dtypes(dev):
+    dst = torch.zeros(8, 16, device=dev, dtype=torch.bfloat16)
+    grad = torch.ones(4, 16, device=dev, dtype=torch.bfloat16)
+    idx = torch.arange(4, device=dev, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="bf16 compute in the port"):
+        gather_cuda.row_scatter_add_(dst, grad, idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_cuda.row_scatter_add_(dst.float(), grad.float().t(), idx)
+
+
+@pytest.mark.parametrize("case", ["probe", "quad_res3", "column_slice"])
+@pytest.mark.parametrize("name", ["row_gather", "row_gather_bulk"])
+def test_row_gather_autograd_matches_plain(dev, name, case):
+    """A gather's output has a grad_fn on a table that needs a gradient;
+    its backward (one scatter-add launch) equals autograd of the plain
+    gather to 1e-5 of the largest |dtable|."""
+    table, idx = _gather_inputs(case, torch.float32, dev)
+    cot = torch.randn(idx.shape[0], table.shape[1],
+                      generator=torch.Generator().manual_seed(5)).to(dev)
+    grads = []
+    for fn in (getattr(gather_cuda, name), gather.row_gather):
+        leaf = table.detach().clone().requires_grad_()
+        out = fn(leaf, idx)
+        assert out.grad_fn is not None
+        before = kernels.LAUNCHES["row_scatter_add"]
+        (out * cot).sum().backward()
+        torch.cuda.synchronize()
+        grads.append(leaf.grad)
+        if fn is not gather.row_gather:
+            assert kernels.LAUNCHES["row_scatter_add"] == before + 1
+    got, want = grads
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("gather_mode,kernel", [("four", "row_gather"),
+                                                ("quad", "row_gather_bulk")])
+def test_deform_conv_backward_kernels_match_plain(dev, gather_mode, kernel):
+    """The res4-like deformable conv's backward through the kernels: 9
+    gathers forward, 9 again in the backward (each tap recomputed), 9
+    scatter-adds; dx, dweight and conv_offset's gradients within 1e-5 of
+    each leaf's largest |g| of the plain run, and dx not zero."""
+    from da_detect_tpu_torch.layers import DeformConv2d
+
+    torch.manual_seed(0)
+    m = DeformConv2d(256, 256, 3, stride=2, groups=32,
+                     gather_mode=gather_mode).to(dev)
+    with torch.no_grad():
+        m.conv_offset.weight.normal_(0.0, 0.05)
+    x0 = torch.randn(1, 256, 19, 38, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    cot = torch.randn(1, 256, 10, 19, device=dev)
+    grads = []
+    for impl in ("cuda", "plain"):
+        x = x0.clone().requires_grad_()
+        m.zero_grad(set_to_none=True)
+        before = dict(kernels.LAUNCHES)
+        (m(x, impl=impl) * cot).sum().backward()
+        torch.cuda.synchronize()
+        made = {k: kernels.LAUNCHES[k] - before.get(k, 0)
+                for k in (kernel, "row_scatter_add")}
+        assert made == ({kernel: 18, "row_scatter_add": 9} if impl == "cuda"
+                        else {kernel: 0, "row_scatter_add": 0})
+        grads.append({"x": x.grad, **{n: p.grad for n, p
+                                      in m.named_parameters()}})
+    got, want = grads
+    assert got["x"] is not None and float(got["x"].abs().max()) > 0
+    for name, w in want.items():
+        torch.testing.assert_close(got[name], w, rtol=0,
+                                   atol=1e-5 * float(w.abs().max()),
+                                   msg=name)
+
+
+def test_dcn_train_step_kernels_match_plain(dev):
+    """One triplet step of the X-101-32x8d-FPN-DCN YAML narrowed (canvas
+    128x192, stem 8, 4 groups x 2, res2 16, FPN 16, MLP head 32, depth 101)
+    through the kernels against the same step through the plain versions;
+    its launches: 270 gathers a backbone pass forward and 270 recomputed in
+    the backward, 270 scatter-adds a pass, 3 passes; NMS a level a RPN pass
+    (5 x 2); ROIAlign forward a box-head pass (2) and backward a level a
+    pass (4 x 2)."""
+    from da_detect_tpu_torch.layers import DeformConv2d
+
+    cfg = entry.dcn_train_cfg((128, 192))
+    r = cfg.MODEL.RESNETS
+    r.STEM_OUT_CHANNELS, r.NUM_GROUPS, r.WIDTH_PER_GROUP = 8, 4, 2
+    r.RES2_OUT_CHANNELS = 16
+    cfg.MODEL.BACKBONE.OUT_CHANNELS = 16
+    cfg.MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM = 32
+    cfg.TPU.MAX_GT_BOXES = 8
+    _, (state, args) = entry.train_entry(device="cuda", cfg=cfg)
+    model = state.model
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, DeformConv2d):
+                m.conv_offset.weight.normal_(0.0, 0.01)
+    results = []
+    for impl in ("cuda", "plain"):
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        kernels.LAUNCHES.clear()
+        losses, _ = model.train_forward(*args[:2], state.da_state, *args[2:],
+                                        deterministic=True, generator=gen,
+                                        impl=impl)
+        sum(losses.values()).backward()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        results.append(({k: v.item() for k, v in losses.items()},
+                        {n: p.grad.clone() for n, p in model.named_parameters()
+                         if p.requires_grad}))
+        if impl == "cuda":
+            assert launches == {"row_gather": 3 * 540,
+                                "row_scatter_add": 3 * 270, "nms": 10,
+                                "roi_align_fwd": 2, "roi_align_bwd": 8}
+        else:
+            assert not any(launches.values())
+    (lk, gk), (lp, gp) = results
+    assert set(lk) == set(lp)
+    for k in lp:
+        assert lk[k] == pytest.approx(lp[k], rel=1e-4), (k, lk, lp)
+    floor = 1e-6 * max(float(g.abs().max()) for g in gp.values())
+    for n, g in gp.items():
+        torch.testing.assert_close(gk[n], g, rtol=0,
+                                   atol=1e-3 * float(g.abs().max()) + floor)

@@ -372,3 +372,68 @@ def test_da_ins_dropout_draws_from_generator():
     assert run(1) == run(1)
     assert run(1) != run(2)
     assert run(1, True) == run(2, True)
+
+
+def test_da_module_on_fpn_levels():
+    """The module as the FPN models call it: the image head and its AdvGRL
+    and consistency losses over three levels of other sizes, the image
+    triplet on level 0, the instance head on flat MLP features [2k, S, C]
+    (``avgpool_ins`` off); the consistency loss on (0.1), as the YAMLs'
+    weight 0 would leave it unchecked. Losses, the new margin and every
+    input and weight gradient against JAX."""
+    kw = dict(img_weight=1.0, ins_weight=1.0, cst_weight=0.1,
+              triplet_img_weight=1.0, triplet_ins_weight=0.0,
+              use_adv_grl=True, triplet_max_margin=3.0, avgpool_ins=False)
+    jmod = jda.DomainAdaptationModule(**kw)
+    tmod = tda.DomainAdaptationModule(C_IMG, C_INS, **kw)
+    rng = np.random.RandomState(9)
+    levels = [rng.randn(2 * K, h, w, C_IMG).astype(np.float32)
+              for h, w in ((H, W), (3, 4), (1, 2))]
+    ins = rng.randn(2 * K, S, C_INS).astype(np.float32)
+    _, _, dom, valid, _, img_set, is_source = _da_inputs(10, strong=False)
+    state = jda.DAState.create(-0.5, 1.0)
+    shapes = jax.eval_shape(lambda: jmod.init(
+        jax.random.PRNGKey(0), levels, ins, dom, valid, None, img_set,
+        is_source, state, deterministic=True))
+    v = random_variables(shapes, seed=11)
+    tmod.load_state_dict(module_state(v, "da_heads", "da_heads."))
+
+    def jloss(v, levels, ins, img_set):
+        losses, new = jmod.apply(v, levels, ins, dom, valid, None, img_set,
+                                 is_source, state, deterministic=True)
+        return sum(losses.values()), (losses, new)
+
+    (_, (want, want_state)), grads = jax.value_and_grad(
+        jloss, argnums=(0, 1, 2, 3), has_aux=True)(v, levels, ins, img_set)
+
+    def nchw(x):
+        return torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_()
+
+    t_levels = [nchw(x) for x in levels]
+    t_ins = torch.from_numpy(ins).requires_grad_()
+    t_img_set = tuple(nchw(x) for x in img_set)
+    t_state = tda.DAState.create(-0.5, 1.0)
+    got, got_state = tmod(t_levels, t_ins, torch.from_numpy(dom),
+                          torch.from_numpy(valid), None, t_img_set,
+                          torch.from_numpy(is_source), t_state,
+                          deterministic=True)
+    assert set(got) == set(want) == {"loss_da_image", "loss_da_instance",
+                                     "loss_da_consistency",
+                                     "triplet_loss_image"}
+    for name in want:
+        np.testing.assert_allclose(got[name].item(), float(want[name]),
+                                   err_msg=name, **LOSS_TOL)
+    np.testing.assert_allclose(float(got_state.margin_img),
+                               float(want_state.margin_img), **LOSS_TOL)
+    sum(got.values()).backward()
+    for i, t in enumerate(t_levels):
+        _close_to_leaf_max(t.grad.permute(0, 2, 3, 1), grads[1][i],
+                           what=f"level {i}")
+    _close_to_leaf_max(t_ins.grad, grads[2], what="ins")
+    for i, t in enumerate(t_img_set):
+        _close_to_leaf_max(t.grad.permute(0, 2, 3, 1), grads[3][i],
+                           what=f"img_set[{i}]")
+    want_w = module_state({"params": grads[0]["params"]}, "da_heads",
+                          "da_heads.")
+    for name, p in tmod.named_parameters():
+        _close_to_leaf_max(p.grad, want_w[name], atol=1e-8, what=name)

@@ -121,12 +121,95 @@ def test_multi_level_eval_proposals_match_jax():
         np.testing.assert_allclose(got.scores.numpy(),
                                    np.asarray(want.scores), rtol=0,
                                    atol=1e-6)
-    with pytest.raises(NotImplementedError, match="training"):
-        prpn.select_proposals(
+
+
+def _levels(seed, b, integer_logits=False):
+    """Anchors, NHWC logits and deltas of five levels at canvas 64x96 (3
+    anchors a cell), and image sizes. ``integer_logits``: logits drawn from
+    the integers -4..4, so that many scores tie."""
+    hws = [(16, 24), (8, 12), (4, 6), (2, 3), (1, 2)]
+    gen = panchors.AnchorGenerator((32, 64, 128, 256, 512), (0.5, 1.0, 2.0),
+                                   (4, 8, 16, 32, 64))
+    anchors = gen.anchors_for_shapes(hws)
+    rng = np.random.RandomState(seed)
+    if integer_logits:
+        logits = [rng.randint(-4, 5, (b, h, w, 3)).astype(np.float32)
+                  for h, w in hws]
+    else:
+        logits = [(3 * rng.randn(b, h, w, 3)).astype(np.float32)
+                  for h, w in hws]
+    deltas = [(0.3 * rng.randn(b, h, w, 12)).astype(np.float32)
+              for h, w in hws]
+    sizes = np.array([[64, 96], [60, 90]], np.float32)[:b]
+    return anchors, logits, deltas, sizes
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["spread", "ties"])
+def test_multi_level_train_proposals_match_jax(ties):
+    """The training form over 2 images: per level top 40 -> NMS 0.7 -> 30,
+    then the top 50 of the batch's 300 by a batch-wide threshold (ties at
+    it all kept) and a stable per-image compaction; raw scores. With
+    integer logits many scores tie, at the threshold too: more than 50
+    proposals survive across the batch. Validity exactly, boxes atol 1e-4,
+    scores 1e-6."""
+    anchors, logits, deltas, sizes = _levels(6, 2, integer_logits=ties)
+    kw = dict(pre_nms_top_n=40, post_nms_top_n=30, fpn_post_nms_top_n=50,
+              nms_thresh=0.7, min_size=0, is_train=True)
+    want = jrpn.select_proposals(
+        [jnp.asarray(a) for a in anchors], [jnp.asarray(l) for l in logits],
+        [jnp.asarray(d) for d in deltas], jnp.asarray(sizes),
+        use_pallas=False, approx_topk=False, **kw)
+    for impl in ("plain", "cuda"):
+        got = prpn.select_proposals(
             [torch.from_numpy(a) for a in anchors],
             [nhwc_to_torch(l) for l in logits],
             [nhwc_to_torch(d) for d in deltas], torch.from_numpy(sizes),
-            impl="plain", **{**kw, "is_train": True})
+            impl=impl, **kw)
+        assert got.boxes.shape == (2, 50, 4)
+        np.testing.assert_array_equal(got.valid.numpy(),
+                                      np.asarray(want.valid))
+        n_valid = int(got.valid.sum())
+        assert n_valid > 50 if ties else n_valid == 50
+        np.testing.assert_allclose(got.boxes.numpy(), np.asarray(want.boxes),
+                                   rtol=0, atol=1e-4)
+        np.testing.assert_allclose(got.scores.numpy(),
+                                   np.asarray(want.scores), rtol=0,
+                                   atol=1e-6)
+
+
+def test_multi_level_rpn_loss_matches_jax():
+    """The RPN loss over every level's anchors, logits and deltas
+    concatenated in the anchors' (h, w, a) order, levels in order, as the
+    JAX package's train_forward concatenates them; 2 images with 8 GT
+    boxes, a batch of 4096 above the 1536 anchors (every label sampled,
+    whatever the draws); rtol 1e-5."""
+    anchors, logits, deltas, sizes = _levels(7, 2)
+    rng = np.random.RandomState(8)
+    xy = rng.uniform(0, 60, (2, 8, 2))
+    gt = np.concatenate([xy, xy + rng.uniform(8, 40, (2, 8, 2))],
+                        -1).astype(np.float32)
+    gt_valid = rng.rand(2, 8) > 0.2
+    kw = dict(fg_iou=0.7, bg_iou=0.3, batch_per_image=4096,
+              positive_fraction=0.5, straddle_thresh=0)
+    b = 2
+    want = jrpn.rpn_loss(
+        jax.random.PRNGKey(0), jnp.concatenate(anchors, axis=0),
+        jnp.concatenate([l.reshape(b, -1) for l in logits], axis=1),
+        jnp.concatenate([d.reshape(b, -1, 3, 4).reshape(b, -1, 4)
+                         for d in deltas], axis=1),
+        jnp.asarray(gt), jnp.asarray(gt_valid), jnp.ones((b,), bool),
+        jnp.asarray(sizes), **kw)
+    obj, dl = (torch.cat(rows, dim=1) for rows in zip(*map(
+        prpn.level_rows, [nhwc_to_torch(l) for l in logits],
+        [nhwc_to_torch(d) for d in deltas])))
+    got = prpn.rpn_loss(
+        torch.cat([torch.from_numpy(a) for a in anchors]), obj, dl,
+        torch.from_numpy(gt), torch.from_numpy(gt_valid),
+        torch.ones(b, dtype=torch.bool), torch.from_numpy(sizes), **kw,
+        generator=torch.Generator().manual_seed(0))
+    assert obj.shape == (2, 1536) and float(want[1]) > 0
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(float(g), float(w), rtol=1e-5)
 
 
 def _rois(seed, b, r):

@@ -3,11 +3,19 @@ against the TPU probe kernels of ``scripts/bench_gather_pallas.py`` in
 Pallas interpret mode, the probe's own XLA reference
 (``tbl.at[idx].get(mode="promise_in_bounds")``) and ``jnp.take(...,
 mode="clip")``. A gather is a copy: every comparison is exact, in float32
-and bfloat16."""
+and bfloat16.
+
+Its adjoint, the scatter-add (plain version and the wrappers' CPU branch),
+against ``jax.vjp`` of ``jnp.take(..., mode="clip")`` and the autograd of the
+port's own gather: float32 sums in another order, atol 1e-6 of the largest
+|row sum|.
+"""
 
 import functools
 import importlib.util
 import os
+
+import jax
 
 import jax.numpy as jnp
 import numpy as np
@@ -111,3 +119,73 @@ def test_empty_index():
     tbl = torch.randn(5, 8)
     for fn in PORT_GATHERS.values():
         assert fn(tbl, torch.zeros(0, dtype=torch.int32)).shape == (0, 8)
+
+
+SCATTER_CASES = {
+    # name: (S, C, P, lo, hi): indices drawn from [lo, hi)
+    "in_range": (40, 128, 64, 0, 40),
+    "clamped_c6": (30, 6, 200, -20, 50),        # C % 4 != 0
+    "repeated_rows": (5, 16, 300, 0, 5),        # each row ~60 times
+    "one_row": (1, 8, 50, -3, 4),
+    "empty": (7, 8, 0, 0, 7),
+}
+
+
+def _scatter_inputs(case, seed=11):
+    s, c, p, lo, hi = SCATTER_CASES[case]
+    rng = np.random.RandomState(seed)
+    grad = rng.randn(p, c).astype(np.float32)
+    idx = rng.randint(lo, hi, p).astype(np.int32)
+    return s, grad, idx
+
+
+def _close(got: torch.Tensor, want) -> None:
+    want = np.asarray(want)
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-6 * max(1.0, np.abs(want).max()))
+
+
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+def test_scatter_add_matches_jax_vjp(case):
+    """row_scatter_add is the adjoint of the clipped take: jax.vjp of
+    jnp.take(mode="clip"), and autograd of the port's row_gather and of
+    both kernel wrappers (their CPU branches launch nothing)."""
+    s, grad, idx = _scatter_inputs(case)
+    c = grad.shape[1]
+    table = np.zeros((s, c), np.float32)
+    _, vjp = jax.vjp(lambda t: jnp.take(t, jnp.asarray(idx), axis=0,
+                                        mode="clip"), jnp.asarray(table))
+    (want,) = vjp(jnp.asarray(grad))
+    g, i = torch.from_numpy(grad), torch.from_numpy(idx)
+    before = dict(kernels.LAUNCHES)
+    _close(gather.row_scatter_add(g, i, s), want)
+    _close(gather_cuda.row_scatter_add(g, i, s), want)
+    for fn in PORT_GATHERS.values():
+        t = torch.zeros(s, c, requires_grad=True)
+        (fn(t, i) * g).sum().backward()
+        _close(t.grad, want)
+    assert dict(kernels.LAUNCHES) == before
+
+
+def test_scatter_add_into_column_slice():
+    """row_scatter_add_ adds into a caller's [S, C] view in place: columns
+    8..24 of a [50, 48] map (rows 48 elements apart), the other columns
+    untouched, the old values kept; as jax.vjp of the take of that
+    slice."""
+    rng = np.random.RandomState(12)
+    base = rng.randn(50, 48).astype(np.float32)
+    grad = rng.randn(77, 16).astype(np.float32)
+    idx = rng.randint(-3, 53, 77).astype(np.int32)
+    _, vjp = jax.vjp(lambda t: jnp.take(t[:, 8:24], jnp.asarray(idx), axis=0,
+                                        mode="clip"), jnp.asarray(base))
+    (want,) = vjp(jnp.asarray(grad))
+    for fn in (gather.row_scatter_add_, gather_cuda.row_scatter_add_):
+        dst = torch.from_numpy(base.copy())
+        view = dst[:, 8:24]
+        assert view.stride() == (48, 1)
+        assert fn(view, torch.from_numpy(grad), torch.from_numpy(idx)) \
+            is view
+        _close(dst - torch.from_numpy(base), want)
+        np.testing.assert_array_equal(dst[:, :8].numpy(), base[:, :8])
+        np.testing.assert_array_equal(dst[:, 24:].numpy(), base[:, 24:])

@@ -73,6 +73,8 @@ def test_train_entry_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry.train_entry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry.train_entry(cfg=entry.dcn_train_cfg())
 
 
 def test_weight_loader_raises_on_unknown_key():
@@ -154,7 +156,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path, names):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build"))
     assert {"nms", "roi_align_fwd", "roi_align_bwd", "row_gather",
-            "row_gather_bulk"} == set(kernels.SOURCES)
+            "row_gather_bulk", "row_scatter_add"} == set(kernels.SOURCES)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernels.build(names)
 
@@ -177,6 +179,10 @@ def test_wrappers_refuse_other_devices():
         with pytest.raises(ValueError, match="unsupported device"):
             gather(torch.empty(6, 8, **meta),
                    torch.empty(4, dtype=torch.int32, **meta))
+    with pytest.raises(ValueError, match="unsupported device"):
+        gather_cuda.row_scatter_add(torch.empty(4, 8, **meta),
+                                    torch.empty(4, dtype=torch.int32, **meta),
+                                    6)
 
 
 @pytest.mark.parametrize("path", YAMLS,

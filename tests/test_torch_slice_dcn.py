@@ -34,13 +34,16 @@ import torch
 import __graft_entry__ as graft
 from da_detect_tpu.config import get_cfg as j_get_cfg
 from da_detect_tpu.models import build_detection_model as j_build
+from da_detect_tpu.models.da import DAState as JDAState
 from da_detect_tpu_torch import kernels
 from da_detect_tpu_torch.entry import DCN_YAML, dcn_cfg, make_batch, \
-    prepare_model
+    prepare_model, train_entry
 from da_detect_tpu_torch.layers import DeformConv2d
 from da_detect_tpu_torch.models import build_detection_model
 from da_detect_tpu_torch.utils.weights import load_jax_variables
-from tests.torch_harness import random_variables, torch_to_nhwc
+from tests.torch_harness import (assert_losses_match, fpn_train_cfgs,
+                                 jax_train_variables, random_variables,
+                                 torch_to_nhwc, triplet_batches)
 
 SCALES = {"rpn_head/cls_logits/kernel": 30.0,
           "rpn_head/bbox_pred/kernel": 0.03,
@@ -125,9 +128,36 @@ def test_dcn_eval_forward_matches_jax(jax_side, gather_mode):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def test_dcn_training_is_refused():
-    _, pcfg = _cfgs("four")
-    model = build_detection_model(pcfg)
-    batch, targets = make_batch(pcfg, 1, seed=0)
-    with pytest.raises(NotImplementedError, match="FPN/DCN training"):
-        model.train_forward(batch, targets, None)
+def test_dcn_train_forward_matches_jax():
+    """Training the YAML's model, narrowed at depth 101 with its 30
+    deformable convs (tests.torch_harness.fpn_train_cfgs): the step that
+    ``train_entry(cfg=...)`` builds runs and gives finite metrics, and its
+    model's ``train_forward`` on the JAX numpy variables gives JAX's seven
+    losses (rtol 1e-4, dropout off; the gradients are held against JAX at
+    depth 50 in tests/test_torch_train_fpn.py)."""
+    jcfg, pcfg = fpn_train_cfgs(DCN_YAML)
+    assert pcfg.MODEL.BACKBONE.CONV_BODY == "X-101-32x8d-FPN"
+    jmodel = j_build(jcfg)
+    jargs, pargs = triplet_batches(jcfg, pcfg)
+    variables = jax_train_variables(jmodel, jargs)
+    da = JDAState.create(jcfg.MODEL.DA_HEADS.TRIPLET_MARGIN_IMG,
+                         jcfg.MODEL.DA_HEADS.TRIPLET_MARGIN_INS)
+    want, _ = jax.jit(lambda v: jmodel.apply(
+        v, jargs[0], jargs[1], da, *jargs[2:], deterministic=True,
+        method=jmodel.train_forward,
+        rngs={"sampling": jax.random.PRNGKey(3),
+              "dropout": jax.random.PRNGKey(4)}))(variables)
+
+    step, (state, _) = train_entry(device="cpu", cfg=pcfg)
+    dcn = [m for m in state.model.modules() if isinstance(m, DeformConv2d)]
+    assert len(dcn) == 30
+    load_jax_variables(state.model, variables)
+    with torch.no_grad():
+        got, _ = state.model.train_forward(
+            pargs[0], pargs[1], state.da_state, *pargs[2:],
+            deterministic=True, generator=state.generator)
+    assert_losses_match({k: v.item() for k, v in got.items()},
+                        {k: float(v) for k, v in want.items()})
+    state, metrics = step(state, *pargs)
+    assert state.step == 1
+    assert all(torch.isfinite(v) for v in metrics.values())

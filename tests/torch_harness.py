@@ -89,3 +89,156 @@ def module_state(variables: dict, jax_prefix: str, torch_prefix: str) -> dict:
         wrapped[coll] = tree
     state = jax_state_dict(wrapped)
     return {k[len(torch_prefix):]: v for k, v in state.items()}
+
+
+# one train step's losses and gradients, without the update: the JAX
+# package's (jax.value_and_grad of train_forward) and the port's, dropout off
+LOSS_RTOL = 1e-4
+GRAD_REL, GRAD_FLOOR = 1e-3, 1e-6
+
+
+def jax_step_one(jcfg, jmodel, variables, args, aligned):
+    """(losses, gradients as port state_dict names) of one JAX step on the
+    numpy ``variables``, sampling key 3, dropout off."""
+    from da_detect_tpu.models.da import DAState as JDAState
+    from da_detect_tpu_torch.utils.weights import jax_state_dict
+
+    da = JDAState.create(jcfg.MODEL.DA_HEADS.TRIPLET_MARGIN_IMG,
+                         jcfg.MODEL.DA_HEADS.TRIPLET_MARGIN_INS)
+
+    def loss_fn(params):
+        losses, _ = jmodel.apply(
+            {"params": params, "frozen": variables["frozen"]}, args[0],
+            args[1], da, *args[2:], aligned=aligned, deterministic=True,
+            method=jmodel.train_forward,
+            rngs={"sampling": jax.random.PRNGKey(3),
+                  "dropout": jax.random.PRNGKey(4)})
+        return sum(losses.values()), losses
+
+    (_, losses), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        variables["params"])
+    return ({k: float(x) for k, x in losses.items()},
+            jax_state_dict({"params": grads}, cfg_fc6_chw(jcfg)))
+
+
+def cfg_fc6_chw(cfg):
+    """The (C, P, P) pooled map an FPN MLP head's fc6 reads, or None."""
+    if cfg.MODEL.ROI_BOX_HEAD.FEATURE_EXTRACTOR != "FPN2MLPFeatureExtractor":
+        return None
+    p = cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION
+    return cfg.MODEL.BACKBONE.OUT_CHANNELS, p, p
+
+
+def port_step_one(model, state, args, aligned, impl=None):
+    """(losses, gradients of the trainable leaves) of one port step."""
+    for p in model.parameters():
+        p.grad = None
+    losses, _ = model.train_forward(
+        args[0], args[1], state.da_state, *args[2:], aligned=aligned,
+        deterministic=True, generator=state.generator, impl=impl)
+    sum(losses.values()).backward()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()
+             if p.requires_grad}
+    return {k: v.item() for k, v in losses.items()}, grads
+
+
+def assert_losses_match(got: dict, want: dict) -> None:
+    assert set(got) == set(want)
+    for name in want:
+        np.testing.assert_allclose(got[name], want[name], rtol=LOSS_RTOL,
+                                   err_msg=f"{name}: {got} vs {want}")
+
+
+def assert_grads_match(got: dict, want: dict) -> None:
+    """Every trainable gradient within GRAD_REL of its leaf's largest |g|,
+    plus GRAD_FLOOR of the model's largest for leaves that cancel to near
+    zero."""
+    floor = GRAD_FLOOR * max(float(g.abs().max()) for g in want.values())
+    for name, g in got.items():
+        w = want[name]
+        err = float((g - w).abs().max())
+        assert err <= GRAD_REL * float(w.abs().max()) + floor, (
+            f"{name}: max |diff| {err:.3e}, max |g| "
+            f"{float(w.abs().max()):.3e}")
+
+
+# the FPN models' scales for random_variables: the RPN's objectness spread
+# (x 30), the two box-delta layers towards the JAX package's own init, and
+# the deformable convs' offset predictors drawn so that samples move about a
+# pixel off the grid
+FPN_SCALES = {"rpn_head/cls_logits/kernel": 30.0,
+              "rpn_head/bbox_pred/kernel": 0.03,
+              "predictor/bbox_pred/kernel": 0.1,
+              "conv_offset/kernel": 0.1}
+
+
+def _narrow_fpn_train(cfg, gather_mode):
+    r = cfg.MODEL.RESNETS
+    if r.NUM_GROUPS > 1:
+        r.NUM_GROUPS, r.WIDTH_PER_GROUP = 4, 2
+    else:
+        r.WIDTH_PER_GROUP = 8
+    r.STEM_OUT_CHANNELS, r.RES2_OUT_CHANNELS = 8, 16
+    cfg.MODEL.BACKBONE.OUT_CHANNELS = 16
+    cfg.MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM = 32
+    cfg.merge_from_list([
+        "MODEL.RPN.PRE_NMS_TOP_N_TRAIN", 64,
+        "MODEL.RPN.POST_NMS_TOP_N_TRAIN", 32,
+        "MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN", 48,
+        "MODEL.RPN.BATCH_SIZE_PER_IMAGE", 4096,
+        "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", 128,
+        "MODEL.ROI_HEADS.POSITIVE_FRACTION", 0.5,
+        "MODEL.DA_HEADS.TRIPLET_MAX_MARGIN", 3.0,
+        "MODEL.DA_HEADS.TRIPLET_MARGIN_IMG", -0.5,
+        "TPU.MAX_GT_BOXES", 8,
+        "TPU.IMAGE_SHAPE", (64, 96),
+        "TPU.COMPUTE_DTYPE", "float32",
+        "TPU.APPROX_TOPK", False,
+        "TPU.DCN_GATHER", gather_mode])
+    return cfg
+
+
+def fpn_train_cfgs(yaml, gather_mode="four", depth50=False):
+    """(JAX cfg, port cfg) of an FPN triplet-DA YAML for a training step on
+    the CPU: canvas 64x96, stem 8, res2 16, FPN 16, MLP head 32, a grouped
+    body at 4 groups x 2 (else width 8), float32, exact top-k; budgets 64 ->
+    32 proposals a level and 48 across the batch, 8 GT boxes, RPN batch
+    4096 and ROI batch 128 at positive fraction 0.5 (above every candidate
+    pool, so both samplers take every candidate whatever their draws).
+    ``depth50``: the body at depth 50 ("R-50-FPN" with the YAML's grouping
+    and deformable stages)."""
+    from da_detect_tpu.config import get_cfg as j_get_cfg
+    from da_detect_tpu_torch.config import get_cfg
+
+    cfgs = []
+    for cfg in (j_get_cfg(), get_cfg()):
+        cfg.merge_from_file(yaml)
+        if depth50:
+            cfg.MODEL.BACKBONE.CONV_BODY = "R-50-FPN"
+        cfgs.append(_narrow_fpn_train(cfg, gather_mode))
+    return tuple(cfgs)
+
+
+def triplet_batches(jcfg, pcfg):
+    """Three different images, source, positive and negative, each with its
+    own targets (gradients through every triplet term), for JAX and the
+    port."""
+    from da_detect_tpu_torch.entry import make_batch
+
+    jargs, pargs = [], []
+    for seed, is_source in ((0, True), (1, False), (2, False)):
+        jargs += graft._batch(jcfg, 1, seed=seed, is_source=is_source)
+        pargs += make_batch(pcfg, 1, seed=seed, is_source=is_source)
+    return jargs, pargs
+
+
+def jax_train_variables(jmodel, jargs, scales=FPN_SCALES):
+    """numpy variables of the JAX model's training init (DA heads
+    included)."""
+    from da_detect_tpu.models.da import DAState as JDAState
+
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        {"params": jax.random.PRNGKey(0), "sampling": jax.random.PRNGKey(1),
+         "dropout": jax.random.PRNGKey(2)}, jargs[0], jargs[1],
+        JDAState.create(), *jargs[2:], method=jmodel.train_forward))
+    return random_variables(shapes, seed=1, scales=scales)
