@@ -15,8 +15,11 @@ Phases, one JSON line each:
                and no ROI; ROIAlign backward: whole C4 and P2 maps, map
                edges, C = 4 and 12, a map that needs more than 48 KB a
                block, a strided gradient; the row scatter-add against
-               index_add_: the DCN taps' shapes, 4C-wide rows, a column
-               slice, out-of-range indices, every index alike, none)
+               index_add_ on the card and, bit for bit, on the CPU (rows
+               of at most LONG_ROW sources; every row against the kernel's
+               order in plain PyTorch), and against its own second run:
+               the DCN taps' shapes, 4C-wide rows, a column slice,
+               out-of-range indices, every index alike, none; each timed)
   4. slice     the flagship R-50-C4 config (its YAML) at the 608x1216 canvas
                in float32, random weights from a seed, answers 4 eval requests
                of batch 1 through ``entry()``; launch counts show the kernels
@@ -45,11 +48,21 @@ Phases, one JSON line each:
                as in phase 8: kernel-run against plain-run step 1 in both
                gather modes, timed steps with exact launch counts (the
                gathers forward and recomputed in the backward, the
-               scatter-add, NMS, ROIAlign forward and backward), peak
-               memory, a profile, and every kernel checked on the step's
-               own inputs; the scatter-add's kernel, plain and index_add_
-               device times on the step's indices (3 profiles in turns)
-               with its byte bound; the NMS and ROIAlign sites' times
+               scatter-add, NMS, ROIAlign forward and backward, and the 90
+               CSR builds of the scatter-add's indices: one a deformable
+               conv a backbone pass), peak memory, a profile with its
+               launches by kernel group, and every kernel checked on the
+               step's own inputs (the scatter-add also bit for bit against
+               the CPU and its own second run on one record of each
+               destination shape); the scatter-add as a function
+               with a dense output on the indices of two steps, step 1 of
+               the kernel run (offsets as drawn) and the last timed step
+               (by then the random-weight step diverges): the kernel with
+               the layers' CSR and with its own, the plain version and
+               torch.zeros + index_add_ (3 profiles in turns), beside its
+               byte bound, with each step's longest row and share of
+               sources in rows summed in pieces; the NMS and ROIAlign
+               sites' times
 Each ROIAlign-forward site of phases 5, 7 and 9 also gives its kernel's
 device time (profiler), the corner bytes that the per-thread gather it
 replaced read through L2, and the ROIs' footprint bytes the kernel stages.
@@ -64,9 +77,12 @@ plain-run detections, and "quad" against "four": the same valid count, and
 each detection has a twin with the same label, boxes within 1e-2 pixels and
 scores within 1e-4 (the pooled features differ by float32 rounding, which
 the box head carries into the scores); the row scatter-add within 1e-5 of
-the largest |dst| of index_add_ (atomics add in an order that changes from
-run to run); DCN kernel-run step 1 against plain-run step 1 as the
-flagship's.
+the largest |dst| of the card's index_add_ (which adds with atomics, in an
+order that changes from run to run), and bit for bit equal to its own
+second run, to the kernel's order run on the CPU (row_scatter_add_csr_)
+and, on the rows of at most LONG_ROW sources, which both add in source
+order, to the CPU's index_add_ (a longer row is summed in pieces); DCN
+kernel-run step 1 against plain-run step 1 as the flagship's.
 """
 
 from __future__ import annotations
@@ -127,9 +143,6 @@ ROI_BWD_REL = 1e-5
 # from its own level, in one launch
 PER_DCN_FORWARD = {"row_gather": 270, "nms": 6, "roi_align_fwd": 1}
 PER_QUAD_FORWARD = {"row_gather_bulk": 270, "nms": 6, "roi_align_fwd": 1}
-# conv_offset kernels drawn from this seed, each scaled so that its offsets
-# have this standard deviation (pixels): samples spread over about +-2 px
-DCN_SEED, DCN_OFFSET_STD = 0, 1.0
 DCN_PROFILE_RUNS, GATHER_TIMING_RUNS, GATHER_PROFILES = 3, 10, 3
 # the DCN model's train step, "four" gathers (deformable_groups 1): each of
 # the 3 backbone passes (source, positive, negative) gathers once a tap of
@@ -140,8 +153,11 @@ DCN_PROFILE_RUNS, GATHER_TIMING_RUNS, GATHER_PROFILES = 3, 10, 3
 # (P2-P6) in the source's and the positive target's RPN; ROIAlign forward
 # once a box-head pass (source, positive: each ROI from its own level) and
 # backward once a level (P2-P5) a pass
+# The scatter-add's CSR ("row_csr", not a kernel: a sort) is built once a
+# deformable conv a pass in the training forward, and never in eval.
 PER_DCN_TRAIN_STEP = {"row_gather": 3 * 2 * 270, "row_scatter_add": 3 * 270,
-                      "nms": 2 * 5, "roi_align_fwd": 2, "roi_align_bwd": 2 * 4}
+                      "nms": 2 * 5, "roi_align_fwd": 2, "roi_align_bwd": 2 * 4,
+                      "row_csr": 3 * 30}
 PER_DCN_QUAD_TRAIN_STEP = {
     ("row_gather_bulk" if k == "row_gather" else k): v
     for k, v in PER_DCN_TRAIN_STEP.items()}
@@ -491,12 +507,35 @@ def check_gather(name: str, table, idx) -> float:
         if got.numel() else 0.0
 
 
-def check_scatter(dst, grad, idx) -> tuple[float, float]:
+def scatter_bits(got, start, grad, idx) -> dict:
+    """The scatter-add kernel's result ``got`` from ``start`` (the
+    destination before the call, on the CPU) against the CPU: is it equal
+    bit for bit to index_add_ on every row of at most LONG_ROW sources
+    (both add in source order), and on every row to the kernel's order in
+    plain PyTorch (``row_scatter_add_csr_``: longer rows in pieces)."""
+    from da_detect_tpu_torch.ops import gather
+
+    got, grad, idx = got.cpu(), grad.cpu(), idx.cpu()
+    perm, row_ptr = gather.row_csr(idx, start.shape[0])
+    short = (row_ptr[1:] - row_ptr[:-1]) <= gather.LONG_ROW
+    added = gather.row_scatter_add_(start.clone(), grad, idx)
+    ordered = gather.row_scatter_add_csr_(start.clone(), grad, perm, row_ptr)
+    return dict(index_add_short_rows=torch.equal(got[short], added[short]),
+                kernel_order=torch.equal(got, ordered),
+                rows_in_pieces=int((~short).sum()))
+
+
+def check_scatter(dst, grad, idx) -> tuple[float, float, int]:
     """The scatter-add kernel adding into ``dst`` (a view, any row stride)
-    against index_add_ on a copy of it; raises past SCATTER_REL of the
-    largest |dst|. Returns (max abs error, max |dst|)."""
+    against index_add_ on a copy of it on the card: raises past SCATTER_REL
+    of the largest |dst|; and against the CPU (``scatter_bits``): raises
+    unless bit for bit. Then its fresh-output form twice: raises unless the
+    two are equal bit for bit and pass the same CPU checks. Returns (max
+    abs error against the card's index_add_, max |dst|, rows summed in
+    pieces)."""
     from da_detect_tpu_torch.ops import gather, gather_cuda
 
+    start = dst.cpu()
     want = gather.row_scatter_add_(dst.clone(), grad, idx)
     got = gather_cuda.row_scatter_add_(dst, grad, idx)
     torch.cuda.synchronize()
@@ -507,7 +546,51 @@ def check_scatter(dst, grad, idx) -> tuple[float, float]:
                              f"{err:.3e} (max |dst| {scale:.3e}, dst "
                              f"{tuple(dst.shape)} stride {dst.stride(0)}, "
                              f"{idx.numel()} rows)")
-    return err, scale
+    runs = [gather_cuda.row_scatter_add(grad, idx, dst.shape[0])
+            for _ in range(2)]
+    checks = [scatter_bits(got, start, grad, idx),
+              scatter_bits(runs[0], torch.zeros(dst.shape), grad, idx),
+              dict(rerun_identical=torch.equal(runs[0], runs[1]))]
+    for bits in checks:
+        if not all(v for k, v in bits.items() if k != "rows_in_pieces"):
+            raise AssertionError(f"scatter-add kernel not bit for bit as "
+                                 f"expected: {bits} (dst {tuple(dst.shape)} "
+                                 f"stride {dst.stride(0)}, {idx.numel()} "
+                                 f"rows)")
+    return err, scale, checks[0]["rows_in_pieces"]
+
+
+def longest_row(csr) -> int:
+    """The most sources that one destination row of a CSR owns."""
+    _, row_ptr = csr
+    return int((row_ptr[1:] - row_ptr[:-1]).max()) if row_ptr.numel() > 1 \
+        else 0
+
+
+def scatter_traffic(records) -> dict:
+    """How a step's scatter-adds (``records`` from ``record_kernel_inputs``,
+    each with its layer's CSR) spread over their destination rows: the
+    sources, the share of them in rows of more than LONG_ROW (which the
+    kernel sums in pieces), those rows, the records that hold one, and the
+    longest row."""
+    from da_detect_tpu_torch.ops import gather
+
+    long_sources = rows_in_pieces = with_long = longest = 0
+    at = records[0]
+    for rec in records:
+        counts = rec["csr"][1][1:] - rec["csr"][1][:-1]
+        big = counts > gather.LONG_ROW
+        long_sources += int(counts[big].sum())
+        rows_in_pieces += int(big.sum())
+        with_long += bool(big.any())
+        if longest_row(rec["csr"]) > longest:
+            longest, at = longest_row(rec["csr"]), rec
+    sources = sum(rec["idx"].numel() for rec in records)
+    return dict(sources=sources, long_row_share=long_sources / sources,
+                rows_in_pieces=rows_in_pieces,
+                records_with_long_rows=with_long, records=len(records),
+                longest_row=dict(sources=longest, dst=list(at["shape"]),
+                                 indices=at["idx"].numel()))
 
 
 @contextlib.contextmanager
@@ -519,8 +602,10 @@ def record_kernel_inputs():
     table is kept by reference (no copy): the forward writes no tensor in
     place. A scatter-add is checked where it runs, against the plain
     version on its own gradient (kept nowhere: a step's would fill the
-    card), and recorded as its indices, its destination's shape and the
-    error and largest |dst|, both left on the device."""
+    card), and recorded as its indices, the CSR its caller handed over (or
+    None), its destination's shape and the error and largest |dst|, both
+    left on the device; the first of each destination shape is also run
+    again and checked bit for bit (``scatter_bits``)."""
     from da_detect_tpu_torch.ops import (gather, gather_cuda, nms_cuda,
                                          roi_align_cuda)
 
@@ -534,17 +619,23 @@ def record_kernel_inputs():
     scatter_kernel = gather_cuda.row_scatter_add
 
     def gather_rec(name):
-        def rec(table, idx):
+        def rec(table, idx, csr=None):
             captured[name].append((table, idx.clone()))
-            return gathers[name](table, idx)
+            return gathers[name](table, idx, csr)
         return rec
 
-    def scatter_rec(grad, idx, num_rows):
-        got = scatter_kernel(grad, idx, num_rows)
+    def scatter_rec(grad, idx, num_rows, csr=None):
+        got = scatter_kernel(grad, idx, num_rows, csr)
         want = gather.row_scatter_add(grad, idx, num_rows)
-        captured["row_scatter_add"].append(dict(
-            idx=idx.clone(), shape=(num_rows, grad.shape[1]),
-            err=(got - want).abs().max(), scale=want.abs().max()))
+        rec = dict(idx=idx.clone(), csr=csr, shape=(num_rows, grad.shape[1]),
+                   err=(got - want).abs().max(), scale=want.abs().max())
+        if not any(r["shape"] == rec["shape"] and "bits" in r
+                   for r in captured["row_scatter_add"]):
+            again = scatter_kernel(grad, idx, num_rows, csr)
+            rec["bits"] = dict(
+                rerun_identical=torch.equal(got, again),
+                **scatter_bits(got, torch.zeros(rec["shape"]), grad, idx))
+        captured["row_scatter_add"].append(rec)
         return got
 
     def nms_rec(boxes, valid, thresh, max_keep=None):
@@ -615,6 +706,11 @@ def check_captured(captured) -> dict:
         if not err <= SCATTER_REL * scale:
             raise AssertionError(f"scatter-add kernel differs from index_add_"
                                  f" by {err:.3e} (max |dst| {scale:.3e}, dst "
+                                 f"{rec['shape']}, {rec['idx'].numel()} rows)")
+        if not all(v for k, v in rec.get("bits", {}).items()
+                   if k != "rows_in_pieces"):
+            raise AssertionError(f"scatter-add kernel not bit for bit as "
+                                 f"expected: {rec['bits']} (dst "
                                  f"{rec['shape']}, {rec['idx'].numel()} rows)")
         errs["row_scatter_add"] = max(errs.get("row_scatter_add", 0.0), err)
     return errs
@@ -860,7 +956,7 @@ def phase_kernels(dev) -> dict:
              random_rois(rng, 1, 40, CANVAS, 900.0), strided=True,
              max_samples=8, **kw14)
 
-    from da_detect_tpu_torch.ops import gather_cuda
+    from da_detect_tpu_torch.ops import gather, gather_cuda
 
     gather_errs = {"row_gather": 0.0, "row_gather_bulk": 0.0}
     for case, (s, c, p, stride) in GATHER_CASES.items():
@@ -896,11 +992,19 @@ def phase_kernels(dev) -> dict:
         grad = torch.from_numpy(rng.randn(p, c).astype(np.float32)).to(dev)
         idx = torch.from_numpy(rng.randint(lo, hi, p).astype(np.int32)).to(
             dev)
-        err, scale = check_scatter(dst, grad, idx)
+        err, scale, in_pieces = check_scatter(dst, grad, idx)
         scatter_err = max(scatter_err, err)
+        csr = gather.row_csr(idx, s)
         results[f"row_scatter_add_{case}"] = dict(
-            max_abs_err=err, max_abs_dst=scale, dst=[s, c],
-            row_stride=dst.stride(0), indices=p)
+            max_abs_err=err, max_abs_dst=scale, bits_as_expected=True,
+            rows_in_pieces=in_pieces, dst=[s, c], row_stride=dst.stride(0),
+            indices=p, longest_row=longest_row(csr),
+            # CUDA events around a fresh-output call: the CSR given, and
+            # built by the wrapper
+            ms=time_ms(lambda: gather_cuda.row_scatter_add(grad, idx, s,
+                                                           csr)),
+            csr_build_ms=time_ms(lambda: gather_cuda.row_scatter_add(
+                grad, idx, s)))
     emit("kernels", **results)
     return dict(row_scatter_add=scatter_err,
         nms=max(r["mismatches"] for k, r in results.items()
@@ -930,25 +1034,44 @@ def flagship_model(dev):
     return cfg, fn, model, batches
 
 
-def serve_requests(fn, model, batches, per_forward: dict, label: str):
-    """The main path: counts set to 0, one request a batch through ``fn``,
-    counts read. Raises if a kernel ran another number of times than
-    ``per_forward`` a request. Returns (answers, launches, seconds)."""
+def clear_counts() -> None:
+    """Every kernel's launch count and the CSR builds set to 0."""
     from da_detect_tpu_torch import kernels
+    from da_detect_tpu_torch.ops import gather
 
     torch.cuda.synchronize()
     kernels.LAUNCHES.clear()
+    gather.CSR_BUILDS.clear()
+
+
+def read_counts(expected: dict, n: int, label: str, what: str) -> dict:
+    """Each kernel's launches and the CSR builds ("row_csr") since
+    ``clear_counts``; raises if one ran another number of times than
+    ``expected`` (a request's or a step's) times ``n``."""
+    from da_detect_tpu_torch import kernels
+    from da_detect_tpu_torch.ops import gather
+
+    counts = {name: kernels.LAUNCHES[name] for name in kernels.SOURCES}
+    counts["row_csr"] = gather.CSR_BUILDS["row_csr"]
+    for name, got in counts.items():
+        if got != expected.get(name, 0) * n:
+            raise AssertionError(f"{label}: {name} ran {got} times in {n} "
+                                 f"{what}, expected "
+                                 f"{expected.get(name, 0) * n}")
+    return counts
+
+
+def serve_requests(fn, model, batches, per_forward: dict, label: str):
+    """The main path: counts set to 0, one request a batch through ``fn``,
+    counts read. Raises if a kernel ran another number of times than
+    ``per_forward`` a request, or a CSR was built. Returns (answers,
+    launches, seconds)."""
+    clear_counts()
     t0 = time.perf_counter()
     answers = [fn(model, b) for b in batches]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {name: kernels.LAUNCHES[name] for name in kernels.SOURCES}
-    n = len(batches)
-    for name in kernels.SOURCES:
-        if launches[name] != per_forward.get(name, 0) * n:
-            raise AssertionError(f"{label}: kernel {name} launched "
-                                 f"{launches[name]} times in {n} requests, "
-                                 f"expected {per_forward.get(name, 0) * n}")
+    launches = read_counts(per_forward, len(batches), label, "requests")
     return answers, launches, seconds
 
 
@@ -1286,9 +1409,9 @@ KERNEL_GROUPS = (
 
 def device_profile(run, runs: int, kernels=(), attempts: int = 3) -> dict:
     """``runs`` calls of ``run()`` (a train step, a forward, one kernel's
-    wrapper) under ``torch.profiler``: device time a call by kernel group,
-    the top kernels and, for the kernels whose names hold each of
-    ``kernels``, their device time and calls a run,
+    wrapper) under ``torch.profiler``: device time and device launches a
+    call by kernel group, the top kernels and, for the kernels whose names
+    hold each of ``kernels``, their device time and calls a run,
     and the device's busy share of the host's wall clock (under the
     profiler's own overhead). Unlike CUDA events around a call, device
     times leave out the host's launch work. Now and then a profile records
@@ -1317,12 +1440,14 @@ def device_profile(run, runs: int, kernels=(), attempts: int = 3) -> dict:
         if all(named.values()):
             break
     groups: dict[str, float] = {}
+    group_calls: dict[str, float] = {}
     for e in kern:
         name = e.key.lower()
         group = next((g for g, frags in KERNEL_GROUPS
                       if any(f in name for f in frags)), "other")
         groups[group] = groups.get(group, 0.0) + (
             e.self_device_time_total / 1e3 / runs)
+        group_calls[group] = group_calls.get(group, 0.0) + e.count / runs
     busy_ms = sum(groups.values())
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
     return dict(
@@ -1331,6 +1456,9 @@ def device_profile(run, runs: int, kernels=(), attempts: int = 3) -> dict:
         device_busy_share=busy_ms * runs / wall_ms,
         groups_ms_per_run=dict(sorted(groups.items(),
                                       key=lambda kv: -kv[1])),
+        device_calls_per_run=sum(group_calls.values()),
+        groups_calls_per_run=dict(sorted(group_calls.items(),
+                                         key=lambda kv: -kv[1])),
         top_kernels=[dict(name=e.key[:100], calls_per_run=e.count / runs,
                           ms_per_run=e.self_device_time_total / 1e3 / runs)
                      for e in top],
@@ -1341,12 +1469,9 @@ def device_profile(run, runs: int, kernels=(), attempts: int = 3) -> dict:
 def run_steps(step, state, args, n: int, expected: dict, label: str):
     """The main path: counts set to 0, ``n`` steps through the train step,
     each timed on the host clock to its synchronize, counts read. Raises if
-    a kernel ran another number of times than ``expected`` per step, or a
-    loss is not finite."""
-    from da_detect_tpu_torch import kernels
-
-    torch.cuda.synchronize()
-    kernels.LAUNCHES.clear()
+    a kernel ran (or a CSR was built) another number of times than
+    ``expected`` per step, or a loss is not finite."""
+    clear_counts()
     times, metrics = [], []
     for _ in range(n):
         t0 = time.perf_counter()
@@ -1354,12 +1479,7 @@ def run_steps(step, state, args, n: int, expected: dict, label: str):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         metrics.append(m)
-    launches = {name: kernels.LAUNCHES[name] for name in kernels.SOURCES}
-    for name in kernels.SOURCES:
-        if launches[name] != expected.get(name, 0) * n:
-            raise AssertionError(
-                f"{label}: kernel {name} launched {launches[name]} times in "
-                f"{n} steps, expected {expected.get(name, 0) * n}")
+    launches = read_counts(expected, n, label, "steps")
     totals = [float(m["loss_total"]) for m in metrics]
     if not all(np.isfinite(totals)):
         raise AssertionError(f"{label}: non-finite loss: {totals}")
@@ -1443,43 +1563,9 @@ def dcn_model(dev, gather_mode: str):
     return cfg, fn, model
 
 
-def spread_dcn(model, batch) -> list:
-    """What the script changes in the random model: the score layers x 30,
-    as for the flagship, and every ``conv_offset`` kernel (zero in the
-    package's init, which puts each sample on the grid with corner weights
-    (1, 0, 0, 0)) drawn normal from DCN_SEED, then scaled in one forward,
-    layer by layer in forward order, so that its offsets have a standard
-    deviation of DCN_OFFSET_STD pixels. Returns each layer's offset std
-    before scaling."""
-    from da_detect_tpu_torch.layers import DeformConv2d
-
-    gen = torch.Generator().manual_seed(DCN_SEED)
-    raw = []
-
-    def calibrate(mod, _inputs, out):
-        raw.append(float(out.std()))
-        mod.weight.mul_(DCN_OFFSET_STD / raw[-1])   # the bias is zero
-        return out * (DCN_OFFSET_STD / raw[-1])
-
-    handles = []
-    with torch.no_grad():
-        model.rpn["head"].cls_logits.weight.mul_(SCORE_SCALE)
-        model.roi_heads["box"]["predictor"].cls_score.weight.mul_(SCORE_SCALE)
-        for m in model.modules():
-            if isinstance(m, DeformConv2d):
-                w = m.conv_offset.weight
-                w.copy_(torch.randn(w.shape, generator=gen))
-                handles.append(m.conv_offset.register_forward_hook(calibrate))
-        try:
-            model(batch)
-        finally:
-            for h in handles:
-                h.remove()
-    return raw
-
-
 def phase_dcn(dev):
     from da_detect_tpu_torch import entry
+    from da_detect_tpu_torch.e2e_pairs import spread_dcn
 
     cfg, fn, model = dcn_model(dev, "four")
     batches = [entry.make_batch(cfg, 1, seed=s, device=dev)[0]
@@ -1649,32 +1735,31 @@ def phase_dcn_times(model, fn, q_model, q_fn, batch, captured,
 
 # ---------------------------------------------------------------- DCN training
 
-def scatter_work(records) -> tuple[float, float]:
-    """(bytes, zero-fill bytes) of a step's scatter-adds (``records`` from
-    ``record_kernel_inputs``): each gradient row read once, each index once,
-    each distinct destination row read and written once; the zero-fill of
-    each destination, a memset of its own, apart."""
-    nbytes = memset = 0
+def scatter_work(records) -> float:
+    """Bytes of a step's scatter-adds as functions with a dense output
+    (``records`` from ``record_kernel_inputs``), whatever computes them:
+    each gradient row and each index read once, each [S, C] output written
+    once. The destination is not read (it starts at zero), and its zeros
+    are part of the output, not a fill apart."""
+    nbytes = 0
     for rec in records:
         (s, c), idx = rec["shape"], rec["idx"]
         if idx.numel() and not (0 <= int(idx.min()) and int(idx.max()) < s):
             raise AssertionError(f"a scatter-add index of the main path lies "
                                  f"outside its destination of {s} rows")
-        rows = int(torch.unique(idx).numel())
-        nbytes += 4 * (idx.numel() * c + idx.numel() + 2 * rows * c)
-        memset += 4 * s * c
-    return nbytes, memset
+        nbytes += 4 * (idx.numel() * c + idx.numel() + s * c)
+    return nbytes
 
 
 def scatter_device_ms(records) -> dict:
     """Device time of a step's scatter-adds on the step's own indices and
-    shapes: the kernel adding into a zeroed destination
-    (``row_scatter_add_``), the plain version (zeros, clamp, index_add_) and
-    ``index_add_`` into a zeroed destination, each variant called once a
-    record, SCATTER_TIMING_RUNS times over under ``torch.profiler`` after a
-    warm-up pass; GATHER_PROFILES such profiles, the variants in turns. The
-    gradient rows are random (the step's were checked where they ran and
-    not kept): the work, and where the atomics meet, depend on the indices
+    shapes, each a function with a dense [S, C] output: the kernel with the
+    CSR its layer built (``ms``) and building its own (``csr_build_ms``),
+    the plain version (zeros, clamp, index_add_) and torch.zeros +
+    index_add_ (``library_ms``); each variant called once a record, SCATTER_TIMING_RUNS times over under
+    ``torch.profiler`` after a warm-up pass; GATHER_PROFILES such profiles,
+    the variants in turns. The gradient rows are random (the step's were
+    checked where they ran and not kept): the work depends on the indices
     and shapes alone."""
     from da_detect_tpu_torch.ops import gather, gather_cuda
 
@@ -1682,15 +1767,18 @@ def scatter_device_ms(records) -> dict:
     most = max(r["idx"].numel() * r["shape"][1] for r in records)
     buf = torch.randn(most, generator=torch.Generator(device=dev).manual_seed(
         0), device=dev)
-    dsts, calls = {}, []
+    calls = []
     for rec in records:
         (s, c), idx = rec["shape"], rec["idx"]
-        dst = dsts.setdefault((s, c), torch.zeros(s, c, device=dev))
-        calls.append((dst, buf[:idx.numel() * c].view(-1, c), idx))
+        calls.append((s, buf[:idx.numel() * c].view(-1, c), idx,
+                      rec["csr"] or gather.row_csr(idx, s)))
     variants = {
-        "ms": lambda d, g, i: gather_cuda.row_scatter_add_(d, g, i),
-        "plain_ms": lambda d, g, i: gather.row_scatter_add(g, i, d.shape[0]),
-        "library_ms": lambda d, g, i: d.index_add_(0, i, g)}
+        "ms": lambda s, g, i, csr: gather_cuda.row_scatter_add(g, i, s, csr),
+        "csr_build_ms": lambda s, g, i, csr: gather_cuda.row_scatter_add(
+            g, i, s),
+        "plain_ms": lambda s, g, i, csr: gather.row_scatter_add(g, i, s),
+        "library_ms": lambda s, g, i, csr: torch.zeros(
+            s, g.shape[1], device=g.device).index_add_(0, i, g)}
 
     def runner(fn):
         def run():
@@ -1712,6 +1800,24 @@ def scatter_device_ms(records) -> dict:
     return out
 
 
+def scatter_timing(records, bound_ms: float) -> dict:
+    """A step's scatter-adds (``records``, each with the CSR its layer
+    handed over): their device times (``scatter_device_ms``), each one's
+    share of ``bound_ms``, how their sources spread over the rows
+    (``scatter_traffic``) and the bit checks made where they ran."""
+    if any(rec["csr"] is None for rec in records):
+        raise AssertionError("dcn_train: a scatter-add of the step got no CSR "
+                             "from its layer")
+    device = scatter_device_ms(records)
+    times_ms = {k: v for k, v in device.items() if "profiles" not in k}
+    return dict(
+        **times_ms, bound_share={k: bound_ms / v for k, v in times_ms.items()},
+        profiles_ms={k: v for k, v in device.items() if "profiles" in k},
+        **scatter_traffic(records),
+        bit_checks={f"dst {r['shape'][0]}x{r['shape'][1]}": r["bits"]
+                    for r in records if "bits" in r})
+
+
 def dcn_train_model(dev, gather_mode: str):
     """``train_entry(cfg=dcn_train_cfg())`` at the 608x1216 canvas with
     ``TPU.DCN_GATHER`` = ``gather_mode``: (step, state, batch args)."""
@@ -1726,11 +1832,41 @@ def dcn_train_model(dev, gather_mode: str):
 
 def phase_dcn_train(dev):
     from da_detect_tpu_torch import entry
+    from da_detect_tpu_torch.e2e_pairs import spread_dcn
+    from da_detect_tpu_torch.layers import DeformConv2d
 
     step, state, args = dcn_train_model(dev, "four")
     raw_std = spread_dcn(state.model, args[0])
-    agreement = compare_steps(train_step_one(state, args, "cuda"),
-                              train_step_one(state, args, "plain"))
+    # step 1 of the kernel run with its kernels' inputs recorded: the
+    # scatter-adds' indices before any update, offsets as drawn; and the
+    # offsets' std in each deformable conv of each backbone pass (source,
+    # positive, negative: the source + 200 in every pixel), in forward order
+    offset_std = []
+    hooks = [m.conv_offset.register_forward_hook(
+        lambda _m, _i, out: offset_std.append(float(out.std())))
+        for m in state.model.modules() if isinstance(m, DeformConv2d)]
+    try:
+        with record_kernel_inputs() as first:
+            kernel_one = train_step_one(state, args, "cuda")
+    finally:
+        for h in hooks:
+            h.remove()
+    layers = len(hooks)
+    if len(offset_std) != 3 * layers:
+        raise AssertionError(f"dcn_train: {len(offset_std)} offset convs ran "
+                             f"in step 1, expected 3 passes x {layers}")
+    errs = check_captured(first)
+    first_records = first.pop("row_scatter_add")
+    del first
+    agreement = compare_steps(kernel_one, train_step_one(state, args, "plain"))
+    del kernel_one
+    # the scatter-add's bound (its bytes depend on the shapes alone, the
+    # same in every step) and its times on step 1's indices, taken now so
+    # that the records are gone before the timed steps' peak memory
+    nbytes = scatter_work(first_records)
+    bound_ms, by = bound(nbytes, 0)
+    timed = {"step_1": scatter_timing(first_records, bound_ms)}
+    del first_records
     # "quad" on the same weights: step 1 against its plain run, one step
     q_step, q_state, _ = dcn_train_model(dev, "quad")
     q_state.model.load_state_dict(state.model.state_dict())
@@ -1753,26 +1889,35 @@ def phase_dcn_train(dev):
         holder[0], _ = step(holder[0], *args)
 
     profile = device_profile(one_step, 1, kernels=(
-        "row_gather_kernel", "row_scatter_add_kernel", "nms_mask_kernel",
+        "row_gather_kernel", "row_scatter_add", "nms_mask_kernel",
         "roi_align_fwd_kernel", "roi_align_bwd_kernel"))
+    # the step after the profiled one, its kernels' inputs recorded: with
+    # random weights the step has diverged by then (the losses), and its
+    # sample corners clamp onto the maps' border rows
     with record_kernel_inputs() as captured:
         one_step()
         torch.cuda.synchronize()
-    errs = check_captured(captured)
+    for k, v in check_captured(captured).items():
+        errs[k] = max(errs.get(k, 0.0), v)
     del step, holder, state
     records = captured.pop("row_scatter_add")
     sites = time_sites(dict(captured, row_gather=[], row_gather_bulk=[]),
                        "dcn_train", DCN_TRAIN_NMS_SITES)
-    nbytes, memset = scatter_work(records)
-    bound_ms, by = bound(nbytes, 0)
-    device = scatter_device_ms(records)
+    if scatter_work(records) != nbytes:
+        raise AssertionError("dcn_train: the steps' scatter-adds differ in "
+                             "shape")
+    timed[f"step_{DCN_TRAIN_STEPS + 2}"] = scatter_timing(records, bound_ms)
+    # the kernel's numbers: step 1's indices, which do not depend on how
+    # far the random-weight step has diverged
+    head = timed["step_1"]
     scatter = dict(
-        launches=launches["row_scatter_add"], ms=device["ms"],
-        plain_ms=device["plain_ms"], library_ms=device["library_ms"],
-        bound_ms=bound_ms, bound_by=by, bytes=nbytes, memset_bytes=memset,
-        memset_bound_ms=bound(memset, 0)[0], device_ms=device["ms"],
+        launches=launches["row_scatter_add"], ms=head["ms"],
+        plain_ms=head["plain_ms"], library_ms=head["library_ms"],
+        bound_ms=bound_ms, bound_by=by, bytes=nbytes, device_ms=head["ms"],
         step_profile_ms=profile["groups_ms_per_run"].get("row_scatter_add"),
-        profiles_ms={k: v for k, v in device.items() if "profiles" in k})
+        steps={label: {k: t[k] for k in ("ms", "csr_build_ms", "plain_ms",
+                                         "library_ms", "long_row_share")}
+               for label, t in timed.items()})
     shapes = {}
     for rec in records:
         key = f"dst {rec['shape'][0]}x{rec['shape'][1]} P {rec['idx'].numel()}"
@@ -1787,6 +1932,10 @@ def phase_dcn_train(dev):
          losses=[{k: float(v) for k, v in m.items()} for m in metrics],
          offset_std_before_scaling=dict(min=min(raw_std), max=max(raw_std),
                                         layers=len(raw_std)),
+         step_1_offset_std={
+             name: dict(min=min(offset_std[i * layers:(i + 1) * layers]),
+                        max=max(offset_std[i * layers:(i + 1) * layers]))
+             for i, name in enumerate(("source", "positive", "negative"))},
          plain_agreement=agreement, quad_plain_agreement=q_agreement,
          quad=dict(steps=DCN_QUAD_TRAIN_STEPS, launches=q_launches,
                    step_ms=q_times,
@@ -1802,7 +1951,8 @@ def phase_dcn_train(dev):
                                for g, r, h, w, _, copied in
                                captured["roi_align_bwd"]],
              "row_scatter_add": shapes},
-         scatter_add=scatter, sites=sites, max_abs_err=errs)
+         scatter_add=dict(scatter, records=timed), sites=sites,
+         max_abs_err=errs)
     return sites, launches, scatter, errs
 
 

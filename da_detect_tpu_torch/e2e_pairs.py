@@ -27,7 +27,17 @@ from seed 0, as ``chip_smoke.py`` drives it:
 - ``pooler_device_ms``: the X-101-FPN-DCN model's pooler (``pool_rois``
   with impl "cuda": level assignment and ROIAlign) on random P2-P5 maps of
   the 608x1216 canvas (C 256, P 7, sampling ratio 2) and 1000 ROIs of 4 to
-  700 pixels a side from a seed, device time a call over 10 profiled calls.
+  700 pixels a side from a seed, device time a call over 10 profiled calls;
+- ``scatter_device_ms``: the row gathers' adjoint in the X-101-32x8d-FPN-DCN
+  triplet-DA train step at 608x1216 ("four" gathers; random weights from
+  seed 0 with ``spread_dcn``'s offsets, as ``chip_smoke.py`` sets them):
+  the 810 calls of step 1 to the tree's ``gather_cuda.row_scatter_add``
+  are recorded and replayed as the step made them (with whatever index
+  bookkeeping the layer handed over) on random gradient rows, each a
+  function with a dense [S, C] output; device time a step, median of 3
+  profiles taken in turns with ``scatter_library_device_ms``, the same
+  calls as torch.zeros + ``index_add_``. ``scatter_long_row_share``: the
+  share of the calls' sources whose destination row owns more than 64.
 
 Prints one JSON line a process, the card's name and power limit, and last a
 summary: for each tree and metric the median over its processes and each
@@ -51,13 +61,18 @@ FLAGSHIP_YAML = os.path.join(
 SCORE_SCALE = 30.0
 FORWARD_RUNS, STEP_RUNS, PROFILE_RUNS, WARMUP = 20, 12, 3, 3
 POOLER_RUNS, POOLER_ROIS, FPN_CHANNELS = 10, 1000, 256
+SCATTER_PROFILES, SCATTER_LONG_ROW = 3, 64
+# conv_offset kernels drawn from this seed, each scaled so that its offsets
+# have this standard deviation (pixels): samples spread over about +-2 px
+DCN_SEED, DCN_OFFSET_STD = 0, 1.0
 FPN_SCALES = (1 / 4, 1 / 8, 1 / 16, 1 / 32)
 # CUDA runtime calls in which the host waits for the device
 WAIT_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpyAsync", "cudaMemcpy")
 METRICS = tuple(f"{name}_{m}" for name in ("forward", "step")
                 for m in ("ms", "profiled_ms", "device_ms", "host_wait_ms")
-                ) + ("pooler_device_ms",)
+                ) + ("pooler_device_ms", "scatter_device_ms",
+                     "scatter_library_device_ms")
 
 
 def flagship_cfg(tree: str, canvas):
@@ -129,6 +144,101 @@ def pooler_inputs(device: str, canvas, seed: int = 0):
     return maps, rois
 
 
+def spread_dcn(model, batch) -> list:
+    """What the measurements change in a random DCN model: the score layers
+    x SCORE_SCALE, as for the flagship, and every ``conv_offset`` kernel
+    (zero in the package's init, which puts each sample on the grid with
+    corner weights (1, 0, 0, 0)) drawn normal from DCN_SEED, then scaled in
+    one forward, layer by layer in forward order, so that its offsets have
+    a standard deviation of DCN_OFFSET_STD pixels. Returns each layer's
+    offset std before scaling."""
+    import torch
+
+    from da_detect_tpu_torch.layers import DeformConv2d
+
+    gen = torch.Generator().manual_seed(DCN_SEED)
+    raw = []
+
+    def calibrate(mod, _inputs, out):
+        raw.append(float(out.std()))
+        mod.weight.mul_(DCN_OFFSET_STD / raw[-1])   # the bias is zero
+        return out * (DCN_OFFSET_STD / raw[-1])
+
+    handles = []
+    with torch.no_grad():
+        model.rpn["head"].cls_logits.weight.mul_(SCORE_SCALE)
+        model.roi_heads["box"]["predictor"].cls_score.weight.mul_(SCORE_SCALE)
+        for m in model.modules():
+            if isinstance(m, DeformConv2d):
+                w = m.conv_offset.weight
+                w.copy_(torch.randn(w.shape, generator=gen))
+                handles.append(m.conv_offset.register_forward_hook(calibrate))
+        try:
+            model(batch)
+        finally:
+            for h in handles:
+                h.remove()
+    return raw
+
+
+def dcn_scatter(cfg, device: str, sync, cuda: bool) -> dict:
+    """``scatter_device_ms``, ``scatter_library_device_ms`` and
+    ``scatter_long_row_share`` (see above) of the DCN train step ``cfg``."""
+    import torch
+
+    from da_detect_tpu_torch import entry
+    from da_detect_tpu_torch.ops import gather_cuda
+
+    step, (state, args) = entry.train_entry(device=device, seed=0, cfg=cfg)
+    spread_dcn(state.model, args[0])
+    kernel, calls = gather_cuda.row_scatter_add, []
+
+    def record(grad, idx, num_rows, *rest):
+        calls.append((grad.shape[1], idx.clone(), num_rows, rest))
+        return kernel(grad, idx, num_rows, *rest)
+
+    gather_cuda.row_scatter_add = record
+    try:
+        step(state, *args)
+        sync()
+    finally:
+        gather_cuda.row_scatter_add = kernel
+    del step, state, args
+    buf = torch.randn(max(c * idx.numel() for c, idx, _, _ in calls),
+                      device=device, generator=torch.Generator(
+                          device=device).manual_seed(0))
+
+    def library(grad, idx, num_rows, *_):
+        return torch.zeros(num_rows, grad.shape[1], device=grad.device
+                           ).index_add_(0, idx, grad)
+
+    def replay(fn):
+        def run():
+            for c, idx, num_rows, rest in calls:
+                fn(buf[:idx.numel() * c].view(-1, c), idx, num_rows, *rest)
+        return run
+
+    variants = {"scatter": kernel, "scatter_library": library}
+    times = {name: [] for name in variants}
+    for fn in variants.values():
+        replay(fn)()
+    for _ in range(SCATTER_PROFILES):
+        for name, fn in variants.items():
+            times[name].append(profiled(replay(fn), 1, sync, cuda, name)[
+                f"{name}_device_ms"])
+    long_sources = 0
+    for _, idx, num_rows, _ in calls:
+        counts = torch.bincount(idx.long().clamp(0, num_rows - 1),
+                                minlength=num_rows)
+        long_sources += int(counts[counts > SCATTER_LONG_ROW].sum())
+    return dict(**{f"{name}_device_ms": statistics.median(t)
+                   for name, t in times.items()},
+                **{f"{name}_profiles_ms": t for name, t in times.items()},
+                scatter_calls=len(calls),
+                scatter_long_row_share=long_sources / sum(
+                    idx.numel() for _, idx, _, _ in calls))
+
+
 def measure(tree: str, device: str = "cuda", canvas=CANVAS) -> dict:
     """One process's numbers for the port found under ``tree``."""
     import torch
@@ -177,11 +287,16 @@ def measure(tree: str, device: str = "cuda", canvas=CANVAS) -> dict:
 
     pool()
     pooler = profiled(pool, POOLER_RUNS, sync, cuda, "pooler")
+    del maps, rois
+
+    cfg = entry.dcn_train_cfg(canvas)
+    cfg.freeze()
+    scatter = dcn_scatter(cfg, device, sync, cuda)
     out = dict(tree=tree, package=os.path.dirname(entry.__file__),
                forward_ms=statistics.median(forward),
                step_ms=statistics.median(steps),
                **forward_profile, **step_profile,
-               pooler_device_ms=pooler["pooler_device_ms"],
+               pooler_device_ms=pooler["pooler_device_ms"], **scatter,
                forward_runs_ms=forward, step_runs_ms=steps)
     return out
 

@@ -30,9 +30,14 @@ contraction) runs under ``torch.utils.checkpoint`` (non-reentrant), as JAX
 runs its tap scan under ``jax.checkpoint``: the backward gathers the tap's
 rows again, and nothing of size [P, C] a tap is kept (at 608x1216 the
 X-101 model's 270 taps would keep ~14 GB a backbone pass). The gathers'
-backward is the scatter-add kernel into the map (``ops/gather_cuda.py``);
-the gradients of the offsets and the DCNv2 mask flow through the bilinear
-weights in plain autograd.
+backward is the scatter-add kernel into the map (``ops/gather_cuda.py``),
+which sums each map row's sources in order through the indices' CSR: with
+impl "cuda" and an input on the card that needs a gradient, the layer
+sorts every tap's and group's indices once (``ops.gather.row_csr``) and
+hands each tap its part; under ``torch.no_grad()``, and on the CPU (where
+the wrappers run the plain versions), nothing is sorted. The gradients of
+the offsets and the DCNv2 mask flow through the bilinear weights in plain
+autograd.
 
 ``impl``: "cuda" gathers through the kernels' wrappers (which run the plain
 version for CPU tensors), "plain" through ``ops.gather.row_gather``.
@@ -104,24 +109,26 @@ def _contract(samp: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
                      wk).transpose(0, 1).reshape(p, -1)
 
 
-def _tap_four(take, flat, idx, wts, wk):
+def _tap_four(take, flat, idx, perm, row_ptr, wts, wk):
     """One tap, "four" mode: flat [N, C]; idx [dg, 4P] (corner-major);
-    wts [dg, P, 4] -> [P, F]. A gather a deformable group, of its column
-    slice."""
+    perm [dg, 4P] and row_ptr [dg, N + 1], each group's CSR for the
+    backward, or None; wts [dg, P, 4] -> [P, F]. A gather a deformable
+    group, of its column slice."""
     dg, p = wts.shape[:2]
     cg = flat.shape[1] // dg
-    parts = [_corner_sum(wts[g], take(flat[:, g * cg:(g + 1) * cg],
-                                      idx[g]).view(4, p, cg).unbind(0))
-             for g in range(dg)]
+    parts = [_corner_sum(wts[g], take(
+        flat[:, g * cg:(g + 1) * cg], idx[g],
+        None if perm is None else (perm[g], row_ptr[g])).view(
+            4, p, cg).unbind(0)) for g in range(dg)]
     return _contract(parts[0] if dg == 1 else torch.cat(parts, dim=-1), wk)
 
 
-def _tap_quad(take, table, idx, wts, wk):
-    """One tap, "quad" mode: table [N', 4C]; idx [P]; wts [P, 4] ->
-    [P, F]."""
+def _tap_quad(take, table, idx, perm, row_ptr, wts, wk):
+    """One tap, "quad" mode: table [N', 4C]; idx [P]; perm [P] and row_ptr
+    [N' + 1], its CSR, or None; wts [P, 4] -> [P, F]."""
     p, c = idx.shape[0], table.shape[1] // 4
-    rows = take(table, idx).view(p, 4, c).unbind(1)
-    return _contract(_corner_sum(wts, rows), wk)
+    rows = take(table, idx, None if perm is None else (perm, row_ptr))
+    return _contract(_corner_sum(wts, rows.view(p, 4, c).unbind(1)), wk)
 
 
 class DeformConv2d(nn.Module):
@@ -188,7 +195,9 @@ class DeformConv2d(nn.Module):
             take, take_wide = gather_cuda.row_gather, \
                 gather_cuda.row_gather_bulk
         elif impl == "plain":
-            take = take_wide = gather.row_gather
+            def take(table, idx, _csr):
+                return gather.row_gather(table, idx)
+            take_wide = take
         else:
             raise ValueError(f"unknown gather impl: {impl!r}")
         b, c, h, w = x.shape
@@ -230,12 +239,19 @@ class DeformConv2d(nn.Module):
         # (jax.checkpoint of the JAX package's tap scan), so no [P, C]
         # buffer of a tap outlives the forward
         recompute = torch.is_grad_enabled()
+        # the scatter-add kernel's CSR of every tap and group, from one sort
+        # a layer, built here and handed to each tap as an input of its
+        # checkpoint, so the recompute builds nothing
+        perm = row_ptr = None
+        if recompute and impl == "cuda" and x.is_cuda and x.requires_grad:
+            perm, row_ptr = gather.row_csr(
+                idx, table.shape[0] if quad else flat.shape[0])
+        fn, tap_take, src = (_tap_quad, take_wide, table) if quad \
+            else (_tap_four, take, flat)
         for t in range(nk):
-            if quad:
-                fn, args = _tap_quad, (take_wide, table, idx[t, 0],
-                                       wts[t, 0], wk[t])
-            else:
-                fn, args = _tap_four, (take, flat, idx[t], wts[t], wk[t])
+            at = (t, 0) if quad else t
+            csr = (None, None) if perm is None else (perm[at], row_ptr[at])
+            args = (tap_take, src, idx[at], *csr, wts[at], wk[t])
             if recompute:
                 part = checkpoint(fn, *args, use_reentrant=False,
                                   preserve_rng_state=False)

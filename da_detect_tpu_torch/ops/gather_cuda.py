@@ -10,13 +10,22 @@ apart (a column slice of a wider map), and int32 indices [P]; they return a
 new contiguous [P, C]. ``row_gather`` moves a row with one warp's 16-byte
 loads; ``row_gather_bulk`` with one bulk copy (TMA) a row and needs 16-byte
 aligned rows. Both are differentiable with respect to the table: the
-backward is the scatter-add kernel into a zero [S, C]
-(``row_scatter_add``), float32 only. ``row_scatter_add_`` adds into a
-caller's [S, C] view in place (any row stride).
+backward is the scatter-add kernel (``row_scatter_add``), float32 only,
+which writes a fresh [S, C] whole (``torch.empty``, no zero-fill).
+``row_scatter_add_`` adds into a caller's [S, C] view in place (any row
+stride).
+
+The scatter-add kernel sums each destination row's sources in a fixed
+order through the indices' CSR (``ops/gather.py::row_csr``): no atomics,
+the same bits from run to run; a row of more than ``LONG_ROW`` sources in
+pieces (``ops/gather.py::row_scatter_add_csr_`` is the order). A caller
+that gathers with the same indices many times builds the CSR once and
+hands it over (``csr=(perm, row_ptr)``): a gather saves it for its
+backward. Without one, the scatter-add builds it itself.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain version (``ops/gather.py``), which autograd
-differentiates.
+differentiates, and ignores ``csr``.
 """
 
 from __future__ import annotations
@@ -26,15 +35,20 @@ import ctypes
 import torch
 
 from .. import kernels
+from .gather import LONG_ROW, row_csr
 from .gather import row_gather as row_gather_plain
 from .gather import row_scatter_add as row_scatter_add_plain
 from .gather import row_scatter_add_ as row_scatter_add_plain_
 
 GATHER, BULK, SCATTER = "row_gather", "row_gather_bulk", "row_scatter_add"
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-             ctypes.c_void_p]
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# gathers: table, idx, out, p, s, c, row stride, stream; the scatter-add:
+# grad, idx, perm, row_ptr, scratch, long_start, dst, p, s, c, row stride,
+# accumulate, stream
+_ARGTYPES = {GATHER: [_P, _P, _P, _L, _I, _I, _L, _P],
+             BULK: [_P, _P, _P, _L, _I, _I, _L, _P],
+             SCATTER: [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _P]}
 
 _fns: dict = {}
 
@@ -44,7 +58,7 @@ def _launcher(name: str, dtype: torch.dtype):
     fn = _fns.get(key)
     if fn is None:
         fn = getattr(kernels.load(name), f"{name}_{_SUFFIX[dtype]}")
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _fns[key] = fn
     return fn
@@ -99,43 +113,50 @@ def _launch(name: str, table: torch.Tensor, idx: torch.Tensor
 
 
 class _RowGather(torch.autograd.Function):
-    """A gather kernel forward; the scatter-add kernel backward."""
+    """A gather kernel forward; the scatter-add kernel backward, through
+    the indices' CSR when the caller gave one."""
 
     @classmethod
-    def gather(cls, name: str, table: torch.Tensor, idx: torch.Tensor
-               ) -> torch.Tensor:
+    def gather(cls, name: str, table: torch.Tensor, idx: torch.Tensor,
+               csr) -> torch.Tensor:
         idx = idx.contiguous()
         if torch.is_grad_enabled() and table.requires_grad:
-            return cls.apply(table, idx, name)
+            return cls.apply(table, idx, name, *(csr or (None, None)))
         return _launch(name, table, idx)
 
     @staticmethod
-    def forward(ctx, table, idx, name):
+    def forward(ctx, table, idx, name, perm, row_ptr):
         ctx.num_rows = table.shape[0]
-        ctx.save_for_backward(idx)
+        ctx.save_for_backward(idx, perm, row_ptr)
         return _launch(name, table, idx)
 
     @staticmethod
     def backward(ctx, grad):
-        (idx,) = ctx.saved_tensors
+        idx, perm, row_ptr = ctx.saved_tensors
         dtable = None
         if ctx.needs_input_grad[0]:
-            dtable = row_scatter_add(grad.contiguous(), idx, ctx.num_rows)
-        return dtable, None, None
+            csr = None if perm is None else (perm, row_ptr)
+            dtable = row_scatter_add(grad.contiguous(), idx, ctx.num_rows,
+                                     csr)
+        return dtable, None, None, None, None
 
 
-def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table [S, C] f32/bf16, idx [P] int32 -> [P, C] (the warp kernel)."""
+def row_gather(table: torch.Tensor, idx: torch.Tensor, csr=None
+               ) -> torch.Tensor:
+    """table [S, C] f32/bf16, idx [P] int32 -> [P, C] (the warp kernel).
+    ``csr``: ``row_csr(idx, S)``, kept for the backward, or None."""
     if table.device.type == "cpu":
         return row_gather_plain(table, idx)
     _check(GATHER, table, idx)
-    return _RowGather.gather(GATHER, table, idx)
+    return _RowGather.gather(GATHER, table, idx, csr)
 
 
-def row_gather_bulk(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def row_gather_bulk(table: torch.Tensor, idx: torch.Tensor, csr=None
+                    ) -> torch.Tensor:
     """table [S, C] f32/bf16, idx [P] int32 -> [P, C] (one bulk copy a
     row). Rows must be 16-byte aligned: C * itemsize, the row stride in
-    bytes and the table's address multiples of 16."""
+    bytes and the table's address multiples of 16. ``csr`` as for
+    ``row_gather``."""
     if table.device.type == "cpu":
         return row_gather_plain(table, idx)
     _check(BULK, table, idx)
@@ -149,15 +170,12 @@ def row_gather_bulk(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gather kernel {BULK}: a row of "
                          f"{table.shape[1] * item} B exceeds a block's "
                          "shared memory")
-    return _RowGather.gather(BULK, table, idx)
+    return _RowGather.gather(BULK, table, idx, csr)
 
 
-def row_scatter_add_(dst: torch.Tensor, grad: torch.Tensor,
-                     idx: torch.Tensor) -> torch.Tensor:
-    """dst [S, C] f32 (any row stride) += the rows of grad [P, C] f32 at
-    idx [P] int32 (clamped to [0, S - 1]), in place; returns dst."""
-    if dst.device.type == "cpu":
-        return row_scatter_add_plain_(dst, grad, idx)
+def _scatter(dst: torch.Tensor, grad: torch.Tensor, idx: torch.Tensor,
+             csr, accumulate: bool) -> torch.Tensor:
+    """Check, build the CSR if none was given, launch (grad not empty)."""
     if dst.device.type != "cuda":
         raise ValueError(f"scatter kernel {SCATTER}: unsupported device "
                          f"{dst.device}")
@@ -168,29 +186,60 @@ def row_scatter_add_(dst: torch.Tensor, grad: torch.Tensor,
             "in the port' (Queue 1)")
     _check_table(SCATTER, dst, "dst")
     _check_idx(SCATTER, idx, dst.device)
+    s, p = dst.shape[0], idx.shape[0]
     if grad.device != dst.device or grad.dim() != 2 \
-            or grad.shape != (idx.shape[0], dst.shape[1]) \
-            or not grad.is_contiguous():
+            or grad.shape != (p, dst.shape[1]) or not grad.is_contiguous():
         raise ValueError(f"scatter kernel {SCATTER}: grad must be a "
-                         f"contiguous [P, C] = [{idx.shape[0]}, "
-                         f"{dst.shape[1]}] on dst's device, got "
-                         f"{tuple(grad.shape)} on {grad.device}")
-    if dst.shape[0] == 0 and idx.numel():
+                         f"contiguous [P, C] = [{p}, {dst.shape[1]}] on "
+                         f"dst's device, got {tuple(grad.shape)} on "
+                         f"{grad.device}")
+    if s == 0 and p:
         raise ValueError(f"scatter kernel {SCATTER}: empty dst")
-    if grad.numel():
-        idx = idx.contiguous()
-        _run(SCATTER, torch.float32, dst.device, [
-            grad.data_ptr(), idx.data_ptr(), dst.data_ptr(), idx.shape[0],
-            dst.shape[0], dst.shape[1], dst.stride(0)])
+    if not grad.numel():
+        return dst
+    perm, row_ptr = csr if csr is not None else row_csr(idx, s)
+    if perm.dtype != torch.int32 or row_ptr.dtype != torch.int32 \
+            or perm.shape != (p,) or row_ptr.shape != (s + 1,) \
+            or not (perm.is_contiguous() and row_ptr.is_contiguous()) \
+            or perm.device != dst.device or row_ptr.device != dst.device:
+        raise ValueError(f"scatter kernel {SCATTER}: csr must be contiguous "
+                         f"int32 perm [{p}] and row_ptr [{s + 1}] on dst's "
+                         f"device, got {perm.dtype} {tuple(perm.shape)} and "
+                         f"{row_ptr.dtype} {tuple(row_ptr.shape)}")
+    idx = idx.contiguous()
+    # the pieces of rows longer than LONG_ROW, a tile of LONG_ROW sorted
+    # sources (the kernel's kLongRow): 2 rows of C and the long row that
+    # starts in the tile; the kernel writes them before it reads them
+    tiles = -(-p // LONG_ROW)
+    scratch = torch.empty((tiles, 2, dst.shape[1]), dtype=torch.float32,
+                          device=dst.device)
+    long_start = torch.empty(tiles, dtype=torch.int32, device=dst.device)
+    _run(SCATTER, torch.float32, dst.device, [
+        grad.data_ptr(), idx.data_ptr(), perm.data_ptr(), row_ptr.data_ptr(),
+        scratch.data_ptr(), long_start.data_ptr(), dst.data_ptr(), p, s,
+        dst.shape[1], dst.stride(0), int(accumulate)])
     return dst
 
 
-def row_scatter_add(grad: torch.Tensor, idx: torch.Tensor,
-                    num_rows: int) -> torch.Tensor:
-    """grad [P, C] f32, idx [P] int32 -> [num_rows, C]: zeros, then
-    ``row_scatter_add_`` (the adjoint of the gathers)."""
+def row_scatter_add_(dst: torch.Tensor, grad: torch.Tensor,
+                     idx: torch.Tensor, csr=None) -> torch.Tensor:
+    """dst [S, C] f32 (any row stride) += the rows of grad [P, C] f32 at
+    idx [P] int32 (clamped to [0, S - 1]), in place; returns dst. ``csr``:
+    ``row_csr(idx, S)``, or None to build it here."""
+    if dst.device.type == "cpu":
+        return row_scatter_add_plain_(dst, grad, idx)
+    return _scatter(dst, grad, idx, csr, accumulate=True)
+
+
+def row_scatter_add(grad: torch.Tensor, idx: torch.Tensor, num_rows: int,
+                    csr=None) -> torch.Tensor:
+    """grad [P, C] f32, idx [P] int32 -> a new [num_rows, C] (the adjoint of
+    the gathers): the kernel writes every row, so the output is allocated
+    uninitialised; with no index it is zeros, and nothing is launched.
+    ``csr`` as for ``row_scatter_add_``."""
     if grad.device.type == "cpu":
         return row_scatter_add_plain(grad, idx, num_rows)
-    dst = torch.zeros((num_rows, grad.shape[1]), dtype=grad.dtype,
-                      device=grad.device)
-    return row_scatter_add_(dst, grad, idx)
+    make = torch.empty if idx.numel() else torch.zeros
+    dst = make((num_rows, grad.shape[1]), dtype=grad.dtype,
+               device=grad.device)
+    return _scatter(dst, grad, idx, csr, accumulate=False)

@@ -14,10 +14,15 @@ step through the kernels against the same step through the plain versions:
 losses rtol 1e-4, gradients within 1e-3 of each leaf's largest |g|. The two
 row gathers are copies and must equal the plain version bit for bit; a
 deformable convolution through them agrees with its plain run to 1e-5. The
-gathers' adjoint, the scatter-add kernel, adds with atomics in an order
-that changes from run to run: within 1e-5 of the largest |dst| of
-``index_add_``, and so are the gradients of a gather and of a deformable
-convolution through it (1e-5 of each leaf's largest |g|). A narrowed
+gathers' adjoint, the scatter-add kernel, sums each destination row's
+sources in source order, a row of more than ``LONG_ROW`` sources in pieces
+(no atomics): it equals its own order run on the CPU
+(``row_scatter_add_csr_``) and its own second run bit for bit, and the
+CPU's ``index_add_`` on every row it sums in source order; it writes every
+row of an uninitialised output, and stays within 1e-5 of the largest |dst|
+of the card's ``index_add_`` (which adds with atomics); so are the
+gradients of a gather and of a deformable convolution through it (1e-5 of
+each leaf's largest |g|). A narrowed
 X-101-FPN-DCN triplet step through the kernels agrees with its plain run as
 the flagship's does, with exact launch counts.
 """
@@ -515,6 +520,84 @@ def test_row_scatter_add_kernel_matches_index_add(dev, case):
                         1.0))
 
 
+def _cpu_order(start, grad, idx):
+    """What the kernel computes from ``start`` (a CPU copy of the
+    destination), in its order (``row_scatter_add_csr_``), and which rows
+    it sums in source order (at most LONG_ROW sources), on the CPU."""
+    grad, idx = grad.cpu(), idx.cpu()
+    perm, row_ptr = gather.row_csr(idx, start.shape[0])
+    short = (row_ptr[1:] - row_ptr[:-1]) <= gather.LONG_ROW
+    return gather.row_scatter_add_csr_(start.clone(), grad, perm,
+                                       row_ptr), short
+
+
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+def test_row_scatter_add_kernel_matches_cpu_bit_for_bit(dev, case):
+    """In place (strided or not) and into a fresh output: the kernel's
+    sums equal the CPU's index_add_ bit for bit on every row of at most
+    LONG_ROW sources (both add in source order), and on every row the
+    kernel's order in plain PyTorch on the CPU (the out-of-range indices
+    pile a tenth of the sources onto each end row, and one_hot_row all of
+    them onto one: those rows are summed in pieces); the given CSR and the
+    one the wrapper builds agree."""
+    wide, dst, grad, idx = _scatter_inputs(case, dev)
+    s = dst.shape[0]
+    start = dst.cpu()
+    ordered, short = _cpu_order(start, grad, idx)
+    added = gather.row_scatter_add_(start.clone(), grad.cpu(), idx.cpu())
+    outside = wide.cpu()
+    gather_cuda.row_scatter_add_(dst, grad, idx)
+    got = dst.cpu()
+    assert torch.equal(got, ordered)
+    assert torch.equal(got[short], added[short])
+    if dst is not wide:
+        outside[:, 8:8 + dst.shape[1]] = got
+        assert torch.equal(wide.cpu(), outside)
+    fresh, _ = _cpu_order(torch.zeros(dst.shape), grad, idx)
+    assert torch.equal(gather_cuda.row_scatter_add(grad, idx, s).cpu(), fresh)
+    csr = gather.row_csr(idx, s)
+    assert torch.equal(gather_cuda.row_scatter_add(grad, idx, s, csr).cpu(),
+                       fresh)
+    if case == "one_hot_row":
+        assert not short[17]
+
+
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+def test_row_scatter_add_kernel_is_deterministic(dev, case):
+    """Two launches on the same inputs give the same bits."""
+    _, dst, grad, idx = _scatter_inputs(case, dev)
+    csr = gather.row_csr(idx, dst.shape[0])
+    first = gather_cuda.row_scatter_add(grad, idx, dst.shape[0], csr)
+    second = gather_cuda.row_scatter_add(grad, idx, dst.shape[0], csr)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("accumulate", [False, True],
+                         ids=["overwrite", "add"])
+@pytest.mark.parametrize("case", ["column_slice", "c6_scalar", "res5_four",
+                                  "one_hot_row"])
+def test_row_scatter_add_writes_its_columns_only(dev, case, accumulate):
+    """The map's columns outside the [S, C] view are NaN. Overwriting (the
+    fresh output's launch: its memory is uninitialised) writes every row of
+    the view over NaN, a row without a source as zeros; adding sums into
+    the view's old values. Either way the view equals the kernel's order on
+    the CPU bit for bit and the columns outside it stay NaN."""
+    wide, dst, grad, idx = _scatter_inputs(case, dev)
+    c = dst.shape[1]
+    if dst is not wide:
+        wide[:, :8] = float("nan")
+        wide[:, 8 + c:] = float("nan")
+    if not accumulate:
+        dst.fill_(float("nan"))
+    want, _ = _cpu_order(dst.cpu() if accumulate else torch.zeros(dst.shape),
+                         grad, idx)
+    assert gather_cuda._scatter(dst, grad, idx, None, accumulate) is dst
+    assert torch.equal(dst.cpu(), want)
+    if dst is not wide:
+        assert torch.isnan(wide[:, :8]).all()
+        assert torch.isnan(wide[:, 8 + c:]).all()
+
+
 def test_row_scatter_add_refuses_other_dtypes(dev):
     dst = torch.zeros(8, 16, device=dev, dtype=torch.bfloat16)
     grad = torch.ones(4, 16, device=dev, dtype=torch.bfloat16)
@@ -523,6 +606,11 @@ def test_row_scatter_add_refuses_other_dtypes(dev):
         gather_cuda.row_scatter_add_(dst, grad, idx)
     with pytest.raises(ValueError, match="contiguous"):
         gather_cuda.row_scatter_add_(dst.float(), grad.float().t(), idx)
+    perm, row_ptr = gather.row_csr(idx, 8)
+    for bad in ((perm.long(), row_ptr), (perm, row_ptr[:-1]),
+                (perm[:3], row_ptr)):
+        with pytest.raises(ValueError, match="csr"):
+            gather_cuda.row_scatter_add_(dst.float(), grad.float(), idx, bad)
 
 
 @pytest.mark.parametrize("case", ["probe", "quad_res3", "column_slice"])
@@ -555,7 +643,7 @@ def test_row_gather_autograd_matches_plain(dev, name, case):
 def test_deform_conv_backward_kernels_match_plain(dev, gather_mode, kernel):
     """The res4-like deformable conv's backward through the kernels: 9
     gathers forward, 9 again in the backward (each tap recomputed), 9
-    scatter-adds; dx, dweight and conv_offset's gradients within 1e-5 of
+    scatter-adds, one CSR built for all 9 taps; dx, dweight and conv_offset's gradients within 1e-5 of
     each leaf's largest |g| of the plain run, and dx not zero."""
     from da_detect_tpu_torch.layers import DeformConv2d
 
@@ -572,12 +660,15 @@ def test_deform_conv_backward_kernels_match_plain(dev, gather_mode, kernel):
         x = x0.clone().requires_grad_()
         m.zero_grad(set_to_none=True)
         before = dict(kernels.LAUNCHES)
+        built = gather.CSR_BUILDS["row_csr"]
         (m(x, impl=impl) * cot).sum().backward()
         torch.cuda.synchronize()
         made = {k: kernels.LAUNCHES[k] - before.get(k, 0)
                 for k in (kernel, "row_scatter_add")}
-        assert made == ({kernel: 18, "row_scatter_add": 9} if impl == "cuda"
-                        else {kernel: 0, "row_scatter_add": 0})
+        made["row_csr"] = gather.CSR_BUILDS["row_csr"] - built
+        assert made == ({kernel: 18, "row_scatter_add": 9, "row_csr": 1}
+                        if impl == "cuda" else
+                        {kernel: 0, "row_scatter_add": 0, "row_csr": 0})
         grads.append({"x": x.grad, **{n: p.grad for n, p
                                       in m.named_parameters()}})
     got, want = grads
@@ -586,6 +677,57 @@ def test_deform_conv_backward_kernels_match_plain(dev, gather_mode, kernel):
         torch.testing.assert_close(got[name], w, rtol=0,
                                    atol=1e-5 * float(w.abs().max()),
                                    msg=name)
+
+
+@pytest.mark.parametrize("gather_mode,dg", [("four", 1), ("four", 2),
+                                            ("quad", 1)])
+def test_deform_conv_hands_each_tap_its_csr(dev, monkeypatch, gather_mode,
+                                            dg):
+    """In training (autograd on, an input on the card that needs a
+    gradient) a deformable conv builds one CSR for all its taps and
+    deformable groups, and each gather, in the forward and in the
+    backward's recompute, gets the CSR of its own indices (``row_csr`` of
+    that tap and group alone). Under torch.no_grad(), or with an input
+    that needs no gradient, none is built or handed over."""
+    from da_detect_tpu_torch.layers import DeformConv2d
+
+    torch.manual_seed(0)
+    m = DeformConv2d(32, 16, 3, stride=2 if dg == 2 else 1,
+                     dilation=dg, deformable_groups=dg, modulated=dg == 2,
+                     gather_mode=gather_mode).to(dev)
+    with torch.no_grad():
+        m.conv_offset.weight.normal_(0.0, 0.5)
+    handed = []
+
+    def recorder(kernel):
+        def rec(table, idx, csr=None):
+            handed.append((table.shape[0], idx.clone(), csr))
+            return kernel(table, idx, csr)
+        return rec
+
+    for name in ("row_gather", "row_gather_bulk"):
+        monkeypatch.setattr(gather_cuda, name,
+                            recorder(getattr(gather_cuda, name)))
+    x0 = torch.randn(2, 32, 12, 17, device=dev)
+    for grad_on, needs_grad, builds in ((True, True, 1), (False, True, 0),
+                                        (True, False, 0)):
+        handed.clear()
+        before = gather.CSR_BUILDS["row_csr"]
+        x = x0.clone().requires_grad_(needs_grad)
+        with torch.set_grad_enabled(grad_on):
+            out = m(x)
+        if grad_on:
+            out.sum().backward()
+        torch.cuda.synchronize()
+        assert gather.CSR_BUILDS["row_csr"] == before + builds
+        assert len(handed) == 9 * dg * (2 if grad_on else 1)
+        for rows, idx, csr in handed:
+            if not builds:
+                assert csr is None
+                continue
+            want_perm, want_ptr = gather.row_csr(idx, rows)
+            assert torch.equal(csr[0], want_perm)
+            assert torch.equal(csr[1], want_ptr)
 
 
 def test_dcn_train_step_kernels_match_plain(dev):

@@ -23,6 +23,7 @@ import torch
 from da_detect_tpu.layers import deform_conv as jdc
 from da_detect_tpu_torch.layers import DeformConv2d
 from da_detect_tpu_torch.layers import deform_conv as pdc
+from da_detect_tpu_torch.ops import gather, gather_cuda
 from tests.torch_harness import (module_state, nhwc_to_torch,
                                  random_variables, torch_to_nhwc)
 
@@ -168,3 +169,45 @@ def test_offset_channel_order():
     assert torch.equal(xs, base_xs)
     assert torch.allclose(mask[..., 1, 3], torch.sigmoid(torch.tensor(1.0)))
     assert int((mask != 0.5).sum()) == 25
+
+
+@pytest.mark.parametrize("gather_mode", ["four", "quad"])
+@pytest.mark.parametrize("case", ["v1", "v1_s2_d2_dg2"])
+def test_deform_conv_builds_no_csr_on_the_cpu(monkeypatch, case,
+                                              gather_mode):
+    """The scatter-add kernel's CSR is built on the card only (one a layer
+    in training: tests/test_torch_cuda.py). On the CPU, where the wrappers
+    run the plain versions, none is built or handed to a gather, with
+    autograd on or off (``torch.no_grad()``), impl "cuda" or "plain", an
+    input that needs a gradient or not; the gradients still flow."""
+    _, _, pm, x = _pair(case, gather_mode)
+    handed = []
+
+    def recorder(kernel):
+        def rec(table, idx, csr=None):
+            handed.append(csr)
+            return kernel(table, idx, csr)
+        return rec
+
+    for name in ("row_gather", "row_gather_bulk"):
+        monkeypatch.setattr(gather_cuda, name,
+                            recorder(getattr(gather_cuda, name)))
+    taps = 9 * CASES[case][6]  # a gather a tap and deformable group
+    xt = nhwc_to_torch(x)
+    for impl, grad_on, needs_grad in (("cuda", True, True),
+                                      ("cuda", False, True),
+                                      ("plain", True, True),
+                                      ("cuda", True, False)):
+        handed.clear()
+        before = gather.CSR_BUILDS["row_csr"]
+        inp = xt.clone().requires_grad_(needs_grad)
+        with torch.set_grad_enabled(grad_on):
+            out = pm(inp, impl=impl)
+        if grad_on:
+            out.sum().backward()
+            assert (inp.grad is not None) == needs_grad
+        assert gather.CSR_BUILDS["row_csr"] == before
+        # the forward's gathers and, in training, the recompute's
+        assert len(handed) == (0 if impl == "plain" else
+                               taps * (2 if grad_on else 1))
+        assert all(csr is None for csr in handed)

@@ -8,7 +8,12 @@ and bfloat16.
 Its adjoint, the scatter-add (plain version and the wrappers' CPU branch),
 against ``jax.vjp`` of ``jnp.take(..., mode="clip")`` and the autograd of the
 port's own gather: float32 sums in another order, atol 1e-6 of the largest
-|row sum|.
+|row sum|. The scatter-add kernel's index bookkeeping (``row_csr``: each
+destination row's sources, in order) against its invariants, and the sum in
+its order (``row_scatter_add_csr_``) against ``jax.vjp`` at that tolerance
+and, on the rows it sums in source order (all but the long ones, which it
+sums in pieces), against ``index_add_`` bit for bit: the CPU's
+``index_add_`` adds in source order too.
 """
 
 import functools
@@ -189,3 +194,83 @@ def test_scatter_add_into_column_slice():
         _close(dst - torch.from_numpy(base), want)
         np.testing.assert_array_equal(dst[:, :8].numpy(), base[:, :8])
         np.testing.assert_array_equal(dst[:, 24:].numpy(), base[:, 24:])
+
+
+# the row_csr cases: each SCATTER_CASES input, and 9 taps' segments at once
+CSR_CASES = {**{name: (1,) + case for name, case in SCATTER_CASES.items()},
+             "nine_taps": (9, 30, 6, 200, -20, 50)}
+
+
+def _csr_inputs(case, seed=13):
+    g, s, _, p, lo, hi = CSR_CASES[case]
+    idx = np.random.RandomState(seed).randint(lo, hi, (g, p)).astype(np.int32)
+    return s, torch.from_numpy(idx)
+
+
+@pytest.mark.parametrize("case", list(CSR_CASES))
+def test_row_csr_invariants(case):
+    """Each segment: row_ptr starts at 0, is monotone and ends at P; perm
+    is a permutation of 0..P-1, ascending within a row, and each of a
+    row's positions holds an index that clamps to that row; one build a
+    call, whatever the number of segments."""
+    s, idx = _csr_inputs(case)
+    g, p = idx.shape
+    before = gather.CSR_BUILDS["row_csr"]
+    perm, row_ptr = gather.row_csr(idx, s)
+    assert gather.CSR_BUILDS["row_csr"] == before + 1
+    assert perm.dtype == row_ptr.dtype == torch.int32
+    assert perm.shape == (g, p) and row_ptr.shape == (g, s + 1)
+    for t in range(g):
+        rp, pm = row_ptr[t].numpy(), perm[t].numpy()
+        assert rp[0] == 0 and rp[-1] == p and (np.diff(rp) >= 0).all()
+        np.testing.assert_array_equal(np.sort(pm), np.arange(p))
+        rows = np.repeat(np.arange(s), np.diff(rp))
+        np.testing.assert_array_equal(np.clip(idx[t].numpy(), 0, s - 1)[pm],
+                                      rows)
+        # stable: ascending positions within a row
+        assert (np.diff(pm)[np.diff(rows) == 0] > 0).all()
+        # a segment's part of the joint build is that segment's own CSR
+        own_perm, own_ptr = gather.row_csr(idx[t], s)
+        np.testing.assert_array_equal(own_perm.numpy(), pm)
+        np.testing.assert_array_equal(own_ptr.numpy(), rp)
+
+
+@pytest.mark.parametrize("long_row", [gather.LONG_ROW, 8])
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+def test_csr_ordered_sum_matches_jax_and_index_add(case, long_row):
+    """The sum in the kernel's order is the adjoint of the clipped take.
+    A row of at most ``long_row`` sources adds them in perm order from 0,
+    which is how the CPU's index_add_ adds: equal bit for bit. A longer
+    row adds its pieces (``long_row`` 8 splits the repeated rows' ~60
+    sources and the 50 of one_row): the adjoint at the same tolerance."""
+    s, grad, idx = _scatter_inputs(case)
+    c = grad.shape[1]
+    _, vjp = jax.vjp(lambda t: jnp.take(t, jnp.asarray(idx), axis=0,
+                                        mode="clip"),
+                     jnp.zeros((s, c), jnp.float32))
+    (want,) = vjp(jnp.asarray(grad))
+    g, i = torch.from_numpy(grad), torch.from_numpy(idx)
+    perm, row_ptr = gather.row_csr(i, s)
+    got = gather.row_scatter_add_csr_(torch.zeros(s, c), g, perm, row_ptr,
+                                      long_row)
+    _close(got, want)
+    short = (row_ptr[1:] - row_ptr[:-1]) <= long_row
+    assert torch.equal(got[short], gather.row_scatter_add(g, i, s)[short])
+    if long_row == 8 and case in ("repeated_rows", "one_row"):
+        assert not short.any()
+
+
+def test_csr_ordered_sum_into_column_slice():
+    """In place into columns 8..24 of a [50, 48] map: the old values are
+    the sums' starting points, as for index_add_ (bit for bit), and the
+    other columns stay."""
+    rng = np.random.RandomState(14)
+    base = torch.from_numpy(rng.randn(50, 48).astype(np.float32))
+    grad = torch.from_numpy(rng.randn(77, 16).astype(np.float32))
+    idx = torch.from_numpy(rng.randint(-3, 53, 77).astype(np.int32))
+    want = base.clone()
+    gather.row_scatter_add_(want[:, 8:24], grad, idx)
+    got = base.clone()
+    assert gather.row_scatter_add_csr_(got[:, 8:24], grad,
+                                       *gather.row_csr(idx, 50)) is not None
+    assert torch.equal(got, want)
