@@ -21,12 +21,14 @@ Phases, one JSON line each:
                the DCN taps' shapes, 4C-wide rows, a column slice,
                out-of-range indices, every index alike, none; each timed)
   4. slice     the flagship R-50-C4 config (its YAML) at the 608x1216 canvas
-               in float32, random weights from a seed, answers 4 eval requests
+               (phases 4-10 in float32, then again in bfloat16, below),
+               random weights from a seed, answers 4 eval requests
                of batch 1 through ``entry()``; launch counts show the kernels
                ran; one request again with impl="plain" must agree
   5. times     kernel and plain times on the inputs the eval path gave the
                kernels (NMS also split into its mask launch and its walk by
-               torch.profiler), the forward's latency and stages, peak memory
+               torch.profiler), the forward's latency and stages, a profile
+               with its convolution kernels by element type, peak memory
   6. train     the flagship triplet-DA train step through ``train_entry()``:
                kernel-run against plain-run step 1, timed steps with launch
                counts, the step's split and profile, 2 aligned steps
@@ -55,19 +57,27 @@ Phases, one JSON line each:
                step's own inputs (the scatter-add also bit for bit against
                the CPU and its own second run on one record of each
                destination shape); the scatter-add as a function
-               with a dense output on the indices of two steps, step 1 of
-               the kernel run (offsets as drawn) and the last timed step
-               (by then the random-weight step diverges): the kernel with
-               the layers' CSR and with its own, the plain version and
-               torch.zeros + index_add_ (3 profiles in turns), beside its
-               byte bound, with each step's longest row and share of
-               sources in rows summed in pieces; the NMS and ROIAlign
-               sites' times
+               with a dense output on step 1's indices (offsets as drawn):
+               the kernel with the layers' CSR and with its own, the plain
+               version and torch.zeros + index_add_ (3 profiles in turns),
+               beside its byte bound, with the longest row and share of
+               sources in rows summed in pieces; a later step's inputs
+               checked too (by then the random-weight step diverges), its
+               rows' traffic, and its NMS and ROIAlign sites' times
+ 11. *_bf16    phases 4-10 again with TPU.COMPUTE_DTYPE bfloat16, the
+               JAX package's default: the same launch counts, each bf16
+               kernel held to its plain version (BF16_* tolerances) on the
+               phase's own inputs, kernel-run against plain-run agreement
+               relative to an f32 copy of the model, and no float32
+               convolution kernel in any profile; NMS (float32 boxes in
+               both dtypes) is not timed again, the DCN train step runs
+               "four" only, BF16_DCN_TRAIN_STEPS timed steps, and step 1's
+               inputs are its sites
 Each ROIAlign-forward site of phases 5, 7 and 9 also gives its kernel's
 device time (profiler), the corner bytes that the per-thread gather it
 replaced read through L2, and the ROIs' footprint bytes the kernel stages.
-Then a line with every kernel's numbers, the nvidia-smi line of the card, and
-last ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
+Then a line with every kernel's numbers (a row a kernel and dtype), the
+nvidia-smi line of the card, and last ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. With no CUDA device it exits 1 at once.
 
 Tolerances: NMS keep masks exactly, truncated ones (``max_keep``) too;
@@ -82,7 +92,8 @@ order that changes from run to run), and bit for bit equal to its own
 second run, to the kernel's order run on the CPU (row_scatter_add_csr_)
 and, on the rows of at most LONG_ROW sources, which both add in source
 order, to the CPU's index_add_ (a longer row is summed in pieces); DCN
-kernel-run step 1 against plain-run step 1 as the flagship's.
+kernel-run step 1 against plain-run step 1 as the flagship's. bfloat16:
+see BF16_ROI_ULPS and the notes beside it.
 """
 
 from __future__ import annotations
@@ -112,6 +123,25 @@ SLICE_ROIS, C4_CHANNELS = 1000, 1024
 SCORE_SCALE = 30.0  # spreads random-init class scores, as the CPU tests do
 ROI_TOL = dict(rtol=1e-5, atol=1e-5)
 DET_BOX_ATOL, DET_SCORE_ATOL = 1e-2, 1e-4
+# bfloat16 (TPU.COMPUTE_DTYPE, the JAX package's default): tolerances in
+# bfloat16 ulps of the reference's largest magnitude (bf16_ulp). The ROIAlign
+# kernels sum in float32 and round each output (dF) once, where the plain
+# versions round their weights and their first contraction too: forward and
+# backward within BF16_ROI_ULPS of the plain bfloat16 version's largest
+# value, and within one ulp of each value of the plain version run in
+# float32 on the same bfloat16 inputs (the backward plus 1e-5 of its largest
+# |dF|, float32 atomics in another order). The gathers are copies: exact.
+# The scatter-add sums in float32 and rounds once: bit for bit its plain
+# order (row_scatter_add_csr_ widens, sums and rounds so) and its rerun, and
+# within one ulp of the largest |dst| of the plain version on the card
+# (float32 index_add_ with atomics, then one rounding). End to end, relative
+# to what bfloat16 itself does (an f32 copy of the model through the plain
+# versions; compare_steps, match_detections): with random weights, ulp-level
+# differences reorder selections and move a step's gradients far past any
+# fixed bound. Detection twins: same label, boxes within BF16_DET_BOX_ATOL
+# px, scores within BF16_DET_SCORE_ATOL.
+BF16_ROI_ULPS = 4
+BF16_DET_BOX_ATOL, BF16_DET_SCORE_ATOL = 1.0, 2e-2
 
 # H100 SXM, published dense peaks (NVIDIA data sheet): HBM3 bytes a second,
 # float32 operations a second outside the tensor cores
@@ -143,7 +173,7 @@ ROI_BWD_REL = 1e-5
 # from its own level, in one launch
 PER_DCN_FORWARD = {"row_gather": 270, "nms": 6, "roi_align_fwd": 1}
 PER_QUAD_FORWARD = {"row_gather_bulk": 270, "nms": 6, "roi_align_fwd": 1}
-DCN_PROFILE_RUNS, GATHER_TIMING_RUNS, GATHER_PROFILES = 3, 10, 3
+DCN_PROFILE_RUNS, GATHER_TIMING_RUNS, GATHER_PROFILES = 3, 5, 3
 # the DCN model's train step, "four" gathers (deformable_groups 1): each of
 # the 3 backbone passes (source, positive, negative) gathers once a tap of
 # its 30 deformable convs (270) forward and once more in the backward (the
@@ -161,7 +191,8 @@ PER_DCN_TRAIN_STEP = {"row_gather": 3 * 2 * 270, "row_scatter_add": 3 * 270,
 PER_DCN_QUAD_TRAIN_STEP = {
     ("row_gather_bulk" if k == "row_gather" else k): v
     for k, v in PER_DCN_TRAIN_STEP.items()}
-DCN_TRAIN_STEPS, DCN_QUAD_TRAIN_STEPS, SCATTER_TIMING_RUNS = 4, 1, 3
+DCN_TRAIN_STEPS, DCN_QUAD_TRAIN_STEPS, SCATTER_TIMING_RUNS = 4, 1, 1
+BF16_DCN_TRAIN_STEPS = 3
 DCN_TRAIN_NMS_SITES = tuple(f"rpn_{d}_p{l}" for d in ("source", "target")
                             for l in range(2, 7))
 SCATTER_REL = 1e-5
@@ -187,6 +218,9 @@ SCATTER_CASES = {
 # time of its kernels (NMS: the mask launch and the walk apart), and of the
 # DCN model's whole pooler
 KERNEL_PROFILE_RUNS = 10
+# the plain NMS (a host-driven loop, 40-180 ms a call) is timed over fewer
+# calls than the kernels
+NMS_PLAIN_RUNS = 5
 # the DCN pooler's maps at 608x1216 (P2-P5) and scales
 FPN_SHAPES = ((152, 304), (76, 152), (38, 76), (19, 38))
 FPN_SCALES = (1 / 4, 1 / 8, 1 / 16, 1 / 32)
@@ -227,10 +261,19 @@ SOURCES = {
 MAIN_PATH = {"nms": "train", "roi_align_fwd": "train",
              "roi_align_bwd": "train", "row_gather": "dcn",
              "row_gather_bulk": "dcn_quad", "row_scatter_add": "dcn_train"}
+# the kernels with a bfloat16 variant: a row "<name>_bf16" each, from the
+# bfloat16 run of the same path (NMS takes float32 boxes in both dtypes)
+BF16_KERNELS = ("roi_align_fwd", "roi_align_bwd", "row_gather",
+                "row_gather_bulk", "row_scatter_add")
+
+
+T0 = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script began."""
+    print(json.dumps({"phase": phase, "elapsed_s": time.perf_counter() - T0,
+                      **fields}), flush=True)
 
 
 def time_ms(fn, runs: int = 25, warmup: int = 3) -> float:
@@ -263,6 +306,24 @@ def host_ms(fn, runs: int = 20, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def bf16_ulp(magnitude: float) -> float:
+    """One bfloat16 ulp at ``magnitude``: 2 ** (floor(log2 m) - 7)."""
+    m = float(magnitude)
+    return 2.0 ** (np.floor(np.log2(m)) - 7) if m > 0 else 0.0
+
+
+def within_one_ulp(got, want32, floor: float) -> float:
+    """The largest |got - want32| in bfloat16 ulps of each value of the
+    float32 reference (``floor`` added to each ulp); raises past one."""
+    g, w = got.float(), want32.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=1e-30))) - 7)
+    worst = float(((g - w).abs() / (ulp + floor)).max()) if g.numel() else 0.0
+    if not worst <= 1.0:
+        raise AssertionError(f"bfloat16 kernel output off its float32 "
+                             f"reference by {worst:.3f} x (one ulp + floor)")
+    return worst
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -376,7 +437,7 @@ def roi_align_geometry(height, width, rois, *, spatial_scale, output_size,
     return (ny[..., :, None] * nx[..., None, :]).sum((-1, -2)), span_y * span_x
 
 
-def roi_align_work(maps, rois, levels, kw) -> dict:
+def roi_align_work(maps, rois, levels, kw, elem_bytes: int = 4) -> dict:
     """What ROIAlign needs on these inputs: ``bytes`` (the maps, ROIs and
     levels read once, the output written once) and ``operations`` (8 a
     channel for each in-bounds sample of each ROI on its own level, and the
@@ -386,7 +447,8 @@ def roi_align_work(maps, rois, levels, kw) -> dict:
     of them); ``footprint_bytes``, the ROIs' footprints on their own maps
     (C floats a pixel), which the forward kernel stages in shared memory.
     ``maps``: (B, C, H, W) of each map; ``levels`` None for one map; ``kw``:
-    the wrapper's keywords (``spatial_scale`` or ``scales``). The backward
+    the wrapper's keywords (``spatial_scale`` or ``scales``); maps and
+    output of ``elem_bytes`` an element (4 float32, 2 bfloat16). The backward
     moves the same bytes (the gradient read once, dF written once) and does
     the same operations (a multiply and an add into each of 4 corners)."""
     b, c = maps[0][:2]
@@ -404,14 +466,14 @@ def roi_align_work(maps, rois, levels, kw) -> dict:
         own_samples += float((samples * own).sum())
         own_footprint += float((footprint * own).sum())
         all_samples += float(samples.sum())
-    nbytes = 4 * (sum(m[0] * m[1] * m[2] * m[3] for m in maps) + rois.numel()
-                  + b * r * p * p * c)
+    nbytes = elem_bytes * (sum(m[0] * m[1] * m[2] * m[3] for m in maps)
+                           + b * r * p * p * c) + 4 * rois.numel()
     if levels is not None:
         nbytes += 8 * levels.numel()
     return dict(bytes=nbytes,
                 operations=ROI_SAMPLE_OPS * c * own_samples + b * r * p * p * c,
-                old_l2_bytes=4 * 4 * c * all_samples,
-                footprint_bytes=4 * c * own_footprint)
+                old_l2_bytes=elem_bytes * 4 * c * all_samples,
+                footprint_bytes=elem_bytes * c * own_footprint)
 
 
 # ---------------------------------------------------------------- checks
@@ -446,12 +508,28 @@ def fwd_call(maps, rois, levels, kw, plain: bool = False):
 
 
 def check_roi_align_fwd(maps, rois, levels, kw) -> float:
-    """The forward kernel against its plain version, one map or several."""
+    """The forward kernel against its plain version, one map or several;
+    bfloat16 maps also against the plain version in float32 (one ulp a
+    value)."""
     got = fwd_call(maps, rois, levels, kw)
     want = fwd_call(maps, rois, levels, kw, plain=True)
     torch.cuda.synchronize()
+    if not got.numel():
+        return 0.0
+    if maps[0].dtype == torch.bfloat16:
+        if got.dtype != torch.bfloat16:
+            raise AssertionError(f"ROIAlign kernel returned {got.dtype}")
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        if not err <= BF16_ROI_ULPS * bf16_ulp(scale):
+            raise AssertionError(f"bfloat16 ROIAlign kernel differs from the "
+                                 f"plain version by {err:.3e} (max |out| "
+                                 f"{scale:.3e})")
+        within_one_ulp(got, fwd_call([m.float() for m in maps], rois, levels,
+                                     kw, plain=True), 1e-6)
+        return err
     torch.testing.assert_close(got, want, **ROI_TOL)
-    return float((got - want).abs().max()) if got.numel() else 0.0
+    return float((got - want).abs().max())
 
 
 def fwd_inputs(captured) -> list:
@@ -481,8 +559,21 @@ def check_roi_align_backward(rois, grad, height, width,
     torch.cuda.synchronize()
     if not want.numel():
         return 0.0, 0.0
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    if grad.dtype == torch.bfloat16:
+        if got.dtype != torch.bfloat16:
+            raise AssertionError(f"ROIAlign backward kernel returned "
+                                 f"{got.dtype}")
+        if not err <= BF16_ROI_ULPS * bf16_ulp(scale):
+            raise AssertionError(f"bfloat16 ROIAlign backward kernel differs "
+                                 f"from the plain version by {err:.3e} (max "
+                                 f"|dF| {scale:.3e}, grad "
+                                 f"{tuple(grad.shape)})")
+        want32 = roi_align.roi_align_grad(grad.float(), rois, height=height,
+                                          width=width, **kw)
+        within_one_ulp(got, want32, 1e-5 * float(want32.abs().max()))
+        return err, scale
     if not err <= ROI_BWD_REL * scale:
         raise AssertionError(f"ROIAlign backward kernel differs from the "
                              f"plain version by {err:.3e} (max |dF| "
@@ -628,13 +719,17 @@ def record_kernel_inputs():
         got = scatter_kernel(grad, idx, num_rows, csr)
         want = gather.row_scatter_add(grad, idx, num_rows)
         rec = dict(idx=idx.clone(), csr=csr, shape=(num_rows, grad.shape[1]),
-                   err=(got - want).abs().max(), scale=want.abs().max())
+                   dtype=grad.dtype,
+                   err=(got.float() - want.float()).abs().max(),
+                   scale=want.float().abs().max())
         if not any(r["shape"] == rec["shape"] and "bits" in r
                    for r in captured["row_scatter_add"]):
             again = scatter_kernel(grad, idx, num_rows, csr)
             rec["bits"] = dict(
                 rerun_identical=torch.equal(got, again),
-                **scatter_bits(got, torch.zeros(rec["shape"]), grad, idx))
+                **scatter_bits(got, torch.zeros(rec["shape"],
+                                                dtype=grad.dtype),
+                               grad, idx))
         captured["row_scatter_add"].append(rec)
         return got
 
@@ -703,7 +798,9 @@ def check_captured(captured) -> dict:
                              check_gather(name, table, idx))
     for rec in captured["row_scatter_add"]:
         err, scale = float(rec["err"]), float(rec["scale"])
-        if not err <= SCATTER_REL * scale:
+        tol = bf16_ulp(scale) if rec["dtype"] == torch.bfloat16 \
+            else SCATTER_REL * scale
+        if not err <= tol:
             raise AssertionError(f"scatter-add kernel differs from index_add_"
                                  f" by {err:.3e} (max |dst| {scale:.3e}, dst "
                                  f"{rec['shape']}, {rec['idx'].numel()} rows)")
@@ -716,36 +813,68 @@ def check_captured(captured) -> dict:
     return errs
 
 
-def match_detections(a, b) -> dict:
-    """Every valid detection of ``a`` has its own twin in ``b`` (same label,
-    boxes and scores within tolerance) and the valid counts agree; raises
-    otherwise. Near-tied scores may swap places, so order is not compared."""
+def twins(a, b, box_atol: float, score_atol: float) -> dict:
+    """Each valid detection of ``a`` paired with its own twin in ``b``
+    (same label, boxes and scores within the bounds): the valid counts, the
+    detections of ``a`` without a twin, the largest errors of the pairs.
+    Near-tied scores may swap places, so order is not compared."""
     av, bv = a.valid[0].cpu(), b.valid[0].cpu()
-    if int(av.sum()) != int(bv.sum()):
-        raise AssertionError(f"kernel run kept {int(av.sum())} detections, "
-                             f"plain run {int(bv.sum())}")
     boxes_a, boxes_b = a.boxes[0].cpu()[av], b.boxes[0].cpu()[bv]
     scores_a, scores_b = a.scores[0].cpu()[av], b.scores[0].cpu()[bv]
     labels_a, labels_b = a.labels[0].cpu()[av], b.labels[0].cpu()[bv]
     used = torch.zeros(len(labels_b), dtype=torch.bool)
     box_err = score_err = 0.0
+    lone = []
     for i in range(len(labels_a)):
         d_box = (boxes_b - boxes_a[i]).abs().amax(dim=1)
         d_score = (scores_b - scores_a[i]).abs()
-        ok = ((labels_b == labels_a[i]) & (d_box <= DET_BOX_ATOL)
-              & (d_score <= DET_SCORE_ATOL) & ~used)
+        ok = ((labels_b == labels_a[i]) & (d_box <= box_atol)
+              & (d_score <= score_atol) & ~used)
         if not bool(ok.any()):
-            raise AssertionError(
-                f"kernel-run detection {i} (label {int(labels_a[i])}, score "
-                f"{float(scores_a[i]):.6f}) has no twin in the plain run")
+            lone.append(dict(index=i, label=int(labels_a[i]),
+                             score=float(scores_a[i])))
+            continue
         j = int(torch.nonzero(ok)[0])
         used[j] = True
         box_err = max(box_err, float(d_box[j]))
         score_err = max(score_err, float(d_score[j]))
-    return dict(matched=int(used.sum()), max_box_err=box_err,
-                max_score_err=score_err,
+    return dict(valid=(int(av.sum()), int(bv.sum())),
+                matched=int(used.sum()), without_twin=lone,
+                max_box_err=box_err, max_score_err=score_err,
                 same_order=bool(torch.equal(labels_a, labels_b)
                                 and torch.equal(boxes_a, boxes_b)))
+
+
+def match_detections(a, b, bf16_ref=None) -> dict:
+    """The kernel run's detections ``a`` against the plain run's ``b``.
+    float32 (``bf16_ref`` None): equal valid counts and every detection of
+    ``a`` with a twin in ``b`` (DET_* bounds); raises otherwise. bfloat16:
+    ``bf16_ref`` is the plain run of an f32 copy of the model, and with
+    the BF16_DET_* bounds the detections of ``a`` without a twin in ``b``
+    number at most those of ``b`` without a twin in ``bf16_ref``, or 1:
+    the kernels move a request's detections no more than bfloat16 itself
+    does (with random weights, ulp-apart scores reorder the per-class NMS
+    and keep other boxes)."""
+    if bf16_ref is None:
+        out = twins(a, b, DET_BOX_ATOL, DET_SCORE_ATOL)
+        if out["valid"][0] != out["valid"][1]:
+            raise AssertionError(f"kernel run kept {out['valid'][0]} "
+                                 f"detections, plain run {out['valid'][1]}")
+        if out["without_twin"]:
+            raise AssertionError(f"kernel-run detections without a twin in "
+                                 f"the plain run: {out['without_twin']}")
+        return out
+    out = twins(a, b, BF16_DET_BOX_ATOL, BF16_DET_SCORE_ATOL)
+    ref = twins(b, bf16_ref, BF16_DET_BOX_ATOL, BF16_DET_SCORE_ATOL)
+    allowed = max(1, len(ref["without_twin"]))
+    if len(out["without_twin"]) > allowed:
+        raise AssertionError(
+            f"{len(out['without_twin'])} kernel-run detections without a "
+            f"twin in the plain bf16 run, more than the {allowed} that bf16 "
+            f"itself moves (plain bf16 against f32): {out['without_twin']}")
+    return dict(out, bf16_vs_f32=dict(
+        valid=ref["valid"], matched=ref["matched"],
+        without_twin=len(ref["without_twin"])))
 
 
 # ---------------------------------------------------------------- phases
@@ -1016,14 +1145,22 @@ def phase_kernels(dev) -> dict:
         **gather_errs)
 
 
-def flagship_model(dev):
+def label(name: str, dtype: str) -> str:
+    """A phase's or path's name: float32's as it was, bfloat16's with
+    "_bf16"."""
+    return name if dtype == "float32" else f"{name}_bf16"
+
+
+def flagship_model(dev, dtype: str = "float32"):
+    """The flagship YAML at the 608x1216 canvas computing in ``dtype``,
+    through ``entry(cfg=...)``, score layers spread; and REQUESTS batches."""
     from da_detect_tpu_torch import entry
     from da_detect_tpu_torch.config import get_cfg
 
     cfg = get_cfg()
     cfg.merge_from_file(FLAGSHIP_YAML)
     cfg.TPU.IMAGE_SHAPE = CANVAS
-    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.COMPUTE_DTYPE = dtype
     cfg.freeze()
     fn, (model, _) = entry.entry(device=str(dev), seed=0, cfg=cfg)
     with torch.no_grad():
@@ -1090,10 +1227,11 @@ def check_detections(cfg, dets) -> dict:
                 labels=sorted(set(dets.labels[dets.valid].tolist())))
 
 
-def phase_slice(dev):
-    cfg, fn, model, batches = flagship_model(dev)
+def phase_slice(dev, dtype: str = "float32"):
+    name = label("slice", dtype)
+    cfg, fn, model, batches = flagship_model(dev, dtype)
     answers, launches, seconds = serve_requests(fn, model, batches,
-                                                PER_FORWARD, "slice")
+                                                PER_FORWARD, name)
     summary = [check_detections(cfg, dets) for dets in answers]
 
     with record_kernel_inputs() as captured:
@@ -1101,9 +1239,11 @@ def phase_slice(dev):
     rerun_identical = all(torch.equal(x, y)
                           for x, y in zip(dets_k, answers[0]))
     dets_p = model(batches[0], impl="plain")
-    agreement = match_detections(dets_k, dets_p)
+    ref = f32_copy(model, cfg)(batches[0], impl="plain") \
+        if dtype == "bfloat16" else None
+    agreement = match_detections(dets_k, dets_p, ref)
     errs = check_captured(captured)
-    emit("slice", config=os.path.relpath(FLAGSHIP_YAML, REPO),
+    emit(name, config=os.path.relpath(FLAGSHIP_YAML, REPO), dtype=dtype,
          canvas=list(CANVAS), requests=REQUESTS, seconds=seconds,
          launches=launches, detections=summary,
          rerun_identical=rerun_identical, plain_agreement=agreement,
@@ -1168,9 +1308,11 @@ def nms_split(boxes, valid, thresh, max_keep, keep) -> dict:
         else walk_ms * 1e3 / max(steps, 1))
 
 
-def time_sites(captured, path: str, nms_sites) -> list:
+def time_sites(captured, path: str, nms_sites=()) -> list:
     """Kernel and plain times, and the bound, of each kernel launch a main
-    path made (``captured`` from ``record_kernel_inputs``), on its inputs."""
+    path made (``captured`` from ``record_kernel_inputs``), on its inputs.
+    NMS is timed at the sites ``nms_sites`` names (none: the bfloat16
+    paths, whose NMS takes the same float32 boxes as the float32 ones)."""
     from da_detect_tpu_torch.ops import (gather, gather_cuda, nms, nms_cuda,
                                          roi_align, roi_align_cuda)
 
@@ -1186,11 +1328,13 @@ def time_sites(captured, path: str, nms_sites) -> list:
             ms=time_ms(lambda: nms_cuda.nms_mask_sorted(boxes, valid, thresh,
                                                         k)),
             plain_ms=time_ms(lambda: nms.nms_mask_sorted(boxes, valid, thresh,
-                                                         k), runs=20),
+                                                         k),
+                             runs=NMS_PLAIN_RUNS, warmup=1),
             bound_ms=bound_ms, bound_by=by,
             **nms_split(boxes, valid, thresh, k, keep)))
     for i, (maps, rois, levels, kw) in enumerate(captured["roi_align_fwd"]):
-        work = roi_align_work([m.shape for m in maps], rois, levels, kw)
+        work = roi_align_work([m.shape for m in maps], rois, levels, kw,
+                              maps[0].element_size())
         bound_ms, by = bound(work["bytes"], work["operations"])
         sites.append(dict(
             kernel="roi_align_fwd", path=path, site=f"pool{i}",
@@ -1207,7 +1351,7 @@ def time_sites(captured, path: str, nms_sites) -> list:
     for i, (grad, rois, h, w, kw, copied) in enumerate(
             captured["roi_align_bwd"]):
         shape = (grad.shape[0], grad.shape[2], h, w)
-        work = roi_align_work([shape], rois, None, kw)
+        work = roi_align_work([shape], rois, None, kw, grad.element_size())
         nbytes, ops = work["bytes"], work["operations"]
         bound_ms, by = bound(nbytes, ops)
         sites.append(dict(
@@ -1253,8 +1397,10 @@ def time_sites(captured, path: str, nms_sites) -> list:
     return sites
 
 
-def phase_times(model, fn, batches, captured) -> list:
-    sites = time_sites(captured, "eval", ("rpn", "box_head"))
+def phase_times(model, fn, batches, captured,
+                dtype: str = "float32") -> list:
+    sites = time_sites(captured, label("eval", dtype),
+                       ("rpn", "box_head") if dtype == "float32" else ())
     batch = batches[0]
     forward_ms = host_ms(lambda: fn(model, batch))
     forward_plain_ms = host_ms(lambda: model(batch, impl="plain"))
@@ -1272,21 +1418,24 @@ def phase_times(model, fn, batches, captured) -> list:
              "predictor": ("predictor.in", "predictor.out"),
              "postprocess_with_nms": ("predictor.out", "end")}
     stages = stage_times(model, batch, marks, spans)
+    profile = device_profile(lambda: fn(model, batch), DCN_PROFILE_RUNS)
+    census = conv_census(profile, dtype == "bfloat16", label("eval", dtype))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fn(model, batch)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    emit("times", sites=sites, forward_ms=forward_ms,
+    emit(label("times", dtype), sites=sites, forward_ms=forward_ms,
          forward_plain_ms=forward_plain_ms, stages_ms=stages,
+         profile=profile, conv_kernels_by_dtype=census,
          max_memory_allocated=peak)
     return sites
 
 
 # ---------------------------------------------------------------- training
 
-def train_cfg(aligned: bool):
-    """The flagship YAML at the 608x1216 canvas in float32. ``aligned``: the
+def train_cfg(aligned: bool, dtype: str = "float32"):
+    """The flagship YAML at the 608x1216 canvas in ``dtype``. ``aligned``: the
     aligned variant with its instance triplet on (weight 1.0), as the
     reference's aligned triplet trainer runs it; the YAML's weight 0 would
     leave the re-pooled members unused."""
@@ -1295,7 +1444,7 @@ def train_cfg(aligned: bool):
     cfg = get_cfg()
     cfg.merge_from_file(FLAGSHIP_YAML)
     cfg.TPU.IMAGE_SHAPE = CANVAS
-    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.COMPUTE_DTYPE = dtype
     if aligned:
         cfg.MODEL.DA_HEADS.ALIGNMENT = True
         cfg.MODEL.DA_HEADS.DA_TRIPLET_INS_WEIGHT = 1.0
@@ -1320,30 +1469,78 @@ def train_step_one(state, args, impl: str, seed: int = 1):
     return {k: v.item() for k, v in losses.items()}, grads
 
 
-def compare_steps(kernel, plain) -> dict:
+def compare_steps(kernel, plain, ref=None) -> dict:
+    """Step 1 through the kernels against step 1 through the plain
+    versions, each (losses, gradients). float32 (``ref`` None): losses rtol
+    TRAIN_LOSS_RTOL, each gradient leaf within TRAIN_GRAD_REL of its
+    largest |g| (plus TRAIN_GRAD_FLOOR of the model's largest). bfloat16:
+    ``ref`` is step 1 of an f32 copy of the model through the plain
+    versions, and each loss lies within one bf16 ulp of its value or twice
+    |plain - ref|, each gradient leaf, in L2, within twice
+    ||plain - ref|| plus one bf16 ulp of ||plain||: the kernels move the
+    step no more than bfloat16 itself does. Raises past the bounds."""
     (lk, gk), (lp, gp) = kernel, plain
     if set(lk) != set(lp):
         raise AssertionError(f"loss names differ: {sorted(lk)} {sorted(lp)}")
     loss_rel = {k: abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-30) for k in lp}
-    bad = {k: (lk[k], lp[k]) for k in lp
-           if abs(lk[k] - lp[k]) > TRAIN_LOSS_RTOL * abs(lp[k])}
+    if ref is None:
+        bad = {k: (lk[k], lp[k]) for k in lp
+               if abs(lk[k] - lp[k]) > TRAIN_LOSS_RTOL * abs(lp[k])}
+    else:
+        lr = ref[0]
+        bad = {k: (lk[k], lp[k], lr[k]) for k in lp
+               if abs(lk[k] - lp[k]) > max(bf16_ulp(abs(lp[k])),
+                                           2 * abs(lp[k] - lr[k]))}
     if bad:
         raise AssertionError(f"kernel-run step-1 losses differ from the "
-                             f"plain run beyond rtol {TRAIN_LOSS_RTOL}: {bad}")
+                             f"plain run past their bounds: {bad}")
     floor = TRAIN_GRAD_FLOOR * max(float(g.abs().max()) for g in gp.values())
     worst, worst_name = 0.0, None
     for n, g in gp.items():
-        err = float((gk[n] - g).abs().max())
-        ratio = err / (TRAIN_GRAD_REL * float(g.abs().max()) + floor)
+        if g.dtype != torch.float32:
+            raise AssertionError(f"gradient of {n} is {g.dtype}")
+        if ref is None:
+            ratio = float((gk[n] - g).abs().max()) / (
+                TRAIN_GRAD_REL * float(g.abs().max()) + floor)
+        else:
+            ratio = float((gk[n] - g).norm()) / (
+                2 * float((g - ref[1][n]).norm())
+                + bf16_ulp(float(g.norm())) + 1e-30)
         if ratio > worst:
             worst, worst_name = ratio, n
     if worst > 1.0:
         raise AssertionError(f"kernel-run step-1 gradient of {worst_name} "
                              f"differs from the plain run: {worst:.3f} x "
-                             "its tolerance")
+                             "its bound")
     return dict(losses=lk, max_loss_rel_err=max(loss_rel.values()),
-                leaves=len(gp), worst_grad_tolerance_used=worst,
+                leaves=len(gp), worst_grad_bound_used=worst,
                 worst_grad_leaf=worst_name)
+
+
+def f32_copy(model, cfg):
+    """An f32 copy of ``model`` (built for ``cfg`` with COMPUTE_DTYPE
+    float32, the same float32 parameters and buffers) on its device: the
+    reference of what bfloat16 itself changes."""
+    from da_detect_tpu_torch.entry import prepare_model
+    from da_detect_tpu_torch.models import build_detection_model
+
+    cfg32 = cfg.clone()
+    cfg32.defrost()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    ref = build_detection_model(cfg32)
+    ref.load_state_dict(model.state_dict())
+    return prepare_model(ref, next(model.parameters()).device)
+
+
+def f32_step_one(state, cfg, args):
+    """``train_step_one`` through the plain versions of an f32 copy of
+    ``state``'s model (the same DAState and draws)."""
+    import dataclasses
+
+    ref = dataclasses.replace(state, model=f32_copy(state.model, cfg))
+    out = train_step_one(ref, args, "plain")
+    del ref
+    return out
 
 
 def train_split(step, state, args, runs: int) -> dict:
@@ -1407,6 +1604,34 @@ KERNEL_GROUPS = (
 )
 
 
+# fragments of a kernel's name -> its element type, first match (cuDNN's and
+# cuBLAS's names carry it: "bf16bf16_bf16f32", "__nv_bfloat16", "sgemm")
+DTYPE_MARKS = (
+    ("workspace", ("init_device_workspace",)),
+    ("bfloat16", ("bf16", "bfloat16")),
+    ("float16", ("f16", "fp16", "half", "hmma", "h884", "h1688", "h16816")),
+    ("float32", ("f32", "fp32", "float", "sgemm", "tf32", "s884", "s1688",
+                 "s16816", "scudnn")),
+)
+
+
+def kernel_dtype(name: str) -> str:
+    """The element type a kernel's name shows, or "unknown"."""
+    name = name.lower()
+    return next((d for d, frags in DTYPE_MARKS
+                 if any(f in name for f in frags)), "unknown")
+
+
+def conv_census(profile: dict, bf16: bool, label: str) -> dict:
+    """The convolution kernels of a profile by element type (calls a run);
+    a bfloat16 path that launched a float32 convolution kernel raises."""
+    census = profile["conv_kernels_by_dtype"]
+    if bf16 and census.get("float32"):
+        raise AssertionError(f"{label}: float32 convolution kernels on a "
+                             f"bfloat16 path: {profile['conv_kernels']}")
+    return census
+
+
 def device_profile(run, runs: int, kernels=(), attempts: int = 3) -> dict:
     """``runs`` calls of ``run()`` (a train step, a forward, one kernel's
     wrapper) under ``torch.profiler``: device time and device launches a
@@ -1441,6 +1666,8 @@ def device_profile(run, runs: int, kernels=(), attempts: int = 3) -> dict:
             break
     groups: dict[str, float] = {}
     group_calls: dict[str, float] = {}
+    convs: dict[str, float] = {}
+    conv_names: dict[str, str] = {}
     for e in kern:
         name = e.key.lower()
         group = next((g for g, frags in KERNEL_GROUPS
@@ -1448,6 +1675,14 @@ def device_profile(run, runs: int, kernels=(), attempts: int = 3) -> dict:
         groups[group] = groups.get(group, 0.0) + (
             e.self_device_time_total / 1e3 / runs)
         group_calls[group] = group_calls.get(group, 0.0) + e.count / runs
+        # the census leaves out plain GEMMs that the group's "xmma" takes in
+        # (the deformable convs' float32 tap products are matmuls)
+        if group == "convolution" and ("gemm" not in name or any(
+                f in name for f in ("conv", "implicit", "fprop", "dgrad",
+                                    "wgrad"))):
+            dtype = kernel_dtype(name)
+            convs[dtype] = convs.get(dtype, 0.0) + e.count / runs
+            conv_names[e.key[:120]] = dtype
     busy_ms = sum(groups.values())
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
     return dict(
@@ -1463,7 +1698,8 @@ def device_profile(run, runs: int, kernels=(), attempts: int = 3) -> dict:
                           ms_per_run=e.self_device_time_total / 1e3 / runs)
                      for e in top],
         kernel_ms_per_run={name: t or None for name, t in named.items()},
-        kernel_calls_per_run=calls)
+        kernel_calls_per_run=calls, conv_kernels_by_dtype=convs,
+        conv_kernels=conv_names)
 
 
 def run_steps(step, state, args, n: int, expected: dict, label: str):
@@ -1486,15 +1722,18 @@ def run_steps(step, state, args, n: int, expected: dict, label: str):
     return state, launches, times, metrics
 
 
-def phase_train(dev):
+def phase_train(dev, dtype: str = "float32"):
     from da_detect_tpu_torch import entry
 
-    cfg = train_cfg(aligned=False)
+    name, bf16 = label("train", dtype), dtype == "bfloat16"
+    cfg = train_cfg(aligned=False, dtype=dtype)
     step, (state, args) = entry.train_entry(device=str(dev), seed=0, cfg=cfg)
-    agreement = compare_steps(train_step_one(state, args, "cuda"),
-                              train_step_one(state, args, "plain"))
+    agreement = compare_steps(
+        train_step_one(state, args, "cuda"),
+        train_step_one(state, args, "plain"),
+        f32_step_one(state, cfg, args) if bf16 else None)
     state, launches, times, metrics = run_steps(
-        step, state, args, TRAIN_STEPS, PER_TRAIN_STEP, "train")
+        step, state, args, TRAIN_STEPS, PER_TRAIN_STEP, name)
     split = train_split(step, state, args, SPLIT_STEPS)
     holder = [state]
 
@@ -1502,6 +1741,7 @@ def phase_train(dev):
         holder[0], _ = step(holder[0], *args)
 
     profile = device_profile(one_step, PROFILE_STEPS)
+    census = conv_census(profile, bf16, name)
     state = holder[0]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1513,13 +1753,15 @@ def phase_train(dev):
     margins = float(state.da_state.margin_img)
     del step, state
 
-    a_cfg = train_cfg(aligned=True)
+    a_cfg = train_cfg(aligned=True, dtype=dtype)
     a_step, (a_state, a_args) = entry.train_entry(device=str(dev), seed=0,
                                                   cfg=a_cfg)
     a_state, a_launches, a_times, a_metrics = run_steps(
-        a_step, a_state, a_args, ALIGNED_STEPS, PER_ALIGNED_STEP, "aligned")
+        a_step, a_state, a_args, ALIGNED_STEPS, PER_ALIGNED_STEP,
+        label("aligned", dtype))
     del a_step, a_state
-    emit("train", config=os.path.relpath(FLAGSHIP_YAML, REPO),
+    emit(name, config=os.path.relpath(FLAGSHIP_YAML, REPO), dtype=dtype,
+         conv_kernels_by_dtype=census,
          canvas=list(CANVAS), steps=TRAIN_STEPS, launches=launches,
          launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
          step_ms=times, step_ms_median=statistics.median(times),
@@ -1550,29 +1792,36 @@ DCN_NMS_SITES = ("rpn_p2", "rpn_p3", "rpn_p4", "rpn_p5", "rpn_p6",
                  "box_head")
 
 
-def dcn_model(dev, gather_mode: str):
-    """The X-101-32x8d-FPN-DCN YAML at the 608x1216 canvas in float32 with
-    ``TPU.DCN_GATHER`` = ``gather_mode``, through ``entry(cfg=...)`` with
-    random weights from seed 0."""
+def dcn_model(dev, gather_mode: str, dtype: str = "float32"):
+    """The X-101-32x8d-FPN-DCN YAML at the 608x1216 canvas in ``dtype``
+    with ``TPU.DCN_GATHER`` = ``gather_mode``, through ``entry(cfg=...)``
+    with random weights from seed 0."""
     from da_detect_tpu_torch import entry
 
-    cfg = entry.dcn_cfg(CANVAS)
+    cfg = entry.dcn_cfg(CANVAS, dtype)
     cfg.TPU.DCN_GATHER = gather_mode
     cfg.freeze()
     fn, (model, _) = entry.entry(device=str(dev), seed=0, cfg=cfg)
     return cfg, fn, model
 
 
-def phase_dcn(dev):
+def phase_dcn(dev, dtype: str = "float32"):
+    """The DCN eval path in ``dtype``: 4 requests in "four" mode, one
+    again with impl="plain", one in "quad" mode. In float32 the two modes
+    compute one function, so "quad" is held against "four"; in bfloat16
+    "four" rounds each step of the corner sum and "quad" sums its corners
+    in float32 (as in the JAX package), so "quad" is held against its own
+    plain run."""
     from da_detect_tpu_torch import entry
     from da_detect_tpu_torch.e2e_pairs import spread_dcn
 
-    cfg, fn, model = dcn_model(dev, "four")
+    name, bf16 = label("dcn", dtype), dtype == "bfloat16"
+    cfg, fn, model = dcn_model(dev, "four", dtype)
     batches = [entry.make_batch(cfg, 1, seed=s, device=dev)[0]
                for s in range(REQUESTS)]
     raw_std = spread_dcn(model, batches[0])
     answers, launches, seconds = serve_requests(fn, model, batches,
-                                                PER_DCN_FORWARD, "dcn")
+                                                PER_DCN_FORWARD, name)
     summary = [check_detections(cfg, dets) for dets in answers]
     # peak memory of one request, before any input is recorded
     torch.cuda.synchronize()
@@ -1586,19 +1835,23 @@ def phase_dcn(dev):
         dets_k = fn(model, batches[0])
     rerun_identical = all(torch.equal(x, y)
                           for x, y in zip(dets_k, answers[0]))
-    agreement = match_detections(dets_k, model(batches[0], impl="plain"))
+    ref = f32_copy(model, cfg)(batches[0], impl="plain") if bf16 else None
+    agreement = match_detections(dets_k, model(batches[0], impl="plain"),
+                                 ref)
 
-    q_cfg, q_fn, q_model = dcn_model(dev, "quad")
+    q_cfg, q_fn, q_model = dcn_model(dev, "quad", dtype)
     q_model.load_state_dict(model.state_dict())
     with record_kernel_inputs() as q_captured:
         (dets_q,), q_launches, _ = serve_requests(
-            q_fn, q_model, batches[:1], PER_QUAD_FORWARD, "dcn_quad")
+            q_fn, q_model, batches[:1], PER_QUAD_FORWARD,
+            label("dcn_quad", dtype))
     check_detections(q_cfg, dets_q)
-    quad_agreement = match_detections(dets_q, dets_k)
+    quad_agreement = match_detections(
+        dets_q, q_model(batches[0], impl="plain") if bf16 else dets_k, ref)
     errs = check_captured(captured)
     for k, v in check_captured(q_captured).items():
         errs[k] = max(errs.get(k, 0.0), v)
-    emit("dcn", config=os.path.relpath(entry.DCN_YAML, REPO),
+    emit(name, config=os.path.relpath(entry.DCN_YAML, REPO), dtype=dtype,
          canvas=list(CANVAS), requests=REQUESTS, seconds=seconds,
          launches=launches, quad_launches=q_launches, detections=summary,
          offset_std_before_scaling=dict(min=min(raw_std), max=max(raw_std),
@@ -1691,13 +1944,19 @@ def gather_groups(sites) -> dict:
 
 
 def phase_dcn_times(model, fn, q_model, q_fn, batch, captured,
-                    q_captured) -> tuple[list, list]:
-    sites = time_sites(captured, "dcn", DCN_NMS_SITES)
-    q_sites = time_sites(q_captured, "dcn_quad", DCN_NMS_SITES)
+                    q_captured, dtype: str = "float32") -> tuple[list, list]:
+    """The DCN eval path's kernel sites, gather device times, forward
+    latency ("four" and "quad"), stage split, profile and conv census; in
+    float32 also the NMS sites, the plain forward's latency and the
+    pooler's device time."""
+    f32 = dtype == "float32"
+    nms_sites = DCN_NMS_SITES if f32 else ()
+    sites = time_sites(captured, label("dcn", dtype), nms_sites)
+    q_sites = time_sites(q_captured, label("dcn_quad", dtype), nms_sites)
     forward_ms = host_ms(lambda: fn(model, batch))
     quad_forward_ms = host_ms(lambda: q_fn(q_model, batch))
     forward_plain_ms = host_ms(lambda: model(batch, impl="plain"), runs=5,
-                               warmup=1)
+                               warmup=1) if f32 else None
     body, box = model.backbone.body, model.roi_heads["box"]
     marks = [("stem", body.stem), ("res2", body.layer1),
              ("res3", body.layer2), ("res4", body.layer3),
@@ -1718,14 +1977,16 @@ def phase_dcn_times(model, fn, q_model, q_fn, batch, captured,
              "postprocess": ("predictor.out", "end")}
     stages = stage_times(model, batch, marks, spans)
     profile = device_profile(lambda: fn(model, batch), DCN_PROFILE_RUNS)
-    pooler = pooler_device_ms(captured)
+    census = conv_census(profile, dtype == "bfloat16", label("dcn", dtype))
+    pooler = pooler_device_ms(captured) if f32 else None
     device = {"row_gather": gather_device_ms(captured["row_gather"],
                                              "row_gather"),
               "row_gather_bulk": gather_device_ms(
                   q_captured["row_gather_bulk"], "row_gather_bulk")}
-    emit("dcn_times", forward_ms=forward_ms, quad_forward_ms=quad_forward_ms,
-         forward_plain_ms=forward_plain_ms, stages_ms=stages,
-         profile=profile, pooler=pooler, gather_device_ms=device,
+    emit(label("dcn_times", dtype), forward_ms=forward_ms,
+         quad_forward_ms=quad_forward_ms, forward_plain_ms=forward_plain_ms,
+         stages_ms=stages, profile=profile, conv_kernels_by_dtype=census,
+         pooler=pooler, gather_device_ms=device,
          gather_call_ms={"four": gather_groups(sites),
                          "quad": gather_groups(q_sites)},
          sites=[s for s in sites + q_sites
@@ -1740,14 +2001,16 @@ def scatter_work(records) -> float:
     (``records`` from ``record_kernel_inputs``), whatever computes them:
     each gradient row and each index read once, each [S, C] output written
     once. The destination is not read (it starts at zero), and its zeros
-    are part of the output, not a fill apart."""
+    are part of the output, not a fill apart. Rows and output in the
+    gradient's dtype (4 or 2 bytes an element), indices 4 bytes."""
     nbytes = 0
     for rec in records:
         (s, c), idx = rec["shape"], rec["idx"]
         if idx.numel() and not (0 <= int(idx.min()) and int(idx.max()) < s):
             raise AssertionError(f"a scatter-add index of the main path lies "
                                  f"outside its destination of {s} rows")
-        nbytes += 4 * (idx.numel() * c + idx.numel() + s * c)
+        elem = torch.empty((), dtype=rec["dtype"]).element_size()
+        nbytes += elem * (idx.numel() * c + s * c) + 4 * idx.numel()
     return nbytes
 
 
@@ -1756,7 +2019,8 @@ def scatter_device_ms(records) -> dict:
     shapes, each a function with a dense [S, C] output: the kernel with the
     CSR its layer built (``ms``) and building its own (``csr_build_ms``),
     the plain version (zeros, clamp, index_add_) and torch.zeros +
-    index_add_ (``library_ms``); each variant called once a record, SCATTER_TIMING_RUNS times over under
+    index_add_ (``library_ms``); each variant called once a record,
+    SCATTER_TIMING_RUNS times over under
     ``torch.profiler`` after a warm-up pass; GATHER_PROFILES such profiles,
     the variants in turns. The gradient rows are random (the step's were
     checked where they ran and not kept): the work depends on the indices
@@ -1766,7 +2030,7 @@ def scatter_device_ms(records) -> dict:
     dev = records[0]["idx"].device
     most = max(r["idx"].numel() * r["shape"][1] for r in records)
     buf = torch.randn(most, generator=torch.Generator(device=dev).manual_seed(
-        0), device=dev)
+        0), device=dev).to(records[0]["dtype"])
     calls = []
     for rec in records:
         (s, c), idx = rec["shape"], rec["idx"]
@@ -1778,7 +2042,7 @@ def scatter_device_ms(records) -> dict:
             g, i, s),
         "plain_ms": lambda s, g, i, csr: gather.row_scatter_add(g, i, s),
         "library_ms": lambda s, g, i, csr: torch.zeros(
-            s, g.shape[1], device=g.device).index_add_(0, i, g)}
+            s, g.shape[1], dtype=g.dtype, device=g.device).index_add_(0, i, g)}
 
     def runner(fn):
         def run():
@@ -1818,24 +2082,61 @@ def scatter_timing(records, bound_ms: float) -> dict:
                     for r in records if "bits" in r})
 
 
-def dcn_train_model(dev, gather_mode: str):
-    """``train_entry(cfg=dcn_train_cfg())`` at the 608x1216 canvas with
-    ``TPU.DCN_GATHER`` = ``gather_mode``: (step, state, batch args)."""
+def train_inputs(captured) -> dict:
+    """A summary of a train step's captured NMS and ROIAlign inputs."""
+    return {"nms": [dict(shape=list(b.shape), iou=t, valid=int(v.sum()),
+                         max_keep=k)
+                    for b, v, t, k in captured["nms"]],
+            "roi_align_fwd": fwd_inputs(captured),
+            "roi_align_bwd": [dict(grad=list(g.shape), rois=list(r.shape),
+                                   height=h, width=w, grad_copied=copied)
+                              for g, r, h, w, _, copied in
+                              captured["roi_align_bwd"]]}
+
+
+def record_shapes(records) -> dict:
+    """The scatter-add records by destination shape and index count."""
+    shapes = {}
+    for rec in records:
+        key = f"dst {rec['shape'][0]}x{rec['shape'][1]} P {rec['idx'].numel()}"
+        shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def dcn_train_model(dev, gather_mode: str, dtype: str = "float32"):
+    """``train_entry(cfg=dcn_train_cfg())`` at the 608x1216 canvas in
+    ``dtype`` with ``TPU.DCN_GATHER`` = ``gather_mode``: (step, state, batch
+    args)."""
     from da_detect_tpu_torch import entry
 
-    cfg = entry.dcn_train_cfg(CANVAS)
+    cfg = entry.dcn_train_cfg(CANVAS, dtype)
     cfg.TPU.DCN_GATHER = gather_mode
     cfg.freeze()
     step, (state, args) = entry.train_entry(device=str(dev), seed=0, cfg=cfg)
     return step, state, args
 
 
-def phase_dcn_train(dev):
+def phase_dcn_train(dev, dtype: str = "float32"):
+    """The DCN train step in ``dtype``: step 1 through the kernels with its
+    inputs recorded and checked, against its plain run, the scatter-add
+    timed on step 1's indices, timed steps, a profile. float32: also
+    "quad" step 1 against its plain run and a step, DCN_TRAIN_STEPS timed
+    steps, and a later step's inputs recorded and checked, its NMS and
+    ROIAlign sites timed and its scatter-adds' row traffic reported (by
+    then the random-weight step has diverged). bfloat16: "four" only (the
+    eval phase runs "quad"), BF16_DCN_TRAIN_STEPS timed steps, step 1's
+    inputs its sites. ``seconds``: the phase's time at each part's end."""
     from da_detect_tpu_torch import entry
     from da_detect_tpu_torch.e2e_pairs import spread_dcn
     from da_detect_tpu_torch.layers import DeformConv2d
 
-    step, state, args = dcn_train_model(dev, "four")
+    name, bf16 = label("dcn_train", dtype), dtype == "bfloat16"
+    n_steps = BF16_DCN_TRAIN_STEPS if bf16 else DCN_TRAIN_STEPS
+    t0, seconds = time.perf_counter(), {}
+
+    def done(part):
+        seconds[part] = time.perf_counter() - t0
+    step, state, args = dcn_train_model(dev, "four", dtype)
     raw_std = spread_dcn(state.model, args[0])
     # step 1 of the kernel run with its kernels' inputs recorded: the
     # scatter-adds' indices before any update, offsets as drawn; and the
@@ -1855,11 +2156,21 @@ def phase_dcn_train(dev):
     if len(offset_std) != 3 * layers:
         raise AssertionError(f"dcn_train: {len(offset_std)} offset convs ran "
                              f"in step 1, expected 3 passes x {layers}")
+    done("step_1")
     errs = check_captured(first)
+    done("step_1_checks")
     first_records = first.pop("row_scatter_add")
+    # bfloat16: step 1's inputs are the phase's captures (its sites' times
+    # and shapes); float32 records a later step too, below
+    captured = first if bf16 else None
+    shapes = record_shapes(first_records)
     del first
-    agreement = compare_steps(kernel_one, train_step_one(state, args, "plain"))
+    agreement = compare_steps(
+        kernel_one, train_step_one(state, args, "plain"),
+        f32_step_one(state, entry.dcn_train_cfg(CANVAS), args)
+        if bf16 else None)
     del kernel_one
+    done("plain_step_1")
     # the scatter-add's bound (its bytes depend on the shapes alone, the
     # same in every step) and its times on step 1's indices, taken now so
     # that the records are gone before the timed steps' peak memory
@@ -1867,22 +2178,36 @@ def phase_dcn_train(dev):
     bound_ms, by = bound(nbytes, 0)
     timed = {"step_1": scatter_timing(first_records, bound_ms)}
     del first_records
-    # "quad" on the same weights: step 1 against its plain run, one step
-    q_step, q_state, _ = dcn_train_model(dev, "quad")
-    q_state.model.load_state_dict(state.model.state_dict())
-    q_agreement = compare_steps(train_step_one(q_state, args, "cuda"),
-                                train_step_one(q_state, args, "plain"))
-    q_state, q_launches, q_times, q_metrics = run_steps(
-        q_step, q_state, args, DCN_QUAD_TRAIN_STEPS, PER_DCN_QUAD_TRAIN_STEP,
-        "dcn_train_quad")
-    del q_step, q_state
+    done("scatter_timing")
+    if bf16:
+        sites = time_sites(dict(captured, row_gather=[], row_gather_bulk=[]),
+                           name)
+        inputs = train_inputs(captured)
+        del captured  # the maps and gradients it holds: not in the peak
+    quad = None
+    if not bf16:
+        # "quad" on the same weights: step 1 against its plain run, a step
+        q_step, q_state, _ = dcn_train_model(dev, "quad")
+        q_state.model.load_state_dict(state.model.state_dict())
+        q_agreement = compare_steps(train_step_one(q_state, args, "cuda"),
+                                    train_step_one(q_state, args, "plain"))
+        q_state, q_launches, q_times, q_metrics = run_steps(
+            q_step, q_state, args, DCN_QUAD_TRAIN_STEPS,
+            PER_DCN_QUAD_TRAIN_STEP, "dcn_train_quad")
+        del q_step, q_state
+        quad = dict(plain_agreement=q_agreement, steps=DCN_QUAD_TRAIN_STEPS,
+                    launches=q_launches, step_ms=q_times,
+                    losses=[{k: float(v) for k, v in m.items()}
+                            for m in q_metrics])
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    done("quad")
     state, launches, times, metrics = run_steps(
-        step, state, args, DCN_TRAIN_STEPS, PER_DCN_TRAIN_STEP, "dcn_train")
+        step, state, args, n_steps, PER_DCN_TRAIN_STEP, name)
     peak = torch.cuda.max_memory_allocated()
+    done("steps")
     holder = [state]
 
     def one_step():
@@ -1891,22 +2216,27 @@ def phase_dcn_train(dev):
     profile = device_profile(one_step, 1, kernels=(
         "row_gather_kernel", "row_scatter_add", "nms_mask_kernel",
         "roi_align_fwd_kernel", "roi_align_bwd_kernel"))
-    # the step after the profiled one, its kernels' inputs recorded: with
-    # random weights the step has diverged by then (the losses), and its
-    # sample corners clamp onto the maps' border rows
-    with record_kernel_inputs() as captured:
-        one_step()
-        torch.cuda.synchronize()
-    for k, v in check_captured(captured).items():
-        errs[k] = max(errs.get(k, 0.0), v)
+    census = conv_census(profile, bf16, name)
+    done("profile")
+    if not bf16:
+        # the step after the profiled one, its kernels' inputs recorded and
+        # checked: with random weights the step has diverged by then (the
+        # losses), and its sample corners clamp onto the maps' border rows
+        with record_kernel_inputs() as captured:
+            one_step()
+            torch.cuda.synchronize()
+        for k, v in check_captured(captured).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        records = captured.pop("row_scatter_add")
+        sites = time_sites(dict(captured, row_gather=[], row_gather_bulk=[]),
+                           name, DCN_TRAIN_NMS_SITES)
+        inputs = train_inputs(captured)
+        if scatter_work(records) != nbytes or record_shapes(records) != shapes:
+            raise AssertionError(f"{name}: the steps' scatter-adds differ in "
+                                 "shape")
+        timed[f"step_{n_steps + 2}_traffic"] = scatter_traffic(records)
+        done("later_step")
     del step, holder, state
-    records = captured.pop("row_scatter_add")
-    sites = time_sites(dict(captured, row_gather=[], row_gather_bulk=[]),
-                       "dcn_train", DCN_TRAIN_NMS_SITES)
-    if scatter_work(records) != nbytes:
-        raise AssertionError("dcn_train: the steps' scatter-adds differ in "
-                             "shape")
-    timed[f"step_{DCN_TRAIN_STEPS + 2}"] = scatter_timing(records, bound_ms)
     # the kernel's numbers: step 1's indices, which do not depend on how
     # far the random-weight step has diverged
     head = timed["step_1"]
@@ -1915,17 +2245,15 @@ def phase_dcn_train(dev):
         plain_ms=head["plain_ms"], library_ms=head["library_ms"],
         bound_ms=bound_ms, bound_by=by, bytes=nbytes, device_ms=head["ms"],
         step_profile_ms=profile["groups_ms_per_run"].get("row_scatter_add"),
-        steps={label: {k: t[k] for k in ("ms", "csr_build_ms", "plain_ms",
-                                         "library_ms", "long_row_share")}
-               for label, t in timed.items()})
-    shapes = {}
-    for rec in records:
-        key = f"dst {rec['shape'][0]}x{rec['shape'][1]} P {rec['idx'].numel()}"
-        shapes[key] = shapes.get(key, 0) + 1
-    emit("dcn_train", config=os.path.relpath(entry.DCN_YAML, REPO),
-         canvas=list(CANVAS), steps=DCN_TRAIN_STEPS, launches=launches,
-         launches_per_step={k: v / DCN_TRAIN_STEPS
-                            for k, v in launches.items()},
+        steps={key: {k: t[k] for k in ("ms", "csr_build_ms", "plain_ms",
+                                       "library_ms", "long_row_share")
+                     if k in t}
+               for key, t in timed.items()})
+    emit(name, config=os.path.relpath(entry.DCN_YAML, REPO), dtype=dtype,
+         seconds=seconds, canvas=list(CANVAS), steps=n_steps,
+         launches=launches,
+         launches_per_step={k: v / n_steps for k, v in launches.items()},
+         conv_kernels_by_dtype=census,
          step_ms=times, step_ms_median=statistics.median(times),
          resident_bytes=resident, max_memory_allocated=peak,
          saved_tap_rows_bytes=SAVED_TAP_BYTES, profile=profile,
@@ -1933,24 +2261,11 @@ def phase_dcn_train(dev):
          offset_std_before_scaling=dict(min=min(raw_std), max=max(raw_std),
                                         layers=len(raw_std)),
          step_1_offset_std={
-             name: dict(min=min(offset_std[i * layers:(i + 1) * layers]),
+             part: dict(min=min(offset_std[i * layers:(i + 1) * layers]),
                         max=max(offset_std[i * layers:(i + 1) * layers]))
-             for i, name in enumerate(("source", "positive", "negative"))},
-         plain_agreement=agreement, quad_plain_agreement=q_agreement,
-         quad=dict(steps=DCN_QUAD_TRAIN_STEPS, launches=q_launches,
-                   step_ms=q_times,
-                   losses=[{k: float(v) for k, v in m.items()}
-                           for m in q_metrics]),
-         main_path_inputs={
-             "nms": [dict(shape=list(b.shape), iou=t, valid=int(v.sum()),
-                          max_keep=k)
-                     for b, v, t, k in captured["nms"]],
-             "roi_align_fwd": fwd_inputs(captured),
-             "roi_align_bwd": [dict(grad=list(g.shape), rois=list(r.shape),
-                                    height=h, width=w, grad_copied=copied)
-                               for g, r, h, w, _, copied in
-                               captured["roi_align_bwd"]],
-             "row_scatter_add": shapes},
+             for i, part in enumerate(("source", "positive", "negative"))},
+         plain_agreement=agreement, quad=quad,
+         main_path_inputs=dict(inputs, row_scatter_add=shapes),
          scatter_add=dict(scatter, records=timed), sites=sites,
          max_abs_err=errs)
     return sites, launches, scatter, errs
@@ -1987,36 +2302,85 @@ def path_summary(sites, launches: int, device=None) -> dict:
 
 
 def kernel_line(paths: dict, errs: dict, summaries: dict) -> dict:
-    """One row a kernel. ``paths``: path -> (sites of one forward or step,
-    launches of the path's run, device times by kernel); ``summaries``:
-    kernel -> path -> a summary made elsewhere (the scatter-add's). The
-    row's own numbers are those of the kernel's MAIN_PATH: ``launches``
-    counts that path's whole run (train: 6 steps; dcn: 4 requests;
-    dcn_quad: 1 request; dcn_train: 4 steps), ms, plain_ms, library_ms and
-    the bound sum one step's or forward's launches. Every path the kernel
-    ran on stands under ``paths``."""
+    """One row a kernel and dtype: float32 rows named as the kernel,
+    bfloat16 rows "<kernel>_bf16" (BF16_KERNELS). ``paths``: path -> (sites
+    of one forward or step, launches of the path's run, device times by
+    kernel), bfloat16 paths named "<path>_bf16"; ``errs``: row name -> its
+    largest error; ``summaries``: row name -> path -> a summary made
+    elsewhere (the scatter-add's). The row's own numbers are those of its
+    main path (MAIN_PATH, or its bfloat16 run): ``launches`` counts that
+    path's whole run (train: TRAIN_STEPS steps; dcn: 4 requests; dcn_quad:
+    1 request; dcn_train: DCN_TRAIN_STEPS or BF16_DCN_TRAIN_STEPS steps),
+    ms, plain_ms, library_ms and the bound sum one step's or forward's
+    launches. Every path of the row's dtype that ran the kernel stands
+    under ``paths`` (NMS, float32 in both dtypes: every path)."""
     rows = []
     for name, (source, replaces) in SOURCES.items():
-        per_path = {}
-        for path, (sites, launches, device) in paths.items():
-            mine = [s for s in sites if s["kernel"] == name]
-            if mine or launches.get(name):
-                per_path[path] = path_summary(mine, launches.get(name, 0),
-                                              device.get(name))
-        per_path.update(summaries.get(name, {}))
-        row = dict(name=name, route="cuda", source=source,
-                   replaces=replaces, **per_path[MAIN_PATH[name]],
-                   max_abs_err=errs[name], main_path=MAIN_PATH[name],
-                   paths=per_path)
-        if not name.startswith("row_"):
-            row["sites"] = [
-                {k: s[k] for k in ("path", "site", "ms", "device_ms",
-                                   "plain_ms", "bound_ms", "bound_by")
-                 if k in s}
-                for sites, _, _ in paths.values() for s in sites
-                if s["kernel"] == name]
-        rows.append(row)
+        for dtype in ("float32", "bfloat16"):
+            if dtype == "bfloat16" and name not in BF16_KERNELS:
+                continue
+            row_name = label(name, dtype)
+            per_path = {}
+            for path, (sites, launches, device) in paths.items():
+                if name in BF16_KERNELS and path.endswith("_bf16") != (
+                        dtype == "bfloat16"):
+                    continue
+                mine = [s for s in sites if s["kernel"] == name]
+                if mine or launches.get(name):
+                    per_path[path] = path_summary(
+                        mine, launches.get(name, 0), device.get(name))
+            per_path.update(summaries.get(row_name, {}))
+            main = label(MAIN_PATH[name], dtype)
+            row = dict(name=row_name, route="cuda", source=source,
+                       replaces=replaces, dtype=dtype, **per_path[main],
+                       max_abs_err=errs[row_name], main_path=main,
+                       paths=per_path)
+            if not name.startswith("row_"):
+                row["sites"] = [
+                    {k: s[k] for k in ("path", "site", "ms", "device_ms",
+                                       "plain_ms", "bound_ms", "bound_by")
+                     if k in s}
+                    for path, (sites, _, _) in paths.items()
+                    if path in per_path for s in sites
+                    if s["kernel"] == name]
+            rows.append(row)
     return {"kernels": rows}
+
+
+def run_dtype(dev, dtype: str) -> tuple[dict, dict, dict]:
+    """Every main path in ``dtype``: the flagship eval forward and its
+    times, the flagship train step and its kernels' times, the DCN eval
+    forward ("four" and "quad") and its times, the DCN train step. Returns
+    (paths for ``kernel_line``, the largest error a kernel, the
+    scatter-add's summary)."""
+    model, fn, batches, captured, eval_launches, eval_errs = phase_slice(
+        dev, dtype)
+    eval_sites = phase_times(model, fn, batches, captured, dtype)
+    del model, fn, batches, captured
+    captured, train_launches, train_errs = phase_train(dev, dtype)
+    train_sites = time_sites(captured, label("train", dtype),
+                             ("rpn_source", "rpn_target")
+                             if dtype == "float32" else ())
+    emit(label("train_times", dtype), sites=train_sites)
+    del captured
+    (model, fn, q_model, q_fn, batch, captured, q_captured, dcn_launches,
+     quad_launches, dcn_errs) = phase_dcn(dev, dtype)
+    dcn_sites, quad_sites, device = phase_dcn_times(
+        model, fn, q_model, q_fn, batch, captured, q_captured, dtype)
+    del model, fn, q_model, q_fn, batch, captured, q_captured
+    dcn_train_sites, dcn_train_launches, scatter, dcn_train_errs = \
+        phase_dcn_train(dev, dtype)
+    errs = {}
+    for part in (eval_errs, train_errs, dcn_errs, dcn_train_errs):
+        for k, v in part.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    paths = {label("eval", dtype): (eval_sites, eval_launches, {}),
+             label("train", dtype): (train_sites, train_launches, {}),
+             label("dcn", dtype): (dcn_sites, dcn_launches, device),
+             label("dcn_quad", dtype): (quad_sites, quad_launches, device),
+             label("dcn_train", dtype): (dcn_train_sites, dcn_train_launches,
+                                         {})}
+    return paths, errs, scatter
 
 
 def main() -> int:
@@ -2031,30 +2395,18 @@ def main() -> int:
     smi = phase_env()
     phase_build()
     errs = phase_kernels(dev)
-    model, fn, batches, captured, eval_launches, eval_errs = phase_slice(dev)
-    eval_sites = phase_times(model, fn, batches, captured)
-    del model, fn, batches, captured
-    captured, train_launches, train_errs = phase_train(dev)
-    train_sites = time_sites(captured, "train", ("rpn_source", "rpn_target"))
-    emit("train_times", sites=train_sites)
-    del captured
-    (model, fn, q_model, q_fn, batch, captured, q_captured, dcn_launches,
-     quad_launches, dcn_errs) = phase_dcn(dev)
-    dcn_sites, quad_sites, device = phase_dcn_times(
-        model, fn, q_model, q_fn, batch, captured, q_captured)
-    del model, fn, q_model, q_fn, batch, captured, q_captured
-    dcn_train_sites, dcn_train_launches, scatter, dcn_train_errs = \
-        phase_dcn_train(dev)
-    for part in (eval_errs, train_errs, dcn_errs, dcn_train_errs):
-        for k, v in part.items():
-            errs[k] = max(errs[k], v)
+    paths, f32_errs, scatter = run_dtype(dev, "float32")
+    for k, v in f32_errs.items():
+        errs[k] = max(errs[k], v)
+    bf16_paths, bf16_errs, bf16_scatter = run_dtype(dev, "bfloat16")
+    paths.update(bf16_paths)
+    for k, v in bf16_errs.items():
+        key = label(k, "bfloat16") if k in BF16_KERNELS else k
+        errs[key] = max(errs.get(key, 0.0), v)
     print(json.dumps(kernel_line(
-        {"eval": (eval_sites, eval_launches, {}),
-         "train": (train_sites, train_launches, {}),
-         "dcn": (dcn_sites, dcn_launches, device),
-         "dcn_quad": (quad_sites, quad_launches, device),
-         "dcn_train": (dcn_train_sites, dcn_train_launches, {})}, errs,
-        {"row_scatter_add": {"dcn_train": scatter}})))
+        paths, errs, {"row_scatter_add": {"dcn_train": scatter},
+                      "row_scatter_add_bf16": {"dcn_train_bf16":
+                                               bf16_scatter}})))
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi)
     print(json.dumps({"ok": True, "device": {

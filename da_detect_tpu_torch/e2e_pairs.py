@@ -290,6 +290,7 @@ def measure(tree: str, device: str = "cuda", canvas=CANVAS) -> dict:
     del maps, rois
 
     cfg = entry.dcn_train_cfg(canvas)
+    cfg.TPU.COMPUTE_DTYPE = "float32"
     cfg.freeze()
     scatter = dcn_scatter(cfg, device, sync, cuda)
     out = dict(tree=tree, package=os.path.dirname(entry.__file__),

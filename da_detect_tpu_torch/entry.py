@@ -12,6 +12,12 @@ a train step over it; ``train_entry(cfg=dcn_train_cfg())`` trains the
 X-101-32x8d-FPN-DCN model. Both run on the
 card unless the caller asks for ``device="cpu"``; with no card and no
 explicit CPU they raise.
+
+Compute dtype: ``flagship_cfg`` and ``dcn_cfg`` default to bfloat16, the JAX
+package's ``TPU.COMPUTE_DTYPE`` (which ``__graft_entry__._flagship_cfg`` and
+the YAMLs keep), so ``entry()`` computes as ``__graft_entry__.entry()``
+does; ``train_cfg`` is float32, as ``_dryrun_impl`` sets it. Parameters,
+gradients and optimizer state are float32 in both.
 """
 
 from __future__ import annotations
@@ -36,9 +42,11 @@ DCN_YAML = os.path.join(
 
 
 def flagship_cfg(canvas=(320, 640), train_tops=(600, 128),
-                 test_tops=(600, 128)):
-    """The flagship configuration at a given canvas, in float32 (the port's
-    compute dtype)."""
+                 test_tops=(600, 128), dtype="bfloat16"):
+    """The flagship configuration at a given canvas, as
+    ``__graft_entry__._flagship_cfg`` builds it, computing in ``dtype``
+    (``TPU.COMPUTE_DTYPE``: bfloat16, the JAX package's default, or
+    float32)."""
     cfg = get_cfg()
     cfg.MODEL.DOMAIN_ADAPTATION_ON = True
     cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES = 9
@@ -50,29 +58,30 @@ def flagship_cfg(canvas=(320, 640), train_tops=(600, 128),
     cfg.MODEL.RPN.POST_NMS_TOP_N_TEST = test_tops[1]
     cfg.TPU.IMAGE_SHAPE = canvas
     cfg.TPU.MAX_GT_BOXES = 24
-    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.COMPUTE_DTYPE = dtype
     return cfg
 
 
-def dcn_cfg(canvas=(608, 1216)):
+def dcn_cfg(canvas=(608, 1216), dtype="bfloat16"):
     """The X-101-32x8d-FPN-DCN triplet-DA YAML of the repository's configs
     (DCN in res3-res5, FPN 256, MLP head 1024, 9 classes), read with the
-    port's config copy, at a given canvas in float32. Its TEST.BBOX_AUG
-    (test-time augmentation, a dataset-level loop) is not part of the model
-    forward that ``entry`` serves."""
+    port's config copy, at a given canvas, computing in ``dtype`` (bfloat16,
+    the YAML's, or float32). Its TEST.BBOX_AUG (test-time augmentation, a
+    dataset-level loop) is not part of the model forward that ``entry``
+    serves."""
     cfg = get_cfg()
     cfg.merge_from_file(DCN_YAML)
     cfg.TPU.IMAGE_SHAPE = canvas
-    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.COMPUTE_DTYPE = dtype
     return cfg
 
 
-def dcn_train_cfg(canvas=(608, 1216)):
+def dcn_train_cfg(canvas=(608, 1216), dtype="bfloat16"):
     """``dcn_cfg`` for training: the YAML's DA settings (image triplet,
     AdvGRL, instance triplet weight 0, no alignment) with the top-k of
     proposal selection exact (``TPU.APPROX_TOPK`` off: ``approx_max_k`` is
     TPU-only; the port's top-k is exact either way)."""
-    cfg = dcn_cfg(canvas)
+    cfg = dcn_cfg(canvas, dtype)
     cfg.TPU.APPROX_TOPK = False
     return cfg
 
@@ -119,11 +128,14 @@ def resolve_device(device=None) -> torch.device:
 def prepare_model(model, device):
     """Move a model to ``device`` in channels-last memory, and make float32
     convolutions and matmuls on the card full float32 (cuDNN defaults to
-    TF32 for convolutions). The port's modules behave the same in train and
+    TF32 for convolutions) and bfloat16 matmuls accumulate in float32, as
+    the JAX package's do. The port's modules behave the same in train and
     eval mode (FrozenBN; the DA dropout follows ``deterministic``)."""
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
     return model.to(device=device, memory_format=torch.channels_last).eval()
 
 
@@ -140,10 +152,10 @@ def triplet_batches(cfg, k: int = 1, seed: int = 0, device="cpu") -> tuple:
 
 
 def train_cfg():
-    """``_dryrun_impl``'s configuration: the flagship at canvas 64x96 with
-    64 -> 16 training proposals, 8 GT boxes, 16 sampled ROIs an image, and
-    the adaptive image margin live (max 3.0, start -0.5)."""
-    cfg = flagship_cfg(canvas=(64, 96), train_tops=(64, 16))
+    """``_dryrun_impl``'s configuration: the flagship at canvas 64x96 in
+    float32 with 64 -> 16 training proposals, 8 GT boxes, 16 sampled ROIs an
+    image, and the adaptive image margin live (max 3.0, start -0.5)."""
+    cfg = flagship_cfg(canvas=(64, 96), train_tops=(64, 16), dtype="float32")
     cfg.TPU.MAX_GT_BOXES = 8
     cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 16
     cfg.MODEL.DA_HEADS.TRIPLET_MAX_MARGIN = 3.0

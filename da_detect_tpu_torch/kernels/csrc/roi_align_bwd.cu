@@ -60,8 +60,19 @@
 // not the forward's sample order; across ROIs the atomics add in an order
 // that changes from run to run. dF agrees with the plain version to float32
 // rounding (~1e-6 relative), not bitwise, and is not bitwise reproducible.
+//
+// Element types. The gradient g is float32 (roi_align_bwd_f32) or bfloat16
+// (roi_align_bwd_bf16, the JAX package's compute dtype): a bfloat16 g is
+// staged as it is (a 16-byte copy is 8 channels, so the slice's P^2 x 32
+// values take half the shared memory) and widened to float32 where it is
+// read. U, the weights and the sums are float32 in both, and so is dF: the
+// wrapper casts it to bfloat16 once after the launch, as the TPU kernel's
+// caller casts its float32 accumulator (roi_align_pallas.py:168).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "roi_align_common.cuh"
 
@@ -95,18 +106,33 @@ __device__ __forceinline__ void add4(float4* acc, float w, const float4& v) {
   acc->w += w * v.w;
 }
 
+// 4 channels of the staged gradient (element offset i, a multiple of 4) as
+// float32
+__device__ __forceinline__ float4 staged4(const float* gs, int i) {
+  return *reinterpret_cast<const float4*>(gs + i);
+}
+
+__device__ __forceinline__ float4 staged4(const __nv_bfloat16* gs, int i) {
+  const uint2 u = *reinterpret_cast<const uint2*>(gs + i);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads) roi_align_bwd_kernel(
-    const float* __restrict__ grad, long long stride_b, long long stride_r,
+    const T* __restrict__ grad, long long stride_b, long long stride_r,
     long long stride_ph, long long stride_pw, const float* __restrict__ rois,
     float* __restrict__ dfeat, int h, int w, int c, int r, int p,
     float spatial_scale, int sampling_ratio, int max_samples, int samples,
     int tile_cols) {
-  // layout: g [p * p][kVec] float4 | U [p][tile_cols][kVec] float4 |
+  // layout: g [p * p][kChannels] T | U [p][tile_cols][kVec] float4 |
   // x samples [p * samples] | y samples [p * samples] | column bins
   // [tile_cols] int2 | row bins [h] int2 | Ax [p][tile_cols] | Ay [p][h]
   extern __shared__ __align__(16) float4 smem[];
-  float4* gs = smem;
-  float4* u = gs + p * p * kVec;
+  T* gs = reinterpret_cast<T*>(smem);
+  float4* u = reinterpret_cast<float4*>(gs + p * p * kChannels);
   Corners* xs = reinterpret_cast<Corners*>(u + p * tile_cols * kVec);
   Corners* ys = xs + p * samples;
   int2* col_bins = reinterpret_cast<int2*>(ys + p * samples);
@@ -122,12 +148,19 @@ __global__ void __launch_bounds__(kThreads) roi_align_bwd_kernel(
   const int cv = blockIdx.x * kVec + v;  // this thread's float4 of C
   const bool live = cv < c / 4;
 
-  // 0. stage g[ph, pw] of the slice
-  if (live) {
-    const float* src = grad + b * stride_b + roi * stride_r + cv * 4;
-    for (int e = tid / kVec; e < p * p; e += kItems) {
-      cp_async16(gs + e * kVec + v,
-                 src + (e / p) * stride_ph + (e % p) * stride_pw);
+  // 0. stage g[ph, pw] of the slice, 16-byte copies of `per` channels
+  {
+    constexpr int per = 16 / sizeof(T);
+    constexpr int lanes = kChannels / per;
+    const int c0 = blockIdx.x * kChannels;
+    const T* src = grad + b * stride_b + roi * stride_r + c0;
+    for (int j = tid; j < p * p * lanes; j += kThreads) {
+      const int e = j / lanes, lane = j % lanes;
+      if (c0 + lane * per < c) {
+        cp_async16(gs + e * kChannels + lane * per,
+                   src + (e / p) * stride_ph + (e % p) * stride_pw
+                       + lane * per);
+      }
     }
   }
 
@@ -215,7 +248,8 @@ __global__ void __launch_bounds__(kThreads) roi_align_bwd_kernel(
       if (live) {
         const int2 bins = col_bins[x];
         for (int pw = bins.x; pw <= bins.y; ++pw) {
-          add4(&acc, ax[pw * cols + x], gs[(ph * p + pw) * kVec + v]);
+          add4(&acc, ax[pw * cols + x],
+               staged4(gs, (ph * p + pw) * kChannels + v * 4));
         }
       }
       u[e * kVec + v] = acc;
@@ -244,39 +278,71 @@ __global__ void __launch_bounds__(kThreads) roi_align_bwd_kernel(
 }
 
 // bytes of the dynamic shared memory layout in the kernel
-long long smem_bytes(int h, int p, int samples, int tile_cols) {
-  return static_cast<long long>(p + tile_cols) * p * kVec * sizeof(float4)
+long long smem_bytes(int h, int p, int samples, int tile_cols,
+                     int elem_bytes) {
+  return static_cast<long long>(p) * p * kChannels * elem_bytes
+         + static_cast<long long>(tile_cols) * p * kVec * sizeof(float4)
          + 2LL * p * samples * sizeof(Corners)
          + static_cast<long long>(tile_cols + h) * sizeof(int2)
          + static_cast<long long>(p) * (tile_cols + h) * sizeof(float);
 }
 
-}  // namespace
-
-// grad: [batch, r, p, p, c] f32 at element strides (stride_b, stride_r,
-// stride_ph, stride_pw, 1), each a multiple of 4, 16-byte aligned, c % 4 ==
-// 0; rois [batch, r, 4] f32 -> dfeat [batch, h, w, c] f32, which the caller
-// has zeroed (16-byte aligned). samples = sampling_ratio if > 0 else
-// max_samples; tile_cols and smem from the wrapper's sizing. Returns a
-// cudaError_t (cudaErrorInvalidValue if smem does not hold the layout).
-extern "C" int roi_align_bwd(const float* grad, long long stride_b,
-                             long long stride_r, long long stride_ph,
-                             long long stride_pw, const float* rois,
-                             float* dfeat, int batch, int h, int w, int c,
-                             int r, int p, float spatial_scale,
-                             int sampling_ratio, int max_samples,
-                             int tile_cols, int smem, cudaStream_t stream) {
+template <typename T>
+int launch(const void* grad, long long stride_b, long long stride_r,
+           long long stride_ph, long long stride_pw, const float* rois,
+           float* dfeat, int batch, int h, int w, int c, int r, int p,
+           float spatial_scale, int sampling_ratio, int max_samples,
+           int tile_cols, int smem, cudaStream_t stream) {
   const int samples = sampling_ratio > 0 ? sampling_ratio : max_samples;
-  if (tile_cols < 1 || samples < 1 || r > 65535 || batch > 65535
-      || smem < smem_bytes(h, p, samples, tile_cols)) {
+  if (tile_cols < 1 || samples < 1 || r > 65535 || batch > 65535 || c % 4
+      || smem < smem_bytes(h, p, samples, tile_cols, sizeof(T))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = cudaFuncSetAttribute(
-      roi_align_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      roi_align_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((c / 4 + kVec - 1) / kVec, r, batch);
-  roi_align_bwd_kernel<<<grid, kThreads, smem, stream>>>(
-      grad, stride_b, stride_r, stride_ph, stride_pw, rois, dfeat, h, w, c, r,
-      p, spatial_scale, sampling_ratio, max_samples, samples, tile_cols);
+  roi_align_bwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(grad), stride_b, stride_r, stride_ph, stride_pw,
+      rois, dfeat, h, w, c, r, p, spatial_scale, sampling_ratio, max_samples,
+      samples, tile_cols);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// grad: [batch, r, p, p, c] f32 (roi_align_bwd_f32) or bf16
+// (roi_align_bwd_bf16) at element strides (stride_b, stride_r, stride_ph,
+// stride_pw, 1), each 16 bytes' worth of elements a multiple (4 f32, 8
+// bf16), 16-byte aligned, c % 4 == 0 (bf16: c % 8 == 0); rois [batch, r,
+// 4] f32 -> dfeat [batch, h, w, c] f32, which the caller has zeroed
+// (16-byte aligned). samples = sampling_ratio if > 0 else max_samples;
+// tile_cols and smem from the wrapper's sizing. Returns a cudaError_t
+// (cudaErrorInvalidValue if smem does not hold the layout).
+extern "C" int roi_align_bwd_f32(const void* grad, long long stride_b,
+                                 long long stride_r, long long stride_ph,
+                                 long long stride_pw, const float* rois,
+                                 float* dfeat, int batch, int h, int w, int c,
+                                 int r, int p, float spatial_scale,
+                                 int sampling_ratio, int max_samples,
+                                 int tile_cols, int smem,
+                                 cudaStream_t stream) {
+  return launch<float>(grad, stride_b, stride_r, stride_ph, stride_pw, rois,
+                       dfeat, batch, h, w, c, r, p, spatial_scale,
+                       sampling_ratio, max_samples, tile_cols, smem, stream);
+}
+
+extern "C" int roi_align_bwd_bf16(const void* grad, long long stride_b,
+                                  long long stride_r, long long stride_ph,
+                                  long long stride_pw, const float* rois,
+                                  float* dfeat, int batch, int h, int w,
+                                  int c, int r, int p, float spatial_scale,
+                                  int sampling_ratio, int max_samples,
+                                  int tile_cols, int smem,
+                                  cudaStream_t stream) {
+  return launch<__nv_bfloat16>(grad, stride_b, stride_r, stride_ph,
+                               stride_pw, rois, dfeat, batch, h, w, c, r, p,
+                               spatial_scale, sampling_ratio, max_samples,
+                               tile_cols, smem, stream);
 }

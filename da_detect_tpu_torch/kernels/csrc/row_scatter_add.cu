@@ -52,7 +52,18 @@
 // the row's sources in one tile, in source order: another rounding than
 // index_add_, the same from run to run (ops/gather.py::row_scatter_add_csr_
 // is this order in plain PyTorch).
+//
+// Element types: grad and dst float32 (row_scatter_add_f32) or bfloat16
+// (row_scatter_add_bf16, the JAX package's compute dtype). A bfloat16 row's
+// sources are widened and summed in float32 registers in the same order,
+// the pieces' scratch is float32, and each destination value is rounded to
+// bfloat16 once, after the last addition (accumulate: the old bfloat16
+// value widened and the sum added to it). So a bfloat16 call equals the
+// float32 order of its widened inputs, rounded once: not the CPU's bfloat16
+// index_add_, which rounds after every addition, nor XLA's bfloat16
+// scatter-add.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -75,7 +86,13 @@ __device__ __forceinline__ void add_to(float4& a, const float4& b) {
 
 __device__ __forceinline__ void add_to(float& a, const float& b) { a += b; }
 
-template <bool kVector>
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// a lane's columns of one row: E (float or __nv_bfloat16) in memory, T
+// (float4 or float) in registers
+template <typename E, bool kVector>
 struct Lane {
   using T = typename std::conditional<kVector, float4, float>::type;
   static constexpr int kWidth = kVector ? 4 : 1;
@@ -86,19 +103,61 @@ struct Lane {
       return 0.f;
     }
   }
+  // float32 memory (a gradient, the pieces' scratch), through the
+  // read-only cache
   __device__ static T load(const float* p) {
     return __ldg(reinterpret_cast<const T*>(p));
+  }
+  // bfloat16 memory, widened
+  __device__ static T load(const __nv_bfloat16* p) {
+    if constexpr (kVector) {
+      const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+      return make_float4(__uint_as_float(u.x << 16),
+                         __uint_as_float(u.x & 0xffff0000u),
+                         __uint_as_float(u.y << 16),
+                         __uint_as_float(u.y & 0xffff0000u));
+    } else {
+      return widen(*p);
+    }
+  }
+  // the destination's old value (accumulate)
+  __device__ static T read(const E* p) {
+    if constexpr (std::is_same<E, float>::value) {
+      return *reinterpret_cast<const T*>(p);
+    } else if constexpr (kVector) {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      return make_float4(__uint_as_float(u.x << 16),
+                         __uint_as_float(u.x & 0xffff0000u),
+                         __uint_as_float(u.y << 16),
+                         __uint_as_float(u.y & 0xffff0000u));
+    } else {
+      return widen(*p);
+    }
+  }
+  // the destination's new value, rounded once to E
+  __device__ static void write(E* p, const T& v) {
+    if constexpr (std::is_same<E, float>::value) {
+      *reinterpret_cast<T*>(p) = v;
+    } else if constexpr (kVector) {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+      *reinterpret_cast<uint2*>(p) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                     *reinterpret_cast<const uint32_t*>(&hi));
+    } else {
+      *p = __float2bfloat16_rn(v);
+    }
   }
 };
 
 // acc += grad[perm[j]][col..] for j in [from, to), in that order; from and
 // to are the same in every lane of the warp
-template <bool kVector, int kUnroll>
+template <typename E, bool kVector, int kUnroll>
 __device__ __forceinline__ void add_sources(
-    typename Lane<kVector>::T& acc, const float* __restrict__ grad,
+    typename Lane<E, kVector>::T& acc, const E* __restrict__ grad,
     const int* __restrict__ perm, int from, int to, int c, int col,
     bool live, int lane) {
-  using L = Lane<kVector>;
+  using L = Lane<E, kVector>;
   using T = typename L::T;
   static_assert(32 % kUnroll == 0, "kUnroll divides a warp");
   for (int base = from; base < to; base += 32) {
@@ -132,13 +191,13 @@ __device__ __forceinline__ int clamp_row(int r, int s) {
 // only for a long row (more than kLongRow sources, so it cannot lie inside
 // one tile). long_start[tile]: the long row that starts in the tile (at
 // most one: it runs past the tile's end), else -1.
-template <bool kVector>
+template <typename E, bool kVector>
 __global__ void __launch_bounds__(kThreads) row_scatter_add_pieces_kernel(
-    const float* __restrict__ grad, const int* __restrict__ idx,
+    const E* __restrict__ grad, const int* __restrict__ idx,
     const int* __restrict__ perm, const int* __restrict__ row_ptr,
     float* __restrict__ scratch, int* __restrict__ long_start, int p, int s,
     int c, int chunks, int tiles) {
-  using L = Lane<kVector>;
+  using L = Lane<E, kVector>;
   using T = typename L::T;
   const long long warp = static_cast<long long>(blockIdx.x) * kWarps
                          + threadIdx.x / 32;
@@ -161,14 +220,14 @@ __global__ void __launch_bounds__(kThreads) row_scatter_add_pieces_kernel(
   float* out = scratch + static_cast<long long>(tile) * 2 * c + col;
   if (first_long) {
     T acc = L::zero();
-    add_sources<kVector, 16>(acc, grad, perm, lo, min(first_end, hi), c,
-                             col, live, lane);
+    add_sources<E, kVector, 16>(acc, grad, perm, lo, min(first_end, hi), c,
+                                col, live, lane);
     if (live) *reinterpret_cast<T*>(out) = acc;
   }
   if (last_long) {
     T acc = L::zero();
-    add_sources<kVector, 16>(acc, grad, perm, last_begin, hi, c, col, live,
-                             lane);
+    add_sources<E, kVector, 16>(acc, grad, perm, last_begin, hi, c, col,
+                                live, lane);
     if (live) *reinterpret_cast<T*>(out + c) = acc;
   }
   if (chunk == 0 && lane == 0) {
@@ -187,13 +246,13 @@ __global__ void __launch_bounds__(kThreads) row_scatter_add_pieces_kernel(
 // row, chunk) of a row of at most kLongRow sources and adds them in perm
 // order. Blocks are dispatched in index order, so the long rows' sums
 // overlap the short rows instead of trailing them.
-template <bool kVector, bool kAccumulate>
+template <typename E, bool kVector, bool kAccumulate>
 __global__ void __launch_bounds__(kThreads) row_scatter_add_kernel(
-    const float* __restrict__ grad, const int* __restrict__ perm,
+    const E* __restrict__ grad, const int* __restrict__ perm,
     const int* __restrict__ row_ptr, const int* __restrict__ long_start,
-    const float* __restrict__ scratch, float* __restrict__ dst, int s, int c,
+    const float* __restrict__ scratch, E* __restrict__ dst, int s, int c,
     long long row_stride, int chunks, int long_blocks) {
-  using L = Lane<kVector>;
+  using L = Lane<E, kVector>;
   using T = typename L::T;
   const int lane = threadIdx.x % 32;
   const int wid = threadIdx.x / 32;
@@ -230,12 +289,12 @@ __global__ void __launch_bounds__(kThreads) row_scatter_add_kernel(
     groups[wid][lane] = acc;
     __syncthreads();
     if (wid == 0 && live) {
-      float* out = dst + static_cast<long long>(row) * row_stride + col;
-      T total = kAccumulate ? *reinterpret_cast<const T*>(out) : L::zero();
+      E* out = dst + static_cast<long long>(row) * row_stride + col;
+      T total = kAccumulate ? L::read(out) : L::zero();
       for (int w = 0; w < kWarps && w * per < m; ++w) {
         add_to(total, groups[w][lane]);
       }
-      *reinterpret_cast<T*>(out) = total;
+      L::write(out, total);
     }
     return;
   }
@@ -248,25 +307,25 @@ __global__ void __launch_bounds__(kThreads) row_scatter_add_kernel(
   const int beg = __ldg(row_ptr + row);
   const int end = __ldg(row_ptr + row + 1);
   if (end - beg > kLongRow) return;  // its tile's block writes it
-  float* out = dst + static_cast<long long>(row) * row_stride + col;
+  E* out = dst + static_cast<long long>(row) * row_stride + col;
   T acc = L::zero();
-  if (kAccumulate && live) acc = *reinterpret_cast<const T*>(out);
-  add_sources<kVector, 8>(acc, grad, perm, beg, end, c, col, live, lane);
-  if (live) *reinterpret_cast<T*>(out) = acc;
+  if (kAccumulate && live) acc = L::read(out);
+  add_sources<E, kVector, 8>(acc, grad, perm, beg, end, c, col, live, lane);
+  if (live) L::write(out, acc);
 }
 
-template <bool kVector>
-cudaError_t launch(const float* grad, const int* idx, const int* perm,
+template <typename E, bool kVector>
+cudaError_t launch(const E* grad, const int* idx, const int* perm,
                    const int* row_ptr, float* scratch, int* long_start,
-                   float* dst, int p, int s, int c, long long row_stride,
+                   E* dst, int p, int s, int c, long long row_stride,
                    bool accumulate, cudaStream_t stream) {
-  const int per_warp = 32 * Lane<kVector>::kWidth;
+  const int per_warp = 32 * Lane<E, kVector>::kWidth;
   const int chunks = (c + per_warp - 1) / per_warp;
   int long_blocks = 0;
   if (p > kLongRow) {
     const int tiles = (p + kLongRow - 1) / kLongRow;
     const long long warps = static_cast<long long>(tiles) * chunks;
-    row_scatter_add_pieces_kernel<kVector>
+    row_scatter_add_pieces_kernel<E, kVector>
         <<<static_cast<unsigned int>((warps + kWarps - 1) / kWarps),
            kThreads, 0, stream>>>(grad, idx, perm, row_ptr, scratch,
                                   long_start, p, s, c, chunks, tiles);
@@ -278,43 +337,67 @@ cudaError_t launch(const float* grad, const int* idx, const int* perm,
   const unsigned int blocks = static_cast<unsigned int>(
       long_blocks + (warps + kWarps - 1) / kWarps);
   if (accumulate) {
-    row_scatter_add_kernel<kVector, true><<<blocks, kThreads, 0, stream>>>(
+    row_scatter_add_kernel<E, kVector, true><<<blocks, kThreads, 0, stream>>>(
         grad, perm, row_ptr, long_start, scratch, dst, s, c, row_stride,
         chunks, long_blocks);
   } else {
-    row_scatter_add_kernel<kVector, false><<<blocks, kThreads, 0, stream>>>(
+    row_scatter_add_kernel<E, kVector, false>
+        <<<blocks, kThreads, 0, stream>>>(
         grad, perm, row_ptr, long_start, scratch, dst, s, c, row_stride,
         chunks, long_blocks);
   }
   return cudaGetLastError();
 }
 
+template <typename E>
+int dispatch(const void* grad, const int* idx, const int* perm,
+             const int* row_ptr, void* scratch, int* long_start, void* dst,
+             int p, int s, int c, long long row_stride, int accumulate,
+             cudaStream_t stream) {
+  if (s <= 0 || c <= 0) return static_cast<int>(cudaSuccess);
+  // 4 columns a lane: 16 bytes of float32, 8 of bfloat16
+  const std::uintptr_t align = 4 * sizeof(E);
+  const bool vector =
+      c % 4 == 0 && row_stride % 4 == 0
+      && reinterpret_cast<std::uintptr_t>(grad) % align == 0
+      && reinterpret_cast<std::uintptr_t>(scratch) % 16 == 0
+      && reinterpret_cast<std::uintptr_t>(dst) % align == 0;
+  const E* g = static_cast<const E*>(grad);
+  float* w = static_cast<float*>(scratch);
+  E* d = static_cast<E*>(dst);
+  const cudaError_t err =
+      vector ? launch<E, true>(g, idx, perm, row_ptr, w, long_start, d, p, s,
+                               c, row_stride, accumulate != 0, stream)
+             : launch<E, false>(g, idx, perm, row_ptr, w, long_start, d, p,
+                                s, c, row_stride, accumulate != 0, stream);
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
-// grad [p, c] float32 contiguous; idx [p] int32, the indices themselves;
-// perm [p] and row_ptr [s + 1] int32, their CSR; scratch (2 * c floats)
-// and long_start (one int) a tile of kLongRow (64) sources, unused when
-// p <= 64; dst: s rows of c floats at row_stride floats apart, added into
-// (accumulate != 0) or overwritten. Two launches when p > 64, else one.
-// Returns a cudaError_t.
+// grad [p, c] contiguous, float32 (row_scatter_add_f32) or bfloat16
+// (row_scatter_add_bf16); idx [p] int32, the indices themselves; perm [p]
+// and row_ptr [s + 1] int32, their CSR; scratch (2 * c floats, float32 in
+// both) and long_start (one int) a tile of kLongRow (64) sources, unused
+// when p <= 64; dst: s rows of c elements of grad's type at row_stride
+// elements apart, added into (accumulate != 0) or overwritten. Two
+// launches when p > 64, else one. Returns a cudaError_t.
 extern "C" int row_scatter_add_f32(const void* grad, const int* idx,
                                    const int* perm, const int* row_ptr,
                                    void* scratch, int* long_start, void* dst,
                                    int p, int s, int c, long long row_stride,
                                    int accumulate, cudaStream_t stream) {
-  if (s <= 0 || c <= 0) return static_cast<int>(cudaSuccess);
-  const bool vector =
-      c % 4 == 0 && row_stride % 4 == 0
-      && reinterpret_cast<std::uintptr_t>(grad) % 16 == 0
-      && reinterpret_cast<std::uintptr_t>(scratch) % 16 == 0
-      && reinterpret_cast<std::uintptr_t>(dst) % 16 == 0;
-  const float* g = static_cast<const float*>(grad);
-  float* w = static_cast<float*>(scratch);
-  float* d = static_cast<float*>(dst);
-  const cudaError_t err =
-      vector ? launch<true>(g, idx, perm, row_ptr, w, long_start, d, p, s, c,
-                            row_stride, accumulate != 0, stream)
-             : launch<false>(g, idx, perm, row_ptr, w, long_start, d, p, s,
-                             c, row_stride, accumulate != 0, stream);
-  return static_cast<int>(err);
+  return dispatch<float>(grad, idx, perm, row_ptr, scratch, long_start, dst,
+                         p, s, c, row_stride, accumulate, stream);
+}
+
+extern "C" int row_scatter_add_bf16(const void* grad, const int* idx,
+                                    const int* perm, const int* row_ptr,
+                                    void* scratch, int* long_start,
+                                    void* dst, int p, int s, int c,
+                                    long long row_stride, int accumulate,
+                                    cudaStream_t stream) {
+  return dispatch<__nv_bfloat16>(grad, idx, perm, row_ptr, scratch,
+                                 long_start, dst, p, s, c, row_stride,
+                                 accumulate, stream);
 }

@@ -19,7 +19,20 @@ group:
 
 The corner sum runs in JAX's order, ``w0*v0 + w1*v1 + w2*v2 + w3*v3`` left
 to right; the bilinear weight, the out-of-bounds zero and the DCNv2
-modulation are folded into one weight a corner. Grouped (ResNeXt) kernels
+modulation are folded into one weight a corner.
+
+Dtypes (``dtype``, ``TPU.COMPUTE_DTYPE``), as in the JAX package:
+``conv_offset`` computes in ``dtype`` and its output is taken to float32;
+the sample coordinates, corner indices, bilinear weights and DCNv2 mask are
+float32; the gathered map is in ``dtype`` (in bfloat16 the row gathers run
+their bfloat16 variants), and so is the corner sum: in "four" mode each
+product and partial sum rounds to ``dtype`` (JAX's elementwise ops), in
+"quad" mode the four products are summed in float32 and rounded once (JAX's
+einsum). Each tap's contraction takes ``dtype`` operands (the sample and the
+kernel cast to ``dtype``) and accumulates in float32 into a float32 result
+(``preferred_element_type=float32``): the operands are widened to float32,
+whose products of bfloat16 values are exact. The layer's output is the
+float32 accumulator. Grouped (ResNeXt) kernels
 contract per group, which is the function JAX's block-diagonal lowering
 computes. ``conv_offset`` predicts [B, dg*nk*(2 or 3), oh, ow]: first the
 dg*2*nk offsets ordered (group, tap, (dy, dx)), then the dg*nk mask logits.
@@ -51,6 +64,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import gather, gather_cuda
+from .cast import Conv2d
 
 
 def _corner_indices(ys, xs, h: int, w: int):
@@ -92,16 +106,29 @@ def _quad_slot_weights(ys, xs, h: int, w: int):
 
 
 def _corner_sum(wts: torch.Tensor, vals) -> torch.Tensor:
-    """wts [P, 4], vals four [P, C] -> [P, C], summed left to right."""
+    """wts [P, 4] float32, vals four [P, C] -> [P, C] in the values' dtype,
+    summed left to right, each step rounded to it."""
+    wts = wts.to(vals[0].dtype)
     acc = wts[:, 0, None] * vals[0]
     for k in range(1, 4):
         acc = acc + wts[:, k, None] * vals[k]
     return acc
 
 
+def _corner_sum_once(wts: torch.Tensor, vals) -> torch.Tensor:
+    """``_corner_sum`` with the products (of the weights rounded to the
+    values' dtype) summed in float32 and rounded once, as an einsum over
+    the corners does."""
+    dtype = vals[0].dtype
+    acc = _corner_sum(wts.to(dtype).float(), [v.float() for v in vals])
+    return acc.to(dtype)
+
+
 def _contract(samp: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
-    """samp [P, C] with a tap's kernel slice wk [fg, C/fg, F/fg] -> [P, F],
-    group by group."""
+    """samp [P, C] with a tap's kernel slice wk [fg, C/fg, F/fg] -> [P, F]
+    in float32, group by group: operands in their dtype, the products and
+    sums in float32."""
+    samp, wk = samp.float(), wk.float()
     if wk.shape[0] == 1:
         return samp @ wk[0]
     p, fg = samp.shape[0], wk.shape[0]
@@ -128,18 +155,21 @@ def _tap_quad(take, table, idx, perm, row_ptr, wts, wk):
     [N' + 1], its CSR, or None; wts [P, 4] -> [P, F]."""
     p, c = idx.shape[0], table.shape[1] // 4
     rows = take(table, idx, None if perm is None else (perm, row_ptr))
-    return _contract(_corner_sum(wts, rows.view(p, 4, c).unbind(1)), wk)
+    return _contract(_corner_sum_once(wts, rows.view(p, 4, c).unbind(1)),
+                     wk)
 
 
 class DeformConv2d(nn.Module):
     """3x3 (or k x k) deformable convolution without bias, as the JAX
     package builds it in ResNet ``conv2``. ``weight`` has the grouped
-    convolution layout [out, in / groups, k, k]."""
+    convolution layout [out, in / groups, k, k] (float32); ``dtype`` is the
+    compute dtype; the output is float32."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, dilation: int = 1,
                  groups: int = 1, deformable_groups: int = 1,
-                 modulated: bool = False, gather_mode: str = "four"):
+                 modulated: bool = False, gather_mode: str = "four",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if gather_mode not in ("four", "quad"):
             raise ValueError(f"unknown gather_mode: {gather_mode}")
@@ -153,12 +183,13 @@ class DeformConv2d(nn.Module):
         self.deformable_groups = deformable_groups
         self.modulated = modulated
         self.gather_mode = gather_mode
+        self.dtype = dtype
         self.padding = dilation * (kernel_size - 1) // 2
         nk = kernel_size * kernel_size
-        self.conv_offset = nn.Conv2d(
+        self.conv_offset = Conv2d(
             in_channels, deformable_groups * nk * (3 if modulated else 2),
             kernel_size, stride=stride, padding=self.padding,
-            dilation=dilation)
+            dilation=dilation, compute_dtype=dtype)
         self.weight = nn.Parameter(torch.empty(
             out_channels, in_channels // groups, kernel_size, kernel_size))
         nn.init.zeros_(self.conv_offset.weight)
@@ -225,13 +256,14 @@ class DeformConv2d(nn.Module):
             idx = idx.permute(4, 3, 5, 0, 1, 2).reshape(nk, dg, 4 * p)
         wts = wts.permute(4, 3, 0, 1, 2, 5).reshape(nk, dg, p, 4)
 
-        flat = x.permute(0, 2, 3, 1).reshape(b * h * w, c)
+        flat = x.to(self.dtype).permute(0, 2, 3, 1).reshape(b * h * w, c)
         if quad:
             flat2 = torch.cat([flat[:-1], flat[1:]], dim=-1)
             table = torch.cat([flat2[:-w], flat2[w:]], dim=-1)
         cpf, fpg = c // fg, self.weight.shape[0] // fg
         # [nk, fg, C/fg, F/fg]: tap t, group g -> that group's kernel slice
-        wk = self.weight.float().reshape(fg, fpg, cpf, nk).permute(3, 0, 2, 1)
+        wk = self.weight.to(self.dtype).reshape(fg, fpg, cpf, nk).permute(
+            3, 0, 2, 1)
         acc = torch.zeros((p, self.weight.shape[0]), dtype=torch.float32,
                           device=x.device)
         # with autograd on, each tap runs under a non-reentrant checkpoint:

@@ -5,7 +5,8 @@ This port builds the ResNe[X]t bodies with FrozenBatchNorm: the C4 bodies
 ``R-101-FPN``, ``R-152-FPN``, ``X-101-32x8d-FPN``, the last with its groups
 and width from ``MODEL.RESNETS``), each with deformable ``conv2`` in the
 stages of ``STAGE_WITH_DCN``. RetinaNet FPN, FBNet, VGG and GroupNorm bodies
-are later slices and raise ``NotImplementedError``.
+are later slices and raise ``NotImplementedError``. Body and FPN compute in
+``TPU.COMPUTE_DTYPE``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import dataclasses
 
 from torch import nn
 
+from ...layers import compute_dtype
 from .fpn import FPN
 from .resnet import ResNet
 
@@ -60,6 +62,7 @@ def build_backbone(cfg) -> tuple[nn.Module, BackboneSpec]:
         raise NotImplementedError(
             "GroupNorm and ReLU FPN variants are a later slice")
     r = cfg.MODEL.RESNETS
+    dtype = compute_dtype(cfg)
     stages = 4 if with_fpn else 3
     resnet = ResNet(
         depth=depth, stages=stages, num_groups=r.NUM_GROUPS,
@@ -71,12 +74,13 @@ def build_backbone(cfg) -> tuple[nn.Module, BackboneSpec]:
         return_all=with_fpn, stage_with_dcn=tuple(r.STAGE_WITH_DCN),
         with_modulated_dcn=r.WITH_MODULATED_DCN,
         deformable_groups=r.DEFORMABLE_GROUPS,
-        dcn_gather=cfg.TPU.DCN_GATHER)
+        dcn_gather=cfg.TPU.DCN_GATHER, dtype=dtype)
     if not with_fpn:
         return ResNetBackbone(resnet), BackboneSpec(
             out_channels=r.RES2_OUT_CHANNELS * 2 ** (stages - 1),
             strides=(4 * 2 ** (stages - 1),))
     out_ch = cfg.MODEL.BACKBONE.OUT_CHANNELS
-    fpn = FPN([r.RES2_OUT_CHANNELS * 2 ** i for i in range(stages)], out_ch)
+    fpn = FPN([r.RES2_OUT_CHANNELS * 2 ** i for i in range(stages)], out_ch,
+              dtype=dtype)
     return ResNetBackbone(resnet, fpn), BackboneSpec(
         out_channels=out_ch, strides=(4, 8, 16, 32, 64))

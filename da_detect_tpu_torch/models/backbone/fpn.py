@@ -6,7 +6,7 @@ the lateral's size, 3x3 output convs (``fpn_layer{i}``), and
 ``LastLevelMaxPool`` (kernel 1, stride 2) for P6. Module names follow
 maskrcnn-benchmark's state_dict (``backbone.fpn.fpn_inner1.weight``). The
 RetinaNet top block (P6/P7 convs), GroupNorm and ReLU variants are later
-slices.
+slices. Every conv computes in ``dtype`` (the top-down sums stay in it).
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ...layers import Conv2d
 
 
 def upsample_nearest_2x(x: torch.Tensor, out_hw) -> torch.Tensor:
@@ -24,14 +26,16 @@ def upsample_nearest_2x(x: torch.Tensor, out_hw) -> torch.Tensor:
 
 
 class FPN(nn.Module):
-    def __init__(self, in_channels_list, out_channels: int = 256):
+    def __init__(self, in_channels_list, out_channels: int = 256,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_levels = len(in_channels_list)
         for i, cin in enumerate(in_channels_list, start=1):
-            self.add_module(f"fpn_inner{i}", nn.Conv2d(cin, out_channels, 1))
-            self.add_module(f"fpn_layer{i}",
-                            nn.Conv2d(out_channels, out_channels, 3,
-                                      padding=1))
+            self.add_module(f"fpn_inner{i}", Conv2d(
+                cin, out_channels, 1, compute_dtype=dtype))
+            self.add_module(f"fpn_layer{i}", Conv2d(
+                out_channels, out_channels, 3, padding=1,
+                compute_dtype=dtype))
 
     def forward(self, features: list[torch.Tensor]) -> list[torch.Tensor]:
         inner = [getattr(self, f"fpn_inner{i + 1}")(f)

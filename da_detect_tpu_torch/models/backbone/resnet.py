@@ -2,10 +2,15 @@
 ``da_detect_tpu/models/backbone/resnet.py``, FrozenBatchNorm bodies).
 
 Stem + stages of bottleneck blocks with the Caffe2 ``stride_in_1x1``
-convention and FrozenBatchNorm. Module names follow maskrcnn-benchmark's
-state_dict (``stem.conv1``, ``layer1.0.conv1``, ``layer1.0.downsample.0``),
-so ``utils/weights.py`` maps the JAX package's variables onto them one to
-one. Activations are logical NCHW in ``torch.channels_last`` memory.
+convention and FrozenBatchNorm. ``dtype`` is the compute dtype
+(``TPU.COMPUTE_DTYPE``): every conv casts its input and float32 weights to
+it, the FrozenBN affine follows its input, and the residual adds stay in it;
+a deformable ``conv2`` returns float32, as in the JAX package, so its
+``bn2`` runs in float32 and ``conv3`` casts back. Module names follow
+maskrcnn-benchmark's state_dict (``stem.conv1``, ``layer1.0.conv1``,
+``layer1.0.downsample.0``), so ``utils/weights.py`` maps the JAX
+package's variables onto them one to one. Activations are logical NCHW
+in ``torch.channels_last`` memory.
 
 ResNeXt's grouped ``conv2`` is ``nn.Conv2d(groups=...)``: the JAX package's
 block-diagonal dense lowering (``BlockDiagGroupedConv``) computes the same
@@ -16,14 +21,17 @@ function with the same parameter layout. Stages in ``stage_with_dcn`` put a
 from __future__ import annotations
 
 import torch.nn.functional as F
+import torch
 from torch import nn
 
-from ...layers import DeformConv2d, FrozenBatchNorm
+from ...layers import Conv2d, DeformConv2d, FrozenBatchNorm
 
 
-def _conv(cin, cout, k, stride=1, padding=0, dilation=1, groups=1):
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=padding,
-                     dilation=dilation, groups=groups, bias=False)
+def _conv(cin, cout, k, stride=1, padding=0, dilation=1, groups=1,
+          dtype=torch.float32):
+    return Conv2d(cin, cout, k, stride=stride, padding=padding,
+                  dilation=dilation, groups=groups, bias=False,
+                  compute_dtype=dtype)
 
 
 class Bottleneck(nn.Module):
@@ -31,30 +39,34 @@ class Bottleneck(nn.Module):
                  out_channels: int, stride: int = 1, dilation: int = 1,
                  num_groups: int = 1, stride_in_1x1: bool = True,
                  with_dcn: bool = False, with_modulated_dcn: bool = False,
-                 deformable_groups: int = 1, dcn_gather: str = "four"):
+                 deformable_groups: int = 1, dcn_gather: str = "four",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         stride_1x1, stride_3x3 = ((stride, 1) if stride_in_1x1
                                   else (1, stride))
         self.downsample = None
         if in_channels != out_channels or stride != 1:
             self.downsample = nn.Sequential(
-                _conv(in_channels, out_channels, 1, stride=stride),
+                _conv(in_channels, out_channels, 1, stride=stride,
+                      dtype=dtype),
                 FrozenBatchNorm(out_channels))
         self.conv1 = _conv(in_channels, bottleneck_channels, 1,
-                           stride=stride_1x1)
+                           stride=stride_1x1, dtype=dtype)
         self.bn1 = FrozenBatchNorm(bottleneck_channels)
         if with_dcn:
             self.conv2 = DeformConv2d(
                 bottleneck_channels, bottleneck_channels, 3,
                 stride=stride_3x3, dilation=dilation, groups=num_groups,
                 deformable_groups=deformable_groups,
-                modulated=with_modulated_dcn, gather_mode=dcn_gather)
+                modulated=with_modulated_dcn, gather_mode=dcn_gather,
+                dtype=dtype)
         else:
             self.conv2 = _conv(bottleneck_channels, bottleneck_channels, 3,
                                stride=stride_3x3, padding=dilation,
-                               dilation=dilation, groups=num_groups)
+                               dilation=dilation, groups=num_groups,
+                               dtype=dtype)
         self.bn2 = FrozenBatchNorm(bottleneck_channels)
-        self.conv3 = _conv(bottleneck_channels, out_channels, 1)
+        self.conv3 = _conv(bottleneck_channels, out_channels, 1, dtype=dtype)
         self.bn3 = FrozenBatchNorm(out_channels)
 
     def forward(self, x, impl: str = "cuda"):
@@ -70,9 +82,11 @@ class Bottleneck(nn.Module):
 
 
 class Stem(nn.Module):
-    def __init__(self, out_channels: int = 64):
+    def __init__(self, out_channels: int = 64,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = _conv(3, out_channels, 7, stride=2, padding=3)
+        self.conv1 = _conv(3, out_channels, 7, stride=2, padding=3,
+                           dtype=dtype)
         self.bn1 = FrozenBatchNorm(out_channels)
 
     def forward(self, x):
@@ -125,10 +139,12 @@ class ResNet(nn.Module):
                  return_all: bool = False,
                  stage_with_dcn=(False, False, False, False),
                  with_modulated_dcn: bool = False, deformable_groups: int = 1,
-                 dcn_gather: str = "four"):
+                 dcn_gather: str = "four",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.return_all = return_all
-        self.stem = Stem(stem_out_channels)
+        self.dtype = dtype
+        self.stem = Stem(stem_out_channels, dtype=dtype)
         counts = _BLOCK_COUNTS[depth]
         in_ch = stem_out_channels
         self.stage_names = []
@@ -145,7 +161,8 @@ class ResNet(nn.Module):
                 num_groups=num_groups, stride_in_1x1=stride_in_1x1,
                 with_dcn=bool(stage_with_dcn[idx]),
                 with_modulated_dcn=with_modulated_dcn,
-                deformable_groups=deformable_groups, dcn_gather=dcn_gather))
+                deformable_groups=deformable_groups, dcn_gather=dcn_gather,
+                dtype=dtype))
             self.stage_names.append(name)
             in_ch = out_ch
         for i in range(freeze_at):
@@ -153,7 +170,7 @@ class ResNet(nn.Module):
              ).requires_grad_(False)
 
     def forward(self, x, impl: str = "cuda"):
-        x = self.stem(x)
+        x = self.stem(x.to(self.dtype))  # the input cast at the stem
         outputs = []
         for name in self.stage_names:
             x = getattr(self, name)(x, impl=impl)
@@ -168,7 +185,7 @@ class ResNetHead(nn.Module):
     def __init__(self, depth: int = 50, num_groups: int = 1,
                  width_per_group: int = 64, res2_out_channels: int = 256,
                  stride_in_1x1: bool = True, first_stride: int = 2,
-                 dilation: int = 1):
+                 dilation: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__()
         stage2_relative = 8  # res5
         self.layer4 = ResStage(
@@ -176,7 +193,7 @@ class ResNetHead(nn.Module):
             num_groups * width_per_group * stage2_relative,
             res2_out_channels * stage2_relative, first_stride,
             dilation=dilation, num_groups=num_groups,
-            stride_in_1x1=stride_in_1x1)
+            stride_in_1x1=stride_in_1x1, dtype=dtype)
 
     def forward(self, x):
         return self.layer4(x)

@@ -9,7 +9,8 @@ rows only. The extractors are the C4 res5 head and the FPN two-layer MLP
 (``FPN2MLPFeatureExtractor``, whose fc6 reads the pooled [C, P, P] map
 flattened in maskrcnn-benchmark's (C, H, W) order); the FPN conv head
 (``FPNXconv1fcFeatureExtractor``) is a later slice and raises
-``NotImplementedError``.
+``NotImplementedError``. Extractors and predictors compute in ``dtype``
+(``TPU.COMPUTE_DTYPE``); the losses and the post-processing in float32.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..layers import Linear
 from ..ops import box_ops
 from ..ops.losses import smooth_l1_loss, softmax_cross_entropy
 from ..ops.matcher import match_proposals
@@ -35,7 +37,8 @@ class ResNet50Conv5ROIFeatureExtractor(nn.Module):
 
     def __init__(self, pooler: dict, depth: int = 50, num_groups: int = 1,
                  width_per_group: int = 64, res2_out_channels: int = 256,
-                 stride_in_1x1: bool = True, dilation: int = 1):
+                 stride_in_1x1: bool = True, dilation: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.pooler = pooler
         self.head = ResNetHead(depth=depth, num_groups=num_groups,
@@ -43,7 +46,7 @@ class ResNet50Conv5ROIFeatureExtractor(nn.Module):
                                res2_out_channels=res2_out_channels,
                                stride_in_1x1=stride_in_1x1,
                                first_stride=2 if dilation == 1 else 1,
-                               dilation=dilation)
+                               dilation=dilation, dtype=dtype)
 
     def forward(self, features, rois, *, impl: str):
         x = pool_rois(features, rois, **self.pooler, impl=impl)
@@ -59,12 +62,13 @@ class FPN2MLPFeatureExtractor(nn.Module):
     fc6 and fc7 with ReLU -> [B, R, mlp_dim] (reference
     roi_box_feature_extractors.py:48-79)."""
 
-    def __init__(self, pooler: dict, in_channels: int, mlp_dim: int = 1024):
+    def __init__(self, pooler: dict, in_channels: int, mlp_dim: int = 1024,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.pooler = pooler
         p = pooler["output_size"]
-        self.fc6 = nn.Linear(in_channels * p * p, mlp_dim)
-        self.fc7 = nn.Linear(mlp_dim, mlp_dim)
+        self.fc6 = Linear(in_channels * p * p, mlp_dim, compute_dtype=dtype)
+        self.fc7 = Linear(mlp_dim, mlp_dim, compute_dtype=dtype)
 
     def forward(self, features, rois, *, impl: str):
         x = pool_rois(features, rois, **self.pooler, impl=impl)
@@ -76,11 +80,13 @@ class FastRCNNPredictor(nn.Module):
     """C4 predictor: global average pool + linear cls/bbox heads."""
 
     def __init__(self, in_channels: int, num_classes: int,
-                 cls_agnostic: bool = False):
+                 cls_agnostic: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         num_bbox = 2 if cls_agnostic else num_classes
-        self.cls_score = nn.Linear(in_channels, num_classes)
-        self.bbox_pred = nn.Linear(in_channels, num_bbox * 4)
+        self.cls_score = Linear(in_channels, num_classes, compute_dtype=dtype)
+        self.bbox_pred = Linear(in_channels, num_bbox * 4,
+                                compute_dtype=dtype)
 
     def forward(self, x):
         # x [B, R, C, 7, 7] -> average pool
@@ -92,11 +98,13 @@ class FPNPredictor(nn.Module):
     """FPN predictor: linear cls/bbox heads on the MLP features."""
 
     def __init__(self, in_channels: int, num_classes: int,
-                 cls_agnostic: bool = False):
+                 cls_agnostic: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         num_bbox = 2 if cls_agnostic else num_classes
-        self.cls_score = nn.Linear(in_channels, num_classes)
-        self.bbox_pred = nn.Linear(in_channels, num_bbox * 4)
+        self.cls_score = Linear(in_channels, num_classes, compute_dtype=dtype)
+        self.bbox_pred = Linear(in_channels, num_bbox * 4,
+                                compute_dtype=dtype)
 
     def forward(self, x):
         return self.cls_score(x), self.bbox_pred(x)
@@ -237,7 +245,8 @@ def postprocess_detections(class_logits, box_regression, proposal_boxes,
         valid=keep_valid)
 
 
-def make_box_feature_extractor(cfg, in_channels: int):
+def make_box_feature_extractor(cfg, in_channels: int,
+                               dtype: torch.dtype = torch.float32):
     """Returns (extractor, its output channels); ``in_channels`` is the
     backbone's (the FPN levels' width)."""
     name = cfg.MODEL.ROI_BOX_HEAD.FEATURE_EXTRACTOR
@@ -251,11 +260,11 @@ def make_box_feature_extractor(cfg, in_channels: int):
             pooler, depth=50, num_groups=r.NUM_GROUPS,
             width_per_group=r.WIDTH_PER_GROUP,
             res2_out_channels=r.RES2_OUT_CHANNELS,
-            stride_in_1x1=r.STRIDE_IN_1X1, dilation=h.DILATION
+            stride_in_1x1=r.STRIDE_IN_1X1, dilation=h.DILATION, dtype=dtype
         ), r.RES2_OUT_CHANNELS * 8
     if name == "FPN2MLPFeatureExtractor":
-        return FPN2MLPFeatureExtractor(pooler, in_channels, h.MLP_HEAD_DIM
-                                       ), h.MLP_HEAD_DIM
+        return FPN2MLPFeatureExtractor(pooler, in_channels, h.MLP_HEAD_DIM,
+                                       dtype=dtype), h.MLP_HEAD_DIM
     raise NotImplementedError(
         f"feature extractor {name}: the port builds "
         "ResNet50Conv5ROIFeatureExtractor and FPN2MLPFeatureExtractor; the "
@@ -266,10 +275,12 @@ _PREDICTORS = {"FastRCNNPredictor": FastRCNNPredictor,
                "FPNPredictor": FPNPredictor}
 
 
-def make_box_predictor(cfg, in_channels: int):
+def make_box_predictor(cfg, in_channels: int,
+                       dtype: torch.dtype = torch.float32):
     name = cfg.MODEL.ROI_BOX_HEAD.PREDICTOR
     if name not in _PREDICTORS:
         raise NotImplementedError(
             f"predictor {name}: the port builds {', '.join(_PREDICTORS)}")
     return _PREDICTORS[name](in_channels, cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES,
-                             cls_agnostic=cfg.MODEL.CLS_AGNOSTIC_BBOX_REG)
+                             cls_agnostic=cfg.MODEL.CLS_AGNOSTIC_BBOX_REG,
+                             dtype=dtype)

@@ -15,6 +15,9 @@
 * The consistency loss: L1 between each instance's domain probability and
   its own image's mean image-level probability.
 
+The heads compute in ``dtype`` (``TPU.COMPUTE_DTYPE``); every loss, the
+triplet distances and the consistency probabilities in float32.
+
 Layouts: image features are logical NCHW, instance features [B, S, C, 7, 7]
 (the C4 extractor's output); the JAX package's NHWC axes map onto these.
 """
@@ -29,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..layers import Conv2d, Linear
 from ..ops.grl import gradient_scalar
 from ..ops.losses import bce_with_logits, triplet_margin_loss
 
@@ -63,10 +67,10 @@ class DAState:
 
 
 class DAImgHead(nn.Module):
-    def __init__(self, in_channels: int):
+    def __init__(self, in_channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1_da = nn.Conv2d(in_channels, 512, 1)
-        self.conv2_da = nn.Conv2d(512, 1, 1)
+        self.conv1_da = Conv2d(in_channels, 512, 1, compute_dtype=dtype)
+        self.conv2_da = Conv2d(512, 1, 1, compute_dtype=dtype)
 
     def forward(self, features: list[torch.Tensor]) -> list[torch.Tensor]:
         return [self.conv2_da(F.relu(self.conv1_da(f))) for f in features]
@@ -82,11 +86,11 @@ def _dropout(x: torch.Tensor, deterministic: bool,
 
 
 class DAInsHead(nn.Module):
-    def __init__(self, in_channels: int):
+    def __init__(self, in_channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc1_da = nn.Linear(in_channels, 1024)
-        self.fc2_da = nn.Linear(1024, 1024)
-        self.fc3_da = nn.Linear(1024, 1)
+        self.fc1_da = Linear(in_channels, 1024, compute_dtype=dtype)
+        self.fc2_da = Linear(1024, 1024, compute_dtype=dtype)
+        self.fc3_da = Linear(1024, 1, compute_dtype=dtype)
 
     def forward(self, x, deterministic: bool = False, generator=None):
         x = _dropout(F.relu(self.fc1_da(x)), deterministic, generator)
@@ -170,10 +174,10 @@ class DomainAdaptationModule(nn.Module):
                  use_adv_grl=True, adv_grl_optimized=False,
                  adv_grl_threshold=30.0, triplet_margin_ins=1.0,
                  triplet_max_margin=1.0, triplet_margin_lr=0.001,
-                 avgpool_ins=True):
+                 avgpool_ins=True, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.imghead = DAImgHead(img_channels)
-        self.inshead = DAInsHead(ins_channels)
+        self.imghead = DAImgHead(img_channels, dtype)
+        self.inshead = DAInsHead(ins_channels, dtype)
         self.img_weight = img_weight
         self.ins_weight = ins_weight
         self.cst_weight = cst_weight
@@ -276,8 +280,9 @@ class DomainAdaptationModule(nn.Module):
         return losses, new_state
 
 
-def make_da_heads(cfg, img_channels: int,
-                  ins_channels: int) -> DomainAdaptationModule:
+def make_da_heads(cfg, img_channels: int, ins_channels: int,
+                  dtype: torch.dtype = torch.float32
+                  ) -> DomainAdaptationModule:
     """The triplet-capable module from ``cfg.MODEL.DA_HEADS``; with
     ``TRIPLET_USE`` off the triplet weights are 0 (the classic module).
     ``DA_ADV_GRL`` is honoured in every mode, as in the JAX package."""
@@ -304,4 +309,4 @@ def make_da_heads(cfg, img_channels: int,
         triplet_margin_ins=da.TRIPLET_MARGIN_INS,
         triplet_max_margin=da.TRIPLET_MAX_MARGIN,
         triplet_margin_lr=da.TRIPLET_MARGIN_LR,
-        avgpool_ins=is_resnet and c4)
+        avgpool_ins=is_resnet and c4, dtype=dtype)

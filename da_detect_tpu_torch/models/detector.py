@@ -27,7 +27,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..layers import DeformConv2d
+from ..layers import DeformConv2d, compute_dtype
 from ..structures.image_batch import ImageBatch
 from .anchors import AnchorGenerator, make_anchor_generator
 from .box_head import (Detections, FPN2MLPFeatureExtractor, fast_rcnn_loss,
@@ -230,12 +230,10 @@ class GeneralizedRCNN(nn.Module):
 
 def _check_supported(cfg) -> None:
     m = cfg.MODEL
-    if cfg.TPU.COMPUTE_DTYPE != "float32":
+    if cfg.TPU.COMPUTE_DTYPE not in ("bfloat16", "float32"):
         raise NotImplementedError(
             f"TPU.COMPUTE_DTYPE={cfg.TPU.COMPUTE_DTYPE!r}: the PyTorch port "
-            "computes in float32 only; bfloat16 compute is the ROADMAP item "
-            "'bf16 compute in the port' (Queue 1). Set "
-            "TPU.COMPUTE_DTYPE float32.")
+            "computes in bfloat16 or float32, as the JAX package does")
     for key in ("RETINANET_ON", "MASK_ON", "KEYPOINT_ON"):
         if m[key]:
             raise NotImplementedError(
@@ -301,22 +299,23 @@ def build_detection_model(cfg, seed: int = 0) -> GeneralizedRCNN:
     from .backbone import build_backbone
 
     _check_supported(cfg)
+    dtype = compute_dtype(cfg)
     backbone, spec = build_backbone(cfg)
     da_heads = None
     if cfg.MODEL.RPN_ONLY:
         extractor, predictor = None, None
     else:
-        extractor, ext_ch = make_box_feature_extractor(cfg,
-                                                       spec.out_channels)
-        predictor = make_box_predictor(cfg, ext_ch)
+        extractor, ext_ch = make_box_feature_extractor(
+            cfg, spec.out_channels, dtype)
+        predictor = make_box_predictor(cfg, ext_ch, dtype)
         if cfg.MODEL.DOMAIN_ADAPTATION_ON:
-            da_heads = make_da_heads(cfg, spec.out_channels, ext_ch)
+            da_heads = make_da_heads(cfg, spec.out_channels, ext_ch, dtype)
     gen = make_anchor_generator(cfg)
     rpn = cfg.MODEL.RPN
     roi = cfg.MODEL.ROI_HEADS
     model = GeneralizedRCNN(
         backbone,
-        RPNHead(spec.out_channels, gen.num_anchors_per_location),
+        RPNHead(spec.out_channels, gen.num_anchors_per_location, dtype),
         extractor, predictor,
         rpn_only=cfg.MODEL.RPN_ONLY,
         anchor_generator=gen,

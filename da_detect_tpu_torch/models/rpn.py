@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..layers import Conv2d
 from ..ops import box_ops
 from ..ops.losses import bce_with_logits, smooth_l1_loss
 from ..ops.matcher import match_proposals
@@ -26,13 +27,18 @@ from ..ops.sampler import balanced_sample
 
 class RPNHead(nn.Module):
     """3x3 conv + twin 1x1 convs (``rpn.head`` in the state_dict). Returns
-    per-level (logits [B, A, H, W], deltas [B, A*4, H, W])."""
+    per-level (logits [B, A, H, W], deltas [B, A*4, H, W]) in ``dtype``;
+    proposal selection and the RPN loss take them to float32."""
 
-    def __init__(self, in_channels: int, num_anchors: int):
+    def __init__(self, in_channels: int, num_anchors: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, in_channels, 3, padding=1)
-        self.cls_logits = nn.Conv2d(in_channels, num_anchors, 1)
-        self.bbox_pred = nn.Conv2d(in_channels, num_anchors * 4, 1)
+        self.conv = Conv2d(in_channels, in_channels, 3, padding=1,
+                           compute_dtype=dtype)
+        self.cls_logits = Conv2d(in_channels, num_anchors, 1,
+                                 compute_dtype=dtype)
+        self.bbox_pred = Conv2d(in_channels, num_anchors * 4, 1,
+                                compute_dtype=dtype)
 
     def forward(self, features: list[torch.Tensor]):
         logits, deltas = [], []

@@ -10,7 +10,10 @@ that take).
 grad [P, C], idx [P] -> [S, C] with ``S = num_rows``: row ``clamp(idx[i])``
 receives the sum of every ``grad[i]`` that points at it, every other row is
 zero. ``row_scatter_add_(dst, grad, idx)`` adds into a caller's [S, C] view
-in place instead (any row stride: a column slice of a wider map).
+in place instead (any row stride: a column slice of a wider map). A
+bfloat16 scatter-add sums in float32 and rounds each destination value to
+bfloat16 once, as the kernel does (not the CPU's bfloat16 ``index_add_``,
+which rounds after every addition).
 
 ``row_csr(idx, num_rows)``: the index bookkeeping of the scatter-add kernel,
 on the CPU and on the card alike: the sources of each destination row, in
@@ -41,7 +44,10 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def row_scatter_add_(dst: torch.Tensor, grad: torch.Tensor,
                      idx: torch.Tensor) -> torch.Tensor:
-    return dst.index_add_(0, idx.clamp(0, dst.shape[0] - 1), grad)
+    rows = idx.clamp(0, dst.shape[0] - 1)
+    if dst.dtype == torch.float32:
+        return dst.index_add_(0, rows, grad)
+    return dst.copy_(dst.float().index_add_(0, rows, grad.float()))
 
 
 def row_scatter_add(grad: torch.Tensor, idx: torch.Tensor,
@@ -90,7 +96,11 @@ def row_scatter_add_csr_(dst: torch.Tensor, grad: torch.Tensor,
     longer one is cut into pieces where the sorted positions cross a
     multiple of ``long_row``, each piece summed in perm order from zero;
     its m pieces into 8 groups of ceil(m / 8), each summed in order from
-    zero; and the groups added to the row in order."""
+    zero; and the groups added to the row in order. A bfloat16 dst and grad
+    are summed so in float32 and each value rounded once."""
+    if dst.dtype != torch.float32:
+        return dst.copy_(row_scatter_add_csr_(
+            dst.float(), grad.float(), perm, row_ptr, long_row))
     counts = (row_ptr[1:] - row_ptr[:-1]).long()
     rows = torch.arange(dst.shape[0], device=dst.device)
     short = counts <= long_row

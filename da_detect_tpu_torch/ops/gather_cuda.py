@@ -10,8 +10,9 @@ apart (a column slice of a wider map), and int32 indices [P]; they return a
 new contiguous [P, C]. ``row_gather`` moves a row with one warp's 16-byte
 loads; ``row_gather_bulk`` with one bulk copy (TMA) a row and needs 16-byte
 aligned rows. Both are differentiable with respect to the table: the
-backward is the scatter-add kernel (``row_scatter_add``), float32 only,
-which writes a fresh [S, C] whole (``torch.empty``, no zero-fill).
+backward is the scatter-add kernel (``row_scatter_add``), float32 or
+bfloat16 (summed in float32, each value rounded once), which writes a fresh
+[S, C] whole (``torch.empty``, no zero-fill).
 ``row_scatter_add_`` adds into a caller's [S, C] view in place (any row
 stride).
 
@@ -179,11 +180,10 @@ def _scatter(dst: torch.Tensor, grad: torch.Tensor, idx: torch.Tensor,
     if dst.device.type != "cuda":
         raise ValueError(f"scatter kernel {SCATTER}: unsupported device "
                          f"{dst.device}")
-    if dst.dtype != torch.float32 or grad.dtype != torch.float32:
-        raise NotImplementedError(
-            f"scatter kernel {SCATTER}: float32 only, got {dst.dtype} and "
-            f"{grad.dtype}; other dtypes are the ROADMAP item 'bf16 compute "
-            "in the port' (Queue 1)")
+    if dst.dtype not in _SUFFIX or grad.dtype != dst.dtype:
+        raise ValueError(f"scatter kernel {SCATTER}: dst and grad must both "
+                         f"be float32 or both bfloat16, got {dst.dtype} and "
+                         f"{grad.dtype}")
     _check_table(SCATTER, dst, "dst")
     _check_idx(SCATTER, idx, dst.device)
     s, p = dst.shape[0], idx.shape[0]
@@ -214,7 +214,7 @@ def _scatter(dst: torch.Tensor, grad: torch.Tensor, idx: torch.Tensor,
     scratch = torch.empty((tiles, 2, dst.shape[1]), dtype=torch.float32,
                           device=dst.device)
     long_start = torch.empty(tiles, dtype=torch.int32, device=dst.device)
-    _run(SCATTER, torch.float32, dst.device, [
+    _run(SCATTER, dst.dtype, dst.device, [
         grad.data_ptr(), idx.data_ptr(), perm.data_ptr(), row_ptr.data_ptr(),
         scratch.data_ptr(), long_start.data_ptr(), dst.data_ptr(), p, s,
         dst.shape[1], dst.stride(0), int(accumulate)])
@@ -223,9 +223,9 @@ def _scatter(dst: torch.Tensor, grad: torch.Tensor, idx: torch.Tensor,
 
 def row_scatter_add_(dst: torch.Tensor, grad: torch.Tensor,
                      idx: torch.Tensor, csr=None) -> torch.Tensor:
-    """dst [S, C] f32 (any row stride) += the rows of grad [P, C] f32 at
-    idx [P] int32 (clamped to [0, S - 1]), in place; returns dst. ``csr``:
-    ``row_csr(idx, S)``, or None to build it here."""
+    """dst [S, C] f32 or bf16 (any row stride) += the rows of grad [P, C]
+    of dst's dtype at idx [P] int32 (clamped to [0, S - 1]), in place;
+    returns dst. ``csr``: ``row_csr(idx, S)``, or None to build it here."""
     if dst.device.type == "cpu":
         return row_scatter_add_plain_(dst, grad, idx)
     return _scatter(dst, grad, idx, csr, accumulate=True)
@@ -233,9 +233,10 @@ def row_scatter_add_(dst: torch.Tensor, grad: torch.Tensor,
 
 def row_scatter_add(grad: torch.Tensor, idx: torch.Tensor, num_rows: int,
                     csr=None) -> torch.Tensor:
-    """grad [P, C] f32, idx [P] int32 -> a new [num_rows, C] (the adjoint of
-    the gathers): the kernel writes every row, so the output is allocated
-    uninitialised; with no index it is zeros, and nothing is launched.
+    """grad [P, C] f32 or bf16, idx [P] int32 -> a new [num_rows, C] of
+    grad's dtype (the adjoint of the gathers): the kernel writes every
+    row, so the output is allocated uninitialised; with no index it is
+    zeros, and nothing is launched.
     ``csr`` as for ``row_scatter_add_``."""
     if grad.device.type == "cpu":
         return row_scatter_add_plain(grad, idx, num_rows)

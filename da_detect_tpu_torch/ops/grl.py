@@ -4,7 +4,8 @@ Identity forward, ``grad * weight`` backward. A negative weight reverses the
 gradient for adversarial domain classifiers; the consistency branch uses a
 positive one. The weight may be a Python float or a 0-d tensor on the
 device (AdvGRL computes it from a probe loss): it is never read on the host
-and takes no gradient.
+and takes no gradient. The gradient is scaled in its own dtype (a
+bfloat16 gradient by the weight rounded to bfloat16), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,10 +21,16 @@ class _GradientScalar(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return grad * ctx.weight, None
+        weight = ctx.weight
+        if isinstance(weight, torch.Tensor):
+            weight = weight.to(grad.dtype)
+        elif grad.dtype != torch.float32:
+            # rounded on the host: no tensor made on the device
+            weight = float(torch.tensor(weight, dtype=grad.dtype))
+        return grad * weight, None
 
 
 def gradient_scalar(x: torch.Tensor, weight) -> torch.Tensor:
     if isinstance(weight, torch.Tensor):
-        weight = weight.detach().to(x.dtype)
+        weight = weight.detach()
     return _GradientScalar.apply(x, weight)

@@ -20,6 +20,12 @@ copy), copies it otherwise, and returns dF [B, C, H, W] in channels-last
 memory, like the features. ``bwd_tiling`` and ``fwd_tiling`` size the
 kernels' shared memory.
 
+Both kernels take float32 or bfloat16 (the compute dtype). In bfloat16 the
+forward reads the map and writes the output in bfloat16, with float32
+weights and sums and one rounding an output; the backward reads the
+bfloat16 gradient, accumulates dF in float32 and returns it cast once to
+bfloat16, the features' dtype (as the TPU kernel's caller does).
+
 FPN pooling is one forward launch: ``roi_align_levels_forward`` takes up
 to four levels and each ROI's level, and pools each ROI from its own level
 only (plain version: ``ops.roi_align.roi_align_levels``, every ROI from
@@ -70,17 +76,25 @@ MAX_LEVELS = 4
 # holds (132 SMs); fewer ROIs or channels give fewer blocks
 FWD_BLOCKS_TARGET = 4 * 4 * 132
 
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
 _fns: dict = {}
 
 
-def _launcher(name: str):
-    fn = _fns.get(name)
+def _launcher(name: str, dtype: torch.dtype):
+    key = (name, dtype)
+    fn = _fns.get(key)
     if fn is None:
-        fn = getattr(kernels.load(name), name)
+        fn = getattr(kernels.load(name), f"{name}_{_SUFFIX[dtype]}")
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _fns[name] = fn
+        _fns[key] = fn
     return fn
+
+
+def _per16(dtype: torch.dtype) -> int:
+    """Elements of ``dtype`` in a 16-byte word."""
+    return 16 // torch.empty((), dtype=dtype).element_size()
 
 
 def _check_cuda(name: str, x: torch.Tensor, what: str, rois: torch.Tensor,
@@ -90,12 +104,14 @@ def _check_cuda(name: str, x: torch.Tensor, what: str, rois: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"ROIAlign kernel {name}: unsupported device "
                          f"{x.device}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"ROIAlign kernel {name}: {what} must be float32, "
-                         f"got {x.dtype}")
-    if x.shape[-1] % 4 or x.data_ptr() % 16:
-        raise ValueError(f"ROIAlign kernel {name}: needs C % 4 == 0 and "
-                         f"16-byte aligned {what} (C={x.shape[-1]})")
+    if x.dtype not in _SUFFIX:
+        raise ValueError(f"ROIAlign kernel {name}: {what} must be float32 "
+                         f"or bfloat16, got {x.dtype}")
+    per = _per16(x.dtype)
+    if x.shape[-1] % per or x.data_ptr() % 16:
+        raise ValueError(f"ROIAlign kernel {name}: needs C % {per} == 0 and "
+                         f"16-byte aligned {what} (C={x.shape[-1]}, "
+                         f"{x.dtype})")
     if rois.dtype != torch.float32 or rois.dim() != 3 \
             or rois.shape[0] != x.shape[0] or rois.shape[2] != 4 \
             or rois.device != x.device:
@@ -107,26 +123,28 @@ def _check_cuda(name: str, x: torch.Tensor, what: str, rois: torch.Tensor,
                          "positive")
 
 
-def _launch(name: str, device: torch.device, args: list) -> None:
-    """Launch ``name`` with ``args`` on the current stream of ``device``."""
+def _launch(name: str, dtype: torch.dtype, device: torch.device,
+            args: list) -> None:
+    """Launch ``name``'s ``dtype`` variant with ``args`` on the current
+    stream of ``device``."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _launcher(name)(*args, stream)
+        rc = _launcher(name, dtype)(*args, stream)
     kernels.check(rc, name)
     kernels.LAUNCHES[name] += 1
 
 
 def fwd_tiling(height: int, width: int, output_size: int,
-               samples: int) -> tuple[int, int]:
+               samples: int, elem_bytes: int = 4) -> tuple[int, int]:
     """(tile pixels, dynamic shared memory bytes) of a forward block on an
-    H x W map, P = ``output_size``, ``samples`` a bin side at most. The
-    layout is roi_align_fwd.cu's: two buffers of the tile's pixels
-    (BWD_CHANNELS floats each), the samples of both axes (16 B each) and
-    each bin's span on both axes (8 B each). As many pixels as
-    FWD_SMEM_TARGET holds, at least one and at most H x W; raises if one
-    pixel passes SMEM_MAX."""
+    H x W map of ``elem_bytes`` elements (4: float32, 2: bfloat16), P =
+    ``output_size``, ``samples`` a bin side at most. The layout is
+    roi_align_fwd.cu's: two buffers of the tile's pixels (BWD_CHANNELS
+    elements each), the samples of both axes (16 B each) and each bin's span
+    on both axes (8 B each). As many pixels as FWD_SMEM_TARGET holds, at
+    least one and at most H x W; raises if one pixel passes SMEM_MAX."""
     p = output_size
-    per_pixel = 2 * 4 * BWD_CHANNELS
+    per_pixel = 2 * elem_bytes * BWD_CHANNELS
     fixed = 2 * 16 * p * samples + 2 * 8 * p
     tile = max(1, min(height * width,
                       (FWD_SMEM_TARGET - fixed) // per_pixel))
@@ -139,19 +157,20 @@ def fwd_tiling(height: int, width: int, output_size: int,
 
 
 def bwd_tiling(height: int, width: int, output_size: int,
-               samples: int) -> tuple[int, int]:
+               samples: int, elem_bytes: int = 4) -> tuple[int, int]:
     """(tile columns, dynamic shared memory bytes) of a backward block on an
-    H x W map, P = ``output_size``, ``samples`` a bin side at most. The
+    H x W map, P = ``output_size``, ``samples`` a bin side at most, for a
+    gradient of ``elem_bytes`` elements (4: float32, 2: bfloat16). The
     layout is roi_align_bwd.cu's: per column of the tile, U (P x
     BWD_CHANNELS floats), Ax (P) and the column's bin range (2 ints); fixed,
     the samples of both axes (16 B each), Ay over the rows (P x H) and each
-    row's bin range, and the staged gradient (P x P x BWD_CHANNELS floats).
-    As many columns as BWD_SMEM_TARGET holds, at least one and at most W;
-    raises if one column passes SMEM_MAX."""
+    row's bin range, and the staged gradient (P x P x BWD_CHANNELS elements
+    of the gradient's type). As many columns as BWD_SMEM_TARGET holds, at
+    least one and at most W; raises if one column passes SMEM_MAX."""
     p = output_size
     per_col = 4 * p * BWD_CHANNELS + 4 * p + 8
     fixed = 2 * 16 * p * samples + height * (4 * p + 8) \
-        + 4 * p * p * BWD_CHANNELS
+        + elem_bytes * p * p * BWD_CHANNELS
     cols = max(1, min(width, (BWD_SMEM_TARGET - fixed) // per_col))
     smem = fixed + cols * per_col
     if smem > SMEM_MAX:
@@ -173,10 +192,11 @@ def fwd_slices(channels: int, rois: int, batch: int) -> int:
 def grad_view(grad: torch.Tensor) -> tuple[torch.Tensor, bool]:
     """The [B, R, P, P, C] view of ``grad`` [B, R, C, P, P] the backward
     kernel reads, and whether it had to be copied: in place when the
-    channels are contiguous, the other strides multiples of 4 and the base
-    16-byte aligned (float4 reads), else a contiguous copy."""
+    channels are contiguous, the other strides 16 bytes' multiples and the
+    base 16-byte aligned (16-byte copies), else a contiguous copy."""
     g = grad.permute(0, 1, 3, 4, 2)
-    if g.stride(4) == 1 and all(s % 4 == 0 for s in g.stride()[:4]) \
+    per = _per16(grad.dtype)
+    if g.stride(4) == 1 and all(s % per == 0 for s in g.stride()[:4]) \
             and g.data_ptr() % 16 == 0:
         return g, False
     return g.contiguous(), True
@@ -187,8 +207,9 @@ def _pool(features: Sequence[torch.Tensor], rois: torch.Tensor,
           output_size: int, sampling_ratio: int,
           max_samples: int) -> torch.Tensor:
     """One forward launch over 1 to MAX_LEVELS maps [B, C, H_l, W_l] f32
-    (channels-last memory) pooled at ``scales``; ``levels`` [B, R] (int32
-    or int64; None: every ROI on the first map) -> [B, R, C, P, P]."""
+    or bf16 (channels-last memory, one dtype) pooled at ``scales``;
+    ``levels`` [B, R] (int32 or int64; None: every ROI on the first map) ->
+    [B, R, C, P, P] in the maps' dtype."""
     if not 1 <= len(features) <= MAX_LEVELS or len(scales) != len(features):
         raise ValueError(f"ROIAlign kernel: 1 to {MAX_LEVELS} maps, one "
                          f"scale each, got {len(features)} maps and "
@@ -203,11 +224,12 @@ def _pool(features: Sequence[torch.Tensor], rois: torch.Tensor,
             raise ValueError("ROIAlign kernel: features must be "
                              "channels_last")
     batch, c = features[0].shape[:2]
+    dtype = features[0].dtype
     if any(f.shape[:2] != (batch, c) or f.device != rois.device
-           for f in features):
-        raise ValueError("ROIAlign kernel: the levels must share B, C and "
-                         "the device, got "
-                         f"{[tuple(f.shape) for f in features]}")
+           or f.dtype != dtype for f in features):
+        raise ValueError("ROIAlign kernel: the levels must share B, C, the "
+                         "dtype and the device, got "
+                         f"{[(tuple(f.shape), f.dtype) for f in features]}")
     r, p = rois.shape[1], output_size
     if levels is not None:
         if levels.shape != (batch, r) or levels.device != rois.device \
@@ -216,15 +238,14 @@ def _pool(features: Sequence[torch.Tensor], rois: torch.Tensor,
                              f"[B, R] on the ROIs' device, got {levels.dtype} "
                              f"{tuple(levels.shape)} on {levels.device}")
         levels = levels.to(torch.int64).contiguous()
-    out = torch.empty((batch, r, p, p, c), dtype=torch.float32,
-                      device=rois.device)
+    out = torch.empty((batch, r, p, p, c), dtype=dtype, device=rois.device)
     if out.numel():
         samples = sampling_ratio if sampling_ratio > 0 else max_samples
-        tile, smem = max(fwd_tiling(f.shape[2], f.shape[3], p, samples)
-                         for f in features)
+        tile, smem = max(fwd_tiling(f.shape[2], f.shape[3], p, samples,
+                                    out.element_size()) for f in features)
         n = len(features)
         rois = rois.contiguous()
-        _launch(FORWARD, rois.device, [
+        _launch(FORWARD, dtype, rois.device, [
             (ctypes.c_void_p * n)(*[f.data_ptr() for f in features]),
             (ctypes.c_int * n)(*[f.shape[2] for f in features]),
             (ctypes.c_int * n)(*[f.shape[3] for f in features]),
@@ -239,8 +260,9 @@ def roi_align_forward(features: torch.Tensor, rois: torch.Tensor, *,
                       spatial_scale: float, output_size: int,
                       sampling_ratio: int = 0,
                       max_samples: int = 8) -> torch.Tensor:
-    """Batched ROIAlign: features [B, C, H, W] f32 (channels-last memory),
-    rois [B, R, 4] f32 -> [B, R, C, P, P]. Not differentiable itself."""
+    """Batched ROIAlign: features [B, C, H, W] f32 or bf16 (channels-last
+    memory), rois [B, R, 4] f32 -> [B, R, C, P, P] in the features' dtype.
+    Not differentiable itself."""
     if features.device.type == "cpu":
         return roi_align_plain(features, rois, spatial_scale=spatial_scale,
                                output_size=output_size,
@@ -255,10 +277,10 @@ def roi_align_levels_forward(features: Sequence[torch.Tensor],
                              scales: Sequence[float], output_size: int,
                              sampling_ratio: int = 0,
                              max_samples: int = 8) -> torch.Tensor:
-    """Multi-level ROIAlign in one launch: maps [B, C, H_l, W_l] f32
-    (channels-last memory) at ``scales``, rois [B, R, 4] f32, levels [B, R]
-    (each ROI's index into the maps) -> [B, R, C, P, P], each ROI pooled
-    from its own level. Not differentiable itself."""
+    """Multi-level ROIAlign in one launch: maps [B, C, H_l, W_l] f32 or
+    bf16 (channels-last memory) at ``scales``, rois [B, R, 4] f32, levels
+    [B, R] (each ROI's index into the maps) -> [B, R, C, P, P] in the maps'
+    dtype, each ROI pooled from its own level. Not differentiable itself."""
     kw = dict(scales=scales, output_size=output_size,
               sampling_ratio=sampling_ratio, max_samples=max_samples)
     if features[0].device.type == "cpu":
@@ -271,8 +293,9 @@ def roi_align_backward(grad: torch.Tensor, rois: torch.Tensor, *,
                        height: int, width: int, spatial_scale: float,
                        output_size: int, sampling_ratio: int = 0,
                        max_samples: int = 8) -> torch.Tensor:
-    """d features of ROIAlign: grad [B, R, C, P, P] f32 (any strides),
-    rois [B, R, 4] f32 -> dF [B, C, H, W] f32 in channels-last memory."""
+    """d features of ROIAlign: grad [B, R, C, P, P] f32 or bf16 (any
+    strides), rois [B, R, 4] f32 -> dF [B, C, H, W] in the gradient's dtype
+    and channels-last memory (summed in float32, cast once)."""
     kw = dict(spatial_scale=spatial_scale, output_size=output_size,
               sampling_ratio=sampling_ratio, max_samples=max_samples)
     if grad.device.type == "cpu":
@@ -291,13 +314,13 @@ def roi_align_backward(grad: torch.Tensor, rois: torch.Tensor, *,
     if g.numel() and dfeat.numel():
         cols, smem = bwd_tiling(height, width, output_size,
                                 sampling_ratio if sampling_ratio > 0
-                                else max_samples)
+                                else max_samples, g.element_size())
         rois = rois.contiguous()
-        _launch(BACKWARD, rois.device, [
+        _launch(BACKWARD, g.dtype, rois.device, [
             g.data_ptr(), *g.stride()[:4], rois.data_ptr(), dfeat.data_ptr(),
             batch, height, width, c, r, output_size, float(spatial_scale),
             int(sampling_ratio), int(max_samples), cols, smem])
-    return dfeat.permute(0, 3, 1, 2)
+    return dfeat.to(grad.dtype).permute(0, 3, 1, 2)
 
 
 class _RoIAlign(torch.autograd.Function):
@@ -326,7 +349,7 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor, *,
               spatial_scale: float, output_size: int, sampling_ratio: int = 0,
               max_samples: int = 8) -> torch.Tensor:
     """Differentiable batched ROIAlign through the kernels: features
-    [B, C, H, W] f32, rois [B, R, 4] f32 -> [B, R, C, P, P]."""
+    [B, C, H, W] f32 or bf16, rois [B, R, 4] f32 -> [B, R, C, P, P]."""
     if features.device.type == "cpu":
         return roi_align_plain(features, rois.detach(),
                                spatial_scale=spatial_scale,
@@ -367,8 +390,9 @@ def roi_align_levels(features: Sequence[torch.Tensor], rois: torch.Tensor,
                      output_size: int, sampling_ratio: int = 0,
                      max_samples: int = 8) -> torch.Tensor:
     """Differentiable multi-level ROIAlign through the kernels: maps
-    [B, C, H_l, W_l] f32 at ``scales``, rois [B, R, 4] f32, levels [B, R]
-    -> [B, R, C, P, P]; one forward launch, and a backward launch a level.
+    [B, C, H_l, W_l] f32 or bf16 at ``scales``, rois [B, R, 4] f32, levels
+    [B, R] -> [B, R, C, P, P]; one forward launch, and a backward launch a
+    level.
     On CPU maps the plain version, which autograd differentiates."""
     kw = dict(scales=tuple(scales), output_size=output_size,
               sampling_ratio=sampling_ratio, max_samples=max_samples)

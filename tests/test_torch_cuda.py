@@ -25,6 +25,26 @@ gradients of a gather and of a deformable convolution through it (1e-5 of
 each leaf's largest |g|). A narrowed
 X-101-FPN-DCN triplet step through the kernels agrees with its plain run as
 the flagship's does, with exact launch counts.
+
+bfloat16 (the JAX package's compute dtype): the ROIAlign forward kernel
+keeps float32 weights and sums and rounds each output once, where the plain
+version (the JAX package's einsum form) also rounds its weights and its
+first contraction; so the kernel is held to within one bfloat16 ulp of each
+output of the plain version run in float32 on the same (bfloat16) inputs,
+and to 4 ulps of the largest |output| of the plain version run in bfloat16.
+The ROIAlign backward sums dF in float32 and rounds it once: within one ulp
+of each value of the float32 plain adjoint of the same gradient (plus
+1e-5 of the largest |dF| for the atomics' order), and 4 ulps of the largest
+|dF| of the bfloat16 plain adjoint. The bfloat16 scatter-add sums in
+float32 in the kernel's order and rounds once: bit for bit its plain order
+(``row_scatter_add_csr_``, which widens, sums and rounds the same way) and
+its own rerun. The bfloat16 train steps, kernel-run against plain-run, are
+held relative to what bfloat16 itself does to the step (the plain step of
+an f32 copy of the model): each loss within one bfloat16 ulp or twice the
+plain bf16 step's distance from the f32 one, each gradient leaf (L2) within
+twice that distance plus one ulp of its norm; with random weights, ulp-level
+differences move a bfloat16 step's gradients far more than a fixed bound
+would allow.
 """
 
 import numpy as np
@@ -602,8 +622,16 @@ def test_row_scatter_add_refuses_other_dtypes(dev):
     dst = torch.zeros(8, 16, device=dev, dtype=torch.bfloat16)
     grad = torch.ones(4, 16, device=dev, dtype=torch.bfloat16)
     idx = torch.arange(4, device=dev, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="bf16 compute in the port"):
-        gather_cuda.row_scatter_add_(dst, grad, idx)
+    for bad_dst, bad_grad in ((dst.half(), grad.half()), (dst, grad.float()),
+                              (dst.float(), grad)):
+        with pytest.raises(ValueError, match="both"):
+            gather_cuda.row_scatter_add_(bad_dst, bad_grad, idx)
+    # bfloat16 launches: rows 0..3 get one source each, summed in float32
+    # and rounded once
+    got = gather_cuda.row_scatter_add_(dst, grad, idx)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.cpu()[:4], torch.ones(4, 16, dtype=torch.bfloat16))
+    assert not got[4:].any()
     with pytest.raises(ValueError, match="contiguous"):
         gather_cuda.row_scatter_add_(dst.float(), grad.float().t(), idx)
     perm, row_ptr = gather.row_csr(idx, 8)
@@ -740,7 +768,7 @@ def test_dcn_train_step_kernels_match_plain(dev):
     pass (4 x 2)."""
     from da_detect_tpu_torch.layers import DeformConv2d
 
-    cfg = entry.dcn_train_cfg((128, 192))
+    cfg = entry.dcn_train_cfg((128, 192), dtype="float32")
     r = cfg.MODEL.RESNETS
     r.STEM_OUT_CHANNELS, r.NUM_GROUPS, r.WIDTH_PER_GROUP = 8, 4, 2
     r.RES2_OUT_CHANNELS = 16
@@ -781,3 +809,294 @@ def test_dcn_train_step_kernels_match_plain(dev):
     for n, g in gp.items():
         torch.testing.assert_close(gk[n], g, rtol=0,
                                    atol=1e-3 * float(g.abs().max()) + floor)
+
+
+# ------------------------------------------------------------- bfloat16
+
+
+def bf16_ulp(x: float) -> float:
+    """One bfloat16 ulp at magnitude ``x`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(x)) - 7) if x > 0 else 0.0
+
+
+def _ulps_within(got, want32, ulps=1.0, floor=0.0):
+    """Every value of ``got`` (bfloat16) within ``ulps`` bfloat16 ulps of
+    the magnitude of its float32 reference ``want32``, plus ``floor``."""
+    g, w = got.float(), want32.float()
+    mag = w.abs().clamp(min=1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    bad = (g - w).abs() > ulps * ulp + floor
+    assert not bad.any(), (
+        f"{int(bad.sum())} of {bad.numel()} values past {ulps} ulp: worst "
+        f"{float(((g - w).abs() / ulp).max()):.2f} ulp")
+
+
+@pytest.mark.parametrize("b,r,h,w,c,p,sr,cap", [
+    (2, 11, 10, 16, 128, 7, 2, 8), (1, 37, 38, 76, 64, 14, 0, 8),
+    (1, 9, 38, 76, 8, 14, 0, 4), (2, 5, 7, 9, 16, 7, 0, 8),
+    (1, 256, 38, 76, 1024, 14, 0, 8)])
+def test_roi_align_bf16_kernel_matches_plain(dev, b, r, h, w, c, p, sr, cap):
+    """A bfloat16 map pooled through the bfloat16 kernel: the output is
+    bfloat16, within one ulp of each value of the float32 plain version on
+    the same (bfloat16-valued) map, and within 4 ulps of the largest
+    |output| of the bfloat16 plain version."""
+    feats = torch.randn(b, h, w, c, generator=torch.Generator().manual_seed(r)
+                        ).to(dev, torch.bfloat16).permute(0, 3, 1, 2)
+    rois = _rois(r, b, r, h, w, 2000.0).to(dev)
+    kw = dict(spatial_scale=1.0 / 16, output_size=p, sampling_ratio=sr,
+              max_samples=cap)
+    before = kernels.LAUNCHES["roi_align_fwd"]
+    got = roi_align_cuda.roi_align(feats, rois, **kw)
+    assert kernels.LAUNCHES["roi_align_fwd"] == before + 1
+    assert got.dtype == torch.bfloat16
+    _ulps_within(got, roi_align.roi_align(feats.float(), rois, **kw),
+                 floor=1e-6)
+    want = roi_align.roi_align(feats, rois, **kw)
+    assert want.dtype == torch.bfloat16
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=0,
+        atol=4 * bf16_ulp(float(want.float().abs().max())))
+
+
+@pytest.mark.parametrize("b,r,c,sr,empty_level", [
+    (1, 1000, 256, 2, None), (2, 300, 64, 0, 1), (2, 0, 64, 2, None)])
+def test_roi_align_levels_bf16_kernel_matches_plain(dev, b, r, c, sr,
+                                                   empty_level):
+    """The level-aware launch over P2-P5 in bfloat16, against the plain
+    every-level-then-mask form in float32 (one ulp a value) and in bfloat16
+    (4 ulps of the largest |output|)."""
+    maps, rois, levels = _fpn_inputs(7, b, r, c, dev, empty_level)
+    maps = [m.to(torch.bfloat16) for m in maps]
+    kw = dict(scales=FPN_SCALES, output_size=7, sampling_ratio=sr,
+              max_samples=8)
+    got = roi_align_cuda.roi_align_levels_forward(maps, rois, levels, **kw)
+    assert got.dtype == torch.bfloat16
+    if not got.numel():
+        return
+    _ulps_within(got, roi_align.roi_align_levels([m.float() for m in maps],
+                                                 rois, levels, **kw),
+                 floor=1e-6)
+    want = roi_align.roi_align_levels(maps, rois, levels, **kw)
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=0,
+        atol=4 * bf16_ulp(float(want.float().abs().max())))
+
+
+@pytest.mark.parametrize("case", [k for k, v in BWD_CASES.items()
+                                  if v[1] % 8 == 0])
+def test_roi_align_backward_bf16_kernel_matches_plain(dev, case):
+    """The bfloat16 backward: dF comes back bfloat16 (channels-last),
+    within one ulp of each value of the float32 plain adjoint of the same
+    gradient plus 1e-5 of its largest |dF| (float32 atomics in another
+    order), and within 4 ulps of the largest |dF| of the bfloat16 plain
+    adjoint (autograd of the bfloat16 plain forward)."""
+    gen = torch.Generator().manual_seed(11)
+    b, c, h, w, p, sr, scale, rois = BWD_CASES[case]
+    if isinstance(rois, tuple):
+        rois = _rois(3, *rois, h, w, 900.0) if rois[1] else torch.zeros(
+            rois[0], 0, 4)
+    else:
+        rois = torch.tensor([rois], dtype=torch.float32)
+    rois = rois.to(dev)
+    kw = dict(height=h, width=w, spatial_scale=scale, output_size=p,
+              sampling_ratio=sr, max_samples=8)
+    g = torch.randn(b, rois.shape[1], c, p, p, generator=gen).to(
+        dev, torch.bfloat16)
+    before = kernels.LAUNCHES["roi_align_bwd"]
+    got = roi_align_cuda.roi_align_backward(g, rois, **kw)
+    assert kernels.LAUNCHES["roi_align_bwd"] == before + (case != "empty")
+    assert got.dtype == torch.bfloat16
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    want32 = roi_align.roi_align_grad(g.float(), rois, **kw)
+    if case == "empty":
+        assert not got.any()
+        return
+    top = float(want32.abs().max())
+    assert top > 0
+    _ulps_within(got, want32, floor=1e-5 * top)
+    want = roi_align.roi_align_grad(g, rois, **kw)
+    assert want.dtype == torch.bfloat16
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=0,
+        atol=4 * bf16_ulp(float(want.float().abs().max())))
+
+
+def test_roi_align_bf16_autograd_and_strided_grad(dev):
+    """The pooler's route in bfloat16: the forward kernel, then the
+    backward kernel on the bfloat16 gradient autograd hands over, read in
+    place when it is an R slice of a channels-last buffer."""
+    gen = torch.Generator().manual_seed(12)
+    feats = torch.randn(1, 38, 76, 64, generator=gen).to(
+        dev, torch.bfloat16).permute(0, 3, 1, 2).requires_grad_()
+    rois = _rois(4, 1, 40, 38, 76, 900.0).to(dev)
+    kw = dict(spatial_scale=1.0 / 16, output_size=14, sampling_ratio=0,
+              max_samples=8)
+    full = torch.randn(1, 42, 14, 14, 64, generator=gen).to(
+        dev, torch.bfloat16)
+    g = full.permute(0, 1, 4, 2, 3)[:, 1:41]
+    assert not roi_align_cuda.grad_view(g)[1]
+    out = roi_align_cuda.roi_align(feats, rois, **kw)
+    (got,) = torch.autograd.grad(out, feats, g)
+    assert got.dtype == torch.bfloat16
+    want32 = roi_align.roi_align_grad(g.float(), rois, height=38, width=76,
+                                      **kw)
+    _ulps_within(got, want32, floor=1e-5 * float(want32.abs().max()))
+
+
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+def test_row_scatter_add_bf16_kernel_bit_for_bit(dev, case):
+    """bfloat16 gradient rows into a bfloat16 destination, in place
+    (strided or not) and into a fresh output: bit for bit the kernel's
+    order in plain PyTorch (summed in float32, each value rounded once),
+    equal to its own second run, and one launch a call unless empty."""
+    wide, dst, grad, idx = _scatter_inputs(case, dev)
+    wide = wide.to(torch.bfloat16)
+    dst = wide[:, 8:8 + dst.shape[1]] if dst.shape[1] != wide.shape[1] \
+        else wide
+    grad = grad.to(torch.bfloat16)
+    s = dst.shape[0]
+    start = dst.cpu()
+    outside = wide.cpu()
+    ordered, _ = _cpu_order(start, grad, idx)
+    before = kernels.LAUNCHES["row_scatter_add"]
+    assert gather_cuda.row_scatter_add_(dst, grad, idx) is dst
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["row_scatter_add"] == before + (case != "empty")
+    assert dst.dtype == torch.bfloat16
+    assert torch.equal(dst.cpu(), ordered)
+    if dst is not wide:
+        outside[:, 8:8 + dst.shape[1]] = ordered
+        assert torch.equal(wide.cpu(), outside)
+    fresh, _ = _cpu_order(torch.zeros(dst.shape, dtype=torch.bfloat16), grad,
+                          idx)
+    csr = gather.row_csr(idx, s)
+    first = gather_cuda.row_scatter_add(grad, idx, s, csr)
+    second = gather_cuda.row_scatter_add(grad, idx, s)
+    assert first.dtype == torch.bfloat16
+    assert torch.equal(first.cpu(), fresh)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("gather_mode,kernel", [("four", "row_gather"),
+                                                ("quad", "row_gather_bulk")])
+def test_deform_conv_bf16_kernels_match_plain(dev, gather_mode, kernel):
+    """The res4-like deformable conv in bfloat16 through the kernels: the
+    bfloat16 gather variants forward and recomputed, the bfloat16
+    scatter-add backward; the output (float32) equal to the plain run's
+    (the gathers are copies); dweight and conv_offset's gradients (float32,
+    from the same gathered rows) within 1e-5 of each leaf's largest |g|;
+    dx (bfloat16: nine taps' scatter-adds, each rounded once, summed by
+    autograd in bfloat16, where the plain run's CUDA index_add_ adds in
+    another order) within 4 bfloat16 ulps of its largest |g|."""
+    from da_detect_tpu_torch.layers import DeformConv2d
+
+    torch.manual_seed(0)
+    m = DeformConv2d(256, 256, 3, stride=2, groups=32,
+                     gather_mode=gather_mode, dtype=torch.bfloat16).to(dev)
+    with torch.no_grad():
+        m.conv_offset.weight.normal_(0.0, 0.05)
+    x0 = torch.randn(1, 256, 19, 38, device=dev).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    cot = torch.randn(1, 256, 10, 19, device=dev)
+    outs, grads = [], []
+    for impl in ("cuda", "plain"):
+        x = x0.clone().requires_grad_()
+        m.zero_grad(set_to_none=True)
+        before = dict(kernels.LAUNCHES)
+        out = m(x, impl=impl)
+        assert out.dtype == torch.float32
+        (out * cot).sum().backward()
+        torch.cuda.synchronize()
+        if impl == "cuda":
+            assert kernels.LAUNCHES[kernel] - before.get(kernel, 0) == 18
+            assert kernels.LAUNCHES["row_scatter_add"] - before.get(
+                "row_scatter_add", 0) == 9
+        outs.append(out.detach())
+        grads.append({"x": x.grad, **{n: p.grad for n, p
+                                      in m.named_parameters()}})
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
+    got, want = grads
+    assert got["x"].dtype == torch.bfloat16
+    assert float(got["x"].float().abs().max()) > 0
+    for name, w in want.items():
+        top = float(w.float().abs().max())
+        tol = 4 * bf16_ulp(top) if name == "x" else 1e-5 * top
+        torch.testing.assert_close(got[name].float(), w.float(), rtol=0,
+                                   atol=tol, msg=name)
+
+
+def _bf16_step_pair(dev, cfg, aligned, offsets_std=None):
+    """One bfloat16 train step through the kernels and through the plain
+    versions, same weights and draws, and the step of an f32 copy of the
+    model (the same float32 parameters) through the plain versions:
+    (losses, grads) of each. ``offsets_std``: the deformable convs' offset
+    predictors drawn at that std."""
+    from da_detect_tpu_torch.layers import DeformConv2d
+    from da_detect_tpu_torch.models import build_detection_model
+
+    _, (state, args) = entry.train_entry(device="cuda", cfg=cfg,
+                                         aligned=aligned)
+    model = state.model
+    if offsets_std:
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, DeformConv2d):
+                    m.conv_offset.weight.normal_(0.0, offsets_std)
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    ref = build_detection_model(cfg32)
+    ref.load_state_dict(model.state_dict())
+    ref = entry.prepare_model(ref, dev)
+    results = []
+    for m, impl in ((model, "cuda"), (model, "plain"), (ref, "plain")):
+        m.zero_grad(set_to_none=True)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        losses, _ = m.train_forward(*args[:2], state.da_state, *args[2:],
+                                    aligned=aligned, deterministic=True,
+                                    generator=gen, impl=impl)
+        sum(losses.values()).backward()
+        results.append(({k: v.item() for k, v in losses.items()},
+                        {n: p.grad.clone() for n, p in m.named_parameters()
+                         if p.requires_grad}))
+    return results
+
+
+def _assert_bf16_steps_match(results):
+    """Kernel-run against plain-run bf16 step, relative to what bfloat16
+    itself does (the plain f32 step): each loss within one bf16 ulp of its
+    value or twice |plain - f32|; each gradient leaf, in L2, within twice
+    ||plain - f32|| plus one bf16 ulp of ||plain||."""
+    (lk, gk), (lp, gp), (lr, gr) = results
+    assert set(lk) == set(lp) == set(lr)
+    for k in lp:
+        bound = max(bf16_ulp(abs(lp[k])), 2 * abs(lp[k] - lr[k]))
+        assert abs(lk[k] - lp[k]) <= bound, (k, lk[k], lp[k], lr[k])
+    for n, g in gp.items():
+        assert g.dtype == gk[n].dtype == torch.float32, n
+        bound = 2 * float((g - gr[n]).norm()) + bf16_ulp(float(g.norm()))
+        assert float((gk[n] - g).norm()) <= bound, n
+
+
+def test_train_step_bf16_kernels_match_plain(dev):
+    """The narrowed flagship's aligned triplet step in bfloat16 (float32
+    parameters and gradients), through the kernels against the plain
+    versions."""
+    cfg = entry.train_cfg()
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    _assert_bf16_steps_match(_bf16_step_pair(dev, cfg, aligned=True))
+
+
+def test_dcn_train_step_bf16_kernels_match_plain(dev):
+    """The narrowed X-101-32x8d-FPN-DCN triplet step (as in
+    test_dcn_train_step_kernels_match_plain) in bfloat16, through the
+    kernels against the plain versions."""
+    cfg = entry.dcn_train_cfg((128, 192))
+    r = cfg.MODEL.RESNETS
+    r.STEM_OUT_CHANNELS, r.NUM_GROUPS, r.WIDTH_PER_GROUP = 8, 4, 2
+    r.RES2_OUT_CHANNELS = 16
+    cfg.MODEL.BACKBONE.OUT_CHANNELS = 16
+    cfg.MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM = 32
+    cfg.TPU.MAX_GT_BOXES = 8
+    assert cfg.TPU.COMPUTE_DTYPE == "bfloat16"
+    _assert_bf16_steps_match(_bf16_step_pair(dev, cfg, aligned=False,
+                                             offsets_std=0.01))

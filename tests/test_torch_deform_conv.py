@@ -11,7 +11,9 @@ fall off the map. Tolerance rtol = atol = 1e-5: the corner sums run in the
 same order, the contraction over taps and channels in another. Gradients
 (of a random cotangent, against ``jax.grad``: the input, the kernel and
 ``conv_offset``'s kernel and bias, through the bilinear weights and the
-DCNv2 mask) within 1e-5 of each leaf's largest |g|.
+DCNv2 mask) within 1e-5 of each leaf's largest |g|. In bfloat16 (the JAX
+package's compute dtype), forward and gradients in bfloat16 ulps of each
+one's largest value, stated in the test.
 """
 
 import jax
@@ -24,8 +26,10 @@ from da_detect_tpu.layers import deform_conv as jdc
 from da_detect_tpu_torch.layers import DeformConv2d
 from da_detect_tpu_torch.layers import deform_conv as pdc
 from da_detect_tpu_torch.ops import gather, gather_cuda
-from tests.torch_harness import (module_state, nhwc_to_torch,
-                                 random_variables, torch_to_nhwc)
+from da_detect_tpu_torch.utils.weights import jax_state_dict
+from tests.torch_harness import (assert_ulps, bf16_numpy, module_state,
+                                 nhwc_to_torch, random_variables,
+                                 torch_to_nhwc)
 
 CASES = {
     # name: (h, w, c, f, stride, dilation, dg, groups, modulated)
@@ -211,3 +215,61 @@ def test_deform_conv_builds_no_csr_on_the_cpu(monkeypatch, case,
         assert len(handed) == (0 if impl == "plain" else
                                taps * (2 if grad_on else 1))
         assert all(csr is None for csr in handed)
+
+
+# ------------------------------------------------------------- bfloat16
+
+BF16_CASES = {
+    # name: (h, w, c, f, stride, dilation, dg, groups, modulated)
+    "v1": (7, 6, 8, 8, 1, 1, 1, 1, False),
+    "v2_s2_dg2": (9, 8, 8, 8, 2, 2, 2, 1, True),
+    "grouped_w2_dense": (6, 7, 8, 8, 1, 1, 1, 4, True),
+}
+
+
+@pytest.mark.parametrize("gather_mode", ["four", "quad"])
+@pytest.mark.parametrize("case", list(BF16_CASES))
+def test_deform_conv_bf16_matches_jax(case, gather_mode):
+    """The deformable conv in bfloat16 (offset conv in bfloat16, sampling
+    in float32, bfloat16 table and corner sum, float32 accumulation and
+    output) and its gradients against jax.grad of the JAX layer: the output
+    (float32) within 2 ulps of its max (the offsets' bfloat16 rounding
+    moves a sample by at most an ulp of a pixel: the same in both); dx
+    (bfloat16, nine taps' scatter-adds summed in bfloat16), the kernel's
+    and conv_offset's gradients (float32) within 8 ulps of each one's max
+    (bfloat16 cotangents through the corner sums, the gathers' adjoint
+    rounded once in the port and at every add in XLA)."""
+    h, w, c, f, stride, dil, dg, groups, modulated = BF16_CASES[case]
+    x = bf16_numpy(np.random.RandomState(0).randn(2, h, w, c).astype(
+        np.float32))
+    jm = jdc.DeformConv2d(features=f, kernel_size=3, strides=stride,
+                          dilation=dil, feature_group_count=groups,
+                          deformable_groups=dg, modulated=modulated,
+                          gather_mode=gather_mode, dtype=jnp.bfloat16)
+    shapes = jax.eval_shape(
+        lambda: jm.init(jax.random.PRNGKey(0), jnp.asarray(x)))
+    v = random_variables(shapes, seed=1, scales={"conv_offset/kernel": 2.5})
+    pm = DeformConv2d(c, f, 3, stride=stride, dilation=dil, groups=groups,
+                      deformable_groups=dg, modulated=modulated,
+                      gather_mode=gather_mode, dtype=torch.bfloat16)
+    pm.load_state_dict(module_state(v, "backbone/conv2", "backbone.conv2."))
+    want = jm.apply(v, jnp.asarray(x).astype(jnp.bfloat16))
+    assert want.dtype == jnp.float32
+    cot = np.random.RandomState(3).randn(*want.shape).astype(np.float32)
+
+    def loss(params, xx):
+        return jnp.sum(jm.apply({"params": params}, xx) * cot)
+
+    jdx_p, jdx = jax.grad(loss, argnums=(0, 1))(
+        v["params"], jnp.asarray(x).astype(jnp.bfloat16))
+    xt = nhwc_to_torch(x).to(torch.bfloat16).requires_grad_()
+    got = pm(xt, impl="plain")
+    assert got.dtype == torch.float32
+    assert_ulps(torch_to_nhwc(got.detach()), want, 2, "output")
+    (got * nhwc_to_torch(cot)).sum().backward()
+    assert xt.grad.dtype == torch.bfloat16
+    assert_ulps(torch_to_nhwc(xt.grad.float()), jdx, 8, "dx")
+    jg = jax_state_dict({"params": {"backbone": {"conv2": jdx_p}}})
+    for name, p in pm.named_parameters():
+        assert p.grad.dtype == torch.float32
+        assert_ulps(p.grad, jg[f"backbone.conv2.{name}"], 8, name)

@@ -13,7 +13,10 @@ destination row's sources, in order) against its invariants, and the sum in
 its order (``row_scatter_add_csr_``) against ``jax.vjp`` at that tolerance
 and, on the rows it sums in source order (all but the long ones, which it
 sums in pieces), against ``index_add_`` bit for bit: the CPU's
-``index_add_`` adds in source order too.
+``index_add_`` adds in source order too. In bfloat16 the scatter-add sums
+in float32 and rounds once (the kernel's numerics): bit for bit the
+float32 sum rounded, and within 2 bfloat16 ulps of the JAX adjoint of the
+deformable conv's corner gathers (XLA's bfloat16 scatter-add).
 """
 
 import functools
@@ -27,8 +30,10 @@ import numpy as np
 import pytest
 import torch
 
+from da_detect_tpu.layers import deform_conv as jdc
 from da_detect_tpu_torch import kernels
 from da_detect_tpu_torch.ops import gather, gather_cuda
+from tests.torch_harness import assert_ulps, bf16_numpy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _spec = importlib.util.spec_from_file_location(
@@ -274,3 +279,71 @@ def test_csr_ordered_sum_into_column_slice():
     assert gather.row_scatter_add_csr_(got[:, 8:24], grad,
                                        *gather.row_csr(idx, 50)) is not None
     assert torch.equal(got, want)
+
+
+def test_scatter_add_bf16_against_jax_adjoint():
+    """The bfloat16 scatter-add (the gathers' adjoint: float32 sums in
+    source order, each value rounded once) against the JAX adjoint of
+    ``_gather_tap`` in bfloat16 (XLA's scatter-add): within 2 ulps of its
+    max; and within half an ulp of each value of the exact (float64) sum,
+    which the one rounding guarantees; the kernel wrapper's CPU branch
+    and the CSR order equal it bit for bit."""
+    rng = np.random.RandomState(3)
+    n, c, p = 40, 16, 90
+    flat = bf16_numpy(rng.randn(n, c).astype(np.float32))
+    idx = rng.randint(0, n, (1, p, 4)).astype(np.int32)
+    wts = rng.rand(1, p, 4).astype(np.float32)
+    cot = bf16_numpy(rng.randn(1, p, c).astype(np.float32))
+    bf = jnp.bfloat16
+    _, vjp = jax.vjp(lambda t: jdc._gather_tap(t, jnp.asarray(idx),
+                                               jnp.asarray(wts)),
+                     jnp.asarray(flat).astype(bf))
+    (want,) = vjp(jnp.asarray(cot).astype(bf))
+    assert want.dtype == bf
+    # the corner rows' gradients the adjoint sums: w_k * cot, in bfloat16
+    rows = (torch.from_numpy(wts[0]).to(torch.bfloat16).T[..., None]
+            * torch.from_numpy(cot[0]).to(torch.bfloat16)).reshape(4 * p, c)
+    ridx = torch.from_numpy(idx[0].T.reshape(-1).copy())
+    got = gather.row_scatter_add(rows, ridx, n)
+    assert got.dtype == torch.bfloat16
+    assert_ulps(got, want, 2, "vs JAX adjoint")
+    exact = np.zeros((n, c))
+    np.add.at(exact, ridx.numpy(), rows.double().numpy())
+    half_ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(exact),
+                                                   1e-30))) - 8)
+    assert np.all(np.abs(got.double().numpy() - exact) <= half_ulp)
+    assert torch.equal(gather_cuda.row_scatter_add(rows, ridx, n), got)
+    perm, row_ptr = gather.row_csr(ridx, n)
+    ordered = gather.row_scatter_add_csr_(
+        torch.zeros(n, c, dtype=torch.bfloat16), rows, perm, row_ptr)
+    assert torch.equal(ordered, got)
+
+
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+def test_scatter_add_bf16_rounds_once(case):
+    """A bfloat16 scatter-add sums in float32 and rounds each value once:
+    the plain version, the kernel wrapper's CPU branch and the kernel's
+    order (``row_scatter_add_csr_``) equal the float32 sum of the same
+    (bfloat16) rows rounded to bfloat16, bit for bit (the CSR order on
+    the rows it sums in source order); in place into a column slice too.
+    Not the CPU's bfloat16 ``index_add_``, which rounds after every add."""
+    s, grad32, idx = _scatter_inputs(case)
+    grad = torch.from_numpy(grad32).to(torch.bfloat16)
+    i = torch.from_numpy(idx)
+    want = gather.row_scatter_add(grad.float(), i, s).to(torch.bfloat16)
+    got = gather.row_scatter_add(grad, i, s)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+    assert torch.equal(gather_cuda.row_scatter_add(grad, i, s), want)
+    perm, row_ptr = gather.row_csr(i, s)
+    short = (row_ptr[1:] - row_ptr[:-1]) <= gather.LONG_ROW
+    ordered = gather.row_scatter_add_csr_(
+        torch.zeros(s, grad.shape[1], dtype=torch.bfloat16), grad, perm,
+        row_ptr)
+    assert torch.equal(ordered[short], want[short])
+    wide = torch.ones(s, grad.shape[1] + 5, dtype=torch.bfloat16)
+    gather.row_scatter_add_(wide[:, 2:2 + grad.shape[1]], grad, i)
+    assert torch.equal(wide[:, 2:2 + grad.shape[1]],
+                       (1.0 + gather.row_scatter_add(grad.float(), i, s)
+                        ).to(torch.bfloat16))
+    assert torch.equal(wide[:, :2], torch.ones(s, 2, dtype=torch.bfloat16))

@@ -80,7 +80,8 @@ def test_train_entry_raises_without_cuda(monkeypatch):
 def test_weight_loader_raises_on_unknown_key():
     from da_detect_tpu_torch.models import build_detection_model
 
-    cfg = entry.flagship_cfg(canvas=(64, 96), test_tops=(64, 16))
+    cfg = entry.flagship_cfg(canvas=(64, 96), test_tops=(64, 16),
+                             dtype="float32")
     model = build_detection_model(cfg)
     with pytest.raises(KeyError, match="no counterpart"):
         load_jax_variables(model, {"params": {"mystery_head": {
@@ -114,7 +115,8 @@ def test_weight_loader_maps_da_heads():
     """
     from da_detect_tpu_torch.models import build_detection_model
 
-    cfg = entry.flagship_cfg(canvas=(64, 96), test_tops=(64, 16))
+    cfg = entry.flagship_cfg(canvas=(64, 96), test_tops=(64, 16),
+                             dtype="float32")
     model = build_detection_model(cfg)
     own = model.state_dict()
     rng = np.random.RandomState(0)
@@ -136,15 +138,26 @@ def test_weight_loader_maps_da_heads():
 
 
 def test_unsupported_configs_raise():
+    """The default config (COMPUTE_DTYPE bfloat16, as in the JAX package)
+    builds a bfloat16 model with float32 parameters; another compute dtype
+    raises, as do the heads and bodies of later slices."""
+    from da_detect_tpu_torch.layers import Conv2d, Linear
     from da_detect_tpu_torch.models import build_detection_model
 
     cfg = get_cfg()
-    with pytest.raises(NotImplementedError, match="bf16 compute"):
-        build_detection_model(cfg)  # default COMPUTE_DTYPE is bfloat16
+    assert cfg.TPU.COMPUTE_DTYPE == "bfloat16"
+    model = build_detection_model(cfg)
+    layers = [m for m in model.modules() if isinstance(m, (Conv2d, Linear))]
+    assert layers and all(m.compute_dtype == torch.bfloat16 for m in layers)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert all(b.dtype == torch.float32 for b in model.buffers())
+    cfg.TPU.COMPUTE_DTYPE = "float16"
+    with pytest.raises(NotImplementedError, match="bfloat16 or float32"):
+        build_detection_model(cfg)
     for key, value in (("MODEL.BACKBONE.CONV_BODY", "R-50-FPN-RETINANET"),
                        ("MODEL.MASK_ON", True), ("MODEL.RETINANET_ON", True),
                        ("MODEL.BACKBONE.USE_GN", True)):
-        cfg = entry.flagship_cfg()
+        cfg = entry.flagship_cfg(dtype="float32")
         cfg.merge_from_list([key, value])
         with pytest.raises(NotImplementedError):
             build_detection_model(cfg)

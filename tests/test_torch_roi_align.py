@@ -3,7 +3,10 @@ branch of the kernel wrapper ops/roi_align_cuda.py) against the JAX
 package's Pallas kernel (interpret mode) and its einsum roi_align_image,
 forward and backward (d features, against jax.grad of both). Tolerance
 rtol = atol = 1e-5: the same float32 sums in another order. The plain
-version's gradient is also checked numerically in float64 (gradcheck)."""
+version's gradient is also checked numerically in float64 (gradcheck). In
+bfloat16 (the JAX package's compute dtype) against the einsum path, within
+one bfloat16 ulp of the largest value; the kernels' shared-memory tiling
+for both element sizes."""
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +18,8 @@ from da_detect_tpu.ops import roi_align as jra
 from da_detect_tpu.ops import roi_align_pallas as rap
 from da_detect_tpu_torch.ops import roi_align as tra
 from da_detect_tpu_torch.ops import roi_align_cuda
-from tests.torch_harness import nhwc_to_torch
+from tests.torch_harness import (assert_ulps, bf16_numpy, nhwc_to_torch,
+                                 torch_to_nhwc)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -203,20 +207,22 @@ def test_roi_align_gradcheck_float64(fn):
                          sampling_ratio=sr, max_samples=4), (feats,))
 
 
+@pytest.mark.parametrize("elem_bytes", [4, 2], ids=["f32", "bf16"])
 @pytest.mark.parametrize("h,w,p,samples", [
     (38, 76, 14, 8),     # C4 at 608x1216, the train step's pooler
     (152, 304, 7, 2),    # FPN P2 at 608x1216
     (10, 16, 7, 2),      # a map narrower than a tile
     (800, 8, 14, 8),     # tall: Ay alone passes the 48 KB target
 ])
-def test_bwd_tiling_sizes_shared_memory(h, w, p, samples):
+def test_bwd_tiling_sizes_shared_memory(h, w, p, samples, elem_bytes):
     """The backward kernel's column tile and shared memory: at least one
     column and at most the map's width, within the 48 KB target whenever
-    one column fits in it, and the bytes of roi_align_bwd.cu's layout."""
-    cols, smem = roi_align_cuda.bwd_tiling(h, w, p, samples)
+    one column fits in it, and the bytes of roi_align_bwd.cu's layout (the
+    staged gradient in its own type, float32 or bfloat16)."""
+    cols, smem = roi_align_cuda.bwd_tiling(h, w, p, samples, elem_bytes)
     per_col = 4 * p * roi_align_cuda.BWD_CHANNELS + 4 * p + 8
     fixed = 32 * p * samples + h * (4 * p + 8) \
-        + 4 * p * p * roi_align_cuda.BWD_CHANNELS
+        + elem_bytes * p * p * roi_align_cuda.BWD_CHANNELS
     assert 1 <= cols <= w and smem == fixed + cols * per_col
     if fixed + per_col <= roi_align_cuda.BWD_SMEM_TARGET:
         assert smem <= roi_align_cuda.BWD_SMEM_TARGET
@@ -224,7 +230,7 @@ def test_bwd_tiling_sizes_shared_memory(h, w, p, samples):
     else:
         assert cols == 1 and smem <= roi_align_cuda.SMEM_MAX
     if (h, w) == (38, 76):
-        assert (cols, smem) == (9, 47808)
+        assert (cols, smem) == {4: (9, 47808), 2: (16, 48256)}[elem_bytes]
 
 
 def test_bwd_tiling_refuses_a_map_too_tall():
@@ -232,25 +238,26 @@ def test_bwd_tiling_refuses_a_map_too_tall():
         roi_align_cuda.bwd_tiling(5000, 8, 14, 8)
 
 
+@pytest.mark.parametrize("elem_bytes", [4, 2], ids=["f32", "bf16"])
 @pytest.mark.parametrize("h,w,p,samples", [
     (38, 76, 14, 8),     # C4 at 608x1216, the eval and train poolers
     (152, 304, 7, 2),    # FPN P2 at 608x1216
     (19, 38, 7, 2),      # FPN P5
     (10, 16, 7, 2),      # a map smaller than the target's tile
 ])
-def test_fwd_tiling_sizes_shared_memory(h, w, p, samples):
+def test_fwd_tiling_sizes_shared_memory(h, w, p, samples, elem_bytes):
     """The forward kernel's tile: at least one pixel and at most the map's,
     within the 48 KB target, and the bytes of roi_align_fwd.cu's layout
-    (two buffers of 32-channel pixels, both axes' samples, the bins'
-    spans)."""
-    tile, smem = roi_align_cuda.fwd_tiling(h, w, p, samples)
-    per_pixel = 2 * 4 * roi_align_cuda.BWD_CHANNELS
+    (two buffers of 32-channel pixels in the map's type, float32 or
+    bfloat16, both axes' samples, the bins' spans)."""
+    tile, smem = roi_align_cuda.fwd_tiling(h, w, p, samples, elem_bytes)
+    per_pixel = 2 * elem_bytes * roi_align_cuda.BWD_CHANNELS
     fixed = 32 * p * samples + 16 * p
     assert 1 <= tile <= h * w and smem == fixed + tile * per_pixel
     assert smem <= roi_align_cuda.FWD_SMEM_TARGET
     assert tile == h * w or smem + per_pixel > roi_align_cuda.FWD_SMEM_TARGET
     if (h, w) == (38, 76):
-        assert (tile, smem) == (177, 49120)
+        assert (tile, smem) == {4: (177, 49120), 2: (354, 49120)}[elem_bytes]
 
 
 @pytest.mark.parametrize("c,r,b", [
@@ -304,3 +311,58 @@ def test_grad_view_reads_channels_last_in_place():
     g, copied = roi_align_cuda.grad_view(nchw)
     assert copied and g.is_contiguous()
     assert torch.equal(g, base)
+
+
+# ------------------------------------------------------------- bfloat16
+
+def _roi_case(seed, b=2, r=11, h=10, w=16, c=128):
+    rng = np.random.RandomState(seed)
+    feats = bf16_numpy(rng.randn(b, h, w, c).astype(np.float32))
+    x1 = rng.uniform(0, w * 16 - 24, (b, r))
+    y1 = rng.uniform(0, h * 16 - 24, (b, r))
+    rois = np.stack([x1, y1, x1 + rng.uniform(4, 80, (b, r)),
+                     y1 + rng.uniform(4, 80, (b, r))], -1).astype(np.float32)
+    return feats, rois
+
+
+@pytest.mark.parametrize("p,sampling_ratio", [(7, 2), (14, 0)])
+def test_roi_align_bf16_matches_einsum(p, sampling_ratio):
+    """The plain ROIAlign on a bfloat16 map (weights and the first
+    contraction rounded to bfloat16, as the JAX package does) against the
+    JAX package's einsum path in bfloat16, the one its pooler runs
+    (``pooler_config`` keeps the Pallas kernel off): forward within 1 ulp
+    of the output's max, and the adjoint (autograd of the plain version,
+    and the kernel wrapper's CPU branch) within 1 ulp of dF's max against
+    jax.grad of the einsum path. The Pallas kernel itself cannot run in
+    bfloat16 here: its bfloat16 dot with a float32 result has no XLA CPU
+    kernel (``DotThunk``: BF16 x BF16 = F32), interpret mode or not; its
+    float32 form is held against the port in tests/test_torch_roi_align.py,
+    and the card holds the CUDA kernel against this plain version."""
+    feats, rois = _roi_case(0)
+    kw = dict(spatial_scale=1.0 / 16, output_size=p,
+              sampling_ratio=sampling_ratio, max_samples=4)
+    jf = jnp.asarray(feats).astype(jnp.bfloat16)
+    jr = jnp.asarray(rois)
+
+    def einsum(f):
+        return jax.vmap(lambda fi, ri: jra.roi_align_image(fi, ri, **kw))(
+            f, jr)
+
+    want = einsum(jf)
+    assert want.dtype == jnp.bfloat16
+    ft = nhwc_to_torch(feats).to(torch.bfloat16)
+    got = tra.roi_align(ft, torch.from_numpy(rois), **kw)
+    assert got.dtype == torch.bfloat16
+    assert_ulps(got.permute(0, 1, 3, 4, 2), want, 1, "forward")
+
+    g = bf16_numpy(np.random.RandomState(6).randn(2, 11, p, p, 128).astype(
+        np.float32))
+    want_df = jax.grad(lambda f: jnp.sum(einsum(f).astype(jnp.float32)
+                                         * g))(jf)
+    assert want_df.dtype == jnp.bfloat16
+    gt = torch.from_numpy(g).permute(0, 1, 4, 2, 3).to(torch.bfloat16)
+    for fn in (tra.roi_align, roi_align_cuda.roi_align):
+        leaf = ft.clone().requires_grad_()
+        fn(leaf, torch.from_numpy(rois), **kw).backward(gt)
+        assert leaf.grad.dtype == torch.bfloat16
+        assert_ulps(torch_to_nhwc(leaf.grad.float()), want_df, 1, "dF")

@@ -7,6 +7,9 @@ initializer: the two draw different numbers from one seed.
 
 from __future__ import annotations
 
+import functools
+import itertools
+
 import jax
 import numpy as np
 import torch
@@ -97,9 +100,10 @@ LOSS_RTOL = 1e-4
 GRAD_REL, GRAD_FLOOR = 1e-3, 1e-6
 
 
-def jax_step_one(jcfg, jmodel, variables, args, aligned):
+def jax_step_one(jcfg, jmodel, variables, args, aligned, with_state=False):
     """(losses, gradients as port state_dict names) of one JAX step on the
-    numpy ``variables``, sampling key 3, dropout off."""
+    numpy ``variables``, sampling key 3, dropout off; with ``with_state``
+    also the new DAState's fields as floats."""
     from da_detect_tpu.models.da import DAState as JDAState
     from da_detect_tpu_torch.utils.weights import jax_state_dict
 
@@ -107,18 +111,25 @@ def jax_step_one(jcfg, jmodel, variables, args, aligned):
                          jcfg.MODEL.DA_HEADS.TRIPLET_MARGIN_INS)
 
     def loss_fn(params):
-        losses, _ = jmodel.apply(
+        losses, new_state = jmodel.apply(
             {"params": params, "frozen": variables["frozen"]}, args[0],
             args[1], da, *args[2:], aligned=aligned, deterministic=True,
             method=jmodel.train_forward,
             rngs={"sampling": jax.random.PRNGKey(3),
                   "dropout": jax.random.PRNGKey(4)})
-        return sum(losses.values()), losses
+        return sum(losses.values()), (losses, new_state)
 
-    (_, losses), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
-        variables["params"])
-    return ({k: float(x) for k, x in losses.items()},
-            jax_state_dict({"params": grads}, cfg_fc6_chw(jcfg)))
+    (_, (losses, new_state)), grads = jax.jit(jax.value_and_grad(
+        loss_fn, has_aux=True))(variables["params"])
+    out = ({k: float(x) for k, x in losses.items()},
+           jax_state_dict({"params": grads}, cfg_fc6_chw(jcfg)))
+    if with_state:
+        out += ({f: float(getattr(new_state, f)) for f in DA_STATE_FIELDS},)
+    return out
+
+
+DA_STATE_FIELDS = ("margin_img", "margin_ins", "last_triplet_img",
+                   "last_triplet_ins")
 
 
 def cfg_fc6_chw(cfg):
@@ -129,17 +140,21 @@ def cfg_fc6_chw(cfg):
     return cfg.MODEL.BACKBONE.OUT_CHANNELS, p, p
 
 
-def port_step_one(model, state, args, aligned, impl=None):
-    """(losses, gradients of the trainable leaves) of one port step."""
+def port_step_one(model, state, args, aligned, impl=None, with_state=False):
+    """(losses, gradients of the trainable leaves) of one port step; with
+    ``with_state`` also the new DAState's fields as floats."""
     for p in model.parameters():
         p.grad = None
-    losses, _ = model.train_forward(
+    losses, new_state = model.train_forward(
         args[0], args[1], state.da_state, *args[2:], aligned=aligned,
         deterministic=True, generator=state.generator, impl=impl)
     sum(losses.values()).backward()
     grads = {n: p.grad.clone() for n, p in model.named_parameters()
              if p.requires_grad}
-    return {k: v.item() for k, v in losses.items()}, grads
+    out = ({k: v.item() for k, v in losses.items()}, grads)
+    if with_state:
+        out += ({f: float(getattr(new_state, f)) for f in DA_STATE_FIELDS},)
+    return out
 
 
 def assert_losses_match(got: dict, want: dict) -> None:
@@ -242,3 +257,103 @@ def jax_train_variables(jmodel, jargs, scales=FPN_SCALES):
          "dropout": jax.random.PRNGKey(2)}, jargs[0], jargs[1],
         JDAState.create(), *jargs[2:], method=jmodel.train_forward))
     return random_variables(shapes, seed=1, scales=scales)
+
+
+# bfloat16: tolerances in ulps of bfloat16 (8 significant bits) at the
+# reference's largest magnitude
+def bf16_ulp(magnitude: float) -> float:
+    """One bfloat16 ulp at ``magnitude``: 2 ** (floor(log2 m) - 7)."""
+    m = float(magnitude)
+    return 2.0 ** (np.floor(np.log2(m)) - 7) if m > 0 else 0.0
+
+
+def as_f32(x) -> np.ndarray:
+    """A numpy or jax array, or a torch tensor, as float32 numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(np.asarray(x).astype(np.float32))
+
+
+def ulps_off(got, want) -> float:
+    """The largest |got - want| in bfloat16 ulps of max |want|."""
+    g, w = as_f32(got), as_f32(want)
+    top = float(np.abs(w).max()) if w.size else 0.0
+    if top == 0.0:
+        return float(np.abs(g).max()) if g.size else 0.0
+    return float(np.abs(g - w).max()) / bf16_ulp(top)
+
+
+def assert_ulps(got, want, ulps: float, what: str = "") -> None:
+    """|got - want| <= ``ulps`` bfloat16 ulps of max |want|, elementwise."""
+    g, w = as_f32(got), as_f32(want)
+    assert g.shape == w.shape, (what, g.shape, w.shape)
+    off = ulps_off(g, w)
+    assert off <= ulps, f"{what}: {off:.2f} bf16 ulps of max |ref| > {ulps}"
+
+
+def bf16_numpy(x: np.ndarray) -> np.ndarray:
+    """float32 numpy rounded to bfloat16 values (round to nearest even),
+    still float32: the same bfloat16 input for both frameworks."""
+    return torch.from_numpy(np.ascontiguousarray(x)).to(
+        torch.bfloat16).float().numpy()
+
+
+class JaxProposals:
+    """Proposal selection of the JAX package handed to the port, for tests
+    where a bfloat16 near-tie flips a selection: ``record`` wraps the JAX
+    detector's ``select_proposals`` so that each call's proposals reach the
+    host through ``jax.debug.callback`` (under jit and grad alike), indexed
+    by call order; ``inject`` makes the port's detector take them, call by
+    call, in place of its own, and keeps the port's own selections in
+    ``own`` (to count the flips)."""
+
+    def __init__(self):
+        self.calls: dict = {}
+        self.own: list = []
+
+    def record(self, monkeypatch) -> None:
+        from da_detect_tpu.models import detector as jdet
+
+        original = jdet.select_proposals
+        count = itertools.count()
+
+        def stash(i, *arrays):
+            self.calls[i] = tuple(np.asarray(a) for a in arrays)
+
+        def recorded(*args, **kwargs):
+            props = original(*args, **kwargs)
+            jax.debug.callback(functools.partial(stash, next(count)),
+                               props.boxes, props.scores, props.valid)
+            return props
+
+        monkeypatch.setattr(jdet, "select_proposals", recorded)
+
+    def inject(self, monkeypatch) -> None:
+        from da_detect_tpu_torch.models import detector as pdet
+        from da_detect_tpu_torch.models import rpn as prpn
+
+        count = itertools.count()
+
+        def injected(*args, **kwargs):
+            self.own.append(prpn.select_proposals(*args, **kwargs))
+            boxes, scores, valid = self.calls[next(count)]
+            return prpn.Proposals(torch.tensor(boxes), torch.tensor(scores),
+                                  torch.tensor(valid))
+
+        monkeypatch.setattr(pdet, "select_proposals", injected)
+
+    def flips(self) -> tuple[int, int]:
+        """(valid JAX proposals that the port's own selection lacks, valid
+        JAX proposals), over every call: a box counts as kept when the
+        port's own selection of that call has one within 0.25 px."""
+        lacks = total = 0
+        for i, own in enumerate(self.own):
+            boxes, _, valid = self.calls[i]
+            for b in range(boxes.shape[0]):
+                mine = own.boxes[b][own.valid[b]].numpy()
+                for box in boxes[b][valid[b]]:
+                    total += 1
+                    lacks += not bool(
+                        (np.abs(mine - box).max(-1) <= 0.25).any()) \
+                        if len(mine) else 1
+        return lacks, total
