@@ -73,10 +73,36 @@ Phases, one JSON line each:
                both dtypes) is not timed again, the DCN train step runs
                "four" only, BF16_DCN_TRAIN_STEPS timed steps, and step 1's
                inputs are its sites
+The data path, in bfloat16, on datasets written at run time (an aligned
+clean / foggy / rainy triple at Cityscapes geometry, 1024x2048 PNGs from the
+port's writer, 8 images a domain, 8 to 40 boxes in 2 classes, named through
+a user catalog, PATHS_CATALOG):
+ 12. data      the PNG reader on a filter-0 and a Paeth-filtered image; the
+               flagship YAML's triplet loader alone (608x1216 uint8, packed,
+               one copy a step) at the YAML's 0 workers, at 4, and at 4 with
+               the port's PNG reader where cv2 decodes: batches a second,
+               host seconds a step by stage, the copy's bytes; its first
+               batch on the card equals the CPU loader's
+ 13. cli_train_bf16  ``tools/train_net_triplet.main`` on the flagship YAML,
+               8 loader-fed steps, a checkpoint every 4, launch counts a step
+               as the train phase's; again from the step-4 checkpoint to 8;
+               a profile of loader-fed steps (busy share)
+ 14. cli_eval_bf16  ``tools/test_net.main --ckpt``: coco_results.json and
+               the bbox AP (random weights: printed only), launch counts a
+               request; compute_on_dataset's detections of one image equal
+               model(batch) on the same batch; images a second
+ 15. tta_bf16  ``tools/train_core.run_eval`` on the X-101-32x8d-FPN-DCN YAML
+               (TEST.BBOX_AUG: 8 passes) over 2 images, offsets drawn as in
+               phase 8: each pass's canvas, latency and launches (270 row
+               gathers a forward at every scale); the merge's NMS kernel
+               against its plain version (exact keep masks) and the merged
+               order against the JAX package's merge rule in numpy
+``--data-only`` runs phases 1, 2 and 12-15 alone, without the kernel line.
 Each ROIAlign-forward site of phases 5, 7 and 9 also gives its kernel's
 device time (profiler), the corner bytes that the per-thread gather it
 replaced read through L2, and the ROIs' footprint bytes the kernel stages.
-Then a line with every kernel's numbers (a row a kernel and dtype), the
+Then a line with every kernel's numbers (a row a kernel and dtype, and one
+for the TTA merge's NMS site), the
 nvidia-smi line of the card, and last ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
 non-zero and prints no result. With no CUDA device it exits 1 at once.
 
@@ -100,10 +126,12 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1734,6 +1762,7 @@ def phase_train(dev, dtype: str = "float32"):
         f32_step_one(state, cfg, args) if bf16 else None)
     state, launches, times, metrics = run_steps(
         step, state, args, TRAIN_STEPS, PER_TRAIN_STEP, name)
+    STEP_MEDIANS[name] = statistics.median(times)
     split = train_split(step, state, args, SPLIT_STEPS)
     holder = [state]
 
@@ -2273,6 +2302,507 @@ def phase_dcn_train(dev, dtype: str = "float32"):
 
 # ---------------------------------------------------------------- summary
 
+
+# ---------------------------------------------------------------- data, CLIs
+
+DCN_YAML = os.path.join(
+    REPO, "configs", "da_faster_rcnn",
+    "e2e_triplet_da_faster_rcnn_X_101_32x8d_FPN_dcn_cityscapes_to_foggy_"
+    "cityscapes.yaml")
+# the smoke datasets: an aligned clean / foggy / rainy triple at Cityscapes
+# geometry, 8 images a domain, 8 to 40 boxes an image in 2 classes
+DATA_IMAGES, DATA_HW, DATA_BOXES = 8, (1024, 2048), (8, 41)
+LOADER_BATCHES = 16       # two epochs of triples (IMS_PER_BATCH 2)
+CLI_STEPS, CLI_PERIOD = 8, 4
+TTA_IMAGES = 2
+USER_CATALOG = '''"""The smoke run's datasets (PATHS_CATALOG)."""
+
+NAMES = {names!r}
+
+
+class DatasetCatalog:
+    @staticmethod
+    def get(name):
+        img_dir, ann_file = NAMES[name]
+        return {{"factory": "COCODataset",
+                 "args": {{"root": img_dir, "ann_file": ann_file}}}}
+'''
+# the flagship train step's median (ms) from the train phases, by name
+STEP_MEDIANS: dict = {}
+
+
+def paeth_png(path: str, img: np.ndarray) -> None:
+    """Write uint8 BGR [H, W, 3] as an RGB PNG whose every row takes the
+    Paeth filter (the reader's sequential, by-diagonal path)."""
+    import struct
+    import zlib
+
+    from da_detect_tpu_torch.data.image_io import PNG_SIGNATURE
+
+    h, w = img.shape[:2]
+    x = img[:, :, ::-1].reshape(h, w * 3).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, 3:] = x[:, :-3]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:] = a[:-1]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = np.full((h, 1 + w * 3), 4, np.uint8)
+    rows[:, 1:] = (x - pred) & 0xFF
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    with open(path, "wb") as f:
+        f.write(PNG_SIGNATURE
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+                + chunk(b"IEND", b""))
+
+
+def smoke_datasets(root: str) -> dict:
+    """Write the triple with the port's PNG writer and a user catalog module
+    naming it; returns the catalog's path, its names and the directories."""
+    from da_detect_tpu_torch.data.synthetic import write_triplet_datasets
+
+    t0 = time.perf_counter()
+    dirs = write_triplet_datasets(
+        os.path.join(root, "data"), n_images=DATA_IMAGES, h=DATA_HW[0],
+        w=DATA_HW[1], boxes=DATA_BOXES, box_side=(24, 240), seed=0)
+    with open(dirs["foggy"][1]) as f:
+        ann = json.load(f)
+    few = [im["id"] for im in ann["images"][:TTA_IMAGES]]
+    ann["images"] = ann["images"][:TTA_IMAGES]
+    ann["annotations"] = [a for a in ann["annotations"]
+                          if a["image_id"] in few]
+    few_ann = os.path.join(root, "data", "instances_few.json")
+    with open(few_ann, "w") as f:
+        json.dump(ann, f)
+    names = {f"smoke_{d}_train": dirs[d] for d in dirs}
+    names["smoke_foggy_val"] = dirs["foggy"]
+    names["smoke_foggy_val_few"] = (dirs["foggy"][0], few_ann)
+    catalog = os.path.join(root, "smoke_catalog.py")
+    with open(catalog, "w") as f:
+        f.write(USER_CATALOG.format(names=names))
+    return dict(catalog=catalog, names=names, dirs=dirs, root=root,
+                write_s=time.perf_counter() - t0)
+
+
+def smoke_opts(data: dict, out_dir: str, **extra) -> list:
+    """Config options that point a YAML at the smoke datasets, with random
+    weights (no MODEL.WEIGHT), bfloat16, outputs under ``out_dir``."""
+    opts = {"MODEL.WEIGHT": "", "TPU.COMPUTE_DTYPE": "bfloat16",
+            "PATHS_CATALOG": data["catalog"],
+            "DATASETS.SOURCE_TRAIN": "('smoke_clean_train',)",
+            "DATASETS.TARGET_TRAIN": "('smoke_foggy_train',)",
+            "DATASETS.TARGET_TRAIN_negative": "('smoke_rainy_train',)",
+            "DATASETS.TEST": "('smoke_foggy_val',)",
+            "DATALOADER.STAGE_DIR": os.path.join(data["root"], "stage"),
+            "MODEL.OUTPUT_DIR": out_dir, "MODEL.OUTPUT_SAVE_NAME": "run"}
+    opts.update(extra)
+    return [str(x) for kv in opts.items() for x in kv]
+
+
+def smoke_cfg(yaml: str, opts: list):
+    """The config the CLIs build from ``yaml`` and ``opts``, with the user
+    catalog loaded."""
+    from da_detect_tpu_torch.config import get_cfg
+    from da_detect_tpu_torch.config.catalog import load_user_catalog
+
+    cfg = get_cfg()
+    cfg.merge_from_file(yaml)
+    cfg.merge_from_list(opts)
+    load_user_catalog(cfg.PATHS_CATALOG)
+    return cfg
+
+
+def batches_equal(got, want) -> bool:
+    """Two loader items (tuples of ImageBatch / Targets), tensor for
+    tensor, on the CPU."""
+    return all(torch.equal(getattr(g, f).cpu(), getattr(w, f).cpu())
+               for g, w in zip(got, want) for f in vars(w))
+
+
+def loader_rate(cfg, dev, batches: int) -> dict:
+    """The triplet loader alone on the card: batches a second over
+    ``batches`` after the first, and the host seconds a step by stage."""
+    from da_detect_tpu_torch.data import make_data_loader_da
+
+    loader = make_data_loader_da(cfg, device=dev, seed=0, packed=True,
+                                 aligned=cfg.MODEL.DA_HEADS.ALIGNMENT)
+    first = next(loader)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(batches - 1):
+        next(loader)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    stats = loader.stats
+    loader.close()
+    made = stats["batches"]
+    per_step = {k: v / made for k, v in stats.items()
+                if k.endswith("_s")}
+    return dict(first=first, batches_per_s=(batches - 1) / seconds,
+                seconds=seconds, host_s_per_step=per_step,
+                decoder=stats["decoder"], step_copy_bytes=stats["bytes"],
+                batches_made=made,
+                workers=cfg.DATALOADER.NUM_WORKERS)
+
+
+def phase_data(dev, data: dict) -> dict:
+    """The smoke datasets on disk, the PNG reader's speed on a filter-0 and
+    a Paeth-filtered 1024x2048 image, and the flagship YAML's triplet loader
+    alone (canvas 608x1216, one triple a step, uint8, packed) at the YAML's
+    workers and at 4, and with the port's PNG reader where cv2 decodes; its
+    first batch on the card equals the CPU loader's."""
+    from da_detect_tpu_torch.data import image_io, make_data_loader_da
+    from da_detect_tpu_torch.data.transforms import canvas_for
+
+    cfg = smoke_cfg(FLAGSHIP_YAML, smoke_opts(
+        data, os.path.join(data["root"], "out_data"),
+        **{"DATALOADER.STAGE_CACHE": False}))
+    clean = os.path.join(data["dirs"]["clean"][0], "img_0000.png")
+    img = image_io.load_image_bgr(clean, "png")
+    paeth = os.path.join(data["root"], "paeth.png")
+    paeth_png(paeth, img)
+    if not np.array_equal(image_io.load_image_bgr(paeth, "png"), img):
+        raise AssertionError("the PNG reader misread a Paeth-filtered file")
+    decode_ms = {}
+    for name, path in (("filter0", clean), ("paeth", paeth)):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            image_io.load_image_bgr(path, "png")
+            times.append((time.perf_counter() - t0) * 1e3)
+        decode_ms[name] = statistics.median(times)
+    rates = {}
+    for workers in (cfg.DATALOADER.NUM_WORKERS, 4):
+        cfg.DATALOADER.NUM_WORKERS = workers
+        rates[f"workers_{workers}"] = loader_rate(cfg, dev, LOADER_BATCHES)
+    yaml_rate = next(iter(rates.values()))
+    if image_io.DECODER != "png":  # the port's own reader in the loader
+        decoder = image_io.DECODER
+        image_io.DECODER = "png"
+        try:
+            rates["png_workers_4"] = loader_rate(cfg, dev, LOADER_BATCHES)
+        finally:
+            image_io.DECODER = decoder
+    cpu = make_data_loader_da(cfg, device="cpu", seed=0,
+                              aligned=cfg.MODEL.DA_HEADS.ALIGNMENT)
+    if not batches_equal(yaml_rate["first"], next(cpu)):
+        raise AssertionError("data: the packed card loader's first batch "
+                             "differs from the CPU loader's")
+    cpu.close()
+    for r in rates.values():
+        del r["first"]
+    emit("data", images_per_domain=DATA_IMAGES, image_hw=list(DATA_HW),
+         write_s=data["write_s"], decoder=yaml_rate["decoder"],
+         png_decode_ms=decode_ms, canvas=list(canvas_for(cfg, True)),
+         loader=rates)
+    return rates
+
+
+def phase_cli_train(dev, data: dict) -> dict:
+    """``train_net_triplet.main`` on the flagship YAML, bfloat16, random
+    weights: 8 loader-fed steps with a checkpoint every 4, exact launch
+    counts a step; then again from the step-4 checkpoint to 8; a profile of
+    loader-fed steps (the device's busy share)."""
+    from da_detect_tpu_torch.data import make_data_loader_da
+    from da_detect_tpu_torch.engine.trainer import make_train_step
+    from da_detect_tpu_torch.tools import train_net_triplet
+
+    out = os.path.join(data["root"], "out_train")
+    opts = smoke_opts(data, out, **{"SOLVER.MAX_ITER": CLI_STEPS,
+                                    "SOLVER.CHECKPOINT_PERIOD": CLI_PERIOD})
+    argv = ["--config-file", FLAGSHIP_YAML, "--skip-test", "--seed", "0",
+            "--log-period", "1"] + opts
+    clear_counts()
+    t0 = time.perf_counter()
+    state, meters = train_net_triplet.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts(PER_TRAIN_STEP, CLI_STEPS, "cli_train_bf16",
+                           "steps")
+    run_dir = os.path.join(out, "run")
+    for step in (CLI_PERIOD, CLI_STEPS):
+        if not os.path.exists(os.path.join(run_dir, f"model_{step:07d}.pth")):
+            raise AssertionError(f"cli_train_bf16: no checkpoint at {step}")
+    step_ms = [t * 1e3 for t in meters.meters["time"].deque]
+    data_ms = [t * 1e3 for t in meters.meters["data"].deque]
+    losses = [float(v) for v in meters.meters["loss_total"].deque]
+    if len(step_ms) != CLI_STEPS or state.step != CLI_STEPS \
+            or not all(np.isfinite(losses)):
+        raise AssertionError(f"cli_train_bf16: {state.step} steps, "
+                             f"{len(step_ms)} timed, losses {losses}")
+
+    # a run cut after its step-4 checkpoint, started again
+    with open(os.path.join(run_dir, "last_checkpoint"), "w") as f:
+        f.write(f"model_{CLI_PERIOD:07d}.pth")
+    clear_counts()
+    resumed, r_meters = train_net_triplet.main(argv)
+    torch.cuda.synchronize()
+    r_launches = read_counts(PER_TRAIN_STEP, CLI_STEPS - CLI_PERIOD,
+                             "cli_train_bf16 resumed", "steps")
+    with open(os.path.join(run_dir, "log.txt")) as f:
+        started = f"start training at iteration {CLI_PERIOD}" in f.read()
+    resumed_to = resumed.step
+    if resumed_to != CLI_STEPS or not started \
+            or r_meters.meters["time"].count != CLI_STEPS - CLI_PERIOD:
+        raise AssertionError(f"cli_train_bf16: the resumed run reached "
+                             f"{resumed_to}, started at {CLI_PERIOD}: "
+                             f"{started}")
+
+    # loader-fed steps under the profiler
+    cfg = smoke_cfg(FLAGSHIP_YAML, opts)
+    loader = make_data_loader_da(cfg, device=dev, seed=0, packed=True,
+                                 aligned=cfg.MODEL.DA_HEADS.ALIGNMENT)
+    step = make_train_step(resumed.model, resumed.optimizer)
+    holder = [resumed]
+
+    def loader_fed_step():
+        holder[0], _ = step(holder[0], *next(loader))
+
+    for _ in range(2):
+        loader_fed_step()
+    profile = device_profile(loader_fed_step, PROFILE_STEPS)
+    loader.close()
+    resident = STEP_MEDIANS.get("train_bf16")
+    emit("cli_train_bf16", config=os.path.relpath(FLAGSHIP_YAML, REPO),
+         steps=CLI_STEPS, seconds=seconds, step_ms=step_ms,
+         loader_fed_step_ms_median=statistics.median(step_ms[2:]),
+         loader_fed_step_ms_mean=statistics.mean(step_ms[2:]),
+         device_resident_step_ms_median=resident,
+         data_wait_ms=data_ms, launches=launches,
+         launches_per_step={k: v / CLI_STEPS for k, v in launches.items()},
+         losses=losses, resumed=dict(from_step=CLI_PERIOD,
+                                     to_step=resumed_to,
+                                     launches=r_launches),
+         profile=profile)
+    del step, holder, state, resumed
+    return dict(run_dir=run_dir, opts=opts)
+
+
+def phase_cli_eval(dev, data: dict, trained: dict) -> None:
+    """``test_net.main --ckpt`` on the foggy split: coco_results.json and
+    the bbox AP (random weights: printed, not judged), exact launch counts
+    a request; one image's detections from ``compute_on_dataset`` equal
+    ``model(batch)`` on the same loader batch and checkpoint; images a
+    second, loader-fed and from batches already on the card."""
+    from da_detect_tpu_torch.data import make_data_loader
+    from da_detect_tpu_torch.engine.inference import compute_on_dataset
+    from da_detect_tpu_torch.tools import test_net
+    from da_detect_tpu_torch.tools.train_core import build_model
+    from da_detect_tpu_torch.utils.checkpoint import Checkpointer
+
+    run_dir, opts = trained["run_dir"], trained["opts"]
+    clear_counts()
+    t0 = time.perf_counter()
+    results = test_net.main(["--config-file", FLAGSHIP_YAML, "--ckpt",
+                             run_dir, "--seed", "0"] + opts)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts(PER_FORWARD, DATA_IMAGES, "cli_eval_bf16",
+                           "requests")
+    if not os.path.exists(os.path.join(run_dir, "coco_results.json")):
+        raise AssertionError("cli_eval_bf16: no coco_results.json")
+    bbox = results["smoke_foggy_val"]["bbox"]
+
+    # the checkpoint's model with no score threshold, so that the first
+    # image has its 100 detections to compare
+    cfg = smoke_cfg(FLAGSHIP_YAML, opts)
+    cfg.MODEL.ROI_HEADS.SCORE_THRESH = 0.0
+    model = build_model(cfg, dev, 0)
+    Checkpointer(run_dir).resume_model(model)
+
+    def loader():
+        return make_data_loader(cfg, is_train=False, device=dev,
+                                packed=True)[0]
+
+    batches = list(loader())
+    preds = compute_on_dataset(model, batches, progress_every=0)
+    batch, ids = batches[0]
+    dets = model(batch)
+    valid = dets.valid[0].cpu().numpy()
+    orig, size = batch.orig_sizes[0].cpu().numpy(), batch.sizes[0].cpu(
+    ).numpy()
+    scale = np.array([orig[1] / size[1], orig[0] / size[0]] * 2, np.float32)
+    same = (np.array_equal(preds[ids[0]]["boxes"],
+                           dets.boxes[0].cpu().numpy()[valid] * scale)
+            and np.array_equal(preds[ids[0]]["scores"],
+                               dets.scores[0].cpu().numpy()[valid])
+            and np.array_equal(preds[ids[0]]["labels"],
+                               dets.labels[0].cpu().numpy()[valid]))
+    if not same or not valid.any():
+        raise AssertionError(f"cli_eval_bf16: compute_on_dataset's "
+                             f"{int(valid.sum())} detections differ from "
+                             "model(batch), or there are none")
+    rates = {}
+    for name, source in (("loader_fed", loader), ("on_card", lambda: batches)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        compute_on_dataset(model, source(), progress_every=0)
+        torch.cuda.synchronize()
+        rates[name] = DATA_IMAGES / (time.perf_counter() - t0)
+    emit("cli_eval_bf16", config=os.path.relpath(FLAGSHIP_YAML, REPO),
+         images=DATA_IMAGES, seconds=seconds, launches=launches,
+         launches_per_request={k: v / DATA_IMAGES
+                               for k, v in launches.items()},
+         bbox=bbox, images_per_s=rates,
+         detections_first_image=int(valid.sum()))
+
+
+def numpy_tta_merge(boxes, scores, labels, thresh, max_dets) -> np.ndarray:
+    """The JAX package's TTA merge rule in numpy (``_np_per_class_nms`` with
+    its native NMS): greedy per-class NMS in float32 over a stable sort by
+    score, legacy +1 widths, suppression at IoU > thresh; kept indices
+    ascending, stable sorted by score descending, the first max_dets."""
+    b = boxes.astype(np.float32)
+    one, t = np.float32(1), np.float32(thresh)
+    area = (b[:, 2] - b[:, 0] + one) * (b[:, 3] - b[:, 1] + one)
+    suppressed = np.zeros(len(b), bool)
+    kept = []
+    for i in np.argsort(-scores, kind="stable"):
+        if suppressed[i]:
+            continue
+        kept.append(i)
+        j = np.flatnonzero((labels == labels[i]) & ~suppressed)
+        j = j[j != i]
+        iw = np.minimum(b[j, 2], b[i, 2]) - np.maximum(b[j, 0], b[i, 0]) + one
+        ih = np.minimum(b[j, 3], b[i, 3]) - np.maximum(b[j, 1], b[i, 1]) + one
+        inter = np.maximum(iw, 0) * np.maximum(ih, 0)
+        iou = inter / (area[i] + area[j] - inter)
+        suppressed[j[(iou > t) & (iw > 0) & (ih > 0)]] = True
+    kept = np.sort(np.asarray(kept, np.int64))
+    return kept[np.argsort(-scores[kept], kind="stable")][:max_dets]
+
+
+def phase_tta(dev, data: dict) -> dict:
+    """``train_core.run_eval`` on the X-101-32x8d-FPN-DCN YAML (bfloat16,
+    TEST.BBOX_AUG as the YAML sets it: 8 passes) over 2 foggy images, on a
+    model built here with random weights and offsets drawn as
+    ``e2e_pairs.spread_dcn`` draws them: each pass's canvas, latency and
+    launches (270 row gathers a forward at every scale); the merge's NMS
+    kernel against its plain version on the merged candidates (exact keep
+    masks); the merged order against ``numpy_tta_merge``."""
+    from da_detect_tpu_torch import kernels
+    from da_detect_tpu_torch.config.catalog import load_user_catalog
+    from da_detect_tpu_torch.data import make_data_loader
+    from da_detect_tpu_torch.e2e_pairs import spread_dcn
+    from da_detect_tpu_torch.engine import bbox_aug, inference
+    from da_detect_tpu_torch.ops import nms, nms_cuda
+    from da_detect_tpu_torch.tools import train_core
+
+    cfg, _, model = dcn_model(dev, "four", "bfloat16")
+    cfg = cfg.clone()
+    cfg.defrost()
+    cfg.merge_from_list(smoke_opts(
+        data, os.path.join(data["root"], "out_tta"),
+        **{"DATASETS.TEST": "('smoke_foggy_val_few',)"}))
+    cfg.MODEL.OUTPUT_DIR = os.path.join(cfg.MODEL.OUTPUT_DIR, "run")
+    cfg.freeze()
+    load_user_catalog(cfg.PATHS_CATALOG)
+    loader, _ = make_data_loader(cfg, is_train=False, device=dev)
+    raw_std = spread_dcn(model, next(loader)[0])
+    loader.close()
+
+    passes, merges = [], []
+    plain_cod, plain_merge = inference.compute_on_dataset, \
+        bbox_aug.merge_per_class
+
+    def timed_pass(model, data_loader, progress_every=50):
+        canvases = []
+
+        def watch(items):
+            for batch, ids in items:
+                canvases.append(list(batch.images.shape[2:]))
+                yield batch, ids
+
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_cod(model, watch(data_loader), progress_every)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: kernels.LAUNCHES[k] - before.get(k, 0)
+                  for k in kernels.SOURCES}
+        passes.append(dict(canvas=canvases[0], images=len(out),
+                           ms_per_image=seconds * 1e3 / len(out),
+                           launches=counts))
+        return out
+
+    def recorded_merge(boxes, scores, labels, thresh, max_dets, **kw):
+        keep = plain_merge(boxes, scores, labels, thresh, max_dets, **kw)
+        merges.append((boxes, scores, labels, thresh, max_dets, keep))
+        return keep
+
+    inference.compute_on_dataset = timed_pass
+    bbox_aug.merge_per_class = recorded_merge
+    logger = logging.getLogger("chip_smoke.tta")
+    try:
+        clear_counts()
+        results = train_core.run_eval(cfg, logger, model, dev)
+        torch.cuda.synchronize()
+    finally:
+        inference.compute_on_dataset = plain_cod
+        bbox_aug.merge_per_class = plain_merge
+    n_pass = len(bbox_aug.tta_passes(cfg))
+    expected = {k: v * TTA_IMAGES * n_pass
+                for k, v in PER_DCN_FORWARD.items()}
+    expected["nms"] += TTA_IMAGES  # the merge: a launch an image
+    launches = read_counts(expected, 1, "tta_bf16", "runs")
+    for p in passes:
+        for k, v in PER_DCN_FORWARD.items():
+            if p["launches"][k] != v * p["images"]:
+                raise AssertionError(f"tta_bf16: pass at {p['canvas']} ran "
+                                     f"{k} {p['launches'][k]} times for "
+                                     f"{p['images']} images")
+    if len(passes) != n_pass or len(merges) != TTA_IMAGES:
+        raise AssertionError(f"tta_bf16: {len(passes)} passes, "
+                             f"{len(merges)} merges")
+
+    sites, err = [], 0
+    for i, (boxes, scores, labels, thresh, max_dets, keep) in enumerate(
+            merges):
+        if not np.array_equal(keep, numpy_tta_merge(boxes, scores, labels,
+                                                    thresh, max_dets)):
+            raise AssertionError(f"tta_bf16: image {i}'s merged order "
+                                 "differs from the JAX merge rule")
+        row, col, shape = bbox_aug.class_rows(labels)
+        b = np.zeros(shape + (4,), np.float32)
+        s = np.full(shape, nms.NEG_INF, np.float32)
+        v = np.zeros(shape, bool)
+        b[row, col], s[row, col], v[row, col] = boxes, scores, True
+        order = np.argsort(-s, axis=1, kind="stable")
+        bs = torch.from_numpy(np.take_along_axis(b, order[..., None], 1)
+                              ).to(dev)
+        vs = torch.from_numpy(np.take_along_axis(v, order, 1)).to(dev)
+        got = nms_cuda.nms_mask_sorted(bs, vs, thresh)
+        want = nms.nms_mask_sorted(bs, vs, thresh)
+        err = max(err, int((got != want).sum()))
+        nbytes, ops = nms_work(vs, got, None)
+        bound_ms, by = bound(nbytes, ops)
+        sites.append(dict(
+            kernel="nms", path="tta_bf16", site=f"merge{i}",
+            shape=list(bs.shape), iou=thresh, candidates=len(boxes),
+            kept=int(got.sum()), merged=len(keep), bytes=nbytes,
+            operations=ops,
+            ms=time_ms(lambda: nms_cuda.nms_mask_sorted(bs, vs, thresh)),
+            plain_ms=time_ms(lambda: nms.nms_mask_sorted(bs, vs, thresh),
+                             runs=NMS_PLAIN_RUNS, warmup=1),
+            bound_ms=bound_ms, bound_by=by))
+    if err:
+        raise AssertionError(f"tta_bf16: the merge's NMS kernel's keep masks "
+                             f"differ from the plain version's in {err}")
+    emit("tta_bf16", config=os.path.relpath(DCN_YAML, REPO),
+         images=TTA_IMAGES, passes=passes, launches=launches,
+         offset_std_before_scaling=raw_std[:3],
+         bbox=results["smoke_foggy_val_few"]["bbox"], merge_sites=sites)
+    return dict(sites=sites, launches=launches, err=err)
+
+
 def path_summary(sites, launches: int, device=None) -> dict:
     """A kernel's launches in a path's run, and its times and bound summed
     over the sites of one forward or step of that path: CUDA events around
@@ -2383,7 +2913,39 @@ def run_dtype(dev, dtype: str) -> tuple[dict, dict, dict]:
     return paths, errs, scatter
 
 
-def main() -> int:
+def run_data_path(dev) -> dict:
+    """The data, CLI and TTA phases on the smoke datasets (written to a
+    temporary directory, removed at the end). Returns the TTA merge's
+    NMS site."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        data = smoke_datasets(root)
+        phase_data(dev, data)
+        trained = phase_cli_train(dev, data)
+        phase_cli_eval(dev, data, trained)
+        return phase_tta(dev, data)
+
+
+def tta_row(tta: dict) -> dict:
+    """The kernel line's row of the TTA merge's NMS site (float32 boxes):
+    its launches in the TTA run, times and bound summed over its images."""
+    source, replaces = SOURCES["nms"]
+    summary = path_summary(tta["sites"], len(tta["sites"]))
+    return dict(name="nms_tta_merge", route="cuda", source=source,
+                replaces=replaces, dtype="float32", **summary,
+                max_abs_err=float(tta["err"]), main_path="tta_bf16",
+                paths={"tta_bf16": summary},
+                sites=[{k: s[k] for k in ("path", "site", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "candidates")}
+                       for s in tta["sites"]])
+
+
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    data_only = args == ["--data-only"]
+    if args and not data_only:
+        print("usage: chip_smoke.py [--data-only]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
@@ -2394,6 +2956,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = phase_env()
     phase_build()
+    if data_only:  # the data, CLI and TTA phases alone (no kernel line)
+        run_data_path(dev)
+        emit("done", seconds=time.perf_counter() - t_start)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     errs = phase_kernels(dev)
     paths, f32_errs, scatter = run_dtype(dev, "float32")
     for k, v in f32_errs.items():
@@ -2403,10 +2973,16 @@ def main() -> int:
     for k, v in bf16_errs.items():
         key = label(k, "bfloat16") if k in BF16_KERNELS else k
         errs[key] = max(errs.get(key, 0.0), v)
-    print(json.dumps(kernel_line(
+    tta = run_data_path(dev)
+    line = kernel_line(
         paths, errs, {"row_scatter_add": {"dcn_train": scatter},
                       "row_scatter_add_bf16": {"dcn_train_bf16":
-                                               bf16_scatter}})))
+                                               bf16_scatter}})
+    row = tta_row(tta)
+    nms_row = next(r for r in line["kernels"] if r["name"] == "nms")
+    nms_row["paths"]["tta_bf16"] = row["paths"]["tta_bf16"]
+    line["kernels"].append(row)
+    print(json.dumps(line))
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi)
     print(json.dumps({"ok": True, "device": {

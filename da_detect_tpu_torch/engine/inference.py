@@ -1,0 +1,105 @@
+"""Evaluation engine (port of ``da_detect_tpu/engine/inference.py``;
+reference engine/inference.py:18-129).
+
+``compute_on_dataset`` runs the model's eval forward on each fixed-shape
+batch of an eval loader, brings the detections to the host, drops the
+padding, rescales the boxes to the original images and returns them by
+image id; ``inference`` hands them to the dataset's evaluator. The loop
+keeps one batch in flight: batch N + 1 is dispatched before batch N's
+detections are read back.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+log = logging.getLogger(__name__)
+
+
+def _host_predictions(dets, image_ids, sizes, orig, predictions) -> int:
+    """Batch detections -> ``predictions[image_id]`` in original-image
+    coordinates; returns the images added (padding entries skipped)."""
+    valid = dets.valid.cpu().numpy()
+    boxes = dets.boxes.cpu().numpy()
+    scores = dets.scores.cpu().numpy()
+    labels = dets.labels.cpu().numpy()
+    added = 0
+    for i, img_id in enumerate(image_ids):
+        if img_id is None:  # padding entry of the last batch
+            continue
+        sy = orig[i, 0] / max(sizes[i, 0], 1)
+        sx = orig[i, 1] / max(sizes[i, 1], 1)
+        predictions[img_id] = dict(
+            boxes=boxes[i][valid[i]] * np.array([sx, sy, sx, sy], np.float32),
+            scores=scores[i][valid[i]], labels=labels[i][valid[i]])
+        added += 1
+    return added
+
+
+@torch.no_grad()
+def compute_on_dataset(model, data_loader, progress_every: int = 50
+                       ) -> dict[Any, dict]:
+    """{image_id: dict(boxes xyxy, scores, labels)} in original image
+    coordinates, numpy, for every image of ``data_loader`` (an eval loader
+    yielding (ImageBatch, image ids))."""
+    predictions: dict[Any, dict] = {}
+    t0 = time.perf_counter()
+    n_images = 0
+    pending = None
+    for bi, (batch, image_ids) in enumerate(data_loader):
+        # the sizes' read waits for the forward in flight; the next one is
+        # queued before that forward's detections are post-processed
+        sizes = batch.sizes.cpu().numpy()
+        orig = batch.orig_sizes.cpu().numpy()
+        out = model(batch)
+        if pending is not None:
+            n_images += _host_predictions(*pending, predictions)
+        pending = (out, image_ids, sizes, orig)
+        if progress_every and (bi + 1) % progress_every == 0:
+            dt = time.perf_counter() - t0
+            log.info("eval %d images (%.3f s/img)", n_images,
+                     dt / max(n_images, 1))
+    if pending is not None:
+        n_images += _host_predictions(*pending, predictions)
+    total = time.perf_counter() - t0
+    log.info("total eval time: %.1fs (%.4f s/img, %d images)", total,
+             total / max(n_images, 1), n_images)
+    return predictions
+
+
+def inference(model, data_loader, dataset, *, iou_types=("bbox",),
+              output_folder: str | None = None, expected_results=None,
+              expected_results_sigma_tol: float = 4.0, style: str = "coco"):
+    """Predictions and the dataset's evaluation (reference
+    inference.py:76-129). Returns (results, predictions)."""
+    predictions = compute_on_dataset(model, data_loader)
+    if not predictions:
+        # a consumed (one-pass) loader would evaluate nothing and report NaN
+        raise RuntimeError(
+            "evaluation produced no predictions: eval loaders are one-pass; "
+            "build a fresh one for each inference() call")
+    from ..data.evaluation import evaluate
+    results = evaluate(dataset, predictions, output_folder=output_folder,
+                       iou_types=iou_types, style=style)
+    if expected_results:
+        check_expected_results(results, expected_results,
+                               expected_results_sigma_tol)
+    return results, predictions
+
+
+def check_expected_results(results, expected, sigma_tol):
+    """Regression gate (reference coco_eval.py:396-414)."""
+    for task, metric, mean, std in expected:
+        actual = results[task][metric]
+        lo, hi = mean - sigma_tol * std, mean + sigma_tol * std
+        msg = (f"{task} > {metric}: {actual:.4f} expected in "
+               f"[{lo:.4f}, {hi:.4f}]")
+        if not (lo < actual < hi):
+            log.error("FAIL: %s", msg)
+            raise AssertionError(msg)
+        log.info("PASS: %s", msg)

@@ -2,7 +2,8 @@
 
 One step: the training forward over all domains, the sum of the losses, the
 backward, one Detectron-SGD update and the new ``DAState``. The host loop
-feeds batches, logs windowed metrics and checkpoints. It reads the losses on
+(reference do_da_train, trainer.py:150-336) feeds batches, logs windowed
+metrics, checkpoints and runs the in-training eval. It reads the losses on
 the host only at log and checkpoint boundaries, where it also stops on a
 non-finite loss, so the steps in between queue on the card without a sync.
 Unlike the JAX package's pure step, the port updates the model, the
@@ -87,13 +88,18 @@ def _finite_total(metrics, iteration: int) -> float:
 def do_train(state: TrainState, data_iter, *, max_iter: int,
              checkpointer=None, checkpoint_period: int = 2500,
              meters: Optional[MetricLogger] = None, aligned: bool = False,
-             log_period: int = 20) -> TrainState:
-    """The host loop from ``state.step`` to ``max_iter``: ``data_iter``
-    yields tuples in ``train_forward``'s order, already on the device. The
-    loss is read on the host only at log and checkpoint boundaries (a
-    non-finite one raises ``FloatingPointError`` there, and no checkpoint of
-    it is written). Timing is averaged over each log window, because the
-    steps between two reads queue on the card."""
+             log_period: int = 20,
+             eval_fn: Optional[Callable[[TrainState, int], None]] = None,
+             test_period: int = 0) -> TrainState:
+    """The host loop from ``state.step`` (a resumed run's iteration) to
+    ``max_iter``: ``data_iter`` yields tuples in ``train_forward``'s order,
+    already on the device (a loader's batches). The loss is read on the host
+    only at log and checkpoint boundaries (a non-finite one raises
+    ``FloatingPointError`` there, and no checkpoint of it is written).
+    Timing is averaged over each log window, because the steps between two
+    reads queue on the card. ``eval_fn(state, iteration)`` runs every
+    ``test_period`` iterations (``SOLVER.TEST_PERIOD``) or, with
+    ``test_period`` 0, after each checkpoint."""
     meters = meters or MetricLogger()
     train_step = make_train_step(state.model, state.optimizer,
                                  aligned=aligned)
@@ -121,6 +127,11 @@ def do_train(state: TrainState, data_iter, *, max_iter: int,
                 and (iteration + 1) % checkpoint_period == 0:
             _finite_total(metrics, iteration)
             checkpointer.save(iteration + 1, state)
+            if eval_fn is not None and not test_period:
+                eval_fn(state, iteration + 1)
+        if eval_fn is not None and test_period \
+                and (iteration + 1) % test_period == 0:
+            eval_fn(state, iteration + 1)
     if checkpointer is not None:
         checkpointer.save(max_iter, state)
     total_time = time.perf_counter() - start

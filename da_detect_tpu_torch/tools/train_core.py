@@ -1,0 +1,98 @@
+"""Shared training and evaluation code of the train_net* and test_net
+CLIs (port of ``da_detect_tpu/tools/train_core.py``)."""
+
+from __future__ import annotations
+
+from ..data import make_data_loader, make_data_loader_da
+from ..engine.inference import inference
+from ..engine.trainer import create_train_state, do_train
+from ..entry import prepare_model
+from ..models import build_detection_model
+from ..utils.checkpoint import Checkpointer, load_weight_file
+from ..utils.metric_logger import MetricLogger
+
+
+def build_model(cfg, device, seed: int):
+    """The detector of ``cfg`` on ``device``, random weights from ``seed``
+    (a checkpoint or ``MODEL.WEIGHT`` replaces them)."""
+    return prepare_model(build_detection_model(cfg, seed=seed), device)
+
+
+def run_training(cfg, logger, *, mode: str, schedule_kind: str, device,
+                 skip_test: bool = False, seed: int = 100,
+                 log_period: int = 20):
+    """Train ``mode`` ("source_only", "da" or "da_triplet") from the
+    loader's batches, resuming from ``MODEL.OUTPUT_DIR``'s newest checkpoint
+    or starting from ``MODEL.WEIGHT``; then evaluate on ``DATASETS.TEST``
+    unless ``skip_test``. Returns (state, meters)."""
+    model = build_model(cfg, device, seed)
+    packed = bool(cfg.TPU.PACKED_TRANSPORT)
+    aligned = mode != "source_only" and cfg.MODEL.DA_HEADS.ALIGNMENT
+    if mode == "source_only":
+        loader, _ = make_data_loader(cfg, is_train=True, device=device,
+                                     seed=seed, packed=packed)
+    else:
+        loader = make_data_loader_da(cfg, device=device,
+                                     aligned=cfg.MODEL.DA_HEADS.ALIGNMENT,
+                                     seed=seed, packed=packed)
+    state = create_train_state(cfg, model, seed, schedule_kind)
+    checkpointer = Checkpointer(cfg.MODEL.OUTPUT_DIR)
+    if checkpointer.has_checkpoint():
+        state, _ = checkpointer.resume(state)
+    elif cfg.MODEL.WEIGHT:
+        load_weight_file(cfg.MODEL.WEIGHT, model,
+                         cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION)
+        logger.info("loaded MODEL.WEIGHT %s", cfg.MODEL.WEIGHT)
+
+    eval_fn = None
+    if cfg.MODEL.EVAL_USE_IN_TRAINING and cfg.DATASETS.TEST and not skip_test:
+        def eval_fn(st, iteration):
+            run_eval(cfg, logger, model, device)
+
+    meters = MetricLogger()
+    try:
+        state = do_train(
+            state, iter(loader), max_iter=cfg.SOLVER.MAX_ITER,
+            checkpointer=checkpointer,
+            checkpoint_period=cfg.SOLVER.CHECKPOINT_PERIOD, meters=meters,
+            aligned=aligned, log_period=log_period, eval_fn=eval_fn,
+            test_period=cfg.SOLVER.TEST_PERIOD)
+    finally:
+        loader.close()
+    if not skip_test and cfg.DATASETS.TEST:
+        run_eval(cfg, logger, model, device)
+    return state, meters
+
+
+def run_eval(cfg, logger, model, device):
+    """Evaluate ``model`` on each of ``DATASETS.TEST``: the TTA passes and
+    their merge when ``TEST.BBOX_AUG.ENABLED``, else one pass with the
+    expected-results gate. Returns {dataset name: results}."""
+    from ..data.evaluation import evaluate
+    from ..engine.bbox_aug import compute_on_dataset_aug
+
+    results = {}
+    for name in cfg.DATASETS.TEST:
+        if cfg.TEST.BBOX_AUG.ENABLED:
+            logger.info("evaluating on %s with bbox TTA", name)
+            predictions, dataset = compute_on_dataset_aug(model, cfg, name,
+                                                          device)
+            res = evaluate(dataset, predictions,
+                           output_folder=cfg.MODEL.OUTPUT_DIR)
+        else:
+            loader, dataset = make_data_loader(
+                cfg, is_train=False, device=device, dataset_names=(name,),
+                packed=bool(cfg.TPU.PACKED_TRANSPORT))
+            logger.info("evaluating on %s (%d images)", name, len(dataset))
+            try:
+                res, _ = inference(
+                    model, loader, dataset,
+                    output_folder=cfg.MODEL.OUTPUT_DIR,
+                    expected_results=cfg.TEST.EXPECTED_RESULTS,
+                    expected_results_sigma_tol=(
+                        cfg.TEST.EXPECTED_RESULTS_SIGMA_TOL),
+                    style=cfg.TEST.EVAL_STYLE)
+            finally:
+                loader.close()
+        results[name] = res
+    return results

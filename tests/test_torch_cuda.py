@@ -45,7 +45,14 @@ plain bf16 step's distance from the f32 one, each gradient leaf (L2) within
 twice that distance plus one ulp of its norm; with random weights, ulp-level
 differences move a bfloat16 step's gradients far more than a fixed bound
 would allow.
+
+The data path: the packed transport (one pinned buffer a step, copied on a
+side stream) gives the CPU loader's batches bit for bit to a consumer that
+reads each batch late; the TTA merge's NMS launch keeps the plain version's
+indices.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -1100,3 +1107,96 @@ def test_dcn_train_step_bf16_kernels_match_plain(dev):
     assert cfg.TPU.COMPUTE_DTYPE == "bfloat16"
     _assert_bf16_steps_match(_bf16_step_pair(dev, cfg, aligned=False,
                                              offsets_std=0.01))
+
+
+# ------------------------------------------------- data transport and TTA
+
+def _tiny_triple_cfg(root, monkeypatch):
+    """A port cfg over a synthetic 120x160 triple written under ``root`` and
+    named in the port's catalog (undone with ``monkeypatch``): one triple a
+    step, uint8 pixels, 2 batches prefetched."""
+    from da_detect_tpu_torch.config import get_cfg
+    from da_detect_tpu_torch.config.catalog import DatasetCatalog
+    from da_detect_tpu_torch.data.synthetic import write_triplet_datasets
+
+    dirs = write_triplet_datasets(str(root))
+    original = DatasetCatalog.get
+
+    def get(name):
+        if not name.startswith("synth_"):
+            return original(name)
+        img_dir, ann = dirs[name[len("synth_"):]]
+        return {"factory": "COCODataset",
+                "args": {"root": img_dir, "ann_file": ann}}
+
+    monkeypatch.setattr(DatasetCatalog, "get", staticmethod(get))
+    cfg = get_cfg()
+    cfg.merge_from_list([
+        "DATASETS.SOURCE_TRAIN", ("synth_clean",),
+        "DATASETS.TARGET_TRAIN", ("synth_foggy",),
+        "DATASETS.TARGET_TRAIN_negative", ("synth_rainy",),
+        "INPUT.MIN_SIZE_TRAIN", (96, 120), "INPUT.MAX_SIZE_TRAIN", 160,
+        "DATALOADER.SIZE_DIVISIBILITY", 32, "DATALOADER.NUM_WORKERS", 0,
+        "DATALOADER.STAGE_CACHE", False, "SOLVER.IMS_PER_BATCH", 2,
+        "TPU.MAX_GT_BOXES", 6, "TPU.PREFETCH", 2])
+    return cfg
+
+
+def test_packed_transport_survives_a_slow_consumer(dev, tmp_path,
+                                                   monkeypatch):
+    """Two epochs of triples through the packed transport on the card,
+    each batch read late by its consumer's stream (a device sleep queued
+    before the read, then a host sleep) while the producer runs ahead: every
+    tensor equals the CPU loader's bit for bit. A pinned buffer reused
+    before its copy completes, or a device buffer handed back to the
+    allocator while the consumer's stream still reads it, would show."""
+    from da_detect_tpu_torch.data import make_data_loader_da
+
+    cfg = _tiny_triple_cfg(tmp_path, monkeypatch)
+    steps = 16  # 8 images, 1 triple a step: two epochs
+    want = []
+    loader = make_data_loader_da(cfg, device="cpu", seed=3)
+    for _ in range(steps):
+        want.append(next(loader))
+    loader.close()
+    loader = make_data_loader_da(cfg, device=dev, seed=3, packed=True)
+    got = []
+    for _ in range(steps):
+        batch = next(loader)
+        torch.cuda._sleep(20_000_000)
+        got.append([{f: getattr(x, f).clone() for f in vars(x)}
+                    for x in batch])
+        del batch
+        time.sleep(0.02)
+    stats = loader.stats
+    loader.close()
+    torch.cuda.synchronize()
+    assert stats["bytes"] > 0 and stats["batches"] >= steps
+    for step, (g, w) in enumerate(zip(got, want)):
+        for gx, wx in zip(g, w):
+            for f, t in gx.items():
+                assert t.device.type == "cuda"
+                assert torch.equal(t.cpu(), getattr(wx, f)), (step, f)
+
+
+def test_tta_merge_kernel_matches_plain(dev):
+    """The TTA merge's NMS site: one kernel launch an image over [classes,
+    N], the same indices in the same order as the plain version."""
+    from da_detect_tpu_torch.engine.bbox_aug import merge_per_class
+
+    for seed in range(4):
+        rng = np.random.RandomState(seed)
+        n = 800  # 8 passes x 100 detections
+        c = rng.uniform(20, 1000, (n // 10, 2))[rng.randint(0, n // 10, n)]
+        c = c + rng.normal(0, 6, (n, 2))
+        wh = rng.uniform(10, 120, (n, 2))
+        boxes = np.concatenate([c - wh / 2, c + wh / 2], 1).astype(np.float32)
+        scores = np.round(rng.uniform(0.05, 1.0, n), 2).astype(np.float32)
+        labels = rng.randint(1, 9, n)
+        before = kernels.LAUNCHES["nms"]
+        got = merge_per_class(boxes, scores, labels, 0.3, 100, device=dev,
+                              impl="cuda")
+        assert kernels.LAUNCHES["nms"] == before + 1
+        want = merge_per_class(boxes, scores, labels, 0.3, 100,
+                               device=torch.device("cpu"), impl="plain")
+        np.testing.assert_array_equal(got, want)

@@ -357,3 +357,41 @@ class JaxProposals:
                         (np.abs(mine - box).max(-1) <= 0.25).any()) \
                         if len(mine) else 1
         return lacks, total
+
+
+# the tiny on-disk triple of tests/data_factory.py for the port's loaders
+TINY_NAMES = {"tiny_clean_cocostyle": "clean",
+              "tiny_foggy_cocostyle": "foggy",
+              "tiny_rainy_cocostyle": "rainy"}
+
+
+def register_port_tiny_catalog(dirs: dict, monkeypatch) -> None:
+    """Point the ``tiny_*`` names of the port's ``DatasetCatalog`` at the
+    ``tests/data_factory.make_triplet_datasets`` tree ``dirs``, undone with
+    ``monkeypatch``; other names resolve as before."""
+    from da_detect_tpu_torch.config.catalog import DatasetCatalog
+
+    original = DatasetCatalog.get
+
+    def get(name):
+        if name not in TINY_NAMES:
+            return original(name)
+        img_dir, ann = dirs[TINY_NAMES[name]]
+        return {"factory": "COCODataset",
+                "args": {"root": img_dir, "ann_file": ann}}
+
+    monkeypatch.setattr(DatasetCatalog, "get", staticmethod(get))
+
+
+def write_user_catalog(dirs: dict, root: str) -> None:
+    """``root/catalog.json``: the ``tiny_*`` names as the port's catalog
+    reads user entries under ``$DA_DETECT_DATA_DIR`` (set it to ``root``);
+    ``dirs`` must lie under ``root``."""
+    import json
+    import os
+
+    entries = {name: {"img_dir": os.path.relpath(dirs[key][0], root),
+                      "ann_file": os.path.relpath(dirs[key][1], root)}
+               for name, key in TINY_NAMES.items()}
+    with open(os.path.join(root, "catalog.json"), "w") as f:
+        json.dump(entries, f)
