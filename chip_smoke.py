@@ -73,42 +73,74 @@ Phases, one JSON line each:
                both dtypes) is not timed again, the DCN train step runs
                "four" only, BF16_DCN_TRAIN_STEPS timed steps, and step 1's
                inputs are its sites
+The from-scratch learning gate, in bfloat16 (the JAX package's
+``tools/sanity_check.py``, ported; its synthetic 120x160 datasets written at
+run time, seed 3, 16 images a domain):
+ 12. sanity_bf16  step 1 of the gate's GN triplet-DA model on a loader
+               batch, kernel-run against plain-run (relative to an f32 copy,
+               as the bf16 train phases); one step's kernel inputs (float32
+               ROIAlign maps and gradients in the bfloat16 model, P 7, 16
+               ROIs an image) held to the plain versions and timed; then
+               ``sanity_check.main`` with the JAX package's ablation gate
+               unchanged (``--ablation --iters 200 --min-gap 0.2``: source-
+               only and triplet-DA trained from scratch, DA AP50 on the
+               channel-inverted target must beat source-only's by 0.2), with
+               exact launches a step and an evaluation in each arm; the
+               kernel-run step twice, bit for bit the same
 The data path, in bfloat16, on datasets written at run time (an aligned
 clean / foggy / rainy triple at Cityscapes geometry, 1024x2048 PNGs from the
 port's writer, 8 images a domain, 8 to 40 boxes in 2 classes, named through
 a user catalog, PATHS_CATALOG):
- 12. data      the PNG reader on a filter-0 and a Paeth-filtered image; the
+ 13. data      the PNG reader on a filter-0 and a Paeth-filtered image; the
                flagship YAML's triplet loader alone (608x1216 uint8, packed,
                one copy a step) at the YAML's 0 workers, at 4, and at 4 with
-               the port's PNG reader where cv2 decodes: batches a second,
-               host seconds a step by stage, the copy's bytes; its first
-               batch on the card equals the CPU loader's
- 13. cli_train_bf16  ``tools/train_net_triplet.main`` on the flagship YAML,
+               the port's PNG reader where cv2 decodes, the staging cache
+               off (cold): batches a second, host seconds a step by stage,
+               the copy's bytes; its first batch on the card equals the CPU
+               loader's
+ 14. cli_train_bf16  ``tools/train_net_triplet.main`` on the flagship YAML,
                8 loader-fed steps, a checkpoint every 4, launch counts a step
                as the train phase's; again from the step-4 checkpoint to 8;
                a profile of loader-fed steps (busy share)
- 14. cli_eval_bf16  ``tools/test_net.main --ckpt``: coco_results.json and
+ 15. cli_eval_bf16  ``tools/test_net.main --ckpt``: coco_results.json and
                the bbox AP (random weights: printed only), launch counts a
                request; compute_on_dataset's detections of one image equal
-               model(batch) on the same batch; images a second
- 15. tta_bf16  ``tools/train_core.run_eval`` on the X-101-32x8d-FPN-DCN YAML
+               model(batch) on the same batch; images a second; the same
+               checkpoint under TEST.EVAL_STYLE cityscapes (its AP printed);
+               ``tools/test_net_batch.main`` over the two checkpoints of
+               phase 14; a ``--profile`` training run (21 steps) that leaves
+               its trace of iterations 10-19
+ 16. stage     ``tools/stage_dataset.main`` on the smoke datasets, then the
+               triplet loader warm at 0 and 4 workers (it must decode
+               nothing: every canvas a staging hit), beside phase 13's cold
+               numbers, and a warm loader-fed ``train_net_triplet`` run: its
+               median step and data wait
+ 17. tta_bf16  ``tools/train_core.run_eval`` on the X-101-32x8d-FPN-DCN YAML
                (TEST.BBOX_AUG: 8 passes) over 2 images, offsets drawn as in
                phase 8: each pass's canvas, latency and launches (270 row
                gathers a forward at every scale); the merge's NMS kernel
                against its plain version (exact keep masks) and the merged
                order against the JAX package's merge rule in numpy
-``--data-only`` runs phases 1, 2 and 12-15 alone, without the kernel line.
+``--data-only`` runs phases 1, 2 and 12-17 alone, without the kernel line.
+``--gate-spread GATES RUNS [CONDITION[:FIRST] ...]`` runs phases 1 and 2,
+then the learning gate of phase 12 GATES times and its triplet-DA arm RUNS
+times under each condition (default: all of SPREAD_CONDITIONS) with its
+initial weights changed in the last bit from seed FIRST on (0: unchanged)
+(``gate_spread``), without the kernel line.
 Each ROIAlign-forward site of phases 5, 7 and 9 also gives its kernel's
 device time (profiler), the corner bytes that the per-thread gather it
 replaced read through L2, and the ROIs' footprint bytes the kernel stages.
 Then a line with every kernel's numbers (a row a kernel and dtype, and one
-for the TTA merge's NMS site), the
-nvidia-smi line of the card, and last ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
-non-zero and prints no result. With no CUDA device it exits 1 at once.
+for the TTA merge's NMS site; the float32 NMS and ROIAlign rows also under
+the path "sanity_bf16", the ablation's run), the nvidia-smi line of the
+card, and last ``{"ok": true, "device": {...}}``. Any failure raises: the
+script exits non-zero and prints no result. With no CUDA device it exits 1
+at once.
 
 Tolerances: NMS keep masks exactly, truncated ones (``max_keep``) too;
 ROIAlign rtol = atol = 1e-5 (float32 sums in another order), its backward
-1e-5 of max |dF|; the row gathers bit for bit (copies); kernel-run against
+1e-5 of max |dF| and bit for bit its own rerun (a fixed order, no
+atomics); the row gathers bit for bit (copies); kernel-run against
 plain-run detections, and "quad" against "four": the same valid count, and
 each detection has a twin with the same label, boxes within 1e-2 pixels and
 scores within 1e-4 (the pooled features differ by float32 rounding, which
@@ -158,7 +190,7 @@ DET_BOX_ATOL, DET_SCORE_ATOL = 1e-2, 1e-4
 # backward within BF16_ROI_ULPS of the plain bfloat16 version's largest
 # value, and within one ulp of each value of the plain version run in
 # float32 on the same bfloat16 inputs (the backward plus 1e-5 of its largest
-# |dF|, float32 atomics in another order). The gathers are copies: exact.
+# |dF|, float32 sums in another order). The gathers are copies: exact.
 # The scatter-add sums in float32 and rounds once: bit for bit its plain
 # order (row_scatter_add_csr_ widens, sums and rounds so) and its rerun, and
 # within one ulp of the largest |dst| of the plain version on the card
@@ -576,15 +608,22 @@ def fwd_inputs(captured) -> list:
 def check_roi_align_backward(rois, grad, height, width,
                              **kw) -> tuple[float, float]:
     """Backward kernel against autograd of the plain version
-    (``roi_align_grad``); raises past ROI_BWD_REL of the largest |dF|.
-    Returns (max abs error, max |dF|)."""
+    (``roi_align_grad``); raises past ROI_BWD_REL of the largest |dF|, or
+    if a second launch differs from the first by a bit (it sums in a fixed
+    order). Returns (max abs error, max |dF|)."""
     from da_detect_tpu_torch.ops import roi_align, roi_align_cuda
 
     got = roi_align_cuda.roi_align_backward(grad, rois, height=height,
                                             width=width, **kw)
+    again = roi_align_cuda.roi_align_backward(grad, rois, height=height,
+                                              width=width, **kw)
     want = roi_align.roi_align_grad(grad, rois, height=height, width=width,
                                     **kw)
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"ROIAlign backward kernel not reproducible: "
+                             f"two launches differ (grad "
+                             f"{tuple(grad.shape)})")
     if not want.numel():
         return 0.0, 0.0
     err = float((got.float() - want.float()).abs().max())
@@ -1105,7 +1144,7 @@ def phase_kernels(dev) -> dict:
         bwd_case(f"bwd_c{c}", (1, c, *c4),
                  random_rois(rng, 1, 20, CANVAS, 900.0), max_samples=8,
                  **kw14)
-    # 800 rows: Ay alone passes the 48 KB target
+    # 800 rows: 50 tiles in a column, each ROI across many
     tall = np.asarray([[[0.0, 0.0, 128.0, 12800.0],
                         [10.0, 300.0, 90.0, 5000.0]]], np.float32)
     bwd_case("bwd_tall_map", (1, 8, 800, 8), tall, max_samples=8, **kw14)
@@ -2329,6 +2368,24 @@ class DatasetCatalog:
 '''
 # the flagship train step's median (ms) from the train phases, by name
 STEP_MEDIANS: dict = {}
+# the warm loader-fed training run of phase 16: steps (all of them read
+# canvases the stage CLI wrote); the --profile run of phase 15: its steps
+# (the trace covers iterations 10-19, as the JAX package's profile_range)
+STAGE_STEPS, PROFILE_RUN_STEPS = 8, 21
+
+# the sanity gate (tools/sanity_check.py): the JAX package's own ablation
+# gate, seeds, data and thresholds unchanged (tests/test_end_to_end.py)
+SANITY_ABLATION = ["--ablation", "--iters", "200", "--min-gap", "0.2"]
+# launches a sanity train step makes (no instance triplet: no re-pooling):
+# NMS in each domain batch's RPN (one launch over the batch's images),
+# ROIAlign forward in each box-head pass, its backward once a pass; float32
+# ROIAlign (the GN body's C4 map is float32) in the bfloat16 model
+PER_SANITY_STEP = {"source_only": {"nms": 1, "roi_align_fwd": 1,
+                                   "roi_align_bwd": 1},
+                   "da": {"nms": 2, "roi_align_fwd": 2, "roi_align_bwd": 2}}
+# an eval batch of the sanity test set (TEST.IMS_PER_BATCH 2 images): NMS in
+# the RPN and the box head, one ROIAlign
+PER_SANITY_EVAL_BATCH = {"nms": 2, "roi_align_fwd": 1}
 
 
 def paeth_png(path: str, img: np.ndarray) -> None:
@@ -2448,7 +2505,8 @@ def loader_rate(cfg, dev, batches: int) -> dict:
     return dict(first=first, batches_per_s=(batches - 1) / seconds,
                 seconds=seconds, host_s_per_step=per_step,
                 decoder=stats["decoder"], step_copy_bytes=stats["bytes"],
-                batches_made=made,
+                batches_made=made, stage_hits=stats.get("stage_hits"),
+                stage_misses=stats.get("stage_misses"),
                 workers=cfg.DATALOADER.NUM_WORKERS)
 
 
@@ -2570,6 +2628,7 @@ def phase_cli_train(dev, data: dict) -> dict:
     profile = device_profile(loader_fed_step, PROFILE_STEPS)
     loader.close()
     resident = STEP_MEDIANS.get("train_bf16")
+    STEP_MEDIANS["cli_train_bf16"] = statistics.median(step_ms[2:])
     emit("cli_train_bf16", config=os.path.relpath(FLAGSHIP_YAML, REPO),
          steps=CLI_STEPS, seconds=seconds, step_ms=step_ms,
          loader_fed_step_ms_median=statistics.median(step_ms[2:]),
@@ -2590,10 +2649,13 @@ def phase_cli_eval(dev, data: dict, trained: dict) -> None:
     the bbox AP (random weights: printed, not judged), exact launch counts
     a request; one image's detections from ``compute_on_dataset`` equal
     ``model(batch)`` on the same loader batch and checkpoint; images a
-    second, loader-fed and from batches already on the card."""
+    second, loader-fed and from batches already on the card; the same
+    checkpoint under ``TEST.EVAL_STYLE cityscapes``; ``test_net_batch`` over
+    the run's two checkpoints; a ``--profile`` training run's trace."""
     from da_detect_tpu_torch.data import make_data_loader
     from da_detect_tpu_torch.engine.inference import compute_on_dataset
-    from da_detect_tpu_torch.tools import test_net
+    from da_detect_tpu_torch.tools import (test_net, test_net_batch,
+                                           train_net_triplet)
     from da_detect_tpu_torch.tools.train_core import build_model
     from da_detect_tpu_torch.utils.checkpoint import Checkpointer
 
@@ -2646,12 +2708,430 @@ def phase_cli_eval(dev, data: dict, trained: dict) -> None:
         compute_on_dataset(model, source(), progress_every=0)
         torch.cuda.synchronize()
         rates[name] = DATA_IMAGES / (time.perf_counter() - t0)
+    del model, batches
+
+    # the same checkpoint's predictions under the Cityscapes protocol
+    # (TEST.EVAL_STYLE cityscapes, through inference's dispatch)
+    argv = ["--config-file", FLAGSHIP_YAML, "--seed", "0"]
+    clear_counts()
+    cs = test_net.main(argv + ["--ckpt", run_dir] + opts
+                       + ["TEST.EVAL_STYLE", "cityscapes"])
+    read_counts(PER_FORWARD, DATA_IMAGES, "cli_eval_bf16 cityscapes",
+                "requests")
+    cs_bbox = cs["smoke_foggy_val"]["bbox"]
+    if not os.path.exists(os.path.join(run_dir, "cityscapes_results.json")) \
+            or set(cs_bbox) != {"allAp", "allAp50%", "allAp75%", "classes"}:
+        raise AssertionError(f"cli_eval_bf16: cityscapes results {cs_bbox}")
+
+    # every checkpoint the training run left, oldest first
+    clear_counts()
+    batch_results = test_net_batch.main(argv + ["--ckpt-dir", run_dir]
+                                        + opts)
+    read_counts(PER_FORWARD, 2 * DATA_IMAGES, "cli_eval_bf16 batch",
+                "requests")
+    if list(batch_results) != [CLI_PERIOD, CLI_STEPS]:
+        raise AssertionError(f"cli_eval_bf16: test_net_batch evaluated "
+                             f"{list(batch_results)}")
+    batch_bbox = {step: r["smoke_foggy_val"]["bbox"]
+                  for step, r in batch_results.items()}
+
+    # a --profile run: a trace of iterations 10-19
+    prof_dir = os.path.join(data["root"], "profile")
+    t0 = time.perf_counter()
+    train_net_triplet.main(
+        ["--config-file", FLAGSHIP_YAML, "--skip-test", "--seed", "0",
+         "--profile", prof_dir] + smoke_opts(
+            data, os.path.join(data["root"], "out_profile"),
+            **{"SOLVER.MAX_ITER": PROFILE_RUN_STEPS,
+               "SOLVER.CHECKPOINT_PERIOD": 1000}))
+    profile_run_s = time.perf_counter() - t0
+    traces = os.listdir(prof_dir)
+    if traces != ["trace_10-19.json"]:
+        raise AssertionError(f"cli_eval_bf16: --profile left {traces}")
+    with open(os.path.join(prof_dir, traces[0]), "rb") as f:
+        trace = f.read()
     emit("cli_eval_bf16", config=os.path.relpath(FLAGSHIP_YAML, REPO),
          images=DATA_IMAGES, seconds=seconds, launches=launches,
          launches_per_request={k: v / DATA_IMAGES
                                for k, v in launches.items()},
          bbox=bbox, images_per_s=rates,
-         detections_first_image=int(valid.sum()))
+         detections_first_image=int(valid.sum()),
+         cityscapes_bbox=dict(allAp=cs_bbox["allAp"],
+                              allAp50=cs_bbox["allAp50%"],
+                              allAp75=cs_bbox["allAp75%"]),
+         test_net_batch={step: dict(AP=b["AP"], AP50=b["AP50"])
+                         for step, b in batch_bbox.items()},
+         profile_run=dict(steps=PROFILE_RUN_STEPS, seconds=profile_run_s,
+                          trace=traces[0], trace_bytes=len(trace),
+                          kernel_events=trace.count(b'"cat": "kernel"')))
+
+
+def phase_stage(dev, data: dict, cold: dict) -> dict:
+    """``tools/stage_dataset.main`` on the smoke datasets (the flagship
+    YAML's geometry: every image of the three domains, both flips), then
+    the triplet loader warm at the YAML's workers and at 4: it must decode
+    nothing (every canvas a staging hit); batches a second and host seconds
+    by stage beside phase 13's cold numbers; then ``train_net_triplet`` fed
+    by the warm loader: its median step and data wait."""
+    from da_detect_tpu_torch.tools import stage_dataset, train_net_triplet
+
+    out = os.path.join(data["root"], "out_stage")
+    opts = smoke_opts(data, out, **{
+        "DATASETS.TRAIN": "('smoke_clean_train',)",
+        "DATALOADER.STAGE_CACHE": True,
+        "DATALOADER.STAGE_DIR": os.path.join(data["root"], "stage_warm"),
+        "SOLVER.MAX_ITER": STAGE_STEPS, "SOLVER.CHECKPOINT_PERIOD": 1000})
+    argv = ["--config-file", FLAGSHIP_YAML, "--seed", "0"]
+    cfg = smoke_cfg(FLAGSHIP_YAML, opts)
+    want = DATA_IMAGES * 3 * len(cfg.INPUT.MIN_SIZE_TRAIN) * 2
+    t0 = time.perf_counter()
+    staged = stage_dataset.main(argv + opts)
+    stage_s = time.perf_counter() - t0
+    if staged != want:
+        raise AssertionError(f"stage: {staged} canvases staged, expected "
+                             f"{want}")
+    rates = {}
+    for workers in (cfg.DATALOADER.NUM_WORKERS, 4):
+        cfg.DATALOADER.NUM_WORKERS = workers
+        r = loader_rate(cfg, dev, LOADER_BATCHES)
+        del r["first"]
+        if r["stage_misses"] != 0 or "decode_s" in r["host_s_per_step"] \
+                or not r["stage_hits"]:
+            raise AssertionError(f"stage: the warm loader decoded: {r}")
+        rates[f"workers_{workers}"] = r
+    clear_counts()
+    state, meters = train_net_triplet.main(
+        argv + ["--skip-test", "--log-period", "1"] + opts)
+    torch.cuda.synchronize()
+    launches = read_counts(PER_TRAIN_STEP, STAGE_STEPS, "stage", "steps")
+    step_ms = [t * 1e3 for t in meters.meters["time"].deque]
+    data_ms = [t * 1e3 for t in meters.meters["data"].deque]
+    if state.step != STAGE_STEPS or len(step_ms) != STAGE_STEPS:
+        raise AssertionError(f"stage: {state.step} steps, {len(step_ms)} "
+                             "timed")
+    cold_batches = {k: v["batches_per_s"] for k, v in cold.items()}
+    emit("stage", config=os.path.relpath(FLAGSHIP_YAML, REPO),
+         canvases=staged, stage_s=stage_s, loader_warm=rates,
+         loader_cold_batches_per_s=cold_batches,
+         loader_cold_host_s_per_step={
+             k: v["host_s_per_step"] for k, v in cold.items()},
+         loader_fed_warm=dict(
+             steps=STAGE_STEPS, step_ms=step_ms,
+             step_ms_median=statistics.median(step_ms[2:]),
+             data_wait_ms=data_ms,
+             data_wait_ms_median=statistics.median(data_ms[2:]),
+             launches=launches),
+         loader_fed_cold_step_ms_median=STEP_MEDIANS.get("cli_train_bf16"))
+    return rates
+
+
+def sanity_step(dev, root: str):
+    """Step 1 of the ablation's triplet-DA arm (the GN model in bfloat16)
+    on a batch of its loader: kernel-run twice, bit for bit the same, and
+    against plain-run, relative to an f32 copy (``compare_steps``); then one train step with its kernels'
+    inputs recorded, the ROIAlign maps and gradients float32, each kernel
+    held to its plain version on them and timed (the kernel line's sanity
+    sites); the step's profile (3 steps), its peak memory and the model's
+    parameter and buffer bytes."""
+    from da_detect_tpu_torch.data import make_data_loader_da
+    from da_detect_tpu_torch.engine.trainer import (create_train_state,
+                                                    make_train_step)
+    from da_detect_tpu_torch.tools import sanity_check
+    from da_detect_tpu_torch.tools.train_core import build_model
+
+    sanity_check.build_synthetic(root, 16, seed=3, fog=(0.8, 10.0),
+                                 invert=True)
+    os.environ["DA_DETECT_DATA_DIR"] = root
+    cfg = sanity_check.ablation_cfg(True, 200)
+    loader = make_data_loader_da(cfg, device=dev, aligned=True, seed=0,
+                                 packed=True)
+    args = next(loader)
+    loader.close()
+    state = create_train_state(cfg, build_model(cfg, dev, 0), 0, "cosine")
+    kernel_run = train_step_one(state, args, "cuda")
+    again = train_step_one(state, args, "cuda")
+    if kernel_run[0] != again[0] or any(
+            not torch.equal(g, again[1][n]) for n, g in kernel_run[1].items()):
+        raise AssertionError("sanity: the kernel-run step is not "
+                             "reproducible: two runs differ")
+    agreement = compare_steps(kernel_run, train_step_one(state, args, "plain"),
+                              f32_step_one(state, cfg, args))
+    del kernel_run, again  # two copies of the gradients: not the step's peak
+    step = make_train_step(state.model, state.optimizer, aligned=True)
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], *args)
+
+    for _ in range(2):
+        one_step()
+    profile = device_profile(one_step, PROFILE_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with record_kernel_inputs() as captured:
+        one_step()
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    model_bytes = sum(t.numel() * t.element_size() for t in
+                      list(state.model.parameters())
+                      + list(state.model.buffers()))
+    dtypes = ([maps[0].dtype for maps, _, _, _ in captured["roi_align_fwd"]]
+              + [g.dtype for g, *_ in captured["roi_align_bwd"]])
+    if dtypes != [torch.float32] * 4:
+        raise AssertionError(f"sanity: the GN model's ROIAlign ran on "
+                             f"{dtypes}, not 4 float32 launches")
+    errs = check_captured(captured)
+    sites = time_sites(captured, "sanity_bf16", ("rpn_source",
+                                                 "rpn_target"))
+    del state, step, args, captured, holder
+    return dict(plain_agreement=agreement, profile=profile,
+                max_memory_allocated=peak, model_bytes=model_bytes), \
+        errs, sites
+
+
+def run_sanity(argv: list, arms: dict, label: str) -> dict:
+    """``sanity_check.main(argv)`` with the counts set to 0 before it and
+    read after: each arm's training and evaluation launches exact
+    (``arms``: arm -> steps per step's launches)."""
+    from da_detect_tpu_torch.tools import sanity_check
+
+    clear_counts()
+    t0 = time.perf_counter()
+    out = sanity_check.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    total = {}
+    for arm, run in out["arms"].items():
+        want = {k: v * run["iters"] for k, v in arms[arm].items()}
+        want_eval = {k: v * run["eval_images"] // 2
+                     for k, v in PER_SANITY_EVAL_BATCH.items()}
+        if run["train_launches"] != want or run["eval_launches"] != want_eval:
+            raise AssertionError(
+                f"{label} {arm}: launches {run['train_launches']} training, "
+                f"{run['eval_launches']} evaluating; expected {want}, "
+                f"{want_eval}")
+        for k, v in list(want.items()) + list(want_eval.items()):
+            total[k] = total.get(k, 0) + v
+    launches = read_counts(total, 1, label, "runs")
+    return dict(out, seconds=seconds, launches=launches)
+
+
+def phase_sanity(dev) -> tuple:
+    """The from-scratch learning gate on the card: step 1 of its GN DA
+    model against the plain run; ``sanity_check.main`` with the JAX
+    package's ablation gate (DA AP50 - source-only AP50 >= 0.2 at 200
+    iterations a arm). Returns (the sanity sites, the ablation's launches,
+    the kernels' largest errors)."""
+    with tempfile.TemporaryDirectory(prefix="chip_sanity_") as root:
+        before = os.environ.get("DA_DETECT_DATA_DIR")
+        try:
+            step1, errs, sites = sanity_step(dev,
+                                             os.path.join(root, "step"))
+            ablation = run_sanity(
+                SANITY_ABLATION + ["--data-dir", os.path.join(root, "abl")],
+                PER_SANITY_STEP, "sanity_bf16 ablation")
+            data_bytes = sum(
+                os.path.getsize(os.path.join(d, f))
+                for d, _, files in os.walk(os.path.join(root, "abl"))
+                for f in files)
+        finally:
+            if before is None:
+                os.environ.pop("DA_DETECT_DATA_DIR", None)
+            else:
+                os.environ["DA_DETECT_DATA_DIR"] = before
+    arms = {arm: dict(ap50=run["ap50"], iters=run["iters"],
+                      train_s=run["train_s"],
+                      steps_per_s=run["steps_per_s"],
+                      launches_per_step={k: v / run["iters"] for k, v in
+                                         run["train_launches"].items()},
+                      eval_launches=run["eval_launches"])
+            for arm, run in ablation["arms"].items()}
+    emit("sanity_bf16", gate=" ".join(SANITY_ABLATION),
+         verdict=ablation["sanity_check"], source_only=ablation["source_only"],
+         da=ablation["da"], gap=ablation["gap"],
+         min_gap=ablation["min_gap"], margin_img=ablation["margin_img"],
+         arms=arms, seconds=ablation["seconds"], data_bytes=data_bytes,
+         launches=ablation["launches"], da_step=step1,
+         max_abs_err=errs, sites=sites)
+    return sites, ablation["launches"], errs
+
+
+# --gate-spread: the conditions of the DA arm's runs under last-bit changes
+# of its initial weights: the kernels (the gate as it runs); the kernels,
+# each ROIAlign launch also held to its plain version on its inputs
+# (``kernels_checked``: the same runs as ``kernels``); the kernels with the
+# ROIAlign backward's plain version in place of its kernel, its dF in the
+# plain version's memory order or (``plain_bwd_cl``) in the kernel's,
+# channels-last; the plain versions of all three
+SPREAD_CONDITIONS = ("kernels", "kernels_checked", "plain_bwd",
+                     "plain_bwd_cl", "plain")
+
+
+def nudge_weights(model, seed: int) -> None:
+    """One element of each floating parameter of ``model``, drawn from
+    ``seed``, moved by one ulp toward +inf: an independent last-bit change
+    of the initial weights."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.is_floating_point() or not p.numel():
+                continue
+            i = np.unravel_index(
+                int(torch.randint(p.numel(), (1,), generator=gen)), p.shape)
+            p[i] = torch.nextafter(p[i], torch.full_like(p[i], np.inf))
+
+
+@contextlib.contextmanager
+def roi_align_swapped(condition: str, worst: dict):
+    """Inside the kernels' autograd function, per ``condition``: the
+    ROIAlign backward's plain version (autograd of the plain forward, on
+    the card) in place of its kernel (``plain_bwd``; ``plain_bwd_cl``: its
+    dF copied to channels-last memory, the kernel's); or each ROIAlign
+    launch held to the plain version run in float64 on its own inputs
+    (``kernels_checked``), ``worst`` keeping for each kernel the largest
+    error over max |output|, and the mean over its launches of
+    sum(out - exact) / sum |exact| of the kernel's and of the float32 plain
+    version's output (the signed bias of their rounding)."""
+    from da_detect_tpu_torch.ops import roi_align, roi_align_cuda
+
+    fwd, bwd = roi_align_cuda.roi_align_forward, \
+        roi_align_cuda.roi_align_backward
+
+    def plain_bwd(grad, rois, **kw):
+        d = roi_align.roi_align_grad(grad, rois, **kw)
+        return (d.contiguous(memory_format=torch.channels_last)
+                if condition == "plain_bwd_cl" else d)
+
+    def held(name, kernel, plain):
+        def run(x, rois, **kw):
+            got = kernel(x, rois, **kw)
+            exact = plain(x.double(), rois, **kw)
+            scale = exact.abs().max().clamp(min=1e-300)
+            total = exact.abs().sum().clamp(min=1e-300)
+            rec = worst.setdefault(name, dict(
+                max_rel_err=0.0, bias_kernel=0.0, bias_plain=0.0,
+                launches=0))
+            n = rec["launches"] + 1
+            for who, val in (("kernel", got), ("plain", plain(x, rois, **kw))):
+                diff = val.double() - exact
+                if who == "kernel":
+                    rec["max_rel_err"] = max(rec["max_rel_err"],
+                                             float(diff.abs().max() / scale))
+                key = f"bias_{who}"
+                rec[key] += (float(diff.sum() / total) - rec[key]) / n
+            rec["launches"] = n
+            return got
+        return run
+
+    if condition.startswith("plain_bwd"):
+        roi_align_cuda.roi_align_backward = plain_bwd
+    elif condition == "kernels_checked":
+        roi_align_cuda.roi_align_forward = held(
+            "roi_align_fwd", fwd, roi_align.roi_align)
+        roi_align_cuda.roi_align_backward = held(
+            "roi_align_bwd", bwd, roi_align.roi_align_grad)
+    try:
+        yield
+    finally:
+        roi_align_cuda.roi_align_forward = fwd
+        roi_align_cuda.roi_align_backward = bwd
+
+
+def weights_digest(model) -> str:
+    """sha256 of every parameter's bytes, in order: equal digests, equal
+    models."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def da_arm_run(dev, condition: str, nudge: int) -> dict:
+    """The ablation's triplet-DA arm trained once under ``condition``
+    (SPREAD_CONDITIONS), its initial weights nudged from seed ``nudge`` (0:
+    as built), on the data of DA_DETECT_DATA_DIR: AP50 on the inverted
+    target, steps a second, training launches, the final weights' digest
+    (``kernels_checked``: and each ROIAlign kernel's largest relative error
+    against its plain version over the run's launches, and its mean signed
+    bias)."""
+    from da_detect_tpu_torch.tools import sanity_check
+    from da_detect_tpu_torch.tools.train_core import build_model
+
+    cfg = sanity_check.ablation_cfg(True, 200)
+    model = build_model(cfg, dev, 0)
+    if nudge:
+        nudge_weights(model, nudge)
+    if condition == "plain":
+        model.impl = "plain"
+    worst = {}
+    with roi_align_swapped(condition, worst):
+        ap50, state, run = sanity_check.train_and_eval(
+            cfg, True, 200, logging.getLogger("chip_smoke.gate_spread"),
+            test_dataset="sanity_foggy_cocostyle", model=model)
+    if any(v["max_rel_err"] > ROI_BWD_REL for v in worst.values()):
+        raise AssertionError(f"gate_spread: a ROIAlign kernel left its "
+                             f"plain version during training: {worst}")
+    return dict(condition=condition, nudge=nudge, ap50=ap50,
+                steps_per_s=run["steps_per_s"],
+                train_launches=run["train_launches"],
+                digest=weights_digest(state.model), against_plain=worst)
+
+
+def gate_spread(dev, gates_n: int, n: int, conditions: list) -> None:
+    """The learning gate's reproducibility on the card: the unchanged
+    ablation gate ``gates_n`` times (with exact launches); then the DA arm
+    ``n`` times under each of ``conditions`` (``"NAME"`` or
+    ``"NAME:FIRST"``, NAME in SPREAD_CONDITIONS), nudged from seeds FIRST
+    (default 0: as built) to FIRST + n - 1. A line a run, then the pass
+    rates (DA AP50 minus the gate's source-only AP50 >= 0.2)."""
+    gates = []
+    with tempfile.TemporaryDirectory(prefix="chip_gate_") as root:
+        before = os.environ.get("DA_DETECT_DATA_DIR")
+        try:
+            for i in range(gates_n):
+                try:
+                    out = run_sanity(
+                        SANITY_ABLATION + ["--data-dir", root],
+                        PER_SANITY_STEP, f"gate_spread gate {i}")
+                except SystemExit:  # FAIL: the tool printed its verdict
+                    out = dict(sanity_check="FAIL")
+                gates.append(out)
+                emit("gate_run", run=i, **{k: out.get(k) for k in (
+                    "sanity_check", "source_only", "da", "gap",
+                    "margin_img", "seconds")})
+            source_only = next((g["source_only"] for g in gates
+                                if "source_only" in g), 0.0)
+            runs = []
+            for spec in conditions:
+                condition, _, first = spec.partition(":")
+                for k in range(int(first or 0), int(first or 0) + n):
+                    t0 = time.perf_counter()
+                    run = da_arm_run(dev, condition, k)
+                    run["passes"] = run["ap50"] - source_only >= 0.2
+                    emit("gate_spread", seconds=time.perf_counter() - t0,
+                         **run)
+                    runs.append(run)
+        finally:
+            if before is None:
+                os.environ.pop("DA_DETECT_DATA_DIR", None)
+            else:
+                os.environ["DA_DETECT_DATA_DIR"] = before
+    summary = {}
+    for condition in dict.fromkeys(r["condition"] for r in runs):
+        mine = [r for r in runs if r["condition"] == condition]
+        aps = sorted(r["ap50"] for r in mine)
+        summary[condition] = dict(
+            runs=len(mine), passes=sum(r["passes"] for r in mine),
+            ap50_min=aps[0], ap50_median=statistics.median(aps),
+            ap50_max=aps[-1], nudges=[mine[0]["nudge"], mine[-1]["nudge"]],
+            digests=len({r["digest"] for r in mine}))
+    emit("gate_spread_summary", gate_runs=gates_n,
+         gate_passes=sum(g["sanity_check"] == "PASS" for g in gates),
+         gate_outcomes=len({(g.get("source_only"), g.get("da"))
+                            for g in gates}),
+         source_only=source_only, conditions=summary)
 
 
 def numpy_tta_merge(boxes, scores, labels, thresh, max_dets) -> np.ndarray:
@@ -2919,10 +3399,30 @@ def run_data_path(dev) -> dict:
     NMS site."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         data = smoke_datasets(root)
-        phase_data(dev, data)
+        cold = phase_data(dev, data)
         trained = phase_cli_train(dev, data)
         phase_cli_eval(dev, data, trained)
+        phase_stage(dev, data, cold)
         return phase_tta(dev, data)
+
+
+def add_sanity_path(line: dict, sites: list, launches: dict,
+                    errs: dict) -> None:
+    """The sanity gate's path ("sanity_bf16": the ablation's run, float32
+    NMS and ROIAlign in the bfloat16 GN model) in the float32 rows of the
+    kernels it ran: its launches, its sites' times and bound, its errors."""
+    for row in line["kernels"]:
+        if row["name"] not in ("nms", "roi_align_fwd", "roi_align_bwd"):
+            continue
+        mine = [s for s in sites if s["kernel"] == row["name"]]
+        row["paths"]["sanity_bf16"] = path_summary(mine,
+                                                   launches[row["name"]])
+        row["sites"] += [{k: s[k] for k in ("path", "site", "ms",
+                                            "device_ms", "plain_ms",
+                                            "bound_ms", "bound_by")
+                          if k in s} for s in mine]
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 errs.get(row["name"], 0.0))
 
 
 def tta_row(tta: dict) -> dict:
@@ -2943,8 +3443,13 @@ def tta_row(tta: dict) -> dict:
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     data_only = args == ["--data-only"]
-    if args and not data_only:
-        print("usage: chip_smoke.py [--data-only]", file=sys.stderr)
+    spread = len(args) >= 3 and args[0] == "--gate-spread" \
+        and args[1].isdigit() and int(args[1]) > 0 and args[2].isdigit() \
+        and all(a.partition(":")[0] in SPREAD_CONDITIONS
+                and (a.partition(":")[2] or "0").isdigit() for a in args[3:])
+    if args and not data_only and not spread:
+        print("usage: chip_smoke.py [--data-only | --gate-spread GATES RUNS "
+              "[CONDITION[:FIRST] ...]]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2956,8 +3461,13 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = phase_env()
     phase_build()
-    if data_only:  # the data, CLI and TTA phases alone (no kernel line)
-        run_data_path(dev)
+    if data_only or spread:  # no kernel line
+        if spread:
+            gate_spread(dev, int(args[1]), int(args[2]),
+                        args[3:] or list(SPREAD_CONDITIONS))
+        else:  # the sanity, data, CLI and TTA phases
+            phase_sanity(dev)
+            run_data_path(dev)
         emit("done", seconds=time.perf_counter() - t_start)
         print(smi)
         print(json.dumps({"ok": True, "device": {
@@ -2973,11 +3483,13 @@ def main(argv=None) -> int:
     for k, v in bf16_errs.items():
         key = label(k, "bfloat16") if k in BF16_KERNELS else k
         errs[key] = max(errs.get(key, 0.0), v)
+    sanity_sites, sanity_launches, sanity_errs = phase_sanity(dev)
     tta = run_data_path(dev)
     line = kernel_line(
         paths, errs, {"row_scatter_add": {"dcn_train": scatter},
                       "row_scatter_add_bf16": {"dcn_train_bf16":
                                                bf16_scatter}})
+    add_sanity_path(line, sanity_sites, sanity_launches, sanity_errs)
     row = tta_row(tta)
     nms_row = next(r for r in line["kernels"] if r["name"] == "nms")
     nms_row["paths"]["tta_bf16"] = row["paths"]["tta_bf16"]

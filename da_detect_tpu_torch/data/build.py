@@ -2,6 +2,8 @@
 data/build.py:232-420).
 
 ``make_data_loader``: the single-domain train or eval loader.
+``prestage_datasets``: every canvas of the configured datasets into the
+staging cache ahead of training (``tools/stage_dataset.py``).
 ``make_data_loader_da``: the triplet loader (the reference's Dataset_triplet
 + BatchCollator_triplet, build.py:23-62): one index fetches the same image
 from the source, positive and negative datasets; the positive and negative
@@ -51,14 +53,17 @@ def build_dataset(names: Sequence[str], is_train: bool,
     ds = []
     for name in names:
         data = DatasetCatalog.get(name)
-        if data["factory"] != "COCODataset":
+        args = dict(data["args"])
+        if data["factory"] == "COCODataset":
+            args["remove_images_without_annotations"] = is_train
+            args["is_source"] = is_source
+        elif data["factory"] == "PascalVOCDataset":
+            args["use_difficult"] = not is_train
+        else:
             raise NotImplementedError(
                 f"dataset {name}: factory {data['factory']} is not ported "
-                "(the port reads COCO-style datasets)")
-        args = dict(data["args"])
-        args["remove_images_without_annotations"] = is_train
-        args["is_source"] = is_source
-        ds.append(D.COCODataset(**args))
+                "(the port reads COCO-style and Pascal VOC datasets)")
+        ds.append(getattr(D, data["factory"])(**args))
     if len(ds) == 1:
         return ds[0]
     return D.ConcatDataset(ds)
@@ -422,3 +427,56 @@ def make_data_loader_da(cfg, *, device=None, aligned: bool = True,
 
     return _Prefetcher(generate, transport, depth=cfg.TPU.PREFETCH,
                        pool=pool, proc=proc)
+
+
+def prestage_datasets(cfg, dataset_names=None, *, is_train: bool = True,
+                      include_da: bool = True) -> int:
+    """Offline staging: decode and prep every (image, geometry) variant of
+    the configured datasets into the staging cache (``staging.py``), so that
+    training starts warm: with flip probability 0.5 and one MIN_SIZE_TRAIN
+    two canvases an image. The roles, flips and count are the JAX
+    package's: ``dataset_names`` (sources), or the TEST datasets for
+    ``is_train`` False, else TRAIN and, with ``include_da``, SOURCE_TRAIN,
+    TARGET_TRAIN and TARGET_TRAIN_negative. Returns the canvases prepped (0
+    with ``DATALOADER.STAGE_CACHE`` off); already staged ones are skipped."""
+    proc = _SampleProcessor(cfg, is_train)
+    if proc.stage is None:
+        return 0
+    roles: list[tuple] = []
+    if dataset_names is not None:
+        roles.append((tuple(dataset_names), True))
+    elif not is_train:
+        roles.append((tuple(cfg.DATASETS.TEST), True))
+    else:
+        if cfg.DATASETS.TRAIN:
+            roles.append((tuple(cfg.DATASETS.TRAIN), True))
+        if include_da and cfg.DATASETS.SOURCE_TRAIN:
+            roles.append((tuple(cfg.DATASETS.SOURCE_TRAIN), True))
+            roles.append((tuple(cfg.DATASETS.TARGET_TRAIN), False))
+            if cfg.DATASETS.TARGET_TRAIN_negative:
+                roles.append((tuple(cfg.DATASETS.TARGET_TRAIN_negative),
+                              False))
+    flips = (False, True) if proc.flip_prob > 0 else (False,)
+    n = 0
+    pool = _make_pool(cfg)
+    try:
+        for names, is_source in roles:
+            dataset = build_dataset(names, is_train, is_source)
+            jobs = []
+            for idx in range(len(dataset)):
+                s = dataset.sample(idx)
+                canvas = proc.canvas_hw(s)
+                for ms in proc.min_sizes:
+                    for flip in flips:
+                        params = dict(min_size=ms, hflip=flip)
+                        # images shared across roles, and reruns
+                        if proc.stage.has(s["path"],
+                                          proc._stage_key(params, canvas)):
+                            continue
+                        jobs.append((s, params, canvas))
+            _run_jobs(pool, proc, jobs)
+            n += len(jobs)
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=False)
+    return n

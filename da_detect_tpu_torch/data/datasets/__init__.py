@@ -1,4 +1,6 @@
-from .base import AbstractDataset
+from .base import AbstractDataset, ListDataset
 from .coco import COCODataset, ConcatDataset
+from .voc import PascalVOCDataset
 
-__all__ = ["AbstractDataset", "COCODataset", "ConcatDataset"]
+__all__ = ["AbstractDataset", "COCODataset", "ConcatDataset", "ListDataset",
+           "PascalVOCDataset"]

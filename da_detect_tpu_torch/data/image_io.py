@@ -19,6 +19,7 @@ diagonals r + x, so each of the H + W - 1 diagonals is one vectorised step
 over every row it crosses.
 
 ``write_png`` writes filter type 0 only (the smoke run's datasets).
+``image_size`` reads a PNG's dimensions from its header (``ListDataset``).
 """
 
 from __future__ import annotations
@@ -161,6 +162,23 @@ def load_image_bgr(path: str, decoder: str = DECODER) -> np.ndarray:
             raise ValueError(f"{path}: not a PNG, and without cv2 only PNG "
                              "files can be decoded")
     return png_to_bgr(read_png(path))
+
+
+def image_size(path: str) -> tuple[int, int]:
+    """(width, height) of an image file without decoding it where it can:
+    a PNG's from its IHDR chunk; another format through cv2 when it is
+    importable (a decode), else raises naming the file."""
+    with open(path, "rb") as f:
+        head = f.read(len(PNG_SIGNATURE) + 16)
+    if head.startswith(PNG_SIGNATURE):
+        if head[12:16] != b"IHDR":
+            raise ValueError(f"{path}: PNG without IHDR first")
+        return struct.unpack(">II", head[16:24])
+    if cv2 is None:
+        raise ValueError(f"{path}: not a PNG, and without cv2 only PNG "
+                         "files' sizes can be read")
+    h, w = load_image_bgr(path, "cv2").shape[:2]
+    return w, h
 
 
 def write_png(path: str, image: np.ndarray, level: int = 6) -> None:

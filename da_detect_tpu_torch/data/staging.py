@@ -79,6 +79,10 @@ class StageCache:
         h = hashlib.sha1(raw.encode()).hexdigest()
         return os.path.join(self.root, h[:2], h + ".npy")
 
+    def has(self, image_path: str, key_parts: tuple) -> bool:
+        """Whether a canvas is stored (no read, no hit or miss counted)."""
+        return os.path.exists(self._path(image_path, key_parts))
+
     def get(self, image_path: str, key_parts: tuple) -> Optional[np.ndarray]:
         """The canvas on a hit (uint8 as stored, else float32), or None."""
         p = self._path(image_path, key_parts)

@@ -8,6 +8,8 @@ the host only at log and checkpoint boundaries, where it also stops on a
 non-finite loss, so the steps in between queue on the card without a sync.
 Unlike the JAX package's pure step, the port updates the model, the
 optimizer and the ``TrainState`` in place (no second copy of the weights).
+``profile_dir`` traces a range of iterations with ``torch.profiler`` (the
+reference has only wall-clock meters).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+import os
 import time
 from typing import Callable, Optional
 
@@ -25,6 +28,9 @@ from ..solver.optim import DetectronSGD, make_optimizer
 from ..utils.metric_logger import MetricLogger, eta_string
 
 log = logging.getLogger(__name__)
+
+# the iterations ``do_train`` traces under ``profile_dir``: [first, end)
+PROFILE_RANGE = (10, 20)
 
 
 @dataclasses.dataclass
@@ -90,7 +96,8 @@ def do_train(state: TrainState, data_iter, *, max_iter: int,
              meters: Optional[MetricLogger] = None, aligned: bool = False,
              log_period: int = 20,
              eval_fn: Optional[Callable[[TrainState, int], None]] = None,
-             test_period: int = 0) -> TrainState:
+             test_period: int = 0,
+             profile_dir: str | None = None) -> TrainState:
     """The host loop from ``state.step`` (a resumed run's iteration) to
     ``max_iter``: ``data_iter`` yields tuples in ``train_forward``'s order,
     already on the device (a loader's batches). The loss is read on the host
@@ -99,7 +106,11 @@ def do_train(state: TrainState, data_iter, *, max_iter: int,
     Timing is averaged over each log window, because the steps between two
     reads queue on the card. ``eval_fn(state, iteration)`` runs every
     ``test_period`` iterations (``SOLVER.TEST_PERIOD``) or, with
-    ``test_period`` 0, after each checkpoint."""
+    ``test_period`` 0, after each checkpoint. ``profile_dir``: a
+    ``torch.profiler`` trace (CPU, and the card's kernels when the model is
+    on one) of iterations ``PROFILE_RANGE`` (the JAX package's 10-20, the
+    last excluded), written as ``trace_<first>-<last>.json`` when it stops
+    (at the range's end, or at ``max_iter``)."""
     meters = meters or MetricLogger()
     train_step = make_train_step(state.model, state.optimizer,
                                  aligned=aligned)
@@ -107,7 +118,14 @@ def do_train(state: TrainState, data_iter, *, max_iter: int,
     log.info("start training at iteration %d", start_iter)
     start = last = window_start = time.perf_counter()
     window_iters, window_data = 0, 0.0
+    profiler = None
     for iteration in range(start_iter, max_iter):
+        if profile_dir and iteration == PROFILE_RANGE[0]:
+            profiler = _start_profiler(state)
+            log.info("profiler trace started -> %s", profile_dir)
+        if profiler is not None and iteration == PROFILE_RANGE[1]:
+            _stop_profiler(profiler, profile_dir, iteration)
+            profiler = None
         batch_args = next(data_iter)
         window_data += time.perf_counter() - last
         state, metrics = train_step(state, *batch_args)
@@ -115,7 +133,8 @@ def do_train(state: TrainState, data_iter, *, max_iter: int,
         if iteration % log_period == 0 or iteration == max_iter - 1:
             _finite_total(metrics, iteration)
             now = time.perf_counter()
-            meters.update(time=(now - window_start) / window_iters,
+            meters.update(iteration=iteration,
+                          time=(now - window_start) / window_iters,
                           data=window_data / window_iters,
                           **{k: float(v) for k, v in metrics.items()})
             window_start, window_iters, window_data = now, 0, 0.0
@@ -132,6 +151,8 @@ def do_train(state: TrainState, data_iter, *, max_iter: int,
         if eval_fn is not None and test_period \
                 and (iteration + 1) % test_period == 0:
             eval_fn(state, iteration + 1)
+    if profiler is not None:
+        _stop_profiler(profiler, profile_dir, max_iter)
     if checkpointer is not None:
         checkpointer.save(max_iter, state)
     total_time = time.perf_counter() - start
@@ -139,3 +160,23 @@ def do_train(state: TrainState, data_iter, *, max_iter: int,
              eta_string(1.0, int(total_time)),
              total_time / max(max_iter - start_iter, 1))
     return state
+
+
+def _start_profiler(state: TrainState):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if next(state.model.parameters()).is_cuda:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_profiler(profiler, profile_dir: str, end: int) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    profiler.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir,
+                        f"trace_{PROFILE_RANGE[0]}-{end - 1}.json")
+    profiler.export_chrome_trace(path)
+    log.info("profiler trace stopped: %s", path)

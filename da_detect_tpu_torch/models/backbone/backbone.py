@@ -1,12 +1,14 @@
 """Backbone factory (port of ``da_detect_tpu/models/backbone/backbone.py``).
 
-This port builds the ResNe[X]t bodies with FrozenBatchNorm: the C4 bodies
-(``R-50-C4``, ``R-101-C4``, ``R-152-C4``) and the FPN bodies (``R-50-FPN``,
+This port builds the ResNe[X]t bodies: the C4 bodies (``R-50-C4``,
+``R-101-C4``, ``R-152-C4``) and the FPN bodies (``R-50-FPN``,
 ``R-101-FPN``, ``R-152-FPN``, ``X-101-32x8d-FPN``, the last with its groups
 and width from ``MODEL.RESNETS``), each with deformable ``conv2`` in the
-stages of ``STAGE_WITH_DCN``. RetinaNet FPN, FBNet, VGG and GroupNorm bodies
-are later slices and raise ``NotImplementedError``. Body and FPN compute in
-``TPU.COMPUTE_DTYPE``.
+stages of ``STAGE_WITH_DCN``, with FrozenBatchNorm or, under
+``BACKBONE.USE_GN``, GroupNorm; the FPN with ``FPN.USE_GN`` and
+``FPN.USE_RELU``. RetinaNet FPN, FBNet and VGG bodies are later slices and
+raise ``NotImplementedError``. Body and FPN compute in
+``TPU.COMPUTE_DTYPE`` (GroupNorm outputs float32, ``layers/norms.py``).
 """
 
 from __future__ import annotations
@@ -55,12 +57,7 @@ def build_backbone(cfg) -> tuple[nn.Module, BackboneSpec]:
         raise NotImplementedError(
             f"CONV_BODY {body}: the PyTorch port builds "
             f"{', '.join(_BODIES)}; the others are later slices")
-    if cfg.MODEL.BACKBONE.USE_GN:
-        raise NotImplementedError("GroupNorm bodies are a later slice")
     depth, with_fpn = _BODIES[body]
-    if with_fpn and (cfg.MODEL.FPN.USE_GN or cfg.MODEL.FPN.USE_RELU):
-        raise NotImplementedError(
-            "GroupNorm and ReLU FPN variants are a later slice")
     r = cfg.MODEL.RESNETS
     dtype = compute_dtype(cfg)
     stages = 4 if with_fpn else 3
@@ -74,13 +71,15 @@ def build_backbone(cfg) -> tuple[nn.Module, BackboneSpec]:
         return_all=with_fpn, stage_with_dcn=tuple(r.STAGE_WITH_DCN),
         with_modulated_dcn=r.WITH_MODULATED_DCN,
         deformable_groups=r.DEFORMABLE_GROUPS,
-        dcn_gather=cfg.TPU.DCN_GATHER, dtype=dtype)
+        dcn_gather=cfg.TPU.DCN_GATHER,
+        norm="gn" if cfg.MODEL.BACKBONE.USE_GN else "frozen_bn", dtype=dtype)
     if not with_fpn:
         return ResNetBackbone(resnet), BackboneSpec(
             out_channels=r.RES2_OUT_CHANNELS * 2 ** (stages - 1),
             strides=(4 * 2 ** (stages - 1),))
     out_ch = cfg.MODEL.BACKBONE.OUT_CHANNELS
     fpn = FPN([r.RES2_OUT_CHANNELS * 2 ** i for i in range(stages)], out_ch,
-              dtype=dtype)
+              norm="gn" if cfg.MODEL.FPN.USE_GN else "none",
+              use_relu=cfg.MODEL.FPN.USE_RELU, dtype=dtype)
     return ResNetBackbone(resnet, fpn), BackboneSpec(
         out_channels=out_ch, strides=(4, 8, 16, 32, 64))

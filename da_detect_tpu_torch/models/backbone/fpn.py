@@ -4,9 +4,12 @@ the two-stage form).
 Lateral 1x1 convs (``fpn_inner{i}``), nearest 2x top-down then cropped to
 the lateral's size, 3x3 output convs (``fpn_layer{i}``), and
 ``LastLevelMaxPool`` (kernel 1, stride 2) for P6. Module names follow
-maskrcnn-benchmark's state_dict (``backbone.fpn.fpn_inner1.weight``). The
-RetinaNet top block (P6/P7 convs), GroupNorm and ReLU variants are later
-slices. Every conv computes in ``dtype`` (the top-down sums stay in it).
+maskrcnn-benchmark's state_dict (``backbone.fpn.fpn_inner1.weight``).
+``norm="gn"`` (``FPN.USE_GN``) puts a GroupNorm after each conv
+(``fpn_inner{i}_norm``, ``fpn_layer{i}_norm``) and drops the convs' biases;
+``use_relu`` (``FPN.USE_RELU``) a ReLU after each conv and norm. The
+RetinaNet top block (P6/P7 convs) is a later slice. Every conv computes in
+``dtype``; the top-down sums stay in it, or in float32 after GroupNorm.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import Conv2d
+from ...layers import Conv2d, make_norm
 
 
 def upsample_nearest_2x(x: torch.Tensor, out_hw) -> torch.Tensor:
@@ -27,24 +30,39 @@ def upsample_nearest_2x(x: torch.Tensor, out_hw) -> torch.Tensor:
 
 class FPN(nn.Module):
     def __init__(self, in_channels_list, out_channels: int = 256,
+                 norm: str = "none", use_relu: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_levels = len(in_channels_list)
+        self.normed = norm != "none"
+        self.use_relu = use_relu
         for i, cin in enumerate(in_channels_list, start=1):
             self.add_module(f"fpn_inner{i}", Conv2d(
-                cin, out_channels, 1, compute_dtype=dtype))
+                cin, out_channels, 1, bias=not self.normed,
+                compute_dtype=dtype))
             self.add_module(f"fpn_layer{i}", Conv2d(
                 out_channels, out_channels, 3, padding=1,
-                compute_dtype=dtype))
+                bias=not self.normed, compute_dtype=dtype))
+            if self.normed:
+                self.add_module(f"fpn_inner{i}_norm",
+                                make_norm(norm, out_channels))
+                self.add_module(f"fpn_layer{i}_norm",
+                                make_norm(norm, out_channels))
+
+    def _conv(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        x = getattr(self, name)(x)
+        if self.normed:
+            x = getattr(self, f"{name}_norm")(x)
+        return F.relu(x) if self.use_relu else x
 
     def forward(self, features: list[torch.Tensor]) -> list[torch.Tensor]:
-        inner = [getattr(self, f"fpn_inner{i + 1}")(f)
+        inner = [self._conv(f"fpn_inner{i + 1}", f)
                  for i, f in enumerate(features)]
         merged = [inner[-1]]
         for i in range(len(inner) - 2, -1, -1):
             td = upsample_nearest_2x(merged[0], inner[i].shape[2:])
             merged.insert(0, inner[i] + td)
-        outs = [getattr(self, f"fpn_layer{i + 1}")(m)
+        outs = [self._conv(f"fpn_layer{i + 1}", m)
                 for i, m in enumerate(merged)]
         # LastLevelMaxPool: max pool of kernel 1, stride 2
         outs.append(F.max_pool2d(outs[-1], kernel_size=1, stride=2))

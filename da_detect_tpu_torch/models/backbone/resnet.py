@@ -1,15 +1,19 @@
 """ResNe[X]t body and res5 head (port of
-``da_detect_tpu/models/backbone/resnet.py``, FrozenBatchNorm bodies).
+``da_detect_tpu/models/backbone/resnet.py``).
 
 Stem + stages of bottleneck blocks with the Caffe2 ``stride_in_1x1``
-convention and FrozenBatchNorm. ``dtype`` is the compute dtype
-(``TPU.COMPUTE_DTYPE``): every conv casts its input and float32 weights to
-it, the FrozenBN affine follows its input, and the residual adds stay in it;
-a deformable ``conv2`` returns float32, as in the JAX package, so its
-``bn2`` runs in float32 and ``conv3`` casts back. Module names follow
-maskrcnn-benchmark's state_dict (``stem.conv1``, ``layer1.0.conv1``,
-``layer1.0.downsample.0``), so ``utils/weights.py`` maps the JAX
-package's variables onto them one to one. Activations are logical NCHW
+convention; ``norm`` is "frozen_bn" (FrozenBatchNorm) or "gn" (GroupNorm,
+``BACKBONE.USE_GN`` / ``ROI_BOX_HEAD.USE_GN``) in the stem, every block and
+the downsample. ``dtype`` is the compute dtype (``TPU.COMPUTE_DTYPE``):
+every conv casts its input and float32 weights to it, the FrozenBN affine
+follows its input, and the residual adds stay in it; a deformable ``conv2``
+returns float32, as in the JAX package, so its ``bn2`` runs in float32 and
+``conv3`` casts back. GroupNorm returns float32 whatever its input (Flax's
+promotion), so in a bfloat16 GN model every norm output, residual sum and
+stage output is float32, and each conv casts its input back to bfloat16.
+Module names follow maskrcnn-benchmark's state_dict (``stem.conv1``,
+``layer1.0.conv1``, ``layer1.0.downsample.0``), so ``utils/weights.py``
+maps the JAX package's variables onto them one to one. Activations are logical NCHW
 in ``torch.channels_last`` memory.
 
 ResNeXt's grouped ``conv2`` is ``nn.Conv2d(groups=...)``: the JAX package's
@@ -24,7 +28,7 @@ import torch.nn.functional as F
 import torch
 from torch import nn
 
-from ...layers import Conv2d, DeformConv2d, FrozenBatchNorm
+from ...layers import Conv2d, DeformConv2d, make_norm
 
 
 def _conv(cin, cout, k, stride=1, padding=0, dilation=1, groups=1,
@@ -40,7 +44,7 @@ class Bottleneck(nn.Module):
                  num_groups: int = 1, stride_in_1x1: bool = True,
                  with_dcn: bool = False, with_modulated_dcn: bool = False,
                  deformable_groups: int = 1, dcn_gather: str = "four",
-                 dtype: torch.dtype = torch.float32):
+                 norm: str = "frozen_bn", dtype: torch.dtype = torch.float32):
         super().__init__()
         stride_1x1, stride_3x3 = ((stride, 1) if stride_in_1x1
                                   else (1, stride))
@@ -49,10 +53,10 @@ class Bottleneck(nn.Module):
             self.downsample = nn.Sequential(
                 _conv(in_channels, out_channels, 1, stride=stride,
                       dtype=dtype),
-                FrozenBatchNorm(out_channels))
+                make_norm(norm, out_channels))
         self.conv1 = _conv(in_channels, bottleneck_channels, 1,
                            stride=stride_1x1, dtype=dtype)
-        self.bn1 = FrozenBatchNorm(bottleneck_channels)
+        self.bn1 = make_norm(norm, bottleneck_channels)
         if with_dcn:
             self.conv2 = DeformConv2d(
                 bottleneck_channels, bottleneck_channels, 3,
@@ -65,9 +69,9 @@ class Bottleneck(nn.Module):
                                stride=stride_3x3, padding=dilation,
                                dilation=dilation, groups=num_groups,
                                dtype=dtype)
-        self.bn2 = FrozenBatchNorm(bottleneck_channels)
+        self.bn2 = make_norm(norm, bottleneck_channels)
         self.conv3 = _conv(bottleneck_channels, out_channels, 1, dtype=dtype)
-        self.bn3 = FrozenBatchNorm(out_channels)
+        self.bn3 = make_norm(norm, out_channels)
 
     def forward(self, x, impl: str = "cuda"):
         shortcut = x if self.downsample is None else self.downsample(x)
@@ -82,12 +86,12 @@ class Bottleneck(nn.Module):
 
 
 class Stem(nn.Module):
-    def __init__(self, out_channels: int = 64,
+    def __init__(self, out_channels: int = 64, norm: str = "frozen_bn",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv1 = _conv(3, out_channels, 7, stride=2, padding=3,
                            dtype=dtype)
-        self.bn1 = FrozenBatchNorm(out_channels)
+        self.bn1 = make_norm(norm, out_channels)
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))
@@ -139,12 +143,12 @@ class ResNet(nn.Module):
                  return_all: bool = False,
                  stage_with_dcn=(False, False, False, False),
                  with_modulated_dcn: bool = False, deformable_groups: int = 1,
-                 dcn_gather: str = "four",
+                 dcn_gather: str = "four", norm: str = "frozen_bn",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.return_all = return_all
         self.dtype = dtype
-        self.stem = Stem(stem_out_channels, dtype=dtype)
+        self.stem = Stem(stem_out_channels, norm=norm, dtype=dtype)
         counts = _BLOCK_COUNTS[depth]
         in_ch = stem_out_channels
         self.stage_names = []
@@ -162,7 +166,7 @@ class ResNet(nn.Module):
                 with_dcn=bool(stage_with_dcn[idx]),
                 with_modulated_dcn=with_modulated_dcn,
                 deformable_groups=deformable_groups, dcn_gather=dcn_gather,
-                dtype=dtype))
+                norm=norm, dtype=dtype))
             self.stage_names.append(name)
             in_ch = out_ch
         for i in range(freeze_at):
@@ -180,20 +184,24 @@ class ResNet(nn.Module):
 
 class ResNetHead(nn.Module):
     """The res5 stage used as the C4 box-head feature extractor: pooled ROI
-    features [N, 1024, 14, 14] -> [N, 2048, 7, 7]."""
+    features [N, 1024, 14, 14] -> [N, 2048, 7, 7]. The input is cast to
+    ``dtype`` once, as the JAX package's ``ResNetHead`` does (a float32 GN
+    map pooled by the float32 ROIAlign)."""
 
     def __init__(self, depth: int = 50, num_groups: int = 1,
                  width_per_group: int = 64, res2_out_channels: int = 256,
                  stride_in_1x1: bool = True, first_stride: int = 2,
-                 dilation: int = 1, dtype: torch.dtype = torch.float32):
+                 dilation: int = 1, norm: str = "frozen_bn",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         stage2_relative = 8  # res5
         self.layer4 = ResStage(
             _BLOCK_COUNTS[depth][3], res2_out_channels * 4,
             num_groups * width_per_group * stage2_relative,
             res2_out_channels * stage2_relative, first_stride,
             dilation=dilation, num_groups=num_groups,
-            stride_in_1x1=stride_in_1x1, dtype=dtype)
+            stride_in_1x1=stride_in_1x1, norm=norm, dtype=dtype)
 
     def forward(self, x):
-        return self.layer4(x)
+        return self.layer4(x.to(self.dtype))

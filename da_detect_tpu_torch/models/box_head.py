@@ -5,12 +5,15 @@ sampling and losses, and the detection post-processing (port of
 Sampling carries a per-ROI domain mask (True on source images) and makes
 every proposal of a target image background, so target images sample an
 unsupervised subset; the classification and regression losses count source
-rows only. The extractors are the C4 res5 head and the FPN two-layer MLP
+rows only. The extractors are the C4 res5 head (GroupNorm under
+``ROI_BOX_HEAD.USE_GN``), the FPN two-layer MLP
 (``FPN2MLPFeatureExtractor``, whose fc6 reads the pooled [C, P, P] map
-flattened in maskrcnn-benchmark's (C, H, W) order); the FPN conv head
-(``FPNXconv1fcFeatureExtractor``) is a later slice and raises
-``NotImplementedError``. Extractors and predictors compute in ``dtype``
-(``TPU.COMPUTE_DTYPE``); the losses and the post-processing in float32.
+flattened in maskrcnn-benchmark's (C, H, W) order; it ignores ``USE_GN``,
+as the JAX package's does) and the FPN conv head
+(``FPNXconv1fcFeatureExtractor``: stacked 3x3 convs, each with GroupNorm
+under ``USE_GN``, then fc6, flattened the same way). Extractors and
+predictors compute in ``dtype`` (``TPU.COMPUTE_DTYPE``); the losses and the
+post-processing in float32.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import Linear
+from ..layers import Conv2d, Linear, make_norm
 from ..ops import box_ops
 from ..ops.losses import smooth_l1_loss, softmax_cross_entropy
 from ..ops.matcher import match_proposals
@@ -38,6 +41,7 @@ class ResNet50Conv5ROIFeatureExtractor(nn.Module):
     def __init__(self, pooler: dict, depth: int = 50, num_groups: int = 1,
                  width_per_group: int = 64, res2_out_channels: int = 256,
                  stride_in_1x1: bool = True, dilation: int = 1,
+                 norm: str = "frozen_bn",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.pooler = pooler
@@ -46,7 +50,7 @@ class ResNet50Conv5ROIFeatureExtractor(nn.Module):
                                res2_out_channels=res2_out_channels,
                                stride_in_1x1=stride_in_1x1,
                                first_stride=2 if dilation == 1 else 1,
-                               dilation=dilation, dtype=dtype)
+                               dilation=dilation, norm=norm, dtype=dtype)
 
     def forward(self, features, rois, *, impl: str):
         x = pool_rois(features, rois, **self.pooler, impl=impl)
@@ -74,6 +78,43 @@ class FPN2MLPFeatureExtractor(nn.Module):
         x = pool_rois(features, rois, **self.pooler, impl=impl)
         x = x.reshape(x.shape[0], x.shape[1], -1)
         return F.relu(self.fc7(F.relu(self.fc6(x))))
+
+
+class FPNXconv1fcFeatureExtractor(nn.Module):
+    """FPN: pool P x P from the assigned level, ``num_stacked_convs`` 3x3
+    convs (``xconvs{i}``, each with GroupNorm ``xconvs{i}_gn`` and no bias
+    under ``use_gn``) with ReLU, flatten (C, H, W), fc6 with ReLU ->
+    [B, R, mlp_dim] (reference roi_box_feature_extractors.py:82-142)."""
+
+    def __init__(self, pooler: dict, in_channels: int, conv_dim: int = 256,
+                 num_stacked_convs: int = 4, mlp_dim: int = 1024,
+                 use_gn: bool = False, dilation: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.pooler = pooler
+        self.num_stacked_convs = num_stacked_convs
+        self.use_gn = use_gn
+        for i in range(num_stacked_convs):
+            self.add_module(f"xconvs{i}", Conv2d(
+                in_channels if i == 0 else conv_dim, conv_dim, 3,
+                padding=dilation, dilation=dilation, bias=not use_gn,
+                compute_dtype=dtype))
+            if use_gn:
+                self.add_module(f"xconvs{i}_gn", make_norm("gn", conv_dim))
+        p = pooler["output_size"]
+        self.fc6 = Linear(conv_dim * p * p, mlp_dim, compute_dtype=dtype)
+
+    def forward(self, features, rois, *, impl: str):
+        x = pool_rois(features, rois, **self.pooler, impl=impl)
+        b, r = x.shape[:2]
+        x = x.reshape((b * r,) + x.shape[2:]).contiguous(
+            memory_format=torch.channels_last)
+        for i in range(self.num_stacked_convs):
+            x = getattr(self, f"xconvs{i}")(x)
+            if self.use_gn:
+                x = getattr(self, f"xconvs{i}_gn")(x)
+            x = F.relu(x)
+        return F.relu(self.fc6(x.reshape(b, r, -1)))
 
 
 class FastRCNNPredictor(nn.Module):
@@ -252,23 +293,28 @@ def make_box_feature_extractor(cfg, in_channels: int,
     name = cfg.MODEL.ROI_BOX_HEAD.FEATURE_EXTRACTOR
     h = cfg.MODEL.ROI_BOX_HEAD
     r = cfg.MODEL.RESNETS
-    if h.USE_GN:
-        raise NotImplementedError("GroupNorm box heads are a later slice")
     pooler = pooler_config(cfg, "ROI_BOX_HEAD")
     if name == "ResNet50Conv5ROIFeatureExtractor":
         return ResNet50Conv5ROIFeatureExtractor(
             pooler, depth=50, num_groups=r.NUM_GROUPS,
             width_per_group=r.WIDTH_PER_GROUP,
             res2_out_channels=r.RES2_OUT_CHANNELS,
-            stride_in_1x1=r.STRIDE_IN_1X1, dilation=h.DILATION, dtype=dtype
+            stride_in_1x1=r.STRIDE_IN_1X1, dilation=h.DILATION,
+            norm="gn" if h.USE_GN else "frozen_bn", dtype=dtype
         ), r.RES2_OUT_CHANNELS * 8
     if name == "FPN2MLPFeatureExtractor":
         return FPN2MLPFeatureExtractor(pooler, in_channels, h.MLP_HEAD_DIM,
                                        dtype=dtype), h.MLP_HEAD_DIM
+    if name == "FPNXconv1fcFeatureExtractor":
+        return FPNXconv1fcFeatureExtractor(
+            pooler, in_channels, conv_dim=h.CONV_HEAD_DIM,
+            num_stacked_convs=h.NUM_STACKED_CONVS, mlp_dim=h.MLP_HEAD_DIM,
+            use_gn=h.USE_GN, dilation=h.DILATION, dtype=dtype
+        ), h.MLP_HEAD_DIM
     raise NotImplementedError(
         f"feature extractor {name}: the port builds "
-        "ResNet50Conv5ROIFeatureExtractor and FPN2MLPFeatureExtractor; the "
-        "others are later slices")
+        "ResNet50Conv5ROIFeatureExtractor, FPN2MLPFeatureExtractor and "
+        "FPNXconv1fcFeatureExtractor; the others are later slices")
 
 
 _PREDICTORS = {"FastRCNNPredictor": FastRCNNPredictor,

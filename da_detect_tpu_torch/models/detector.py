@@ -16,8 +16,9 @@ pooled features, as the JAX package does.
 ``impl`` picks the kernels: "cuda" runs NMS, ROIAlign (forward and
 backward) and the deformable convolutions' row gathers through the
 hand-written CUDA kernels' wrappers (the gathers' backward through the
-scatter-add kernel), "plain" through their plain versions. The default is
-resolved from the model's device: "cuda" on the card, "plain" on the CPU.
+scatter-add kernel), "plain" through their plain versions. A call that
+names none takes the model's ``impl`` when it is set, else the model's
+device's: "cuda" on the card, "plain" on the CPU.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ from torch import nn
 from ..layers import DeformConv2d, compute_dtype
 from ..structures.image_batch import ImageBatch
 from .anchors import AnchorGenerator, make_anchor_generator
-from .box_head import (Detections, FPN2MLPFeatureExtractor, fast_rcnn_loss,
+from .box_head import (Detections, FPN2MLPFeatureExtractor,
+                       FPNXconv1fcFeatureExtractor, fast_rcnn_loss,
                        make_box_feature_extractor,
                        make_box_predictor, postprocess_detections,
                        subsample_proposals)
@@ -77,6 +79,7 @@ class GeneralizedRCNN(nn.Module):
         self.pixel_std = tuple(pixel_std)
         self.to_bgr255 = to_bgr255
         self._anchors = {}  # (feature shapes, device) -> anchors per level
+        self.impl: Optional[str] = None  # None: by the parameters' device
 
     def anchors(self, feats) -> list[torch.Tensor]:
         shapes = tuple((f.shape[2], f.shape[3]) for f in feats)
@@ -88,6 +91,8 @@ class GeneralizedRCNN(nn.Module):
         return self._anchors[key]
 
     def default_impl(self) -> str:
+        if self.impl is not None:
+            return self.impl
         dev = next(self.parameters()).device
         return "cuda" if dev.type == "cuda" else "plain"
 
@@ -251,7 +256,9 @@ def init_parameters(model: GeneralizedRCNN,
     normal(0.001) and fc1/fc2/fc3 normal(0.01/0.01/0.05), biases 0, FrozenBN
     scale 1 and bias 0; deformable convs he-normal (std sqrt(2/fan_in)) with
     their offset predictors zero; the FPN convs and the MLP head's fc6/fc7
-    kaiming-uniform with a=1 (bound sqrt(3/fan_in)), biases 0."""
+    kaiming-uniform with a=1 (bound sqrt(3/fan_in)), biases 0; the conv
+    head's convs normal(0.01) and its fc6 kaiming-uniform; GroupNorm scale 1
+    and bias 0 (set at construction)."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.Conv2d) and m.bias is None:
@@ -265,19 +272,25 @@ def init_parameters(model: GeneralizedRCNN,
                 m.conv_offset.bias.zero_()
         uniform = []
         if model.backbone.fpn is not None:
-            uniform += list(model.backbone.fpn.children())
-        if not model.rpn_only and isinstance(
-                model.roi_heads["box"]["feature_extractor"],
-                FPN2MLPFeatureExtractor):
-            ext = model.roi_heads["box"]["feature_extractor"]
+            uniform += [m for m in model.backbone.fpn.children()
+                        if isinstance(m, nn.Conv2d)]
+        ext = None if model.rpn_only \
+            else model.roi_heads["box"]["feature_extractor"]
+        if isinstance(ext, FPN2MLPFeatureExtractor):
             uniform += [ext.fc6, ext.fc7]
+        if isinstance(ext, FPNXconv1fcFeatureExtractor):
+            uniform.append(ext.fc6)
         for layer in uniform:
             bound = (3.0 / layer.weight[0].numel()) ** 0.5
             layer.weight.uniform_(-bound, bound, generator=generator)
-            layer.bias.zero_()
+            if layer.bias is not None:
+                layer.bias.zero_()
         head = model.rpn["head"]
         layers = [(head.conv, 0.01), (head.cls_logits, 0.01),
                   (head.bbox_pred, 0.01)]
+        if isinstance(ext, FPNXconv1fcFeatureExtractor):
+            layers += [(getattr(ext, f"xconvs{i}"), 0.01)
+                       for i in range(ext.num_stacked_convs)]
         if not model.rpn_only:
             pred = model.roi_heads["box"]["predictor"]
             layers += [(pred.cls_score, 0.01), (pred.bbox_pred, 0.001)]
@@ -288,7 +301,8 @@ def init_parameters(model: GeneralizedRCNN,
                        (ins.fc3_da, 0.05)]
         for layer, std in layers:
             layer.weight.normal_(0.0, std, generator=generator)
-            layer.bias.zero_()
+            if layer.bias is not None:
+                layer.bias.zero_()
 
 
 def build_detection_model(cfg, seed: int = 0) -> GeneralizedRCNN:

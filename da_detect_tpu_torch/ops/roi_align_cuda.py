@@ -18,7 +18,8 @@ backward reads the gradient as a [B, R, P, P, C] view in its own strides
 when its channels are contiguous (autograd's channels-last gradient: no
 copy), copies it otherwise, and returns dF [B, C, H, W] in channels-last
 memory, like the features. ``bwd_tiling`` and ``fwd_tiling`` size the
-kernels' shared memory.
+kernels' shared memory. The backward kernel sums each dF value in a fixed
+order (no atomics): it is the same bit for bit from run to run.
 
 Both kernels take float32 or bfloat16 (the compute dtype). In bfloat16 the
 forward reads the map and writes the output in bfloat16, with float32
@@ -56,18 +57,20 @@ _ARGTYPES = {
               ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
              + [ctypes.c_void_p],
     # grad and its 4 outer strides, rois, dF, batch, H, W, C, R, P, scale,
-    # sampling ratio, max samples, tile columns, smem
+    # sampling ratio, max samples, smem
     BACKWARD: [ctypes.c_void_p] + [ctypes.c_longlong] * 4
               + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
-              + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+              + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
 
 # both kernels' block: a slice of BWD_CHANNELS channels (kChannels in the
-# sources); their shared memory is sized to BWD_SMEM_TARGET and
-# FWD_SMEM_TARGET where the map allows it, and never past SMEM_MAX, the
-# most a block may have on sm_90
+# sources); the forward's shared memory is sized to FWD_SMEM_TARGET where the
+# map allows it, and neither passes SMEM_MAX, the most a block may have on
+# sm_90. A backward block owns a BWD_TILE x BWD_TILE pixel tile of dF (kTile)
+# and tests BWD_CHUNK ROIs against it at a time (kChunk)
 BWD_CHANNELS = 32
-BWD_SMEM_TARGET = 48 * 1024
+BWD_TILE = 16
+BWD_CHUNK = 1024
 FWD_SMEM_TARGET = 48 * 1024
 SMEM_MAX = 227 * 1024
 # the levels one forward launch takes (kMaxLevels in roi_align_fwd.cu)
@@ -158,26 +161,24 @@ def fwd_tiling(height: int, width: int, output_size: int,
 
 def bwd_tiling(height: int, width: int, output_size: int,
                samples: int, elem_bytes: int = 4) -> tuple[int, int]:
-    """(tile columns, dynamic shared memory bytes) of a backward block on an
+    """(tiles, dynamic shared memory bytes) of the backward launch on an
     H x W map, P = ``output_size``, ``samples`` a bin side at most, for a
-    gradient of ``elem_bytes`` elements (4: float32, 2: bfloat16). The
-    layout is roi_align_bwd.cu's: per column of the tile, U (P x
-    BWD_CHANNELS floats), Ax (P) and the column's bin range (2 ints); fixed,
-    the samples of both axes (16 B each), Ay over the rows (P x H) and each
-    row's bin range, and the staged gradient (P x P x BWD_CHANNELS elements
-    of the gradient's type). As many columns as BWD_SMEM_TARGET holds, at
-    least one and at most W; raises if one column passes SMEM_MAX."""
-    p = output_size
-    per_col = 4 * p * BWD_CHANNELS + 4 * p + 8
-    fixed = 2 * 16 * p * samples + height * (4 * p + 8) \
-        + elem_bytes * p * p * BWD_CHANNELS
-    cols = max(1, min(width, (BWD_SMEM_TARGET - fixed) // per_col))
-    smem = fixed + cols * per_col
+    gradient of ``elem_bytes`` elements (4: float32, 2: bfloat16): the
+    BWD_TILE x BWD_TILE pixel tiles that cover the map (a block each, a
+    channel slice and image), and roi_align_bwd.cu's layout: the staged
+    gradient (P x P x BWD_CHANNELS elements of the gradient's type), U (P x
+    BWD_TILE x BWD_CHANNELS floats), the samples of both axes (16 B each),
+    Ay and Ax over the tile (P x BWD_TILE floats each), each tile row's and
+    column's bin range (2 ints) and a byte a ROI of a chunk. Raises if the
+    layout passes SMEM_MAX."""
+    p, t = output_size, BWD_TILE
+    smem = elem_bytes * p * p * BWD_CHANNELS + 4 * p * t * BWD_CHANNELS \
+        + 2 * 16 * p * samples + 2 * 4 * p * t + 2 * 8 * t + BWD_CHUNK
     if smem > SMEM_MAX:
-        raise ValueError(f"ROIAlign backward kernel: a {height}-row map at "
-                         f"P={p} needs {smem} B of shared memory a block, "
-                         f"more than {SMEM_MAX}")
-    return cols, smem
+        raise ValueError(f"ROIAlign backward kernel: P={p} at {samples} "
+                         f"samples a bin side needs {smem} B of shared "
+                         f"memory a block, more than {SMEM_MAX}")
+    return -(-height // t) * -(-width // t), smem
 
 
 def fwd_slices(channels: int, rois: int, batch: int) -> int:
@@ -309,17 +310,18 @@ def roi_align_backward(grad: torch.Tensor, rois: torch.Tensor, *,
     batch, r, c = grad.shape[:3]
     g, _ = grad_view(grad)
     _check_cuda(BACKWARD, g, "grad", rois, sampling_ratio, max_samples)
-    dfeat = torch.zeros((batch, height, width, c), dtype=torch.float32,
-                        device=grad.device)
+    # the kernel writes every value of dF; with no ROI it does not run
+    dfeat = (torch.empty if g.numel() else torch.zeros)(
+        (batch, height, width, c), dtype=torch.float32, device=grad.device)
     if g.numel() and dfeat.numel():
-        cols, smem = bwd_tiling(height, width, output_size,
-                                sampling_ratio if sampling_ratio > 0
-                                else max_samples, g.element_size())
+        _, smem = bwd_tiling(height, width, output_size,
+                             sampling_ratio if sampling_ratio > 0
+                             else max_samples, g.element_size())
         rois = rois.contiguous()
         _launch(BACKWARD, g.dtype, rois.device, [
             g.data_ptr(), *g.stride()[:4], rois.data_ptr(), dfeat.data_ptr(),
             batch, height, width, c, r, output_size, float(spatial_scale),
-            int(sampling_ratio), int(max_samples), cols, smem])
+            int(sampling_ratio), int(max_samples), smem])
     return dfeat.to(grad.dtype).permute(0, 3, 1, 2)
 
 

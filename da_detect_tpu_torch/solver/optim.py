@@ -4,7 +4,9 @@ SGD with momentum and torch-SGD semantics (weight decay added to the
 gradient before the momentum buffer). Biases form their own group with their
 own schedule (base lr x ``BIAS_LR_FACTOR``, the shared warmup floor and
 minimum) and ``WEIGHT_DECAY_BIAS``; everything else takes ``BASE_LR`` and
-``WEIGHT_DECAY``. Parameters frozen by ``FREEZE_CONV_BODY_AT`` have
+``WEIGHT_DECAY``. A parameter is a bias by its name, as in the JAX
+package's label tree: a GroupNorm's ``bias`` is one, its ``weight`` (Flax's
+``scale``) is a weight. Parameters frozen by ``FREEZE_CONV_BODY_AT`` have
 ``requires_grad`` off and stay out of the optimizer.
 """
 

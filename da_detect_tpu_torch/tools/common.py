@@ -4,6 +4,9 @@ user catalog, logging, seeding, and the device.
 
 The tools run on the card (``--device cuda``, the default) and raise
 without one; ``--device cpu`` runs the kernels' plain versions on the CPU.
+``--profile DIR`` writes a ``torch.profiler`` trace of training iterations
+10-20 there; ``--use-tensorboard`` logs the training meters as TensorBoard
+scalars under ``TENSORBOARD_EXPERIMENT``.
 """
 
 from __future__ import annotations
@@ -33,21 +36,29 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="cuda (the default; raises without a card) or cpu")
     p.add_argument("--log-period", type=int, default=20,
                    help="log, and read the loss, every N iterations")
+    p.add_argument("--use-tensorboard", action="store_true")
+    p.add_argument("--profile", default="",
+                   help="directory to write a torch.profiler trace of "
+                        "iterations 10-20")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     return p
 
 
-def _setup_logger(output_dir: str) -> None:
-    """The package's log to stderr and to ``output_dir/log.txt`` (one set of
-    handlers a process: a second setup replaces the first's)."""
+def setup_logger(output_dir: str | None) -> None:
+    """The package's log to stderr and, given ``output_dir``, to
+    ``output_dir/log.txt`` (one set of handlers a process: a second setup
+    replaces the first's)."""
     root = logging.getLogger("da_detect_tpu_torch")
     for h in _HANDLERS:
         root.removeHandler(h)
         h.close()
     _HANDLERS.clear()
     fmt = logging.Formatter("%(asctime)s %(name)s %(levelname)s: %(message)s")
-    for h in (logging.StreamHandler(sys.stderr),
-              logging.FileHandler(os.path.join(output_dir, "log.txt"))):
+    handlers = [logging.StreamHandler(sys.stderr)]
+    if output_dir is not None:
+        handlers.append(logging.FileHandler(os.path.join(output_dir,
+                                                         "log.txt")))
+    for h in handlers:
         h.setFormatter(fmt)
         root.addHandler(h)
         _HANDLERS.append(h)
@@ -72,7 +83,7 @@ def setup(args, logger_name: str):
             raise FileNotFoundError(f"PATHS_CATALOG {cfg.PATHS_CATALOG}")
         load_user_catalog(cfg.PATHS_CATALOG)
     os.makedirs(output_dir, exist_ok=True)
-    _setup_logger(output_dir)
+    setup_logger(output_dir)
     logger = logging.getLogger(logger_name)
     logger.info("device %s (%s)", device,
                 torch.cuda.get_device_name(device)
@@ -81,3 +92,20 @@ def setup(args, logger_name: str):
         logger.info("loaded configuration file %s", args.config_file)
     np.random.seed(args.seed)
     return cfg, logger, device
+
+
+def ablation_main(argv, description: str, zeroed: tuple, logger_name: str):
+    """The DA ablation CLIs: ``train_net``'s DA training (multistep
+    schedule) with the loss weights ``zeroed`` set to 0 before the user's
+    options, as the JAX package's do."""
+    from .train_core import run_training
+
+    args = base_parser(description).parse_args(argv)
+    args.opts = [x for key in zeroed for x in (key, "0.0")] + (
+        args.opts or [])
+    cfg, logger, device = setup(args, logger_name)
+    return run_training(cfg, logger, mode="da", schedule_kind="multistep",
+                        device=device, skip_test=args.skip_test,
+                        seed=args.seed, log_period=args.log_period,
+                        use_tensorboard=args.use_tensorboard,
+                        profile_dir=args.profile)

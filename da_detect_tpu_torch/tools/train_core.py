@@ -9,7 +9,7 @@ from ..engine.trainer import create_train_state, do_train
 from ..entry import prepare_model
 from ..models import build_detection_model
 from ..utils.checkpoint import Checkpointer, load_weight_file
-from ..utils.metric_logger import MetricLogger
+from ..utils.metric_logger import MetricLogger, TensorboardLogger
 
 
 def build_model(cfg, device, seed: int):
@@ -20,11 +20,14 @@ def build_model(cfg, device, seed: int):
 
 def run_training(cfg, logger, *, mode: str, schedule_kind: str, device,
                  skip_test: bool = False, seed: int = 100,
-                 log_period: int = 20):
+                 log_period: int = 20, use_tensorboard: bool = False,
+                 profile_dir: str = ""):
     """Train ``mode`` ("source_only", "da" or "da_triplet") from the
     loader's batches, resuming from ``MODEL.OUTPUT_DIR``'s newest checkpoint
     or starting from ``MODEL.WEIGHT``; then evaluate on ``DATASETS.TEST``
-    unless ``skip_test``. Returns (state, meters)."""
+    unless ``skip_test``. ``use_tensorboard``: the meters also go to
+    ``TENSORBOARD_EXPERIMENT`` as scalars; ``profile_dir``: a profiler trace
+    of iterations 10-20 (``do_train``). Returns (state, meters)."""
     model = build_model(cfg, device, seed)
     packed = bool(cfg.TPU.PACKED_TRANSPORT)
     aligned = mode != "source_only" and cfg.MODEL.DA_HEADS.ALIGNMENT
@@ -49,16 +52,20 @@ def run_training(cfg, logger, *, mode: str, schedule_kind: str, device,
         def eval_fn(st, iteration):
             run_eval(cfg, logger, model, device)
 
-    meters = MetricLogger()
+    meters = (TensorboardLogger(cfg.TENSORBOARD_EXPERIMENT,
+                                start_iter=state.step)
+              if use_tensorboard else MetricLogger())
     try:
         state = do_train(
             state, iter(loader), max_iter=cfg.SOLVER.MAX_ITER,
             checkpointer=checkpointer,
             checkpoint_period=cfg.SOLVER.CHECKPOINT_PERIOD, meters=meters,
             aligned=aligned, log_period=log_period, eval_fn=eval_fn,
-            test_period=cfg.SOLVER.TEST_PERIOD)
+            test_period=cfg.SOLVER.TEST_PERIOD,
+            profile_dir=profile_dir or None)
     finally:
         loader.close()
+        meters.close()
     if not skip_test and cfg.DATASETS.TEST:
         run_eval(cfg, logger, model, device)
     return state, meters

@@ -18,7 +18,9 @@ def main(argv=None):
     mode = "da" if cfg.MODEL.DOMAIN_ADAPTATION_ON else "source_only"
     return run_training(cfg, logger, mode=mode, schedule_kind="multistep",
                         device=device, skip_test=args.skip_test,
-                        seed=args.seed, log_period=args.log_period)
+                        seed=args.seed, log_period=args.log_period,
+                        use_tensorboard=args.use_tensorboard,
+                        profile_dir=args.profile)
 
 
 if __name__ == "__main__":

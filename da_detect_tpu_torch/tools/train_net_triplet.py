@@ -26,7 +26,9 @@ def main(argv=None):
     logger.info("cosine annealing is chosen for lr scheduler")
     return run_training(cfg, logger, mode=mode, schedule_kind="cosine",
                         device=device, skip_test=args.skip_test,
-                        seed=args.seed, log_period=args.log_period)
+                        seed=args.seed, log_period=args.log_period,
+                        use_tensorboard=args.use_tensorboard,
+                        profile_dir=args.profile)
 
 
 if __name__ == "__main__":

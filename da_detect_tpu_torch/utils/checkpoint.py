@@ -5,8 +5,10 @@ JAX package's orbax ``utils/checkpoint.py``).
 output directory (model ``state_dict``, optimizer state, ``DAState``, step,
 generator state) and points ``last_checkpoint`` at it; ``resume(state)``
 restores the newest into a ``TrainState`` in place, ``resume_model(model)``
-only its model (evaluation). A checkpoint is loaded with
-``weights_only=True``: it holds tensors and plain containers only.
+only its model (evaluation); ``all_steps()`` and ``load_model(model, step)``
+reach every checkpoint of the directory (batch evaluation). A checkpoint
+is loaded with ``weights_only=True``: it holds tensors and plain
+containers only.
 
 ``load_weight_file(path, model)`` loads external weights (``MODEL.WEIGHT``):
 ``catalog://`` ids, Detectron C2 ``.pkl`` ImageNet weights and
@@ -19,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import re
 
 import numpy as np
 import torch
@@ -57,13 +60,28 @@ class Checkpointer:
         with open(self._pointer()) as f:
             return os.path.join(self.output_dir, f.read().strip())
 
+    def all_steps(self) -> list[int]:
+        """The steps of the directory's ``model_<step>.pth`` files, oldest
+        first."""
+        if not os.path.isdir(self.output_dir):
+            return []
+        return sorted(int(m.group(1)) for m in (
+            re.fullmatch(r"model_(\d+)\.pth", name)
+            for name in os.listdir(self.output_dir)) if m)
+
     def resume_model(self, model) -> int:
         """Load the newest checkpoint's model weights into ``model``; returns
         its step. Raises when there is none. The DA heads act in training
         only: a model built without them (an eval config) takes the rest."""
         if not self.has_checkpoint():
             raise FileNotFoundError(f"no checkpoint under {self.output_dir}")
-        path = self._newest()
+        return self.load_model(model)
+
+    def load_model(self, model, step: int | None = None) -> int:
+        """``resume_model`` from the checkpoint of ``step`` (None: the
+        newest); returns its step."""
+        path = self._newest() if step is None else os.path.join(
+            self.output_dir, f"model_{step:07d}.pth")
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
         weights = ckpt["model"]
         if model.da_heads is None:

@@ -10,6 +10,10 @@ checkpoint converter uses in the other direction:
         -> backbone.body.layer1.0.conv1.weight      (HWIO -> OIHW)
     frozen/backbone/body/layer1/block0/downsample_bn/scale
         -> backbone.body.layer1.0.downsample.1.weight
+    params/backbone/body/layer1/block0/bn1/scale   (GroupNorm, trainable)
+        -> backbone.body.layer1.0.bn1.weight
+    params/backbone/fpn/fpn_inner1_norm/bias
+        -> backbone.fpn.fpn_inner1_norm.bias
     params/rpn_head/conv/bias            -> rpn.head.conv.bias
     params/feature_extractor/head/...    -> roi_heads.box.feature_extractor.head...
     params/predictor/cls_score/kernel    -> roi_heads.box.predictor.cls_score.weight
@@ -30,8 +34,8 @@ since the DA heads act in training only) leave the port's DA heads as they
 are.
 
 ``load_jax_train_state(state, jax_state)`` carries a JAX ``TrainState``
-(params, frozen, ``DAState``, step, SGD momentum) into the port's, so that a
-run started with the JAX package continues here.
+(params, frozen, ``DAState``, step, SGD momentum, GroupNorm's included) into
+the port's, so that a run started with the JAX package continues here.
 """
 
 from __future__ import annotations

@@ -8,8 +8,8 @@ with one (which need not have JAX, so tests/conftest.py is left out):
 NMS keep masks must agree exactly, truncated ones (``max_keep``) too;
 ROIAlign to rtol = atol = 1e-5 (float32 sums in another order), one level
 or four in one launch; the ROIAlign
-backward within 1e-5 of the largest |dF| (its sums run in another order,
-and its atomics in an order that changes from run to run); one train
+backward within 1e-5 of the largest |dF| (its sums run in another order)
+and bit for bit equal to its own rerun (a fixed order, no atomics); one train
 step through the kernels against the same step through the plain versions:
 losses rtol 1e-4, gradients within 1e-3 of each leaf's largest |g|. The two
 row gathers are copies and must equal the plain version bit for bit; a
@@ -34,8 +34,8 @@ output of the plain version run in float32 on the same (bfloat16) inputs,
 and to 4 ulps of the largest |output| of the plain version run in bfloat16.
 The ROIAlign backward sums dF in float32 and rounds it once: within one ulp
 of each value of the float32 plain adjoint of the same gradient (plus
-1e-5 of the largest |dF| for the atomics' order), and 4 ulps of the largest
-|dF| of the bfloat16 plain adjoint. The bfloat16 scatter-add sums in
+1e-5 of the largest |dF| for the other order of its sums), and 4 ulps of the
+largest |dF| of the bfloat16 plain adjoint. The bfloat16 scatter-add sums in
 float32 in the kernel's order and rounds once: bit for bit its plain order
 (``row_scatter_add_csr_``, which widens, sums and rounds the same way) and
 its own rerun. The bfloat16 train steps, kernel-run against plain-run, are
@@ -45,6 +45,10 @@ plain bf16 step's distance from the f32 one, each gradient leaf (L2) within
 twice that distance plus one ulp of its norm; with random weights, ulp-level
 differences move a bfloat16 step's gradients far more than a fixed bound
 would allow.
+
+The sanity gate's GroupNorm model in bfloat16: its float32 C4 map takes
+the float32 ROIAlign kernels (forward and backward), launched and held to
+the plain step as the bf16 steps are.
 
 The data path: the packed transport (one pinned buffer a step, copied on a
 side stream) gives the CPU loader's batches bit for bit to a consumer that
@@ -332,9 +336,11 @@ BWD_CASES = {
     "edges": (1, 64, 38, 76, 14, 0, 1 / 16, EDGE_ROIS),
     "c4": (1, 4, 38, 76, 14, 0, 1 / 16, (1, 20)),
     "c12": (2, 12, 38, 76, 7, 2, 1 / 16, (2, 9)),
-    # 800 rows: Ay passes the 48 KB target, the kernel's limit is raised
+    # 800 rows: 50 tiles in a column, ROIs across many of them
     "tall": (1, 8, 800, 8, 14, 0, 1 / 16, [[0.0, 0.0, 128.0, 12800.0],
                                            [10.0, 300.0, 90.0, 5000.0]]),
+    # more ROIs than a block tests against its tile at a time (BWD_CHUNK)
+    "chunks": (1, 64, 38, 76, 7, 2, 1 / 16, (1, 1100)),
 }
 
 
@@ -343,8 +349,9 @@ def test_roi_align_backward_kernel_matches_plain(dev, case):
     """At the train step's shapes ([1,1024,38,76], R = 256, P = 14) and on
     the edge cases: ROIs off the map, degenerate and inverted, none, the
     whole C4 and P2 maps, straddling each edge, channel counts that leave
-    the last 32-channel slice partly empty, and a map tall enough to need
-    more than 48 KB of shared memory a block."""
+    the last 32-channel slice partly empty, a tall map, and more ROIs than a
+    block takes at a time. A second launch gives the same dF bit for bit
+    (each value summed in a fixed order, no atomics)."""
     gen = torch.Generator().manual_seed(11)
     b, c, h, w, p, sr, scale, rois = BWD_CASES[case]
     if isinstance(rois, tuple):
@@ -367,6 +374,9 @@ def test_roi_align_backward_kernel_matches_plain(dev, case):
         assert not got.any()
     else:
         assert scale > 0
+    assert torch.equal(
+        roi_align_cuda.roi_align_backward(g, rois, height=h, width=w, **kw),
+        got)
 
 
 def test_roi_align_backward_reads_strided_grad(dev):
@@ -894,7 +904,7 @@ def test_roi_align_levels_bf16_kernel_matches_plain(dev, b, r, c, sr,
 def test_roi_align_backward_bf16_kernel_matches_plain(dev, case):
     """The bfloat16 backward: dF comes back bfloat16 (channels-last),
     within one ulp of each value of the float32 plain adjoint of the same
-    gradient plus 1e-5 of its largest |dF| (float32 atomics in another
+    gradient plus 1e-5 of its largest |dF| (float32 sums in another
     order), and within 4 ulps of the largest |dF| of the bfloat16 plain
     adjoint (autograd of the bfloat16 plain forward)."""
     gen = torch.Generator().manual_seed(11)
@@ -1200,3 +1210,75 @@ def test_tta_merge_kernel_matches_plain(dev):
         want = merge_per_class(boxes, scores, labels, 0.3, 100,
                                device=torch.device("cpu"), impl="plain")
         np.testing.assert_array_equal(got, want)
+
+
+def test_gn_sanity_model_runs_f32_roi_align_in_bf16(dev, tmp_path,
+                                                    monkeypatch):
+    """The sanity gate's GN model (``tools/sanity_check.py``, the ablation's
+    triplet-DA arm) in bfloat16 on a loader batch of its synthetic data:
+    its GN body hands the pooler a float32 C4 map, so the step launches the
+    float32 ROIAlign forward and backward kernels (2 each, and 2 NMS) inside
+    the bfloat16 model; kernel-run against plain-run as the bf16 steps
+    above. The kernel-run step twice gives the same losses and gradients
+    bit for bit: the learning gate trains on one trajectory."""
+    from da_detect_tpu_torch.data import make_data_loader_da
+    from da_detect_tpu_torch.engine.trainer import create_train_state
+    from da_detect_tpu_torch.models import build_detection_model
+    from da_detect_tpu_torch.tools import sanity_check
+
+    root = sanity_check.build_synthetic(str(tmp_path), 4, seed=3,
+                                        fog=(0.8, 10.0), invert=True)
+    monkeypatch.setenv("DA_DETECT_DATA_DIR", root)
+    cfg = sanity_check.sanity_cfg(True, 200)
+    cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION = 7
+    cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 16
+    assert cfg.TPU.COMPUTE_DTYPE == "bfloat16"
+    loader = make_data_loader_da(cfg, device=dev, aligned=True, seed=0)
+    args = next(loader)
+    loader.close()
+    model = entry.prepare_model(build_detection_model(cfg, seed=0), dev)
+    state = create_train_state(cfg, model, 0, "cosine")
+    seen = []
+    fwd = roi_align_cuda.roi_align_forward
+    bwd = roi_align_cuda.roi_align_backward
+
+    def fwd_rec(features, rois, **kw):
+        seen.append(("fwd", features.dtype))
+        return fwd(features, rois, **kw)
+
+    def bwd_rec(grad, rois, **kw):
+        seen.append(("bwd", grad.dtype))
+        return bwd(grad, rois, **kw)
+
+    monkeypatch.setattr(roi_align_cuda, "roi_align_forward", fwd_rec)
+    monkeypatch.setattr(roi_align_cuda, "roi_align_backward", bwd_rec)
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    ref = build_detection_model(cfg32)
+    ref.load_state_dict(model.state_dict())
+    ref = entry.prepare_model(ref, dev)
+    results = []
+    for m, impl in ((model, "cuda"), (model, "cuda"), (model, "plain"),
+                    (ref, "plain")):
+        m.zero_grad(set_to_none=True)
+        before = dict(kernels.LAUNCHES)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        losses, _ = m.train_forward(*args[:2], state.da_state, *args[2:],
+                                    aligned=True, deterministic=True,
+                                    generator=gen, impl=impl)
+        sum(losses.values()).backward()
+        torch.cuda.synchronize()
+        launched = {k: v - before.get(k, 0) for k, v in
+                    kernels.LAUNCHES.items() if v != before.get(k, 0)}
+        assert launched == ({"nms": 2, "roi_align_fwd": 2,
+                             "roi_align_bwd": 2} if impl == "cuda" else {})
+        results.append(({k: v.item() for k, v in losses.items()},
+                        {n: p.grad.clone() for n, p in m.named_parameters()
+                         if p.requires_grad}))
+    assert seen == ([("fwd", torch.float32)] * 2
+                    + [("bwd", torch.float32)] * 2) * 2
+    assert model.backbone.body.stem.conv1.compute_dtype == torch.bfloat16
+    (losses, grads), (losses2, grads2) = results[:2]
+    assert losses == losses2
+    assert all(torch.equal(grads[n], grads2[n]) for n in grads)
+    _assert_bf16_steps_match(results[1:])

@@ -140,7 +140,8 @@ def test_weight_loader_maps_da_heads():
 def test_unsupported_configs_raise():
     """The default config (COMPUTE_DTYPE bfloat16, as in the JAX package)
     builds a bfloat16 model with float32 parameters; another compute dtype
-    raises, as do the heads and bodies of later slices."""
+    raises, as do the heads and bodies of later slices. GroupNorm bodies
+    build."""
     from da_detect_tpu_torch.layers import Conv2d, Linear
     from da_detect_tpu_torch.models import build_detection_model
 
@@ -156,11 +157,17 @@ def test_unsupported_configs_raise():
         build_detection_model(cfg)
     for key, value in (("MODEL.BACKBONE.CONV_BODY", "R-50-FPN-RETINANET"),
                        ("MODEL.MASK_ON", True), ("MODEL.RETINANET_ON", True),
-                       ("MODEL.BACKBONE.USE_GN", True)):
+                       ("MODEL.KEYPOINT_ON", True)):
         cfg = entry.flagship_cfg(dtype="float32")
         cfg.merge_from_list([key, value])
         with pytest.raises(NotImplementedError):
             build_detection_model(cfg)
+    from da_detect_tpu_torch.layers import GroupNorm
+
+    cfg = entry.flagship_cfg(dtype="float32")
+    cfg.merge_from_list(["MODEL.BACKBONE.USE_GN", True])
+    assert any(isinstance(m, GroupNorm)
+               for m in build_detection_model(cfg).modules())
 
 
 @pytest.mark.parametrize("names", [None, ["roi_align_bwd"]])

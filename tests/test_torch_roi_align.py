@@ -8,6 +8,8 @@ bfloat16 (the JAX package's compute dtype) against the einsum path, within
 one bfloat16 ulp of the largest value; the kernels' shared-memory tiling
 for both element sizes."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -212,30 +214,30 @@ def test_roi_align_gradcheck_float64(fn):
     (38, 76, 14, 8),     # C4 at 608x1216, the train step's pooler
     (152, 304, 7, 2),    # FPN P2 at 608x1216
     (10, 16, 7, 2),      # a map narrower than a tile
-    (800, 8, 14, 8),     # tall: Ay alone passes the 48 KB target
+    (800, 8, 14, 8),     # tall: the layout does not grow with the map
 ])
 def test_bwd_tiling_sizes_shared_memory(h, w, p, samples, elem_bytes):
-    """The backward kernel's column tile and shared memory: at least one
-    column and at most the map's width, within the 48 KB target whenever
-    one column fits in it, and the bytes of roi_align_bwd.cu's layout (the
-    staged gradient in its own type, float32 or bfloat16)."""
-    cols, smem = roi_align_cuda.bwd_tiling(h, w, p, samples, elem_bytes)
-    per_col = 4 * p * roi_align_cuda.BWD_CHANNELS + 4 * p + 8
-    fixed = 32 * p * samples + h * (4 * p + 8) \
-        + elem_bytes * p * p * roi_align_cuda.BWD_CHANNELS
-    assert 1 <= cols <= w and smem == fixed + cols * per_col
-    if fixed + per_col <= roi_align_cuda.BWD_SMEM_TARGET:
-        assert smem <= roi_align_cuda.BWD_SMEM_TARGET
-        assert cols == w or smem + per_col > roi_align_cuda.BWD_SMEM_TARGET
-    else:
-        assert cols == 1 and smem <= roi_align_cuda.SMEM_MAX
-    if (h, w) == (38, 76):
-        assert (cols, smem) == {4: (9, 47808), 2: (16, 48256)}[elem_bytes]
+    """The backward launch: a block a BWD_TILE x BWD_TILE tile covering the
+    map (and a channel slice and image), each with the bytes of
+    roi_align_bwd.cu's layout (the staged gradient in its own type, float32
+    or bfloat16), which depend on P and the samples, not on the map."""
+    tiles, smem = roi_align_cuda.bwd_tiling(h, w, p, samples, elem_bytes)
+    t = roi_align_cuda.BWD_TILE
+    assert tiles == math.ceil(h / t) * math.ceil(w / t)
+    assert smem == (elem_bytes * p * p * roi_align_cuda.BWD_CHANNELS
+                    + 4 * p * t * roi_align_cuda.BWD_CHANNELS
+                    + 32 * p * samples + 8 * p * t + 16 * t
+                    + roi_align_cuda.BWD_CHUNK)
+    assert smem <= roi_align_cuda.SMEM_MAX
+    assert roi_align_cuda.bwd_tiling(8 * h, w, p, samples,
+                                     elem_bytes)[1] == smem
+    if (h, w, p) == (38, 76, 14):
+        assert (tiles, smem) == {4: (15, 60416), 2: (15, 47872)}[elem_bytes]
 
 
-def test_bwd_tiling_refuses_a_map_too_tall():
+def test_bwd_tiling_refuses_too_many_samples():
     with pytest.raises(ValueError, match="shared memory"):
-        roi_align_cuda.bwd_tiling(5000, 8, 14, 8)
+        roi_align_cuda.bwd_tiling(38, 76, 14, 512)
 
 
 @pytest.mark.parametrize("elem_bytes", [4, 2], ids=["f32", "bf16"])
