@@ -34,6 +34,16 @@ Phases, one JSON line each:
                counts, the step's split and profile, 2 aligned steps
   7. train_times  kernel and plain times on the train path's kernel inputs,
                with the NMS split
+ 7a. ddp       phase 6's step through DDP at world size 1 (NCCL): 3 steps
+               with phase 6's launch counts, each step's losses, DAState
+               and parameters bit for bit the unwrapped step's from the
+               same seed (cuDNN deterministic for the check); then the two
+               steps' times in turns
+ 7b. ddp2      (float32 only) two ranks on the one card through gloo, one
+               triple each, step 1 against one process's step on the
+               2-triple batch on the same sampler draws (losses, DAState,
+               parameters); each rank launches NMS and both ROIAlign
+               kernels; then each side's step times
   8. dcn       the X-101-32x8d-FPN-DCN YAML at 608x1216 in float32 through
                ``entry(cfg=dcn_cfg())``: 4 requests with exact launch counts
                (row_gather 270 a forward, NMS 6, ROIAlign 1: each ROI from
@@ -64,7 +74,8 @@ Phases, one JSON line each:
                sources in rows summed in pieces; a later step's inputs
                checked too (by then the random-weight step diverges), its
                rows' traffic, and its NMS and ROIAlign sites' times
- 11. *_bf16    phases 4-10 again with TPU.COMPUTE_DTYPE bfloat16, the
+ 11. *_bf16    phases 4-10 (7b excepted) again with TPU.COMPUTE_DTYPE
+               bfloat16, the
                JAX package's default: the same launch counts, each bf16
                kernel held to its plain version (BF16_* tolerances) on the
                phase's own inputs, kernel-run against plain-run agreement
@@ -121,7 +132,13 @@ a user catalog, PATHS_CATALOG):
                gathers a forward at every scale); the merge's NMS kernel
                against its plain version (exact keep masks) and the merged
                order against the JAX package's merge rule in numpy
-``--data-only`` runs phases 1, 2 and 12-17 alone, without the kernel line.
+ 18. tools_ddp_bf16  the dataset tools at run time: a gtFine tree at
+               Cityscapes geometry through ``convert_cityscapes_to_coco``,
+               the clean PNG tree copied as the foggy domain and through
+               ``generate_rainy_dataset`` as the rainy one; the flagship
+               YAML's triplet loader reads the three and feeds 2 steps
+               through DDP at world size 1 (NCCL), phase 6's launch counts
+``--data-only`` runs phases 1, 2 and 12-18 alone, without the kernel line.
 ``--gate-spread GATES RUNS [CONDITION[:FIRST] ...]`` runs phases 1 and 2,
 then the learning gate of phase 12 GATES times and its triplet-DA arm RUNS
 times under each condition (default: all of SPREAD_CONDITIONS) with its
@@ -1854,6 +1871,300 @@ def phase_train(dev, dtype: str = "float32"):
     return captured, launches, errs
 
 
+# ---------------------------------------------------------------- DDP
+
+# phase ddp: the flagship train step through DDP at world size 1 (NCCL),
+# against the unwrapped step: DDP_STEPS checked steps, then DDP_TIMED_STEPS
+# of each timed in turns
+DDP_STEPS, DDP_TIMED_STEPS = 3, 6
+# phase ddp2: two ranks on the one card through gloo, k = 1 triple each,
+# against one process on the 2-triple batch; then DDP2_TIMED_STEPS steps
+# of each timed. The updated parameters: each leaf's change within
+# DDP2_PARAM_REL of its largest change plus a float32 ulp of its weights
+# (the ranks sum the batch's gradients in another order)
+DDP2_WORLD, DDP2_TIMED_STEPS, DDP2_PARAM_REL = 2, 4, 1e-3
+
+
+@contextlib.contextmanager
+def nccl_world1(dev):
+    """A process group of this process alone, through NCCL (a file store in
+    a temporary directory), destroyed at the end."""
+    from da_detect_tpu_torch import parallel
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        parallel.init_distributed(
+            dev, init_method="file://" + os.path.join(tmp, "store"), rank=0,
+            world_size=1)
+        try:
+            if torch.distributed.get_backend() != "nccl":
+                raise AssertionError("the world-1 group is not NCCL")
+            yield
+        finally:
+            parallel.shutdown()
+
+
+def step_record(state, metrics) -> dict:
+    """A step's losses, parameters (on the card) and DAState."""
+    return dict(losses={k: v.item() for k, v in metrics.items()},
+                params=[p.detach().clone() for p in state.model.parameters()],
+                da_state=[float(getattr(state.da_state, f)) for f in (
+                    "margin_img", "margin_ins", "last_triplet_img",
+                    "last_triplet_ins")])
+
+
+def first_difference(got: dict, want: dict, names: list) -> dict | None:
+    """None when two step records are equal bit for bit, else where they
+    first differ."""
+    if got["losses"] != want["losses"]:
+        return dict(what="losses", got=got["losses"], want=want["losses"])
+    if got["da_state"] != want["da_state"]:
+        return dict(what="da_state", got=got["da_state"],
+                    want=want["da_state"])
+    for n, a, b in zip(names, got["params"], want["params"]):
+        if not torch.equal(a, b):
+            return dict(what="param", leaf=n,
+                        max_abs_diff=float((a - b).abs().max()),
+                        differing=int((a != b).sum()), numel=a.numel())
+    return None
+
+
+def timed_step(step, state, args) -> tuple:
+    t0 = time.perf_counter()
+    state, _ = step(state, *args)
+    torch.cuda.synchronize()
+    return state, (time.perf_counter() - t0) * 1e3
+
+
+def phase_ddp(dev, dtype: str = "float32") -> dict:
+    """The flagship triplet-DA train step through DDP at world size 1
+    (NCCL), dropout on: DDP_STEPS steps with exact launch counts (the train
+    phase's), each step's losses, DAState and parameters bit for bit the
+    unwrapped step's from the same seed (cuDNN deterministic for the
+    check); then the two steps' times in turns."""
+    from da_detect_tpu_torch import entry
+    from da_detect_tpu_torch.engine.trainer import make_train_step
+    from da_detect_tpu_torch.parallel import wrap_train_forward
+
+    name = label("ddp", dtype)
+    cfg = train_cfg(aligned=False, dtype=dtype)
+    step, (state, args) = entry.train_entry(device=str(dev), seed=0, cfg=cfg)
+    _, (d_state, _) = entry.train_entry(device=str(dev), seed=0, cfg=cfg)
+    names = [n for n, _ in state.model.named_parameters()]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = []
+        for _ in range(DDP_STEPS):
+            state, m = step(state, *args)
+            want.append(step_record(state, m))
+        with nccl_world1(dev):
+            d_step = make_train_step(
+                d_state.model, d_state.optimizer, aligned=False,
+                forward=wrap_train_forward(d_state.model, "da_triplet"))
+            clear_counts()
+            diffs = []
+            for i in range(DDP_STEPS):
+                d_state, m = d_step(d_state, *args)
+                diffs.append(first_difference(step_record(d_state, m),
+                                              want[i], names))
+            launches = read_counts(PER_TRAIN_STEP, DDP_STEPS, name, "steps")
+            torch.backends.cudnn.deterministic = deterministic
+            times = {"unwrapped": [], "ddp": []}
+            for _ in range(DDP_TIMED_STEPS):
+                state, ms = timed_step(step, state, args)
+                times["unwrapped"].append(ms)
+                d_state, ms = timed_step(d_step, d_state, args)
+                times["ddp"].append(ms)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    medians = {k: statistics.median(v) for k, v in times.items()}
+    emit(name, dtype=dtype, world=1, backend="nccl", steps=DDP_STEPS,
+         launches=launches, bitwise_equal_steps=[d is None for d in diffs],
+         first_differences=diffs,
+         losses=[w["losses"] for w in want], step_ms=times,
+         step_ms_median=medians,
+         ddp_over_unwrapped=medians["ddp"] / medians["unwrapped"])
+    if any(d is not None for d in diffs):
+        raise AssertionError(f"{name}: the DDP step differs from the "
+                             f"unwrapped one: {diffs}")
+    del step, state, d_step, d_state
+    return launches
+
+
+class SamplerDraws:
+    """The sampler's priorities of a train step: ``record`` draws them from
+    the step's generator, as the sampler does, and keeps them (on the CPU)
+    call by call; ``inject(rows)`` hands each call its recorded draws'
+    ``rows`` (a rank's images) instead of drawing."""
+
+    def __init__(self):
+        self.calls: list = []
+
+    @contextlib.contextmanager
+    def _patched(self, priorities_for):
+        from da_detect_tpu_torch.models import box_head, rpn
+        from da_detect_tpu_torch.ops.sampler import balanced_sample
+
+        count = iter(range(1 << 30))
+
+        def sample(labels, batch_size, fraction, *, generator=None,
+                   priorities=None):
+            return balanced_sample(
+                labels, batch_size, fraction,
+                priorities=priorities_for(next(count), labels, generator))
+
+        saved = rpn.balanced_sample, box_head.balanced_sample
+        rpn.balanced_sample = box_head.balanced_sample = sample
+        try:
+            yield
+        finally:
+            rpn.balanced_sample, box_head.balanced_sample = saved
+
+    def record(self):
+        def draw(i, labels, generator):
+            pr = tuple(torch.rand(labels.shape, generator=generator,
+                                  device=labels.device) for _ in range(2))
+            self.calls.append(tuple(p.cpu() for p in pr))
+            return pr
+        return self._patched(draw)
+
+    def inject(self, rows: slice):
+        def take(i, labels, generator):
+            return tuple(p[rows].to(labels.device) for p in self.calls[i])
+        return self._patched(take)
+
+
+def ddp2_model(cfg, dev):
+    """The flagship model (seed 0), its score layers spread, and a
+    TrainState with the train entry's cosine schedule."""
+    from da_detect_tpu_torch.engine.trainer import create_train_state
+    from da_detect_tpu_torch.entry import prepare_model
+    from da_detect_tpu_torch.models import build_detection_model
+
+    model = prepare_model(build_detection_model(cfg, seed=0), dev)
+    with torch.no_grad():
+        model.rpn["head"].cls_logits.weight.mul_(SCORE_SCALE)
+        model.roi_heads["box"]["predictor"].cls_score.weight.mul_(SCORE_SCALE)
+    return create_train_state(cfg, model, 0, "cosine")
+
+
+def ddp2_rank(rank, world, init_method, cfg, args, draws):
+    """One rank of phase ddp2 on cuda:0, gloo: its triple of ``args``,
+    step 1 on the recorded draws' rows of its image, launches counted;
+    then DDP2_TIMED_STEPS steps timed."""
+    from da_detect_tpu_torch import kernels
+    from da_detect_tpu_torch.engine.trainer import make_train_step
+    from da_detect_tpu_torch.parallel import (init_distributed, shard,
+                                              wrap_train_forward)
+
+    dev = init_distributed(torch.device("cuda", 0), backend="gloo",
+                           init_method=init_method, rank=rank,
+                           world_size=world)
+    state = ddp2_model(cfg, dev)
+    step = make_train_step(
+        state.model, state.optimizer, aligned=False, deterministic=True,
+        forward=wrap_train_forward(state.model, "da_triplet"))
+    mine = tuple(a.to(dev) for a in shard(args, rank, world))
+    torch.cuda.synchronize()
+    kernels.LAUNCHES.clear()
+    with draws.inject(slice(rank, rank + 1)):
+        state, metrics = step(state, *mine)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    out = step_record(state, metrics)
+    out["params"] = [p.cpu() for p in out["params"]]
+    times = []
+    for _ in range(DDP2_TIMED_STEPS):
+        state, ms = timed_step(step, state, mine)
+        times.append(ms)
+    return dict(out, launches=launches, step_ms=times,
+                device=torch.cuda.get_device_name(dev))
+
+
+def phase_ddp2(dev) -> dict:
+    """Two ranks on the one card through gloo (CUDA tensors), k = 1 triple
+    each, the flagship at 608x1216 in float32, dropout off: step 1 against
+    one process's step on the 2-triple batch, both on the same sampler
+    draws (recorded in the single step, each rank given its image's rows):
+    losses rtol TRAIN_LOSS_RTOL, DAState (margins to 1e-6, last losses as
+    losses), each leaf's change within DDP2_PARAM_REL of its largest plus a
+    float32 ulp, the two ranks' parameters bit for bit equal; every rank
+    launched NMS and both ROIAlign kernels (the train phase's counts a
+    step). Then each side's step times."""
+    from da_detect_tpu_torch import entry, parallel
+    from da_detect_tpu_torch.engine.trainer import make_train_step
+
+    cfg = train_cfg(aligned=False)
+    state = ddp2_model(cfg, dev)
+    init = [p.detach().cpu() for p in state.model.parameters()]
+    names = [n for n, _ in state.model.named_parameters()]
+    step = make_train_step(state.model, state.optimizer, aligned=False,
+                           deterministic=True)
+    args = entry.triplet_batches(cfg, DDP2_WORLD, seed=0, device=dev)
+    draws = SamplerDraws()
+    with draws.record():
+        state, metrics = step(state, *args)
+    want = step_record(state, metrics)
+    want["params"] = [p.cpu() for p in want["params"]]
+    single_ms = []
+    for _ in range(DDP2_TIMED_STEPS):
+        state, ms = timed_step(step, state, args)
+        single_ms.append(ms)
+    cpu_args = tuple(a.to("cpu") for a in args)
+    del state, step, args, metrics
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = parallel.spawn(ddp2_rank, DDP2_WORLD, cfg, cpu_args, draws)
+    spawn_s = time.perf_counter() - t0
+    for r, got in enumerate(ranks):
+        for k, n in PER_TRAIN_STEP.items():
+            if got["launches"].get(k) != n:
+                raise AssertionError(f"ddp2: rank {r} launched {k} "
+                                     f"{got['launches'].get(k)} times, "
+                                     f"expected {n}")
+        if got["losses"] != ranks[0]["losses"] \
+                or got["da_state"] != ranks[0]["da_state"] or not all(
+                    torch.equal(a, b) for a, b in zip(got["params"],
+                                                      ranks[0]["params"])):
+            raise AssertionError(f"ddp2: rank {r} differs from rank 0")
+    got = ranks[0]
+    bad = {k: (got["losses"][k], v) for k, v in want["losses"].items()
+           if abs(got["losses"][k] - v) > TRAIN_LOSS_RTOL * abs(v)}
+    if bad or set(got["losses"]) != set(want["losses"]):
+        raise AssertionError(f"ddp2: losses differ from one process's: {bad}")
+    state_tol = [1e-6, 1e-6] + [TRAIN_LOSS_RTOL * abs(v)
+                                for v in want["da_state"][2:]]
+    if any(abs(a - b) > t for a, b, t in zip(got["da_state"],
+                                             want["da_state"], state_tol)):
+        raise AssertionError(f"ddp2: DAState {got['da_state']} against "
+                             f"{want['da_state']}")
+    worst, worst_leaf = 0.0, None
+    for n, p0, p, q in zip(names, init, want["params"], got["params"]):
+        change = float((p - p0).abs().max())
+        ulp = 1.2e-7 * float(p0.abs().max())
+        ratio = float((q - p).abs().max()) / (DDP2_PARAM_REL * change + ulp
+                                              + 1e-30)
+        if ratio > worst:
+            worst, worst_leaf = ratio, n
+    if worst > 1.0:
+        raise AssertionError(f"ddp2: parameter {worst_leaf} off one "
+                             f"process's step: {worst:.3f} x its bound")
+    launches = {k: sum(r["launches"].get(k, 0) for r in ranks)
+                for k in PER_TRAIN_STEP}
+    emit("ddp2", world=DDP2_WORLD, backend="gloo", device=got["device"],
+         triples_per_rank=1, losses=got["losses"],
+         single_losses=want["losses"], da_state=got["da_state"],
+         param_bound_used=worst, worst_param_leaf=worst_leaf,
+         launches_by_rank=[r["launches"] for r in ranks],
+         sampler_calls=len(draws.calls), spawn_s=spawn_s,
+         step_ms={"single_2_triples": single_ms,
+                  **{f"rank{r}": x["step_ms"] for r, x in enumerate(ranks)}},
+         step_ms_median={"single_2_triples": statistics.median(single_ms),
+                         **{f"rank{r}": statistics.median(x["step_ms"])
+                            for r, x in enumerate(ranks)}})
+    return launches
+
+
 # ---------------------------------------------------------------- DCN
 
 DCN_NMS_SITES = ("rpn_p2", "rpn_p3", "rpn_p4", "rpn_p5", "rpn_p6",
@@ -2563,6 +2874,136 @@ def phase_data(dev, data: dict) -> dict:
     return rates
 
 
+# the dataset tools' phase: a Cityscapes-like train split written at run
+# time (Cityscapes geometry), TOOLS_IMAGES images in two cities
+TOOLS_IMAGES, TOOLS_STEPS = 4, 2
+
+
+def cityscapes_tree(root: str, n: int, hw, seed: int) -> tuple[str, str]:
+    """``root/leftImg8bit/train/<city>/*_leftImg8bit.png`` (the port's PNG
+    writer) and ``root/gtFine/train/<city>/*_gtFine_polygons.json``: cars
+    and persons as filled rectangles and their polygons, plus a cargroup
+    crowd, a 2-point car polygon and a road, which the converter keeps as a
+    crowd, drops and drops. Returns (image root, gtFine root)."""
+    from da_detect_tpu_torch.data.image_io import write_png
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    images, gt = (os.path.join(root, d) for d in ("leftImg8bit", "gtFine"))
+    for i in range(n):
+        city = ("aachen", "bochum")[i % 2]
+        stem = f"{city}_{i:06d}_000019"
+        for d in (images, gt):
+            os.makedirs(os.path.join(d, "train", city), exist_ok=True)
+        img = rng.randint(0, 60, (h, w, 3), dtype=np.uint8)
+        objects = []
+        for j in range(int(rng.randint(6, 16))):
+            bw, bh = (int(v) for v in rng.randint(40, 240, 2))
+            x1 = int(rng.randint(0, w - bw - 1))
+            y1 = int(rng.randint(0, h - bh - 1))
+            car = j % 2 == 0
+            img[y1:y1 + bh, x1:x1 + bw] = (220, 40, 40) if car \
+                else (40, 220, 40)
+            objects.append({"label": "car" if car else "person",
+                            "polygon": [[x1, y1], [x1 + bw, y1],
+                                        [x1 + bw, y1 + bh], [x1, y1 + bh]]})
+        objects += [
+            {"label": "cargroup", "polygon": [[10, 10], [200, 12],
+                                              [150, 90]]},
+            {"label": "car", "polygon": [[5, 5], [9, 9]]},
+            {"label": "road", "polygon": [[0, h - 1], [w - 1, h - 1],
+                                          [w // 2, h // 2]]}]
+        write_png(os.path.join(images, "train", city,
+                               f"{stem}_leftImg8bit.png"), img)
+        with open(os.path.join(gt, "train", city,
+                               f"{stem}_gtFine_polygons.json"), "w") as f:
+            json.dump({"imgHeight": h, "imgWidth": w, "objects": objects}, f)
+    return os.path.join(images, "train"), gt
+
+
+def phase_tools(dev) -> dict:
+    """The dataset tools into the loader and DDP, bfloat16: a gtFine tree
+    through ``convert_cityscapes_to_coco``, the clean PNG tree copied as the
+    foggy domain and through ``generate_rainy_dataset`` as the rainy one;
+    the flagship YAML's triplet loader reads the three domains (named in a
+    user catalog) and feeds TOOLS_STEPS steps through DDP at world size 1
+    (NCCL), with the train phase's launch counts."""
+    import shutil
+
+    from da_detect_tpu_torch.data import make_data_loader_da
+    from da_detect_tpu_torch.data.image_io import load_image_bgr
+    from da_detect_tpu_torch.engine.trainer import (create_train_state,
+                                                    make_train_step)
+    from da_detect_tpu_torch.parallel import wrap_train_forward
+    from da_detect_tpu_torch.tools import (convert_cityscapes_to_coco,
+                                           generate_rainy_dataset)
+    from da_detect_tpu_torch.tools.train_core import build_model
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as root:
+        t0 = time.perf_counter()
+        clean, gt = cityscapes_tree(root, TOOLS_IMAGES, DATA_HW, seed=1)
+        ann_dir = os.path.join(root, "annotations")
+        counts = convert_cityscapes_to_coco.main(
+            ["--gt-dir", gt, "--out-dir", ann_dir, "--splits", "train"])
+        ann = os.path.join(ann_dir, "instancesonly_filtered_gtFine_train.json")
+        with open(ann) as f:
+            coco = json.load(f)
+        crowds = sum(a["iscrowd"] for a in coco["annotations"])
+        if counts["train"][0] != TOOLS_IMAGES or crowds != TOOLS_IMAGES:
+            raise AssertionError(f"tools: converted {counts}, {crowds} "
+                                 "crowds")
+        foggy = shutil.copytree(clean, os.path.join(root, "foggy"))
+        rainy = os.path.join(root, "rainy")
+        written = generate_rainy_dataset.main(
+            ["--src", clean, "--dst", rainy, "--seed", "0"])
+        for im in coco["images"]:
+            a, b = (load_image_bgr(os.path.join(d, im["file_name"]), "png")
+                    for d in (clean, rainy))
+            if a.shape != b.shape or np.array_equal(a, b):
+                raise AssertionError(f"tools: rainy {im['file_name']}")
+        tools_s = time.perf_counter() - t0
+        names = {"tools_clean_train": (clean, ann),
+                 "tools_foggy_train": (foggy, ann),
+                 "tools_rainy_train": (rainy, ann)}
+        catalog = os.path.join(root, "tools_catalog.py")
+        with open(catalog, "w") as f:
+            f.write(USER_CATALOG.format(names=names))
+        opts = {"MODEL.WEIGHT": "", "TPU.COMPUTE_DTYPE": "bfloat16",
+                "PATHS_CATALOG": catalog,
+                "DATASETS.SOURCE_TRAIN": "('tools_clean_train',)",
+                "DATASETS.TARGET_TRAIN": "('tools_foggy_train',)",
+                "DATASETS.TARGET_TRAIN_negative": "('tools_rainy_train',)",
+                "DATALOADER.STAGE_CACHE": "False"}
+        cfg = smoke_cfg(FLAGSHIP_YAML, [x for kv in opts.items()
+                                        for x in kv])
+        aligned = cfg.MODEL.DA_HEADS.ALIGNMENT
+        loader = make_data_loader_da(cfg, device=dev, seed=0, packed=True,
+                                     aligned=aligned)
+        state = create_train_state(cfg, build_model(cfg, dev, 0), 0, "cosine")
+        try:
+            with nccl_world1(dev):
+                step = make_train_step(
+                    state.model, state.optimizer, aligned=aligned,
+                    forward=wrap_train_forward(state.model, "da_triplet"))
+                clear_counts()
+                losses = []
+                for _ in range(TOOLS_STEPS):
+                    state, m = step(state, *next(loader))
+                    losses.append({k: v.item() for k, v in m.items()})
+                launches = read_counts(PER_TRAIN_STEP, TOOLS_STEPS,
+                                       "tools_ddp_bf16", "steps")
+        finally:
+            loader.close()
+    if not all(np.isfinite(x["loss_total"]) for x in losses):
+        raise AssertionError(f"tools_ddp_bf16: losses {losses}")
+    emit("tools_ddp_bf16", images=TOOLS_IMAGES, image_hw=list(DATA_HW),
+         converted=dict(images=counts["train"][0],
+                        annotations=counts["train"][1], crowds=crowds),
+         rainy_written=written, tools_s=tools_s, steps=TOOLS_STEPS,
+         launches=launches, losses=losses)
+    return launches
+
+
 def phase_cli_train(dev, data: dict) -> dict:
     """``train_net_triplet.main`` on the flagship YAML, bfloat16, random
     weights: 8 loader-fed steps with a checkpoint every 4, exact launch
@@ -2604,7 +3045,7 @@ def phase_cli_train(dev, data: dict) -> dict:
     torch.cuda.synchronize()
     r_launches = read_counts(PER_TRAIN_STEP, CLI_STEPS - CLI_PERIOD,
                              "cli_train_bf16 resumed", "steps")
-    with open(os.path.join(run_dir, "log.txt")) as f:
+    with open(os.path.join(run_dir, "log_rank0.txt")) as f:
         started = f"start training at iteration {CLI_PERIOD}" in f.read()
     resumed_to = resumed.step
     if resumed_to != CLI_STEPS or not started \
@@ -3359,8 +3800,9 @@ def kernel_line(paths: dict, errs: dict, summaries: dict) -> dict:
 
 def run_dtype(dev, dtype: str) -> tuple[dict, dict, dict]:
     """Every main path in ``dtype``: the flagship eval forward and its
-    times, the flagship train step and its kernels' times, the DCN eval
-    forward ("four" and "quad") and its times, the DCN train step. Returns
+    times, the flagship train step and its kernels' times, the step through
+    DDP (and, in float32, over two ranks), the DCN eval forward ("four" and
+    "quad") and its times, the DCN train step. Returns
     (paths for ``kernel_line``, the largest error a kernel, the
     scatter-add's summary)."""
     model, fn, batches, captured, eval_launches, eval_errs = phase_slice(
@@ -3373,6 +3815,9 @@ def run_dtype(dev, dtype: str) -> tuple[dict, dict, dict]:
                              if dtype == "float32" else ())
     emit(label("train_times", dtype), sites=train_sites)
     del captured
+    ddp = {label("ddp", dtype): ([], phase_ddp(dev, dtype), {})}
+    if dtype == "float32":
+        ddp["ddp2"] = ([], phase_ddp2(dev), {})
     (model, fn, q_model, q_fn, batch, captured, q_captured, dcn_launches,
      quad_launches, dcn_errs) = phase_dcn(dev, dtype)
     dcn_sites, quad_sites, device = phase_dcn_times(
@@ -3389,21 +3834,23 @@ def run_dtype(dev, dtype: str) -> tuple[dict, dict, dict]:
              label("dcn", dtype): (dcn_sites, dcn_launches, device),
              label("dcn_quad", dtype): (quad_sites, quad_launches, device),
              label("dcn_train", dtype): (dcn_train_sites, dcn_train_launches,
-                                         {})}
+                                         {}), **ddp}
     return paths, errs, scatter
 
 
-def run_data_path(dev) -> dict:
+def run_data_path(dev) -> tuple[dict, dict]:
     """The data, CLI and TTA phases on the smoke datasets (written to a
-    temporary directory, removed at the end). Returns the TTA merge's
-    NMS site."""
+    temporary directory, removed at the end), then the dataset tools'
+    phase. Returns the TTA merge's NMS site and the tools phase's
+    launches."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         data = smoke_datasets(root)
         cold = phase_data(dev, data)
         trained = phase_cli_train(dev, data)
         phase_cli_eval(dev, data, trained)
         phase_stage(dev, data, cold)
-        return phase_tta(dev, data)
+        tta = phase_tta(dev, data)
+    return tta, phase_tools(dev)
 
 
 def add_sanity_path(line: dict, sites: list, launches: dict,
@@ -3484,7 +3931,8 @@ def main(argv=None) -> int:
         key = label(k, "bfloat16") if k in BF16_KERNELS else k
         errs[key] = max(errs.get(key, 0.0), v)
     sanity_sites, sanity_launches, sanity_errs = phase_sanity(dev)
-    tta = run_data_path(dev)
+    tta, tools_launches = run_data_path(dev)
+    paths["tools_ddp_bf16"] = ([], tools_launches, {})
     line = kernel_line(
         paths, errs, {"row_scatter_add": {"dcn_train": scatter},
                       "row_scatter_add_bf16": {"dcn_train_bf16":

@@ -172,5 +172,14 @@ class CfgNode(dict):
     def __deepcopy__(self, memo):
         return self.clone()
 
+    def __reduce__(self):
+        # through __init__ (dict's default sets items before it runs): the
+        # ranks of a data-parallel run receive their config pickled
+        return (CfgNode, (dict(self),), self.is_frozen())
+
+    def __setstate__(self, frozen: bool) -> None:
+        if frozen:
+            self.freeze()
+
     def __repr__(self) -> str:
         return f"CfgNode({dict.__repr__(self)})"

@@ -21,8 +21,15 @@ grouping becomes two orientation buckets: landscape batches take the canvas
 The random draws are the JAX package's, in its order: each batch's geometry
 from ``RandomState(hash((seed, tuple(indices))))`` (``draw_params``), each
 epoch's shuffle from ``RandomState(seed + epoch)``; so one seed gives the
-same images, flips and scales in both packages. This is the single-process
-loader (process 0 of 1).
+same images, flips and scales in both packages.
+
+Data-parallel runs: each loader takes this process's ``rank`` of ``world``
+(default ``utils.comm``'s) and reads its shard of every epoch's order,
+``order[rank::world]``, as the JAX package's process ``rank`` does (the
+reference's DistributedSampler): the same batches. The triplet loader gives
+every process k = IMS_PER_BATCH // 2 triples a step, so a step's global
+batch holds world * k triples; an eval loader's shards partition the
+dataset.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import torch
 from ..config.catalog import DatasetCatalog
 from ..entry import resolve_device
 from ..structures.image_batch import ImageBatch, Targets
+from ..utils import comm
 from . import datasets as D
 from . import image_io
 from .staging import make_stage_cache
@@ -285,15 +293,23 @@ def _transport(cfg, device, packed: bool) -> Transport:
                      depth=cfg.TPU.PREFETCH)
 
 
+def _shard(rank, world) -> tuple[int, int]:
+    return (comm.get_rank() if rank is None else rank,
+            comm.get_world_size() if world is None else world)
+
+
 def make_data_loader(cfg, *, is_train: bool, device=None, dataset_names=None,
                      is_source: bool = True, shuffle: bool | None = None,
                      seed: int = 0, infinite: bool | None = None,
-                     hflip: bool = False, packed: bool = False):
+                     hflip: bool = False, packed: bool = False,
+                     rank: int | None = None, world: int | None = None):
     """Single-domain loader on ``device`` (None: the card). Returns
     (loader, dataset). Train: the loader yields (ImageBatch, Targets);
     eval: (ImageBatch, image ids), the last batch padded with its last
     sample under id None. ``hflip`` flips every image (the TTA flip
-    pass); ``packed``: one copy a batch (see transport.py)."""
+    pass); ``packed``: one copy a batch (see transport.py); ``rank`` of
+    ``world``: the shard this process reads."""
+    rank, world = _shard(rank, world)
     if dataset_names is None:
         dataset_names = cfg.DATASETS.TRAIN if is_train else cfg.DATASETS.TEST
     transport = _transport(cfg, device, packed)
@@ -313,6 +329,7 @@ def make_data_loader(cfg, *, is_train: bool, device=None, dataset_names=None,
             order = np.arange(len(dataset))
             if shuffle:
                 np.random.RandomState(seed + epoch).shuffle(order)
+            order = order[rank::world]
             if is_train:
                 # aspect-ratio grouping: two orientation buckets
                 buckets = {True: [], False: []}
@@ -367,14 +384,17 @@ def make_data_loader(cfg, *, is_train: bool, device=None, dataset_names=None,
 
 
 def make_data_loader_da(cfg, *, device=None, aligned: bool = True,
-                        seed: int = 0, packed: bool = False):
+                        seed: int = 0, packed: bool = False,
+                        rank: int | None = None, world: int | None = None):
     """Triplet loader on ``device`` (None: the card): yields (batch_s,
     targets_s, batch_p, targets_p[, batch_n, targets_n]) with k =
     IMS_PER_BATCH // 2 images a domain (the reference halves the batch for
-    DA, build.py:241-246). ``aligned``: the same index in every domain, the
-    source's boxes, labels and dims on the others; otherwise the positive
-    and negative images are drawn at random, each with its own
-    annotations."""
+    DA, build.py:241-246), k per process. ``aligned``: the same index in
+    every domain, the source's boxes, labels and dims on the others;
+    otherwise the positive and negative images are drawn at random, each
+    with its own annotations. ``rank`` of ``world``: the shard this process
+    reads."""
+    rank, world = _shard(rank, world)
     transport = _transport(cfg, device, packed)
     ds_s = build_dataset(cfg.DATASETS.SOURCE_TRAIN, True, True)
     ds_p = build_dataset(cfg.DATASETS.TARGET_TRAIN, True, False)
@@ -391,7 +411,7 @@ def make_data_loader_da(cfg, *, device=None, aligned: bool = True,
         epoch = 0
         while True:
             rng = np.random.RandomState(seed + epoch)
-            order = rng.permutation(n)
+            order = rng.permutation(n)[rank::world]
             for i in range(0, len(order) - k + 1, k):
                 jobs = []
                 for idx in order[i:i + k]:

@@ -72,20 +72,44 @@ def compute_on_dataset(model, data_loader, progress_every: int = 50
     return predictions
 
 
+def evaluate_merged(dataset, predictions: dict, **kwargs):
+    """The dataset's evaluation of every rank's ``predictions`` (this rank's
+    shard): in a process group the shards are merged on every rank
+    (``comm.accumulate_predictions``, the JAX package's :156-157) and
+    evaluated once, on the main process, which writes the outputs; every
+    rank returns its results. Returns (results, merged predictions); no
+    predictions are not evaluated (results None)."""
+    from ..data.evaluation import evaluate
+    from ..utils import comm
+
+    world = comm.get_world_size()
+    if world > 1:
+        predictions = comm.accumulate_predictions(predictions)
+    if not predictions:
+        return None, predictions
+    if world == 1:
+        return evaluate(dataset, predictions, **kwargs), predictions
+    results = (evaluate(dataset, predictions, **kwargs)
+               if comm.is_main_process() else None)
+    return comm.all_gather(results)[0], predictions
+
+
 def inference(model, data_loader, dataset, *, iou_types=("bbox",),
               output_folder: str | None = None, expected_results=None,
               expected_results_sigma_tol: float = 4.0, style: str = "coco"):
     """Predictions and the dataset's evaluation (reference
-    inference.py:76-129). Returns (results, predictions)."""
+    inference.py:76-129). In a process group each rank predicts its
+    loader's shard and the merge is evaluated once (``evaluate_merged``).
+    Returns (results, predictions: every rank's)."""
     predictions = compute_on_dataset(model, data_loader)
+    results, predictions = evaluate_merged(
+        dataset, predictions, output_folder=output_folder,
+        iou_types=iou_types, style=style)
     if not predictions:
         # a consumed (one-pass) loader would evaluate nothing and report NaN
         raise RuntimeError(
             "evaluation produced no predictions: eval loaders are one-pass; "
             "build a fresh one for each inference() call")
-    from ..data.evaluation import evaluate
-    results = evaluate(dataset, predictions, output_folder=output_folder,
-                       iou_types=iou_types, style=style)
     if expected_results:
         check_expected_results(results, expected_results,
                                expected_results_sigma_tol)

@@ -8,6 +8,9 @@ the host only at log and checkpoint boundaries, where it also stops on a
 non-finite loss, so the steps in between queue on the card without a sync.
 Unlike the JAX package's pure step, the port updates the model, the
 optimizer and the ``TrainState`` in place (no second copy of the weights).
+On N ranks the step runs through DDP (``parallel/ddp.py``): each rank's
+losses are its share of the global batch's, its gradients DDP's mean, and
+its ``DAState`` the same as every other rank's.
 ``profile_dir`` traces a range of iterations with ``torch.profiler`` (the
 reference has only wall-clock meters).
 """
@@ -24,7 +27,9 @@ from typing import Callable, Optional
 import torch
 
 from ..models.da import DAState
+from ..parallel.ddp import global_average
 from ..solver.optim import DetectronSGD, make_optimizer
+from ..utils.comm import get_rank, get_world_size
 from ..utils.metric_logger import MetricLogger, eta_string
 
 log = logging.getLogger(__name__)
@@ -46,7 +51,8 @@ def create_train_state(cfg, model: torch.nn.Module, seed: int = 0,
                        schedule_kind: str = "multistep") -> TrainState:
     """A TrainState at step 0 for ``model`` (already on its device): the
     optimizer, ``DAState`` seeded from ``TRIPLET_MARGIN_IMG/INS`` and a
-    generator on the model's device seeded with ``seed``."""
+    generator on the model's device seeded with ``seed`` plus the process's
+    rank (the ranks of a data-parallel run draw apart)."""
     dev = next(model.parameters()).device
     da = cfg.MODEL.DA_HEADS
     return TrainState(
@@ -54,20 +60,35 @@ def create_train_state(cfg, model: torch.nn.Module, seed: int = 0,
         optimizer=make_optimizer(cfg, model, schedule_kind),
         da_state=DAState.create(da.TRIPLET_MARGIN_IMG, da.TRIPLET_MARGIN_INS,
                                 device=dev),
-        generator=torch.Generator(device=dev).manual_seed(seed))
+        generator=torch.Generator(device=dev).manual_seed(seed + get_rank()))
+
+
+def _global_metrics(losses: dict, total: torch.Tensor) -> dict:
+    """The losses and ``loss_total`` of the global batch: the ranks' mean of
+    their shares, in one all-reduce (a single process: its own)."""
+    metrics = {k: v.detach() for k, v in losses.items()}
+    metrics["loss_total"] = total.detach()
+    if get_world_size() == 1:
+        return metrics
+    mean = global_average(torch.stack([v.float() for v in metrics.values()]))
+    return dict(zip(metrics, mean.unbind()))
 
 
 def make_train_step(model: torch.nn.Module, optimizer: DetectronSGD, *,
-                    aligned: bool = False,
-                    deterministic: bool = False) -> Callable:
+                    aligned: bool = False, deterministic: bool = False,
+                    forward: Optional[Callable] = None) -> Callable:
     """Returns ``step(state, batch_s, targets_s[, batch_t, targets_t[,
     batch_n, targets_n]]) -> (state, metrics)``: metrics are the losses and
-    ``loss_total``, detached 0-d tensors on the device. ``deterministic``
-    turns the DA dropout off (parity tests)."""
+    ``loss_total`` of the global batch, detached 0-d tensors on the device.
+    ``deterministic`` turns the DA dropout off (parity tests). ``forward``
+    runs ``model.train_forward`` (default: itself); a data-parallel run
+    passes its DDP module (``parallel.wrap_train_forward``), which averages
+    the ranks' gradients in the backward."""
 
     def step(state: TrainState, batch_s, targets_s, *rest):
         optimizer.zero_grad()
-        losses, new_da = model.train_forward(
+        # looked up at each call: a wrapper set on the model applies
+        losses, new_da = (forward or model.train_forward)(
             batch_s, targets_s, state.da_state, *rest, aligned=aligned,
             deterministic=deterministic, generator=state.generator)
         total = sum(v.float() for v in losses.values())
@@ -75,9 +96,7 @@ def make_train_step(model: torch.nn.Module, optimizer: DetectronSGD, *,
         optimizer.step(state.step)
         state.step += 1
         state.da_state = new_da
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["loss_total"] = total.detach()
-        return state, metrics
+        return state, _global_metrics(losses, total)
 
     return step
 
@@ -97,7 +116,8 @@ def do_train(state: TrainState, data_iter, *, max_iter: int,
              log_period: int = 20,
              eval_fn: Optional[Callable[[TrainState, int], None]] = None,
              test_period: int = 0,
-             profile_dir: str | None = None) -> TrainState:
+             profile_dir: str | None = None,
+             forward: Optional[Callable] = None) -> TrainState:
     """The host loop from ``state.step`` (a resumed run's iteration) to
     ``max_iter``: ``data_iter`` yields tuples in ``train_forward``'s order,
     already on the device (a loader's batches). The loss is read on the host
@@ -109,11 +129,15 @@ def do_train(state: TrainState, data_iter, *, max_iter: int,
     ``test_period`` 0, after each checkpoint. ``profile_dir``: a
     ``torch.profiler`` trace (CPU, and the card's kernels when the model is
     on one) of iterations ``PROFILE_RANGE`` (the JAX package's 10-20, the
-    last excluded), written as ``trace_<first>-<last>.json`` when it stops
-    (at the range's end, or at ``max_iter``)."""
+    last excluded), written as ``trace_<first>-<last>.json`` (rank r > 0:
+    ``..._rank<r>.json``) when it stops (at the range's end, or at
+    ``max_iter``). ``forward``: the DDP module of
+    a data-parallel run (``make_train_step``); every rank runs this loop,
+    reads the global losses and checkpoints (``Checkpointer.save`` writes on
+    the main process only)."""
     meters = meters or MetricLogger()
     train_step = make_train_step(state.model, state.optimizer,
-                                 aligned=aligned)
+                                 aligned=aligned, forward=forward)
     start_iter = state.step
     log.info("start training at iteration %d", start_iter)
     start = last = window_start = time.perf_counter()
@@ -176,7 +200,9 @@ def _stop_profiler(profiler, profile_dir: str, end: int) -> None:
         torch.cuda.synchronize()
     profiler.stop()
     os.makedirs(profile_dir, exist_ok=True)
+    rank = get_rank()
     path = os.path.join(profile_dir,
-                        f"trace_{PROFILE_RANGE[0]}-{end - 1}.json")
+                        f"trace_{PROFILE_RANGE[0]}-{end - 1}"
+                        f"{f'_rank{rank}' if rank else ''}.json")
     profiler.export_chrome_trace(path)
     log.info("profiler trace stopped: %s", path)

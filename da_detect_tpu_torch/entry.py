@@ -9,9 +9,10 @@ X-101-32x8d-FPN model with deformable res3-res5 instead.
 ``train_entry(device=None)`` is the single-device counterpart of
 ``__graft_entry__._dryrun_impl``: one (source, positive, negative) triple and
 a train step over it; ``train_entry(cfg=dcn_train_cfg())`` trains the
-X-101-32x8d-FPN-DCN model. Both run on the
-card unless the caller asks for ``device="cpu"``; with no card and no
-explicit CPU they raise.
+X-101-32x8d-FPN-DCN model. ``dryrun_multichip(n)`` runs the train step
+data-parallel over n ranks (DDP) against one process on the same global
+batch. All run on the card unless the caller asks for ``device="cpu"``;
+with no card and no explicit CPU they raise.
 
 Compute dtype: ``flagship_cfg`` and ``dcn_cfg`` default to bfloat16, the JAX
 package's ``TPU.COMPUTE_DTYPE`` (which ``__graft_entry__._flagship_cfg`` and
@@ -193,3 +194,132 @@ def train_entry(device: Optional[str] = None, seed: int = 0, cfg=None,
     state = create_train_state(cfg, model, seed, "cosine")
     step = make_train_step(model, state.optimizer, aligned=aligned)
     return step, (state, triplet_batches(cfg, 1, seed, device=device))
+
+
+# ---------------------------------------------------------------- DDP
+
+DRYRUN_STEPS = 3
+# the margin grows by TRIPLET_MARGIN_LR a step after the first (the
+# positive is a pixel copy of the source: the image hinge is exactly 0)
+DRYRUN_MARGINS = (-0.5, -0.499, -0.498)
+# step losses; each leaf's final parameters within this share of its
+# largest change over the steps, plus a float32 ulp of its weights
+DRYRUN_LOSS_RTOL, DRYRUN_PARAM_REL = 1e-4, 1e-3
+
+
+def dryrun_cfg():
+    """``train_cfg`` with sampling budgets above every candidate pool (RPN
+    1024 of 360 anchors an image; ROI 64 at positive fraction 0.5 of 16
+    proposals and 8 GT boxes), so that each rank's sampler takes what the
+    single process's does whatever their draws."""
+    cfg = train_cfg()
+    cfg.MODEL.RPN.BATCH_SIZE_PER_IMAGE = 1024
+    cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE = 64
+    cfg.MODEL.ROI_HEADS.POSITIVE_FRACTION = 0.5
+    return cfg
+
+
+def _dryrun_steps(step, state, args) -> dict:
+    """``DRYRUN_STEPS`` steps: each step's global losses and margin, and the
+    final parameters and DAState, on the CPU."""
+    losses, margins = [], []
+    for _ in range(DRYRUN_STEPS):
+        state, metrics = step(state, *args)
+        losses.append({k: float(v) for k, v in metrics.items()})
+        margins.append(float(state.da_state.margin_img))
+    return dict(losses=losses, margins=margins,
+                params={n: p.detach().cpu().clone()
+                        for n, p in state.model.named_parameters()},
+                da_state={f.name: float(getattr(state.da_state, f.name))
+                          for f in dataclasses.fields(state.da_state)})
+
+
+def _dryrun_rank(rank, world, init_method, cfg, device_type, threads):
+    """One rank of ``dryrun_multichip``: its 1 of the ``world`` triples,
+    the step through DDP."""
+    from .parallel import init_distributed, shard, wrap_train_forward
+
+    torch.set_num_threads(threads)
+    dev = torch.device("cuda", rank) if device_type == "cuda" \
+        else torch.device("cpu")
+    dev = init_distributed(dev, init_method=init_method, rank=rank,
+                           world_size=world)
+    model = prepare_model(build_detection_model(cfg, seed=0), dev)
+    state = create_train_state(cfg, model, 0, "cosine")
+    step = make_train_step(model, state.optimizer, aligned=True,
+                           deterministic=True,
+                           forward=wrap_train_forward(model, "da_triplet"))
+    args = shard(triplet_batches(cfg, world, seed=0, device=dev), rank,
+                 world)
+    return _dryrun_steps(step, state, args)
+
+
+def dryrun_multichip(n: int, device: Optional[str] = None, cfg=None) -> dict:
+    """The triplet-DA step data-parallel over ``n`` ranks against one
+    process on the same global batch (the counterpart of
+    ``__graft_entry__.dryrun_multichip``, data-parallel mode): ``cfg``
+    (default ``dryrun_cfg()``, the flagship at 64x96), n triples (the positive a pixel copy of the source), dropout
+    off, ``DRYRUN_STEPS`` steps. The ranks are spawned processes, each with
+    its 1 triple, through NCCL on ``n`` cards (``device`` None or "cuda")
+    or gloo on the CPU. Raises unless every rank's losses match the single
+    process's (rtol ``DRYRUN_LOSS_RTOL``), the margins are
+    ``DRYRUN_MARGINS`` on every rank, the ranks' final parameters and
+    DAState are identical, and they match the single process's
+    (``DRYRUN_PARAM_REL``). Prints a line as each run finishes (a cut run
+    leaves its tail); returns the comparison."""
+    from .parallel import spawn
+
+    dev = resolve_device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() < n:
+        raise RuntimeError(f"dryrun_multichip({n}) needs {n} cards, this "
+                           f"machine has {torch.cuda.device_count()}")
+    cfg = dryrun_cfg() if cfg is None else cfg
+    model = prepare_model(build_detection_model(cfg, seed=0), dev)
+    init = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
+    state = create_train_state(cfg, model, 0, "cosine")
+    step = make_train_step(model, state.optimizer, aligned=True,
+                           deterministic=True)
+    single = _dryrun_steps(step, state, triplet_batches(cfg, n, 0, dev))
+    del model, state, step
+    print(f"dryrun_multichip({n}): single process ok, {DRYRUN_STEPS}-step "
+          f"loss_total={single['losses'][-1]['loss_total']:.6f}, margins="
+          f"{single['margins']}", flush=True)
+    threads = max(1, torch.get_num_threads() // n)
+    ranks = spawn(_dryrun_rank, n, cfg, dev.type, threads)
+    for r, got in enumerate(ranks):
+        if got["da_state"] != ranks[0]["da_state"] or any(
+                not torch.equal(p, ranks[0]["params"][k])
+                for k, p in got["params"].items()):
+            raise AssertionError(f"dryrun_multichip({n}): rank {r}'s "
+                                 "parameters or DAState differ from rank 0's")
+        for i, (a, b) in enumerate(zip(got["losses"], single["losses"])):
+            bad = {k: (a[k], b[k]) for k in b
+                   if abs(a[k] - b[k]) > DRYRUN_LOSS_RTOL * abs(b[k]) + 1e-7}
+            if bad or set(a) != set(b):
+                raise AssertionError(f"dryrun_multichip({n}): rank {r} step "
+                                     f"{i + 1} losses {bad}")
+    got = ranks[0]
+    if not np.allclose(got["margins"], DRYRUN_MARGINS, rtol=0, atol=1e-6):
+        raise AssertionError(f"dryrun_multichip({n}): margins "
+                             f"{got['margins']} != {DRYRUN_MARGINS}")
+    worst = 0.0
+    for k, p in single["params"].items():
+        change = float((p - init[k]).abs().max())
+        ulp = 1.2e-7 * float(init[k].abs().max())
+        err = float((got["params"][k] - p).abs().max())
+        worst = max(worst, err / (DRYRUN_PARAM_REL * change + ulp + 1e-30))
+    if worst > 1.0:
+        raise AssertionError(f"dryrun_multichip({n}): final parameters off "
+                             f"the single process's: {worst:.3f} x the "
+                             "bound")
+    for key, v in single["da_state"].items():
+        if abs(got["da_state"][key] - v) > 1e-6:
+            raise AssertionError(f"dryrun_multichip({n}): DAState {key} "
+                                 f"{got['da_state'][key]} != {v}")
+    print(f"dryrun_multichip({n}): dp ok over {n} ranks "
+          f"({'nccl' if dev.type == 'cuda' else 'gloo'}), {DRYRUN_STEPS}-step "
+          f"loss_total={got['losses'][-1]['loss_total']:.6f}, margins match, "
+          f"params within {worst:.3f} of the bound", flush=True)
+    return dict(world=n, backend="nccl" if dev.type == "cuda" else "gloo",
+                losses=got["losses"], single_losses=single["losses"],
+                margins=got["margins"], param_bound_used=worst)

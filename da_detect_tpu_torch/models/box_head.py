@@ -30,6 +30,7 @@ from ..ops.losses import smooth_l1_loss, softmax_cross_entropy
 from ..ops.matcher import match_proposals
 from ..ops.nms import nms_topk
 from ..ops.sampler import balanced_sample, selection_to_indices
+from ..parallel.ddp import global_mean
 from .backbone.resnet import ResNetHead
 from .poolers import pool_rois, pooler_config
 
@@ -200,25 +201,28 @@ def subsample_proposals(proposals_boxes, proposals_valid, gt_boxes,
 def fast_rcnn_loss(class_logits, box_regression, sampled: SampledRois,
                    cls_agnostic: bool = False):
     """Classification and box losses over source rows only, each normalized
-    by the number of source rows. class_logits [B, S, K], box_regression
-    [B, S, 4K] (or [B, S, 8] class-agnostic)."""
+    by the number of source rows of the global batch (in a process group,
+    this rank's share: ``parallel.global_mean``). class_logits [B, S, K],
+    box_regression [B, S, 4K] (or [B, S, 8] class-agnostic)."""
     logits = class_logits.reshape(-1, class_logits.shape[-1]).float()
     deltas = box_regression.reshape(-1, box_regression.shape[-1]).float()
     labels = sampled.labels.reshape(-1)
     reg_targets = sampled.reg_targets.reshape(-1, 4)
     dom = (sampled.domain_mask & sampled.valid).reshape(-1)
     w = dom.float()
-    cls_loss = softmax_cross_entropy(logits, labels, w)
+    cls_loss = global_mean(
+        softmax_cross_entropy(logits, labels, w, reduction="sum"), w.sum(),
+        1e-10)
     pos = dom & (labels > 0)
     if cls_agnostic:
         pos_deltas = deltas[:, 4:8]
     else:
         idx = 4 * labels[:, None] + torch.arange(4, device=labels.device)
         pos_deltas = torch.gather(deltas, 1, idx)
-    n_dom = w.sum().clamp(min=1.0)
-    box_loss = smooth_l1_loss(pos_deltas, reg_targets, beta=1.0,
-                              weights=pos[:, None].float(),
-                              reduction="sum") / n_dom
+    box_loss = global_mean(
+        smooth_l1_loss(pos_deltas, reg_targets, beta=1.0,
+                       weights=pos[:, None].float(), reduction="sum"),
+        w.sum(), 1.0)
     return cls_loss, box_loss
 
 

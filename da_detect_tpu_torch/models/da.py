@@ -14,6 +14,10 @@
   explicit ``DAState`` a train step threads through.
 * The consistency loss: L1 between each instance's domain probability and
   its own image's mean image-level probability.
+* In a process group (``parallel/ddp.py``) each loss is this rank's share
+  of the global batch's, and the AdvGRL probe losses and the last triplet
+  losses are the global ones, so every rank takes the same GRL weights and
+  keeps the same ``DAState``.
 
 The heads compute in ``dtype`` (``TPU.COMPUTE_DTYPE``); every loss, the
 triplet distances and the consistency probabilities in float32.
@@ -35,6 +39,7 @@ from torch import nn
 from ..layers import Conv2d, Linear
 from ..ops.grl import gradient_scalar
 from ..ops.losses import bce_with_logits, triplet_margin_loss
+from ..parallel.ddp import global_average, global_mean
 
 # BCE([0.7, 0.3], [1, 0]), the AdvGRL activation threshold
 ADVGRL_BCE_THRESHOLD = 0.62877065
@@ -101,7 +106,8 @@ class DAInsHead(nn.Module):
 def da_img_loss(da_img_logits: list[torch.Tensor],
                 is_source: torch.Tensor) -> torch.Tensor:
     """BCE over every pixel of every level; the label is the image's
-    domain."""
+    domain. Every rank's batch has the same pixel count, so the local mean
+    is the rank's share of the global one."""
     total, count = 0.0, 0
     for lvl in da_img_logits:
         lv = lvl.float().reshape(lvl.shape[0], -1)
@@ -113,17 +119,19 @@ def da_img_loss(da_img_logits: list[torch.Tensor],
 
 def da_ins_loss(da_ins_logits, domain_mask, valid) -> torch.Tensor:
     """BCE over the sampled instances of both domains, weighted by
-    validity."""
-    return bce_with_logits(da_ins_logits.float().reshape(-1),
-                           domain_mask.float().reshape(-1),
-                           weights=valid.float().reshape(-1),
-                           reduction="mean")
+    validity, over the global batch."""
+    w = valid.float().reshape(-1)
+    return global_mean(
+        bce_with_logits(da_ins_logits.float().reshape(-1),
+                        domain_mask.float().reshape(-1), weights=w,
+                        reduction="none").sum(), w.sum(), 1e-10)
 
 
 def consistency_loss(da_img_probs: list[torch.Tensor], da_ins_probs,
                      valid) -> torch.Tensor:
     """L1 between each instance's probability and its image's mean
-    image-level probability, over valid instances."""
+    image-level probability, over the valid instances of the global
+    batch."""
     b, s = valid.shape
     ins = da_ins_probs.float().reshape(b, s)
     w = valid.float()
@@ -132,7 +140,7 @@ def consistency_loss(da_img_probs: list[torch.Tensor], da_ins_probs,
         img_mean = lvl.float().reshape(b, -1).mean(dim=1)
         total = total + ((img_mean[:, None] - ins).abs() * w).sum()
         count = count + w.sum()
-    return total / count.clamp(min=1.0)
+    return global_mean(total, count, 1.0)
 
 
 def _boosted(probe_loss, adv_weight, threshold):
@@ -227,7 +235,8 @@ class DomainAdaptationModule(nn.Module):
             loss_ti = triplet_margin_loss(fs, fp, fn, self.triplet_margin_ins)
             losses["triplet_loss_instance"] = (self.triplet_ins_weight
                                                * loss_ti)
-            new_state = new_state.replace(last_triplet_ins=loss_ti.detach())
+            new_state = new_state.replace(
+                last_triplet_ins=global_average(loss_ti.detach()))
 
         if self.triplet_img_weight > 0 and img_fea_set is not None:
             margin = _updated_margin(da_state.margin_img,
@@ -238,14 +247,16 @@ class DomainAdaptationModule(nn.Module):
             # reduces W, the last axis of NCHW (the JAX package: NHWC axis 2)
             loss_tim = triplet_margin_loss(fs, fp, fn, margin, dim=-1)
             losses["triplet_loss_image"] = self.triplet_img_weight * loss_tim
-            new_state = new_state.replace(margin_img=margin.detach(),
-                                          last_triplet_img=loss_tim.detach())
+            # the global loss, so that every rank moves its margin alike
+            new_state = new_state.replace(
+                margin_img=margin.detach(),
+                last_triplet_img=global_average(loss_tim.detach()))
 
         if self.img_weight > 0:
             with torch.no_grad():  # the detached probe pass for AdvGRL
-                probe_loss = da_img_loss(
+                probe_loss = global_average(da_img_loss(
                     self.imghead([f.detach() for f in img_features]),
-                    is_source)
+                    is_source))
             w = self._grl_weight(probe_loss, self.img_grl_weight,
                                  self.img_adv_grl_weight)
             loss_img = da_img_loss(
@@ -256,9 +267,9 @@ class DomainAdaptationModule(nn.Module):
         if self.ins_weight > 0:
             ins_flat = self._flatten_ins(da_ins_feature)
             with torch.no_grad():
-                probe_loss = da_ins_loss(
+                probe_loss = global_average(da_ins_loss(
                     self.inshead(ins_flat.detach(), **ins_kw), domain_mask,
-                    ins_valid)
+                    ins_valid))
             w = self._grl_weight(probe_loss, self.ins_grl_weight,
                                  self.ins_adv_grl_weight)
             ins_logits = self.inshead(gradient_scalar(ins_flat, w), **ins_kw)

@@ -23,6 +23,7 @@ from ..ops.losses import bce_with_logits, smooth_l1_loss
 from ..ops.matcher import match_proposals
 from ..ops.nms import nms_topk
 from ..ops.sampler import balanced_sample
+from ..parallel.ddp import global_mean
 
 
 class RPNHead(nn.Module):
@@ -158,8 +159,9 @@ def rpn_loss(anchors, objectness, deltas, gt_boxes, gt_valid, is_source,
     [B, N, 4]; gt_* padded [B, G]; is_source [B]; image_sizes [B, 2] (h, w).
     ``generator``/``priorities`` feed the sampler. Returns
     (loss_objectness, loss_rpn_box_reg): a BCE weighted mean over the sampled
-    anchors, and the positives' smooth-L1 sum over the batch's sampled
-    count."""
+    anchors, and the positives' smooth-L1 sum over the sampled count, both
+    over the global batch (in a process group, this rank's share:
+    ``parallel.global_mean``)."""
     objectness = objectness.float()
     deltas = deltas.float()
     iou = box_ops.box_iou(anchors, gt_boxes)                    # [B, N, G]
@@ -181,12 +183,14 @@ def rpn_loss(anchors, objectness, deltas, gt_boxes, gt_valid, is_source,
         labels, batch_per_image, positive_fraction, generator=generator,
         priorities=priorities)
     sampled = pos_mask | neg_mask
-    n_sampled = sampled.sum().clamp(min=1)
-    box_loss = smooth_l1_loss(deltas, reg_targets, beta=1.0 / 9,
-                              weights=pos_mask[..., None].float(),
-                              reduction="sum") / n_sampled
-    obj_loss = bce_with_logits(objectness, (labels == 1).float(),
-                               weights=sampled.float(), reduction="mean")
+    box_loss = global_mean(
+        smooth_l1_loss(deltas, reg_targets, beta=1.0 / 9,
+                       weights=pos_mask[..., None].float(), reduction="sum"),
+        sampled.sum(), 1)
+    w = sampled.float()
+    obj_loss = global_mean(
+        bce_with_logits(objectness, (labels == 1).float(), weights=w,
+                        reduction="none").sum(), w.sum(), 1e-10)
     return obj_loss, box_loss
 
 

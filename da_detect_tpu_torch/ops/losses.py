@@ -62,12 +62,16 @@ def triplet_margin_loss(anchor: torch.Tensor, positive: torch.Tensor,
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                          weights: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
-    """Mean cross entropy over rows (weighted: divided by the weights' sum);
-    labels int [...]."""
+                          weights: Optional[torch.Tensor] = None,
+                          reduction: str = "mean") -> torch.Tensor:
+    """Mean cross entropy over rows (weighted: divided by the weights' sum),
+    or with ``reduction="sum"`` the (weighted) sum; labels int [...]."""
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    if weights is not None:
+        nll = nll * weights
+    if reduction == "sum":
+        return nll.sum()
     if weights is None:
         return nll.mean()
-    return (nll * weights).sum() / weights.sum().clamp(min=1e-10)
+    return nll.sum() / weights.sum().clamp(min=1e-10)

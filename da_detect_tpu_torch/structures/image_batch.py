@@ -62,3 +62,7 @@ class Targets:
     boxes: torch.Tensor   # [B, G, 4] float32 xyxy in the resized/padded frame
     labels: torch.Tensor  # [B, G] int64 (1..C-1; 0 reserved for background)
     valid: torch.Tensor   # [B, G] bool
+
+    def to(self, device) -> "Targets":
+        return Targets(**{f.name: getattr(self, f.name).to(device)
+                          for f in dataclasses.fields(self)})

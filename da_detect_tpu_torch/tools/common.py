@@ -7,6 +7,13 @@ without one; ``--device cpu`` runs the kernels' plain versions on the CPU.
 ``--profile DIR`` writes a ``torch.profiler`` trace of training iterations
 10-20 there; ``--use-tensorboard`` logs the training meters as TensorBoard
 scalars under ``TENSORBOARD_EXPERIMENT``.
+
+Under ``torchrun --nproc_per_node N -m da_detect_tpu_torch.tools.<cli>``
+``setup`` starts the process group (NCCL, one card a rank; gloo with
+``--device cpu``): each rank trains data-parallel on its own
+IMS_PER_BATCH // 2 triples and evaluates its shard of the test set. The
+main process creates the output directory and logs to stdout; every rank
+logs to ``log_rank<r>.txt`` there. Run plainly, a CLI is one process.
 """
 
 from __future__ import annotations
@@ -14,7 +21,6 @@ from __future__ import annotations
 import argparse
 import logging
 import os
-import sys
 
 import numpy as np
 import torch
@@ -22,8 +28,10 @@ import torch
 from ..config import get_cfg
 from ..config.catalog import load_user_catalog
 from ..entry import resolve_device
-
-_HANDLERS: list[logging.Handler] = []
+from ..parallel.ddp import check_mesh, init_distributed
+from ..utils import comm
+from ..utils.env import setup_environment
+from ..utils.logging_utils import collect_env_info, setup_logger
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -44,32 +52,14 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     return p
 
 
-def setup_logger(output_dir: str | None) -> None:
-    """The package's log to stderr and, given ``output_dir``, to
-    ``output_dir/log.txt`` (one set of handlers a process: a second setup
-    replaces the first's)."""
-    root = logging.getLogger("da_detect_tpu_torch")
-    for h in _HANDLERS:
-        root.removeHandler(h)
-        h.close()
-    _HANDLERS.clear()
-    fmt = logging.Formatter("%(asctime)s %(name)s %(levelname)s: %(message)s")
-    handlers = [logging.StreamHandler(sys.stderr)]
-    if output_dir is not None:
-        handlers.append(logging.FileHandler(os.path.join(output_dir,
-                                                         "log.txt")))
-    for h in handlers:
-        h.setFormatter(fmt)
-        root.addHandler(h)
-        _HANDLERS.append(h)
-    root.setLevel(logging.INFO)
-
-
 def setup(args, logger_name: str):
     """Returns (cfg, logger, device). ``MODEL.OUTPUT_DIR`` becomes
     ``OUTPUT_DIR/OUTPUT_SAVE_NAME``; ``PATHS_CATALOG`` names a user catalog
-    module."""
-    device = resolve_device(args.device)
+    module. Under ``torchrun`` the process group starts here (the device is
+    the rank's card) and ``TPU.MESH_*`` are checked against its size."""
+    setup_environment()
+    device = init_distributed(resolve_device(args.device))
+    rank, world = comm.get_rank(), comm.get_world_size()
     cfg = get_cfg()
     if args.config_file:
         cfg.merge_from_file(args.config_file)
@@ -78,18 +68,23 @@ def setup(args, logger_name: str):
     output_dir = os.path.join(cfg.MODEL.OUTPUT_DIR, cfg.MODEL.OUTPUT_SAVE_NAME)
     cfg.MODEL.OUTPUT_DIR = output_dir
     cfg.freeze()
+    check_mesh(cfg, world)
     if cfg.PATHS_CATALOG:
         if not os.path.exists(cfg.PATHS_CATALOG):
             raise FileNotFoundError(f"PATHS_CATALOG {cfg.PATHS_CATALOG}")
         load_user_catalog(cfg.PATHS_CATALOG)
-    os.makedirs(output_dir, exist_ok=True)
-    setup_logger(output_dir)
+    if comm.is_main_process():
+        os.makedirs(output_dir, exist_ok=True)
+    comm.synchronize()
+    # the package's root logger, so that the engine's and data's logs show
+    setup_logger("da_detect_tpu_torch", output_dir, rank)
     logger = logging.getLogger(logger_name)
-    logger.info("device %s (%s)", device,
+    logger.info("device %s (%s), rank %d of %d", device,
                 torch.cuda.get_device_name(device)
-                if device.type == "cuda" else "plain kernels")
+                if device.type == "cuda" else "plain kernels", rank, world)
     if args.config_file:
         logger.info("loaded configuration file %s", args.config_file)
+    logger.info("environment:\n%s", collect_env_info())
     np.random.seed(args.seed)
     return cfg, logger, device
 

@@ -276,7 +276,7 @@ def main(argv=None) -> dict:
                    help="cuda (the default; raises without a card) or cpu")
     args = p.parse_args(argv)
 
-    from .common import setup_logger
+    from ..utils.logging_utils import setup_logger
 
     root = args.data_dir or tempfile.mkdtemp(prefix="dd_sanity_")
     # ablation: the structural inverted shift; plain --da keeps the milder
@@ -285,7 +285,7 @@ def main(argv=None) -> dict:
                     fog=(0.8, 10.0) if args.ablation else (0.55, 110.0),
                     invert=args.ablation)
     os.environ["DA_DETECT_DATA_DIR"] = root
-    setup_logger(None)
+    setup_logger("da_detect_tpu_torch", None)
     logger = logging.getLogger("da_detect_tpu_torch.sanity")
 
     if args.ablation:

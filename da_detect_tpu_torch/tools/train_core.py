@@ -1,13 +1,19 @@
 """Shared training and evaluation code of the train_net* and test_net
-CLIs (port of ``da_detect_tpu/tools/train_core.py``)."""
+CLIs (port of ``da_detect_tpu/tools/train_core.py``). In a process group
+(``torchrun``) training runs the step through DDP and evaluation merges the
+ranks' shards."""
 
 from __future__ import annotations
 
+import torch.distributed as dist
+
 from ..data import make_data_loader, make_data_loader_da
-from ..engine.inference import inference
+from ..engine.inference import evaluate_merged, inference
 from ..engine.trainer import create_train_state, do_train
 from ..entry import prepare_model
 from ..models import build_detection_model
+from ..parallel.ddp import wrap_train_forward
+from ..utils import comm
 from ..utils.checkpoint import Checkpointer, load_weight_file
 from ..utils.metric_logger import MetricLogger, TensorboardLogger
 
@@ -27,7 +33,10 @@ def run_training(cfg, logger, *, mode: str, schedule_kind: str, device,
     or starting from ``MODEL.WEIGHT``; then evaluate on ``DATASETS.TEST``
     unless ``skip_test``. ``use_tensorboard``: the meters also go to
     ``TENSORBOARD_EXPERIMENT`` as scalars; ``profile_dir``: a profiler trace
-    of iterations 10-20 (``do_train``). Returns (state, meters)."""
+    of iterations 10-20 (``do_train``). In a process group each rank reads
+    its loader shard and steps through DDP (``parallel.wrap_train_forward``:
+    the parameters ``mode`` leaves unused are left out of the reduction).
+    Returns (state, meters)."""
     model = build_model(cfg, device, seed)
     packed = bool(cfg.TPU.PACKED_TRANSPORT)
     aligned = mode != "source_only" and cfg.MODEL.DA_HEADS.ALIGNMENT
@@ -39,6 +48,8 @@ def run_training(cfg, logger, *, mode: str, schedule_kind: str, device,
                                      aligned=cfg.MODEL.DA_HEADS.ALIGNMENT,
                                      seed=seed, packed=packed)
     state = create_train_state(cfg, model, seed, schedule_kind)
+    forward = wrap_train_forward(model, mode) if dist.is_initialized() \
+        else None
     checkpointer = Checkpointer(cfg.MODEL.OUTPUT_DIR)
     if checkpointer.has_checkpoint():
         state, _ = checkpointer.resume(state)
@@ -54,7 +65,8 @@ def run_training(cfg, logger, *, mode: str, schedule_kind: str, device,
 
     meters = (TensorboardLogger(cfg.TENSORBOARD_EXPERIMENT,
                                 start_iter=state.step)
-              if use_tensorboard else MetricLogger())
+              if use_tensorboard and comm.is_main_process()
+              else MetricLogger())
     try:
         state = do_train(
             state, iter(loader), max_iter=cfg.SOLVER.MAX_ITER,
@@ -62,7 +74,7 @@ def run_training(cfg, logger, *, mode: str, schedule_kind: str, device,
             checkpoint_period=cfg.SOLVER.CHECKPOINT_PERIOD, meters=meters,
             aligned=aligned, log_period=log_period, eval_fn=eval_fn,
             test_period=cfg.SOLVER.TEST_PERIOD,
-            profile_dir=profile_dir or None)
+            profile_dir=profile_dir or None, forward=forward)
     finally:
         loader.close()
         meters.close()
@@ -74,8 +86,9 @@ def run_training(cfg, logger, *, mode: str, schedule_kind: str, device,
 def run_eval(cfg, logger, model, device):
     """Evaluate ``model`` on each of ``DATASETS.TEST``: the TTA passes and
     their merge when ``TEST.BBOX_AUG.ENABLED``, else one pass with the
-    expected-results gate. Returns {dataset name: results}."""
-    from ..data.evaluation import evaluate
+    expected-results gate. In a process group each rank runs its shard and
+    the merged predictions are evaluated once. Returns {dataset name:
+    results}."""
     from ..engine.bbox_aug import compute_on_dataset_aug
 
     results = {}
@@ -84,8 +97,8 @@ def run_eval(cfg, logger, model, device):
             logger.info("evaluating on %s with bbox TTA", name)
             predictions, dataset = compute_on_dataset_aug(model, cfg, name,
                                                           device)
-            res = evaluate(dataset, predictions,
-                           output_folder=cfg.MODEL.OUTPUT_DIR)
+            res, _ = evaluate_merged(dataset, predictions,
+                                     output_folder=cfg.MODEL.OUTPUT_DIR)
         else:
             loader, dataset = make_data_loader(
                 cfg, is_train=False, device=device, dataset_names=(name,),

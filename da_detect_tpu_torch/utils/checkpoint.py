@@ -3,7 +3,8 @@ JAX package's orbax ``utils/checkpoint.py``).
 
 ``Checkpointer.save(step, state)`` writes ``model_{step:07d}.pth`` under the
 output directory (model ``state_dict``, optimizer state, ``DAState``, step,
-generator state) and points ``last_checkpoint`` at it; ``resume(state)``
+generator state; on the main process only in a process group) and points
+``last_checkpoint`` at it; ``resume(state)``
 restores the newest into a ``TrainState`` in place, ``resume_model(model)``
 only its model (evaluation); ``all_steps()`` and ``load_model(model, step)``
 reach every checkpoint of the directory (batch evaluation). A checkpoint
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from ..config.catalog import ModelCatalog
-from . import c2_loading
+from . import c2_loading, comm
 
 log = logging.getLogger(__name__)
 
@@ -40,17 +41,27 @@ class Checkpointer:
         return os.path.join(self.output_dir, "last_checkpoint")
 
     def save(self, step: int, state) -> str:
-        os.makedirs(self.output_dir, exist_ok=True)
+        """Write the checkpoint of ``step``; returns its path. In a process
+        group every rank calls it: the main process writes (with every
+        rank's generator state, ``generators``), the others wait at a
+        barrier until the file is there."""
         path = os.path.join(self.output_dir, f"model_{step:07d}.pth")
-        torch.save({
-            "step": int(step),
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "da_state": dataclasses.asdict(state.da_state),
-            "generator": state.generator.get_state(),
-        }, path)
-        with open(self._pointer(), "w") as f:
-            f.write(os.path.basename(path))
+        generators = comm.all_gather(state.generator.get_state())
+        if comm.is_main_process():
+            os.makedirs(self.output_dir, exist_ok=True)
+            ckpt = {
+                "step": int(step),
+                "model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict(),
+                "da_state": dataclasses.asdict(state.da_state),
+                "generator": generators[0],
+            }
+            if len(generators) > 1:
+                ckpt["generators"] = generators
+            torch.save(ckpt, path)
+            with open(self._pointer(), "w") as f:
+                f.write(os.path.basename(path))
+        comm.synchronize()
         return path
 
     def has_checkpoint(self) -> bool:
@@ -93,7 +104,9 @@ class Checkpointer:
 
     def resume(self, state):
         """Load the newest checkpoint into ``state`` (a TrainState); returns
-        (state, step), or (state, 0) when there is none."""
+        (state, step), or (state, 0) when there is none. Every rank of a
+        process group resumes: its own generator state when the checkpoint
+        was written by as many ranks, else the main process's."""
         if not self.has_checkpoint():
             return state, 0
         path = self._newest()
@@ -103,9 +116,13 @@ class Checkpointer:
         dev = next(state.model.parameters()).device
         state.da_state = type(state.da_state)(
             **{k: v.to(dev) for k, v in ckpt["da_state"].items()})
-        state.generator.set_state(ckpt["generator"])
+        generators = ckpt.get("generators", [ckpt["generator"]])
+        rank, world = comm.get_rank(), comm.get_world_size()
+        state.generator.set_state(generators[rank] if len(generators) == world
+                                  else ckpt["generator"])
         state.step = ckpt["step"]
         log.info("resumed from %s at iteration %d", path, state.step)
+        comm.synchronize()
         return state, state.step
 
 

@@ -12,7 +12,10 @@ FrozenBN running statistics, load into the port to exactly the values that
 the same file.
 """
 
+import os
 import pickle
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -87,6 +90,7 @@ def _opts(out_dir):
 
 
 CPU = ["--device", "cpu"]
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_train_net_triplet_then_test_net(tiny, tmp_path):
@@ -123,7 +127,7 @@ def test_resume_continues_at_the_saved_step(tiny, tmp_path):
         ["--skip-test", "--seed", "7"] + opts + ["SOLVER.MAX_ITER", "3"])
     assert state.step == 3
     assert meters.meters["time"].count == 1  # one iteration, the third
-    log = (out / "run" / "log.txt").read_text()
+    log = (out / "run" / "log_rank0.txt").read_text()
     assert "start training at iteration 2" in log
     files = sorted(p.name for p in (out / "run").iterdir())
     assert "model_0000002.pth" in files and "model_0000003.pth" in files
@@ -138,7 +142,7 @@ def test_in_training_eval(tiny, tmp_path, test_period, evals):
     iterations, or at each checkpoint when it is 0, and one at the end."""
     out = tmp_path / "out_eval"
     train_net.main(CPU + _opts(out) + ["SOLVER.TEST_PERIOD", str(test_period)])
-    log = (out / "run" / "log.txt").read_text()
+    log = (out / "run" / "log_rank0.txt").read_text()
     assert log.count("evaluating on tiny_foggy_cocostyle") == evals
     assert (out / "run" / "coco_results.json").exists()
 
@@ -243,3 +247,31 @@ def test_torch_checkpoint_loads_like_jax(tmp_path):
     applied = load_weight_file(str(path), port, pool_resolution=14)
     assert "some_other_head.weight" not in applied
     _assert_loads_like_jax(path, applied, port)
+
+
+def test_train_net_triplet_under_torchrun(tiny, tmp_path):
+    """``torchrun --nproc_per_node 2 -m ...train_net_triplet --device
+    cpu``: two gloo ranks train 2 steps on their shards (a triple each),
+    rank 0 alone writes the checkpoints, each rank evaluates its shard and
+    the merge is evaluated once (coco_results.json); every rank logs to
+    its own file."""
+    out = tmp_path / "out_ddp"
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m",
+         "da_detect_tpu_torch.tools.train_net_triplet"] + CPU + _opts(out)
+        + ["MODEL.DOMAIN_ADAPTATION_ON", "True", "TPU.MESH_DATA", "2"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    run_dir = out / "run"
+    assert sorted(p.name for p in run_dir.iterdir()
+                  if p.suffix in (".pth", ".txt", ".json")) == [
+        "coco_results.json", "log_rank0.txt", "log_rank1.txt",
+        "model_0000002.pth"]
+    for rank in (0, 1):
+        log = (run_dir / f"log_rank{rank}.txt").read_text()
+        assert f"rank {rank} of 2" in log
+        assert "evaluating on tiny_foggy_cocostyle" in log
+    ckpt = torch.load(run_dir / "model_0000002.pth", weights_only=True)
+    assert ckpt["step"] == 2 and len(ckpt["generators"]) == 2

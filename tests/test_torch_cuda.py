@@ -50,6 +50,10 @@ The sanity gate's GroupNorm model in bfloat16: its float32 C4 map takes
 the float32 ROIAlign kernels (forward and backward), launched and held to
 the plain step as the bf16 steps are.
 
+DDP: the train step at world size 1 through NCCL equals the unwrapped step
+bit for bit (cuDNN deterministic), and ``entry.dryrun_multichip(1)`` passes
+its own checks.
+
 The data path: the packed transport (one pinned buffer a step, copied on a
 side stream) gives the CPU loader's batches bit for bit to a consumer that
 reads each batch late; the TTA merge's NMS launch keeps the plain version's
@@ -1282,3 +1286,56 @@ def test_gn_sanity_model_runs_f32_roi_align_in_bf16(dev, tmp_path,
     assert losses == losses2
     assert all(torch.equal(grads[n], grads2[n]) for n in grads)
     _assert_bf16_steps_match(results[1:])
+
+
+# ---------------------------------------------------------------- DDP
+
+def test_ddp_world1_nccl_step_equals_unwrapped(dev, tmp_path):
+    """The train step through DDP at world size 1 (NCCL) against the
+    unwrapped step from the same seed, dropout on: 3 steps' losses,
+    DAState and parameters bit for bit (cuDNN deterministic), the kernels
+    launched as the unwrapped step launches them."""
+    from da_detect_tpu_torch import parallel
+    from da_detect_tpu_torch.engine.trainer import make_train_step
+
+    cfg = entry.train_cfg()
+    step, (state, args) = entry.train_entry(device=str(dev), cfg=cfg)
+    _, (d_state, _) = entry.train_entry(device=str(dev), cfg=cfg)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    parallel.init_distributed(dev, init_method=f"file://{tmp_path}/store",
+                              rank=0, world_size=1)
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        d_step = make_train_step(
+            d_state.model, d_state.optimizer, aligned=True,
+            forward=parallel.wrap_train_forward(d_state.model, "da_triplet"))
+        step = make_train_step(state.model, state.optimizer, aligned=True)
+        for _ in range(3):
+            before = dict(kernels.LAUNCHES)
+            state, want = step(state, *args)
+            torch.cuda.synchronize()
+            mid = dict(kernels.LAUNCHES)
+            d_state, got = d_step(d_state, *args)
+            torch.cuda.synchronize()
+            assert {k: mid[k] - before.get(k, 0) for k in mid} == {
+                k: v - mid[k] for k, v in kernels.LAUNCHES.items()}
+            assert {k: v.item() for k, v in got.items()} == {
+                k: v.item() for k, v in want.items()}
+            for f in ("margin_img", "last_triplet_img", "last_triplet_ins"):
+                assert torch.equal(getattr(d_state.da_state, f),
+                                   getattr(state.da_state, f)), f
+            for (n, p), q in zip(state.model.named_parameters(),
+                                 d_state.model.parameters()):
+                assert torch.equal(p, q), n
+    finally:
+        parallel.shutdown()
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def test_dryrun_multichip_one_card(dev, capsys):
+    out = entry.dryrun_multichip(1)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-1].startswith("dryrun_multichip(1): dp ok over 1 ranks "
+                                "(nccl)")
+    assert out["backend"] == "nccl" and out["param_bound_used"] <= 1.0
