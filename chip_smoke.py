@@ -19,7 +19,12 @@ Phases, one JSON line each:
                of at most LONG_ROW sources; every row against the kernel's
                order in plain PyTorch), and against its own second run:
                the DCN taps' shapes, 4C-wide rows, a column slice,
-               out-of-range indices, every index alike, none; each timed)
+               out-of-range indices, every index alike, none; each timed);
+               ROIAlign at the Cityscapes mask pooler's shapes (800x1344,
+               P2-P5, 256 channels, P 14, sampling ratio 2; 100 ROIs on 1
+               image and 512 on each of 2) in float32 and bfloat16: the
+               level-aware forward, the backward a level on its masked
+               gradient (bit for bit its own rerun), and both tilings
   4. slice     the flagship R-50-C4 config (its YAML) at the 608x1216 canvas
                (phases 4-10 in float32, then again in bfloat16, below),
                random weights from a seed, answers 4 eval requests
@@ -74,7 +79,20 @@ Phases, one JSON line each:
                sources in rows summed in pieces; a later step's inputs
                checked too (by then the random-weight step diverges), its
                rows' traffic, and its NMS and ROIAlign sites' times
- 11. *_bf16    phases 4-10 (7b excepted) again with TPU.COMPUTE_DTYPE
+ 10a. mask     the Cityscapes Mask R-CNN YAML (R-50-FPN, MASK_ON) at its
+               800x1344 canvas through ``entry(cfg=mask_cfg(),
+               with_masks=True)``, random weights from seed 0 (score layers
+               spread): 4 requests with masks and exact launch counts (NMS
+               6, ROIAlign forward 2: the box and mask poolers), kernel run
+               against plain run (detections; the mask probabilities on
+               the kernel run's detections), the path's sites timed; then
+               ``mask_train``: the source-only step on 2 images with GT
+               masks through ``source_train_entry``: kernel-run against
+               plain-run step 1 (loss_mask included), 4 timed steps with
+               exact launches (NMS 5, ROIAlign forward 2, backward 8), a
+               profile, peak memory, one step's kernel inputs checked and
+               timed
+ 11. *_bf16    phases 4-10a (7b excepted) again with TPU.COMPUTE_DTYPE
                bfloat16, the
                JAX package's default: the same launch counts, each bf16
                kernel held to its plain version (BF16_* tolerances) on the
@@ -138,7 +156,13 @@ a user catalog, PATHS_CATALOG):
                ``generate_rainy_dataset`` as the rainy one; the flagship
                YAML's triplet loader reads the three and feeds 2 steps
                through DDP at world size 1 (NCCL), phase 6's launch counts
-``--data-only`` runs phases 1, 2 and 12-18 alone, without the kernel line.
+ 19. mask_cli_bf16  a gtFine tree (4 images) through
+               ``convert_cityscapes_to_coco``, ``train_net`` on the
+               Cityscapes mask YAML for 2 steps (its loader rasterizing the
+               polygons into GT masks; phase 10a's launches a step), then
+               ``test_net`` reporting bbox and segm in the COCO and the
+               Cityscapes protocols (phase 10a's launches a request)
+``--data-only`` runs phases 1, 2 and 12-19 alone, without the kernel line.
 ``--gate-spread GATES RUNS [CONDITION[:FIRST] ...]`` runs phases 1 and 2,
 then the learning gate of phase 12 GATES times and its triplet-DA arm RUNS
 times under each condition (default: all of SPREAD_CONDITIONS) with its
@@ -301,6 +325,31 @@ NMS_PLAIN_RUNS = 5
 # the DCN pooler's maps at 608x1216 (P2-P5) and scales
 FPN_SHAPES = ((152, 304), (76, 152), (38, 76), (19, 38))
 FPN_SCALES = (1 / 4, 1 / 8, 1 / 16, 1 / 32)
+# the Cityscapes Mask R-CNN YAML (R-50-FPN, MASK_ON) at its own canvas,
+# 800x1344: P2-P5 of its FPN, which its mask pooler (P 14, sampling ratio 2,
+# 256 channels) pools from; 100 detections an image in eval, 512 sampled
+# ROIs on each of 2 images a train step
+MASK_CANVAS = (800, 1344)
+MASK_FPN_SHAPES = ((200, 336), (100, 168), (50, 84), (25, 42))
+MASK_POOLER = dict(scales=FPN_SCALES, output_size=14, sampling_ratio=2,
+                   max_samples=8)
+MASK_EVAL_ROIS, MASK_TRAIN_ROIS, MASK_TRAIN_IMAGES = 100, 512, 2
+# launches a mask request makes: NMS in the RPN's 5 levels and the box
+# head; ROIAlign forward in the box head and the mask head (each ROI from
+# its own level, one launch each)
+PER_MASK_FORWARD = {"nms": 6, "roi_align_fwd": 2}
+# a source-only mask train step: NMS a level of the RPN (the 2 images in
+# one launch); ROIAlign forward in the box and mask heads, backward a
+# level (P2-P5) of each
+PER_MASK_TRAIN_STEP = {"nms": 5, "roi_align_fwd": 2, "roi_align_bwd": 8}
+MASK_NMS_SITES = ("rpn_p2", "rpn_p3", "rpn_p4", "rpn_p5", "rpn_p6",
+                  "box_head")
+MASK_TRAIN_STEPS, MASK_PROFILE_STEPS = 4, 2
+# the mask head on the kernel run's own detections, kernel against plain:
+# float32 probabilities within MASK_PROB_ATOL; bfloat16 within twice what
+# bfloat16 itself moves them (the plain run against an f32 copy of the
+# model) or MASK_PROB_BF16_FLOOR
+MASK_PROB_ATOL, MASK_PROB_BF16_FLOOR = 1e-4, 2.0 ** -7
 # row gathers against the plain version at the DCN path's shapes, 608x1216:
 # name -> (S table rows, C, P indices, row stride or None)
 GATHER_CASES = {
@@ -435,16 +484,17 @@ def random_rois(rng, b: int, r: int, hw, max_side: float) -> np.ndarray:
                     -1).astype(np.float32)
 
 
-def fpn_inputs(rng, b: int, r: int, c: int, dev, empty_level=None):
-    """The DCN pooler's 4 maps (random, channels-last), ROIs of 4 to 700
-    pixels a side over the canvas and their levels by FPN's rule; with
-    ``empty_level``, the ROIs of that level are dropped."""
+def fpn_inputs(rng, b: int, r: int, c: int, dev, empty_level=None,
+               shapes=FPN_SHAPES, canvas=CANVAS):
+    """The DCN pooler's 4 maps (or ``shapes``; random, channels-last), ROIs
+    of 4 to 700 pixels a side over the canvas and their levels by FPN's
+    rule; with ``empty_level``, the ROIs of that level are dropped."""
     from da_detect_tpu_torch.models import poolers
 
     maps = [torch.from_numpy(rng.randn(b, h, w, c).astype(np.float32)).to(
-        dev).permute(0, 3, 1, 2) for h, w in FPN_SHAPES]
+        dev).permute(0, 3, 1, 2) for h, w in shapes]
     side = np.exp(rng.uniform(np.log(4), np.log(700), (b, 3 * r, 2)))
-    xy = rng.uniform(-50, (CANVAS[1], CANVAS[0]), (b, 3 * r, 2))
+    xy = rng.uniform(-50, (canvas[1], canvas[0]), (b, 3 * r, 2))
     rois = torch.from_numpy(np.concatenate([xy, xy + side], -1).astype(
         np.float32))
     levels = poolers.assign_levels(rois, 2, 5)
@@ -514,15 +564,19 @@ def roi_align_geometry(height, width, rois, *, spatial_scale, output_size,
     return (ny[..., :, None] * nx[..., None, :]).sum((-1, -2)), span_y * span_x
 
 
-def roi_align_work(maps, rois, levels, kw, elem_bytes: int = 4) -> dict:
+def roi_align_work(maps, rois, levels, kw, elem_bytes: int = 4,
+                   owned=None) -> dict:
     """What ROIAlign needs on these inputs: ``bytes`` (the maps, ROIs and
     levels read once, the output written once) and ``operations`` (8 a
     channel for each in-bounds sample of each ROI on its own level, and the
-    average); ``old_l2_bytes``, the corner reads the per-thread gather that
-    the forward kernel replaced made through L2 (4 corners of C floats an
-    in-bounds sample; with several maps it pooled every ROI from every one
-    of them); ``footprint_bytes``, the ROIs' footprints on their own maps
-    (C floats a pixel), which the forward kernel stages in shared memory.
+    average); ``owned`` ([B, R] bool, one map): only these ROIs' rows, ROIs
+    and levels count, the share of a level-aware function that one level's
+    launch does (``level_rows``); ``old_l2_bytes``, the corner reads the
+    per-thread gather that the forward kernel replaced made through L2 (4
+    corners of C floats an in-bounds sample; with several maps it pooled
+    every ROI from every one of them); ``footprint_bytes``, the ROIs'
+    footprints on their own maps (C floats a pixel), which the forward
+    kernel stages in shared memory.
     ``maps``: (B, C, H, W) of each map; ``levels`` None for one map; ``kw``:
     the wrapper's keywords (``spatial_scale`` or ``scales``); maps and
     output of ``elem_bytes`` an element (4 float32, 2 bfloat16). The backward
@@ -530,6 +584,7 @@ def roi_align_work(maps, rois, levels, kw, elem_bytes: int = 4) -> dict:
     the same operations (a multiply and an add into each of 4 corners)."""
     b, c = maps[0][:2]
     r, p = rois.shape[1], kw["output_size"]
+    rows = b * r if owned is None else int(owned.sum())
     scales = kw["scales"] if levels is not None else (kw["spatial_scale"],)
     geo = dict(output_size=p, sampling_ratio=kw["sampling_ratio"],
                max_samples=kw["max_samples"])
@@ -538,17 +593,25 @@ def roi_align_work(maps, rois, levels, kw, elem_bytes: int = 4) -> dict:
     for i, (shape, scale) in enumerate(zip(maps, scales)):
         samples, footprint = roi_align_geometry(
             shape[2], shape[3], rois, spatial_scale=scale, **geo)
-        own = torch.ones_like(samples) if levels is None \
-            else (levels == i).double()
+        if levels is not None:
+            own = (levels == i).double()
+        elif owned is not None:
+            own = owned.double()
+        else:
+            own = torch.ones_like(samples)
         own_samples += float((samples * own).sum())
         own_footprint += float((footprint * own).sum())
         all_samples += float(samples.sum())
     nbytes = elem_bytes * (sum(m[0] * m[1] * m[2] * m[3] for m in maps)
-                           + b * r * p * p * c) + 4 * rois.numel()
-    if levels is not None:
-        nbytes += 8 * levels.numel()
+                           + rows * p * p * c)
+    if owned is not None:
+        nbytes += (16 + 8) * rows
+    else:
+        nbytes += 4 * rois.numel()
+        if levels is not None:
+            nbytes += 8 * levels.numel()
     return dict(bytes=nbytes,
-                operations=ROI_SAMPLE_OPS * c * own_samples + b * r * p * p * c,
+                operations=ROI_SAMPLE_OPS * c * own_samples + rows * p * p * c,
                 old_l2_bytes=elem_bytes * 4 * c * all_samples,
                 footprint_bytes=elem_bytes * c * own_footprint)
 
@@ -1107,6 +1170,49 @@ def phase_kernels(dev) -> dict:
     levels_case("roi_levels_empty_p3_b2", 2, 300, 256, empty_level=1)
     levels_case("roi_levels_no_roi_b2", 2, 0, 256)
 
+    def mask_case(name, b, r, dtype):
+        """The mask pooler's shapes at 800x1344 (P 14, sampling ratio 2,
+        256 channels, P2-P5): the level-aware forward, then the backward a
+        level on the gradient masked to its ROIs, channels-last as autograd
+        hands it over (each also run twice, bit for bit the same)."""
+        from da_detect_tpu_torch.ops import roi_align_cuda
+
+        maps, rois, levels = fpn_inputs(mask_rng, b, r, 256, dev,
+                                        shapes=MASK_FPN_SHAPES,
+                                        canvas=MASK_CANVAS)
+        maps = [m.to(dtype) for m in maps]
+        err = check_roi_align_fwd(maps, rois, levels, MASK_POOLER)
+        elem = maps[0].element_size()
+        results[name] = dict(
+            max_abs_err=err, dtype=str(dtype)[6:],
+            features=[list(m.shape) for m in maps], rois=list(rois.shape),
+            rois_a_level=[int((levels == i).sum()) for i in range(4)],
+            fwd_tiling=[roi_align_cuda.fwd_tiling(h, w, 14, 2, elem)
+                        for h, w in MASK_FPN_SHAPES],
+            bwd_tiling=[roi_align_cuda.bwd_tiling(h, w, 14, 2, elem)
+                        for h, w in MASK_FPN_SHAPES], **MASK_POOLER)
+        grad = torch.from_numpy(mask_rng.randn(b, r, 14, 14, 256).astype(
+            np.float32)).to(dev, dtype).permute(0, 1, 4, 2, 3)
+        for i, ((h, w), scale) in enumerate(zip(MASK_FPN_SHAPES,
+                                               FPN_SCALES)):
+            sel = (levels == i).to(dtype)[..., None, None, None]
+            g = grad * sel
+            err, top = check_roi_align_backward(
+                rois, g, h, w, spatial_scale=scale, output_size=14,
+                sampling_ratio=2, max_samples=8)
+            results[f"{name.replace('roi', 'bwd')}_p{i + 2}"] = dict(
+                max_abs_err=err, max_abs_dF=top, dtype=str(dtype)[6:],
+                features=[b, 256, h, w], grad=list(g.shape),
+                grad_copied=roi_align_cuda.grad_view(g)[1],
+                rois_of_level=int((levels == i).sum()),
+                rerun_identical=True)
+
+    mask_rng = np.random.RandomState(12)  # the other cases' draws unchanged
+    for dtype, prefix in ((torch.float32, ""), (torch.bfloat16, "bf16_")):
+        mask_case(f"{prefix}roi_mask_eval", 1, MASK_EVAL_ROIS, dtype)
+        mask_case(f"{prefix}roi_mask_train", MASK_TRAIN_IMAGES,
+                  MASK_TRAIN_ROIS, dtype)
+
     def bwd_case(name, map_shape, rois, strided=False, **kw):
         """map_shape (B, C, H, W); a random upstream gradient, [B, R, C, P,
         P] contiguous, or with ``strided`` an R slice of a channels-last one
@@ -1226,6 +1332,10 @@ def phase_kernels(dev) -> dict:
                           if k.startswith("roi")),
         roi_align_bwd=max(r["max_abs_err"] for k, r in results.items()
                           if k.startswith("bwd")),
+        roi_align_fwd_bf16=max(r["max_abs_err"] for k, r in results.items()
+                               if k.startswith("bf16_roi")),
+        roi_align_bwd_bf16=max(r["max_abs_err"] for k, r in results.items()
+                               if k.startswith("bf16_bwd")),
         **gather_errs)
 
 
@@ -1392,6 +1502,21 @@ def nms_split(boxes, valid, thresh, max_keep, keep) -> dict:
         else walk_ms * 1e3 / max(steps, 1))
 
 
+def level_rows(fwd_captured, rois, scale):
+    """The ROIs that an FPN backward launch at ``scale`` owns ([B, R] bool):
+    those on that scale's level in the level-aware forward of the same ROIs
+    (``fwd_captured``: ``record_kernel_inputs``'s forward inputs). The
+    backward launches once a level on the whole gradient with the other
+    levels' rows zeroed, so its bound counts the owned rows only, and the
+    level's launches together read the gradient once. None (every row):
+    a one-map pooler."""
+    for _, f_rois, levels, kw in fwd_captured:
+        if levels is not None and scale in kw["scales"] \
+                and f_rois.shape == rois.shape and torch.equal(f_rois, rois):
+            return levels == list(kw["scales"]).index(scale)
+    return None
+
+
 def time_sites(captured, path: str, nms_sites=()) -> list:
     """Kernel and plain times, and the bound, of each kernel launch a main
     path made (``captured`` from ``record_kernel_inputs``), on its inputs.
@@ -1435,13 +1560,18 @@ def time_sites(captured, path: str, nms_sites=()) -> list:
     for i, (grad, rois, h, w, kw, copied) in enumerate(
             captured["roi_align_bwd"]):
         shape = (grad.shape[0], grad.shape[2], h, w)
-        work = roi_align_work([shape], rois, None, kw, grad.element_size())
+        owned = level_rows(captured["roi_align_fwd"], rois,
+                           kw["spatial_scale"])
+        work = roi_align_work([shape], rois, None, kw, grad.element_size(),
+                              owned)
         nbytes, ops = work["bytes"], work["operations"]
         bound_ms, by = bound(nbytes, ops)
         sites.append(dict(
             kernel="roi_align_bwd", path=path, site=f"grad{i}",
             grad=list(grad.shape), grad_copied=copied, features=list(shape),
-            rois=list(rois.shape), bytes=nbytes, operations=ops,
+            rois=list(rois.shape),
+            rois_owned=None if owned is None else int(owned.sum()),
+            bytes=nbytes, operations=ops,
             ms=time_ms(lambda: roi_align_cuda.roi_align_backward(
                 grad, rois, height=h, width=w, **kw)),
             plain_ms=time_ms(lambda: roi_align.roi_align_grad(
@@ -1553,11 +1683,57 @@ def train_step_one(state, args, impl: str, seed: int = 1):
     return {k: v.item() for k, v in losses.items()}, grads
 
 
-def compare_steps(kernel, plain, ref=None) -> dict:
+# the box head's ReLU layers whose inputs the mask step-1 check reads
+RELU_LAYERS = ("fc6", "fc7")
+
+
+@contextlib.contextmanager
+def relu_inputs(model):
+    """While open, the box head's fc6 and fc7 outputs, the inputs of their
+    ReLUs, on each call: yields a dict parameter prefix -> list of
+    [..., units] float32 copies."""
+    ext = model.roi_heads["box"]["feature_extractor"]
+    prefix = "roi_heads.box.feature_extractor."
+    out = {prefix + n: [] for n in RELU_LAYERS}
+
+    def hook(key):
+        return lambda mod, inp, y: out[key].append(y.detach().float().clone())
+
+    handles = [getattr(ext, n).register_forward_hook(hook(prefix + n))
+               for n in RELU_LAYERS]
+    try:
+        yield out
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def relu_flips(pre_k, pre_p) -> dict:
+    """Where a ReLU input changed sign between the kernel run and the plain
+    run (``relu_inputs`` of each): parameter prefix -> ([N, units] bool
+    flips, largest |input| of a flipped entry, in either run)."""
+    out = {}
+    for name, calls in pre_p.items():
+        a = torch.cat([x.reshape(-1, x.shape[-1]) for x in pre_k[name]])
+        b = torch.cat([x.reshape(-1, x.shape[-1]) for x in calls])
+        flips = (a > 0) != (b > 0)
+        top = float(torch.maximum(a.abs(), b.abs())[flips].max()) \
+            if flips.any() else 0.0
+        out[name] = (flips, top)
+    return out
+
+
+def compare_steps(kernel, plain, ref=None, flips=None) -> dict:
     """Step 1 through the kernels against step 1 through the plain
     versions, each (losses, gradients). float32 (``ref`` None): losses rtol
     TRAIN_LOSS_RTOL, each gradient leaf within TRAIN_GRAD_REL of its
-    largest |g| (plus TRAIN_GRAD_FLOOR of the model's largest). bfloat16:
+    largest |g| (plus TRAIN_GRAD_FLOOR of the model's largest). ``flips``
+    (``relu_flips``): a ReLU whose input lies within float32 rounding of 0
+    takes another side in the two runs and moves its unit's row of the
+    layer's weight and bias by a whole ROI's term; those rows are left out
+    of their leaves' bound, every other row and leaf held to it, and the
+    line reports each layer's flips, where its leaves' largest error lies
+    and how far the flipped rows are from the bound. bfloat16:
     ``ref`` is step 1 of an f32 copy of the model through the plain
     versions, and each loss lies within one bf16 ulp of its value or twice
     |plain - ref|, each gradient leaf, in L2, within twice
@@ -1579,26 +1755,48 @@ def compare_steps(kernel, plain, ref=None) -> dict:
         raise AssertionError(f"kernel-run step-1 losses differ from the "
                              f"plain run past their bounds: {bad}")
     floor = TRAIN_GRAD_FLOOR * max(float(g.abs().max()) for g in gp.values())
-    worst, worst_name = 0.0, None
+    exempt = {}
+    for name, (f, top) in (flips or {}).items():
+        exempt[name + ".weight"] = exempt[name + ".bias"] = f.any(0)
+    worst, worst_name, exempted = 0.0, None, {}
     for n, g in gp.items():
         if g.dtype != torch.float32:
             raise AssertionError(f"gradient of {n} is {g.dtype}")
-        if ref is None:
-            ratio = float((gk[n] - g).abs().max()) / (
-                TRAIN_GRAD_REL * float(g.abs().max()) + floor)
-        else:
+        if ref is not None:
             ratio = float((gk[n] - g).norm()) / (
                 2 * float((g - ref[1][n]).norm())
                 + bf16_ulp(float(g.norm())) + 1e-30)
+        else:
+            scale = TRAIN_GRAD_REL * float(g.abs().max()) + floor
+            err = (gk[n] - g).abs()
+            rows = exempt.get(n)
+            if rows is not None:
+                row_err = err.reshape(err.shape[0], -1).amax(1)
+                exempted[n] = dict(
+                    rows=int(rows.sum()),
+                    ratio_all_rows=float(row_err.max()) / scale,
+                    ratio_flipped_rows=float(row_err[rows].max()) / scale
+                    if rows.any() else 0.0,
+                    worst_row_flipped=bool(rows[int(row_err.argmax())]))
+                err = row_err[~rows]
+            ratio = float(err.max()) / scale if err.numel() else 0.0
         if ratio > worst:
             worst, worst_name = ratio, n
     if worst > 1.0:
         raise AssertionError(f"kernel-run step-1 gradient of {worst_name} "
                              f"differs from the plain run: {worst:.3f} x "
-                             "its bound")
-    return dict(losses=lk, max_loss_rel_err=max(loss_rel.values()),
-                leaves=len(gp), worst_grad_bound_used=worst,
-                worst_grad_leaf=worst_name)
+                             f"its bound (flipped rows left out: "
+                             f"{exempted})")
+    out = dict(losses=lk, max_loss_rel_err=max(loss_rel.values()),
+               leaves=len(gp), worst_grad_bound_used=worst,
+               worst_grad_leaf=worst_name)
+    if flips:
+        out["relu_flips"] = {
+            name: dict(flipped=int(f.sum()), of=f.numel(),
+                       units=int(f.any(0).sum()), max_abs_input=top)
+            for name, (f, top) in flips.items()}
+        out["flipped_rows_left_out"] = exempted
+    return out
 
 
 def f32_copy(model, cfg):
@@ -2655,6 +2853,253 @@ def phase_dcn_train(dev, dtype: str = "float32"):
 
 # ---------------------------------------------------------------- data, CLIs
 
+# ---------------------------------------------------------------- Mask R-CNN
+
+def mask_agreement(model, batch, dets, probs, ref=None) -> dict:
+    """The mask head on the kernel run's own detections ``dets`` (the
+    request's ``probs``), through the kernels again (bit for bit
+    ``probs``) and through the plain versions: float32 within
+    MASK_PROB_ATOL; bfloat16 (``ref``: an f32 copy of the model) within
+    twice the plain run's distance from the copy's, or MASK_PROB_BF16_FLOOR.
+    Only the valid detections count."""
+    def run(m, impl):
+        feats = m.backbone(batch.normalized(m.pixel_mean, m.pixel_std,
+                                            m.to_bgr255), impl=impl)
+        return m.mask_probs(feats, dets, impl)
+
+    with torch.no_grad():
+        again, plain = run(model, "cuda"), run(model, "plain")
+        f32 = run(ref, "plain") if ref is not None else None
+    torch.cuda.synchronize()
+    valid = dets.valid
+    err = float((again[valid] - plain[valid]).abs().max())
+    out = dict(detections=int(valid.sum()), max_abs_err=err,
+               rerun_identical=torch.equal(again, probs),
+               mean_prob=float(probs[valid].mean()))
+    if ref is None:
+        bound = MASK_PROB_ATOL
+    else:
+        out["bf16_vs_f32"] = float((plain[valid] - f32[valid]).abs().max())
+        bound = max(2 * out["bf16_vs_f32"], MASK_PROB_BF16_FLOOR)
+    if not out["rerun_identical"] or not err <= bound:
+        raise AssertionError(f"mask probabilities, kernels against plain on "
+                             f"the same detections: {out}, bound {bound}")
+    return out
+
+
+def mask_model(dev, dtype: str):
+    """The Cityscapes mask YAML at 800x1344 in ``dtype`` through
+    ``entry(cfg=mask_cfg(), with_masks=True)``, random weights from seed 0,
+    score layers spread; and REQUESTS batches."""
+    from da_detect_tpu_torch import entry
+
+    cfg = entry.mask_cfg(dtype=dtype)
+    cfg.freeze()
+    fn, (model, _) = entry.entry(device=str(dev), seed=0, cfg=cfg,
+                                 with_masks=True)
+    with torch.no_grad():
+        model.rpn["head"].cls_logits.weight.mul_(SCORE_SCALE)
+        model.roi_heads["box"]["predictor"].cls_score.weight.mul_(SCORE_SCALE)
+    batches = [entry.make_batch(cfg, 1, seed=s, device=dev)[0]
+               for s in range(REQUESTS)]
+    return cfg, fn, model, batches
+
+
+def phase_mask(dev, dtype: str = "float32"):
+    """The Cityscapes Mask R-CNN (R-50-FPN, MASK_ON) at 800x1344 in
+    ``dtype``. Eval: REQUESTS batch-1 requests with masks and exact launch
+    counts, kernel run against plain run (detections by
+    ``match_detections``; the mask probabilities on the kernel run's
+    detections, ``mask_agreement``), the path's kernel sites timed. Train:
+    the source-only step on 2 images through ``source_train_entry``:
+    kernel-run against plain-run step 1 (losses, ``loss_mask`` included,
+    and every gradient: ``compare_steps``, in float32 with the box head's
+    ReLU flips between the runs found and their rows left out),
+    MASK_TRAIN_STEPS timed steps with exact launch counts, a profile, peak
+    memory, one step's kernel inputs checked and timed. Returns (eval
+    sites, eval launches, train sites, train launches, largest errors)."""
+    from da_detect_tpu_torch import entry
+
+    name, bf16 = label("mask", dtype), dtype == "bfloat16"
+    cfg, fn, model, batches = mask_model(dev, dtype)
+    answers, launches, seconds = serve_requests(fn, model, batches,
+                                                PER_MASK_FORWARD, name)
+    summary = []
+    for dets, probs in answers:
+        row = check_detections(cfg, dets)
+        side = 2 * cfg.MODEL.ROI_MASK_HEAD.POOLER_RESOLUTION
+        if tuple(probs.shape) != (1, dets.boxes.shape[1], side, side) \
+                or probs.dtype != torch.float32 \
+                or not bool(((probs >= 0) & (probs <= 1)).all()):
+            raise AssertionError(f"{name}: mask probabilities "
+                                 f"{tuple(probs.shape)} {probs.dtype}")
+        summary.append(dict(row, mask_shape=list(probs.shape)))
+    with record_kernel_inputs() as captured:
+        dets_k, probs_k = fn(model, batches[0])
+    ref = f32_copy(model, cfg) if bf16 else None
+    agreement = match_detections(
+        dets_k, model(batches[0], impl="plain"),
+        ref(batches[0], impl="plain") if bf16 else None)
+    masks = mask_agreement(model, batches[0], dets_k, probs_k, ref)
+    del ref
+    errs = check_captured(captured)
+    eval_sites = time_sites(captured, label("mask_eval", dtype),
+                            MASK_NMS_SITES if not bf16 else ())
+    forward_ms = host_ms(lambda: fn(model, batches[0]), runs=10)
+    emit(name, config=os.path.relpath(entry.MASK_YAML, REPO), dtype=dtype,
+         canvas=list(cfg.TPU.IMAGE_SHAPE), requests=REQUESTS,
+         seconds=seconds, launches=launches, detections=summary,
+         plain_agreement=agreement, mask_agreement=masks,
+         forward_ms=forward_ms, sites=eval_sites,
+         main_path_inputs={"roi_align_fwd": fwd_inputs(captured)},
+         max_abs_err=errs)
+    del model, fn, batches, captured, answers
+
+    t_name = label("mask_train", dtype)
+    cfg = entry.mask_cfg(dtype=dtype)
+    cfg.freeze()
+    step, (state, args) = entry.source_train_entry(device=str(dev), seed=0,
+                                                   cfg=cfg)
+    if bf16:
+        t_agreement = compare_steps(
+            train_step_one(state, args, "cuda"),
+            train_step_one(state, args, "plain"),
+            f32_step_one(state, cfg, args))
+    else:
+        with relu_inputs(state.model) as pre_k:
+            kernel = train_step_one(state, args, "cuda")
+        with relu_inputs(state.model) as pre_p:
+            plain = train_step_one(state, args, "plain")
+        t_agreement = compare_steps(kernel, plain,
+                                    flips=relu_flips(pre_k, pre_p))
+        del kernel, plain, pre_k, pre_p
+    state, t_launches, times, metrics = run_steps(
+        step, state, args, MASK_TRAIN_STEPS, PER_MASK_TRAIN_STEP, t_name)
+    STEP_MEDIANS[t_name] = statistics.median(times)
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], *args)
+
+    profile = device_profile(one_step, MASK_PROFILE_STEPS)
+    census = conv_census(profile, bf16, t_name)
+    state = holder[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with record_kernel_inputs() as t_captured:
+        state, _ = step(state, *args)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del step, state, holder
+    for k, v in check_captured(t_captured).items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    train_sites = time_sites(t_captured, t_name,
+                             MASK_NMS_SITES[:5] if not bf16 else ())
+    losses = [{k: float(v) for k, v in m.items()} for m in metrics]
+    if not all(m["loss_mask"] > 0 for m in losses):
+        raise AssertionError(f"{t_name}: loss_mask {losses}")
+    emit(t_name, config=os.path.relpath(entry.MASK_YAML, REPO), dtype=dtype,
+         canvas=list(cfg.TPU.IMAGE_SHAPE), images=MASK_TRAIN_IMAGES,
+         steps=MASK_TRAIN_STEPS, launches=t_launches,
+         launches_per_step={k: v / MASK_TRAIN_STEPS
+                            for k, v in t_launches.items()},
+         step_ms=times, step_ms_median=statistics.median(times),
+         profile=profile, conv_kernels_by_dtype=census,
+         max_memory_allocated=peak, losses=losses,
+         plain_agreement=t_agreement, sites=train_sites,
+         main_path_inputs={
+             "roi_align_fwd": fwd_inputs(t_captured),
+             "roi_align_bwd": [dict(grad=list(g.shape), rois=list(r.shape),
+                                    height=h, width=w, grad_copied=copied,
+                                    **kw)
+                               for g, r, h, w, kw, copied in
+                               t_captured["roi_align_bwd"]]},
+         max_abs_err=errs)
+    return eval_sites, launches, train_sites, t_launches, errs
+
+
+def phase_mask_cli(dev) -> dict:
+    """The mask path from files, bfloat16: a gtFine tree at Cityscapes
+    geometry (``cityscapes_tree``) through ``convert_cityscapes_to_coco``
+    (instance polygons), ``train_net.main`` on the Cityscapes mask YAML
+    (source-only, its loader rasterizing the polygons into GT masks)
+    for MASK_CLI_STEPS steps with exact launch counts, then
+    ``test_net.main`` reporting bbox and segm in the COCO protocol and in
+    the Cityscapes one (TEST.EVAL_STYLE cityscapes), a request an image
+    with exact launch counts. Returns the training run's launches."""
+    from da_detect_tpu_torch import entry
+    from da_detect_tpu_torch.tools import (convert_cityscapes_to_coco,
+                                           test_net, train_net)
+
+    name = "mask_cli_bf16"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mask_") as root:
+        clean, gt = cityscapes_tree(root, MASK_CLI_IMAGES, DATA_HW, seed=2)
+        ann_dir = os.path.join(root, "annotations")
+        convert_cityscapes_to_coco.main(
+            ["--gt-dir", gt, "--out-dir", ann_dir, "--splits", "train"])
+        ann = os.path.join(ann_dir, "instancesonly_filtered_gtFine_train.json")
+        names = {"mask_train": (clean, ann), "mask_val": (clean, ann)}
+        catalog = os.path.join(root, "mask_catalog.py")
+        with open(catalog, "w") as f:
+            f.write(USER_CATALOG.format(names=names))
+        opts = {"MODEL.WEIGHT": "", "TPU.COMPUTE_DTYPE": "bfloat16",
+                "PATHS_CATALOG": catalog,
+                "DATASETS.TRAIN": "('mask_train',)",
+                "DATASETS.TEST": "('mask_val',)",
+                "SOLVER.IMS_PER_BATCH": str(MASK_TRAIN_IMAGES),
+                "SOLVER.BASE_LR": str(MASK_CLI_LR),
+                "SOLVER.MAX_ITER": str(MASK_CLI_STEPS),
+                "SOLVER.CHECKPOINT_PERIOD": str(MASK_CLI_STEPS),
+                "TEST.IMS_PER_BATCH": "1",
+                "DATALOADER.STAGE_CACHE": "False",
+                "MODEL.OUTPUT_DIR": os.path.join(root, "out"),
+                "MODEL.OUTPUT_SAVE_NAME": "run"}
+        opts = [x for kv in opts.items() for x in kv]
+        argv = ["--config-file", entry.MASK_YAML, "--seed", "0"]
+        clear_counts()
+        t0 = time.perf_counter()
+        state, meters = train_net.main(argv + ["--skip-test",
+                                               "--log-period", "1"] + opts)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = read_counts(PER_MASK_TRAIN_STEP, MASK_CLI_STEPS, name,
+                               "steps")
+        loss_mask = [float(v) for v in meters.meters["loss_mask"].deque]
+        totals = [float(v) for v in meters.meters["loss_total"].deque]
+        if state.step != MASK_CLI_STEPS or len(loss_mask) != MASK_CLI_STEPS \
+                or not all(np.isfinite(loss_mask + totals)) \
+                or min(loss_mask) <= 0:
+            raise AssertionError(f"{name}: {state.step} steps, loss_mask "
+                                 f"{loss_mask}, loss_total {totals}")
+        del state, meters
+        run_dir = os.path.join(root, "out", "run")
+        results, eval_s = {}, {}
+        for style in ("coco", "cityscapes"):
+            clear_counts()
+            t0 = time.perf_counter()
+            res = test_net.main(argv + ["--ckpt", run_dir] + opts
+                                + ["TEST.EVAL_STYLE", style])["mask_val"]
+            torch.cuda.synchronize()
+            eval_s[style] = time.perf_counter() - t0
+            read_counts(PER_MASK_FORWARD, MASK_CLI_IMAGES,
+                        f"{name} {style}", "requests")
+            if set(res) != {"bbox", "segm"} or not os.path.exists(
+                    os.path.join(run_dir, f"{style}_results.json")):
+                raise AssertionError(f"{name}: {style} results {set(res)}")
+            results[style] = {
+                t: ({k: res[t][k] for k in ("AP", "AP50", "AP75")}
+                    if style == "coco" else
+                    {k: res[t][k] for k in ("allAp", "allAp50%",
+                                            "allAp75%")})
+                for t in ("bbox", "segm")}
+    emit(name, config=os.path.relpath(entry.MASK_YAML, REPO),
+         images=MASK_CLI_IMAGES, image_hw=list(DATA_HW),
+         steps=MASK_CLI_STEPS, base_lr=MASK_CLI_LR, train_s=train_s,
+         launches=launches, loss_mask=loss_mask, loss_total=totals,
+         eval_s=eval_s, results=results)
+    return launches
+
+
 DCN_YAML = os.path.join(
     REPO, "configs", "da_faster_rcnn",
     "e2e_triplet_da_faster_rcnn_X_101_32x8d_FPN_dcn_cityscapes_to_foggy_"
@@ -2789,8 +3234,14 @@ def smoke_cfg(yaml: str, opts: list):
 
 def batches_equal(got, want) -> bool:
     """Two loader items (tuples of ImageBatch / Targets), tensor for
-    tensor, on the CPU."""
-    return all(torch.equal(getattr(g, f).cpu(), getattr(w, f).cpu())
+    tensor, on the CPU; an absent leaf (``Targets.masks`` None) on both
+    sides."""
+    def same(a, b):
+        if a is None or b is None:
+            return a is b
+        return torch.equal(a.cpu(), b.cpu())
+
+    return all(same(getattr(g, f), getattr(w, f))
                for g, w in zip(got, want) for f in vars(w))
 
 
@@ -2877,6 +3328,13 @@ def phase_data(dev, data: dict) -> dict:
 # the dataset tools' phase: a Cityscapes-like train split written at run
 # time (Cityscapes geometry), TOOLS_IMAGES images in two cities
 TOOLS_IMAGES, TOOLS_STEPS = 4, 2
+# phase mask_cli_bf16: a gtFine tree of MASK_CLI_IMAGES at Cityscapes
+# geometry, MASK_CLI_STEPS train_net steps of MASK_TRAIN_IMAGES images
+MASK_CLI_IMAGES, MASK_CLI_STEPS = 4, 2
+# its learning rate: random weights on 0-255 pixels give a mask loss near
+# 100 at step 1, which the YAML's 0.01 turns into a diverged step 2 (the
+# phase checks the wiring, not learning)
+MASK_CLI_LR = 1e-4
 
 
 def cityscapes_tree(root: str, n: int, hw, seed: int) -> tuple[str, str]:
@@ -3802,7 +4260,8 @@ def run_dtype(dev, dtype: str) -> tuple[dict, dict, dict]:
     """Every main path in ``dtype``: the flagship eval forward and its
     times, the flagship train step and its kernels' times, the step through
     DDP (and, in float32, over two ranks), the DCN eval forward ("four" and
-    "quad") and its times, the DCN train step. Returns
+    "quad") and its times, the DCN train step, the Cityscapes Mask R-CNN's
+    eval forward with masks and its source-only train step. Returns
     (paths for ``kernel_line``, the largest error a kernel, the
     scatter-add's summary)."""
     model, fn, batches, captured, eval_launches, eval_errs = phase_slice(
@@ -3825,8 +4284,11 @@ def run_dtype(dev, dtype: str) -> tuple[dict, dict, dict]:
     del model, fn, q_model, q_fn, batch, captured, q_captured
     dcn_train_sites, dcn_train_launches, scatter, dcn_train_errs = \
         phase_dcn_train(dev, dtype)
+    (mask_sites, mask_launches, mask_train_sites, mask_train_launches,
+     mask_errs) = phase_mask(dev, dtype)
     errs = {}
-    for part in (eval_errs, train_errs, dcn_errs, dcn_train_errs):
+    for part in (eval_errs, train_errs, dcn_errs, dcn_train_errs,
+                 mask_errs):
         for k, v in part.items():
             errs[k] = max(errs.get(k, 0.0), v)
     paths = {label("eval", dtype): (eval_sites, eval_launches, {}),
@@ -3834,7 +4296,10 @@ def run_dtype(dev, dtype: str) -> tuple[dict, dict, dict]:
              label("dcn", dtype): (dcn_sites, dcn_launches, device),
              label("dcn_quad", dtype): (quad_sites, quad_launches, device),
              label("dcn_train", dtype): (dcn_train_sites, dcn_train_launches,
-                                         {}), **ddp}
+                                         {}),
+             label("mask_eval", dtype): (mask_sites, mask_launches, {}),
+             label("mask_train", dtype): (mask_train_sites,
+                                          mask_train_launches, {}), **ddp}
     return paths, errs, scatter
 
 
@@ -3912,9 +4377,10 @@ def main(argv=None) -> int:
         if spread:
             gate_spread(dev, int(args[1]), int(args[2]),
                         args[3:] or list(SPREAD_CONDITIONS))
-        else:  # the sanity, data, CLI and TTA phases
+        else:  # the sanity, data, CLI, TTA and mask CLI phases
             phase_sanity(dev)
             run_data_path(dev)
+            phase_mask_cli(dev)
         emit("done", seconds=time.perf_counter() - t_start)
         print(smi)
         print(json.dumps({"ok": True, "device": {
@@ -3933,6 +4399,7 @@ def main(argv=None) -> int:
     sanity_sites, sanity_launches, sanity_errs = phase_sanity(dev)
     tta, tools_launches = run_data_path(dev)
     paths["tools_ddp_bf16"] = ([], tools_launches, {})
+    paths["mask_cli_bf16"] = ([], phase_mask_cli(dev), {})
     line = kernel_line(
         paths, errs, {"row_scatter_add": {"dcn_train": scatter},
                       "row_scatter_add_bf16": {"dcn_train_bf16":

@@ -16,7 +16,10 @@ thread (its images decoded and prepped by a worker pool of
 consumer (``TPU.PREFETCH`` batches) by ``transport.Transport``: one packed
 copy a step (``TPU.PACKED_TRANSPORT``) or a copy a tensor. Aspect-ratio
 grouping becomes two orientation buckets: landscape batches take the canvas
-(H, W), portrait ones (W, H).
+(H, W), portrait ones (W, H). A train loader ``with_masks`` (``MASK_ON``)
+also carries each GT's polygons rasterized in its original box's frame
+(``Targets.masks``, 112 x 112, mirrored with a flipped image), made from the
+annotations whether the canvas was decoded or staged.
 
 The random draws are the JAX package's, in its order: each batch's geometry
 from ``RandomState(hash((seed, tuple(indices))))`` (``draw_params``), each
@@ -46,13 +49,14 @@ import torch
 
 from ..config.catalog import DatasetCatalog
 from ..entry import resolve_device
-from ..structures.image_batch import ImageBatch, Targets
+from ..structures.image_batch import MASK_RESOLUTION, ImageBatch, Targets
 from ..utils import comm
 from . import datasets as D
 from . import image_io
 from .staging import make_stage_cache
 from .transforms import (canvas_for, compute_resize_hw, normalize_and_pad,
-                         resize_flip_pad_u8, transform_boxes)
+                         rasterize_polygons, resize_flip_pad_u8,
+                         transform_boxes)
 from .transport import Transport
 
 
@@ -78,8 +82,9 @@ def build_dataset(names: Sequence[str], is_train: bool,
 
 
 class _SampleProcessor:
-    def __init__(self, cfg, is_train: bool):
+    def __init__(self, cfg, is_train: bool, with_masks: bool = False):
         self.is_train = is_train
+        self.with_masks = with_masks
         self.transport = cfg.TPU.TRANSPORT_PIXELS
         if self.transport not in ("uint8", "float32"):
             raise ValueError(f"TPU.TRANSPORT_PIXELS must be uint8 or "
@@ -163,14 +168,28 @@ class _SampleProcessor:
         pb[:n] = boxes[:n]
         pl[:n] = sample["labels"][:n]
         pv[:n] = True
-        return dict(image=img, sizes=np.asarray([rh, rw], np.int32),
-                    orig=np.asarray([mh, mw], np.int32), boxes=pb, labels=pl,
-                    valid=pv, is_source=bool(sample["is_source"]),
-                    image_id=sample["image_id"])
+        out = dict(image=img, sizes=np.asarray([rh, rw], np.int32),
+                   orig=np.asarray([mh, mw], np.int32), boxes=pb, labels=pl,
+                   valid=pv, is_source=bool(sample["is_source"]),
+                   image_id=sample["image_id"])
+        if self.with_masks:
+            # rasterized in the ORIGINAL GT box's frame (the polygons are
+            # in original-image coordinates; a box-frame mask does not
+            # change with the resize), then mirrored for the flip
+            m = MASK_RESOLUTION
+            masks = np.zeros((g, m, m), np.float32)
+            for i in range(n):
+                segs = sample["segmentations"][i]
+                if segs and isinstance(segs, list):
+                    mask = rasterize_polygons(segs, sample["boxes"][i], m)
+                    masks[i] = mask[:, ::-1] if params["hflip"] else mask
+            out["masks"] = masks
+        return out
 
 
 def _stack(processed) -> tuple[ImageBatch, Targets]:
-    """CPU tensors; images NHWC memory viewed as NCHW (channels-last)."""
+    """CPU tensors; images NHWC memory viewed as NCHW (channels-last); the
+    masks when the samples carry them."""
     def cat(key):
         return torch.from_numpy(np.stack([p[key] for p in processed]))
 
@@ -179,7 +198,8 @@ def _stack(processed) -> tuple[ImageBatch, Targets]:
                        is_source=torch.tensor([p["is_source"]
                                                for p in processed]))
     targets = Targets(boxes=cat("boxes"), labels=cat("labels"),
-                      valid=cat("valid"))
+                      valid=cat("valid"),
+                      masks=cat("masks") if "masks" in processed[0] else None)
     return batch, targets
 
 
@@ -299,12 +319,14 @@ def _shard(rank, world) -> tuple[int, int]:
 
 
 def make_data_loader(cfg, *, is_train: bool, device=None, dataset_names=None,
-                     is_source: bool = True, shuffle: bool | None = None,
+                     is_source: bool = True, with_masks: bool = False,
+                     shuffle: bool | None = None,
                      seed: int = 0, infinite: bool | None = None,
                      hflip: bool = False, packed: bool = False,
                      rank: int | None = None, world: int | None = None):
     """Single-domain loader on ``device`` (None: the card). Returns
-    (loader, dataset). Train: the loader yields (ImageBatch, Targets);
+    (loader, dataset). Train: the loader yields (ImageBatch, Targets), the
+    targets with GT masks under ``with_masks``;
     eval: (ImageBatch, image ids), the last batch padded with its last
     sample under id None. ``hflip`` flips every image (the TTA flip
     pass); ``packed``: one copy a batch (see transport.py); ``rank`` of
@@ -314,7 +336,7 @@ def make_data_loader(cfg, *, is_train: bool, device=None, dataset_names=None,
         dataset_names = cfg.DATASETS.TRAIN if is_train else cfg.DATASETS.TEST
     transport = _transport(cfg, device, packed)
     dataset = build_dataset(dataset_names, is_train, is_source)
-    proc = _SampleProcessor(cfg, is_train)
+    proc = _SampleProcessor(cfg, is_train, with_masks and is_train)
     if hflip:
         proc.flip_prob = 1.0
     batch_size = (cfg.SOLVER.IMS_PER_BATCH if is_train

@@ -1,4 +1,4 @@
-"""Cityscapes-style instance-level AP, bbox (port of
+"""Cityscapes-style instance-level AP, bbox and segm (port of
 ``da_detect_tpu/data/evaluation/cityscapes_eval.py``): the evaluator the
 reference vendors for its Cityscapes tooling
 (tools/cityscapes/maskrcnn_benchmark/data/datasets/evaluation/cityscapes/
@@ -6,8 +6,8 @@ eval_instances.py, from cityscapesScripts'
 evalInstanceLevelSemanticLabeling). ``TEST.EVAL_STYLE cityscapes`` selects
 it. Its semantics, each kept:
 
-* overlaps 0.50:0.05:0.95, min region size 100 (the box's area)
-  — eval_instances.py:86-89
+* overlaps 0.50:0.05:0.95, min region size 100 (the box's area; under
+  segm the GT's mask pixels inside its box) — eval_instances.py:86-89
 * integer (``.long()``) box coordinates; area and intersection WITHOUT the
   legacy +1 (unlike COCO-style eval) — :274-300, :192-199
 * duplicate matches to one GT: the lower-scored prediction becomes a false
@@ -19,10 +19,13 @@ it. Its semantics, each kept:
   an artificial (r=0, p=1) point — :555-607; AP / AP50 / AP75 averages with
   NaN for classes absent from both GT and predictions — :823-845
 
-Host-side numpy on the prediction dicts (img_id -> boxes/scores/labels in
-original-image coordinates) and ``COCODataset`` annotations. The mask
-protocol (``segm``, ``use_masks``) comes with the mask head (slice 7) and
-raises.
+Host-side numpy on the prediction dicts (img_id -> boxes/scores/labels
+[+ mask_probs] in original-image coordinates) and ``COCODataset``
+annotations. The mask protocol (``segm``, ``use_masks``): GT polygons
+rasterized at full resolution, each detection's mask pasted into its box
+(``masker.paste_single_crop``), intersections counted in mask pixels inside
+the pair's bounding rectangle, and a prediction's size its mask's pixel
+count.
 """
 
 from __future__ import annotations
@@ -32,6 +35,9 @@ import logging
 import os
 
 import numpy as np
+
+from ..image_io import require_cv2
+from ..masker import paste_single_crop
 
 log = logging.getLogger(__name__)
 
@@ -57,13 +63,39 @@ def _box_intersection(a, b):
     return (xmax - xmin) * (ymax - ymin)
 
 
-def match_gts_with_preds(dataset, predictions, use_masks: bool = False):
-    """Per image: list every (gt, pred) pair with nonzero intersection
-    (eval_instances.py matchGtWithPred)."""
-    if use_masks:
-        raise NotImplementedError(
-            "cityscapes mask evaluation (use_masks, segm) comes with the "
-            "port's mask head, slice 7")
+def _mask_intersection(gt, pred):
+    if gt.get("mask") is None or pred.get("mask") is None:
+        return 0
+    a, b = gt["box"], pred["box"]
+    xmin, ymin = min(a[0], b[0]), min(a[1], b[1])
+    xmax, ymax = max(a[2], b[2]), max(a[3], b[3])
+    return int(np.count_nonzero(gt["mask"][ymin:ymax, xmin:xmax]
+                                & pred["mask"][ymin:ymax, xmin:xmax]))
+
+
+def _gt_masks_fullsize(anns, h, w):
+    """Rasterize polygon segmentations at original resolution."""
+    cv2 = require_cv2("cityscapes mask evaluation")
+    out = []
+    for a in anns:
+        seg = a.get("segmentation")
+        if not seg or not isinstance(seg, list):
+            out.append(None)
+            continue
+        m = np.zeros((h, w), np.uint8)
+        polys = [np.asarray(p, np.float64).reshape(-1, 2).round().astype(
+            np.int32) for p in seg if len(p) >= 6]
+        if polys:
+            cv2.fillPoly(m, polys, 1)
+        out.append(m.astype(bool))
+    return out
+
+
+def match_gts_with_preds(dataset, predictions, use_masks: bool = False,
+                         mask_thresh: float = 0.5):
+    """Per image: list every (gt, pred) pair with nonzero intersection, in
+    box pixels or, with ``use_masks``, mask pixels (eval_instances.py
+    matchGtWithPred)."""
     missing = [i for i in dataset.ids if i not in predictions]
     if missing:
         raise ValueError(
@@ -71,9 +103,15 @@ def match_gts_with_preds(dataset, predictions, use_masks: bool = False):
             f"{missing[:3]}); the protocol scores every dataset image "
             "(eval_instances.py:150 asserts equal lengths)")
     matches = []
-    for img_id in dataset.ids:
+    for idx, img_id in enumerate(dataset.ids):
+        info = dataset.get_img_info(idx)
+        h, w = info["height"], info["width"]
+        anns = dataset.anns[img_id]
+
+        gt_masks = (_gt_masks_fullsize(anns, h, w) if use_masks
+                    else [None] * len(anns))
         gts = []
-        for a in dataset.anns[img_id]:
+        for a, m in zip(anns, gt_masks):
             x, y, bw, bh = a["bbox"]
             # legacy inclusive xyxy (x2 = x + w - 1), the BoxList convention
             # the reference evaluator receives (eval_instances.py:286 .long())
@@ -83,19 +121,32 @@ def match_gts_with_preds(dataset, predictions, use_masks: bool = False):
                     a["category_id"]],
                 "box": box,
                 "boxArea": _box_area(box),
+                "pixelCount": (int(np.count_nonzero(
+                    m[box[1]:box[3], box[0]:box[2]])) if m is not None else 0),
+                "mask": m,
                 "matchedPred": [],
             })
 
         p = predictions[img_id]
         boxes = np.asarray(p["boxes"], np.float64).reshape(-1, 4)
         preds = []
-        for b, s, l in zip(boxes, p["scores"], p["labels"]):
+        for di, (b, s, l) in enumerate(zip(boxes, p["scores"], p["labels"])):
             box = _int_box(b)
+            mask = None
+            if use_masks and p.get("mask_probs") is not None:
+                crop, (oy, ox) = paste_single_crop(
+                    np.asarray(p["mask_probs"][di]), b, (h, w),
+                    threshold=mask_thresh)
+                mask = np.zeros((h, w), bool)
+                ch, cw = crop.shape
+                mask[oy:oy + ch, ox:ox + cw] = crop
             preds.append({
                 "label": int(l),
                 "box": box,
-                "boxArea": _box_area(box),
+                "boxArea": (_box_area(box) if mask is None
+                            else int(np.count_nonzero(mask))),
                 "confidence": float(s),
+                "mask": mask,
                 "matchedGt": [],
             })
 
@@ -107,19 +158,27 @@ def match_gts_with_preds(dataset, predictions, use_masks: bool = False):
             for pred in preds:
                 if not _overlapping(gt["box"], pred["box"]):
                     continue
-                inter = _box_intersection(gt["box"], pred["box"])
+                inter = (_mask_intersection(gt, pred) if use_masks
+                         else _box_intersection(gt["box"], pred["box"]))
                 if inter <= 0:
                     continue
                 gt["matchedPred"].append({"pred": pred, "intersection": inter})
                 pred["matchedGt"].append({"gt": gt, "intersection": inter})
+        for inst in gts + preds:
+            inst["mask"] = None  # intersections made: free the full masks
         matches.append({"gts": gts, "preds": preds})
     return matches
 
 
-def evaluate_matches(matches, labels, overlaps=OVERLAPS,
+def _instance_size(inst, use_masks):
+    return inst["pixelCount"] if use_masks else inst["boxArea"]
+
+
+def evaluate_matches(matches, labels, use_masks: bool = False,
+                     overlaps=OVERLAPS,
                      min_region_size: int = MIN_REGION_SIZE) -> np.ndarray:
     """AP per (class, overlap); NaN when a class has neither GT nor
-    predictions (eval_instances.py evaluateBoxMatches)."""
+    predictions (eval_instances.py evaluateBoxMatches/evaluateMaskMatches)."""
     ap = np.zeros((len(labels), len(overlaps)), np.float64)
     for li, label in enumerate(labels):
         for oi, overlap_th in enumerate(overlaps):
@@ -128,7 +187,7 @@ def evaluate_matches(matches, labels, overlaps=OVERLAPS,
             have_gt = have_pred = False
             for img in matches:
                 gts = [g for g in img["gts"] if g["label"] == label
-                       and g["boxArea"] >= min_region_size]
+                       and _instance_size(g, use_masks) >= min_region_size]
                 preds = [p for p in img["preds"] if p["label"] == label]
                 have_gt |= bool(gts)
                 have_pred |= bool(preds)
@@ -138,8 +197,8 @@ def evaluate_matches(matches, labels, overlaps=OVERLAPS,
                     found = False
                     score = None
                     for m in gt["matchedPred"]:
-                        denom = (gt["boxArea"] + m["pred"]["boxArea"]
-                                 - m["intersection"])
+                        denom = (_instance_size(gt, use_masks)
+                                 + m["pred"]["boxArea"] - m["intersection"])
                         if denom <= 0 or m["intersection"] / denom <= overlap_th:
                             continue
                         conf = m["pred"]["confidence"]
@@ -162,15 +221,16 @@ def evaluate_matches(matches, labels, overlaps=OVERLAPS,
                 for pred in preds:
                     found_gt = False
                     for m in pred["matchedGt"]:
-                        denom = (m["gt"]["boxArea"] + pred["boxArea"]
-                                 - m["intersection"])
+                        denom = (_instance_size(m["gt"], use_masks)
+                                 + pred["boxArea"] - m["intersection"])
                         if denom > 0 and m["intersection"] / denom > overlap_th:
                             found_gt = True
                             break
                     if not found_gt:
                         ignore = sum(
                             m["intersection"] for m in pred["matchedGt"]
-                            if m["gt"]["boxArea"] < min_region_size)
+                            if _instance_size(m["gt"], use_masks)
+                            < min_region_size)
                         prop = (ignore / pred["boxArea"]
                                 if pred["boxArea"] > 0 else 0.0)
                         if prop <= overlap_th:
@@ -244,9 +304,10 @@ def do_cityscapes_evaluation(dataset, predictions, output_folder=None,
              ["name"] for l in labels]
     results = {}
     for iou_type in iou_types:
+        use_masks = iou_type == "segm"
         matches = match_gts_with_preds(dataset, predictions,
-                                       use_masks=iou_type == "segm")
-        ap = evaluate_matches(matches, labels)
+                                       use_masks=use_masks)
+        ap = evaluate_matches(matches, labels, use_masks=use_masks)
         avg = compute_averages(ap, names)
         log.info("cityscapes %s: AP=%.4f AP50=%.4f AP75=%.4f", iou_type,
                  avg["allAp"], avg["allAp50%"], avg["allAp75%"])

@@ -1,7 +1,7 @@
-"""COCO-style detection evaluation from scratch, bbox only (port of
+"""COCO-style detection evaluation from scratch, bbox and segm (port of
 ``da_detect_tpu/data/evaluation/coco_eval.py``; no pycocotools).
 
-The COCOeval bbox protocol: IoU thresholds .50:.05:.95, 101-point
+The COCOeval bbox and segm protocols: IoU thresholds .50:.05:.95, 101-point
 interpolated precision, area ranges all/small/medium/large, maxDets (1, 10,
 100), crowd GT as ignore regions with the inter/area_dt IoU rule, greedy
 score-ordered matching with the ignore-preference tie rules. On top, the
@@ -10,8 +10,12 @@ reference DA fork's per-category AP table (reference coco_eval.py:62-66,
 
 Detections arrive in original-image xyxy; they are converted to the legacy
 xywh (+1) form the reference feeds pycocotools (prepare_for_coco_detection,
-coco_eval.py:81-112), so numbers are comparable. The mask and keypoint
-protocols come with the port's mask and keypoint heads.
+coco_eval.py:81-112), so numbers are comparable. ``segm``: the mask IoU of
+each pair on the rectangle that holds both masks (the detection's pasted
+into its box, ``masker.paste_single_crop``; the GT's polygons rasterized,
+``masker.rasterize_polygons_crop``), crowd GT as ignore regions on mask
+pixels (inter / detection pixels), and a detection's area its mask pixel
+count. The keypoint protocol comes with the port's keypoint head.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import os
 from collections import OrderedDict
 
 import numpy as np
+
+from ..masker import paste_single_crop, rasterize_polygons_crop
 
 log = logging.getLogger(__name__)
 
@@ -34,6 +40,8 @@ AREA_RNGS = OrderedDict([
     ("large", (96.0 ** 2, 1e10)),
 ])
 MAX_DETS = (1, 10, 100)
+
+
 def _bbox_iou_xywh(dt: np.ndarray, gt: np.ndarray, iscrowd: np.ndarray):
     """pycocotools iou semantics on xywh boxes; crowd gt -> inter/area_dt."""
     ious = np.zeros((len(dt), len(gt)))
@@ -55,7 +63,40 @@ def _bbox_iou_xywh(dt: np.ndarray, gt: np.ndarray, iscrowd: np.ndarray):
     return ious
 
 
-def _evaluate_img(dts, gts, area_rng, max_det):
+def _segm_iou(dts, gts, iscrowd):
+    """Mask IoU, exact on the union rectangle of each pair (the masks are
+    zero outside their crops, so the rectangle's IoU is the image's)."""
+    ious = np.zeros((len(dts), len(gts)))
+    for j, g in enumerate(gts):
+        gm = g.get("_mask")
+        if gm is None:
+            continue
+        gy, gx = g["_mask_offset"]
+        for i, d in enumerate(dts):
+            dm = d.get("_mask")
+            if dm is None:
+                continue
+            dy, dx = d["_mask_offset"]
+            y1 = min(gy, dy)
+            x1 = min(gx, dx)
+            y2 = max(gy + gm.shape[0], dy + dm.shape[0])
+            x2 = max(gx + gm.shape[1], dx + dm.shape[1])
+            canvas_g = np.zeros((y2 - y1, x2 - x1), bool)
+            canvas_d = np.zeros_like(canvas_g)
+            canvas_g[gy - y1: gy - y1 + gm.shape[0],
+                     gx - x1: gx - x1 + gm.shape[1]] = gm
+            canvas_d[dy - y1: dy - y1 + dm.shape[0],
+                     dx - x1: dx - x1 + dm.shape[1]] = dm
+            inter = np.logical_and(canvas_g, canvas_d).sum()
+            if iscrowd[j]:
+                denom = canvas_d.sum()
+            else:
+                denom = np.logical_or(canvas_g, canvas_d).sum()
+            ious[i, j] = inter / max(denom, 1)
+    return ious
+
+
+def _evaluate_img(dts, gts, area_rng, max_det, iou_type="bbox"):
     """Match one (image, category): returns per-threshold dt matches/ignores
     + gt ignore mask, or None when empty."""
     if len(dts) == 0 and len(gts) == 0:
@@ -72,10 +113,13 @@ def _evaluate_img(dts, gts, area_rng, max_det):
     d_order = np.argsort([-d["score"] for d in dts], kind="stable")[:max_det]
     dts = [dts[i] for i in d_order]
 
-    ious = _bbox_iou_xywh(
-        np.asarray([d["bbox"] for d in dts], np.float64).reshape(-1, 4),
-        np.asarray([g["bbox"] for g in gts], np.float64).reshape(-1, 4),
-        iscrowd)
+    if iou_type == "segm":
+        ious = _segm_iou(dts, gts, iscrowd)
+    else:
+        ious = _bbox_iou_xywh(
+            np.asarray([d["bbox"] for d in dts], np.float64).reshape(-1, 4),
+            np.asarray([g["bbox"] for g in gts], np.float64).reshape(-1, 4),
+            iscrowd)
 
     nt, nd, ng = len(IOU_THRS), len(dts), len(gts)
     dtm = -np.ones((nt, nd), np.int64)
@@ -99,8 +143,11 @@ def _evaluate_img(dts, gts, area_rng, max_det):
             dtm[ti, di] = m
             gtm[ti, m] = di
             dt_ignore[ti, di] = gt_ignore[m]
-    # unmatched dts outside the area range are ignored (a det's area: w*h)
-    d_area = np.asarray([d["bbox"][2] * d["bbox"][3] for d in dts])
+    # unmatched dts outside the area range are ignored; a det's area is its
+    # mask's pixel count under segm (pycocotools loadRes sets ann['area'] =
+    # maskUtils.area(segmentation)), its box's w*h under bbox
+    d_area = np.asarray([d.get("area", d["bbox"][2] * d["bbox"][3])
+                         for d in dts])
     out_of_rng = (d_area < area_rng[0]) | (d_area > area_rng[1])
     dt_ignore |= (dtm < 0) & out_of_rng[None, :]
     return dict(
@@ -147,14 +194,23 @@ def _accumulate(per_img_results):
 
 
 class CocoEvaluator:
-    """Evaluate predictions {image_id: dict(boxes xyxy, scores, labels)}
-    against a COCODataset with the bbox protocol."""
+    """Evaluate predictions {image_id: dict(boxes xyxy, scores, labels
+    [, mask_probs])} against a COCODataset; ``iou_type`` "bbox" or
+    "segm"."""
 
-    def __init__(self, dataset):
+    def __init__(self, dataset, iou_type: str = "bbox"):
+        if iou_type not in ("bbox", "segm"):
+            raise NotImplementedError(
+                f"COCO {iou_type} evaluation: the keypoint protocol comes "
+                "with the port's keypoint head, a later slice")
         self.dataset = dataset
+        self.iou_type = iou_type
         self.area_rngs = AREA_RNGS
         self.max_dets = MAX_DETS
         self.cat_ids = sorted(dataset.contiguous_category_id_to_json_id.values())
+        self._img_hw = ({im["id"]: (im["height"], im["width"])
+                         for im in dataset.images}
+                        if iou_type == "segm" else {})
 
     def _gts_for(self, img_id, cat_id):
         out = []
@@ -162,10 +218,15 @@ class CocoEvaluator:
             if a["category_id"] != cat_id:
                 continue
             area = a.get("area", a["bbox"][2] * a["bbox"][3])
-            out.append(dict(bbox=a["bbox"], area=area,
-                            iscrowd=bool(a.get("iscrowd", 0)),
-                            _ignore=bool(a.get("iscrowd", 0))
-                            or bool(a.get("ignore", 0))))
+            g = dict(bbox=a["bbox"], area=area,
+                     iscrowd=bool(a.get("iscrowd", 0)),
+                     _ignore=bool(a.get("iscrowd", 0))
+                     or bool(a.get("ignore", 0)))
+            seg = a.get("segmentation")
+            if self.iou_type == "segm" and isinstance(seg, list):
+                g["_mask"], g["_mask_offset"] = rasterize_polygons_crop(
+                    seg, self._img_hw[img_id])
+            out.append(g)
         return out
 
     def evaluate(self, predictions: dict):
@@ -175,14 +236,21 @@ class CocoEvaluator:
         for img_id in img_ids:
             p = predictions[img_id]
             boxes = np.asarray(p["boxes"], np.float64).reshape(-1, 4)
-            for b, s, l in zip(boxes, p["scores"], p["labels"]):
+            mask_probs = p.get("mask_probs")
+            for di, (b, s, l) in enumerate(zip(boxes, p["scores"],
+                                               p["labels"])):
                 json_cat = self.dataset.contiguous_category_id_to_json_id.get(
                     int(l))
                 if json_cat is None:
                     continue
                 xywh = [b[0], b[1], b[2] - b[0] + 1.0, b[3] - b[1] + 1.0]
-                dts[(img_id, json_cat)].append(dict(bbox=xywh,
-                                                    score=float(s)))
+                d = dict(bbox=xywh, score=float(s))
+                if self.iou_type == "segm" and mask_probs is not None:
+                    d["_mask"], d["_mask_offset"] = paste_single_crop(
+                        np.asarray(mask_probs[di]), b, self._img_hw[img_id])
+                    # a segm detection's area is its mask's pixel count
+                    d["area"] = float(d["_mask"].sum())
+                dts[(img_id, json_cat)].append(d)
 
         # stats[cat][area][maxdet] = (precision, recall)
         per_cat = {}
@@ -191,7 +259,7 @@ class CocoEvaluator:
             for aname, arng in self.area_rngs.items():
                 for md in self.max_dets:
                     imgs = [_evaluate_img(dts[(i, c)], self._gts_for(i, c),
-                                          arng, md)
+                                          arng, md, self.iou_type)
                             for i in img_ids]
                     per_area[(aname, md)] = _accumulate(imgs)
             per_cat[c] = per_area
@@ -243,13 +311,14 @@ class CocoEvaluator:
 
 def do_coco_evaluation(dataset, predictions, output_folder=None,
                        iou_types=("bbox",)):
-    unported = set(iou_types) - {"bbox"}
+    unported = set(iou_types) - {"bbox", "segm"}
     if unported:
         raise NotImplementedError(
-            f"COCO {sorted(unported)} evaluation is not ported (bbox only)")
+            f"COCO {sorted(unported)} evaluation is not ported (bbox and "
+            "segm)")
     results = {}
     for iou_type in iou_types:
-        evaluator = CocoEvaluator(dataset)
+        evaluator = CocoEvaluator(dataset, iou_type)
         res, per_cat = evaluator.evaluate(predictions)
         log.info("COCO %s results: %s", iou_type,
                  "  ".join(f"{k}={v:.4f}" for k, v in res.items()))

@@ -148,6 +148,15 @@ def png_to_bgr(pixels: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(pixels[:, :, 2::-1])
 
 
+def require_cv2(what: str):
+    """The cv2 module, or raise naming ``what`` (a function that rasterizes
+    or resizes masks) when cv2 is not importable."""
+    if cv2 is None:
+        raise RuntimeError(f"{what} needs cv2 (fillPoly, resize), which is "
+                           "not importable here")
+    return cv2
+
+
 def load_image_bgr(path: str, decoder: str = DECODER) -> np.ndarray:
     """uint8 BGR [H, W, 3] (the Caffe2 convention) through ``decoder``."""
     if decoder == "cv2":

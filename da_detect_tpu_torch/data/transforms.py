@@ -109,3 +109,28 @@ def canvas_for(cfg, is_train: bool):
         return int(-(-x // div) * div)
 
     return up(max(mins)), up(max_side)
+
+
+def rasterize_polygons(segmentations, box, resolution: int) -> np.ndarray:
+    """COCO polygon(s) -> binary mask in the box's own frame, float32
+    [resolution, resolution] (the fixed-shape replacement for the
+    reference's SegmentationMask cropping): cv2 ``fillPoly`` of the
+    polygons mapped into the box and rounded. No polygon: zeros. Raises
+    without cv2 (the JAX package returns zeros there)."""
+    mask = np.zeros((resolution, resolution), np.uint8)
+    if not segmentations:
+        return mask.astype(np.float32)
+    from .image_io import require_cv2
+
+    cv2 = require_cv2("rasterize_polygons")
+    x1, y1, x2, y2 = box
+    w = max(x2 - x1, 1e-3)
+    h = max(y2 - y1, 1e-3)
+    polys = []
+    for seg in segmentations:
+        p = np.asarray(seg, np.float64).reshape(-1, 2)
+        p[:, 0] = (p[:, 0] - x1) / w * resolution
+        p[:, 1] = (p[:, 1] - y1) / h * resolution
+        polys.append(np.round(p).astype(np.int32))
+    cv2.fillPoly(mask, polys, 1)
+    return mask.astype(np.float32)

@@ -50,6 +50,8 @@ def _layout(batch: tuple) -> tuple[list[_Leaf], int]:
     for i, item in enumerate(batch):
         for f in dataclasses.fields(item):
             x = getattr(item, f.name)
+            if x is None:  # an absent optional leaf (Targets.masks)
+                continue
             total = -(-total // _ALIGN) * _ALIGN
             n = x.numel() * x.element_size()
             leaves.append(_Leaf(i, f.name, x.dtype, tuple(x.shape),
@@ -111,9 +113,7 @@ class Transport:
         types = tuple(type(item) for item in batch)
         if not self.packed:
             t0 = time.perf_counter()
-            moved = tuple(t(**{f.name: getattr(item, f.name).to(self.device)
-                               for f in dataclasses.fields(item)})
-                          for t, item in zip(types, batch))
+            moved = tuple(item.to(self.device) for item in batch)
             self._tick("put_s", t0)
             return Shipment(types, batch=moved)
         t0 = time.perf_counter()

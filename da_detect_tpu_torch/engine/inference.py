@@ -4,9 +4,10 @@ reference engine/inference.py:18-129).
 ``compute_on_dataset`` runs the model's eval forward on each fixed-shape
 batch of an eval loader, brings the detections to the host, drops the
 padding, rescales the boxes to the original images and returns them by
-image id; ``inference`` hands them to the dataset's evaluator. The loop
-keeps one batch in flight: batch N + 1 is dispatched before batch N's
-detections are read back.
+image id (with each detection's mask probabilities in its box's frame
+when the evaluation asks for ``segm``); ``inference`` hands them to the
+dataset's evaluator. The loop keeps one batch in flight: batch N + 1 is
+dispatched before batch N's detections are read back.
 """
 
 from __future__ import annotations
@@ -21,9 +22,14 @@ import torch
 log = logging.getLogger(__name__)
 
 
-def _host_predictions(dets, image_ids, sizes, orig, predictions) -> int:
+def _host_predictions(dets, probs, image_ids, sizes, orig,
+                      predictions) -> int:
     """Batch detections -> ``predictions[image_id]`` in original-image
-    coordinates; returns the images added (padding entries skipped)."""
+    coordinates, with ``mask_probs`` [D, Hm, Wm] of the valid detections
+    when ``probs`` (the batch's mask probabilities) is given; returns the
+    images added (padding entries skipped)."""
+    if probs is not None:
+        probs = probs.cpu().numpy()
     valid = dets.valid.cpu().numpy()
     boxes = dets.boxes.cpu().numpy()
     scores = dets.scores.cpu().numpy()
@@ -37,16 +43,19 @@ def _host_predictions(dets, image_ids, sizes, orig, predictions) -> int:
         predictions[img_id] = dict(
             boxes=boxes[i][valid[i]] * np.array([sx, sy, sx, sy], np.float32),
             scores=scores[i][valid[i]], labels=labels[i][valid[i]])
+        if probs is not None:
+            predictions[img_id]["mask_probs"] = probs[i][valid[i]]
         added += 1
     return added
 
 
 @torch.no_grad()
-def compute_on_dataset(model, data_loader, progress_every: int = 50
-                       ) -> dict[Any, dict]:
-    """{image_id: dict(boxes xyxy, scores, labels)} in original image
-    coordinates, numpy, for every image of ``data_loader`` (an eval loader
-    yielding (ImageBatch, image ids))."""
+def compute_on_dataset(model, data_loader, progress_every: int = 50,
+                       with_masks: bool = False) -> dict[Any, dict]:
+    """{image_id: dict(boxes xyxy, scores, labels[, mask_probs])} in
+    original image coordinates, numpy, for every image of ``data_loader``
+    (an eval loader yielding (ImageBatch, image ids)); ``with_masks``: the
+    mask head's probabilities too (a ``MASK_ON`` model)."""
     predictions: dict[Any, dict] = {}
     t0 = time.perf_counter()
     n_images = 0
@@ -56,10 +65,11 @@ def compute_on_dataset(model, data_loader, progress_every: int = 50
         # queued before that forward's detections are post-processed
         sizes = batch.sizes.cpu().numpy()
         orig = batch.orig_sizes.cpu().numpy()
-        out = model(batch)
+        out = model(batch, with_masks=True) if with_masks \
+            else (model(batch), None)
         if pending is not None:
             n_images += _host_predictions(*pending, predictions)
-        pending = (out, image_ids, sizes, orig)
+        pending = (*out, image_ids, sizes, orig)
         if progress_every and (bi + 1) % progress_every == 0:
             dt = time.perf_counter() - t0
             log.info("eval %d images (%.3f s/img)", n_images,
@@ -100,8 +110,11 @@ def inference(model, data_loader, dataset, *, iou_types=("bbox",),
     """Predictions and the dataset's evaluation (reference
     inference.py:76-129). In a process group each rank predicts its
     loader's shard and the merge is evaluated once (``evaluate_merged``).
-    Returns (results, predictions: every rank's)."""
-    predictions = compute_on_dataset(model, data_loader)
+    ``segm`` in ``iou_types`` runs the mask head too. Returns (results,
+    predictions: every rank's)."""
+    predictions = (compute_on_dataset(model, data_loader, with_masks=True)
+                   if "segm" in iou_types
+                   else compute_on_dataset(model, data_loader))
     results, predictions = evaluate_merged(
         dataset, predictions, output_folder=output_folder,
         iou_types=iou_types, style=style)

@@ -9,8 +9,11 @@ X-101-32x8d-FPN model with deformable res3-res5 instead.
 ``train_entry(device=None)`` is the single-device counterpart of
 ``__graft_entry__._dryrun_impl``: one (source, positive, negative) triple and
 a train step over it; ``train_entry(cfg=dcn_train_cfg())`` trains the
-X-101-32x8d-FPN-DCN model. ``dryrun_multichip(n)`` runs the train step
-data-parallel over n ranks (DDP) against one process on the same global
+X-101-32x8d-FPN-DCN model. ``entry(cfg=mask_cfg(), with_masks=True)`` is
+the eval forward of the Cityscapes Mask R-CNN (R-50-FPN, ``MASK_ON``) with
+its mask probabilities, and ``source_train_entry(cfg=mask_cfg())`` its
+source-only train step on 2 images. ``dryrun_multichip(n)`` runs the train
+step data-parallel over n ranks (DDP) against one process on the same global
 batch. All run on the card unless the caller asks for ``device="cpu"``;
 with no card and no explicit CPU they raise.
 
@@ -33,13 +36,18 @@ import torch
 from .config import get_cfg
 from .engine.trainer import create_train_state, make_train_step
 from .models import build_detection_model
-from .structures.image_batch import ImageBatch, Targets
+from .structures.image_batch import MASK_RESOLUTION, ImageBatch, Targets
 
 DCN_YAML = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs",
     "da_faster_rcnn",
     "e2e_triplet_da_faster_rcnn_X_101_32x8d_FPN_dcn_cityscapes_to_foggy_"
     "cityscapes.yaml")
+MASK_YAML = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs",
+    "cityscapes", "e2e_mask_rcnn_R_50_FPN_1x_cocostyle.yaml")
+# the per-card share of the mask YAML's IMS_PER_BATCH 16 over 8 cards
+MASK_TRAIN_IMAGES = 2
 
 
 def flagship_cfg(canvas=(320, 640), train_tops=(600, 128),
@@ -87,11 +95,46 @@ def dcn_train_cfg(canvas=(608, 1216), dtype="bfloat16"):
     return cfg
 
 
+def mask_cfg(dtype="bfloat16"):
+    """The Cityscapes instance-segmentation YAML (R-50-FPN, FPN2MLP box
+    head, 9 classes, ``MaskRCNNFPNFeatureExtractor`` + ``MaskRCNNC4Predictor``
+    at pool 14, sampling 2), read with the port's config copy, computing in
+    ``dtype`` (bfloat16, every YAML's ``TPU.COMPUTE_DTYPE``, or float32), at
+    the YAML's own canvas, 800 x 1344 (``canvas_for``, the same in training
+    and eval), with its 512 ROIs an image and 100 GT slots; the top-k of
+    proposal selection exact (``TPU.APPROX_TOPK`` is TPU-only)."""
+    from .data.transforms import canvas_for
+
+    cfg = get_cfg()
+    cfg.merge_from_file(MASK_YAML)
+    cfg.TPU.IMAGE_SHAPE = canvas_for(cfg, is_train=True)
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    cfg.TPU.APPROX_TOPK = False
+    return cfg
+
+
+def synthetic_masks(rng: np.random.RandomState, b: int, g: int,
+                    m: int = MASK_RESOLUTION) -> np.ndarray:
+    """[b, g, m, m] float32 binary masks in their boxes' frames: an ellipse
+    each, centre in the middle 40% of the box, radii 25-50% of its sides,
+    drawn from ``rng``."""
+    c = rng.uniform(0.3, 0.7, (b, g, 2, 1, 1)) * m
+    r = rng.uniform(0.25, 0.5, (b, g, 2, 1, 1)) * m
+    y = np.arange(m, dtype=np.float64)[:, None]
+    x = np.arange(m, dtype=np.float64)[None, :]
+    inside = (((y - c[:, :, 0]) / r[:, :, 0]) ** 2
+              + ((x - c[:, :, 1]) / r[:, :, 1]) ** 2) <= 1.0
+    return inside.astype(np.float32)
+
+
 def make_batch(cfg, b: int, seed: int = 0, is_source: bool = True,
-               device="cpu") -> tuple[ImageBatch, Targets]:
+               device="cpu", with_masks: bool = False
+               ) -> tuple[ImageBatch, Targets]:
     """A synthetic batch of b images with padded targets, drawn from
     ``np.random.RandomState(seed)`` in the same order as the JAX package's
-    ``__graft_entry__._batch``, so both see the same pixels and boxes."""
+    ``__graft_entry__._batch``, so both see the same pixels and boxes;
+    ``with_masks``: GT masks too (``synthetic_masks``, drawn after the
+    rest)."""
     h, w = cfg.TPU.IMAGE_SHAPE
     g = cfg.TPU.MAX_GT_BOXES
     rng = np.random.RandomState(seed)
@@ -110,9 +153,11 @@ def make_batch(cfg, b: int, seed: int = 0, is_source: bool = True,
             np.tile([[h * 2, w * 2]], (b, 1)).astype(np.int32)),
         is_source=torch.full((b,), is_source),
     ).to(device)
+    masks = (torch.from_numpy(synthetic_masks(rng, b, g)).to(device)
+             if with_masks else None)
     targets = Targets(boxes=torch.from_numpy(boxes).to(device),
                       labels=torch.from_numpy(labels).to(device),
-                      valid=torch.from_numpy(valid).to(device))
+                      valid=torch.from_numpy(valid).to(device), masks=masks)
     return batch, targets
 
 
@@ -164,17 +209,19 @@ def train_cfg():
     return cfg
 
 
-def entry(device: Optional[str] = None, seed: int = 0, cfg=None):
+def entry(device: Optional[str] = None, seed: int = 0, cfg=None,
+          with_masks: bool = False):
     """(fn, example_args): the eval forward of the flagship model (or of
     ``cfg``), ``fn(model, batch) -> Detections``, with random weights drawn
-    from ``seed``."""
+    from ``seed``; ``with_masks`` (a ``MASK_ON`` cfg): ``fn`` returns
+    (Detections, mask probabilities [B, D, Hm, Wm])."""
     device = resolve_device(device)
     cfg = flagship_cfg() if cfg is None else cfg
     model = prepare_model(build_detection_model(cfg, seed=seed), device)
     batch, _ = make_batch(cfg, 1, seed, device=device)
 
     def forward(model, batch):
-        return model(batch)
+        return model(batch, with_masks=with_masks)
 
     return forward, (model, batch)
 
@@ -194,6 +241,23 @@ def train_entry(device: Optional[str] = None, seed: int = 0, cfg=None,
     state = create_train_state(cfg, model, seed, "cosine")
     step = make_train_step(model, state.optimizer, aligned=aligned)
     return step, (state, triplet_batches(cfg, 1, seed, device=device))
+
+
+def source_train_entry(device: Optional[str] = None, seed: int = 0,
+                       cfg=None):
+    """(step_fn, (state, (batch, targets))): the source-only train step of
+    ``cfg`` (default ``mask_cfg()``) on MASK_TRAIN_IMAGES source images with
+    GT masks when ``MODEL.MASK_ON``, ``step_fn(state, batch, targets) ->
+    (state, metrics)``, random weights drawn from ``seed``, the multistep
+    schedule of ``train_net``."""
+    device = resolve_device(device)
+    cfg = mask_cfg() if cfg is None else cfg
+    model = prepare_model(build_detection_model(cfg, seed=seed), device)
+    state = create_train_state(cfg, model, seed, "multistep")
+    step = make_train_step(model, state.optimizer)
+    return step, (state, make_batch(cfg, MASK_TRAIN_IMAGES, seed,
+                                    device=device,
+                                    with_masks=cfg.MODEL.MASK_ON))
 
 
 # ---------------------------------------------------------------- DDP

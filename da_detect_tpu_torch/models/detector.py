@@ -1,10 +1,16 @@
 """GeneralizedRCNN: the eval forward and the training forward (port of
-``da_detect_tpu/models/detector.py``), for the C4 and FPN Faster R-CNN
-bodies, with deformable stages (X-101-32x8d-FPN-DCN) or without, with and
-without the domain-adaptation heads. Module names follow
+``da_detect_tpu/models/detector.py``), for the C4 and FPN Faster and Mask
+R-CNN bodies, with deformable stages (X-101-32x8d-FPN-DCN) or without, with
+and without the domain-adaptation heads. Module names follow
 maskrcnn-benchmark's state_dict: ``backbone.body``, ``rpn.head``,
-``roi_heads.box.feature_extractor``, ``roi_heads.box.predictor`` and
+``roi_heads.box.feature_extractor``, ``roi_heads.box.predictor``,
+``roi_heads.mask.feature_extractor``, ``roi_heads.mask.predictor`` and
 ``da_heads``.
+
+With a mask head (``MODEL.MASK_ON``) the eval forward can run it over the
+final detections (``with_masks``), and the training forward adds
+``loss_mask`` from the source batch's sampled ROIs (0, without running the
+head, when the batch carries no GT masks: the DA loaders' batches).
 
 ``train_forward`` takes the domains as separate batches of k images each:
 source only, + positive target (classic 2-domain DA), + negative target (the
@@ -37,6 +43,7 @@ from .box_head import (Detections, FPN2MLPFeatureExtractor,
                        make_box_predictor, postprocess_detections,
                        subsample_proposals)
 from .da import DAState, make_da_heads
+from .mask_head import MaskHead, make_mask_head, mask_layers, mask_rcnn_loss
 from .rpn import (RPNHead, append_gt_proposals, level_rows, rpn_config,
                   rpn_loss, select_proposals)
 
@@ -58,6 +65,7 @@ class GeneralizedRCNN(nn.Module):
                  rpn_loss_cfg: Optional[dict] = None,
                  sample_cfg: Optional[dict] = None,
                  share_positive_pool: bool = False,
+                 mask_head: Optional[MaskHead] = None,
                  pixel_mean=(102.9801, 115.9465, 122.7717),
                  pixel_std=(1.0, 1.0, 1.0), to_bgr255: bool = True):
         super().__init__()
@@ -66,6 +74,8 @@ class GeneralizedRCNN(nn.Module):
         box = {} if rpn_only else {"feature_extractor": feature_extractor,
                                    "predictor": predictor}
         self.roi_heads = nn.ModuleDict({"box": nn.ModuleDict(box)})
+        if mask_head is not None:
+            self.roi_heads["mask"] = mask_head
         self.da_heads = da_heads
         self.rpn_only = rpn_only
         self.anchor_generator = anchor_generator
@@ -96,9 +106,20 @@ class GeneralizedRCNN(nn.Module):
         dev = next(self.parameters()).device
         return "cuda" if dev.type == "cuda" else "plain"
 
+    @property
+    def mask_head(self) -> Optional[MaskHead]:
+        return self.roi_heads["mask"] if "mask" in self.roi_heads else None
+
     @torch.no_grad()
-    def forward(self, batch: ImageBatch,
-                impl: Optional[str] = None) -> Detections:
+    def forward(self, batch: ImageBatch, impl: Optional[str] = None,
+                with_masks: bool = False):
+        """Detections; with ``with_masks`` (a model with a mask head, else
+        ValueError), (detections, mask probabilities [B, D, Hm, Wm]
+        float32): the head run over the final detections (every slot, the
+        invalid ones too), each slot's class channel taken, cast to float32,
+        then the sigmoid."""
+        if with_masks and self.mask_head is None:
+            raise ValueError("with_masks needs a mask head (MODEL.MASK_ON)")
         impl = impl or self.default_impl()
         images = batch.normalized(self.pixel_mean, self.pixel_std,
                                   self.to_bgr255)
@@ -114,9 +135,26 @@ class GeneralizedRCNN(nn.Module):
         box = self.roi_heads["box"]
         x = box["feature_extractor"](feats, props.boxes, impl=impl)
         cls_logits, box_deltas = box["predictor"](x)
-        return postprocess_detections(cls_logits, box_deltas, props.boxes,
+        dets = postprocess_detections(cls_logits, box_deltas, props.boxes,
                                       props.valid, sizes, **self.post_cfg,
                                       impl=impl)
+        if not with_masks:
+            return dets
+        return dets, self.mask_probs(feats, dets, impl)
+
+    def mask_probs(self, feats, dets: Detections, impl: str) -> torch.Tensor:
+        """The mask head over ``dets`` (a second pass over the final
+        detections, as the reference's mask head runs on the box head's
+        results): [B, D, Hm, Wm] float32 sigmoid probabilities of each
+        detection's class channel."""
+        mask = self.mask_head
+        shared = (self.roi_heads["box"]["feature_extractor"](
+            feats, dets.boxes, impl=impl)
+            if mask.feature_extractor is None else None)
+        logits = mask(feats, dets.boxes, shared, impl=impl)  # [B,D,K,H,W]
+        cls = dets.labels.clamp(min=0)[:, :, None, None, None].expand(
+            -1, -1, 1, *logits.shape[3:])
+        return torch.sigmoid(torch.gather(logits, 2, cls)[:, :, 0].float())
 
     # -- training ----------------------------------------------------------
     def _rpn_and_proposals(self, batch, targets, *, append_gt: bool,
@@ -194,6 +232,10 @@ class GeneralizedRCNN(nn.Module):
                   "loss_rpn_box_reg": loss_rpn_box,
                   "loss_classifier": loss_cls,
                   "loss_box_reg": loss_box}
+        if self.mask_head is not None:
+            losses["loss_mask"] = mask_rcnn_loss(
+                self.mask_head, feats_s, sampled_s, targets_s,
+                shared_box_features=x_s, impl=impl)
         if self.da_heads is None or batch_t is None:
             return losses, da_state
 
@@ -239,7 +281,7 @@ def _check_supported(cfg) -> None:
         raise NotImplementedError(
             f"TPU.COMPUTE_DTYPE={cfg.TPU.COMPUTE_DTYPE!r}: the PyTorch port "
             "computes in bfloat16 or float32, as the JAX package does")
-    for key in ("RETINANET_ON", "MASK_ON", "KEYPOINT_ON"):
+    for key in ("RETINANET_ON", "KEYPOINT_ON"):
         if m[key]:
             raise NotImplementedError(
                 f"MODEL.{key}: that head is a later slice of the port")
@@ -254,8 +296,11 @@ def init_parameters(model: GeneralizedRCNN,
     1/sqrt(fan_in)), the RPN head normal(0.01), the predictor's cls_score
     normal(0.01) and bbox_pred normal(0.001), the DA heads' convs
     normal(0.001) and fc1/fc2/fc3 normal(0.01/0.01/0.05), biases 0, FrozenBN
-    scale 1 and bias 0; deformable convs he-normal (std sqrt(2/fan_in)) with
-    their offset predictors zero; the FPN convs and the MLP head's fc6/fc7
+    scale 1 and bias 0; the mask head's convs (``mask_fcn*``,
+    ``conv5_mask``, ``mask_fcn_logits``) kaiming normal over the fan-out
+    (std sqrt(2 / (out channels x kernel area))), biases 0; deformable
+    convs he-normal (std sqrt(2/fan_in)) with their offset predictors
+    zero; the FPN convs and the MLP head's fc6/fc7
     kaiming-uniform with a=1 (bound sqrt(3/fan_in)), biases 0; the conv
     head's convs normal(0.01) and its fc6 kaiming-uniform; GroupNorm scale 1
     and bias 0 (set at construction)."""
@@ -299,6 +344,13 @@ def init_parameters(model: GeneralizedRCNN,
             layers += [(img.conv1_da, 0.001), (img.conv2_da, 0.001),
                        (ins.fc1_da, 0.01), (ins.fc2_da, 0.01),
                        (ins.fc3_da, 0.05)]
+        if model.mask_head is not None:
+            for conv in mask_layers(model.mask_head):
+                w = conv.weight
+                out_ch = w.shape[1] if isinstance(conv, nn.ConvTranspose2d) \
+                    else w.shape[0]
+                layers.append((conv, (2.0 / (out_ch * w[0, 0].numel()))
+                               ** 0.5))
         for layer, std in layers:
             layer.weight.normal_(0.0, std, generator=generator)
             if layer.bias is not None:
@@ -316,6 +368,7 @@ def build_detection_model(cfg, seed: int = 0) -> GeneralizedRCNN:
     dtype = compute_dtype(cfg)
     backbone, spec = build_backbone(cfg)
     da_heads = None
+    ext_ch = None
     if cfg.MODEL.RPN_ONLY:
         extractor, predictor = None, None
     else:
@@ -324,6 +377,8 @@ def build_detection_model(cfg, seed: int = 0) -> GeneralizedRCNN:
         predictor = make_box_predictor(cfg, ext_ch, dtype)
         if cfg.MODEL.DOMAIN_ADAPTATION_ON:
             da_heads = make_da_heads(cfg, spec.out_channels, ext_ch, dtype)
+    mask = (make_mask_head(cfg, spec.out_channels, ext_ch, dtype)
+            if cfg.MODEL.MASK_ON else None)
     gen = make_anchor_generator(cfg)
     rpn = cfg.MODEL.RPN
     roi = cfg.MODEL.ROI_HEADS
@@ -347,6 +402,7 @@ def build_detection_model(cfg, seed: int = 0) -> GeneralizedRCNN:
             reg_weights=tuple(roi.BBOX_REG_WEIGHTS)),
         da_heads=da_heads,
         share_positive_pool=cfg.TPU.SHARE_POSITIVE_POOL,
+        mask_head=mask,
         post_cfg=dict(
             score_thresh=roi.SCORE_THRESH, nms_thresh=roi.NMS,
             detections_per_img=roi.DETECTIONS_PER_IMG,

@@ -133,7 +133,8 @@ def shard(args: tuple, rank: int, world: int) -> tuple:
         lo, hi = rank * n // world, (rank + 1) * n // world
         out.append(dataclasses.replace(a, **{
             f.name: getattr(a, f.name)[lo:hi]
-            for f in dataclasses.fields(a)}))
+            for f in dataclasses.fields(a)
+            if getattr(a, f.name) is not None}))
     return tuple(out)
 
 
@@ -184,13 +185,19 @@ def unused_parameters(model, mode: str) -> list[str]:
     ("source_only", "da" or "da_triplet"): the DA heads in source-only
     training (and in an RPN-only model, which returns before them), the
     image head when the image and consistency losses weigh 0, the instance
-    head when the instance and consistency losses do. Every other parameter
-    gets a gradient in every step (the aligned re-pool that a 0 instance
-    triplet weight skips runs the box head's own extractor, which the
-    detection pass uses anyway)."""
+    head when the instance and consistency losses do; and the mask head in
+    the DA modes, whose loaders carry no GT masks (its loss is 0 there and
+    the head does not run). Every other parameter gets a gradient in every
+    step (the aligned re-pool that a 0 instance triplet weight skips runs
+    the box head's own extractor, which the detection pass uses anyway)."""
+    unused = []
+    if model.mask_head is not None and mode != "source_only":
+        unused = [f"roi_heads.mask.{n}"
+                  for n, p in model.mask_head.named_parameters()
+                  if p.requires_grad]
     da = model.da_heads
     if da is None:
-        return []
+        return unused
     heads = []
     if mode == "source_only" or model.rpn_only:
         heads = ["imghead", "inshead"]
@@ -199,8 +206,9 @@ def unused_parameters(model, mode: str) -> list[str]:
             heads.append("imghead")
         if da.ins_weight == 0 and da.cst_weight == 0:
             heads.append("inshead")
-    return [f"da_heads.{h}.{n}" for h in heads
-            for n, p in getattr(da, h).named_parameters() if p.requires_grad]
+    return unused + [f"da_heads.{h}.{n}" for h in heads
+                     for n, p in getattr(da, h).named_parameters()
+                     if p.requires_grad]
 
 
 def wrap_train_forward(model, mode: str) -> DistributedDataParallel:

@@ -11,6 +11,8 @@ copy. The batch layout convention is the JAX package's: sources first.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
 import torch
 
 
@@ -54,15 +56,28 @@ class ImageBatch:
                              for f in dataclasses.fields(self)})
 
 
+# M, the side of the GT masks' box frame (``Targets.masks``)
+MASK_RESOLUTION = 112
+
+
 @dataclasses.dataclass
 class Targets:
     """Padded ground-truth boxes per image (capacity G = TPU.MAX_GT_BOXES).
-    The mask and keypoint targets come with their heads, in later slices."""
+
+    ``masks`` (MASK_ON training only): each instance's binary mask
+    rasterized in its own GT box's frame at a fixed resolution M
+    (MASK_RESOLUTION),
+    [B, G, M, M] float32; the mask loss resamples them into the proposals'
+    frames (``models/mask_head.py::project_gt_masks``). None: no masks (the
+    DA loaders carry none). The keypoint targets come with their head, in a
+    later slice."""
 
     boxes: torch.Tensor   # [B, G, 4] float32 xyxy in the resized/padded frame
     labels: torch.Tensor  # [B, G] int64 (1..C-1; 0 reserved for background)
     valid: torch.Tensor   # [B, G] bool
+    masks: Optional[torch.Tensor] = None  # [B, G, M, M] float32, box frame
 
     def to(self, device) -> "Targets":
-        return Targets(**{f.name: getattr(self, f.name).to(device)
+        return Targets(**{f.name: None if getattr(self, f.name) is None
+                          else getattr(self, f.name).to(device)
                           for f in dataclasses.fields(self)})

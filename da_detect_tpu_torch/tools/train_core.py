@@ -42,6 +42,7 @@ def run_training(cfg, logger, *, mode: str, schedule_kind: str, device,
     aligned = mode != "source_only" and cfg.MODEL.DA_HEADS.ALIGNMENT
     if mode == "source_only":
         loader, _ = make_data_loader(cfg, is_train=True, device=device,
+                                     with_masks=cfg.MODEL.MASK_ON,
                                      seed=seed, packed=packed)
     else:
         loader = make_data_loader_da(cfg, device=device,
@@ -85,10 +86,11 @@ def run_training(cfg, logger, *, mode: str, schedule_kind: str, device,
 
 def run_eval(cfg, logger, model, device):
     """Evaluate ``model`` on each of ``DATASETS.TEST``: the TTA passes and
-    their merge when ``TEST.BBOX_AUG.ENABLED``, else one pass with the
-    expected-results gate. In a process group each rank runs its shard and
-    the merged predictions are evaluated once. Returns {dataset name:
-    results}."""
+    their merge when ``TEST.BBOX_AUG.ENABLED`` (boxes only), else one pass
+    with the expected-results gate, in ``bbox`` and, with a mask head
+    (``MODEL.MASK_ON``), ``segm``. In a process group each rank runs its
+    shard and the merged predictions are evaluated once. Returns {dataset
+    name: results}."""
     from ..engine.bbox_aug import compute_on_dataset_aug
 
     results = {}
@@ -107,6 +109,8 @@ def run_eval(cfg, logger, model, device):
             try:
                 res, _ = inference(
                     model, loader, dataset,
+                    iou_types=(("bbox", "segm") if cfg.MODEL.MASK_ON
+                               else ("bbox",)),
                     output_folder=cfg.MODEL.OUTPUT_DIR,
                     expected_results=cfg.TEST.EXPECTED_RESULTS,
                     expected_results_sigma_tol=(

@@ -26,6 +26,14 @@ checkpoint converter uses in the other direction:
         map to maskrcnn-benchmark's (C, H, W), then [in, out] -> [out, in])
     params/da_heads/imghead/conv1_da/kernel -> da_heads.imghead.conv1_da.weight
     params/da_heads/inshead/fc1_da/kernel   -> da_heads.inshead.fc1_da.weight
+    params/mask_head/extractor/mask_fcn1/kernel
+        -> roi_heads.mask.feature_extractor.mask_fcn1.weight
+    params/mask_head/predictor/conv5_mask/kernel
+        -> roi_heads.mask.predictor.conv5_mask.weight
+        (Flax's ConvTranspose kernel [kh, kw, in, out] flipped in both
+        spatial axes, then [in, out, kh, kw]: with SAME padding and
+        ``transpose_kernel=False`` Flax applies the kernel unflipped,
+        ``torch.nn.ConvTranspose2d`` flipped)
 
 Any key that names nothing in the model raises, as does any model entry left
 unset or a shape that disagrees, with one exception: variables with no
@@ -51,6 +59,8 @@ _PREFIXES = (
     ("feature_extractor/", "roi_heads.box.feature_extractor."),
     ("predictor/", "roi_heads.box.predictor."),
     ("da_heads/", "da_heads."),
+    ("mask_head/extractor/", "roi_heads.mask.feature_extractor."),
+    ("mask_head/predictor/", "roi_heads.mask.predictor."),
 )
 
 _PARTS = {
@@ -90,6 +100,8 @@ def _to_torch_layout(path: str, value: np.ndarray,
         c, ph, pw = fc6_chw
         value = value.reshape(ph, pw, c, -1).transpose(2, 0, 1, 3).reshape(
             c * ph * pw, -1)
+    if path.endswith("conv5_mask/kernel"):
+        return value[::-1, ::-1].transpose(2, 3, 0, 1)
     if path.endswith("/kernel") and value.ndim == 4:
         return value.transpose(3, 2, 0, 1)      # HWIO -> OIHW
     if path.endswith("/kernel") and value.ndim == 2:

@@ -116,6 +116,38 @@ def test_train_net_source_only(tiny, tmp_path):
     assert "loss_da_image" not in meters.meters
 
 
+MASK_YAML = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs",
+    "cityscapes", "e2e_mask_rcnn_R_50_FPN_1x_cocostyle.yaml")
+
+
+def test_train_net_mask_then_test_net_segm(tiny, tmp_path):
+    """The Cityscapes Mask R-CNN YAML (narrowed: FPN 16, MLP head 32, mask
+    convs 16; random weights, no ImageNet file): ``train_net`` source-only
+    for 2 steps on the tiny tree's
+    polygons (its loader carries the GT masks, ``loss_mask`` is logged),
+    then ``test_net`` reports bbox and segm in the COCO protocol and in the
+    Cityscapes one."""
+    out = tmp_path / "out_mask"
+    narrow = ["MODEL.WEIGHT", "", "MODEL.BACKBONE.OUT_CHANNELS", "16",
+              "MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM", "32",
+              "MODEL.ROI_MASK_HEAD.CONV_LAYERS", "(16, 16, 16, 16)",
+              "MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN", "64",
+              "MODEL.RPN.FPN_POST_NMS_TOP_N_TEST", "64"]
+    opts = ["--config-file", MASK_YAML] + CPU + _opts(out) + narrow
+    state, meters = train_net.main(["--skip-test"] + opts)
+    assert state.step == 2 and state.model.mask_head is not None
+    assert np.isfinite(meters.meters["loss_mask"].global_avg)
+    assert meters.meters["loss_mask"].global_avg > 0
+    run_dir = out / "run"
+    for style in ("coco", "cityscapes"):
+        results = test_net.main(["--ckpt", str(run_dir)] + opts
+                                + ["TEST.EVAL_STYLE", style])
+        res = results["tiny_foggy_cocostyle"]
+        assert set(res) == {"bbox", "segm"}, style
+        assert (run_dir / f"{style}_results.json").exists()
+
+
 def test_resume_continues_at_the_saved_step(tiny, tmp_path):
     out = tmp_path / "out_resume"
     opts = CPU + _opts(out) + ["MODEL.DOMAIN_ADAPTATION_ON", "True"]

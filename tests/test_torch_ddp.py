@@ -51,8 +51,9 @@ from da_detect_tpu_torch.utils import comm
 from da_detect_tpu_torch.utils.weights import jax_state_dict
 from tests.test_torch_data import _assert_batch_matches, _cfgs, _drain
 from tests.torch_ddp_ranks import rank_work
-from tests.torch_harness import (random_variables, register_port_tiny_catalog,
-                                 tiny_cfgs)
+from tests.torch_harness import (cfg_fc6_chw, mask_batches, mask_cfgs,
+                                 random_variables,
+                                 register_port_tiny_catalog, tiny_cfgs)
 
 WORLD, STEPS = 2, 2
 LOSS_RTOL, STATE_ATOL, PARAM_REL = 1e-4, 1e-6, 1e-3
@@ -129,7 +130,7 @@ def _to_port(jbatch):
     return tuple(out)
 
 
-def _jax_run(jcfg, variables, jbatch):
+def _jax_run(jcfg, variables, jbatch, aligned=True):
     """STEPS JAX train steps on the global batch: each step's losses and
     DAState, and the final parameters under the port's names."""
     jmodel = j_build_model(jcfg)
@@ -140,7 +141,7 @@ def _jax_run(jcfg, variables, jbatch):
         da_state=JDAState.create(jcfg.MODEL.DA_HEADS.TRIPLET_MARGIN_IMG,
                                  jcfg.MODEL.DA_HEADS.TRIPLET_MARGIN_INS),
         rng=jax.random.PRNGKey(0))
-    jstep = j_make_train_step(jmodel, tx, aligned=True, donate=False,
+    jstep = j_make_train_step(jmodel, tx, aligned=aligned, donate=False,
                               deterministic=True)
     losses, states = [], []
     for _ in range(STEPS):
@@ -150,7 +151,8 @@ def _jax_run(jcfg, variables, jbatch):
                        for k in ("margin_img", "margin_ins",
                                  "last_triplet_img", "last_triplet_ins")})
     return dict(losses=losses, da_states=states,
-                params=jax_state_dict({"params": jax.device_get(st.params)}))
+                params=jax_state_dict({"params": jax.device_get(st.params)},
+                                      cfg_fc6_chw(jcfg)))
 
 
 def _plain(tree):
@@ -169,6 +171,38 @@ def _eval_cfg():
     return pcfg
 
 
+def _mask_spec():
+    """The source-only Mask R-CNN case: the narrowed Cityscapes mask YAML
+    (tests/torch_harness.py::mask_cfgs) with every proposal of every level
+    kept (the batch-wide FPN top-n above both images' survivors) and
+    sampled (ROI batch 256 of at most 168 candidates an image), on 2 images
+    with GT masks: image 0 with its 8 GT boxes, image 1 with 2, so each
+    rank's positive rows, and the mask loss's pixel count, differ. Returns
+    (the JAX steps, the ranks' spec)."""
+    jcfg, pcfg = mask_cfgs()
+    for cfg in (jcfg, pcfg):
+        cfg.merge_from_list(["MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN", 1000,
+                             "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", 256,
+                             "SOLVER.BASE_LR", 0.01,
+                             "SOLVER.WARMUP_FACTOR", 1.0])
+    (jb, jt), (pb, pt) = mask_batches(jcfg, pcfg)
+    valid = np.stack([np.ones(8, bool), np.arange(8) < 2])
+    jt = jt.replace(valid=jnp.asarray(valid))
+    pt.valid = torch.from_numpy(valid)
+    jmodel = j_build_model(jcfg)
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        {"params": jax.random.PRNGKey(0), "sampling": jax.random.PRNGKey(1),
+         "dropout": jax.random.PRNGKey(2)}, jb, jt, JDAState.create(),
+        method=jmodel.train_forward))
+    variables = _plain(random_variables(shapes, seed=1, scales={
+        "rpn_head/cls_logits/kernel": 30.0,
+        "rpn_head/bbox_pred/kernel": 0.03,
+        "predictor/bbox_pred/kernel": 0.1}))
+    want = _jax_run(jcfg, variables, (jb, jt), aligned=False)
+    return want, dict(cfg=pcfg, variables=variables, batch=(pb, pt),
+                      steps=STEPS)
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """The JAX steps, and one 2-rank spawn that runs every piece of
@@ -185,11 +219,14 @@ def run(tmp_path_factory):
     variables = _plain(random_variables(shapes, seed=1, scales=SCORE_SCALES))
     want = _jax_run(jcfg, variables, jbatch)
     dirs = factory.make_triplet_datasets(str(root / "data"))
+    mask_want, mask_spec = _mask_spec()
     spec = dict(cfg=pcfg, variables=variables, batch=_to_port(jbatch),
                 steps=STEPS, eval_cfg=_eval_cfg(), eval_data=dirs["foggy"],
-                ckpt_dir=str(root / "ckpt"), eval_dir=str(root / "eval"))
+                ckpt_dir=str(root / "ckpt"), eval_dir=str(root / "eval"),
+                mask=mask_spec)
     ranks = parallel.spawn(rank_work, WORLD, spec, tmp_dir=str(root))
-    return dict(want=want, ranks=ranks, spec=spec, dirs=dirs, root=root)
+    return dict(want=want, ranks=ranks, spec=spec, dirs=dirs, root=root,
+                mask_want=mask_want)
 
 
 def test_ranks_import_no_jax(run):
@@ -258,6 +295,40 @@ def test_two_rank_step_matches_jax_global_batch(run):
         assert err <= PARAM_REL * scale + ulp, (name, err, scale)
         moved += scale > 100 * ulp
     assert moved > 20
+
+
+def test_two_rank_mask_step_matches_jax_global_batch(run):
+    """The source-only Mask R-CNN step over 2 ranks, an image each with 8
+    and 2 GT boxes: every loss of each step (``loss_mask``, normalized by
+    the global batch's positive pixels, included) within LOSS_RTOL of
+    JAX's 2-image step, the ranks' parameters equal, each parameter's
+    change within PARAM_REL of JAX's (the mask head's too); each rank's own
+    normalizers miss JAX's mask loss."""
+    want, ranks = run["mask_want"], run["ranks"]
+    r0, r1 = (r["mask"] for r in ranks)
+    for i in range(STEPS):
+        assert _losses_match(r0["losses"][i], want["losses"][i]) <= \
+            LOSS_RTOL, (i, r0["losses"][i], want["losses"][i])
+        assert r1["losses"][i] == r0["losses"][i]
+    assert want["losses"][0]["loss_mask"] > 0
+    init = jax_state_dict({"params": run["spec"]["mask"]["variables"][
+        "params"]}, cfg_fc6_chw(run["spec"]["mask"]["cfg"]))
+    moved = set()
+    for name, p in r0["params"].items():
+        assert torch.equal(p, r1["params"][name]), name
+        if name not in want["params"]:
+            continue  # frozen
+        d_want = want["params"][name] - init[name]
+        scale = float(d_want.abs().max())
+        ulp = 1.2e-7 * float(init[name].abs().max())
+        err = float(((p - init[name]) - d_want).abs().max())
+        assert err <= PARAM_REL * scale + ulp, (name, err, scale)
+        if scale > 100 * ulp:
+            moved.add(name)
+    assert any(n.startswith("roi_heads.mask.") for n in moved)
+    local = ranks[0]["mask_local"]["losses"][0]
+    assert abs(local["loss_mask"] - want["losses"][0]["loss_mask"]) \
+        > 10 * LOSS_RTOL * want["losses"][0]["loss_mask"]
 
 
 def test_rank_local_normalization_fails_the_comparison(run):

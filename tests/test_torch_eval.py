@@ -142,17 +142,19 @@ def test_evaluate_writes_results_and_refuses_what_is_not_ported(
     res = evaluate(mine, preds, output_folder=str(tmp_path))
     assert (tmp_path / "coco_results.json").exists()
     assert set(res) == {"bbox"}
-    # the Cityscapes protocol is ported (tests/test_torch_eval_protocols.py);
-    # its mask protocol and COCO segm are not
+    # the Cityscapes protocol is ported (tests/test_torch_eval_protocols.py)
+    # and, with the mask head, its mask protocol and COCO segm
+    # (tests/test_torch_mask_eval.py); the keypoint protocol is not
     cs = evaluate(mine, preds, style="cityscapes")
     assert set(cs) == {"bbox"} and "allAp50%" in cs["bbox"]
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        evaluate(mine, preds, iou_types=("bbox", "segm"),
-                 style="cityscapes")
+    assert set(evaluate(mine, preds, iou_types=("bbox", "segm"),
+                        style="cityscapes")) == {"bbox", "segm"}
     with pytest.raises(ValueError, match="EVAL_STYLE"):
         evaluate(mine, preds, style="voc")
-    with pytest.raises(NotImplementedError, match="segm"):
-        evaluate(mine, preds, iou_types=("bbox", "segm"))
+    assert set(evaluate(mine, preds, iou_types=("bbox", "segm"))) \
+        == {"bbox", "segm"}
+    with pytest.raises(NotImplementedError, match="keypoints"):
+        evaluate(mine, preds, iou_types=("bbox", "keypoints"))
 
 
 @pytest.mark.parametrize("expected,raises", [

@@ -160,14 +160,19 @@ def test_cityscapes_random_predictions_match_jax(tiny_tree, seed, tmp_path):
 
 
 def test_cityscapes_masks_raise_naming_slice_7(tiny_tree):
+    """The mask protocol came with the mask head: predictions without mask
+    probabilities evaluate under segm as the JAX package's do (no mask, no
+    match); an unknown style still raises."""
     img_dir, ann = tiny_tree["foggy"]
     pds = COCODataset(root=img_dir, ann_file=ann,
                       remove_images_without_annotations=False)
+    jds = JCOCODataset(root=img_dir, ann_file=ann,
+                       remove_images_without_annotations=False)
     preds = _random_predictions(pds, 0)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        pcs.match_gts_with_preds(pds, preds, use_masks=True)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        evaluate(pds, preds, iou_types=("segm",), style="cityscapes")
+    assert len(pcs.match_gts_with_preds(pds, preds, use_masks=True)) \
+        == len(pds.ids)
+    _same(evaluate(pds, preds, iou_types=("segm",), style="cityscapes"),
+          jcs.do_cityscapes_evaluation(jds, preds, iou_types=("segm",)))
     with pytest.raises(ValueError, match="EVAL_STYLE"):
         evaluate(pds, preds, style="kitti")
 

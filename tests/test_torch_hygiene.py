@@ -141,7 +141,7 @@ def test_unsupported_configs_raise():
     """The default config (COMPUTE_DTYPE bfloat16, as in the JAX package)
     builds a bfloat16 model with float32 parameters; another compute dtype
     raises, as do the heads and bodies of later slices. GroupNorm bodies
-    build."""
+    and the mask head build."""
     from da_detect_tpu_torch.layers import Conv2d, Linear
     from da_detect_tpu_torch.models import build_detection_model
 
@@ -156,7 +156,7 @@ def test_unsupported_configs_raise():
     with pytest.raises(NotImplementedError, match="bfloat16 or float32"):
         build_detection_model(cfg)
     for key, value in (("MODEL.BACKBONE.CONV_BODY", "R-50-FPN-RETINANET"),
-                       ("MODEL.MASK_ON", True), ("MODEL.RETINANET_ON", True),
+                       ("MODEL.RETINANET_ON", True),
                        ("MODEL.KEYPOINT_ON", True)):
         cfg = entry.flagship_cfg(dtype="float32")
         cfg.merge_from_list([key, value])
@@ -168,6 +168,9 @@ def test_unsupported_configs_raise():
     cfg.merge_from_list(["MODEL.BACKBONE.USE_GN", True])
     assert any(isinstance(m, GroupNorm)
                for m in build_detection_model(cfg).modules())
+    cfg = entry.flagship_cfg(dtype="float32")
+    cfg.merge_from_list(["MODEL.MASK_ON", True])
+    assert build_detection_model(cfg).mask_head is not None
 
 
 @pytest.mark.parametrize("names", [None, ["roi_align_bwd"]])

@@ -43,14 +43,14 @@ def _comm_checks(rank: int, world: int) -> dict:
 def _local_normalizers():
     """Each rank's losses normalized over its own batch, and its own probe
     and triplet losses: what DDP around the single-process losses gives."""
-    from da_detect_tpu_torch.models import box_head, da, rpn
+    from da_detect_tpu_torch.models import box_head, da, mask_head, rpn
 
     def local_mean(num, den, floor):
         return num / den.clamp(min=floor)
 
     saved = [(m, n, getattr(m, n)) for m, n in (
         (rpn, "global_mean"), (box_head, "global_mean"), (da, "global_mean"),
-        (da, "global_average"))]
+        (mask_head, "global_mean"), (da, "global_average"))]
     for m, n, _ in saved:
         setattr(m, n, local_mean if n == "global_mean" else (lambda x: x))
     try:
@@ -95,6 +95,28 @@ def _steps(spec, rank: int, world: int, local: bool) -> dict:
             states.append({f.name: float(getattr(state.da_state, f.name))
                            for f in dataclasses.fields(state.da_state)})
     return dict(losses=losses, da_states=states,
+                params={n: p.detach().clone()
+                        for n, p in model.named_parameters()})
+
+
+def _mask_steps(spec, rank: int, world: int, local: bool) -> dict:
+    """``spec["steps"]`` source-only steps of the narrowed Mask R-CNN
+    through DDP on this rank's image of the 2-image global batch (GT masks
+    on): each step's losses, and the final parameters; with ``local``
+    each rank's own normalizers."""
+    from da_detect_tpu_torch.engine.trainer import make_train_step
+    from da_detect_tpu_torch.parallel import shard, wrap_train_forward
+
+    model, state = _model(spec)
+    step = make_train_step(model, state.optimizer,
+                           forward=wrap_train_forward(model, "source_only"))
+    args = shard(spec["batch"], rank, world)
+    losses = []
+    with _local_normalizers() if local else nullcontext():
+        for _ in range(spec["steps"]):
+            state, metrics = step(state, *args)
+            losses.append({k: float(v) for k, v in metrics.items()})
+    return dict(losses=losses,
                 params={n: p.detach().clone()
                         for n, p in model.named_parameters()})
 
@@ -185,7 +207,10 @@ def rank_work(rank: int, world: int, init_method: str, spec: dict) -> dict:
                local_steps=_steps(spec, rank, world, local=True),
                source_only_da_grads=_source_only(spec, rank, world),
                checkpoint=_checkpoint(spec, rank, world, spec["ckpt_dir"]),
-               eval=_eval(spec, rank, spec["eval_dir"]))
+               eval=_eval(spec, rank, spec["eval_dir"]),
+               mask=_mask_steps(spec["mask"], rank, world, local=False),
+               mask_local=_mask_steps(spec["mask"], rank, world,
+                                      local=True))
     out["jax_imported"] = any(m == "jax" or m.startswith("jax.")
                               for m in sys.modules)
     return out

@@ -395,3 +395,53 @@ def write_user_catalog(dirs: dict, root: str) -> None:
                for name, key in TINY_NAMES.items()}
     with open(os.path.join(root, "catalog.json"), "w") as f:
         json.dump(entries, f)
+
+
+# Mask R-CNN: the YAMLs the mask tests narrow
+MASK_C4_YAML = "configs/e2e_mask_rcnn_R_50_C4_1x.yaml"
+MASK_GN_YAML = "configs/gn_baselines/e2e_mask_rcnn_R_50_FPN_1x_gn.yaml"
+
+
+def mask_cfgs(yaml=None, dtype: str = "float32"):
+    """(JAX cfg, port cfg) of a ``MASK_ON`` YAML (default the Cityscapes
+    R-50-FPN one) for the CPU: ``_narrow_fpn_train``'s widths and budgets
+    (canvas 64x96, 8 GT boxes, every candidate sampled) with the mask head's
+    convs at 16 channels, 9 classes (the Cityscapes YAML's; COCO's 81 leave
+    random-weight scores under the threshold), no DA heads, computing in
+    ``dtype``. A GroupNorm
+    YAML keeps 32 channels wherever a GroupNorm divides them into 32
+    groups."""
+    from da_detect_tpu.config import get_cfg as j_get_cfg
+    from da_detect_tpu_torch.config import get_cfg
+    from da_detect_tpu_torch.entry import MASK_YAML
+
+    cfgs = []
+    for cfg in (j_get_cfg(), get_cfg()):
+        cfg.merge_from_file(yaml or MASK_YAML)
+        _narrow_fpn_train(cfg, "four")
+        width = 32 if cfg.MODEL.ROI_MASK_HEAD.USE_GN else 16
+        if width == 32:
+            cfg.MODEL.RESNETS.STEM_OUT_CHANNELS = 32
+            cfg.MODEL.RESNETS.WIDTH_PER_GROUP = 32
+            cfg.MODEL.RESNETS.RES2_OUT_CHANNELS = 32
+            cfg.MODEL.BACKBONE.OUT_CHANNELS = 32
+            cfg.MODEL.ROI_BOX_HEAD.CONV_HEAD_DIM = 32
+        cfg.MODEL.ROI_MASK_HEAD.CONV_LAYERS = (width,) * 4
+        cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES = 9
+        cfg.MODEL.DOMAIN_ADAPTATION_ON = False
+        cfg.TPU.COMPUTE_DTYPE = dtype
+        cfgs.append(cfg)
+    return tuple(cfgs)
+
+
+def mask_batches(jcfg, pcfg, b: int = 2, seed: int = 0):
+    """b source images with GT masks, for JAX and the port: the port's
+    ``make_batch(with_masks=True)`` and the same arrays in the JAX
+    package's ``Targets``."""
+    import jax.numpy as jnp
+
+    from da_detect_tpu_torch.entry import make_batch
+
+    jb, jt = graft._batch(jcfg, b, seed=seed)
+    pb, pt = make_batch(pcfg, b, seed=seed, with_masks=True)
+    return (jb, jt.replace(masks=jnp.asarray(pt.masks.numpy()))), (pb, pt)
