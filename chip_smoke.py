@@ -24,7 +24,13 @@ Phases, one JSON line each:
                P2-P5, 256 channels, P 14, sampling ratio 2; 100 ROIs on 1
                image and 512 on each of 2) in float32 and bfloat16: the
                level-aware forward, the backward a level on its masked
-               gradient (bit for bit its own rerun), and both tilings
+               gradient (bit for bit its own rerun), and both tilings;
+               ROIAlign at the FBNet poolers' shapes (P 6, adaptive
+               sampling, one stride-16 map, 512 ROIs on each of 16
+               images) at C 128 (20x40) and C 88 (38x63), float32,
+               forward and backward; NMS at RetinaNet's site, 5000
+               class-offset boxes at IoU 0.4, stopped at 100 kept and
+               whole
   4. slice     the flagship R-50-C4 config (its YAML) at the 608x1216 canvas
                (phases 4-10 in float32, then again in bfloat16, below),
                random weights from a seed, answers 4 eval requests
@@ -92,7 +98,33 @@ Phases, one JSON line each:
                exact launches (NMS 5, ROIAlign forward 2, backward 8), a
                profile, peak memory, one step's kernel inputs checked and
                timed
- 11. *_bf16    phases 4-10a (7b excepted) again with TPU.COMPUTE_DTYPE
+ 10b. fbnet    the FBNet xirb16d_dsmask Mask R-CNN YAML uncut at its own
+               320x640 canvas (81 classes) through ``entry(cfg=
+               fbnet_cfg(), with_masks=True)``, random weights from seed 0
+               (score layers spread): 4 requests with masks and exact
+               launch counts (NMS 2, ROIAlign forward 2), kernel run
+               against plain run as in 10a, its sites timed; then
+               ``fbnet_train``: the source-only step on the per-card batch,
+               16 images of 512 ROIs, through ``source_train_entry``:
+               kernel-run against plain-run step 1, 4 timed steps with
+               exact launches (NMS 1, ROIAlign forward 2, backward 2), a
+               profile, peak memory, one step's kernel inputs checked and
+               timed; then ``fbnet_cham``: 4 requests of the chamv1a
+               Faster R-CNN YAML at 600x1000 (an 88-channel map; NMS 2,
+               ROIAlign forward 1), kernel run against plain run, its
+               sites timed. The poolers' maps are float32 (FBNet's
+               BatchNorm output) in both dtypes.
+ 10c. retinanet  RetinaNet R-50-FPN (its YAML uncut, 800x1344, 81 classes)
+               through ``entry(cfg=retinanet_cfg())``, the class logits
+               spread (prior bias zeroed, weights times SCORE_SCALE): 4
+               requests with exact launches (one class-offset NMS over up
+               to 5000 candidates at IoU 0.4, keeping 100), kernel run
+               against plain run, the NMS site timed beside the P3-P7
+               candidate selection's time; then ``retina_train``: the
+               source-only step on 2 images, kernel-run against plain-run
+               step 1, 4 timed steps with every kernel's launches 0, a
+               profile, peak memory
+ 11. *_bf16    phases 4-10c (7b excepted) again with TPU.COMPUTE_DTYPE
                bfloat16, the
                JAX package's default: the same launch counts, each bf16
                kernel held to its plain version (BF16_* tolerances) on the
@@ -162,7 +194,14 @@ a user catalog, PATHS_CATALOG):
                polygons into GT masks; phase 10a's launches a step), then
                ``test_net`` reporting bbox and segm in the COCO and the
                Cityscapes protocols (phase 10a's launches a request)
-``--data-only`` runs phases 1, 2 and 12-19 alone, without the kernel line.
+ 20. retina_fbnet_cli_bf16  a gtFine tree (4 images) through
+               ``convert_cityscapes_to_coco``, named through a user
+               catalog; on the FBNet xirb16d_dsmask and the RetinaNet
+               R-50-FPN YAMLs each, ``train_net`` for 2 steps of 2 images
+               (phases 10b's and 10c's launches a step), then ``test_net``
+               reporting bbox AP (and segm for FBNet; random weights:
+               printed only) with their launches a request
+``--data-only`` runs phases 1, 2 and 12-20 alone, without the kernel line.
 ``--gate-spread GATES RUNS [CONDITION[:FIRST] ...]`` runs phases 1 and 2,
 then the learning gate of phase 12 GATES times and its triplet-DA arm RUNS
 times under each condition (default: all of SPREAD_CONDITIONS) with its
@@ -173,7 +212,8 @@ device time (profiler), the corner bytes that the per-thread gather it
 replaced read through L2, and the ROIs' footprint bytes the kernel stages.
 Then a line with every kernel's numbers (a row a kernel and dtype, and one
 for the TTA merge's NMS site; the float32 NMS and ROIAlign rows also under
-the path "sanity_bf16", the ablation's run), the nvidia-smi line of the
+the path "sanity_bf16", the ablation's run, and the bfloat16 FBNet paths,
+whose poolers pool float32 maps), the nvidia-smi line of the
 card, and last ``{"ok": true, "device": {...}}``. Any failure raises: the
 script exits non-zero and prints no result. With no CUDA device it exits 1
 at once.
@@ -350,6 +390,40 @@ MASK_TRAIN_STEPS, MASK_PROFILE_STEPS = 4, 2
 # bfloat16 itself moves them (the plain run against an f32 copy of the
 # model) or MASK_PROB_BF16_FLOOR
 MASK_PROB_ATOL, MASK_PROB_BF16_FLOOR = 1e-4, 2.0 ** -7
+# the FBNet xirb16d_dsmask Mask R-CNN YAML at its own 320x640 canvas (81
+# classes): one stride-16 map of 128 channels (20x40), pooled at P 6 with
+# adaptive sampling (at most TPU.ROI_MAX_SAMPLES 8 a bin side) by its box
+# and mask heads; its train step on the per-card batch, IMS_PER_BATCH 128 /
+# 8 = 16 images of 512 sampled ROIs; the chamv1a Faster R-CNN YAML at
+# 600x1000: a 38x63 map of 88 channels, not a multiple of the kernels'
+# 32-channel slice
+FBNET_CANVAS, FBNET_MAP, FBNET_CHANNELS = (320, 640), (20, 40), 128
+CHAM_CANVAS, CHAM_MAP, CHAM_CHANNELS = (600, 1000), (38, 63), 88
+FBNET_POOLER = dict(spatial_scale=1 / 16, output_size=6, sampling_ratio=0,
+                    max_samples=8)
+FBNET_TRAIN_IMAGES, FBNET_TRAIN_ROIS = 16, 512
+# launches: a mask request makes NMS in the RPN (one level) and the box
+# head, ROIAlign forward in the box and the mask head; a Faster request no
+# mask pooler; a source-only train step (all 16 images in each launch) NMS
+# in the RPN, ROIAlign forward and backward in the box and the mask head
+PER_FBNET_FORWARD = {"nms": 2, "roi_align_fwd": 2}
+PER_FBNET_FASTER_FORWARD = {"nms": 2, "roi_align_fwd": 1}
+PER_FBNET_TRAIN_STEP = {"nms": 1, "roi_align_fwd": 2, "roi_align_bwd": 2}
+FBNET_NMS_SITES = ("rpn", "box_head")
+FBNET_TRAIN_STEPS, FBNET_PROFILE_STEPS = 4, 2
+# RetinaNet R-50-FPN at 800x1344 (800 / 1333 rounded up to its
+# SIZE_DIVISIBILITY 32), 81 classes: one class-offset NMS a request over
+# the 5 levels' top 1000 candidates (at most 5000, boxes offset out near
+# 1e5 px) at IoU 0.4, keeping 100; its source-only train step
+# (IMS_PER_BATCH 16 / 8 = 2 images) launches no kernel
+RETINA_CANVAS = (800, 1344)
+RETINA_NMS_BOXES, RETINA_NMS_IOU, RETINA_KEEP = 5000, 0.4, 100
+PER_RETINA_FORWARD = {"nms": 1}
+PER_RETINA_TRAIN_STEP: dict = {}
+RETINA_NMS_SITES = ("class_offset",)
+RETINA_TRAIN_STEPS, RETINA_PROFILE_STEPS = 4, 2
+# phase retina_fbnet_cli_bf16: images a train_net step
+CLI_IMAGES = 2
 # row gathers against the plain version at the DCN path's shapes, 608x1216:
 # name -> (S table rows, C, P indices, row stride or None)
 GATHER_CASES = {
@@ -1324,6 +1398,36 @@ def phase_kernels(dev) -> dict:
                                                            csr)),
             csr_build_ms=time_ms(lambda: gather_cuda.row_scatter_add(
                 grad, idx, s)))
+
+    # the FBNet poolers' shapes (P 6, adaptive sampling, one stride-16
+    # map): 8192 ROIs on 16 images at 128 channels (320x640) and at 88
+    # (chamv1a, 600x1000: the forward's last 32-channel slice 24 wide), in
+    # float32 (FBNet's BatchNorm feeds float32 maps in both dtypes);
+    # RetinaNet's NMS: 5000 class-offset boxes (80 classes), IoU 0.4,
+    # stopped at 100 kept and whole
+    from da_detect_tpu_torch.ops import roi_align_cuda
+
+    fb_rng = np.random.RandomState(13)  # the other cases' draws unchanged
+    for case, (h, w), c, canvas in (
+            ("fbnet_c128", FBNET_MAP, FBNET_CHANNELS, FBNET_CANVAS),
+            ("fbnet_c88", CHAM_MAP, CHAM_CHANNELS, CHAM_CANVAS)):
+        rois = random_rois(fb_rng, FBNET_TRAIN_IMAGES, FBNET_TRAIN_ROIS,
+                           canvas, 400.0)
+        roi_case(f"roi_{case}", fb_rng.randn(
+            FBNET_TRAIN_IMAGES, h, w, c).astype(np.float32), rois,
+            **FBNET_POOLER)
+        results[f"roi_{case}"]["fwd_tiling"] = roi_align_cuda.fwd_tiling(
+            h, w, 6, 8)
+        bwd_case(f"bwd_{case}", (FBNET_TRAIN_IMAGES, c, h, w), rois,
+                 **FBNET_POOLER)
+        results[f"bwd_{case}"]["bwd_tiling"] = roi_align_cuda.bwd_tiling(
+            h, w, 6, 8)
+    boxes, valid = cluster_boxes(fb_rng, 1, RETINA_NMS_BOXES, RETINA_CANVAS)
+    cls = fb_rng.randint(1, 81, (1, RETINA_NMS_BOXES)).astype(np.float32)
+    boxes = (boxes + cls[..., None] * (boxes.max() + 1.0)).astype(np.float32)
+    nms_case("nms_retina_class_offset", boxes, valid, RETINA_NMS_IOU,
+             max_keep=RETINA_KEEP)
+    nms_case("nms_retina_class_offset_whole", boxes, valid, RETINA_NMS_IOU)
     emit("kernels", **results)
     return dict(row_scatter_add=scatter_err,
         nms=max(r["mismatches"] for k, r in results.items()
@@ -1406,10 +1510,11 @@ def serve_requests(fn, model, batches, per_forward: dict, label: str):
     return answers, launches, seconds
 
 
-def check_detections(cfg, dets) -> dict:
-    """Shape, finiteness and at least one valid detection; a summary."""
-    if tuple(dets.boxes.shape) != (1, cfg.MODEL.ROI_HEADS.DETECTIONS_PER_IMG,
-                                   4):
+def check_detections(cfg, dets, slots=None) -> dict:
+    """Shape (``slots`` detections, default ROI_HEADS.DETECTIONS_PER_IMG),
+    finiteness and at least one valid detection; a summary."""
+    slots = slots or cfg.MODEL.ROI_HEADS.DETECTIONS_PER_IMG
+    if tuple(dets.boxes.shape) != (1, slots, 4):
         raise AssertionError(f"detections {tuple(dets.boxes.shape)}")
     if not (torch.isfinite(dets.boxes).all()
             and torch.isfinite(dets.scores).all()):
@@ -2004,6 +2109,45 @@ def run_steps(step, state, args, n: int, expected: dict, label: str):
     return state, launches, times, metrics
 
 
+def measure_train_path(step, state, args, name: str, bf16: bool, steps: int,
+                       per_step: dict, profile_steps: int):
+    """A train path's measurements after its step-1 agreement: ``steps``
+    timed steps with exact launches (``run_steps``; their median into
+    STEP_MEDIANS), a profile of ``profile_steps`` steps and its
+    convolution census (``conv_census``), then one more step with the peak
+    memory reset around it and its kernels' inputs recorded. Returns
+    (state, the fields of the phase line, the recorded inputs)."""
+    state, launches, times, metrics = run_steps(step, state, args, steps,
+                                                per_step, name)
+    STEP_MEDIANS[name] = statistics.median(times)
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], *args)
+
+    profile = device_profile(one_step, profile_steps)
+    census = conv_census(profile, bf16, name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with record_kernel_inputs() as captured:
+        one_step()
+        torch.cuda.synchronize()
+    record = dict(
+        steps=steps, launches=launches,
+        launches_per_step={k: v / steps for k, v in launches.items()},
+        step_ms=times, step_ms_median=statistics.median(times),
+        profile=profile, conv_kernels_by_dtype=census,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        losses=[{k: float(v) for k, v in m.items()} for m in metrics])
+    return holder[0], record, captured
+
+
+def merge_errs(errs: dict, more: dict) -> None:
+    """Keeps in ``errs`` the larger error of each kernel."""
+    for k, v in more.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+
+
 def phase_train(dev, dtype: str = "float32"):
     from da_detect_tpu_torch import entry
 
@@ -2014,24 +2158,10 @@ def phase_train(dev, dtype: str = "float32"):
         train_step_one(state, args, "cuda"),
         train_step_one(state, args, "plain"),
         f32_step_one(state, cfg, args) if bf16 else None)
-    state, launches, times, metrics = run_steps(
-        step, state, args, TRAIN_STEPS, PER_TRAIN_STEP, name)
-    STEP_MEDIANS[name] = statistics.median(times)
+    state, record, captured = measure_train_path(
+        step, state, args, name, bf16, TRAIN_STEPS, PER_TRAIN_STEP,
+        PROFILE_STEPS)
     split = train_split(step, state, args, SPLIT_STEPS)
-    holder = [state]
-
-    def one_step():
-        holder[0], _ = step(holder[0], *args)
-
-    profile = device_profile(one_step, PROFILE_STEPS)
-    census = conv_census(profile, bf16, name)
-    state = holder[0]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    with record_kernel_inputs() as captured:
-        state, _ = step(state, *args)
-        torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
     errs = check_captured(captured)
     margins = float(state.da_state.margin_img)
     del step, state
@@ -2044,29 +2174,14 @@ def phase_train(dev, dtype: str = "float32"):
         label("aligned", dtype))
     del a_step, a_state
     emit(name, config=os.path.relpath(FLAGSHIP_YAML, REPO), dtype=dtype,
-         conv_kernels_by_dtype=census,
-         canvas=list(CANVAS), steps=TRAIN_STEPS, launches=launches,
-         launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
-         step_ms=times, step_ms_median=statistics.median(times),
-         split_ms=split, profile=profile, max_memory_allocated=peak,
-         losses=[{k: float(v) for k, v in m.items()} for m in metrics],
-         margin_img=margins, plain_agreement=agreement,
-         main_path_inputs={
-             "nms": [dict(shape=list(b.shape), iou=t, valid=int(v.sum()),
-                          max_keep=k)
-                     for b, v, t, k in captured["nms"]],
-             "roi_align_fwd": fwd_inputs(captured),
-             "roi_align_bwd": [dict(grad=list(g.shape), rois=list(r.shape),
-                                    height=h, width=w, grad_copied=copied,
-                                    **kw)
-                               for g, r, h, w, kw, copied in
-                               captured["roi_align_bwd"]]},
-         max_abs_err=errs,
+         canvas=list(CANVAS), split_ms=split, margin_img=margins,
+         plain_agreement=agreement, main_path_inputs=train_inputs(captured),
+         max_abs_err=errs, **record,
          aligned=dict(steps=ALIGNED_STEPS, launches=a_launches,
                       step_ms=a_times,
                       losses=[{k: float(v) for k, v in m.items()}
                               for m in a_metrics]))
-    return captured, launches, errs
+    return captured, record["launches"], errs
 
 
 # ---------------------------------------------------------------- DDP
@@ -2426,8 +2541,7 @@ def phase_dcn(dev, dtype: str = "float32"):
     quad_agreement = match_detections(
         dets_q, q_model(batches[0], impl="plain") if bf16 else dets_k, ref)
     errs = check_captured(captured)
-    for k, v in check_captured(q_captured).items():
-        errs[k] = max(errs.get(k, 0.0), v)
+    merge_errs(errs, check_captured(q_captured))
     emit(name, config=os.path.relpath(entry.DCN_YAML, REPO), dtype=dtype,
          canvas=list(CANVAS), requests=REQUESTS, seconds=seconds,
          launches=launches, quad_launches=q_launches, detections=summary,
@@ -2666,8 +2780,9 @@ def train_inputs(captured) -> dict:
                     for b, v, t, k in captured["nms"]],
             "roi_align_fwd": fwd_inputs(captured),
             "roi_align_bwd": [dict(grad=list(g.shape), rois=list(r.shape),
-                                   height=h, width=w, grad_copied=copied)
-                              for g, r, h, w, _, copied in
+                                   height=h, width=w, grad_copied=copied,
+                                   **kw)
+                              for g, r, h, w, kw, copied in
                               captured["roi_align_bwd"]]}
 
 
@@ -2802,8 +2917,7 @@ def phase_dcn_train(dev, dtype: str = "float32"):
         with record_kernel_inputs() as captured:
             one_step()
             torch.cuda.synchronize()
-        for k, v in check_captured(captured).items():
-            errs[k] = max(errs.get(k, 0.0), v)
+        merge_errs(errs, check_captured(captured))
         records = captured.pop("row_scatter_add")
         sites = time_sites(dict(captured, row_gather=[], row_gather_bulk=[]),
                            name, DCN_TRAIN_NMS_SITES)
@@ -2973,49 +3087,21 @@ def phase_mask(dev, dtype: str = "float32"):
         t_agreement = compare_steps(kernel, plain,
                                     flips=relu_flips(pre_k, pre_p))
         del kernel, plain, pre_k, pre_p
-    state, t_launches, times, metrics = run_steps(
-        step, state, args, MASK_TRAIN_STEPS, PER_MASK_TRAIN_STEP, t_name)
-    STEP_MEDIANS[t_name] = statistics.median(times)
-    holder = [state]
-
-    def one_step():
-        holder[0], _ = step(holder[0], *args)
-
-    profile = device_profile(one_step, MASK_PROFILE_STEPS)
-    census = conv_census(profile, bf16, t_name)
-    state = holder[0]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    with record_kernel_inputs() as t_captured:
-        state, _ = step(state, *args)
-        torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    del step, state, holder
-    for k, v in check_captured(t_captured).items():
-        errs[k] = max(errs.get(k, 0.0), v)
+    state, record, t_captured = measure_train_path(
+        step, state, args, t_name, bf16, MASK_TRAIN_STEPS,
+        PER_MASK_TRAIN_STEP, MASK_PROFILE_STEPS)
+    del step, state
+    merge_errs(errs, check_captured(t_captured))
     train_sites = time_sites(t_captured, t_name,
                              MASK_NMS_SITES[:5] if not bf16 else ())
-    losses = [{k: float(v) for k, v in m.items()} for m in metrics]
-    if not all(m["loss_mask"] > 0 for m in losses):
-        raise AssertionError(f"{t_name}: loss_mask {losses}")
+    if not all(m["loss_mask"] > 0 for m in record["losses"]):
+        raise AssertionError(f"{t_name}: loss_mask {record['losses']}")
     emit(t_name, config=os.path.relpath(entry.MASK_YAML, REPO), dtype=dtype,
          canvas=list(cfg.TPU.IMAGE_SHAPE), images=MASK_TRAIN_IMAGES,
-         steps=MASK_TRAIN_STEPS, launches=t_launches,
-         launches_per_step={k: v / MASK_TRAIN_STEPS
-                            for k, v in t_launches.items()},
-         step_ms=times, step_ms_median=statistics.median(times),
-         profile=profile, conv_kernels_by_dtype=census,
-         max_memory_allocated=peak, losses=losses,
          plain_agreement=t_agreement, sites=train_sites,
-         main_path_inputs={
-             "roi_align_fwd": fwd_inputs(t_captured),
-             "roi_align_bwd": [dict(grad=list(g.shape), rois=list(r.shape),
-                                    height=h, width=w, grad_copied=copied,
-                                    **kw)
-                               for g, r, h, w, kw, copied in
-                               t_captured["roi_align_bwd"]]},
-         max_abs_err=errs)
-    return eval_sites, launches, train_sites, t_launches, errs
+         main_path_inputs=train_inputs(t_captured), max_abs_err=errs,
+         **record)
+    return eval_sites, launches, train_sites, record["launches"], errs
 
 
 def phase_mask_cli(dev) -> dict:
@@ -3098,6 +3184,332 @@ def phase_mask_cli(dev) -> dict:
          launches=launches, loss_mask=loss_mask, loss_total=totals,
          eval_s=eval_s, results=results)
     return launches
+
+
+# ---------------------------------------------------------------- FBNet
+
+def fbnet_model(dev, dtype: str, yaml: str):
+    """An FBNet YAML at its own canvas in ``dtype`` through
+    ``entry(cfg=fbnet_cfg(yaml))`` (with masks for a ``MASK_ON`` YAML),
+    random weights from seed 0, score layers spread; and REQUESTS
+    batches."""
+    from da_detect_tpu_torch import entry
+
+    cfg = entry.fbnet_cfg(yaml, dtype)
+    cfg.freeze()
+    fn, (model, _) = entry.entry(device=str(dev), seed=0, cfg=cfg,
+                                 with_masks=cfg.MODEL.MASK_ON)
+    with torch.no_grad():
+        model.rpn["head"].cls_logits.weight.mul_(SCORE_SCALE)
+        model.roi_heads["box"]["predictor"].cls_score.weight.mul_(SCORE_SCALE)
+    batches = [entry.make_batch(cfg, 1, seed=s, device=dev)[0]
+               for s in range(REQUESTS)]
+    return cfg, fn, model, batches
+
+
+def pooled_maps(captured, channels: int) -> list:
+    """The captured ROIAlign maps' dtypes and channels; raises unless every
+    map is float32 (FBNet's BatchNorm output, in either compute dtype) with
+    ``channels`` channels."""
+    seen = sorted({(str(m.dtype)[6:], m.shape[1])
+                   for maps, _, _, _ in captured["roi_align_fwd"]
+                   for m in maps})
+    if seen != [("float32", channels)]:
+        raise AssertionError(f"FBNet pooler maps {seen}, expected float32 "
+                             f"with {channels} channels")
+    return [list(s) for s in seen]
+
+
+def phase_fbnet(dev, dtype: str = "float32") -> tuple[dict, dict]:
+    """The FBNet models in ``dtype`` (their poolers run the float32
+    ROIAlign kernels in both: FBNet's BatchNorm outputs float32). Eval:
+    the xirb16d_dsmask Mask R-CNN at 320x640, REQUESTS requests with masks
+    and exact launch counts, kernel run against plain run (detections and,
+    on the kernel run's detections, mask probabilities), its sites timed.
+    Train: its source-only step on the per-card batch (16 images, 512 ROIs
+    each) through ``source_train_entry``: kernel-run against plain-run
+    step 1 (``compare_steps``), FBNET_TRAIN_STEPS timed steps with exact
+    launches, a profile, peak memory, one step's kernel inputs checked and
+    timed. Then the chamv1a Faster R-CNN at 600x1000 (an 88-channel map,
+    not a multiple of the kernels' 32-channel slice): REQUESTS requests,
+    kernel run against plain run, its sites timed. Returns ({path: (sites,
+    launches)}, the largest error a kernel)."""
+    from da_detect_tpu_torch import entry
+
+    name, bf16 = label("fbnet", dtype), dtype == "bfloat16"
+    cfg, fn, model, batches = fbnet_model(dev, dtype, entry.FBNET_MASK_YAML)
+    answers, launches, seconds = serve_requests(fn, model, batches,
+                                                PER_FBNET_FORWARD, name)
+    side = cfg.MODEL.ROI_MASK_HEAD.RESOLUTION
+    summary = []
+    for dets, probs in answers:
+        row = check_detections(cfg, dets)
+        if tuple(probs.shape) != (1, dets.boxes.shape[1], side, side) \
+                or probs.dtype != torch.float32 \
+                or not bool(((probs >= 0) & (probs <= 1)).all()):
+            raise AssertionError(f"{name}: mask probabilities "
+                                 f"{tuple(probs.shape)} {probs.dtype}")
+        summary.append(dict(row, mask_shape=list(probs.shape)))
+    with record_kernel_inputs() as captured:
+        dets_k, probs_k = fn(model, batches[0])
+    maps = pooled_maps(captured, FBNET_CHANNELS)
+    ref = f32_copy(model, cfg) if bf16 else None
+    agreement = match_detections(
+        dets_k, model(batches[0], impl="plain"),
+        ref(batches[0], impl="plain") if bf16 else None)
+    masks = mask_agreement(model, batches[0], dets_k, probs_k, ref)
+    del ref
+    errs = check_captured(captured)
+    eval_sites = time_sites(captured, label("fbnet_eval", dtype),
+                            FBNET_NMS_SITES if not bf16 else ())
+    forward_ms = host_ms(lambda: fn(model, batches[0]), runs=10)
+    emit(name, config=os.path.relpath(entry.FBNET_MASK_YAML, REPO),
+         dtype=dtype, canvas=list(cfg.TPU.IMAGE_SHAPE), requests=REQUESTS,
+         seconds=seconds, launches=launches, detections=summary,
+         plain_agreement=agreement, mask_agreement=masks,
+         forward_ms=forward_ms, sites=eval_sites, pooled_maps=maps,
+         main_path_inputs={"roi_align_fwd": fwd_inputs(captured)},
+         max_abs_err=errs)
+    del model, fn, batches, captured, answers
+
+    t_name = label("fbnet_train", dtype)
+    cfg = entry.fbnet_cfg(entry.FBNET_MASK_YAML, dtype)
+    cfg.freeze()
+    step, (state, args) = entry.source_train_entry(device=str(dev), seed=0,
+                                                   cfg=cfg)
+    if args[0].images.shape[0] != FBNET_TRAIN_IMAGES:
+        raise AssertionError(f"{t_name}: {args[0].images.shape[0]} images")
+    t_agreement = compare_steps(
+        train_step_one(state, args, "cuda"),
+        train_step_one(state, args, "plain"),
+        f32_step_one(state, cfg, args) if bf16 else None)
+    state, record, t_captured = measure_train_path(
+        step, state, args, t_name, bf16, FBNET_TRAIN_STEPS,
+        PER_FBNET_TRAIN_STEP, FBNET_PROFILE_STEPS)
+    del step, state
+    pooled_maps(t_captured, FBNET_CHANNELS)
+    merge_errs(errs, check_captured(t_captured))
+    train_sites = time_sites(t_captured, t_name,
+                             FBNET_NMS_SITES[:1] if not bf16 else ())
+    if not all(m["loss_mask"] > 0 for m in record["losses"]):
+        raise AssertionError(f"{t_name}: loss_mask {record['losses']}")
+    emit(t_name, config=os.path.relpath(entry.FBNET_MASK_YAML, REPO),
+         dtype=dtype, canvas=list(cfg.TPU.IMAGE_SHAPE),
+         images=FBNET_TRAIN_IMAGES, plain_agreement=t_agreement,
+         sites=train_sites, main_path_inputs=train_inputs(t_captured),
+         max_abs_err=errs, **record)
+    del t_captured
+
+    c_name = label("fbnet_cham", dtype)
+    cfg, fn, model, batches = fbnet_model(dev, dtype, entry.FBNET_CHAM_YAML)
+    answers, c_launches, seconds = serve_requests(
+        fn, model, batches, PER_FBNET_FASTER_FORWARD, c_name)
+    c_summary = [check_detections(cfg, dets) for dets in answers]
+    with record_kernel_inputs() as c_captured:
+        dets_k = fn(model, batches[0])
+    c_maps = pooled_maps(c_captured, CHAM_CHANNELS)
+    c_agreement = match_detections(
+        dets_k, model(batches[0], impl="plain"),
+        f32_copy(model, cfg)(batches[0], impl="plain") if bf16 else None)
+    merge_errs(errs, check_captured(c_captured))
+    cham_sites = time_sites(c_captured, c_name,
+                            FBNET_NMS_SITES if not bf16 else ())
+    emit(c_name, config=os.path.relpath(entry.FBNET_CHAM_YAML, REPO),
+         dtype=dtype, canvas=list(cfg.TPU.IMAGE_SHAPE), requests=REQUESTS,
+         seconds=seconds, launches=c_launches, detections=c_summary,
+         plain_agreement=c_agreement, pooled_maps=c_maps,
+         forward_ms=host_ms(lambda: fn(model, batches[0]), runs=10),
+         sites=cham_sites,
+         main_path_inputs={"roi_align_fwd": fwd_inputs(c_captured)},
+         max_abs_err=errs)
+    return {label("fbnet_eval", dtype): (eval_sites, launches),
+            t_name: (train_sites, record["launches"]),
+            c_name: (cham_sites, c_launches)}, errs
+
+
+# ---------------------------------------------------------------- RetinaNet
+
+def retina_model(dev, dtype: str):
+    """The RetinaNet R-50-FPN YAML at 800x1344 in ``dtype`` through
+    ``entry(cfg=retinanet_cfg())``, random weights from seed 0, its class
+    logits spread: the prior bias zeroed and the weights times SCORE_SCALE
+    (at the prior, 0.01, every random-weight score stays under
+    INFERENCE_TH 0.05 and nothing reaches the NMS); and REQUESTS
+    batches."""
+    from da_detect_tpu_torch import entry
+
+    cfg = entry.retinanet_cfg(dtype)
+    cfg.freeze()
+    fn, (model, _) = entry.entry(device=str(dev), seed=0, cfg=cfg)
+    with torch.no_grad():
+        head = model.rpn["head"]
+        head.cls_logits.bias.zero_()
+        head.cls_logits.weight.mul_(SCORE_SCALE)
+    batches = [entry.make_batch(cfg, 1, seed=s, device=dev)[0]
+               for s in range(REQUESTS)]
+    return cfg, fn, model, batches
+
+
+def retina_selection(model, batch) -> dict:
+    """The time of the per-level candidate selection (sigmoid, threshold,
+    the exact top 1000 with ties to the lower index, decode) of one
+    request: P3-P7 and P3 alone, CUDA events; and the candidates it
+    keeps."""
+    from da_detect_tpu_torch.models.retinanet import retinanet_candidates
+
+    with torch.no_grad():
+        logits, regs, anchors = model._forward(batch, "cuda")
+    sizes = batch.sizes.float()
+    kw = {k: model.infer_cfg[k] for k in ("pre_nms_thresh", "pre_nms_top_n")}
+    cand = retinanet_candidates(anchors, logits, regs, sizes, **kw)
+    return dict(
+        ms=time_ms(lambda: retinanet_candidates(anchors, logits, regs, sizes,
+                                                **kw), runs=10),
+        p3_ms=time_ms(lambda: retinanet_candidates(
+            anchors[:1], logits[:1], regs[:1], sizes, **kw), runs=10),
+        p3_scores=int(logits[0].numel()), candidates=list(cand[0].shape[:2]),
+        valid_candidates=int(cand[3].sum()))
+
+
+def phase_retinanet(dev, dtype: str = "float32") -> tuple[dict, dict]:
+    """RetinaNet R-50-FPN at 800x1344 in ``dtype``. Eval: REQUESTS
+    requests with exact launch counts (one class-offset NMS a request),
+    kernel run against plain run, the NMS site timed beside the candidate
+    selection. Train: the source-only step on the per-card batch (2
+    images): kernel-run against plain-run step 1, RETINA_TRAIN_STEPS timed
+    steps with every kernel's launches asserted 0, a profile, peak memory.
+    Returns ({path: (sites, launches)}, the largest error a kernel)."""
+    from da_detect_tpu_torch import entry
+
+    name, bf16 = label("retinanet", dtype), dtype == "bfloat16"
+    cfg, fn, model, batches = retina_model(dev, dtype)
+    answers, launches, seconds = serve_requests(fn, model, batches,
+                                                PER_RETINA_FORWARD, name)
+    summary = [check_detections(cfg, dets, cfg.TEST.DETECTIONS_PER_IMG)
+               for dets in answers]
+    with record_kernel_inputs() as captured:
+        dets_k = fn(model, batches[0])
+    agreement = match_detections(
+        dets_k, model(batches[0], impl="plain"),
+        f32_copy(model, cfg)(batches[0], impl="plain") if bf16 else None)
+    errs = check_captured(captured)
+    eval_sites = time_sites(captured, label("retina_eval", dtype),
+                            RETINA_NMS_SITES if not bf16 else ())
+    selection = retina_selection(model, batches[0])
+    forward_ms = host_ms(lambda: fn(model, batches[0]), runs=10)
+    emit(name, config=os.path.relpath(entry.RETINANET_YAML, REPO),
+         dtype=dtype, canvas=list(cfg.TPU.IMAGE_SHAPE), requests=REQUESTS,
+         seconds=seconds, launches=launches, detections=summary,
+         plain_agreement=agreement, forward_ms=forward_ms,
+         candidate_selection=selection, sites=eval_sites,
+         main_path_inputs={"nms": [
+             dict(shape=list(b.shape), iou=t, valid=int(v.sum()),
+                  max_keep=k, max_coordinate=float(b.abs().max()))
+             for b, v, t, k in captured["nms"]]},
+         max_abs_err=errs)
+    del model, fn, batches, captured, answers
+
+    t_name = label("retina_train", dtype)
+    step, (state, args) = entry.source_train_entry(device=str(dev), seed=0,
+                                                   cfg=cfg)
+    t_agreement = compare_steps(
+        train_step_one(state, args, "cuda"),
+        train_step_one(state, args, "plain"),
+        f32_step_one(state, cfg, args) if bf16 else None)
+    state, record, t_captured = measure_train_path(
+        step, state, args, t_name, bf16, RETINA_TRAIN_STEPS,
+        PER_RETINA_TRAIN_STEP, RETINA_PROFILE_STEPS)
+    del step, state
+    if any(t_captured.values()):
+        raise AssertionError(f"{t_name}: a kernel ran in the train step")
+    emit(t_name, config=os.path.relpath(entry.RETINANET_YAML, REPO),
+         dtype=dtype, canvas=list(cfg.TPU.IMAGE_SHAPE),
+         images=args[0].images.shape[0], plain_agreement=t_agreement,
+         **record)
+    return {label("retina_eval", dtype): (eval_sites, launches),
+            t_name: ([], record["launches"])}, errs
+
+
+def phase_retina_fbnet_cli(dev) -> tuple[dict, dict]:
+    """The FBNet mask and RetinaNet YAMLs from files, bfloat16: a gtFine
+    tree (MASK_CLI_IMAGES images at Cityscapes geometry) through
+    ``convert_cityscapes_to_coco``, named through a user catalog; on each
+    YAML ``train_net.main`` for MASK_CLI_STEPS steps of CLI_IMAGES images
+    with exact launches a step, then ``test_net.main`` reporting bbox AP
+    (and segm for the mask YAML; random weights: printed only) with exact
+    launches a request. Returns the FBNet runs' launches and the RetinaNet
+    runs' (train and eval summed, each)."""
+    from da_detect_tpu_torch import entry
+    from da_detect_tpu_torch.tools import (convert_cityscapes_to_coco,
+                                           test_net, train_net)
+
+    name = "retina_fbnet_cli_bf16"
+    runs, totals = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rf_") as root:
+        clean, gt = cityscapes_tree(root, MASK_CLI_IMAGES, DATA_HW, seed=4)
+        ann_dir = os.path.join(root, "annotations")
+        convert_cityscapes_to_coco.main(
+            ["--gt-dir", gt, "--out-dir", ann_dir, "--splits", "train"])
+        ann = os.path.join(ann_dir, "instancesonly_filtered_gtFine_train.json")
+        catalog = os.path.join(root, "rf_catalog.py")
+        with open(catalog, "w") as f:
+            f.write(USER_CATALOG.format(names={"rf_train": (clean, ann),
+                                               "rf_val": (clean, ann)}))
+        for key, yaml, per_step, per_request, types in (
+                ("fbnet", entry.FBNET_MASK_YAML, PER_FBNET_TRAIN_STEP,
+                 PER_FBNET_FORWARD, {"bbox", "segm"}),
+                ("retinanet", entry.RETINANET_YAML, PER_RETINA_TRAIN_STEP,
+                 PER_RETINA_FORWARD, {"bbox"})):
+            opts = {"MODEL.WEIGHT": "", "TPU.COMPUTE_DTYPE": "bfloat16",
+                    "TPU.APPROX_TOPK": "False", "PATHS_CATALOG": catalog,
+                    "DATASETS.TRAIN": "('rf_train',)",
+                    "DATASETS.TEST": "('rf_val',)",
+                    "SOLVER.IMS_PER_BATCH": str(CLI_IMAGES),
+                    "SOLVER.BASE_LR": str(MASK_CLI_LR),
+                    "SOLVER.MAX_ITER": str(MASK_CLI_STEPS),
+                    "SOLVER.CHECKPOINT_PERIOD": str(MASK_CLI_STEPS),
+                    "TEST.IMS_PER_BATCH": "1",
+                    "DATALOADER.STAGE_CACHE": "False",
+                    "MODEL.OUTPUT_DIR": os.path.join(root, f"out_{key}"),
+                    "MODEL.OUTPUT_SAVE_NAME": "run"}
+            opts = [x for kv in opts.items() for x in kv]
+            argv = ["--config-file", yaml, "--seed", "0"]
+            clear_counts()
+            t0 = time.perf_counter()
+            state, meters = train_net.main(argv + ["--skip-test",
+                                                   "--log-period", "1"]
+                                           + opts)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            train = read_counts(per_step, MASK_CLI_STEPS, f"{name} {key}",
+                                "steps")
+            loss = [float(v) for v in meters.meters["loss_total"].deque]
+            if state.step != MASK_CLI_STEPS or len(loss) != MASK_CLI_STEPS \
+                    or not all(np.isfinite(loss)):
+                raise AssertionError(f"{name} {key}: {state.step} steps, "
+                                     f"loss_total {loss}")
+            del state, meters
+            run_dir = os.path.join(root, f"out_{key}", "run")
+            clear_counts()
+            t0 = time.perf_counter()
+            res = test_net.main(argv + ["--ckpt", run_dir] + opts)["rf_val"]
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t0
+            served = read_counts(per_request, MASK_CLI_IMAGES,
+                                 f"{name} {key} eval", "requests")
+            if set(res) != types:
+                raise AssertionError(f"{name} {key}: results {set(res)}")
+            runs[key] = dict(
+                config=os.path.relpath(yaml, REPO), train_s=train_s,
+                eval_s=eval_s, loss_total=loss, train_launches=train,
+                eval_launches=served,
+                results={t: {k: res[t][k] for k in ("AP", "AP50", "AP75")}
+                         for t in sorted(types)})
+            totals[key] = {k: train[k] + served[k] for k in train}
+    emit(name, images=MASK_CLI_IMAGES, image_hw=list(DATA_HW),
+         steps=MASK_CLI_STEPS, images_a_step=CLI_IMAGES,
+         base_lr=MASK_CLI_LR, runs=runs)
+    return totals["fbnet"], totals["retinanet"]
 
 
 DCN_YAML = os.path.join(
@@ -4256,14 +4668,17 @@ def kernel_line(paths: dict, errs: dict, summaries: dict) -> dict:
     return {"kernels": rows}
 
 
-def run_dtype(dev, dtype: str) -> tuple[dict, dict, dict]:
+def run_dtype(dev, dtype: str) -> tuple[dict, dict, dict, list]:
     """Every main path in ``dtype``: the flagship eval forward and its
     times, the flagship train step and its kernels' times, the step through
     DDP (and, in float32, over two ranks), the DCN eval forward ("four" and
     "quad") and its times, the DCN train step, the Cityscapes Mask R-CNN's
-    eval forward with masks and its source-only train step. Returns
-    (paths for ``kernel_line``, the largest error a kernel, the
-    scatter-add's summary)."""
+    eval forward with masks and its source-only train step, the FBNet
+    models' eval forwards and the FBNet mask model's train step, and
+    RetinaNet's eval forward and train step. Returns (paths for
+    ``kernel_line``, the largest error a kernel, the scatter-add's summary,
+    the paths whose float32 ROIAlign and NMS launches a bfloat16 model made:
+    (path, sites, launches, errors) each, for ``add_f32_path``)."""
     model, fn, batches, captured, eval_launches, eval_errs = phase_slice(
         dev, dtype)
     eval_sites = phase_times(model, fn, batches, captured, dtype)
@@ -4286,11 +4701,22 @@ def run_dtype(dev, dtype: str) -> tuple[dict, dict, dict]:
         phase_dcn_train(dev, dtype)
     (mask_sites, mask_launches, mask_train_sites, mask_train_launches,
      mask_errs) = phase_mask(dev, dtype)
+    fbnet_paths, fbnet_errs = phase_fbnet(dev, dtype)
+    retina_paths, retina_errs = phase_retinanet(dev, dtype)
     errs = {}
-    for part in (eval_errs, train_errs, dcn_errs, dcn_train_errs,
-                 mask_errs):
-        for k, v in part.items():
-            errs[k] = max(errs.get(k, 0.0), v)
+    parts = [eval_errs, train_errs, dcn_errs, dcn_train_errs, mask_errs,
+             retina_errs]
+    f32_paths = []
+    if dtype == "float32":
+        parts.append(fbnet_errs)
+    else:
+        # the bfloat16 FBNet model pools float32 maps (its BatchNorm's):
+        # its launches belong to the float32 rows
+        f32_paths = [(path, sites, launches, fbnet_errs)
+                     for path, (sites, launches) in fbnet_paths.items()]
+        fbnet_paths = {}
+    for part in parts:
+        merge_errs(errs, part)
     paths = {label("eval", dtype): (eval_sites, eval_launches, {}),
              label("train", dtype): (train_sites, train_launches, {}),
              label("dcn", dtype): (dcn_sites, dcn_launches, device),
@@ -4299,8 +4725,10 @@ def run_dtype(dev, dtype: str) -> tuple[dict, dict, dict]:
                                          {}),
              label("mask_eval", dtype): (mask_sites, mask_launches, {}),
              label("mask_train", dtype): (mask_train_sites,
-                                          mask_train_launches, {}), **ddp}
-    return paths, errs, scatter
+                                          mask_train_launches, {}), **ddp,
+             **{path: (sites, launches, {}) for path, (sites, launches) in
+                {**fbnet_paths, **retina_paths}.items()}}
+    return paths, errs, scatter, f32_paths
 
 
 def run_data_path(dev) -> tuple[dict, dict]:
@@ -4318,17 +4746,20 @@ def run_data_path(dev) -> tuple[dict, dict]:
     return tta, phase_tools(dev)
 
 
-def add_sanity_path(line: dict, sites: list, launches: dict,
-                    errs: dict) -> None:
-    """The sanity gate's path ("sanity_bf16": the ablation's run, float32
-    NMS and ROIAlign in the bfloat16 GN model) in the float32 rows of the
-    kernels it ran: its launches, its sites' times and bound, its errors."""
+def add_f32_path(line: dict, path: str, sites: list, launches: dict,
+                 errs: dict) -> None:
+    """A bfloat16 model's path that runs the float32 NMS and ROIAlign
+    kernels ("sanity_bf16", the GN model's ablation run; the bfloat16 FBNet
+    paths, whose BatchNorm outputs float32) in the float32 rows of the
+    kernels it ran: its launches, its sites' times and bound, its
+    errors."""
     for row in line["kernels"]:
         if row["name"] not in ("nms", "roi_align_fwd", "roi_align_bwd"):
             continue
         mine = [s for s in sites if s["kernel"] == row["name"]]
-        row["paths"]["sanity_bf16"] = path_summary(mine,
-                                                   launches[row["name"]])
+        if not mine and not launches.get(row["name"]):
+            continue
+        row["paths"][path] = path_summary(mine, launches[row["name"]])
         row["sites"] += [{k: s[k] for k in ("path", "site", "ms",
                                             "device_ms", "plain_ms",
                                             "bound_ms", "bound_by")
@@ -4381,6 +4812,7 @@ def main(argv=None) -> int:
             phase_sanity(dev)
             run_data_path(dev)
             phase_mask_cli(dev)
+            phase_retina_fbnet_cli(dev)
         emit("done", seconds=time.perf_counter() - t_start)
         print(smi)
         print(json.dumps({"ok": True, "device": {
@@ -4388,10 +4820,11 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count()}}))
         return 0
     errs = phase_kernels(dev)
-    paths, f32_errs, scatter = run_dtype(dev, "float32")
+    paths, f32_errs, scatter, _ = run_dtype(dev, "float32")
     for k, v in f32_errs.items():
         errs[k] = max(errs[k], v)
-    bf16_paths, bf16_errs, bf16_scatter = run_dtype(dev, "bfloat16")
+    bf16_paths, bf16_errs, bf16_scatter, f32_paths = run_dtype(dev,
+                                                               "bfloat16")
     paths.update(bf16_paths)
     for k, v in bf16_errs.items():
         key = label(k, "bfloat16") if k in BF16_KERNELS else k
@@ -4400,11 +4833,17 @@ def main(argv=None) -> int:
     tta, tools_launches = run_data_path(dev)
     paths["tools_ddp_bf16"] = ([], tools_launches, {})
     paths["mask_cli_bf16"] = ([], phase_mask_cli(dev), {})
+    fbnet_cli, retina_cli = phase_retina_fbnet_cli(dev)
+    paths["retina_cli_bf16"] = ([], retina_cli, {})
     line = kernel_line(
         paths, errs, {"row_scatter_add": {"dcn_train": scatter},
                       "row_scatter_add_bf16": {"dcn_train_bf16":
                                                bf16_scatter}})
-    add_sanity_path(line, sanity_sites, sanity_launches, sanity_errs)
+    add_f32_path(line, "sanity_bf16", sanity_sites, sanity_launches,
+                 sanity_errs)
+    for path, sites, launches, path_errs in f32_paths:
+        add_f32_path(line, path, sites, launches, path_errs)
+    add_f32_path(line, "fbnet_cli_bf16", [], fbnet_cli, {})
     row = tta_row(tta)
     nms_row = next(r for r in line["kernels"] if r["name"] == "nms")
     nms_row["paths"]["tta_bf16"] = row["paths"]["tta_bf16"]

@@ -12,9 +12,11 @@ a train step over it; ``train_entry(cfg=dcn_train_cfg())`` trains the
 X-101-32x8d-FPN-DCN model. ``entry(cfg=mask_cfg(), with_masks=True)`` is
 the eval forward of the Cityscapes Mask R-CNN (R-50-FPN, ``MASK_ON``) with
 its mask probabilities, and ``source_train_entry(cfg=mask_cfg())`` its
-source-only train step on 2 images. ``dryrun_multichip(n)`` runs the train
-step data-parallel over n ranks (DDP) against one process on the same global
-batch. All run on the card unless the caller asks for ``device="cpu"``;
+source-only train step on 2 images. ``fbnet_cfg(yaml)`` (the FBNet Faster
+and Mask R-CNN YAMLs) and ``retinanet_cfg()`` (the RetinaNet R-50-FPN YAML)
+serve and train the same way, at their YAMLs' canvases.
+``dryrun_multichip(n)`` runs the train step data-parallel over n ranks
+(DDP) against one process on the same global batch. All run on the card unless the caller asks for ``device="cpu"``;
 with no card and no explicit CPU they raise.
 
 Compute dtype: ``flagship_cfg`` and ``dcn_cfg`` default to bfloat16, the JAX
@@ -46,8 +48,14 @@ DCN_YAML = os.path.join(
 MASK_YAML = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs",
     "cityscapes", "e2e_mask_rcnn_R_50_FPN_1x_cocostyle.yaml")
-# the per-card share of the mask YAML's IMS_PER_BATCH 16 over 8 cards
-MASK_TRAIN_IMAGES = 2
+CONFIGS = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
+FBNET_MASK_YAML = os.path.join(CONFIGS,
+                               "e2e_mask_rcnn_fbnet_xirb16d_dsmask.yaml")
+FBNET_CHAM_YAML = os.path.join(CONFIGS,
+                               "e2e_faster_rcnn_fbnet_chamv1a_600.yaml")
+RETINANET_YAML = os.path.join(CONFIGS, "retinanet",
+                              "retinanet_R-50-FPN_1x.yaml")
 
 
 def flagship_cfg(canvas=(320, 640), train_tops=(600, 128),
@@ -95,6 +103,21 @@ def dcn_train_cfg(canvas=(608, 1216), dtype="bfloat16"):
     return cfg
 
 
+def _yaml_cfg(yaml: str, dtype: str):
+    """``yaml`` read with the port's config copy, uncut, computing in
+    ``dtype``, at the YAML's own training canvas (``canvas_for``, used in
+    eval too), the top-k of proposal selection exact (``TPU.APPROX_TOPK``
+    is TPU-only)."""
+    from .data.transforms import canvas_for
+
+    cfg = get_cfg()
+    cfg.merge_from_file(yaml)
+    cfg.TPU.IMAGE_SHAPE = canvas_for(cfg, is_train=True)
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    cfg.TPU.APPROX_TOPK = False
+    return cfg
+
+
 def mask_cfg(dtype="bfloat16"):
     """The Cityscapes instance-segmentation YAML (R-50-FPN, FPN2MLP box
     head, 9 classes, ``MaskRCNNFPNFeatureExtractor`` + ``MaskRCNNC4Predictor``
@@ -103,14 +126,27 @@ def mask_cfg(dtype="bfloat16"):
     the YAML's own canvas, 800 x 1344 (``canvas_for``, the same in training
     and eval), with its 512 ROIs an image and 100 GT slots; the top-k of
     proposal selection exact (``TPU.APPROX_TOPK`` is TPU-only)."""
-    from .data.transforms import canvas_for
+    return _yaml_cfg(MASK_YAML, dtype)
 
-    cfg = get_cfg()
-    cfg.merge_from_file(MASK_YAML)
-    cfg.TPU.IMAGE_SHAPE = canvas_for(cfg, is_train=True)
-    cfg.TPU.COMPUTE_DTYPE = dtype
-    cfg.TPU.APPROX_TOPK = False
-    return cfg
+
+def fbnet_cfg(yaml: str = FBNET_MASK_YAML, dtype: str = "bfloat16"):
+    """An FBNet YAML (default the xirb16d_dsmask Mask R-CNN: 320 x 640, 81
+    classes, 512 ROIs an image) by ``_yaml_cfg``. Its per-card train batch
+    is 16 images (``per_card_images``)."""
+    return _yaml_cfg(yaml, dtype)
+
+
+def retinanet_cfg(dtype: str = "bfloat16"):
+    """The RetinaNet R-50-FPN YAML (81 classes) by ``_yaml_cfg``: 800 x
+    1344, 800 / 1333 rounded up to its SIZE_DIVISIBILITY 32."""
+    return _yaml_cfg(RETINANET_YAML, dtype)
+
+
+def per_card_images(cfg) -> int:
+    """The per-card share of ``SOLVER.IMS_PER_BATCH`` over the 8 cards the
+    YAMLs' batches are for: 16 for the FBNet mask YAMLs, 2 for RetinaNet
+    R-50-FPN and the Cityscapes mask YAML."""
+    return max(1, cfg.SOLVER.IMS_PER_BATCH // 8)
 
 
 def synthetic_masks(rng: np.random.RandomState, b: int, g: int,
@@ -246,17 +282,18 @@ def train_entry(device: Optional[str] = None, seed: int = 0, cfg=None,
 def source_train_entry(device: Optional[str] = None, seed: int = 0,
                        cfg=None):
     """(step_fn, (state, (batch, targets))): the source-only train step of
-    ``cfg`` (default ``mask_cfg()``) on MASK_TRAIN_IMAGES source images with
-    GT masks when ``MODEL.MASK_ON``, ``step_fn(state, batch, targets) ->
-    (state, metrics)``, random weights drawn from ``seed``, the multistep
-    schedule of ``train_net``."""
+    ``cfg`` (default ``mask_cfg()``; a RetinaNet cfg too) on
+    ``per_card_images(cfg)`` source images with GT masks when
+    ``MODEL.MASK_ON``, ``step_fn(state, batch, targets) -> (state,
+    metrics)``, random weights drawn from ``seed``, the multistep schedule
+    of ``train_net``."""
     device = resolve_device(device)
     cfg = mask_cfg() if cfg is None else cfg
     model = prepare_model(build_detection_model(cfg, seed=seed), device)
     state = create_train_state(cfg, model, seed, "multistep")
     step = make_train_step(model, state.optimizer)
-    return step, (state, make_batch(cfg, MASK_TRAIN_IMAGES, seed,
-                                    device=device,
+    return step, (state, make_batch(cfg, per_card_images(cfg),
+                                    seed, device=device,
                                     with_masks=cfg.MODEL.MASK_ON))
 
 

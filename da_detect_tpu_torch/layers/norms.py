@@ -18,6 +18,15 @@ widened to float32 and normalized by ``F.group_norm`` (one fused launch
 forward, PyTorch's; Flax takes the variance as E[x²] - E[x]², PyTorch by
 Welford's sums: the two differ by float32 rounding). It is never rounded to
 bfloat16.
+
+BatchNorm: Flax's ``nn.BatchNorm(use_running_average=True)`` as the FBNet
+bodies and heads use it: trained ``scale`` and ``bias`` (here ``weight`` and
+``bias`` parameters) over fixed statistics ``mean`` and ``var`` (buffers
+``running_mean`` and ``running_var``, which nothing updates: not
+``nn.BatchNorm2d``, which takes the batch's statistics under
+``model.train()``), eps 1e-5, computed as Flax does, ``(x - mean) *
+(rsqrt(var + eps) * scale) + bias``, in float32 and with a float32 output
+whatever the input's dtype (Flax's promotion, as GroupNorm's).
 """
 
 from __future__ import annotations
@@ -61,6 +70,24 @@ class GroupNorm(nn.Module):
         if x.is_contiguous(memory_format=torch.channels_last):
             return y.contiguous(memory_format=torch.channels_last)
         return y
+
+
+class BatchNorm(nn.Module):
+    """Flax ``nn.BatchNorm(use_running_average=True)`` on logical NCHW;
+    returns float32."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return ((x.float() - self.running_mean.view(1, -1, 1, 1))
+                * mul.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1))
 
 
 def make_norm(kind: str, num_channels: int) -> nn.Module:

@@ -93,3 +93,20 @@ def make_anchor_generator(cfg) -> AnchorGenerator:
     rpn = cfg.MODEL.RPN
     return AnchorGenerator(rpn.ANCHOR_SIZES, rpn.ASPECT_RATIOS,
                            rpn.ANCHOR_STRIDE)
+
+
+def retinanet_octave_sizes(cfg) -> tuple:
+    """Per level, ``size * OCTAVE ** (i / SCALES_PER_OCTAVE)`` for i below
+    ``SCALES_PER_OCTAVE``: the sizes of the RetinaNet anchor generator and
+    of the model's anchors."""
+    r = cfg.MODEL.RETINANET
+    octave, spo = r.OCTAVE, r.SCALES_PER_OCTAVE
+    return tuple(
+        tuple(size * octave ** (i / float(spo)) for i in range(spo))
+        for size in r.ANCHOR_SIZES)
+
+
+def make_anchor_generator_retinanet(cfg) -> AnchorGenerator:
+    r = cfg.MODEL.RETINANET
+    return AnchorGenerator(retinanet_octave_sizes(cfg), r.ASPECT_RATIOS,
+                           r.ANCHOR_STRIDES)

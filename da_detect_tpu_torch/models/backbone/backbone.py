@@ -6,9 +6,14 @@ This port builds the ResNe[X]t bodies: the C4 bodies (``R-50-C4``,
 and width from ``MODEL.RESNETS``), each with deformable ``conv2`` in the
 stages of ``STAGE_WITH_DCN``, with FrozenBatchNorm or, under
 ``BACKBONE.USE_GN``, GroupNorm; the FPN with ``FPN.USE_GN`` and
-``FPN.USE_RELU``. RetinaNet FPN, FBNet and VGG bodies are later slices and
-raise ``NotImplementedError``. Body and FPN compute in
-``TPU.COMPUTE_DTYPE`` (GroupNorm outputs float32, ``layers/norms.py``).
+``FPN.USE_RELU``; the RetinaNet bodies (``R-50-FPN-RETINANET``,
+``R-101-FPN-RETINANET``, ``R-152-FPN-RETINANET``, the last two also with
+ResNeXt groups from ``MODEL.RESNETS``): the FPN over C3-C5 with the P6/P7
+top block, strides 8 to 128; and the FBNet trunk (``CONV_BODY: "FBNet"``,
+``FBNET.ARCH``; ``fbnet.py``): one map at stride 16. VGG bodies are a later
+slice and raise ``NotImplementedError``. Bodies and FPN compute in
+``TPU.COMPUTE_DTYPE`` (GroupNorm and FBNet's BatchNorm output float32,
+``layers/norms.py``).
 """
 
 from __future__ import annotations
@@ -30,36 +35,47 @@ class BackboneSpec:
 
 class ResNetBackbone(nn.Module):
     """ResNet body (``backbone.body`` in the state_dict), optionally topped
-    with an FPN (``backbone.fpn``). ``impl`` picks the deformable
-    convolutions' gathers (``layers/deform_conv.py``)."""
+    with an FPN (``backbone.fpn``) over the body's outputs from
+    ``first_level`` on (1 for RetinaNet's C3-C5). ``impl`` picks the
+    deformable convolutions' gathers (``layers/deform_conv.py``)."""
 
-    def __init__(self, body: ResNet, fpn: FPN | None = None):
+    def __init__(self, body: ResNet, fpn: FPN | None = None,
+                 first_level: int = 0):
         super().__init__()
         self.body = body
         self.fpn = fpn
+        self.first_level = first_level
 
     def forward(self, x, impl: str = "cuda"):
         feats = self.body(x, impl=impl)
-        return feats if self.fpn is None else self.fpn(feats)
+        if self.fpn is None:
+            return feats
+        return self.fpn(feats[self.first_level:])
 
 
-# CONV_BODY -> (depth, with FPN)
+# CONV_BODY -> (depth, with FPN, FPN top block)
 _BODIES = {
-    **{f"R-{d}-C4": (d, False) for d in (50, 101, 152)},
-    **{f"R-{d}-FPN": (d, True) for d in (50, 101, 152)},
-    "X-101-32x8d-FPN": (101, True),
+    **{f"R-{d}-C4": (d, False, None) for d in (50, 101, 152)},
+    **{f"R-{d}-FPN": (d, True, "maxpool") for d in (50, 101, 152)},
+    **{f"R-{d}-FPN-RETINANET": (d, True, "p6p7") for d in (50, 101, 152)},
+    "X-101-32x8d-FPN": (101, True, "maxpool"),
 }
 
 
 def build_backbone(cfg) -> tuple[nn.Module, BackboneSpec]:
     body = cfg.MODEL.BACKBONE.CONV_BODY
+    dtype = compute_dtype(cfg)
+    if body == "FBNet":
+        from .fbnet import build_fbnet_backbone
+
+        trunk, out_ch = build_fbnet_backbone(cfg, dtype)
+        return trunk, BackboneSpec(out_channels=out_ch, strides=(16,))
     if body not in _BODIES:
         raise NotImplementedError(
-            f"CONV_BODY {body}: the PyTorch port builds "
+            f"CONV_BODY {body}: the PyTorch port builds FBNet, "
             f"{', '.join(_BODIES)}; the others are later slices")
-    depth, with_fpn = _BODIES[body]
+    depth, with_fpn, top_block = _BODIES[body]
     r = cfg.MODEL.RESNETS
-    dtype = compute_dtype(cfg)
     stages = 4 if with_fpn else 3
     resnet = ResNet(
         depth=depth, stages=stages, num_groups=r.NUM_GROUPS,
@@ -78,8 +94,11 @@ def build_backbone(cfg) -> tuple[nn.Module, BackboneSpec]:
             out_channels=r.RES2_OUT_CHANNELS * 2 ** (stages - 1),
             strides=(4 * 2 ** (stages - 1),))
     out_ch = cfg.MODEL.BACKBONE.OUT_CHANNELS
-    fpn = FPN([r.RES2_OUT_CHANNELS * 2 ** i for i in range(stages)], out_ch,
-              norm="gn" if cfg.MODEL.FPN.USE_GN else "none",
-              use_relu=cfg.MODEL.FPN.USE_RELU, dtype=dtype)
-    return ResNetBackbone(resnet, fpn), BackboneSpec(
-        out_channels=out_ch, strides=(4, 8, 16, 32, 64))
+    first = 1 if top_block == "p6p7" else 0
+    fpn = FPN([r.RES2_OUT_CHANNELS * 2 ** i for i in range(first, stages)],
+              out_ch, norm="gn" if cfg.MODEL.FPN.USE_GN else "none",
+              use_relu=cfg.MODEL.FPN.USE_RELU, top_block=top_block,
+              dtype=dtype)
+    return ResNetBackbone(resnet, fpn, first), BackboneSpec(
+        out_channels=out_ch,
+        strides=(8, 16, 32, 64, 128) if first else (4, 8, 16, 32, 64))

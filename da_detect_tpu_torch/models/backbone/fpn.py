@@ -7,9 +7,14 @@ the lateral's size, 3x3 output convs (``fpn_layer{i}``), and
 maskrcnn-benchmark's state_dict (``backbone.fpn.fpn_inner1.weight``).
 ``norm="gn"`` (``FPN.USE_GN``) puts a GroupNorm after each conv
 (``fpn_inner{i}_norm``, ``fpn_layer{i}_norm``) and drops the convs' biases;
-``use_relu`` (``FPN.USE_RELU``) a ReLU after each conv and norm. The
-RetinaNet top block (P6/P7 convs) is a later slice. Every conv computes in
-``dtype``; the top-down sums stay in it, or in float32 after GroupNorm.
+``use_relu`` (``FPN.USE_RELU``) a ReLU after each conv and norm.
+``top_block="p6p7"`` (the RetinaNet bodies, the FPN over C3-C5) replaces
+the max pool with ``fpn_p6``, a 3x3 stride-2 conv (symmetric padding 1) on
+C5, the last input, and ``fpn_p7``, the same conv on ``relu(P6)``. The JAX
+package always takes P6 from C5 (its ``p6p7_in_from_c5`` is never unset),
+so ``RETINANET.USE_C5`` (False in the ``_P5_`` YAMLs) is read by neither
+package. Every conv computes in ``dtype``; the top-down sums stay in it, or
+in float32 after GroupNorm.
 """
 
 from __future__ import annotations
@@ -31,9 +36,13 @@ def upsample_nearest_2x(x: torch.Tensor, out_hw) -> torch.Tensor:
 class FPN(nn.Module):
     def __init__(self, in_channels_list, out_channels: int = 256,
                  norm: str = "none", use_relu: bool = False,
+                 top_block: str = "maxpool",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        if top_block not in ("maxpool", "p6p7"):
+            raise ValueError(f"unknown FPN top block: {top_block}")
         self.num_levels = len(in_channels_list)
+        self.top_block = top_block
         self.normed = norm != "none"
         self.use_relu = use_relu
         for i, cin in enumerate(in_channels_list, start=1):
@@ -48,6 +57,11 @@ class FPN(nn.Module):
                                 make_norm(norm, out_channels))
                 self.add_module(f"fpn_layer{i}_norm",
                                 make_norm(norm, out_channels))
+        if top_block == "p6p7":
+            self.fpn_p6 = Conv2d(in_channels_list[-1], out_channels, 3,
+                                 stride=2, padding=1, compute_dtype=dtype)
+            self.fpn_p7 = Conv2d(out_channels, out_channels, 3, stride=2,
+                                 padding=1, compute_dtype=dtype)
 
     def _conv(self, name: str, x: torch.Tensor) -> torch.Tensor:
         x = getattr(self, name)(x)
@@ -64,6 +78,9 @@ class FPN(nn.Module):
             merged.insert(0, inner[i] + td)
         outs = [self._conv(f"fpn_layer{i + 1}", m)
                 for i, m in enumerate(merged)]
+        if self.top_block == "p6p7":
+            p6 = self.fpn_p6(features[-1])
+            return outs + [p6, self.fpn_p7(F.relu(p6))]
         # LastLevelMaxPool: max pool of kernel 1, stride 2
         outs.append(F.max_pool2d(outs[-1], kernel_size=1, stride=2))
         return outs

@@ -11,7 +11,10 @@ rows only. The extractors are the C4 res5 head (GroupNorm under
 flattened in maskrcnn-benchmark's (C, H, W) order; it ignores ``USE_GN``,
 as the JAX package's does) and the FPN conv head
 (``FPNXconv1fcFeatureExtractor``: stacked 3x3 convs, each with GroupNorm
-under ``USE_GN``, then fc6, flattened the same way). Extractors and
+under ``USE_GN``, then fc6, flattened the same way) and FBNet's
+(``FBNet.roi_head``, ``backbone/fbnet.py``: the box stage's blocks over the
+ROIs pooled at P 6 from the stride-16 map, for ``FastRCNNPredictor``).
+Extractors and
 predictors compute in ``dtype`` (``TPU.COMPUTE_DTYPE``); the losses and the
 post-processing in float32.
 """
@@ -315,10 +318,14 @@ def make_box_feature_extractor(cfg, in_channels: int,
             num_stacked_convs=h.NUM_STACKED_CONVS, mlp_dim=h.MLP_HEAD_DIM,
             use_gn=h.USE_GN, dilation=h.DILATION, dtype=dtype
         ), h.MLP_HEAD_DIM
+    if name == "FBNet.roi_head":
+        from .backbone.fbnet import make_fbnet_roi_head
+        return make_fbnet_roi_head(cfg, in_channels, dtype)
     raise NotImplementedError(
         f"feature extractor {name}: the port builds "
-        "ResNet50Conv5ROIFeatureExtractor, FPN2MLPFeatureExtractor and "
-        "FPNXconv1fcFeatureExtractor; the others are later slices")
+        "ResNet50Conv5ROIFeatureExtractor, FPN2MLPFeatureExtractor, "
+        "FPNXconv1fcFeatureExtractor and FBNet.roi_head; the others are "
+        "later slices")
 
 
 _PREDICTORS = {"FastRCNNPredictor": FastRCNNPredictor,

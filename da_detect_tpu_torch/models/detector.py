@@ -1,11 +1,12 @@
 """GeneralizedRCNN: the eval forward and the training forward (port of
-``da_detect_tpu/models/detector.py``), for the C4 and FPN Faster and Mask
-R-CNN bodies, with deformable stages (X-101-32x8d-FPN-DCN) or without, with
-and without the domain-adaptation heads. Module names follow
-maskrcnn-benchmark's state_dict: ``backbone.body``, ``rpn.head``,
-``roi_heads.box.feature_extractor``, ``roi_heads.box.predictor``,
-``roi_heads.mask.feature_extractor``, ``roi_heads.mask.predictor`` and
-``da_heads``.
+``da_detect_tpu/models/detector.py``), for the C4, FPN and FBNet Faster and
+Mask R-CNN bodies, with deformable stages (X-101-32x8d-FPN-DCN) or without,
+with and without the domain-adaptation heads. ``build_detection_model``
+builds RetinaNet (``models/retinanet.py``) for ``MODEL.RETINANET_ON``.
+Module names follow maskrcnn-benchmark's state_dict: ``backbone.body``,
+``rpn.head``, ``roi_heads.box.feature_extractor``,
+``roi_heads.box.predictor``, ``roi_heads.mask.feature_extractor``,
+``roi_heads.mask.predictor`` and ``da_heads``.
 
 With a mask head (``MODEL.MASK_ON``) the eval forward can run it over the
 final detections (``with_masks``), and the training forward adds
@@ -37,6 +38,7 @@ from torch import nn
 from ..layers import DeformConv2d, compute_dtype
 from ..structures.image_batch import ImageBatch
 from .anchors import AnchorGenerator, make_anchor_generator
+from .backbone.fbnet import FBNetRPNHead, make_fbnet_rpn_head
 from .box_head import (Detections, FPN2MLPFeatureExtractor,
                        FPNXconv1fcFeatureExtractor, fast_rcnn_loss,
                        make_box_feature_extractor,
@@ -55,41 +57,24 @@ def _interleave(a_s: torch.Tensor, a_t: torch.Tensor) -> torch.Tensor:
                                                   + a_s.shape[1:])
 
 
-class GeneralizedRCNN(nn.Module):
-    def __init__(self, backbone: nn.Module, rpn_head: nn.Module,
-                 feature_extractor: Optional[nn.Module],
-                 predictor: Optional[nn.Module], *, rpn_only: bool,
-                 anchor_generator: AnchorGenerator, rpn_test: dict,
-                 post_cfg: dict, da_heads: Optional[nn.Module] = None,
-                 rpn_train: Optional[dict] = None,
-                 rpn_loss_cfg: Optional[dict] = None,
-                 sample_cfg: Optional[dict] = None,
-                 share_positive_pool: bool = False,
-                 mask_head: Optional[MaskHead] = None,
-                 pixel_mean=(102.9801, 115.9465, 122.7717),
-                 pixel_std=(1.0, 1.0, 1.0), to_bgr255: bool = True):
+class Detector(nn.Module):
+    """What the two meta-architectures (``GeneralizedRCNN``, and
+    ``retinanet.RetinaNet``) share: the input normalization, the anchors of
+    each feature shape (cached a device) and the kernels' route."""
+
+    def __init__(self, anchor_generator: AnchorGenerator, pixel_mean,
+                 pixel_std, to_bgr255: bool):
         super().__init__()
-        self.backbone = backbone
-        self.rpn = nn.ModuleDict({"head": rpn_head})
-        box = {} if rpn_only else {"feature_extractor": feature_extractor,
-                                   "predictor": predictor}
-        self.roi_heads = nn.ModuleDict({"box": nn.ModuleDict(box)})
-        if mask_head is not None:
-            self.roi_heads["mask"] = mask_head
-        self.da_heads = da_heads
-        self.rpn_only = rpn_only
         self.anchor_generator = anchor_generator
-        self.rpn_test = rpn_test
-        self.rpn_train = rpn_train
-        self.rpn_loss_cfg = rpn_loss_cfg
-        self.sample_cfg = sample_cfg
-        self.share_positive_pool = share_positive_pool
-        self.post_cfg = post_cfg
         self.pixel_mean = tuple(pixel_mean)
         self.pixel_std = tuple(pixel_std)
         self.to_bgr255 = to_bgr255
         self._anchors = {}  # (feature shapes, device) -> anchors per level
         self.impl: Optional[str] = None  # None: by the parameters' device
+
+    def images(self, batch: ImageBatch) -> torch.Tensor:
+        return batch.normalized(self.pixel_mean, self.pixel_std,
+                                self.to_bgr255)
 
     def anchors(self, feats) -> list[torch.Tensor]:
         shapes = tuple((f.shape[2], f.shape[3]) for f in feats)
@@ -106,6 +91,37 @@ class GeneralizedRCNN(nn.Module):
         dev = next(self.parameters()).device
         return "cuda" if dev.type == "cuda" else "plain"
 
+
+class GeneralizedRCNN(Detector):
+    def __init__(self, backbone: nn.Module, rpn_head: nn.Module,
+                 feature_extractor: Optional[nn.Module],
+                 predictor: Optional[nn.Module], *, rpn_only: bool,
+                 anchor_generator: AnchorGenerator, rpn_test: dict,
+                 post_cfg: dict, da_heads: Optional[nn.Module] = None,
+                 rpn_train: Optional[dict] = None,
+                 rpn_loss_cfg: Optional[dict] = None,
+                 sample_cfg: Optional[dict] = None,
+                 share_positive_pool: bool = False,
+                 mask_head: Optional[MaskHead] = None,
+                 pixel_mean=(102.9801, 115.9465, 122.7717),
+                 pixel_std=(1.0, 1.0, 1.0), to_bgr255: bool = True):
+        super().__init__(anchor_generator, pixel_mean, pixel_std, to_bgr255)
+        self.backbone = backbone
+        self.rpn = nn.ModuleDict({"head": rpn_head})
+        box = {} if rpn_only else {"feature_extractor": feature_extractor,
+                                   "predictor": predictor}
+        self.roi_heads = nn.ModuleDict({"box": nn.ModuleDict(box)})
+        if mask_head is not None:
+            self.roi_heads["mask"] = mask_head
+        self.da_heads = da_heads
+        self.rpn_only = rpn_only
+        self.rpn_test = rpn_test
+        self.rpn_train = rpn_train
+        self.rpn_loss_cfg = rpn_loss_cfg
+        self.sample_cfg = sample_cfg
+        self.share_positive_pool = share_positive_pool
+        self.post_cfg = post_cfg
+
     @property
     def mask_head(self) -> Optional[MaskHead]:
         return self.roi_heads["mask"] if "mask" in self.roi_heads else None
@@ -121,9 +137,7 @@ class GeneralizedRCNN(nn.Module):
         if with_masks and self.mask_head is None:
             raise ValueError("with_masks needs a mask head (MODEL.MASK_ON)")
         impl = impl or self.default_impl()
-        images = batch.normalized(self.pixel_mean, self.pixel_std,
-                                  self.to_bgr255)
-        feats = self.backbone(images, impl=impl)
+        feats = self.backbone(self.images(batch), impl=impl)
         logits, deltas = self.rpn["head"](feats)
         sizes = batch.sizes.float()
         props = select_proposals(self.anchors(feats), logits, deltas, sizes,
@@ -162,8 +176,7 @@ class GeneralizedRCNN(nn.Module):
         """Backbone, RPN head and proposal selection of one domain's batch.
         Selection runs on detached logits and deltas; a batch that takes no
         RPN loss runs its RPN head without autograd."""
-        feats = self.backbone(batch.normalized(
-            self.pixel_mean, self.pixel_std, self.to_bgr255), impl=impl)
+        feats = self.backbone(self.images(batch), impl=impl)
         with torch.set_grad_enabled(with_rpn_loss
                                     and torch.is_grad_enabled()):
             logits, deltas = self.rpn["head"](feats)
@@ -246,8 +259,7 @@ class GeneralizedRCNN(nn.Module):
             feats_t, props_t, targets_t, zeros, generator, impl)
         img_fea_set = da_ins_set = None
         if batch_n is not None:
-            feats_n = self.backbone(batch_n.normalized(
-                self.pixel_mean, self.pixel_std, self.to_bgr255), impl=impl)
+            feats_n = self.backbone(self.images(batch_n), impl=impl)
             img_fea_set = (feats_s[0], feats_t[0], feats_n[0])
             if aligned and self.da_heads.triplet_ins_weight > 0:
                 # the positive batch's proposals pooled from each domain's
@@ -281,12 +293,11 @@ def _check_supported(cfg) -> None:
         raise NotImplementedError(
             f"TPU.COMPUTE_DTYPE={cfg.TPU.COMPUTE_DTYPE!r}: the PyTorch port "
             "computes in bfloat16 or float32, as the JAX package does")
-    for key in ("RETINANET_ON", "KEYPOINT_ON"):
-        if m[key]:
-            raise NotImplementedError(
-                f"MODEL.{key}: that head is a later slice of the port")
-    if m.RPN.RPN_HEAD != "SingleConvRPNHead":
-        raise NotImplementedError(f"RPN_HEAD {m.RPN.RPN_HEAD}: later slice")
+    if m.KEYPOINT_ON:
+        raise NotImplementedError(
+            "MODEL.KEYPOINT_ON: that head is a later slice of the port")
+    if m.RPN.RPN_HEAD not in ("SingleConvRPNHead", "FBNet.rpn_head"):
+        raise KeyError(f"unknown RPN_HEAD: {m.RPN.RPN_HEAD}")
 
 
 def init_parameters(model: GeneralizedRCNN,
@@ -316,7 +327,7 @@ def init_parameters(model: GeneralizedRCNN,
                 m.conv_offset.weight.zero_()
                 m.conv_offset.bias.zero_()
         uniform = []
-        if model.backbone.fpn is not None:
+        if getattr(model.backbone, "fpn", None) is not None:
             uniform += [m for m in model.backbone.fpn.children()
                         if isinstance(m, nn.Conv2d)]
         ext = None if model.rpn_only \
@@ -331,8 +342,12 @@ def init_parameters(model: GeneralizedRCNN,
             if layer.bias is not None:
                 layer.bias.zero_()
         head = model.rpn["head"]
-        layers = [(head.conv, 0.01), (head.cls_logits, 0.01),
-                  (head.bbox_pred, 0.01)]
+        if isinstance(head, FBNetRPNHead):
+            layers = [(c, c.weight[0].numel() ** -0.5)
+                      for c in (head.cls_logits, head.bbox_pred)]
+        else:
+            layers = [(head.conv, 0.01), (head.cls_logits, 0.01),
+                      (head.bbox_pred, 0.01)]
         if isinstance(ext, FPNXconv1fcFeatureExtractor):
             layers += [(getattr(ext, f"xconvs{i}"), 0.01)
                        for i in range(ext.num_stacked_convs)]
@@ -361,10 +376,21 @@ def build_detection_model(cfg, seed: int = 0) -> GeneralizedRCNN:
     """The model for ``cfg`` (with DA heads when
     ``MODEL.DOMAIN_ADAPTATION_ON``), on the CPU, with random weights drawn
     from ``torch.Generator().manual_seed(seed)``. Move it with ``.to(device)``;
-    load trained or bridged weights with ``utils.weights``."""
+    load trained or bridged weights with ``utils.weights``. With
+    ``MODEL.RETINANET_ON``, the RetinaNet (no DA heads: with
+    ``DOMAIN_ADAPTATION_ON`` too it raises ``ValueError``, as the JAX
+    package does)."""
     from .backbone import build_backbone
 
     _check_supported(cfg)
+    if cfg.MODEL.RETINANET_ON:
+        if cfg.MODEL.DOMAIN_ADAPTATION_ON:
+            raise ValueError(
+                "MODEL.RETINANET_ON and MODEL.DOMAIN_ADAPTATION_ON are "
+                "mutually exclusive: the RetinaNet meta-architecture has no "
+                "domain-adaptation heads (same as the reference)")
+        from .retinanet import build_retinanet
+        return build_retinanet(cfg, seed)
     dtype = compute_dtype(cfg)
     backbone, spec = build_backbone(cfg)
     da_heads = None
@@ -382,9 +408,13 @@ def build_detection_model(cfg, seed: int = 0) -> GeneralizedRCNN:
     gen = make_anchor_generator(cfg)
     rpn = cfg.MODEL.RPN
     roi = cfg.MODEL.ROI_HEADS
+    rpn_head = (make_fbnet_rpn_head(cfg, spec.out_channels,
+                                    gen.num_anchors_per_location, dtype)
+                if rpn.RPN_HEAD == "FBNet.rpn_head"
+                else RPNHead(spec.out_channels, gen.num_anchors_per_location,
+                             dtype))
     model = GeneralizedRCNN(
-        backbone,
-        RPNHead(spec.out_channels, gen.num_anchors_per_location, dtype),
+        backbone, rpn_head,
         extractor, predictor,
         rpn_only=cfg.MODEL.RPN_ONLY,
         anchor_generator=gen,

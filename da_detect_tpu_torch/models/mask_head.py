@@ -4,11 +4,16 @@ modeling/roi_heads/mask_head/).
 * feature extractor: the box extractor's res5 output, shared (C4,
   ``SHARE_BOX_FEATURE_EXTRACTOR``), or its own pooler and stacked 3x3 convs
   (``MaskRCNNFPNFeatureExtractor``: 14x14 from the FPN levels, four convs of
-  256, GroupNorm under ``USE_GN``). Its pooler is ``models/poolers.py``'s,
-  so on the card it runs the ROIAlign forward and backward kernels.
+  256, GroupNorm under ``USE_GN``), or FBNet's mask stage
+  (``FBNet.roi_head_mask``, ``backbone/fbnet.py``: P 6 from the stride-16
+  map, its -2 strides upsampling to ``RESOLUTION``). Its pooler is
+  ``models/poolers.py``'s, so on the card it runs the ROIAlign forward and
+  backward kernels.
 * predictor: a 2x2 stride-2 transposed conv and per-class 1x1 logits
   (``MaskRCNNC4Predictor``), or the 1x1 logits alone
-  (``MaskRCNNConv1x1Predictor``).
+  (``MaskRCNNConv1x1Predictor``, which, as the JAX package's, rounds its
+  input to ``dtype`` and convolves in float32: its Flax conv has no
+  ``dtype`` and promotes to its float32 kernel).
 * training targets: the GT masks arrive rasterized in their own GT box's
   frame ([G, M, M], ``Targets.masks``) and are resampled into each sampled
   ROI's frame by a bilinear affine map (``project_gt_masks``): fixed shapes,
@@ -68,13 +73,17 @@ class MaskRCNNConv1x1Predictor(nn.Module):
     def __init__(self, in_channels: int, num_classes: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.mask_fcn_logits = Conv2d(in_channels, num_classes, 1,
-                                      compute_dtype=dtype)
+        self.dtype = dtype
+        self.mask_fcn_logits = nn.Conv2d(in_channels, num_classes, 1)
 
     def forward(self, x):
+        # the 1x1 conv as a float32 product over the channels of the
+        # channels-last rows (NHWC views), on the input rounded to ``dtype``
         b, r = x.shape[:2]
-        x = self.mask_fcn_logits(_rows(x))
-        return x.reshape((b, r) + x.shape[1:])
+        conv = self.mask_fcn_logits
+        y = F.linear(_rows(x).to(self.dtype).float().permute(0, 2, 3, 1),
+                     conv.weight[:, :, 0, 0], conv.bias)
+        return y.permute(0, 3, 1, 2).reshape((b, r, -1) + y.shape[1:3])
 
 
 class MaskRCNNFPNFeatureExtractor(nn.Module):
@@ -209,9 +218,9 @@ def make_mask_head(cfg, in_channels: int, box_channels: int,
     if h.SHARE_BOX_FEATURE_EXTRACTOR:
         extractor, ext_ch = None, box_channels
     elif h.FEATURE_EXTRACTOR == "FBNet.roi_head_mask":
-        raise NotImplementedError(
-            "ROI_MASK_HEAD.FEATURE_EXTRACTOR FBNet.roi_head_mask: the FBNet "
-            "bodies and heads are a later slice of the port")
+        from .backbone.fbnet import make_fbnet_mask_extractor
+        extractor, ext_ch = make_fbnet_mask_extractor(cfg, in_channels,
+                                                      dtype)
     elif h.FEATURE_EXTRACTOR in ("MaskRCNNFPNFeatureExtractor",
                                  "ResNet50Conv5ROIFeatureExtractor"):
         # an unshared C4 name builds the conv stack on its own pooler, as
@@ -235,8 +244,9 @@ def make_mask_head(cfg, in_channels: int, box_channels: int,
 
 
 def mask_layers(head: MaskHead) -> list[nn.Module]:
-    """The head's convolutions (``mask_fcn*``, ``conv5_mask``,
-    ``mask_fcn_logits``): the ones ``init_parameters`` draws kaiming
-    fan-out normal."""
-    return [m for m in head.modules()
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))]
+    """The head's own convolutions (``mask_fcn*``, ``conv5_mask``,
+    ``mask_fcn_logits``; not an FBNet extractor's blocks): the ones
+    ``init_parameters`` draws kaiming fan-out normal."""
+    return [m for n, m in head.named_modules()
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))
+            and n.rpartition(".")[2].startswith(("mask_fcn", "conv5_mask"))]

@@ -3,8 +3,9 @@
 The reductions are the JAX package's, not PyTorch's: a weighted mean divides
 by ``max(sum(weights), 1e-10)``, so
 ``F.binary_cross_entropy_with_logits(weight=...)`` (which divides by the
-element count) is a different function. ``sigmoid_focal_loss`` comes with
-RetinaNet, a later slice.
+element count) is a different function. ``sigmoid_focal_loss`` is
+RetinaNet's focal loss; the JAX package computes it in plain ``jnp`` too
+(no Pallas kernel).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def smooth_l1_loss(input: torch.Tensor, target: torch.Tensor,
@@ -46,6 +48,23 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
     if reduction == "mean":
         return loss.mean()
     return loss
+
+
+def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       gamma: float = 2.0,
+                       alpha: float = 0.25) -> torch.Tensor:
+    """RetinaNet's focal loss summed over the classes: ``logits`` [..., N,
+    C] for classes 1..C (no background column), ``targets`` [..., N] with
+    0 background, c in 1..C a class and -1 ignored (no term) -> [..., N]."""
+    num_classes = logits.shape[-1]
+    cls_ids = torch.arange(1, num_classes + 1, device=logits.device)
+    t = targets[..., None]
+    p = torch.sigmoid(logits)
+    pos = (t == cls_ids).to(logits.dtype)
+    neg = ((t != cls_ids) & (t >= 0)).to(logits.dtype)
+    term_pos = -pos * alpha * (1.0 - p) ** gamma * F.logsigmoid(logits)
+    term_neg = -neg * (1.0 - alpha) * p ** gamma * F.logsigmoid(-logits)
+    return (term_pos + term_neg).sum(dim=-1)
 
 
 def triplet_margin_loss(anchor: torch.Tensor, positive: torch.Tensor,

@@ -19,8 +19,10 @@ from ..utils.metric_logger import MetricLogger, TensorboardLogger
 
 
 def build_model(cfg, device, seed: int):
-    """The detector of ``cfg`` on ``device``, random weights from ``seed``
-    (a checkpoint or ``MODEL.WEIGHT`` replaces them)."""
+    """The detector of ``cfg`` on ``device`` (a ``GeneralizedRCNN``, or a
+    ``RetinaNet`` under ``MODEL.RETINANET_ON``, which trains source-only
+    and answers with the same ``Detections``), random weights from
+    ``seed`` (a checkpoint or ``MODEL.WEIGHT`` replaces them)."""
     return prepare_model(build_detection_model(cfg, seed=seed), device)
 
 

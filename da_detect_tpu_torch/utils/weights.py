@@ -1,8 +1,9 @@
 """Bridge the JAX package's variables into the port's ``state_dict``.
 
 ``load_jax_variables(model, variables)`` takes ``{"params": ..., "frozen":
-...}`` as nested dicts of arrays (numpy, or anything ``np.asarray`` reads) and
-loads them into a ``GeneralizedRCNN`` of this package. Names map onto
+..., "batch_stats": ...}`` (each collection optional) as nested dicts of
+arrays (numpy, or anything ``np.asarray`` reads) and loads them into a
+``GeneralizedRCNN`` or a ``RetinaNet`` of this package. Names map onto
 maskrcnn-benchmark's state_dict names, the correspondence the JAX package's
 checkpoint converter uses in the other direction:
 
@@ -24,6 +25,16 @@ checkpoint converter uses in the other direction:
     params/feature_extractor/fc6/kernel  -> roi_heads.box.feature_extractor.fc6.weight
         (its input rows permuted from JAX's (H, W, C) flatten of the pooled
         map to maskrcnn-benchmark's (C, H, W), then [in, out] -> [out, in])
+    params/backbone/stages/block3/dw/kernel -> backbone.stages.3.dw.weight
+        (FBNet; a depthwise HWIO [k, k, 1, C] -> OIHW [C, 1, k, k])
+    params/backbone/first_bn/scale          -> backbone.first_bn.weight
+    batch_stats/backbone/first_bn/mean      -> backbone.first_bn.running_mean
+    batch_stats/backbone/first_bn/var       -> backbone.first_bn.running_var
+    params/rpn_head_module/head/block0/pw/kernel
+        -> rpn.head.head.0.pw.weight        (the FBNet RPN head)
+    params/head/cls_tower0/kernel        -> rpn.head.cls_tower0.weight
+                                            (RetinaNet's head)
+    params/backbone/fpn/fpn_p6/kernel    -> backbone.fpn.fpn_p6.weight
     params/da_heads/imghead/conv1_da/kernel -> da_heads.imghead.conv1_da.weight
     params/da_heads/inshead/fc1_da/kernel   -> da_heads.inshead.fc1_da.weight
     params/mask_head/extractor/mask_fcn1/kernel
@@ -56,6 +67,8 @@ import torch
 _PREFIXES = (
     ("backbone/", "backbone."),
     ("rpn_head/", "rpn.head."),
+    ("rpn_head_module/", "rpn.head."),
+    ("head/", "rpn.head."),
     ("feature_extractor/", "roi_heads.box.feature_extractor."),
     ("predictor/", "roi_heads.box.predictor."),
     ("da_heads/", "da_heads."),
@@ -109,26 +122,38 @@ def _to_torch_layout(path: str, value: np.ndarray,
     return value
 
 
+# the BatchNorm statistics' names in ``batch_stats``
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
 def jax_state_dict(variables: dict,
                    fc6_chw=None) -> dict[str, torch.Tensor]:
     """The port's state_dict entries for the JAX ``variables``.
     ``fc6_chw``: the (C, P, P) pooled map an FPN MLP head's fc6 reads."""
-    unknown = set(variables) - {"params", "frozen"}
+    unknown = set(variables) - {"params", "frozen", "batch_stats"}
     if unknown:
         raise KeyError(f"unknown variable collections: {sorted(unknown)}")
     state = {}
-    for collection in ("params", "frozen"):
+    for collection in ("params", "frozen", "batch_stats"):
         for path, value in _flatten(variables.get(collection, {})):
             value = _to_torch_layout(path, np.array(value, np.float32),
                                      fc6_chw)
-            state[torch_name(path)] = torch.from_numpy(
-                np.ascontiguousarray(value))
+            name = torch_name(path)
+            if collection == "batch_stats":
+                head, _, leaf = name.rpartition(".")
+                if leaf not in _STATS:
+                    raise KeyError(f"JAX variable batch_stats/{path!r} has "
+                                   "no counterpart in the port")
+                name = f"{head}.{_STATS[leaf]}"
+            state[name] = torch.from_numpy(np.ascontiguousarray(value))
     return state
 
 
 def fc6_chw(model: torch.nn.Module):
     """The (C, P, P) pooled map the model's FPN MLP head flattens into fc6,
     or None for a model without one."""
+    if not hasattr(model, "roi_heads"):  # RetinaNet
+        return None
     box = model.roi_heads["box"]
     ext = box["feature_extractor"] if "feature_extractor" in box else None
     if ext is None or not hasattr(ext, "fc6"):

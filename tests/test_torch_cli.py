@@ -148,6 +148,33 @@ def test_train_net_mask_then_test_net_segm(tiny, tmp_path):
         assert (run_dir / f"{style}_results.json").exists()
 
 
+@pytest.mark.parametrize("yaml,narrow", [
+    ("e2e_mask_rcnn_fbnet_xirb16d_dsmask.yaml",
+     ["MODEL.FBNET.SCALE_FACTOR", "0.25"]),
+    ("retinanet/retinanet_R-50-FPN_1x.yaml",
+     ["MODEL.RETINANET.NUM_CLASSES", "3", "MODEL.BACKBONE.OUT_CHANNELS",
+      "16", "MODEL.RETINANET.PRE_NMS_TOP_N", "100"])],
+    ids=["fbnet_mask", "retinanet"])
+def test_train_net_then_test_net_fbnet_retinanet(tiny, tmp_path, yaml,
+                                                 narrow):
+    """The FBNet Mask R-CNN and RetinaNet YAMLs (narrowed; random weights,
+    no ImageNet file): ``train_net`` source-only for 2 steps, then
+    ``test_net`` reports bbox AP (and segm for the mask model)."""
+    out = tmp_path / "out_yaml"
+    opts = (["--config-file", os.path.join(REPO, "configs", yaml)] + CPU
+            + _opts(out) + ["MODEL.WEIGHT", "", "TPU.APPROX_TOPK", "False"]
+            + narrow)
+    state, meters = train_net.main(["--skip-test"] + opts)
+    assert state.step == 2
+    assert np.isfinite(meters.meters["loss_total"].global_avg)
+    retina = "retinanet" in yaml
+    assert ("loss_retina_cls" in meters.meters) == retina
+    results = test_net.main(["--ckpt", str(out / "run")] + opts)
+    res = results["tiny_foggy_cocostyle"]
+    assert set(res) == ({"bbox"} if retina else {"bbox", "segm"})
+    assert 0.0 <= res["bbox"]["AP"] <= 1.0
+
+
 def test_resume_continues_at_the_saved_step(tiny, tmp_path):
     out = tmp_path / "out_resume"
     opts = CPU + _opts(out) + ["MODEL.DOMAIN_ADAPTATION_ON", "True"]

@@ -54,6 +54,13 @@ DDP: the train step at world size 1 through NCCL equals the unwrapped step
 bit for bit (cuDNN deterministic), and ``entry.dryrun_multichip(1)`` passes
 its own checks.
 
+FBNet and RetinaNet: the ROIAlign kernels at the FBNet poolers' shapes (P
+6, adaptive sampling, 16 x 512 ROIs, 128 and 88 channels), a narrowed FBNet
+Mask R-CNN step through the kernels against its plain run as the
+flagship's; NMS on RetinaNet's class-offset boxes exactly, and a narrowed
+RetinaNet request through the kernel equal to its plain run, its train
+step launching no kernel.
+
 The data path: the packed transport (one pinned buffer a step, copied on a
 side stream) gives the CPU loader's batches bit for bit to a consumer that
 reads each batch late; the TTA merge's NMS launch keeps the plain version's
@@ -162,7 +169,11 @@ def _rois(seed, b, r, h, w, max_side):
 
 @pytest.mark.parametrize("b,r,h,w,c,p,sr,cap", [
     (2, 11, 10, 16, 128, 7, 2, 8), (1, 37, 38, 76, 64, 14, 0, 8),
-    (1, 9, 38, 76, 8, 14, 0, 4), (2, 5, 7, 9, 4, 7, 0, 8)])
+    (1, 9, 38, 76, 8, 14, 0, 4), (2, 5, 7, 9, 4, 7, 0, 8),
+    # the FBNet poolers: P 6, adaptive sampling, 16 images of 512 ROIs on
+    # the 320x640 map at 128 channels and the 600x1000 one at 88 (the last
+    # 32-channel slice 24 wide)
+    (16, 512, 20, 40, 128, 6, 0, 8), (16, 512, 38, 63, 88, 6, 0, 8)])
 def test_roi_align_kernel_matches_plain(dev, b, r, h, w, c, p, sr, cap):
     feats = torch.randn(b, h, w, c, generator=torch.Generator().manual_seed(r)
                         ).to(dev).permute(0, 3, 1, 2)
@@ -345,6 +356,9 @@ BWD_CASES = {
                                            [10.0, 300.0, 90.0, 5000.0]]),
     # more ROIs than a block tests against its tile at a time (BWD_CHUNK)
     "chunks": (1, 64, 38, 76, 7, 2, 1 / 16, (1, 1100)),
+    # the FBNet poolers' train step: P 6, adaptive sampling, 16 x 512 ROIs
+    "fbnet_c128": (16, 128, 20, 40, 6, 0, 1 / 16, (16, 512)),
+    "fbnet_c88": (16, 88, 38, 63, 6, 0, 1 / 16, (16, 512)),
 }
 
 
@@ -447,6 +461,98 @@ def test_train_step_kernels_match_plain(dev):
     for n, g in gp.items():
         torch.testing.assert_close(gk[n], g, rtol=0,
                                    atol=1e-3 * float(g.abs().max()) + floor)
+
+
+@pytest.mark.parametrize("max_keep", [None, 100])
+def test_nms_kernel_class_offset_boxes(dev, max_keep):
+    """RetinaNet's site: 5000 candidates of 80 classes offset by class x
+    (largest coordinate + 1), out near 1.1e5 px, at IoU 0.4, whole and
+    stopped at 100 kept: the plain version's keep mask exactly."""
+    boxes, valid = _boxes(5, 1, 5000)
+    cls = torch.from_numpy(np.random.RandomState(6).randint(
+        1, 81, (1, 5000)).astype(np.float32))
+    boxes = boxes + cls[..., None] * (boxes.max() + 1.0)
+    boxes, valid = boxes.to(dev), valid.to(dev)
+    got = nms_cuda.nms_mask_sorted(boxes, valid, 0.4, max_keep)
+    want = nms.nms_mask_sorted(boxes, valid, 0.4, max_keep)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert int(want.sum()) == (max_keep or int(want.sum())) >= 100
+
+
+def _narrow_fbnet_cfg(yaml):
+    cfg = entry.fbnet_cfg(yaml, dtype="float32")
+    cfg.MODEL.FBNET.SCALE_FACTOR = 0.5
+    cfg.TPU.IMAGE_SHAPE = (128, 192)
+    cfg.TPU.MAX_GT_BOXES = 8
+    cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES = 9
+    return cfg
+
+
+def test_fbnet_step_kernels_match_plain(dev):
+    """One source-only step of the narrowed FBNet Mask R-CNN (4 images,
+    512 ROIs each) through the kernels against the same step through the
+    plain versions: losses rtol 1e-4, gradients within 1e-3 of each leaf's
+    largest |g| (plus 1e-6 of the model's largest); the kernels launched
+    once each a pooler (NMS once: the RPN has one level)."""
+    cfg = _narrow_fbnet_cfg(entry.FBNET_MASK_YAML)
+    cfg.SOLVER.IMS_PER_BATCH = 32       # 4 images a card
+    step, (state, args) = entry.source_train_entry(device=str(dev), cfg=cfg)
+    model = state.model
+    results = []
+    for impl in ("cuda", "plain"):
+        model.zero_grad(set_to_none=True)
+        before = dict(kernels.LAUNCHES)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        losses, _ = model.train_forward(*args, state.da_state,
+                                        deterministic=True, generator=gen,
+                                        impl=impl)
+        sum(losses.values()).backward()
+        torch.cuda.synchronize()
+        ran = {k: kernels.LAUNCHES[k] - before.get(k, 0)
+               for k in ("nms", "roi_align_fwd", "roi_align_bwd")}
+        assert ran == ({"nms": 1, "roi_align_fwd": 2, "roi_align_bwd": 2}
+                       if impl == "cuda" else dict.fromkeys(ran, 0))
+        results.append(({k: v.item() for k, v in losses.items()},
+                        {n: p.grad.clone() for n, p in model.named_parameters()
+                         if p.requires_grad}))
+    (lk, gk), (lp, gp) = results
+    assert set(lk) == set(lp) and lp["loss_mask"] > 0
+    for k in lp:
+        assert lk[k] == pytest.approx(lp[k], rel=1e-4), (k, lk, lp)
+    floor = 1e-6 * max(float(g.abs().max()) for g in gp.values())
+    for n, g in gp.items():
+        torch.testing.assert_close(gk[n], g, rtol=0,
+                                   atol=1e-3 * float(g.abs().max()) + floor)
+
+
+def test_retinanet_kernel_route_matches_plain(dev):
+    """The narrowed RetinaNet on the card: a request through the NMS kernel
+    (one launch) equals the plain run exactly, the class logits spread so
+    that candidates pass the threshold; a train step launches no kernel."""
+    cfg = entry.retinanet_cfg(dtype="float32")
+    cfg.MODEL.RESNETS.STEM_OUT_CHANNELS = 16
+    cfg.MODEL.RESNETS.WIDTH_PER_GROUP = 8
+    cfg.MODEL.RESNETS.RES2_OUT_CHANNELS = 32
+    cfg.MODEL.BACKBONE.OUT_CHANNELS = 32
+    cfg.TPU.IMAGE_SHAPE = (256, 384)
+    fn, (model, batch) = entry.entry(device=str(dev), cfg=cfg)
+    with torch.no_grad():
+        model.rpn["head"].cls_logits.bias.zero_()
+        model.rpn["head"].cls_logits.weight.mul_(30.0)
+    before = kernels.LAUNCHES["nms"]
+    got = fn(model, batch)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["nms"] == before + 1
+    want = model(batch, impl="plain")
+    assert int(got.valid.sum()) == cfg.TEST.DETECTIONS_PER_IMG
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    step, (state, args) = entry.source_train_entry(device=str(dev), cfg=cfg)
+    before = dict(kernels.LAUNCHES)
+    state, metrics = step(state, *args)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == before
+    assert all(np.isfinite(float(v)) for v in metrics.values())
 
 
 GATHER_CASES = {

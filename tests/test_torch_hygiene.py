@@ -91,7 +91,11 @@ def test_weight_loader_raises_on_unknown_key():
             "layer9": {"block0": {"conv1": {
                 "kernel": np.zeros((1, 1, 4, 4), np.float32)}}}}}}})
     with pytest.raises(KeyError, match="collections"):
-        load_jax_variables(model, {"batch_stats": {}})
+        load_jax_variables(model, {"cache": {}})
+    # BatchNorm statistics (FBNet) are taken; this model has none to set
+    with pytest.raises(KeyError, match="no port counterpart"):
+        load_jax_variables(model, {"batch_stats": {"backbone": {"body": {
+            "stem": {"bn1": {"mean": np.zeros(4, np.float32)}}}}}})
     # the DA heads are mapped now: a name under them that the port lacks
     # raises like any other
     with pytest.raises(KeyError, match="no port counterpart"):
@@ -140,8 +144,9 @@ def test_weight_loader_maps_da_heads():
 def test_unsupported_configs_raise():
     """The default config (COMPUTE_DTYPE bfloat16, as in the JAX package)
     builds a bfloat16 model with float32 parameters; another compute dtype
-    raises, as do the heads and bodies of later slices. GroupNorm bodies
-    and the mask head build."""
+    raises, as does the keypoint head, a later slice. GroupNorm bodies,
+    the mask head and RetinaNet build; RetinaNet with the DA heads raises
+    ValueError, as in the JAX package."""
     from da_detect_tpu_torch.layers import Conv2d, Linear
     from da_detect_tpu_torch.models import build_detection_model
 
@@ -155,13 +160,20 @@ def test_unsupported_configs_raise():
     cfg.TPU.COMPUTE_DTYPE = "float16"
     with pytest.raises(NotImplementedError, match="bfloat16 or float32"):
         build_detection_model(cfg)
-    for key, value in (("MODEL.BACKBONE.CONV_BODY", "R-50-FPN-RETINANET"),
-                       ("MODEL.RETINANET_ON", True),
-                       ("MODEL.KEYPOINT_ON", True)):
+    for key, value in (("MODEL.KEYPOINT_ON", True),):
         cfg = entry.flagship_cfg(dtype="float32")
         cfg.merge_from_list([key, value])
         with pytest.raises(NotImplementedError):
             build_detection_model(cfg)
+    from da_detect_tpu_torch.models.retinanet import RetinaNet
+
+    cfg = entry.flagship_cfg(dtype="float32")
+    cfg.merge_from_list(["MODEL.BACKBONE.CONV_BODY", "R-50-FPN-RETINANET",
+                         "MODEL.RETINANET_ON", True])
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        build_detection_model(cfg)
+    cfg.MODEL.DOMAIN_ADAPTATION_ON = False
+    assert isinstance(build_detection_model(cfg), RetinaNet)
     from da_detect_tpu_torch.layers import GroupNorm
 
     cfg = entry.flagship_cfg(dtype="float32")

@@ -201,7 +201,10 @@ def test_mask_module_matches_jax(kind, dtype):
         np.testing.assert_allclose(_to_jax_layout(got), want, rtol=1e-5,
                                    atol=1e-5 * float(np.abs(want).max()))
         return
-    assert got.dtype == (torch.float32 if kind == "extractor_gn"
+    # GroupNorm's output, and the 1x1 predictor's (its Flax conv has no
+    # dtype and promotes to its float32 kernel), are float32
+    assert got.dtype == (torch.float32
+                         if kind in ("extractor_gn", "predictor_1x1")
                          else torch.bfloat16)
     assert_ulps(_to_jax_layout(got), want, 2 * BF16_STAGE_ULPS, kind)
     inter = inter["intermediates"]
@@ -426,8 +429,9 @@ MASK_YAMLS = sorted(f for f in glob.glob("configs/**/*.yaml", recursive=True)
 @pytest.mark.parametrize("yaml", MASK_YAMLS)
 def test_mask_yaml_builds(yaml):
     """Every ``MASK_ON`` YAML of the repository builds, narrowed, with the
-    mask head its keys name (shared res5 features, or the FPN conv stack
-    with GroupNorm under USE_GN); the FBNet ones raise, naming FBNet."""
+    mask head its keys name (shared res5 features, the FPN conv stack with
+    GroupNorm under USE_GN, or FBNet's mask stage with the 1x1
+    predictor)."""
     cfg = get_cfg()
     cfg.merge_from_file(yaml)
     r = cfg.MODEL.RESNETS
@@ -439,8 +443,14 @@ def test_mask_yaml_builds(yaml):
     cfg.MODEL.ROI_MASK_HEAD.CONV_LAYERS = (32,) * 4
     h = cfg.MODEL.ROI_MASK_HEAD
     if cfg.MODEL.BACKBONE.CONV_BODY == "FBNet":
-        with pytest.raises(NotImplementedError, match="FBNet"):
-            build_detection_model(cfg)
+        from da_detect_tpu_torch.models.backbone.fbnet import FBNetRoIHead
+
+        assert h.FEATURE_EXTRACTOR == "FBNet.roi_head_mask"
+        head = build_detection_model(cfg).mask_head
+        assert isinstance(head.feature_extractor, FBNetRoIHead)
+        assert isinstance(head.predictor, pmh.MaskRCNNConv1x1Predictor)
+        assert head.feature_extractor.pooler["output_size"] == \
+            h.POOLER_RESOLUTION
         return
     head = build_detection_model(cfg).mask_head
     assert isinstance(head.predictor, pmh.MaskRCNNC4Predictor)

@@ -359,6 +359,27 @@ class JaxProposals:
         return lacks, total
 
 
+def assert_twins(dets, jdets, box_atol=1e-3, score_atol=1e-5) -> None:
+    """Each image's valid JAX detections, each with its own twin among the
+    port's (same label, box within ``box_atol`` px, score within
+    ``score_atol``): scores that saturate at 1.0 tie, and a float32
+    rounding apart may swap two of them in the order."""
+    for i in range(dets.valid.shape[0]):
+        mine = dets.valid[i].numpy()
+        boxes, labels = dets.boxes[i].numpy()[mine], dets.labels[i][mine]
+        scores = dets.scores[i].numpy()[mine]
+        free = np.ones(len(boxes), bool)
+        theirs = np.asarray(jdets.valid[i])
+        for box, label, score in zip(np.asarray(jdets.boxes[i])[theirs],
+                                     np.asarray(jdets.labels[i])[theirs],
+                                     np.asarray(jdets.scores[i])[theirs]):
+            ok = free & (labels.numpy() == label) \
+                & (np.abs(boxes - box).max(-1) <= box_atol) \
+                & (np.abs(scores - score) <= score_atol)
+            assert ok.any(), (i, box, label, score)
+            free[np.argmax(ok)] = False
+
+
 # the tiny on-disk triple of tests/data_factory.py for the port's loaders
 TINY_NAMES = {"tiny_clean_cocostyle": "clean",
               "tiny_foggy_cocostyle": "foggy",
