@@ -124,13 +124,34 @@ Phases, one JSON line each:
                source-only step on 2 images, kernel-run against plain-run
                step 1, 4 timed steps with every kernel's launches 0, a
                profile, peak memory
- 11. *_bf16    phases 4-10c (7b excepted) again with TPU.COMPUTE_DTYPE
+ 10d. keypoint  the Keypoint R-CNN R-50-FPN YAML (KEYPOINT_ON, 2 classes,
+               17 keypoints) uncut at 800x1344 through ``entry(cfg=
+               keypoint_cfg(), with_keypoints=True)``, random weights from
+               seed 0 (score layers spread): 4 requests with keypoints and
+               exact launch counts (NMS 6, ROIAlign forward 2: the box and
+               keypoint poolers), kernel run against plain run (detections;
+               the keypoint head's heatmaps on the kernel run's detections,
+               a moved keypoint only to a near tie), the path's sites timed
+               (the keypoint pooler: P 14, sampling 2, P2-P5 at 256
+               channels, 100 detections), the request's stages, a profile
+               with its convolution census, peak memory; then
+               ``keypoint_train``: the source-only step on 2 images of 512
+               ROIs with GT keypoints through ``source_train_entry``:
+               kernel-run against plain-run step 1 (loss_kp included), 4
+               timed steps with exact launches (NMS 5, ROIAlign forward 2,
+               backward 8), a profile, peak memory, one step's kernel inputs
+               checked and timed
+ 11. *_bf16    phases 4-10d (7b excepted) again with TPU.COMPUTE_DTYPE
                bfloat16, the
                JAX package's default: the same launch counts, each bf16
                kernel held to its plain version (BF16_* tolerances) on the
                phase's own inputs, kernel-run against plain-run agreement
                relative to an f32 copy of the model, and no float32
-               convolution kernel in any profile; NMS (float32 boxes in
+               convolution kernel in any profile outside the modules the
+               JAX package computes in float32 (the C4 mask predictor and
+               the keypoint predictor: a profiler range around each
+               forward, and their backward by its autograd nodes'
+               sequence numbers, ``float32_head_kernels``); NMS (float32 boxes in
                both dtypes) is not timed again, the DCN train step runs
                "four" only, BF16_DCN_TRAIN_STEPS timed steps, and step 1's
                inputs are its sites
@@ -201,7 +222,20 @@ a user catalog, PATHS_CATALOG):
                (phases 10b's and 10c's launches a step), then ``test_net``
                reporting bbox AP (and segm for FBNet; random weights:
                printed only) with their launches a request
-``--data-only`` runs phases 1, 2 and 12-20 alone, without the kernel line.
+ 21. keypoint_cli_bf16  a COCO person-keypoint tree (4 PNGs of 480x640)
+               written at run time and named through a user catalog;
+               ``train_net`` on the keypoint YAML for 2 steps of 2 images
+               (its loader carrying GT keypoints; phase 10d's launches a
+               step), then ``test_net`` reporting bbox and keypoints (OKS)
+               AP (random weights: printed only), phase 10d's launches a
+               request
+ 22. demo_bf16  ``demo.COCODemo`` on the keypoint YAML (score layers
+               spread) on a seeded 480x640 BGR image: the overlay of
+               ``run_on_opencv_image`` with a request's launches, the
+               latency of ``compute_prediction``, kernel-run against
+               plain-run detections and keypoints; ``draw_detection.main``
+               over a folder of 2 PNGs writes 2 files
+``--data-only`` runs phases 1, 2 and 12-22 alone, without the kernel line.
 ``--gate-spread GATES RUNS [CONDITION[:FIRST] ...]`` runs phases 1 and 2,
 then the learning gate of phase 12 GATES times and its triplet-DA arm RUNS
 times under each condition (default: all of SPREAD_CONDITIONS) with its
@@ -390,6 +424,30 @@ MASK_TRAIN_STEPS, MASK_PROFILE_STEPS = 4, 2
 # bfloat16 itself moves them (the plain run against an f32 copy of the
 # model) or MASK_PROB_BF16_FLOOR
 MASK_PROB_ATOL, MASK_PROB_BF16_FLOOR = 1e-4, 2.0 ** -7
+# Keypoint R-CNN R-50-FPN (its YAML uncut, 800x1344, 2 classes, 17
+# keypoints): its keypoint pooler (P 14, sampling ratio 2, P2-P5 at 256
+# channels) pools the 100 detections of a request and the 512 sampled ROIs
+# on each of 2 images (IMS_PER_BATCH 16 / 8) of a train step: the mask
+# pooler's shapes and the mask model's launches (NMS in the RPN's 5 levels
+# and the box head, ROIAlign forward in the box and keypoint heads, its
+# backward a level of each)
+PER_KP_FORWARD = {"nms": 6, "roi_align_fwd": 2}
+PER_KP_TRAIN_STEP = {"nms": 5, "roi_align_fwd": 2, "roi_align_bwd": 8}
+KP_TRAIN_IMAGES, KP_TRAIN_STEPS, KP_PROFILE_STEPS = 2, 4, 2
+KP_PROFILE_RUNS = 3
+# the keypoint head on the kernel run's own detections, kernel against
+# plain: float32 heatmap logits within KP_LOGIT_REL of their largest |logit|;
+# bfloat16 within twice what bfloat16 itself moves them (the plain run
+# against an f32 copy of the model) or one bfloat16 ulp of the largest. A
+# decoded keypoint that moves by more than KP_XY_ATOL px may move only to a
+# cell whose plain logit lies within twice that bound of the plain maximum
+# (a near tie of the argmax)
+KP_LOGIT_REL, KP_XY_ATOL = 1e-4, 1e-2
+# phase keypoint_cli_bf16: a person-keypoint tree of KP_CLI_IMAGES images
+# at KP_CLI_HW, KP_CLI_STEPS train_net steps of 2 images
+KP_CLI_IMAGES, KP_CLI_STEPS, KP_CLI_HW = 4, 2, (480, 640)
+# phase demo_bf16: the demo's image and the folder CLI's images
+DEMO_HW, DEMO_FOLDER_IMAGES = (480, 640), 2
 # the FBNet xirb16d_dsmask Mask R-CNN YAML at its own 320x640 canvas (81
 # classes): one stride-16 map of 128 channels (20x40), pooled at P 6 with
 # adaptive sampling (at most TPU.ROI_MAX_SAMPLES 8 a bin side) by its box
@@ -1449,6 +1507,15 @@ def label(name: str, dtype: str) -> str:
     return name if dtype == "float32" else f"{name}_bf16"
 
 
+def spread_scores(model) -> None:
+    """The RPN's objectness and the box head's class weights times
+    SCORE_SCALE (random-init scores otherwise sit within float32 noise of
+    each other, under the detection threshold)."""
+    with torch.no_grad():
+        model.rpn["head"].cls_logits.weight.mul_(SCORE_SCALE)
+        model.roi_heads["box"]["predictor"].cls_score.weight.mul_(SCORE_SCALE)
+
+
 def flagship_model(dev, dtype: str = "float32"):
     """The flagship YAML at the 608x1216 canvas computing in ``dtype``,
     through ``entry(cfg=...)``, score layers spread; and REQUESTS batches."""
@@ -1461,9 +1528,7 @@ def flagship_model(dev, dtype: str = "float32"):
     cfg.TPU.COMPUTE_DTYPE = dtype
     cfg.freeze()
     fn, (model, _) = entry.entry(device=str(dev), seed=0, cfg=cfg)
-    with torch.no_grad():
-        model.rpn["head"].cls_logits.weight.mul_(SCORE_SCALE)
-        model.roi_heads["box"]["predictor"].cls_score.weight.mul_(SCORE_SCALE)
+    spread_scores(model)
     batches = [entry.make_batch(cfg, 1, seed=s, device=dev)[0]
                for s in range(REQUESTS)]
     return cfg, fn, model, batches
@@ -1555,11 +1620,13 @@ def phase_slice(dev, dtype: str = "float32"):
     return model, fn, batches, captured, launches, errs
 
 
-def stage_times(model, batch, marks, spans, runs: int = 10) -> dict:
-    """Median device time of each stage of the forward, from CUDA events
-    recorded by module hooks: ``marks`` names modules (events "name.in" and
-    "name.out" around each; "start" and "end" around the forward), ``spans``
-    maps a stage to its (first event, last event)."""
+def stage_times(model, batch, marks, spans, runs: int = 10,
+                forward=None) -> dict:
+    """Median device time of each stage of the forward (``forward(model,
+    batch)``, default ``model(batch)``), from CUDA events recorded by
+    module hooks: ``marks`` names modules (events "name.in" and "name.out"
+    around each; "start" and "end" around the forward), ``spans`` maps a
+    stage to its (first event, last event)."""
     events: dict[str, torch.cuda.Event] = {}
 
     def rec(key):
@@ -1576,7 +1643,7 @@ def stage_times(model, batch, marks, spans, runs: int = 10) -> dict:
     try:
         for i in range(runs + 2):
             rec("start")()
-            model(batch)
+            model(batch) if forward is None else forward(model, batch)
             rec("end")()
             torch.cuda.synchronize()
             if i >= 2:
@@ -1788,24 +1855,38 @@ def train_step_one(state, args, impl: str, seed: int = 1):
     return {k: v.item() for k, v in losses.items()}, grads
 
 
-# the box head's ReLU layers whose inputs the mask step-1 check reads
+# the box head's ReLU layers whose inputs the f32 step-1 checks read; and
+# the keypoint head's convs (conv_fcn1..8), each followed by a ReLU
 RELU_LAYERS = ("fc6", "fc7")
 
 
 @contextlib.contextmanager
 def relu_inputs(model):
-    """While open, the box head's fc6 and fc7 outputs, the inputs of their
-    ReLUs, on each call: yields a dict parameter prefix -> list of
-    [..., units] float32 copies."""
-    ext = model.roi_heads["box"]["feature_extractor"]
-    prefix = "roi_heads.box.feature_extractor."
-    out = {prefix + n: [] for n in RELU_LAYERS}
+    """While open, the box head's fc6 and fc7 outputs and, with a keypoint
+    head, its conv_fcn outputs, the inputs of their ReLUs, on each call:
+    yields a dict parameter prefix -> list of [..., units] float32 copies
+    (a conv's output channels last)."""
+    layers = {f"roi_heads.box.feature_extractor.{n}":
+              getattr(model.roi_heads["box"]["feature_extractor"], n)
+              for n in RELU_LAYERS}
+    kp = getattr(model, "keypoint_head", None)
+    if kp is not None:
+        layers.update({
+            f"roi_heads.keypoint.feature_extractor.{n}": m
+            for n, m in kp.feature_extractor.named_children()
+            if n.startswith("conv_fcn")})
+    out = {key: [] for key in layers}
 
     def hook(key):
-        return lambda mod, inp, y: out[key].append(y.detach().float().clone())
+        def rec(mod, inp, y):
+            y = y.detach().float()
+            if isinstance(mod, torch.nn.Conv2d):
+                y = y.movedim(1, -1)
+            out[key].append(y.clone())
+        return rec
 
-    handles = [getattr(ext, n).register_forward_hook(hook(prefix + n))
-               for n in RELU_LAYERS]
+    handles = [m.register_forward_hook(hook(key))
+               for key, m in layers.items()]
     try:
         yield out
     finally:
@@ -2010,20 +2091,94 @@ def kernel_dtype(name: str) -> str:
 
 
 def conv_census(profile: dict, bf16: bool, label: str) -> dict:
-    """The convolution kernels of a profile by element type (calls a run);
-    a bfloat16 path that launched a float32 convolution kernel raises."""
+    """The convolution kernels of a profile by element type (calls a run),
+    on a bfloat16 path those of the float32 heads (``float32_head_spans``)
+    left out and counted apart; a bfloat16 path that launched a float32
+    convolution kernel anywhere else raises."""
     census = profile["conv_kernels_by_dtype"]
     if bf16 and census.get("float32"):
         raise AssertionError(f"{label}: float32 convolution kernels on a "
-                             f"bfloat16 path: {profile['conv_kernels']}")
-    return census
+                             f"bfloat16 path outside the float32 heads: "
+                             f"{profile['conv_kernels']}")
+    return dict(census, float32_heads=profile["float32_head_convs"])
+
+
+# the profiler range around the modules that the JAX package computes in
+# float32 in a bfloat16 model (their Flax convs have no dtype and promote to
+# their float32 kernels): the C4 mask predictor (conv5_mask,
+# mask_fcn_logits) and the keypoint predictor (kps_score_lowres). Their only
+# convolutions are those layers.
+F32_SPAN = "float32_head"
+
+
+@contextlib.contextmanager
+def float32_head_spans():
+    """While open, every forward of a float32 head runs inside a profiler
+    range named F32_SPAN (global module hooks)."""
+    from torch.nn.modules import module as nn_module
+
+    from da_detect_tpu_torch.models.keypoint_head import KeypointRCNNPredictor
+    from da_detect_tpu_torch.models.mask_head import MaskRCNNC4Predictor
+
+    heads = (MaskRCNNC4Predictor, KeypointRCNNPredictor)
+    open_spans = {}
+
+    def enter(mod, args):
+        if isinstance(mod, heads):
+            span = torch.profiler.record_function(F32_SPAN)
+            span.__enter__()
+            open_spans[id(mod)] = span
+
+    def leave(mod, args, out):
+        if isinstance(mod, heads):
+            open_spans.pop(id(mod)).__exit__(None, None, None)
+
+    handles = [nn_module.register_module_forward_pre_hook(enter),
+               nn_module.register_module_forward_hook(leave)]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def float32_head_kernels(prof) -> dict:
+    """Kernel name -> launches of a profile that belong to the float32
+    heads: those launched by an op inside an F32_SPAN range, and those
+    launched by the backward of such an op (an autograd node's
+    evaluate_function range carries the sequence number of the forward op
+    that made it)."""
+    events = prof.events()
+
+    def chain(e):
+        while e is not None:
+            yield e
+            e = e.cpu_parent
+
+    def in_span(e):
+        return any(a.name == F32_SPAN for a in chain(e))
+
+    seqs = {e.sequence_nr for e in events
+            if e.sequence_nr >= 0 and in_span(e)}
+    held: dict = {}
+    for e in events:
+        if not e.kernels:
+            continue
+        if in_span(e) or any(
+                a.name.startswith("autograd::engine::evaluate_function")
+                and a.sequence_nr in seqs for a in chain(e)):
+            for k in e.kernels:
+                held[k.name] = held.get(k.name, 0) + 1
+    return held
 
 
 def device_profile(run, runs: int, kernels=(), attempts: int = 3) -> dict:
     """``runs`` calls of ``run()`` (a train step, a forward, one kernel's
     wrapper) under ``torch.profiler``: device time and device launches a
-    call by kernel group, the top kernels and, for the kernels whose names
-    hold each of ``kernels``, their device time and calls a run,
+    call by kernel group, the top kernels, the convolution kernels by
+    element type (the float32 heads' apart, ``float32_head_kernels``) and,
+    for the kernels whose names hold each of ``kernels``, their device time
+    and calls a run,
     and the device's busy share of the host's wall clock (under the
     profiler's own overhead). Unlike CUDA events around a call, device
     times leave out the host's launch work. Now and then a profile records
@@ -2035,7 +2190,8 @@ def device_profile(run, runs: int, kernels=(), attempts: int = 3) -> dict:
     for _ in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA]) as prof, \
+                float32_head_spans():
             t0 = time.perf_counter()
             for _ in range(runs):
                 run()
@@ -2054,7 +2210,9 @@ def device_profile(run, runs: int, kernels=(), attempts: int = 3) -> dict:
     groups: dict[str, float] = {}
     group_calls: dict[str, float] = {}
     convs: dict[str, float] = {}
+    head_convs: dict[str, float] = {}
     conv_names: dict[str, str] = {}
+    conv_kern = []
     for e in kern:
         name = e.key.lower()
         group = next((g for g, frags in KERNEL_GROUPS
@@ -2067,8 +2225,19 @@ def device_profile(run, runs: int, kernels=(), attempts: int = 3) -> dict:
         if group == "convolution" and ("gemm" not in name or any(
                 f in name for f in ("conv", "implicit", "fprop", "dgrad",
                                     "wgrad"))):
-            dtype = kernel_dtype(name)
-            convs[dtype] = convs.get(dtype, 0.0) + e.count / runs
+            conv_kern.append((e, kernel_dtype(name)))
+    # the float32 heads' share of a bfloat16 path's float32 convolutions,
+    # attributed by the event tree (a walk of every event: not on a float32
+    # path, whose every convolution is float32)
+    held = float32_head_kernels(prof) if any(
+        d == "bfloat16" for _, d in conv_kern) and any(
+        d == "float32" for _, d in conv_kern) else {}
+    for e, dtype in conv_kern:
+        own = min(held.get(e.key, 0), e.count) if dtype == "float32" else 0
+        if own:
+            head_convs[dtype] = head_convs.get(dtype, 0.0) + own / runs
+        if e.count > own:
+            convs[dtype] = convs.get(dtype, 0.0) + (e.count - own) / runs
             conv_names[e.key[:120]] = dtype
     busy_ms = sum(groups.values())
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
@@ -2086,7 +2255,7 @@ def device_profile(run, runs: int, kernels=(), attempts: int = 3) -> dict:
                      for e in top],
         kernel_ms_per_run={name: t or None for name, t in named.items()},
         kernel_calls_per_run=calls, conv_kernels_by_dtype=convs,
-        conv_kernels=conv_names)
+        float32_head_convs=head_convs, conv_kernels=conv_names)
 
 
 def run_steps(step, state, args, n: int, expected: dict, label: str):
@@ -2355,9 +2524,7 @@ def ddp2_model(cfg, dev):
     from da_detect_tpu_torch.models import build_detection_model
 
     model = prepare_model(build_detection_model(cfg, seed=0), dev)
-    with torch.no_grad():
-        model.rpn["head"].cls_logits.weight.mul_(SCORE_SCALE)
-        model.roi_heads["box"]["predictor"].cls_score.weight.mul_(SCORE_SCALE)
+    spread_scores(model)
     return create_train_state(cfg, model, 0, "cosine")
 
 
@@ -3011,9 +3178,7 @@ def mask_model(dev, dtype: str):
     cfg.freeze()
     fn, (model, _) = entry.entry(device=str(dev), seed=0, cfg=cfg,
                                  with_masks=True)
-    with torch.no_grad():
-        model.rpn["head"].cls_logits.weight.mul_(SCORE_SCALE)
-        model.roi_heads["box"]["predictor"].cls_score.weight.mul_(SCORE_SCALE)
+    spread_scores(model)
     batches = [entry.make_batch(cfg, 1, seed=s, device=dev)[0]
                for s in range(REQUESTS)]
     return cfg, fn, model, batches
@@ -3186,6 +3351,425 @@ def phase_mask_cli(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- Keypoint
+
+def keypoint_model(dev, dtype: str):
+    """The keypoint R-CNN YAML at 800x1344 in ``dtype`` through
+    ``entry(cfg=keypoint_cfg(), with_keypoints=True)``, random weights from
+    seed 0, score layers spread; and REQUESTS batches."""
+    from da_detect_tpu_torch import entry
+
+    cfg = entry.keypoint_cfg(dtype=dtype)
+    cfg.freeze()
+    fn, (model, _) = entry.entry(device=str(dev), seed=0, cfg=cfg,
+                                 with_keypoints=True)
+    spread_scores(model)
+    batches = [entry.make_batch(cfg, 1, seed=s, device=dev)[0]
+               for s in range(REQUESTS)]
+    return cfg, fn, model, batches
+
+
+def check_keypoints(cfg, dets, kps) -> dict:
+    """A request's keypoints: [1, D, K, 3] float32, finite, each valid
+    detection's inside its box (the heatmap cells' centres); a summary."""
+    k = cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_CLASSES
+    if tuple(kps.shape) != (1, dets.boxes.shape[1], k, 3) \
+            or kps.dtype != torch.float32 \
+            or not bool(torch.isfinite(kps).all()):
+        raise AssertionError(f"keypoints {tuple(kps.shape)} {kps.dtype}")
+    v = dets.valid[0]
+    pts, box = kps[0][v], dets.boxes[0][v][:, None]
+    inside = ((pts[..., 0] >= box[..., 0] - 1e-3)
+              & (pts[..., 0] <= box[..., 2] + 1e-3)
+              & (pts[..., 1] >= box[..., 1] - 1e-3)
+              & (pts[..., 1] <= box[..., 3] + 1e-3))
+    if not bool(inside.all()):
+        raise AssertionError("a decoded keypoint lies outside its box")
+    return dict(keypoint_shape=list(kps.shape),
+                mean_keypoint_score=float(pts[..., 2].mean()))
+
+
+def keypoint_cells(kps, boxes, h: int, w: int) -> torch.Tensor:
+    """The heatmap cell (flat index into h x w) each decoded keypoint of
+    ``kps`` [B, D, K, 3] came from, inside its box of ``boxes`` [B, D, 4]
+    (``heatmaps_to_keypoints`` inverted)."""
+    x1, y1 = boxes[..., 0:1], boxes[..., 1:2]
+    sw = (boxes[..., 2:3] - x1).clamp(min=1e-3) / w
+    sh = (boxes[..., 3:4] - y1).clamp(min=1e-3) / h
+    px = torch.round((kps[..., 0] - x1) / sw - 0.5).long().clamp(0, w - 1)
+    py = torch.round((kps[..., 1] - y1) / sh - 0.5).long().clamp(0, h - 1)
+    return py * w + px
+
+
+def keypoint_agreement(model, batch, dets, kps, ref=None) -> dict:
+    """The keypoint head on the kernel run's own detections ``dets`` (the
+    request's keypoints ``kps``), through the kernels again and through the
+    plain versions. The heatmap logits of the valid detections, kernel
+    against plain, within KP_LOGIT_REL of the largest (float32) or, in
+    bfloat16 (``ref``: an f32 copy of the model), twice the plain run's
+    distance from the copy's or one bf16 ulp: the bound. A keypoint whose
+    cell differs between two runs (the rerun against the request, the plain
+    run against the rerun) may only move to a near tie: the other run's
+    heatmap at that cell within twice the bound of its maximum. The rerun
+    is not bit for bit: cuDNN's transposed convolution (the predictor's
+    float32 ``kps_score_lowres``) may sum in another order on each run; its
+    scores within four times the bound (relative) of the request's."""
+    from da_detect_tpu_torch.models.keypoint_head import heatmaps_to_keypoints
+
+    def run(m, impl):
+        feats = m.backbone(batch.normalized(m.pixel_mean, m.pixel_std,
+                                            m.to_bgr255), impl=impl)
+        return m.keypoint_head(feats, dets.boxes, impl=impl).float()
+
+    with torch.no_grad():
+        again, plain = run(model, "cuda"), run(model, "plain")
+        f32 = run(ref, "plain") if ref is not None else None
+    torch.cuda.synchronize()
+    b, d, k, h, w = again.shape
+    valid = dets.valid[..., None].expand(b, d, k)
+    top = float(plain[dets.valid].abs().max())
+    err = float((again - plain)[dets.valid].abs().max())
+    if ref is None:
+        bound = KP_LOGIT_REL * top
+    else:
+        gap = float((plain - f32)[dets.valid].abs().max())
+        bound = max(2 * gap, bf16_ulp(top))
+    flat_a = again.reshape(b, d, k, h * w)
+    flat_p = plain.reshape(b, d, k, h * w)
+    cell_a = flat_a.argmax(-1)
+    cell_req = keypoint_cells(kps, dets.boxes, h, w)
+
+    def shortfall(flat, cells, moved):
+        at = torch.gather(flat, 3, cells[..., None])[..., 0]
+        gaps = (flat.amax(-1) - at)[moved]
+        return float(gaps.max()) if gaps.numel() else 0.0
+
+    rerun_moved = (cell_req != cell_a) & valid
+    moved = (cell_a != flat_p.argmax(-1)) & valid
+    kps_a = heatmaps_to_keypoints(
+        again.reshape(b * d, k, h, w), dets.boxes.reshape(b * d, 4)
+    ).reshape(b, d, k, 3)
+    same = valid & ~rerun_moved
+    score_rel = float(((kps_a[..., 2] - kps[..., 2]).abs()
+                       / kps[..., 2].clamp(min=1e-30))[same].max()) \
+        if same.any() else 0.0
+    out = dict(detections=int(dets.valid.sum()), keypoints=int(valid.sum()),
+               max_abs_err=err, max_abs_logit=top, bound=bound,
+               moved_keypoints=int(moved.sum()),
+               max_moved_shortfall=shortfall(flat_p, cell_a, moved),
+               rerun_moved_keypoints=int(rerun_moved.sum()),
+               rerun_max_moved_shortfall=shortfall(flat_a, cell_req,
+                                                   rerun_moved),
+               rerun_max_score_rel_err=score_rel)
+    if ref is not None:
+        out["bf16_vs_f32"] = gap
+    if not err <= bound or out["max_moved_shortfall"] > 2 * bound \
+            or out["rerun_max_moved_shortfall"] > 2 * bound \
+            or score_rel > 4 * bound:
+        raise AssertionError(f"keypoint head, kernels against plain on the "
+                             f"same detections: {out}")
+    return out
+
+
+def keypoint_stages(model, batch, fn) -> dict:
+    """``stage_times`` of a keypoint request: backbone, RPN head, proposal
+    selection, the box head's pooler and MLP, its predictor, the box
+    post-processing, the keypoint head's pooler and eight convs, its
+    predictor, and the decode."""
+    box, kp = model.roi_heads["box"], model.keypoint_head
+    marks = [("backbone", model.backbone), ("rpn_head", model.rpn["head"]),
+             ("box_extractor", box["feature_extractor"]),
+             ("box_predictor", box["predictor"]),
+             ("kp_extractor", kp.feature_extractor),
+             ("kp_predictor", kp.predictor)]
+    spans = {"normalize": ("start", "backbone.in"),
+             "backbone": ("backbone.in", "backbone.out"),
+             "rpn_head": ("rpn_head.in", "rpn_head.out"),
+             "proposals_with_nms": ("rpn_head.out", "box_extractor.in"),
+             "box_pool_and_mlp": ("box_extractor.in", "box_extractor.out"),
+             "box_predictor": ("box_predictor.in", "box_predictor.out"),
+             "postprocess_with_nms": ("box_predictor.out", "kp_extractor.in"),
+             "keypoint_pool_and_convs": ("kp_extractor.in",
+                                         "kp_extractor.out"),
+             "keypoint_predictor": ("kp_predictor.in", "kp_predictor.out"),
+             "decode": ("kp_predictor.out", "end")}
+    return stage_times(model, batch, marks, spans, forward=fn)
+
+
+def phase_keypoint(dev, dtype: str = "float32"):
+    """Keypoint R-CNN (R-50-FPN, KEYPOINT_ON) at 800x1344 in ``dtype``.
+    Eval: REQUESTS batch-1 requests with keypoints and exact launch counts,
+    kernel run against plain run (detections by ``match_detections``; the
+    keypoint head on the kernel run's detections, ``keypoint_agreement``),
+    the path's kernel sites timed, the request's latency and stages, a
+    profile with its convolution census, peak memory. Train: the
+    source-only step on 2 images with GT keypoints through
+    ``source_train_entry``: kernel-run against plain-run step 1 (losses,
+    ``loss_kp`` included, and every gradient: ``compare_steps``, in
+    float32 with the box head's ReLU flips left out), KP_TRAIN_STEPS timed
+    steps with exact launch counts, a profile, peak memory, one step's
+    kernel inputs checked and timed. Returns (eval sites, eval launches,
+    train sites, train launches, largest errors)."""
+    from da_detect_tpu_torch import entry
+
+    name, bf16 = label("keypoint", dtype), dtype == "bfloat16"
+    cfg, fn, model, batches = keypoint_model(dev, dtype)
+    answers, launches, seconds = serve_requests(fn, model, batches,
+                                                PER_KP_FORWARD, name)
+    summary = [dict(check_detections(cfg, dets),
+                    **check_keypoints(cfg, dets, kps))
+               for dets, kps in answers]
+    with record_kernel_inputs() as captured:
+        dets_k, kps_k = fn(model, batches[0])
+    ref = f32_copy(model, cfg) if bf16 else None
+    agreement = match_detections(
+        dets_k, model(batches[0], impl="plain"),
+        ref(batches[0], impl="plain") if bf16 else None)
+    kp_agreement = keypoint_agreement(model, batches[0], dets_k, kps_k, ref)
+    del ref
+    errs = check_captured(captured)
+    eval_sites = time_sites(captured, label("keypoint_eval", dtype),
+                            MASK_NMS_SITES if not bf16 else ())
+    forward_ms = host_ms(lambda: fn(model, batches[0]), runs=10)
+    stages = keypoint_stages(model, batches[0], fn)
+    profile = device_profile(lambda: fn(model, batches[0]), KP_PROFILE_RUNS)
+    census = conv_census(profile, bf16, name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn(model, batches[0])
+    torch.cuda.synchronize()
+    emit(name, config=os.path.relpath(entry.KEYPOINT_YAML, REPO),
+         dtype=dtype, canvas=list(cfg.TPU.IMAGE_SHAPE), requests=REQUESTS,
+         seconds=seconds, launches=launches, detections=summary,
+         plain_agreement=agreement, keypoint_agreement=kp_agreement,
+         forward_ms=forward_ms, stages_ms=stages, profile=profile,
+         conv_kernels_by_dtype=census,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         sites=eval_sites,
+         main_path_inputs={"roi_align_fwd": fwd_inputs(captured)},
+         max_abs_err=errs)
+    del model, fn, batches, captured, answers
+
+    t_name = label("keypoint_train", dtype)
+    cfg = entry.keypoint_cfg(dtype=dtype)
+    cfg.freeze()
+    step, (state, args) = entry.source_train_entry(device=str(dev), seed=0,
+                                                   cfg=cfg)
+    if args[0].images.shape[0] != KP_TRAIN_IMAGES \
+            or args[1].keypoints is None:
+        raise AssertionError(f"{t_name}: {args[0].images.shape[0]} images, "
+                             f"keypoints {args[1].keypoints is not None}")
+    if bf16:
+        t_agreement = compare_steps(
+            train_step_one(state, args, "cuda"),
+            train_step_one(state, args, "plain"),
+            f32_step_one(state, cfg, args))
+    else:
+        with relu_inputs(state.model) as pre_k:
+            kernel = train_step_one(state, args, "cuda")
+        with relu_inputs(state.model) as pre_p:
+            plain = train_step_one(state, args, "plain")
+        t_agreement = compare_steps(kernel, plain,
+                                    flips=relu_flips(pre_k, pre_p))
+        del kernel, plain, pre_k, pre_p
+    state, record, t_captured = measure_train_path(
+        step, state, args, t_name, bf16, KP_TRAIN_STEPS,
+        PER_KP_TRAIN_STEP, KP_PROFILE_STEPS)
+    del step, state
+    merge_errs(errs, check_captured(t_captured))
+    train_sites = time_sites(t_captured, t_name,
+                             MASK_NMS_SITES[:5] if not bf16 else ())
+    if not all(m["loss_kp"] > 0 for m in record["losses"]):
+        raise AssertionError(f"{t_name}: loss_kp {record['losses']}")
+    emit(t_name, config=os.path.relpath(entry.KEYPOINT_YAML, REPO),
+         dtype=dtype, canvas=list(cfg.TPU.IMAGE_SHAPE),
+         images=KP_TRAIN_IMAGES, plain_agreement=t_agreement,
+         sites=train_sites, main_path_inputs=train_inputs(t_captured),
+         max_abs_err=errs, **record)
+    return eval_sites, launches, train_sites, record["launches"], errs
+
+
+def keypoint_tree(root: str, n: int, hw, seed: int) -> tuple[str, str]:
+    """A COCO person-keypoint tree: ``n`` PNGs (the port's writer) of
+    ``hw`` with 2 to 5 people each as filled rectangles, and their
+    annotations: the box, 17 keypoints inside it (visibility 0, 1 or 2,
+    invisible ones all zeros) and their count. Returns (image dir,
+    annotation file)."""
+    from da_detect_tpu_torch.data.image_io import write_png
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    images, anns = [], []
+    for i in range(n):
+        img = rng.randint(0, 60, (h, w, 3), dtype=np.uint8)
+        for _ in range(int(rng.randint(2, 6))):
+            bw, bh = int(rng.randint(40, 160)), int(rng.randint(80, 300))
+            x1 = int(rng.randint(0, w - bw - 1))
+            y1 = int(rng.randint(0, h - bh - 1))
+            img[y1:y1 + bh, x1:x1 + bw] = (40, 220, 40)
+            kps = np.zeros((17, 3))
+            kps[:, 0] = x1 + rng.uniform(0, bw, 17)
+            kps[:, 1] = y1 + rng.uniform(0, bh, 17)
+            kps[:, 2] = rng.randint(0, 3, 17)
+            kps[kps[:, 2] == 0] = 0.0
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": 1, "bbox": [x1, y1, bw, bh],
+                         "area": bw * bh, "iscrowd": 0,
+                         "keypoints": [round(float(v), 2)
+                                       for v in kps.ravel()],
+                         "num_keypoints": int((kps[:, 2] > 0).sum())})
+        name = f"person_{i:04d}.png"
+        write_png(os.path.join(img_dir, name), img)
+        images.append({"id": i + 1, "file_name": name, "height": h,
+                       "width": w})
+    ann = os.path.join(root, "person_keypoints.json")
+    with open(ann, "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": 1, "name": "person"}]}, f)
+    return img_dir, ann
+
+
+def phase_keypoint_cli(dev) -> dict:
+    """The keypoint path from files, bfloat16: a person-keypoint tree
+    (``keypoint_tree``) named through a user catalog, ``train_net`` on the
+    keypoint YAML (source-only, its loader carrying the GT keypoints) for
+    KP_CLI_STEPS steps of 2 images with exact launch counts, then
+    ``test_net`` reporting bbox and keypoints (OKS) AP (random weights: 0,
+    printed only), a request an image with exact launch counts. Returns the
+    training run's launches."""
+    from da_detect_tpu_torch import entry
+    from da_detect_tpu_torch.tools import test_net, train_net
+
+    name = "keypoint_cli_bf16"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kp_") as root:
+        data = keypoint_tree(root, KP_CLI_IMAGES, KP_CLI_HW, seed=4)
+        names = {"kp_train": data, "kp_val": data}
+        catalog = os.path.join(root, "kp_catalog.py")
+        with open(catalog, "w") as f:
+            f.write(USER_CATALOG.format(names=names))
+        opts = {"MODEL.WEIGHT": "", "TPU.COMPUTE_DTYPE": "bfloat16",
+                "PATHS_CATALOG": catalog,
+                "DATASETS.TRAIN": "('kp_train',)",
+                "DATASETS.TEST": "('kp_val',)",
+                "SOLVER.IMS_PER_BATCH": str(KP_TRAIN_IMAGES),
+                "SOLVER.BASE_LR": str(MASK_CLI_LR),
+                "SOLVER.MAX_ITER": str(KP_CLI_STEPS),
+                "SOLVER.CHECKPOINT_PERIOD": str(KP_CLI_STEPS),
+                "TEST.IMS_PER_BATCH": "1",
+                "DATALOADER.STAGE_CACHE": "False",
+                "MODEL.OUTPUT_DIR": os.path.join(root, "out"),
+                "MODEL.OUTPUT_SAVE_NAME": "run"}
+        opts = [x for kv in opts.items() for x in kv]
+        argv = ["--config-file", entry.KEYPOINT_YAML, "--seed", "0"]
+        clear_counts()
+        t0 = time.perf_counter()
+        state, meters = train_net.main(argv + ["--skip-test",
+                                               "--log-period", "1"] + opts)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = read_counts(PER_KP_TRAIN_STEP, KP_CLI_STEPS, name, "steps")
+        loss_kp = [float(v) for v in meters.meters["loss_kp"].deque]
+        totals = [float(v) for v in meters.meters["loss_total"].deque]
+        if state.step != KP_CLI_STEPS or len(loss_kp) != KP_CLI_STEPS \
+                or not all(np.isfinite(loss_kp + totals)) \
+                or min(loss_kp) <= 0:
+            raise AssertionError(f"{name}: {state.step} steps, loss_kp "
+                                 f"{loss_kp}, loss_total {totals}")
+        del state, meters
+        run_dir = os.path.join(root, "out", "run")
+        clear_counts()
+        t0 = time.perf_counter()
+        res = test_net.main(argv + ["--ckpt", run_dir] + opts)["kp_val"]
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        read_counts(PER_KP_FORWARD, KP_CLI_IMAGES, name, "requests")
+        if set(res) != {"bbox", "keypoints"} \
+                or "AR20" not in res["keypoints"] or not os.path.exists(
+                    os.path.join(run_dir, "coco_results.json")):
+            raise AssertionError(f"{name}: results {set(res)}")
+        results = {t: {k: v for k, v in res[t].items()
+                       if k != "per_category"} for t in res}
+    emit(name, config=os.path.relpath(entry.KEYPOINT_YAML, REPO),
+         images=KP_CLI_IMAGES, image_hw=list(KP_CLI_HW), steps=KP_CLI_STEPS,
+         base_lr=MASK_CLI_LR, train_s=train_s, launches=launches,
+         loss_kp=loss_kp, loss_total=totals, eval_s=eval_s, results=results)
+    return launches
+
+
+def phase_demo(dev) -> dict:
+    """The demo (``demo/predictor.py::COCODemo``) on the keypoint YAML,
+    bfloat16, random weights from seed 0 with the score layers spread, on a
+    seeded DEMO_HW BGR image: ``run_on_opencv_image`` returns an image of
+    the input's shape with a request's launches; the latency of
+    ``compute_prediction``; the kernel run's detections and keypoints
+    against the plain run's (``match_detections``, ``keypoint_agreement``,
+    relative to an f32 copy); then ``draw_detection.main`` over a folder
+    of DEMO_FOLDER_IMAGES PNGs writes as many files, a request an image.
+    Returns the overlay run's launches."""
+    from da_detect_tpu_torch import entry
+    from da_detect_tpu_torch.config import get_cfg
+    from da_detect_tpu_torch.data.image_io import write_png
+    from da_detect_tpu_torch.demo import COCODemo, draw_detection
+
+    name = "demo_bf16"
+    cfg = get_cfg()
+    cfg.merge_from_file(entry.KEYPOINT_YAML)
+    cfg.merge_from_list(["MODEL.WEIGHT", ""])
+    cfg.freeze()
+    demo = COCODemo(cfg, confidence_threshold=0.5, device=dev)
+    spread_scores(demo.model)
+    img = np.random.RandomState(5).randint(0, 256, DEMO_HW + (3,),
+                                           dtype=np.uint8)
+    clear_counts()
+    out = demo.run_on_opencv_image(img)
+    torch.cuda.synchronize()
+    launches = read_counts(PER_KP_FORWARD, 1, name, "requests")
+    if out.shape != img.shape or out.dtype != np.uint8:
+        raise AssertionError(f"{name}: overlay {out.shape} {out.dtype}")
+    boxes, scores, labels, kps = demo.compute_prediction(img)
+    if kps.shape != (len(boxes), 17, 3) or not np.isfinite(kps).all():
+        raise AssertionError(f"{name}: keypoints {kps.shape}")
+    latency_ms = host_ms(lambda: demo.compute_prediction(img), runs=10)
+    batch = demo.prepare(img)
+    with torch.no_grad():
+        dets_k, kps_k = demo.model(batch, with_keypoints=True)
+        ref = f32_copy(demo.model, demo.cfg)
+        agreement = match_detections(dets_k, demo.model(batch, impl="plain"),
+                                     ref(batch, impl="plain"))
+    kp_agreement = keypoint_agreement(demo.model, batch, dets_k, kps_k, ref)
+    del ref, demo
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_demo_") as root:
+        src, dst = os.path.join(root, "in"), os.path.join(root, "out")
+        os.makedirs(src)
+        rng = np.random.RandomState(6)
+        for i in range(DEMO_FOLDER_IMAGES):
+            write_png(os.path.join(src, f"frame_{i}.png"),
+                      rng.randint(0, 256, DEMO_HW + (3,), dtype=np.uint8))
+        clear_counts()
+        t0 = time.perf_counter()
+        drawn = draw_detection.main(
+            ["--config-file", entry.KEYPOINT_YAML, "--input-dir", src,
+             "--output-dir", dst, "--confidence-threshold", "0.0",
+             "MODEL.WEIGHT", ""])
+        torch.cuda.synchronize()
+        folder_s = time.perf_counter() - t0
+        read_counts(PER_KP_FORWARD, DEMO_FOLDER_IMAGES, f"{name} folder",
+                    "requests")
+        written = sorted(os.listdir(dst))
+        if len(drawn) != DEMO_FOLDER_IMAGES \
+                or len(written) != DEMO_FOLDER_IMAGES:
+            raise AssertionError(f"{name}: drew {drawn}, wrote {written}")
+    emit(name, config=os.path.relpath(entry.KEYPOINT_YAML, REPO),
+         image_hw=list(DEMO_HW), canvas=list(batch.images.shape[2:]),
+         launches=launches, detections=len(boxes),
+         compute_prediction_ms=latency_ms, plain_agreement=agreement,
+         keypoint_agreement=kp_agreement, folder_images=len(written),
+         folder_s=folder_s)
+    return launches
+
+
 # ---------------------------------------------------------------- FBNet
 
 def fbnet_model(dev, dtype: str, yaml: str):
@@ -3199,9 +3783,7 @@ def fbnet_model(dev, dtype: str, yaml: str):
     cfg.freeze()
     fn, (model, _) = entry.entry(device=str(dev), seed=0, cfg=cfg,
                                  with_masks=cfg.MODEL.MASK_ON)
-    with torch.no_grad():
-        model.rpn["head"].cls_logits.weight.mul_(SCORE_SCALE)
-        model.roi_heads["box"]["predictor"].cls_score.weight.mul_(SCORE_SCALE)
+    spread_scores(model)
     batches = [entry.make_batch(cfg, 1, seed=s, device=dev)[0]
                for s in range(REQUESTS)]
     return cfg, fn, model, batches
@@ -4673,7 +5255,8 @@ def run_dtype(dev, dtype: str) -> tuple[dict, dict, dict, list]:
     times, the flagship train step and its kernels' times, the step through
     DDP (and, in float32, over two ranks), the DCN eval forward ("four" and
     "quad") and its times, the DCN train step, the Cityscapes Mask R-CNN's
-    eval forward with masks and its source-only train step, the FBNet
+    eval forward with masks and its source-only train step, Keypoint
+    R-CNN's eval forward with keypoints and its train step, the FBNet
     models' eval forwards and the FBNet mask model's train step, and
     RetinaNet's eval forward and train step. Returns (paths for
     ``kernel_line``, the largest error a kernel, the scatter-add's summary,
@@ -4701,11 +5284,13 @@ def run_dtype(dev, dtype: str) -> tuple[dict, dict, dict, list]:
         phase_dcn_train(dev, dtype)
     (mask_sites, mask_launches, mask_train_sites, mask_train_launches,
      mask_errs) = phase_mask(dev, dtype)
+    (kp_sites, kp_launches, kp_train_sites, kp_train_launches,
+     kp_errs) = phase_keypoint(dev, dtype)
     fbnet_paths, fbnet_errs = phase_fbnet(dev, dtype)
     retina_paths, retina_errs = phase_retinanet(dev, dtype)
     errs = {}
     parts = [eval_errs, train_errs, dcn_errs, dcn_train_errs, mask_errs,
-             retina_errs]
+             kp_errs, retina_errs]
     f32_paths = []
     if dtype == "float32":
         parts.append(fbnet_errs)
@@ -4725,7 +5310,10 @@ def run_dtype(dev, dtype: str) -> tuple[dict, dict, dict, list]:
                                          {}),
              label("mask_eval", dtype): (mask_sites, mask_launches, {}),
              label("mask_train", dtype): (mask_train_sites,
-                                          mask_train_launches, {}), **ddp,
+                                          mask_train_launches, {}),
+             label("keypoint_eval", dtype): (kp_sites, kp_launches, {}),
+             label("keypoint_train", dtype): (kp_train_sites,
+                                              kp_train_launches, {}), **ddp,
              **{path: (sites, launches, {}) for path, (sites, launches) in
                 {**fbnet_paths, **retina_paths}.items()}}
     return paths, errs, scatter, f32_paths
@@ -4808,11 +5396,13 @@ def main(argv=None) -> int:
         if spread:
             gate_spread(dev, int(args[1]), int(args[2]),
                         args[3:] or list(SPREAD_CONDITIONS))
-        else:  # the sanity, data, CLI, TTA and mask CLI phases
+        else:  # the sanity, data, CLI, TTA and model CLI phases
             phase_sanity(dev)
             run_data_path(dev)
             phase_mask_cli(dev)
             phase_retina_fbnet_cli(dev)
+            phase_keypoint_cli(dev)
+            phase_demo(dev)
         emit("done", seconds=time.perf_counter() - t_start)
         print(smi)
         print(json.dumps({"ok": True, "device": {
@@ -4835,6 +5425,8 @@ def main(argv=None) -> int:
     paths["mask_cli_bf16"] = ([], phase_mask_cli(dev), {})
     fbnet_cli, retina_cli = phase_retina_fbnet_cli(dev)
     paths["retina_cli_bf16"] = ([], retina_cli, {})
+    paths["keypoint_cli_bf16"] = ([], phase_keypoint_cli(dev), {})
+    paths["demo_bf16"] = ([], phase_demo(dev), {})
     line = kernel_line(
         paths, errs, {"row_scatter_add": {"dcn_train": scatter},
                       "row_scatter_add_bf16": {"dcn_train_bf16":

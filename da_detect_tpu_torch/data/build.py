@@ -19,7 +19,13 @@ grouping becomes two orientation buckets: landscape batches take the canvas
 (H, W), portrait ones (W, H). A train loader ``with_masks`` (``MASK_ON``)
 also carries each GT's polygons rasterized in its original box's frame
 (``Targets.masks``, 112 x 112, mirrored with a flipped image), made from the
-annotations whether the canvas was decoded or staged.
+annotations whether the canvas was decoded or staged. A train loader
+``with_keypoints`` (``KEYPOINT_ON``) carries each GT's keypoints
+(``Targets.keypoints``, [G, K, 3]): scaled to the resized image by the
+dims its boxes use (the decoded file's on a decode, the annotation's on a
+staging hit, which only a file that agrees with its annotation can make),
+mirrored with a flipped image (x -> w - x - 1, the person-17 left and right
+keypoints swapped), rows with visibility 0 set to 0.
 
 The random draws are the JAX package's, in its order: each batch's geometry
 from ``RandomState(hash((seed, tuple(indices))))`` (``draw_params``), each
@@ -59,6 +65,11 @@ from .transforms import (canvas_for, compute_resize_hw, normalize_and_pad,
                          transform_boxes)
 from .transport import Transport
 
+# COCO person-17 left/right swap for horizontal flips (reference
+# structures/keypoint.py PersonKeypoints.FLIP_MAP)
+_PERSON_KP_FLIP_INDS = (0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13,
+                        16, 15)
+
 
 def build_dataset(names: Sequence[str], is_train: bool,
                   is_source: bool = True):
@@ -82,9 +93,12 @@ def build_dataset(names: Sequence[str], is_train: bool,
 
 
 class _SampleProcessor:
-    def __init__(self, cfg, is_train: bool, with_masks: bool = False):
+    def __init__(self, cfg, is_train: bool, with_masks: bool = False,
+                 with_keypoints: bool = False):
         self.is_train = is_train
         self.with_masks = with_masks
+        self.with_keypoints = with_keypoints
+        self.num_keypoints = cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_CLASSES
         self.transport = cfg.TPU.TRANSPORT_PIXELS
         if self.transport not in ("uint8", "float32"):
             raise ValueError(f"TPU.TRANSPORT_PIXELS must be uint8 or "
@@ -135,9 +149,10 @@ class _SampleProcessor:
             self._tick("stage_read_s", t0)
             if img is not None:
                 # hit: geometry from the annotation's dims, no decode
-                rh, rw = compute_resize_hw(mh, mw, params["min_size"],
+                h, w = mh, mw
+                rh, rw = compute_resize_hw(h, w, params["min_size"],
                                            self.max_size)
-                boxes = transform_boxes(sample["boxes"], mh, mw, rh, rw,
+                boxes = transform_boxes(sample["boxes"], h, w, rh, rw,
                                         params["hflip"])
         if img is None:
             t0 = time.perf_counter()
@@ -184,12 +199,30 @@ class _SampleProcessor:
                     mask = rasterize_polygons(segs, sample["boxes"][i], m)
                     masks[i] = mask[:, ::-1] if params["hflip"] else mask
             out["masks"] = masks
+        if self.with_keypoints:
+            k = self.num_keypoints
+            kps = np.zeros((g, k, 3), np.float32)
+            sx, sy = rw / max(w, 1), rh / max(h, 1)
+            for i in range(n):
+                raw = sample.get("keypoints", [None] * (i + 1))[i]
+                if raw is None:
+                    continue
+                kp = np.asarray(raw, np.float32).reshape(-1, 3)[:k]
+                kp[:, 0] *= sx
+                kp[:, 1] *= sy
+                if params["hflip"]:
+                    kp[:, 0] = rw - kp[:, 0] - 1
+                    if len(kp) == len(_PERSON_KP_FLIP_INDS):
+                        kp = kp[list(_PERSON_KP_FLIP_INDS)]
+                kp[kp[:, 2] == 0] = 0.0
+                kps[i, :len(kp)] = kp
+            out["keypoints"] = kps
         return out
 
 
 def _stack(processed) -> tuple[ImageBatch, Targets]:
     """CPU tensors; images NHWC memory viewed as NCHW (channels-last); the
-    masks when the samples carry them."""
+    masks and keypoints when the samples carry them."""
     def cat(key):
         return torch.from_numpy(np.stack([p[key] for p in processed]))
 
@@ -199,7 +232,9 @@ def _stack(processed) -> tuple[ImageBatch, Targets]:
                                                for p in processed]))
     targets = Targets(boxes=cat("boxes"), labels=cat("labels"),
                       valid=cat("valid"),
-                      masks=cat("masks") if "masks" in processed[0] else None)
+                      masks=cat("masks") if "masks" in processed[0] else None,
+                      keypoints=(cat("keypoints")
+                                 if "keypoints" in processed[0] else None))
     return batch, targets
 
 
@@ -320,13 +355,14 @@ def _shard(rank, world) -> tuple[int, int]:
 
 def make_data_loader(cfg, *, is_train: bool, device=None, dataset_names=None,
                      is_source: bool = True, with_masks: bool = False,
-                     shuffle: bool | None = None,
+                     with_keypoints: bool = False, shuffle: bool | None = None,
                      seed: int = 0, infinite: bool | None = None,
                      hflip: bool = False, packed: bool = False,
                      rank: int | None = None, world: int | None = None):
     """Single-domain loader on ``device`` (None: the card). Returns
     (loader, dataset). Train: the loader yields (ImageBatch, Targets), the
-    targets with GT masks under ``with_masks``;
+    targets with GT masks under ``with_masks`` and GT keypoints under
+    ``with_keypoints``;
     eval: (ImageBatch, image ids), the last batch padded with its last
     sample under id None. ``hflip`` flips every image (the TTA flip
     pass); ``packed``: one copy a batch (see transport.py); ``rank`` of
@@ -336,7 +372,8 @@ def make_data_loader(cfg, *, is_train: bool, device=None, dataset_names=None,
         dataset_names = cfg.DATASETS.TRAIN if is_train else cfg.DATASETS.TEST
     transport = _transport(cfg, device, packed)
     dataset = build_dataset(dataset_names, is_train, is_source)
-    proc = _SampleProcessor(cfg, is_train, with_masks and is_train)
+    proc = _SampleProcessor(cfg, is_train, with_masks and is_train,
+                            with_keypoints and is_train)
     if hflip:
         proc.flip_prob = 1.0
     batch_size = (cfg.SOLVER.IMS_PER_BATCH if is_train

@@ -1,5 +1,5 @@
-"""COCO-style detection evaluation from scratch, bbox and segm (port of
-``da_detect_tpu/data/evaluation/coco_eval.py``; no pycocotools).
+"""COCO-style detection evaluation from scratch, bbox, segm and keypoints
+(port of ``da_detect_tpu/data/evaluation/coco_eval.py``; no pycocotools).
 
 The COCOeval bbox and segm protocols: IoU thresholds .50:.05:.95, 101-point
 interpolated precision, area ranges all/small/medium/large, maxDets (1, 10,
@@ -15,7 +15,13 @@ each pair on the rectangle that holds both masks (the detection's pasted
 into its box, ``masker.paste_single_crop``; the GT's polygons rasterized,
 ``masker.rasterize_polygons_crop``), crowd GT as ignore regions on mask
 pixels (inter / detection pixels), and a detection's area its mask pixel
-count. The keypoint protocol comes with the port's keypoint head.
+count. ``keypoints``: pycocotools' OKS protocol (``setKpParams``): the
+object keypoint similarity in place of the IoU (the COCO person-17 sigmas,
+0.1 for another keypoint count; a GT with no labelled keypoint scores by
+its distance to a box three times its own and is ignore-only), areas
+all / medium / large, maxDets 20, a detection's box and area from its
+keypoints' extents; the summary ``AP, AP50, AP75, APm, APl, AR20, ARm,
+ARl``.
 """
 
 from __future__ import annotations
@@ -40,6 +46,54 @@ AREA_RNGS = OrderedDict([
     ("large", (96.0 ** 2, 1e10)),
 ])
 MAX_DETS = (1, 10, 100)
+# the keypoint (OKS) protocol's parameters, pycocotools COCOeval
+# setKpParams: maxDets (20,), areas all/medium/large, the COCO person-17
+# sigmas
+KP_AREA_RNGS = OrderedDict([
+    ("all", (0.0, 1e10)),
+    ("medium", (32.0 ** 2, 96.0 ** 2)),
+    ("large", (96.0 ** 2, 1e10)),
+])
+KP_MAX_DETS = (20,)
+COCO_KP_SIGMAS = np.array([
+    .26, .25, .25, .35, .35, .79, .79, .72, .72, .62, .62, 1.07, 1.07,
+    .87, .87, .89, .89]) / 10.0
+IOU_TYPES = ("bbox", "segm", "keypoints")
+
+
+def _kp_oks(dts, gts):
+    """Object keypoint similarity matrix (pycocotools cocoeval computeOks):
+    each keypoint's gaussian falloff scaled by sigma^2 and the GT's area;
+    a GT with no labelled keypoint uses the distance to a box three times
+    its own."""
+    ious = np.zeros((len(dts), len(gts)))
+    for j, g in enumerate(gts):
+        kg = np.asarray(g["_kps"], np.float64).reshape(-1, 3)
+        k = kg.shape[0]
+        sigmas = COCO_KP_SIGMAS if k == len(COCO_KP_SIGMAS) \
+            else np.full(k, 0.1)
+        variances = (sigmas * 2.0) ** 2
+        xg, yg, vg = kg[:, 0], kg[:, 1], kg[:, 2]
+        k1 = int((vg > 0).sum())
+        bx, by, bw, bh = g["bbox"]
+        x0, x1 = bx - bw, bx + 2 * bw
+        y0, y1 = by - bh, by + 2 * bh
+        for i, d in enumerate(dts):
+            kd = np.asarray(d["_kps"], np.float64).reshape(-1, 3)
+            xd, yd = kd[:, 0], kd[:, 1]
+            if k1 > 0:
+                dx, dy = xd - xg, yd - yg
+            else:
+                z = np.zeros(k)
+                dx = np.maximum(z, x0 - xd) + np.maximum(z, xd - x1)
+                dy = np.maximum(z, y0 - yd) + np.maximum(z, yd - y1)
+            e = (dx ** 2 + dy ** 2) / variances / (g["area"]
+                                                   + np.spacing(1)) / 2
+            if k1 > 0:
+                e = e[vg > 0]
+            ious[i, j] = np.sum(np.exp(-e)) / e.shape[0] if e.shape[0] \
+                else 0.0
+    return ious
 
 
 def _bbox_iou_xywh(dt: np.ndarray, gt: np.ndarray, iscrowd: np.ndarray):
@@ -115,6 +169,8 @@ def _evaluate_img(dts, gts, area_rng, max_det, iou_type="bbox"):
 
     if iou_type == "segm":
         ious = _segm_iou(dts, gts, iscrowd)
+    elif iou_type == "keypoints":
+        ious = _kp_oks(dts, gts)
     else:
         ious = _bbox_iou_xywh(
             np.asarray([d["bbox"] for d in dts], np.float64).reshape(-1, 4),
@@ -145,7 +201,8 @@ def _evaluate_img(dts, gts, area_rng, max_det, iou_type="bbox"):
             dt_ignore[ti, di] = gt_ignore[m]
     # unmatched dts outside the area range are ignored; a det's area is its
     # mask's pixel count under segm (pycocotools loadRes sets ann['area'] =
-    # maskUtils.area(segmentation)), its box's w*h under bbox
+    # maskUtils.area(segmentation)), its box's w*h under bbox and keypoints
+    # (there the box of its keypoints' extents)
     d_area = np.asarray([d.get("area", d["bbox"][2] * d["bbox"][3])
                          for d in dts])
     out_of_rng = (d_area < area_rng[0]) | (d_area > area_rng[1])
@@ -195,18 +252,17 @@ def _accumulate(per_img_results):
 
 class CocoEvaluator:
     """Evaluate predictions {image_id: dict(boxes xyxy, scores, labels
-    [, mask_probs])} against a COCODataset; ``iou_type`` "bbox" or
-    "segm"."""
+    [, mask_probs] [, keypoints])} against a COCODataset; ``iou_type``
+    "bbox", "segm" or "keypoints"."""
 
     def __init__(self, dataset, iou_type: str = "bbox"):
-        if iou_type not in ("bbox", "segm"):
-            raise NotImplementedError(
-                f"COCO {iou_type} evaluation: the keypoint protocol comes "
-                "with the port's keypoint head, a later slice")
+        if iou_type not in IOU_TYPES:
+            raise ValueError(f"unknown COCO iou type {iou_type!r}")
         self.dataset = dataset
         self.iou_type = iou_type
-        self.area_rngs = AREA_RNGS
-        self.max_dets = MAX_DETS
+        kp = iou_type == "keypoints"
+        self.area_rngs = KP_AREA_RNGS if kp else AREA_RNGS
+        self.max_dets = KP_MAX_DETS if kp else MAX_DETS
         self.cat_ids = sorted(dataset.contiguous_category_id_to_json_id.values())
         self._img_hw = ({im["id"]: (im["height"], im["width"])
                          for im in dataset.images}
@@ -226,6 +282,15 @@ class CocoEvaluator:
             if self.iou_type == "segm" and isinstance(seg, list):
                 g["_mask"], g["_mask_offset"] = rasterize_polygons_crop(
                     seg, self._img_hw[img_id])
+            elif self.iou_type == "keypoints":
+                kps = np.asarray(a.get("keypoints", []),
+                                 np.float64).reshape(-1, 3)
+                g["_kps"] = kps
+                # pycocotools: a GT with no labelled keypoint is
+                # ignore-only
+                nk = a.get("num_keypoints",
+                           int((kps[:, 2] > 0).sum()) if len(kps) else 0)
+                g["_ignore"] = g["_ignore"] or nk == 0
             out.append(g)
         return out
 
@@ -250,6 +315,13 @@ class CocoEvaluator:
                         np.asarray(mask_probs[di]), b, self._img_hw[img_id])
                     # a segm detection's area is its mask's pixel count
                     d["area"] = float(d["_mask"].sum())
+                elif self.iou_type == "keypoints":
+                    kp = np.asarray(p["keypoints"][di], np.float64)
+                    d["_kps"] = kp
+                    # pycocotools loadRes: the box of the keypoints' extents
+                    x0, x1 = kp[:, 0].min(), kp[:, 0].max()
+                    y0, y1 = kp[:, 1].min(), kp[:, 1].max()
+                    d["bbox"] = [x0, y0, x1 - x0, y1 - y0]
                 dts[(img_id, json_cat)].append(d)
 
         # stats[cat][area][maxdet] = (precision, recall)
@@ -294,12 +366,20 @@ class CocoEvaluator:
         res["AP"] = self._mean_ap(cats)
         res["AP50"] = self._mean_ap(cats, thr=0.5)
         res["AP75"] = self._mean_ap(cats, thr=0.75)
-        res["APs"] = self._mean_ap(cats, area="small")
-        res["APm"] = self._mean_ap(cats, area="medium")
-        res["APl"] = self._mean_ap(cats, area="large")
-        res["AR1"] = self._mean_ar(cats, max_det=1)
-        res["AR10"] = self._mean_ar(cats, max_det=10)
-        res["AR100"] = self._mean_ar(cats, max_det=100)
+        if self.iou_type == "keypoints":
+            # the OKS protocol's metrics (pycocotools' keypoint summarize)
+            res["APm"] = self._mean_ap(cats, area="medium")
+            res["APl"] = self._mean_ap(cats, area="large")
+            res["AR20"] = self._mean_ar(cats)
+            res["ARm"] = self._mean_ar(cats, area="medium")
+            res["ARl"] = self._mean_ar(cats, area="large")
+        else:
+            res["APs"] = self._mean_ap(cats, area="small")
+            res["APm"] = self._mean_ap(cats, area="medium")
+            res["APl"] = self._mean_ap(cats, area="large")
+            res["AR1"] = self._mean_ar(cats, max_det=1)
+            res["AR10"] = self._mean_ar(cats, max_det=10)
+            res["AR100"] = self._mean_ar(cats, max_det=100)
         # per-category AP / AP50 (the DA fork's addition, coco_eval.py:62-66)
         per_cat = OrderedDict()
         for c in cats:
@@ -311,11 +391,9 @@ class CocoEvaluator:
 
 def do_coco_evaluation(dataset, predictions, output_folder=None,
                        iou_types=("bbox",)):
-    unported = set(iou_types) - {"bbox", "segm"}
-    if unported:
-        raise NotImplementedError(
-            f"COCO {sorted(unported)} evaluation is not ported (bbox and "
-            "segm)")
+    unknown = set(iou_types) - set(IOU_TYPES)
+    if unknown:
+        raise ValueError(f"unknown COCO iou types {sorted(unknown)}")
     results = {}
     for iou_type in iou_types:
         evaluator = CocoEvaluator(dataset, iou_type)

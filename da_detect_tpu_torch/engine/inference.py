@@ -5,8 +5,9 @@ reference engine/inference.py:18-129).
 batch of an eval loader, brings the detections to the host, drops the
 padding, rescales the boxes to the original images and returns them by
 image id (with each detection's mask probabilities in its box's frame
-when the evaluation asks for ``segm``); ``inference`` hands them to the
-dataset's evaluator. The loop keeps one batch in flight: batch N + 1 is
+when the evaluation asks for ``segm``, its keypoints in the original image
+when it asks for ``keypoints``); ``inference`` hands them to the dataset's
+evaluator. The loop keeps one batch in flight: batch N + 1 is
 dispatched before batch N's detections are read back.
 """
 
@@ -22,14 +23,15 @@ import torch
 log = logging.getLogger(__name__)
 
 
-def _host_predictions(dets, probs, image_ids, sizes, orig,
+def _host_predictions(dets, extra, kind, image_ids, sizes, orig,
                       predictions) -> int:
     """Batch detections -> ``predictions[image_id]`` in original-image
-    coordinates, with ``mask_probs`` [D, Hm, Wm] of the valid detections
-    when ``probs`` (the batch's mask probabilities) is given; returns the
-    images added (padding entries skipped)."""
-    if probs is not None:
-        probs = probs.cpu().numpy()
+    coordinates, with the valid detections' ``extra`` under ``kind``:
+    "mask_probs" [D, Hm, Wm] (the batch's mask probabilities) or
+    "keypoints" [D, K, 3] (x and y rescaled to the original image); returns
+    the images added (padding entries skipped)."""
+    if extra is not None:
+        extra = extra.cpu().numpy()
     valid = dets.valid.cpu().numpy()
     boxes = dets.boxes.cpu().numpy()
     scores = dets.scores.cpu().numpy()
@@ -43,19 +45,29 @@ def _host_predictions(dets, probs, image_ids, sizes, orig,
         predictions[img_id] = dict(
             boxes=boxes[i][valid[i]] * np.array([sx, sy, sx, sy], np.float32),
             scores=scores[i][valid[i]], labels=labels[i][valid[i]])
-        if probs is not None:
-            predictions[img_id]["mask_probs"] = probs[i][valid[i]]
+        if kind == "mask_probs":
+            predictions[img_id]["mask_probs"] = extra[i][valid[i]]
+        elif kind == "keypoints":
+            kp = extra[i][valid[i]].astype(np.float32)
+            kp[..., 0] *= sx
+            kp[..., 1] *= sy
+            predictions[img_id]["keypoints"] = kp
         added += 1
     return added
 
 
 @torch.no_grad()
 def compute_on_dataset(model, data_loader, progress_every: int = 50,
-                       with_masks: bool = False) -> dict[Any, dict]:
-    """{image_id: dict(boxes xyxy, scores, labels[, mask_probs])} in
-    original image coordinates, numpy, for every image of ``data_loader``
-    (an eval loader yielding (ImageBatch, image ids)); ``with_masks``: the
-    mask head's probabilities too (a ``MASK_ON`` model)."""
+                       with_masks: bool = False,
+                       with_keypoints: bool = False) -> dict[Any, dict]:
+    """{image_id: dict(boxes xyxy, scores, labels[, mask_probs |
+    keypoints])} in original image coordinates, numpy, for every image of
+    ``data_loader`` (an eval loader yielding (ImageBatch, image ids));
+    ``with_masks``: the mask head's probabilities too (a ``MASK_ON``
+    model); ``with_keypoints`` (and not ``with_masks``): the keypoint
+    head's keypoints (a ``KEYPOINT_ON`` model)."""
+    kind = ("mask_probs" if with_masks
+            else "keypoints" if with_keypoints else None)
     predictions: dict[Any, dict] = {}
     t0 = time.perf_counter()
     n_images = 0
@@ -65,11 +77,12 @@ def compute_on_dataset(model, data_loader, progress_every: int = 50,
         # queued before that forward's detections are post-processed
         sizes = batch.sizes.cpu().numpy()
         orig = batch.orig_sizes.cpu().numpy()
-        out = model(batch, with_masks=True) if with_masks \
+        out = model(batch, with_masks=with_masks,
+                    with_keypoints=with_keypoints) if kind \
             else (model(batch), None)
         if pending is not None:
             n_images += _host_predictions(*pending, predictions)
-        pending = (*out, image_ids, sizes, orig)
+        pending = (*out, kind, image_ids, sizes, orig)
         if progress_every and (bi + 1) % progress_every == 0:
             dt = time.perf_counter() - t0
             log.info("eval %d images (%.3f s/img)", n_images,
@@ -110,11 +123,11 @@ def inference(model, data_loader, dataset, *, iou_types=("bbox",),
     """Predictions and the dataset's evaluation (reference
     inference.py:76-129). In a process group each rank predicts its
     loader's shard and the merge is evaluated once (``evaluate_merged``).
-    ``segm`` in ``iou_types`` runs the mask head too. Returns (results,
-    predictions: every rank's)."""
-    predictions = (compute_on_dataset(model, data_loader, with_masks=True)
-                   if "segm" in iou_types
-                   else compute_on_dataset(model, data_loader))
+    ``segm`` in ``iou_types`` runs the mask head too, ``keypoints`` the
+    keypoint head. Returns (results, predictions: every rank's)."""
+    predictions = compute_on_dataset(
+        model, data_loader, with_masks="segm" in iou_types,
+        with_keypoints="keypoints" in iou_types)
     results, predictions = evaluate_merged(
         dataset, predictions, output_folder=output_folder,
         iou_types=iou_types, style=style)

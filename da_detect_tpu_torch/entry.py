@@ -15,6 +15,10 @@ its mask probabilities, and ``source_train_entry(cfg=mask_cfg())`` its
 source-only train step on 2 images. ``fbnet_cfg(yaml)`` (the FBNet Faster
 and Mask R-CNN YAMLs) and ``retinanet_cfg()`` (the RetinaNet R-50-FPN YAML)
 serve and train the same way, at their YAMLs' canvases.
+``entry(cfg=keypoint_cfg(), with_keypoints=True)`` is the eval forward of
+Keypoint R-CNN (R-50-FPN, ``KEYPOINT_ON``) with each detection's 17
+keypoints, and ``source_train_entry(cfg=keypoint_cfg())`` its source-only
+train step on 2 images with GT keypoints.
 ``dryrun_multichip(n)`` runs the train step data-parallel over n ranks
 (DDP) against one process on the same global batch. All run on the card unless the caller asks for ``device="cpu"``;
 with no card and no explicit CPU they raise.
@@ -56,6 +60,7 @@ FBNET_CHAM_YAML = os.path.join(CONFIGS,
                                "e2e_faster_rcnn_fbnet_chamv1a_600.yaml")
 RETINANET_YAML = os.path.join(CONFIGS, "retinanet",
                               "retinanet_R-50-FPN_1x.yaml")
+KEYPOINT_YAML = os.path.join(CONFIGS, "e2e_keypoint_rcnn_R_50_FPN_1x.yaml")
 
 
 def flagship_cfg(canvas=(320, 640), train_tops=(600, 128),
@@ -142,10 +147,17 @@ def retinanet_cfg(dtype: str = "bfloat16"):
     return _yaml_cfg(RETINANET_YAML, dtype)
 
 
+def keypoint_cfg(dtype: str = "bfloat16"):
+    """The Keypoint R-CNN R-50-FPN YAML (2 classes, 17 keypoints, 512 ROIs
+    an image, the keypoint pooler at P 14, sampling 2, over P2-P5) by
+    ``_yaml_cfg``, uncut: 800 x 1344."""
+    return _yaml_cfg(KEYPOINT_YAML, dtype)
+
+
 def per_card_images(cfg) -> int:
     """The per-card share of ``SOLVER.IMS_PER_BATCH`` over the 8 cards the
     YAMLs' batches are for: 16 for the FBNet mask YAMLs, 2 for RetinaNet
-    R-50-FPN and the Cityscapes mask YAML."""
+    R-50-FPN, the Cityscapes mask YAML and the keypoint YAML."""
     return max(1, cfg.SOLVER.IMS_PER_BATCH // 8)
 
 
@@ -163,14 +175,33 @@ def synthetic_masks(rng: np.random.RandomState, b: int, g: int,
     return inside.astype(np.float32)
 
 
+def synthetic_keypoints(rng: np.random.RandomState, boxes: np.ndarray,
+                        k: int = 17) -> np.ndarray:
+    """[b, g, k, 3] float32 keypoints (x, y, visibility) for boxes
+    [b, g, 4]: each point uniform inside its box, visibility drawn from
+    {0, 1, 2}, rows of visibility 0 all zeros (as the loader makes them),
+    drawn from ``rng``."""
+    b, g = boxes.shape[:2]
+    u = rng.uniform(0.0, 1.0, (b, g, k, 2))
+    vis = rng.randint(0, 3, (b, g, k)).astype(np.float32)
+    lo, hi = boxes[:, :, None, :2], boxes[:, :, None, 2:]
+    xy = lo + u * (hi - lo)
+    kps = np.concatenate([xy, vis[..., None]], -1).astype(np.float32)
+    kps[vis == 0] = 0.0
+    return kps
+
+
 def make_batch(cfg, b: int, seed: int = 0, is_source: bool = True,
-               device="cpu", with_masks: bool = False
-               ) -> tuple[ImageBatch, Targets]:
+               device="cpu", with_masks: bool = False,
+               with_keypoints: bool = False) -> tuple[ImageBatch, Targets]:
     """A synthetic batch of b images with padded targets, drawn from
     ``np.random.RandomState(seed)`` in the same order as the JAX package's
-    ``__graft_entry__._batch``, so both see the same pixels and boxes;
-    ``with_masks``: GT masks too (``synthetic_masks``, drawn after the
-    rest)."""
+    ``__graft_entry__._batch``, so both see the same pixels and boxes (the
+    labels, drawn in 1..8, folded into the classes of a model with fewer
+    than 9); ``with_masks``: GT masks too (``synthetic_masks``, drawn after
+    the rest); ``with_keypoints``: GT keypoints too
+    (``synthetic_keypoints``, ``ROI_KEYPOINT_HEAD.NUM_CLASSES`` a box,
+    drawn last)."""
     h, w = cfg.TPU.IMAGE_SHAPE
     g = cfg.TPU.MAX_GT_BOXES
     rng = np.random.RandomState(seed)
@@ -180,6 +211,9 @@ def make_batch(cfg, b: int, seed: int = 0, is_source: bool = True,
                       y1 + rng.uniform(10, 50, (b, g))], -1).astype(np.float32)
     images = rng.randn(b, h, w, 3).astype(np.float32)
     labels = rng.randint(1, 9, (b, g))
+    classes = cfg.MODEL.ROI_BOX_HEAD.NUM_CLASSES
+    if classes < 9:
+        labels = 1 + (labels - 1) % (classes - 1)
     valid = rng.rand(b, g) > 0.3
     batch = ImageBatch(
         # NHWC memory viewed as NCHW: channels_last, no copy
@@ -191,9 +225,13 @@ def make_batch(cfg, b: int, seed: int = 0, is_source: bool = True,
     ).to(device)
     masks = (torch.from_numpy(synthetic_masks(rng, b, g)).to(device)
              if with_masks else None)
+    kps = (torch.from_numpy(synthetic_keypoints(
+        rng, boxes, cfg.MODEL.ROI_KEYPOINT_HEAD.NUM_CLASSES)).to(device)
+        if with_keypoints else None)
     targets = Targets(boxes=torch.from_numpy(boxes).to(device),
                       labels=torch.from_numpy(labels).to(device),
-                      valid=torch.from_numpy(valid).to(device), masks=masks)
+                      valid=torch.from_numpy(valid).to(device), masks=masks,
+                      keypoints=kps)
     return batch, targets
 
 
@@ -246,18 +284,20 @@ def train_cfg():
 
 
 def entry(device: Optional[str] = None, seed: int = 0, cfg=None,
-          with_masks: bool = False):
+          with_masks: bool = False, with_keypoints: bool = False):
     """(fn, example_args): the eval forward of the flagship model (or of
     ``cfg``), ``fn(model, batch) -> Detections``, with random weights drawn
     from ``seed``; ``with_masks`` (a ``MASK_ON`` cfg): ``fn`` returns
-    (Detections, mask probabilities [B, D, Hm, Wm])."""
+    (Detections, mask probabilities [B, D, Hm, Wm]); ``with_keypoints`` (a
+    ``KEYPOINT_ON`` cfg): (Detections, keypoints [B, D, K, 3])."""
     device = resolve_device(device)
     cfg = flagship_cfg() if cfg is None else cfg
     model = prepare_model(build_detection_model(cfg, seed=seed), device)
     batch, _ = make_batch(cfg, 1, seed, device=device)
 
     def forward(model, batch):
-        return model(batch, with_masks=with_masks)
+        return model(batch, with_masks=with_masks,
+                     with_keypoints=with_keypoints)
 
     return forward, (model, batch)
 
@@ -284,7 +324,7 @@ def source_train_entry(device: Optional[str] = None, seed: int = 0,
     """(step_fn, (state, (batch, targets))): the source-only train step of
     ``cfg`` (default ``mask_cfg()``; a RetinaNet cfg too) on
     ``per_card_images(cfg)`` source images with GT masks when
-    ``MODEL.MASK_ON``, ``step_fn(state, batch, targets) -> (state,
+    ``MODEL.MASK_ON`` and GT keypoints when ``MODEL.KEYPOINT_ON``, ``step_fn(state, batch, targets) -> (state,
     metrics)``, random weights drawn from ``seed``, the multistep schedule
     of ``train_net``."""
     device = resolve_device(device)
@@ -294,7 +334,8 @@ def source_train_entry(device: Optional[str] = None, seed: int = 0,
     step = make_train_step(model, state.optimizer)
     return step, (state, make_batch(cfg, per_card_images(cfg),
                                     seed, device=device,
-                                    with_masks=cfg.MODEL.MASK_ON))
+                                    with_masks=cfg.MODEL.MASK_ON,
+                                    with_keypoints=cfg.MODEL.KEYPOINT_ON))
 
 
 # ---------------------------------------------------------------- DDP

@@ -1,17 +1,23 @@
 """GeneralizedRCNN: the eval forward and the training forward (port of
 ``da_detect_tpu/models/detector.py``), for the C4, FPN and FBNet Faster and
-Mask R-CNN bodies, with deformable stages (X-101-32x8d-FPN-DCN) or without,
-with and without the domain-adaptation heads. ``build_detection_model``
+Mask R-CNN bodies and Keypoint R-CNN, with deformable stages
+(X-101-32x8d-FPN-DCN) or without, with and without the domain-adaptation
+heads. ``build_detection_model``
 builds RetinaNet (``models/retinanet.py``) for ``MODEL.RETINANET_ON``.
 Module names follow maskrcnn-benchmark's state_dict: ``backbone.body``,
 ``rpn.head``, ``roi_heads.box.feature_extractor``,
 ``roi_heads.box.predictor``, ``roi_heads.mask.feature_extractor``,
-``roi_heads.mask.predictor`` and ``da_heads``.
+``roi_heads.mask.predictor``, ``roi_heads.keypoint.feature_extractor``,
+``roi_heads.keypoint.predictor`` and ``da_heads``.
 
 With a mask head (``MODEL.MASK_ON``) the eval forward can run it over the
 final detections (``with_masks``), and the training forward adds
 ``loss_mask`` from the source batch's sampled ROIs (0, without running the
 head, when the batch carries no GT masks: the DA loaders' batches).
+With a keypoint head (``MODEL.KEYPOINT_ON``) the eval forward can run it over
+the final detections (``with_keypoints``), and the training forward adds
+``loss_kp`` when the source batch carries GT keypoints (the DA loaders'
+batches do not, and their losses have no ``loss_kp``).
 
 ``train_forward`` takes the domains as separate batches of k images each:
 source only, + positive target (classic 2-domain DA), + negative target (the
@@ -45,6 +51,9 @@ from .box_head import (Detections, FPN2MLPFeatureExtractor,
                        make_box_predictor, postprocess_detections,
                        subsample_proposals)
 from .da import DAState, make_da_heads
+from .keypoint_head import (KeypointHead, heatmaps_to_keypoints,
+                            keypoint_layers, keypoint_rcnn_loss,
+                            make_keypoint_head)
 from .mask_head import MaskHead, make_mask_head, mask_layers, mask_rcnn_loss
 from .rpn import (RPNHead, append_gt_proposals, level_rows, rpn_config,
                   rpn_loss, select_proposals)
@@ -103,6 +112,7 @@ class GeneralizedRCNN(Detector):
                  sample_cfg: Optional[dict] = None,
                  share_positive_pool: bool = False,
                  mask_head: Optional[MaskHead] = None,
+                 keypoint_head: Optional[KeypointHead] = None,
                  pixel_mean=(102.9801, 115.9465, 122.7717),
                  pixel_std=(1.0, 1.0, 1.0), to_bgr255: bool = True):
         super().__init__(anchor_generator, pixel_mean, pixel_std, to_bgr255)
@@ -113,6 +123,8 @@ class GeneralizedRCNN(Detector):
         self.roi_heads = nn.ModuleDict({"box": nn.ModuleDict(box)})
         if mask_head is not None:
             self.roi_heads["mask"] = mask_head
+        if keypoint_head is not None:
+            self.roi_heads["keypoint"] = keypoint_head
         self.da_heads = da_heads
         self.rpn_only = rpn_only
         self.rpn_test = rpn_test
@@ -126,16 +138,27 @@ class GeneralizedRCNN(Detector):
     def mask_head(self) -> Optional[MaskHead]:
         return self.roi_heads["mask"] if "mask" in self.roi_heads else None
 
+    @property
+    def keypoint_head(self) -> Optional[KeypointHead]:
+        return self.roi_heads["keypoint"] if "keypoint" in self.roi_heads \
+            else None
+
     @torch.no_grad()
     def forward(self, batch: ImageBatch, impl: Optional[str] = None,
-                with_masks: bool = False):
+                with_masks: bool = False, with_keypoints: bool = False):
         """Detections; with ``with_masks`` (a model with a mask head, else
         ValueError), (detections, mask probabilities [B, D, Hm, Wm]
         float32): the head run over the final detections (every slot, the
         invalid ones too), each slot's class channel taken, cast to float32,
-        then the sigmoid."""
+        then the sigmoid; with ``with_keypoints`` (a model with a keypoint
+        head, else ValueError) and not ``with_masks``, (detections,
+        keypoints [B, D, K, 3] float32 (x, y, score)): the keypoint head
+        over the final detections, decoded by ``heatmaps_to_keypoints``."""
         if with_masks and self.mask_head is None:
             raise ValueError("with_masks needs a mask head (MODEL.MASK_ON)")
+        if with_keypoints and self.keypoint_head is None:
+            raise ValueError("with_keypoints needs a keypoint head "
+                             "(MODEL.KEYPOINT_ON)")
         impl = impl or self.default_impl()
         feats = self.backbone(self.images(batch), impl=impl)
         logits, deltas = self.rpn["head"](feats)
@@ -152,9 +175,21 @@ class GeneralizedRCNN(Detector):
         dets = postprocess_detections(cls_logits, box_deltas, props.boxes,
                                       props.valid, sizes, **self.post_cfg,
                                       impl=impl)
-        if not with_masks:
-            return dets
-        return dets, self.mask_probs(feats, dets, impl)
+        if with_masks:
+            return dets, self.mask_probs(feats, dets, impl)
+        if with_keypoints:
+            return dets, self.keypoints(feats, dets, impl)
+        return dets
+
+    def keypoints(self, feats, dets: Detections, impl: str) -> torch.Tensor:
+        """The keypoint head over ``dets`` (a second pass over the final
+        detections, every slot): [B, D, K, 3] float32 (x, y, score) in the
+        canvas's frame."""
+        logits = self.keypoint_head(feats, dets.boxes, impl=impl)
+        b, d = logits.shape[:2]
+        return heatmaps_to_keypoints(
+            logits.float().reshape((b * d,) + logits.shape[2:]),
+            dets.boxes.reshape(b * d, 4)).reshape(b, d, -1, 3)
 
     def mask_probs(self, feats, dets: Detections, impl: str) -> torch.Tensor:
         """The mask head over ``dets`` (a second pass over the final
@@ -249,6 +284,10 @@ class GeneralizedRCNN(Detector):
             losses["loss_mask"] = mask_rcnn_loss(
                 self.mask_head, feats_s, sampled_s, targets_s,
                 shared_box_features=x_s, impl=impl)
+        if self.keypoint_head is not None and targets_s.keypoints is not None:
+            losses["loss_kp"] = keypoint_rcnn_loss(
+                self.keypoint_head, feats_s, sampled_s, targets_s.keypoints,
+                targets_s, impl=impl)
         if self.da_heads is None or batch_t is None:
             return losses, da_state
 
@@ -293,9 +332,6 @@ def _check_supported(cfg) -> None:
         raise NotImplementedError(
             f"TPU.COMPUTE_DTYPE={cfg.TPU.COMPUTE_DTYPE!r}: the PyTorch port "
             "computes in bfloat16 or float32, as the JAX package does")
-    if m.KEYPOINT_ON:
-        raise NotImplementedError(
-            "MODEL.KEYPOINT_ON: that head is a later slice of the port")
     if m.RPN.RPN_HEAD not in ("SingleConvRPNHead", "FBNet.rpn_head"):
         raise KeyError(f"unknown RPN_HEAD: {m.RPN.RPN_HEAD}")
 
@@ -308,8 +344,10 @@ def init_parameters(model: GeneralizedRCNN,
     normal(0.01) and bbox_pred normal(0.001), the DA heads' convs
     normal(0.001) and fc1/fc2/fc3 normal(0.01/0.01/0.05), biases 0, FrozenBN
     scale 1 and bias 0; the mask head's convs (``mask_fcn*``,
-    ``conv5_mask``, ``mask_fcn_logits``) kaiming normal over the fan-out
-    (std sqrt(2 / (out channels x kernel area))), biases 0; deformable
+    ``conv5_mask``, ``mask_fcn_logits``) and the keypoint head's
+    (``conv_fcn*``, ``kps_score_lowres``) kaiming normal over Flax's
+    fan-out (std sqrt(2 / (out channels x kernel area)); a transposed
+    conv's out channels are its weight's second axis), biases 0; deformable
     convs he-normal (std sqrt(2/fan_in)) with their offset predictors
     zero; the FPN convs and the MLP head's fc6/fc7
     kaiming-uniform with a=1 (bound sqrt(3/fan_in)), biases 0; the conv
@@ -359,13 +397,16 @@ def init_parameters(model: GeneralizedRCNN,
             layers += [(img.conv1_da, 0.001), (img.conv2_da, 0.001),
                        (ins.fc1_da, 0.01), (ins.fc2_da, 0.01),
                        (ins.fc3_da, 0.05)]
+        kaiming = []
         if model.mask_head is not None:
-            for conv in mask_layers(model.mask_head):
-                w = conv.weight
-                out_ch = w.shape[1] if isinstance(conv, nn.ConvTranspose2d) \
-                    else w.shape[0]
-                layers.append((conv, (2.0 / (out_ch * w[0, 0].numel()))
-                               ** 0.5))
+            kaiming += mask_layers(model.mask_head)
+        if model.keypoint_head is not None:
+            kaiming += keypoint_layers(model.keypoint_head)
+        for conv in kaiming:
+            w = conv.weight
+            out_ch = w.shape[1] if isinstance(conv, nn.ConvTranspose2d) \
+                else w.shape[0]
+            layers.append((conv, (2.0 / (out_ch * w[0, 0].numel())) ** 0.5))
         for layer, std in layers:
             layer.weight.normal_(0.0, std, generator=generator)
             if layer.bias is not None:
@@ -405,6 +446,8 @@ def build_detection_model(cfg, seed: int = 0) -> GeneralizedRCNN:
             da_heads = make_da_heads(cfg, spec.out_channels, ext_ch, dtype)
     mask = (make_mask_head(cfg, spec.out_channels, ext_ch, dtype)
             if cfg.MODEL.MASK_ON else None)
+    keypoint = (make_keypoint_head(cfg, spec.out_channels, dtype)
+                if cfg.MODEL.KEYPOINT_ON else None)
     gen = make_anchor_generator(cfg)
     rpn = cfg.MODEL.RPN
     roi = cfg.MODEL.ROI_HEADS
@@ -433,6 +476,7 @@ def build_detection_model(cfg, seed: int = 0) -> GeneralizedRCNN:
         da_heads=da_heads,
         share_positive_pool=cfg.TPU.SHARE_POSITIVE_POOL,
         mask_head=mask,
+        keypoint_head=keypoint,
         post_cfg=dict(
             score_thresh=roi.SCORE_THRESH, nms_thresh=roi.NMS,
             detections_per_img=roi.DETECTIONS_PER_IMG,

@@ -11,9 +11,9 @@ modeling/roi_heads/mask_head/).
   backward kernels.
 * predictor: a 2x2 stride-2 transposed conv and per-class 1x1 logits
   (``MaskRCNNC4Predictor``), or the 1x1 logits alone
-  (``MaskRCNNConv1x1Predictor``, which, as the JAX package's, rounds its
-  input to ``dtype`` and convolves in float32: its Flax conv has no
-  ``dtype`` and promotes to its float32 kernel).
+  (``MaskRCNNConv1x1Predictor``). Both, as the JAX package's, round their
+  input to ``dtype`` and compute in float32: their Flax convs have no
+  ``dtype`` and promote to their float32 kernels.
 * training targets: the GT masks arrive rasterized in their own GT box's
   frame ([G, M, M], ``Targets.masks``) and are resampled into each sampled
   ROI's frame by a bilinear affine map (``project_gt_masks``): fixed shapes,
@@ -22,8 +22,8 @@ modeling/roi_heads/mask_head/).
   (reference mask_head/loss.py:110-144), divided by their pixel count over
   the global batch.
 
-The heads compute in ``dtype`` (``TPU.COMPUTE_DTYPE``); logits come out as
-[B, R, K, Hm, Wm], the loss in float32.
+The extractors compute in ``dtype`` (``TPU.COMPUTE_DTYPE``); logits come
+out as [B, R, K, Hm, Wm] float32, the loss in float32.
 """
 
 from __future__ import annotations
@@ -50,19 +50,23 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
 
 class MaskRCNNC4Predictor(nn.Module):
     """``conv5_mask`` (2x2 transposed conv, stride 2) with ReLU, then the
-    1x1 ``mask_fcn_logits``: [B, R, C, H, W] -> [B, R, K, 2H, 2W]."""
+    1x1 ``mask_fcn_logits``: [B, R, C, H, W] -> [B, R, K, 2H, 2W] float32.
+    As the JAX package's (its Flax convs have no ``dtype`` and promote to
+    their float32 kernels), the input is rounded to ``dtype`` and both
+    layers compute in float32."""
 
     def __init__(self, in_channels: int, num_classes: int,
                  dim_reduced: int = 256, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv5_mask = ConvTranspose2d(in_channels, dim_reduced, 2,
-                                          stride=2, compute_dtype=dtype)
-        self.mask_fcn_logits = Conv2d(dim_reduced, num_classes, 1,
-                                      compute_dtype=dtype)
+                                          stride=2)
+        self.mask_fcn_logits = Conv2d(dim_reduced, num_classes, 1)
 
     def forward(self, x):
         b, r = x.shape[:2]
-        x = self.mask_fcn_logits(F.relu(self.conv5_mask(_rows(x))))
+        x = _rows(x).to(self.dtype).float()
+        x = self.mask_fcn_logits(F.relu(self.conv5_mask(x)))
         return x.reshape((b, r) + x.shape[1:])
 
 

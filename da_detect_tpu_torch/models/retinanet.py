@@ -223,10 +223,12 @@ class RetinaNet(Detector):
 
     @torch.no_grad()
     def forward(self, batch: ImageBatch, impl: Optional[str] = None,
-                with_masks: bool = False) -> Detections:
-        if with_masks:
-            raise ValueError("with_masks needs a mask head (MODEL.MASK_ON); "
-                             "RetinaNet has none")
+                with_masks: bool = False,
+                with_keypoints: bool = False) -> Detections:
+        if with_masks or with_keypoints:
+            raise ValueError("with_masks needs a mask head and "
+                             "with_keypoints a keypoint head (MODEL.MASK_ON, "
+                             "MODEL.KEYPOINT_ON); RetinaNet has neither")
         impl = impl or self.default_impl()
         logits, regs, anchors = self._forward(batch, impl)
         return retinanet_inference(anchors, logits, regs, batch.sizes.float(),

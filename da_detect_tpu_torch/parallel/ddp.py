@@ -185,16 +185,19 @@ def unused_parameters(model, mode: str) -> list[str]:
     ("source_only", "da" or "da_triplet"): the DA heads in source-only
     training (and in an RPN-only model, which returns before them), the
     image head when the image and consistency losses weigh 0, the instance
-    head when the instance and consistency losses do; and the mask head in
-    the DA modes, whose loaders carry no GT masks (its loss is 0 there and
-    the head does not run). Every other parameter gets a gradient in every
+    head when the instance and consistency losses do; and the mask and
+    keypoint heads in the DA modes, whose loaders carry no GT masks or
+    keypoints (the mask loss is 0 there, the keypoint loss absent, and
+    neither head runs). Every other parameter gets a gradient in every
     step (the aligned re-pool that a 0 instance triplet weight skips runs
     the box head's own extractor, which the detection pass uses anyway)."""
     unused = []
-    if model.mask_head is not None and mode != "source_only":
-        unused = [f"roi_heads.mask.{n}"
-                  for n, p in model.mask_head.named_parameters()
-                  if p.requires_grad]
+    if mode != "source_only":
+        for key in ("mask", "keypoint"):
+            if key in getattr(model, "roi_heads", {}):
+                unused += [f"roi_heads.{key}.{n}" for n, p in
+                           model.roi_heads[key].named_parameters()
+                           if p.requires_grad]
     da = model.da_heads
     if da is None:
         return unused

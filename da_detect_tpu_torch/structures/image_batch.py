@@ -69,13 +69,17 @@ class Targets:
     (MASK_RESOLUTION),
     [B, G, M, M] float32; the mask loss resamples them into the proposals'
     frames (``models/mask_head.py::project_gt_masks``). None: no masks (the
-    DA loaders carry none). The keypoint targets come with their head, in a
-    later slice."""
+    DA loaders carry none).
+
+    ``keypoints`` (KEYPOINT_ON training only): each instance's K keypoints
+    as (x, y, visibility) in the resized/padded frame, [B, G, K, 3]
+    float32, rows with visibility 0 all zeros. None: no keypoints."""
 
     boxes: torch.Tensor   # [B, G, 4] float32 xyxy in the resized/padded frame
     labels: torch.Tensor  # [B, G] int64 (1..C-1; 0 reserved for background)
     valid: torch.Tensor   # [B, G] bool
     masks: Optional[torch.Tensor] = None  # [B, G, M, M] float32, box frame
+    keypoints: Optional[torch.Tensor] = None  # [B, G, K, 3] float32
 
     def to(self, device) -> "Targets":
         return Targets(**{f.name: None if getattr(self, f.name) is None

@@ -45,6 +45,7 @@ def run_training(cfg, logger, *, mode: str, schedule_kind: str, device,
     if mode == "source_only":
         loader, _ = make_data_loader(cfg, is_train=True, device=device,
                                      with_masks=cfg.MODEL.MASK_ON,
+                                     with_keypoints=cfg.MODEL.KEYPOINT_ON,
                                      seed=seed, packed=packed)
     else:
         loader = make_data_loader_da(cfg, device=device,
@@ -90,7 +91,8 @@ def run_eval(cfg, logger, model, device):
     """Evaluate ``model`` on each of ``DATASETS.TEST``: the TTA passes and
     their merge when ``TEST.BBOX_AUG.ENABLED`` (boxes only), else one pass
     with the expected-results gate, in ``bbox`` and, with a mask head
-    (``MODEL.MASK_ON``), ``segm``. In a process group each rank runs its
+    (``MODEL.MASK_ON``), ``segm``, with a keypoint head
+    (``MODEL.KEYPOINT_ON``), ``keypoints``. In a process group each rank runs its
     shard and the merged predictions are evaluated once. Returns {dataset
     name: results}."""
     from ..engine.bbox_aug import compute_on_dataset_aug
@@ -108,11 +110,14 @@ def run_eval(cfg, logger, model, device):
                 cfg, is_train=False, device=device, dataset_names=(name,),
                 packed=bool(cfg.TPU.PACKED_TRANSPORT))
             logger.info("evaluating on %s (%d images)", name, len(dataset))
+            iou_types = ("bbox",)
+            if cfg.MODEL.MASK_ON:
+                iou_types += ("segm",)
+            if cfg.MODEL.KEYPOINT_ON:
+                iou_types += ("keypoints",)
             try:
                 res, _ = inference(
-                    model, loader, dataset,
-                    iou_types=(("bbox", "segm") if cfg.MODEL.MASK_ON
-                               else ("bbox",)),
+                    model, loader, dataset, iou_types=iou_types,
                     output_folder=cfg.MODEL.OUTPUT_DIR,
                     expected_results=cfg.TEST.EXPECTED_RESULTS,
                     expected_results_sigma_tol=(

@@ -45,6 +45,12 @@ checkpoint converter uses in the other direction:
         spatial axes, then [in, out, kh, kw]: with SAME padding and
         ``transpose_kernel=False`` Flax applies the kernel unflipped,
         ``torch.nn.ConvTranspose2d`` flipped)
+    params/keypoint_head/extractor/conv_fcn1/kernel
+        -> roi_heads.keypoint.feature_extractor.conv_fcn1.weight
+    params/keypoint_head/predictor/kps_score_lowres/kernel
+        -> roi_heads.keypoint.predictor.kps_score_lowres.weight
+        (flipped as ``conv5_mask``: Flax's padding (1, 1) on the dilated
+        input is torch's ``padding=2``)
 
 Any key that names nothing in the model raises, as does any model entry left
 unset or a shape that disagrees, with one exception: variables with no
@@ -74,6 +80,8 @@ _PREFIXES = (
     ("da_heads/", "da_heads."),
     ("mask_head/extractor/", "roi_heads.mask.feature_extractor."),
     ("mask_head/predictor/", "roi_heads.mask.predictor."),
+    ("keypoint_head/extractor/", "roi_heads.keypoint.feature_extractor."),
+    ("keypoint_head/predictor/", "roi_heads.keypoint.predictor."),
 )
 
 _PARTS = {
@@ -113,7 +121,7 @@ def _to_torch_layout(path: str, value: np.ndarray,
         c, ph, pw = fc6_chw
         value = value.reshape(ph, pw, c, -1).transpose(2, 0, 1, 3).reshape(
             c * ph * pw, -1)
-    if path.endswith("conv5_mask/kernel"):
+    if path.endswith(("conv5_mask/kernel", "kps_score_lowres/kernel")):
         return value[::-1, ::-1].transpose(2, 3, 0, 1)
     if path.endswith("/kernel") and value.ndim == 4:
         return value.transpose(3, 2, 0, 1)      # HWIO -> OIHW

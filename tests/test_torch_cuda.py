@@ -61,6 +61,16 @@ flagship's; NMS on RetinaNet's class-offset boxes exactly, and a narrowed
 RetinaNet request through the kernel equal to its plain run, its train
 step launching no kernel.
 
+Keypoint R-CNN and the demo: the bfloat16 model's C4 mask and keypoint
+predictors compute in float32 on the card as on the CPU (1e-5); the
+keypoint pooler's site (P 14, sampling 2, P2-P5 of 800x1344 at C 256; 100
+and 2 x 512 ROIs) through one forward launch and a backward launch a
+level against the plain pooler; a narrowed keypoint step through the
+kernels against its plain run (losses; the gradients against the plain
+step on the forward kernel's pooled values, since a ReLU input within
+rounding of 0 flips between the two runs); ``COCODemo`` on the card with
+a request's launches, equal to its plain run.
+
 The data path: the packed transport (one pinned buffer a step, copied on a
 side stream) gives the CPU loader's batches bit for bit to a consumer that
 reads each batch late; the TTA merge's NMS launch keeps the plain version's
@@ -1446,3 +1456,184 @@ def test_dryrun_multichip_one_card(dev, capsys):
     assert lines[-1].startswith("dryrun_multichip(1): dp ok over 1 ranks "
                                 "(nccl)")
     assert out["backend"] == "nccl" and out["param_bound_used"] <= 1.0
+
+
+# ---------------------------------------------------------------- Keypoint
+
+@pytest.mark.parametrize("kind", ["mask_c4", "keypoint"])
+def test_float32_predictors_bf16_on_the_card(dev, kind):
+    """The bfloat16 model's C4 mask predictor and keypoint predictor round
+    their input to bfloat16 and compute in float32 (TF32 off), as the JAX
+    package's do: float32 logits on the card equal to the CPU's to 1e-5."""
+    from da_detect_tpu_torch.models import keypoint_head, mask_head
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(41)
+    if kind == "mask_c4":
+        mod = mask_head.MaskRCNNC4Predictor(256, 9, 256,
+                                            dtype=torch.bfloat16)
+        x = torch.randn(2, 50, 256, 14, 14, generator=gen)
+    else:
+        mod = keypoint_head.KeypointRCNNPredictor(512, 17,
+                                                  dtype=torch.bfloat16)
+        x = torch.randn(1, 100, 512, 14, 14, generator=gen)
+    x = x.to(torch.bfloat16)
+    with torch.no_grad():
+        want = mod(x)
+        got = mod.to(dev)(x.to(dev))
+    assert got.dtype == torch.float32
+    assert got.shape[-1] == (28 if kind == "mask_c4" else 52)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+KP_SHAPES = ((200, 336), (100, 168), (50, 84), (25, 42))
+
+
+@pytest.mark.parametrize("b,r", [(1, 100), (2, 512)])
+def test_keypoint_pooler_on_the_card(dev, b, r):
+    """The keypoint pooler's site (800x1344: P2-P5 at 256 channels, P 14,
+    sampling 2; 100 detections of a request, 512 ROIs on each of 2 training
+    images): one forward launch against the plain pooler (rtol = atol =
+    1e-5), then a backward launch a level, dF within 1e-5 of the largest
+    |dF| of the plain adjoint."""
+    gen = torch.Generator().manual_seed(42)
+    maps = [torch.randn(b, h, w, 256, generator=gen).to(dev).permute(
+        0, 3, 1, 2) for h, w in KP_SHAPES]
+    rng = np.random.RandomState(43)
+    side = np.exp(rng.uniform(np.log(8), np.log(800), (b, r, 2)))
+    xy = rng.uniform(-20, (1344, 800), (b, r, 2))
+    rois = torch.from_numpy(np.concatenate([xy, xy + side], -1).astype(
+        np.float32)).to(dev)
+    kw = dict(scales=FPN_SCALES, output_size=14, sampling_ratio=2)
+    g = torch.randn(b, r, 256, 14, 14, generator=gen).to(dev)
+    grads = []
+    for impl in ("cuda", "plain"):
+        leaves = [m.detach().clone().requires_grad_() for m in maps]
+        before = dict(kernels.LAUNCHES)
+        out = poolers.pool_rois(leaves, rois, **kw, impl=impl)
+        grads.append((out.detach(), torch.autograd.grad((out * g).sum(),
+                                                        leaves)))
+        torch.cuda.synchronize()
+        ran = {k: kernels.LAUNCHES.get(k, 0) - before.get(k, 0)
+               for k in ("roi_align_fwd", "roi_align_bwd")}
+        assert ran == ({"roi_align_fwd": 1, "roi_align_bwd": 4}
+                       if impl == "cuda" else dict.fromkeys(ran, 0))
+    (out_k, dk), (out_p, dp) = grads
+    torch.testing.assert_close(out_k, out_p, rtol=1e-5, atol=1e-5)
+    for got, want in zip(dk, dp):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def _narrow_keypoint_cfg():
+    cfg = entry.keypoint_cfg(dtype="float32")
+    cfg.MODEL.RESNETS.STEM_OUT_CHANNELS = 16
+    cfg.MODEL.RESNETS.WIDTH_PER_GROUP = 8
+    cfg.MODEL.RESNETS.RES2_OUT_CHANNELS = 32
+    cfg.MODEL.BACKBONE.OUT_CHANNELS = 64
+    cfg.MODEL.ROI_KEYPOINT_HEAD.CONV_LAYERS = (64,) * 8
+    cfg.TPU.IMAGE_SHAPE = (256, 384)
+    cfg.TPU.MAX_GT_BOXES = 8
+    return cfg
+
+
+def test_keypoint_step_kernels_match_plain(dev, monkeypatch):
+    """One source-only step of the narrowed Keypoint R-CNN (2 images of 512
+    ROIs, GT keypoints) through the kernels against the same step through
+    the plain versions: the losses (``loss_kp`` included) rtol 1e-4; NMS 5
+    (the RPN's levels), ROIAlign forward 2 (the box and keypoint poolers)
+    and backward 8 (a level each). The two runs' pooled features differ by
+    float32 rounding, and a ReLU input within rounding of 0 in the box MLP
+    or the eight keypoint convs then takes the other side and moves single
+    gradient elements past any fixed bound (seen on the card). So the
+    gradients are held against a third run: the plain step whose poolers
+    give the forward kernel's own values (each within 1e-5 of the plain
+    pooler) while their backward stays the plain autograd; every leaf of the
+    kernel run within 1e-3 of its largest |g| (plus 1e-6 of the model's
+    largest) of that run's: the ROIAlign backward kernels against the plain
+    adjoint inside a step."""
+    from da_detect_tpu_torch.models import box_head, keypoint_head
+
+    step, (state, args) = entry.source_train_entry(
+        device=str(dev), cfg=_narrow_keypoint_cfg())
+    model = state.model
+
+    def run(impl, launches):
+        model.zero_grad(set_to_none=True)
+        before = dict(kernels.LAUNCHES)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        losses, _ = model.train_forward(*args, state.da_state,
+                                        deterministic=True, generator=gen,
+                                        impl=impl)
+        sum(losses.values()).backward()
+        torch.cuda.synchronize()
+        ran = {k: kernels.LAUNCHES.get(k, 0) - before.get(k, 0)
+               for k in ("nms", "roi_align_fwd", "roi_align_bwd")}
+        assert ran == launches, (impl, ran)
+        return ({k: v.item() for k, v in losses.items()},
+                {n: p.grad.clone() for n, p in model.named_parameters()
+                 if p.requires_grad})
+
+    lk, gk = run("cuda", {"nms": 5, "roi_align_fwd": 2, "roi_align_bwd": 8})
+    lp, _ = run("plain", {"nms": 0, "roi_align_fwd": 0, "roi_align_bwd": 0})
+    assert set(lk) == set(lp) and lp["loss_kp"] > 0
+    for k in lp:
+        assert lk[k] == pytest.approx(lp[k], rel=1e-4), (k, lk, lp)
+    pooled_err = []
+
+    def kernel_values(pool):
+        def pool_as_kernel(features, rois, **kw):
+            kw.pop("impl")
+            plain = pool(features, rois, **kw, impl="plain")
+            with torch.no_grad():
+                kern = pool(features, rois, **kw, impl="cuda")
+            pooled_err.append(float((kern - plain).abs().max()))
+            return kern + (plain - plain.detach())
+        return pool_as_kernel
+
+    for mod in (box_head, keypoint_head):
+        monkeypatch.setattr(mod, "pool_rois", kernel_values(mod.pool_rois))
+    lq, gq = run("plain", {"nms": 0, "roi_align_fwd": 2, "roi_align_bwd": 0})
+    assert len(pooled_err) == 2 and max(pooled_err) <= 1e-5
+    # the same forward values (cuDNN's transposed conv in the keypoint
+    # predictor may sum in another order on each run)
+    for k in lk:
+        assert lq[k] == pytest.approx(lk[k], rel=1e-6), (k, lq, lk)
+    floor = 1e-6 * max(float(g.abs().max()) for g in gq.values())
+    for n, g in gq.items():
+        torch.testing.assert_close(gk[n], g, rtol=0,
+                                   atol=1e-3 * float(g.abs().max()) + floor)
+
+
+def test_coco_demo_on_the_card(dev):
+    """``COCODemo`` on the card (the narrowed keypoint YAML): a request
+    launches NMS 6 and ROIAlign forward 2, its prediction equals the same
+    demo's plain run (the same detections, boxes within 1e-2 px, scores
+    within 1e-4, keypoints within 1e-2 px), and the overlay keeps the
+    image's shape."""
+    from da_detect_tpu_torch.demo import COCODemo
+
+    cfg = _narrow_keypoint_cfg()
+    cfg.MODEL.ROI_HEADS.NMS = 0.9
+    cfg.MODEL.WEIGHT = ""
+    cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST = 240, 384
+    img = (np.random.RandomState(44).rand(240, 320, 3) * 255).astype(
+        np.uint8)
+    preds = []
+    for impl in ("cuda", "plain"):
+        demo = COCODemo(cfg, confidence_threshold=0.0)
+        demo.model.impl = impl
+        before = dict(kernels.LAUNCHES)
+        preds.append(demo.compute_prediction(img))
+        torch.cuda.synchronize()
+        ran = {k: kernels.LAUNCHES.get(k, 0) - before.get(k, 0)
+               for k in ("nms", "roi_align_fwd")}
+        assert ran == ({"nms": 6, "roi_align_fwd": 2} if impl == "cuda"
+                       else dict.fromkeys(ran, 0))
+    (bk, sk, lk, kk), (bp, sp, lp, kp) = preds
+    assert len(bk) == len(bp) > 0 and (lk == lp).all()
+    np.testing.assert_allclose(bk, bp, rtol=0, atol=1e-2)
+    np.testing.assert_allclose(sk, sp, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(kk[..., :2], kp[..., :2], rtol=0, atol=1e-2)
+    assert demo.run_on_opencv_image(img).shape == img.shape

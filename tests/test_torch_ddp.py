@@ -51,7 +51,8 @@ from da_detect_tpu_torch.utils import comm
 from da_detect_tpu_torch.utils.weights import jax_state_dict
 from tests.test_torch_data import _assert_batch_matches, _cfgs, _drain
 from tests.torch_ddp_ranks import rank_work
-from tests.torch_harness import (cfg_fc6_chw, mask_batches, mask_cfgs,
+from tests.torch_harness import (cfg_fc6_chw, keypoint_batches,
+                                 keypoint_cfgs, mask_batches, mask_cfgs,
                                  random_variables,
                                  register_port_tiny_catalog, tiny_cfgs)
 
@@ -171,21 +172,21 @@ def _eval_cfg():
     return pcfg
 
 
-def _mask_spec():
-    """The source-only Mask R-CNN case: the narrowed Cityscapes mask YAML
-    (tests/torch_harness.py::mask_cfgs) with every proposal of every level
-    kept (the batch-wide FPN top-n above both images' survivors) and
-    sampled (ROI batch 256 of at most 168 candidates an image), on 2 images
-    with GT masks: image 0 with its 8 GT boxes, image 1 with 2, so each
-    rank's positive rows, and the mask loss's pixel count, differ. Returns
-    (the JAX steps, the ranks' spec)."""
-    jcfg, pcfg = mask_cfgs()
+def _source_spec(cfgs, batches):
+    """A source-only case: ``cfgs`` (JAX, port) with every proposal of
+    every level kept (the batch-wide FPN top-n above both images'
+    survivors) and sampled (ROI batch 256 of at most 168 candidates an
+    image), on the 2 images of ``batches(jcfg, pcfg)``: image 0 with its 8
+    GT boxes, image 1 with 2, so each rank's positive rows, and the mask
+    loss's pixel count or the keypoint loss's visible keypoints, differ.
+    Returns (the JAX steps, the ranks' spec)."""
+    jcfg, pcfg = cfgs
     for cfg in (jcfg, pcfg):
         cfg.merge_from_list(["MODEL.RPN.FPN_POST_NMS_TOP_N_TRAIN", 1000,
                              "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", 256,
                              "SOLVER.BASE_LR", 0.01,
                              "SOLVER.WARMUP_FACTOR", 1.0])
-    (jb, jt), (pb, pt) = mask_batches(jcfg, pcfg)
+    (jb, jt), (pb, pt) = batches(jcfg, pcfg)
     valid = np.stack([np.ones(8, bool), np.arange(8) < 2])
     jt = jt.replace(valid=jnp.asarray(valid))
     pt.valid = torch.from_numpy(valid)
@@ -219,14 +220,15 @@ def run(tmp_path_factory):
     variables = _plain(random_variables(shapes, seed=1, scales=SCORE_SCALES))
     want = _jax_run(jcfg, variables, jbatch)
     dirs = factory.make_triplet_datasets(str(root / "data"))
-    mask_want, mask_spec = _mask_spec()
+    mask_want, mask_spec = _source_spec(mask_cfgs(), mask_batches)
+    kp_want, kp_spec = _source_spec(keypoint_cfgs(), keypoint_batches)
     spec = dict(cfg=pcfg, variables=variables, batch=_to_port(jbatch),
                 steps=STEPS, eval_cfg=_eval_cfg(), eval_data=dirs["foggy"],
                 ckpt_dir=str(root / "ckpt"), eval_dir=str(root / "eval"),
-                mask=mask_spec)
+                mask=mask_spec, kp=kp_spec)
     ranks = parallel.spawn(rank_work, WORLD, spec, tmp_dir=str(root))
     return dict(want=want, ranks=ranks, spec=spec, dirs=dirs, root=root,
-                mask_want=mask_want)
+                mask_want=mask_want, kp_want=kp_want)
 
 
 def test_ranks_import_no_jax(run):
@@ -304,15 +306,28 @@ def test_two_rank_mask_step_matches_jax_global_batch(run):
     JAX's 2-image step, the ranks' parameters equal, each parameter's
     change within PARAM_REL of JAX's (the mask head's too); each rank's own
     normalizers miss JAX's mask loss."""
-    want, ranks = run["mask_want"], run["ranks"]
-    r0, r1 = (r["mask"] for r in ranks)
+    _check_source_step(run, "mask", "roi_heads.mask.", "loss_mask")
+
+
+def test_two_rank_keypoint_step_matches_jax_global_batch(run):
+    """The source-only Keypoint R-CNN step over 2 ranks, as the mask case:
+    ``loss_kp``, normalized by the global batch's visible keypoints of
+    positive rows, and the keypoint head's parameters held to JAX's
+    2-image step; with each rank's own normalizers the keypoint head's
+    parameters miss JAX's."""
+    _check_source_step(run, "kp", "roi_heads.keypoint.", "loss_kp")
+
+
+def _check_source_step(run, case, head, loss):
+    want, ranks = run[f"{case}_want"], run["ranks"]
+    r0, r1 = (r[case] for r in ranks)
     for i in range(STEPS):
         assert _losses_match(r0["losses"][i], want["losses"][i]) <= \
             LOSS_RTOL, (i, r0["losses"][i], want["losses"][i])
         assert r1["losses"][i] == r0["losses"][i]
-    assert want["losses"][0]["loss_mask"] > 0
-    init = jax_state_dict({"params": run["spec"]["mask"]["variables"][
-        "params"]}, cfg_fc6_chw(run["spec"]["mask"]["cfg"]))
+    assert want["losses"][0][loss] > 0
+    init = jax_state_dict({"params": run["spec"][case]["variables"][
+        "params"]}, cfg_fc6_chw(run["spec"][case]["cfg"]))
     moved = set()
     for name, p in r0["params"].items():
         assert torch.equal(p, r1["params"][name]), name
@@ -325,10 +340,20 @@ def test_two_rank_mask_step_matches_jax_global_batch(run):
         assert err <= PARAM_REL * scale + ulp, (name, err, scale)
         if scale > 100 * ulp:
             moved.add(name)
-    assert any(n.startswith("roi_heads.mask.") for n in moved)
-    local = ranks[0]["mask_local"]["losses"][0]
-    assert abs(local["loss_mask"] - want["losses"][0]["loss_mask"]) \
-        > 10 * LOSS_RTOL * want["losses"][0]["loss_mask"]
+    assert any(n.startswith(head) for n in moved)
+    local = ranks[0][f"{case}_local"]
+    if case == "mask":
+        assert abs(local["losses"][0][loss] - want["losses"][0][loss]) \
+            > 10 * LOSS_RTOL * want["losses"][0][loss]
+        return
+    # every visible keypoint's loss sits near log(52 * 52) at random
+    # weights, whatever its normalizer: the rank-local one shows in the
+    # head's gradients, so in its parameters after the steps
+    worst = max(float(((local["params"][n] - init[n]) - d).abs().max())
+                / float(d.abs().max())
+                for n, d in ((n, want["params"][n] - init[n])
+                             for n in moved if n.startswith(head)))
+    assert worst > 10 * PARAM_REL
 
 
 def test_rank_local_normalization_fails_the_comparison(run):

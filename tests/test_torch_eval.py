@@ -136,7 +136,7 @@ def test_perfect_predictions_give_ap_one(crowd_datasets):
 
 
 def test_evaluate_writes_results_and_refuses_what_is_not_ported(
-        crowd_datasets, tmp_path):
+        crowd_datasets, tiny, tmp_path):
     mine, _ = crowd_datasets
     preds = _predictions(mine, 0)
     res = evaluate(mine, preds, output_folder=str(tmp_path))
@@ -144,7 +144,8 @@ def test_evaluate_writes_results_and_refuses_what_is_not_ported(
     assert set(res) == {"bbox"}
     # the Cityscapes protocol is ported (tests/test_torch_eval_protocols.py)
     # and, with the mask head, its mask protocol and COCO segm
-    # (tests/test_torch_mask_eval.py); the keypoint protocol is not
+    # (tests/test_torch_mask_eval.py), and with the keypoint head COCO's
+    # keypoint protocol (OKS, tests/test_torch_keypoint.py)
     cs = evaluate(mine, preds, style="cityscapes")
     assert set(cs) == {"bbox"} and "allAp50%" in cs["bbox"]
     assert set(evaluate(mine, preds, iou_types=("bbox", "segm"),
@@ -153,8 +154,19 @@ def test_evaluate_writes_results_and_refuses_what_is_not_ported(
         evaluate(mine, preds, style="voc")
     assert set(evaluate(mine, preds, iou_types=("bbox", "segm"))) \
         == {"bbox", "segm"}
-    with pytest.raises(NotImplementedError, match="keypoints"):
-        evaluate(mine, preds, iou_types=("bbox", "keypoints"))
+    plain = COCODataset(tiny["clean"][1], tiny["clean"][0], False)
+    kp_preds = _predictions(plain, 1)
+    rng = np.random.RandomState(2)
+    for p in kp_preds.values():
+        b = p["boxes"][:, None]
+        xy = b[..., :2] + rng.uniform(0, 1, (len(b), 17, 2)) * (
+            b[..., 2:] - b[..., :2])
+        p["keypoints"] = np.concatenate(
+            [xy, np.ones((len(b), 17, 1))], -1).astype(np.float32)
+    res = evaluate(plain, kp_preds, iou_types=("bbox", "keypoints"))
+    assert set(res) == {"bbox", "keypoints"} and "AR20" in res["keypoints"]
+    with pytest.raises(ValueError, match="iou type"):
+        evaluate(mine, preds, iou_types=("bbox", "parts"))
 
 
 @pytest.mark.parametrize("expected,raises", [

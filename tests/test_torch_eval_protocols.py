@@ -186,8 +186,8 @@ def test_inference_dispatches_eval_style(tiny_tree, monkeypatch):
     pds = COCODataset(root=img_dir, ann_file=ann,
                       remove_images_without_annotations=False)
     preds = _random_predictions(pds, 3)
-    monkeypatch.setattr(pinf, "compute_on_dataset", lambda model, loader:
-                        preds)
+    monkeypatch.setattr(pinf, "compute_on_dataset",
+                        lambda model, loader, **heads: preds)
     res, got_preds = pinf.inference(None, None, pds, style="cityscapes")
     assert got_preds is preds
     _same(res, jcs.do_cityscapes_evaluation(pds, preds))

@@ -144,8 +144,8 @@ def test_weight_loader_maps_da_heads():
 def test_unsupported_configs_raise():
     """The default config (COMPUTE_DTYPE bfloat16, as in the JAX package)
     builds a bfloat16 model with float32 parameters; another compute dtype
-    raises, as does the keypoint head, a later slice. GroupNorm bodies,
-    the mask head and RetinaNet build; RetinaNet with the DA heads raises
+    raises. GroupNorm bodies, the mask head, the keypoint head (every
+    keypoint YAML) and RetinaNet build; RetinaNet with the DA heads raises
     ValueError, as in the JAX package."""
     from da_detect_tpu_torch.layers import Conv2d, Linear
     from da_detect_tpu_torch.models import build_detection_model
@@ -160,11 +160,16 @@ def test_unsupported_configs_raise():
     cfg.TPU.COMPUTE_DTYPE = "float16"
     with pytest.raises(NotImplementedError, match="bfloat16 or float32"):
         build_detection_model(cfg)
-    for key, value in (("MODEL.KEYPOINT_ON", True),):
-        cfg = entry.flagship_cfg(dtype="float32")
-        cfg.merge_from_list([key, value])
-        with pytest.raises(NotImplementedError):
-            build_detection_model(cfg)
+    for yaml in sorted(glob.glob(os.path.join(REPO, "configs", "**",
+                                              "*keypoint*.yaml"),
+                                 recursive=True)):
+        cfg = get_cfg()
+        cfg.merge_from_file(yaml)
+        cfg.merge_from_list(["MODEL.RESNETS.WIDTH_PER_GROUP", 8,
+                             "MODEL.ROI_KEYPOINT_HEAD.CONV_LAYERS",
+                             (16,) * 8])
+        head = build_detection_model(cfg).keypoint_head
+        assert head.predictor.kps_score_lowres.out_channels == 17, yaml
     from da_detect_tpu_torch.models.retinanet import RetinaNet
 
     cfg = entry.flagship_cfg(dtype="float32")

@@ -17,7 +17,8 @@ step's losses rtol 1e-4 and every gradient within 1e-3 of its leaf's
 largest |g| plus 1e-6 of the model's largest, as
 tests/test_torch_train_fpn.py; bfloat16 stage by stage in bfloat16 ulps
 of the reference's largest magnitude (``torch_harness.bf16_ulp``):
-BF16_STAGE_ULPS a stage, each stage fed JAX's previous output.
+BF16_STAGE_ULPS a stage, each stage fed JAX's previous output; the C4
+predictor's float32 logits in a bfloat16 model at float32 tolerance.
 """
 
 import glob
@@ -178,10 +179,12 @@ KINDS = ["extractor", "extractor_gn", "predictor_c4", "predictor_1x1"]
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind", KINDS)
 def test_mask_module_matches_jax(kind, dtype):
-    """Each module on the same weights and inputs: float32 to 1e-5; bfloat16
-    stage by stage (the pooled map, then each conv, GroupNorm and the
-    predictor's layers fed JAX's previous stage), BF16_STAGE_ULPS each, and
-    the module's output."""
+    """Each module on the same weights and inputs: float32 to 1e-5; the C4
+    predictor in bfloat16 to 1e-5 too (it rounds its input to bfloat16 and
+    computes in float32, as JAX's, whose Flax convs have no dtype: float32
+    logits); the other bfloat16 modules stage by stage (the pooled map,
+    then each conv and GroupNorm fed JAX's previous stage),
+    BF16_STAGE_ULPS each, and the module's output."""
     jcfg, pcfg = mask_cfgs(MASK_GN_YAML if kind == "extractor_gn" else None,
                            dtype)
     jmod, pmod, jargs, pargs = _module_pair(kind, jcfg, pcfg, dtype)
@@ -196,8 +199,9 @@ def test_mask_module_matches_jax(kind, dtype):
                              mutable=["intermediates"])
     got = pmod(*pargs, impl="plain") if kind.startswith("extractor") \
         else pmod(*pargs)
-    if dtype == "float32":
+    if dtype == "float32" or kind == "predictor_c4":
         want = np.asarray(want)
+        assert want.dtype == np.float32 and got.dtype == torch.float32
         np.testing.assert_allclose(_to_jax_layout(got), want, rtol=1e-5,
                                    atol=1e-5 * float(np.abs(want).max()))
         return
@@ -231,18 +235,6 @@ def test_mask_module_matches_jax(kind, dtype):
                             ref, BF16_STAGE_ULPS, name)
                 prev = ref
             prev = np.maximum(prev, 0.0)
-    elif kind == "predictor_c4":
-        ref = np.asarray(inter["conv5_mask"]["__call__"][0]
-                         .astype(jnp.float32))
-        src = pargs[0].reshape((-1,) + pargs[0].shape[2:])
-        out = pmod.conv5_mask(src)
-        assert_ulps(out.detach().float().permute(0, 2, 3, 1), ref,
-                    BF16_STAGE_ULPS, "conv5_mask")
-        logits = pmod.mask_fcn_logits(torch.from_numpy(
-            np.maximum(ref, 0.0)).permute(0, 3, 1, 2).to(torch.bfloat16))
-        assert_ulps(logits.detach().float().permute(0, 2, 3, 1),
-                    inter["mask_fcn_logits"]["__call__"][0],
-                    BF16_STAGE_ULPS, "mask_fcn_logits")
 
 
 def test_project_gt_masks_matches_jax():

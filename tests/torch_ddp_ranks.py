@@ -43,14 +43,16 @@ def _comm_checks(rank: int, world: int) -> dict:
 def _local_normalizers():
     """Each rank's losses normalized over its own batch, and its own probe
     and triplet losses: what DDP around the single-process losses gives."""
-    from da_detect_tpu_torch.models import box_head, da, mask_head, rpn
+    from da_detect_tpu_torch.models import (box_head, da, keypoint_head,
+                                            mask_head, rpn)
 
     def local_mean(num, den, floor):
         return num / den.clamp(min=floor)
 
     saved = [(m, n, getattr(m, n)) for m, n in (
         (rpn, "global_mean"), (box_head, "global_mean"), (da, "global_mean"),
-        (mask_head, "global_mean"), (da, "global_average"))]
+        (mask_head, "global_mean"), (keypoint_head, "global_mean"),
+        (da, "global_average"))]
     for m, n, _ in saved:
         setattr(m, n, local_mean if n == "global_mean" else (lambda x: x))
     try:
@@ -99,11 +101,11 @@ def _steps(spec, rank: int, world: int, local: bool) -> dict:
                         for n, p in model.named_parameters()})
 
 
-def _mask_steps(spec, rank: int, world: int, local: bool) -> dict:
-    """``spec["steps"]`` source-only steps of the narrowed Mask R-CNN
-    through DDP on this rank's image of the 2-image global batch (GT masks
-    on): each step's losses, and the final parameters; with ``local``
-    each rank's own normalizers."""
+def _source_steps(spec, rank: int, world: int, local: bool) -> dict:
+    """``spec["steps"]`` source-only steps of a narrowed Mask or Keypoint
+    R-CNN through DDP on this rank's image of the 2-image global batch (GT
+    masks or keypoints on): each step's losses, and the final parameters;
+    with ``local`` each rank's own normalizers."""
     from da_detect_tpu_torch.engine.trainer import make_train_step
     from da_detect_tpu_torch.parallel import shard, wrap_train_forward
 
@@ -208,9 +210,11 @@ def rank_work(rank: int, world: int, init_method: str, spec: dict) -> dict:
                source_only_da_grads=_source_only(spec, rank, world),
                checkpoint=_checkpoint(spec, rank, world, spec["ckpt_dir"]),
                eval=_eval(spec, rank, spec["eval_dir"]),
-               mask=_mask_steps(spec["mask"], rank, world, local=False),
-               mask_local=_mask_steps(spec["mask"], rank, world,
-                                      local=True))
+               mask=_source_steps(spec["mask"], rank, world, local=False),
+               mask_local=_source_steps(spec["mask"], rank, world,
+                                        local=True),
+               kp=_source_steps(spec["kp"], rank, world, local=False),
+               kp_local=_source_steps(spec["kp"], rank, world, local=True))
     out["jax_imported"] = any(m == "jax" or m.startswith("jax.")
                               for m in sys.modules)
     return out

@@ -466,3 +466,45 @@ def mask_batches(jcfg, pcfg, b: int = 2, seed: int = 0):
     jb, jt = graft._batch(jcfg, b, seed=seed)
     pb, pt = make_batch(pcfg, b, seed=seed, with_masks=True)
     return (jb, jt.replace(masks=jnp.asarray(pt.masks.numpy()))), (pb, pt)
+
+
+# Keypoint R-CNN: the YAMLs the keypoint tests narrow
+KEYPOINT_YAMLS = ("configs/e2e_keypoint_rcnn_R_50_FPN_1x.yaml",
+                  "configs/caffe2/e2e_keypoint_rcnn_R_50_FPN_1x_caffe2.yaml",
+                  "configs/quick_schedules/"
+                  "e2e_keypoint_rcnn_R_50_FPN_quick.yaml")
+
+
+def keypoint_cfgs(dtype: str = "float32"):
+    """(JAX cfg, port cfg) of the keypoint R-CNN YAML for the CPU:
+    ``_narrow_fpn_train``'s widths and budgets (canvas 64x96, 8 GT boxes,
+    every candidate sampled) with the keypoint head's eight convs at 16
+    channels, the YAML's 2 classes and 17 keypoints, no DA heads, computing
+    in ``dtype``."""
+    from da_detect_tpu.config import get_cfg as j_get_cfg
+    from da_detect_tpu_torch.config import get_cfg
+
+    cfgs = []
+    for cfg in (j_get_cfg(), get_cfg()):
+        cfg.merge_from_file(KEYPOINT_YAMLS[0])
+        _narrow_fpn_train(cfg, "four")
+        cfg.MODEL.ROI_KEYPOINT_HEAD.CONV_LAYERS = (16,) * 8
+        cfg.MODEL.DOMAIN_ADAPTATION_ON = False
+        cfg.TPU.COMPUTE_DTYPE = dtype
+        cfgs.append(cfg)
+    return tuple(cfgs)
+
+
+def keypoint_batches(jcfg, pcfg, b: int = 2, seed: int = 0):
+    """b source images with GT keypoints, for JAX and the port: the port's
+    ``make_batch(with_keypoints=True)`` (its labels folded into the 2
+    classes) and the same arrays in the JAX package's ``Targets``."""
+    import jax.numpy as jnp
+
+    from da_detect_tpu_torch.entry import make_batch
+
+    jb, jt = graft._batch(jcfg, b, seed=seed)
+    pb, pt = make_batch(pcfg, b, seed=seed, with_keypoints=True)
+    jt = jt.replace(labels=jnp.asarray(pt.labels.numpy(), jt.labels.dtype),
+                    keypoints=jnp.asarray(pt.keypoints.numpy()))
+    return (jb, jt), (pb, pt)
