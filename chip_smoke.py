@@ -31,6 +31,24 @@ Phases, one JSON line each:
                forward and backward; NMS at RetinaNet's site, 5000
                class-offset boxes at IoU 0.4, stopped at 100 kept and
                whole
+ 3a. serving_bf16  serving export (``engine/serving.py``) in bfloat16 at
+               full width: the flagship YAML at 608x1216 exported as a
+               ``stablehlo`` and an ``aot`` artifact and as a uint8 ``aot``
+               one, the X-101-32x8d-FPN-DCN YAML at 608x1216 ("four"
+               gathers, 270 row_gather launches a request), the
+               Cityscapes mask YAML (with masks) and the keypoint YAML (with
+               keypoints) at 800x1344 as ``aot`` artifacts (a CUDA graph
+               captured at load). Each artifact's request against the eager
+               kernel route on the same weights and batch: outputs bit for
+               bit (the keypoint artifact: detections bit for bit, its
+               keypoints within the keypoint rerun's bound, phase 10d), the
+               launches of one call read by kernel name from a profile
+               equal to eager's, its device time and busy share; export and
+               load seconds, artifact bytes, peak memory; the steady request
+               in turns (eager, stablehlo, aot); an aot artifact whose
+               recorded device kind was edited must be refused; the
+               flagship's cold starts, a fresh process each from its start
+               to its first detection (eager, stablehlo, aot)
   4. slice     the flagship R-50-C4 config (its YAML) at the 608x1216 canvas
                (phases 4-10 in float32, then again in bfloat16, below),
                random weights from a seed, answers 4 eval requests
@@ -80,7 +98,7 @@ Phases, one JSON line each:
                destination shape); the scatter-add as a function
                with a dense output on step 1's indices (offsets as drawn):
                the kernel with the layers' CSR and with its own, the plain
-               version and torch.zeros + index_add_ (3 profiles in turns),
+               version and torch.zeros + index_add_ (2 profiles in turns),
                beside its byte bound, with the longest row and share of
                sources in rows summed in pieces; a later step's inputs
                checked too (by then the random-weight step diverges), its
@@ -235,7 +253,8 @@ a user catalog, PATHS_CATALOG):
                latency of ``compute_prediction``, kernel-run against
                plain-run detections and keypoints; ``draw_detection.main``
                over a folder of 2 PNGs writes 2 files
-``--data-only`` runs phases 1, 2 and 12-22 alone, without the kernel line.
+``--data-only`` runs phases 1, 2 and 12-22 alone, without the kernel line
+(and without phase 3a).
 ``--gate-spread GATES RUNS [CONDITION[:FIRST] ...]`` runs phases 1 and 2,
 then the learning gate of phase 12 GATES times and its triplet-DA arm RUNS
 times under each condition (default: all of SPREAD_CONDITIONS) with its
@@ -247,7 +266,9 @@ replaced read through L2, and the ROIs' footprint bytes the kernel stages.
 Then a line with every kernel's numbers (a row a kernel and dtype, and one
 for the TTA merge's NMS site; the float32 NMS and ROIAlign rows also under
 the path "sanity_bf16", the ablation's run, and the bfloat16 FBNet paths,
-whose poolers pool float32 maps), the nvidia-smi line of the
+whose poolers pool float32 maps; the serving paths of phase 3a,
+"serving_*_bf16", with an aot request's launches read from a replay's
+profile, under the forward kernels' rows), the nvidia-smi line of the
 card, and last ``{"ok": true, "device": {...}}``. Any failure raises: the
 script exits non-zero and prints no result. With no CUDA device it exits 1
 at once.
@@ -348,7 +369,10 @@ ROI_BWD_REL = 1e-5
 # from its own level, in one launch
 PER_DCN_FORWARD = {"row_gather": 270, "nms": 6, "roi_align_fwd": 1}
 PER_QUAD_FORWARD = {"row_gather_bulk": 270, "nms": 6, "roi_align_fwd": 1}
-DCN_PROFILE_RUNS, GATHER_TIMING_RUNS, GATHER_PROFILES = 3, 5, 3
+# (gathers and scatter-adds: 2 profiles of 3 passes, and 2 timed DCN train
+# steps a dtype, since the serving phase joined the run: the script's
+# whole run must stay inside its time limit on a slow host)
+DCN_PROFILE_RUNS, GATHER_TIMING_RUNS, GATHER_PROFILES = 3, 3, 2
 # the DCN model's train step, "four" gathers (deformable_groups 1): each of
 # the 3 backbone passes (source, positive, negative) gathers once a tap of
 # its 30 deformable convs (270) forward and once more in the backward (the
@@ -366,8 +390,8 @@ PER_DCN_TRAIN_STEP = {"row_gather": 3 * 2 * 270, "row_scatter_add": 3 * 270,
 PER_DCN_QUAD_TRAIN_STEP = {
     ("row_gather_bulk" if k == "row_gather" else k): v
     for k, v in PER_DCN_TRAIN_STEP.items()}
-DCN_TRAIN_STEPS, DCN_QUAD_TRAIN_STEPS, SCATTER_TIMING_RUNS = 4, 1, 1
-BF16_DCN_TRAIN_STEPS = 3
+DCN_TRAIN_STEPS, DCN_QUAD_TRAIN_STEPS, SCATTER_TIMING_RUNS = 2, 1, 1
+BF16_DCN_TRAIN_STEPS = 2
 DCN_TRAIN_NMS_SITES = tuple(f"rpn_{d}_p{l}" for d in ("source", "target")
                             for l in range(2, 7))
 SCATTER_REL = 1e-5
@@ -5176,6 +5200,365 @@ def phase_tta(dev, data: dict) -> dict:
     return dict(sites=sites, launches=launches, err=err)
 
 
+# ---------------------------------------------------------------- serving
+# the device kernel whose calls count one launch of each forward kernel in
+# a profile (an NMS launch runs its mask kernel, then its walk kernel)
+LAUNCH_KERNEL_NAMES = {"nms": "nms_walk_kernel",
+                       "roi_align_fwd": "roi_align_fwd_kernel",
+                       "row_gather": "row_gather_kernel",
+                       "row_gather_bulk": "row_gather_bulk_kernel"}
+# steady requests a mode, taken in turns; requests a busy-share profile
+SERVING_ROUNDS, SERVING_PROFILE_RUNS = 10, 3
+COLD_START_TIMEOUT = 300
+# a process from its start to its first detection (cold start, as the JAX
+# package's scripts/bench_serving.py defines it): the flagship's weights
+# from a file, then the eager model built from its YAML or an artifact
+# loaded, one request, and its valid count on the host
+COLD_CHILD = r"""
+import time
+started = time.time()
+import json, sys
+import numpy as np
+import torch
+repo, mode, art, weights, yaml, h, w, dtype = sys.argv[1:9]
+sys.path.insert(0, repo)
+h, w = int(h), int(w)
+from da_detect_tpu_torch.structures.image_batch import ImageBatch
+dev = torch.device("cuda", 0)
+rng = np.random.RandomState(0)
+images = torch.from_numpy(rng.uniform(-100, 100, (1, h, w, 3)).astype(
+    np.float32)).to(dev).permute(0, 3, 1, 2)
+sizes = torch.tensor([[h, w]], dtype=torch.int32, device=dev)
+batch = ImageBatch(images, sizes, sizes,
+                   torch.ones(1, dtype=torch.bool, device=dev))
+variables = torch.load(weights, map_location=dev, weights_only=True)
+if mode == "eager":
+    from da_detect_tpu_torch.config import get_cfg
+    from da_detect_tpu_torch.entry import prepare_model
+    from da_detect_tpu_torch.models import build_detection_model
+    cfg = get_cfg()
+    cfg.merge_from_file(yaml)
+    cfg.TPU.IMAGE_SHAPE = (h, w)
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    model = prepare_model(build_detection_model(cfg), dev)
+    model.load_state_dict(variables)
+    dets = model(batch)
+else:
+    from da_detect_tpu_torch.engine.serving import load_serving
+    dets = load_serving(art)(variables, batch)
+valid = int(dets.valid.sum())
+first = time.time()
+print(json.dumps(dict(mode=mode, started=started, first=first, valid=valid,
+                      model_code="da_detect_tpu_torch.models" in sys.modules)))
+"""
+
+
+def flat_outputs(out) -> list:
+    """Detections, or (Detections, masks or keypoints), as a tensor list."""
+    if isinstance(out, tuple) and not hasattr(out, "_fields"):
+        return list(out[0]) + [out[1]]
+    return list(out)
+
+
+def output_difference(a, b) -> dict | None:
+    """Where two outputs first differ (field index, largest difference),
+    or None when they are equal bit for bit."""
+    for i, (x, y) in enumerate(zip(flat_outputs(a), flat_outputs(b))):
+        if x.shape != y.shape or x.dtype != y.dtype or not torch.equal(x, y):
+            diff = (x.double() - y.double()).abs() if x.shape == y.shape \
+                else None
+            return dict(field=i, shape=[list(x.shape), list(y.shape)],
+                        max_abs_diff=None if diff is None
+                        else float(diff.max()))
+    return None
+
+
+def request_profile(run, runs: int = SERVING_PROFILE_RUNS) -> dict:
+    """``runs`` calls of ``run()`` under ``torch.profiler``: the forward
+    kernels' launches a call, read by kernel name (a CUDA graph's replay
+    included), the device time a call and the device's busy share of the
+    wall clock (under the profiler's own overhead)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    counts = {k: sum(e.count for e in kern if name in e.key) / runs
+              for k, name in LAUNCH_KERNEL_NAMES.items()}
+    device_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    return dict(launches={k: n for k, n in counts.items() if n},
+                device_ms=device_ms / runs, wall_ms=wall_ms / runs,
+                busy_share=device_ms / wall_ms)
+
+
+def in_turns(calls: dict, rounds: int = SERVING_ROUNDS) -> dict:
+    """Each call's median host time to a synchronize (ms) over ``rounds``
+    rounds, one call of each in turn a round, and its spread."""
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {k: [] for k in calls}
+    for _ in range(rounds):
+        for k, fn in calls.items():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: dict(median_ms=statistics.median(v), min_ms=min(v),
+                    max_ms=max(v)) for k, v in times.items()}
+
+
+def cold_starts(art: dict, weights: str, yaml: str, canvas, dtype: str
+                ) -> dict:
+    """Seconds from a fresh process's start to its first detection, for
+    the eager model and each format (``COLD_CHILD``)."""
+    out = {}
+    for mode in ("eager", *art):
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-c", COLD_CHILD, REPO, mode,
+             art.get(mode, ""), weights, yaml, str(canvas[0]),
+             str(canvas[1]), dtype], capture_output=True, text=True,
+            cwd=REPO, timeout=COLD_START_TIMEOUT)
+        if proc.returncode != 0:
+            raise RuntimeError(f"cold start {mode}: rc {proc.returncode}\n"
+                               f"{proc.stderr[-3000:]}")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        if not got["valid"]:
+            raise AssertionError(f"cold start {mode}: no detection")
+        if mode != "eager" and got["model_code"]:
+            raise AssertionError(f"cold start {mode}: the artifact's process "
+                                 "imported the model code")
+        out[mode] = dict(cold_start_s=got["first"] - t0,
+                         in_process_s=got["first"] - got["started"],
+                         valid=got["valid"])
+    return out
+
+
+def serve_artifact(name: str, cfg, model, fn, batch, expected: dict,
+                   fmt: str, path: str, kw: dict, check=None,
+                   before_load=None, **export_kw):
+    """Export ``model``'s eval forward (``kw``: with_masks or
+    with_keypoints) to ``path`` in ``fmt``, load it, and hold one request
+    of it to the eager kernel route on ``batch``: the same outputs bit for
+    bit (``check(eager, artifact)`` instead, where given, for what may
+    differ), the same launches read from a profile of one call, and
+    ``kernels.LAUNCHES``: a stablehlo call counts its launches, an aot
+    artifact counts those of its warm-up and capture only (a replay runs
+    no Python). ``before_load``, where given, is called between the
+    export and the load. Returns (the loaded artifact, a summary)."""
+    from da_detect_tpu_torch import kernels
+    from da_detect_tpu_torch.engine.serving import (WARMUP_RUNS,
+                                                    export_serving,
+                                                    load_serving)
+
+    variables = model.state_dict()
+    t0 = time.perf_counter()
+    meta = export_serving(cfg, model, variables, path, fmt=fmt, **kw,
+                          **export_kw)
+    export_s = time.perf_counter() - t0
+    if before_load is not None:
+        before_load()
+    clear_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    serving = load_serving(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated()
+    at_load = {k: kernels.LAUNCHES[k] for k in expected}
+    want_at_load = {k: n * (WARMUP_RUNS + 1 if fmt == "aot" else 0)
+                    for k, n in expected.items()}
+    if at_load != want_at_load:
+        raise AssertionError(f"{name}: launches at load {at_load}, "
+                             f"expected {want_at_load}")
+    eager = fn(model, batch)
+    clear_counts()
+    torch.cuda.reset_peak_memory_stats()
+    got = serving(variables, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counted = read_counts(expected if fmt == "stablehlo" else {}, 1, name,
+                          "requests")
+    diff = output_difference(eager, got)
+    agreement = check(eager, got) if check is not None and diff else None
+    if diff and check is None:
+        raise AssertionError(f"{name}: the artifact's output differs from "
+                             f"the eager forward's: {diff}")
+    eager_profile = request_profile(lambda: fn(model, batch))
+    profile = request_profile(lambda: serving(variables, batch))
+    launches = profile.pop("launches")
+    want = {k: n for k, n in expected.items() if n}
+    if launches != want or eager_profile["launches"] != want:
+        raise AssertionError(f"{name}: launches a request, profiled: "
+                             f"artifact {launches}, eager "
+                             f"{eager_profile['launches']}, expected {want}")
+    return serving, dict(
+        format=fmt, export_s=export_s, artifact_bytes=os.path.getsize(path),
+        load_s=load_s, load_peak_bytes=load_peak, request_peak_bytes=peak,
+        bit_for_bit=diff is None, first_difference=diff,
+        agreement=agreement, launches_profiled=launches,
+        eager_launches_profiled=eager_profile.pop("launches"),
+        profile=profile, eager_profile=eager_profile,
+        launches_counted_at_load=at_load, launches_counted_request=counted,
+        image_dtype=meta["image_dtype"], outputs=meta["outputs"],
+        device_kind=meta["device_kind"])
+
+
+def keypoints_within_rerun_bound(model, cfg, batch):
+    """The keypoint artifact's check: its detections bit for bit the eager
+    forward's; its keypoints held to the eager rerun's bound
+    (``keypoint_agreement``: the float32 transposed conv of the keypoint
+    predictor does not rerun bit for bit in cuDNN)."""
+    ref = f32_copy(model, cfg)
+
+    def check(eager, got):
+        diff = output_difference(eager[0], got[0])
+        if diff:
+            raise AssertionError(f"keypoint artifact: detections differ "
+                                 f"from the eager forward's: {diff}")
+        return keypoint_agreement(model, batch, got[0], got[1], ref)
+    return check
+
+
+def phase_serving(dev) -> dict:
+    """Serving export on the card, bfloat16 at full width and canvas: the
+    flagship R-50-C4 at 608x1216 in both formats and as a uint8 ``aot``
+    artifact, the X-101-32x8d-FPN-DCN at 608x1216 (its YAML's "four"
+    gathers), the Cityscapes Mask R-CNN at 800x1344 with masks and
+    Keypoint R-CNN at 800x1344 with keypoints as ``aot`` artifacts. Each is
+    held to the eager kernel route
+    (``serve_artifact``: outputs, launches, the device time and busy share
+    of a request), its export and load timed and its peaks read; the
+    steady request in turns (eager, stablehlo, aot), the aot device guard,
+    and the flagship's cold starts (``cold_starts``: one child process at a
+    time, run while this process traces the DCN model's export, which
+    keeps one host core busy and the card all but idle). Returns the
+    kernel line's serving paths: path -> (no sites, launches a request
+    read from the aot replay's profile, no device times)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from da_detect_tpu_torch import entry
+    from da_detect_tpu_torch.e2e_pairs import spread_dcn
+    from da_detect_tpu_torch.engine.serving import load_serving
+
+    paths, out = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as root, \
+            ThreadPoolExecutor(1) as pool:
+        cfg, fn, model, batches = flagship_model(dev, "bfloat16")
+        batch = batches[0]
+        art = {fmt: os.path.join(root, f"flagship_{fmt}.pt2")
+               for fmt in ("stablehlo", "aot")}
+        shlo, out["flagship_stablehlo"] = serve_artifact(
+            "serving flagship stablehlo", cfg, model, fn, batch, PER_FORWARD,
+            "stablehlo", art["stablehlo"], {})
+        aot, out["flagship_aot"] = serve_artifact(
+            "serving flagship aot", cfg, model, fn, batch, PER_FORWARD, "aot",
+            art["aot"], {})
+        variables = model.state_dict()
+        out["flagship_steady"] = in_turns(dict(
+            eager=lambda: fn(model, batch),
+            stablehlo=lambda: shlo(variables, batch),
+            aot=lambda: aot(variables, batch)))
+        paths[label("serving_flagship", "bfloat16")] = (
+            [], out["flagship_aot"]["launches_profiled"], {})
+        guard = os.path.join(root, "guard.pt2")
+        rewrite_meta(art["aot"], guard, device_kind="GPU v99")
+        try:
+            load_serving(guard)
+        except RuntimeError as e:
+            if "GPU v99" not in str(e):
+                raise
+            out["device_guard"] = str(e)[:200]
+        else:
+            raise AssertionError("the aot load took an artifact whose "
+                                 "device kind was edited")
+        del shlo, aot
+        u8 = entry.make_batch(cfg, 1, seed=7, device=dev)[0]
+        raw = torch.randint(0, 256, u8.images.shape, dtype=torch.uint8,
+                            generator=torch.Generator().manual_seed(7))
+        u8.images = raw.to(dev).contiguous(memory_format=torch.channels_last)
+        u8_aot, out["flagship_uint8_aot"] = serve_artifact(
+            "serving flagship uint8 aot", cfg, model, fn, u8, PER_FORWARD,
+            "aot", os.path.join(root, "flagship_u8.pt2"), {},
+            image_dtype=torch.uint8)
+        del u8_aot
+        weights = os.path.join(root, "flagship_weights.pt")
+        torch.save(variables, weights)
+        cold = pool.submit(cold_starts, art, weights, FLAGSHIP_YAML, CANVAS,
+                           "bfloat16")
+        del fn, model, batches, batch, variables
+        torch.cuda.empty_cache()
+
+        cfg, fn, model = dcn_model(dev, "four", "bfloat16")
+        batch = entry.make_batch(cfg, 1, seed=0, device=dev)[0]
+        spread_dcn(model, batch)
+        aot, out["dcn_aot"] = serve_artifact(
+            "serving dcn aot", cfg, model, fn, batch, PER_DCN_FORWARD, "aot",
+            os.path.join(root, "dcn_aot.pt2"), {}, before_load=cold.result)
+        out["cold_start"] = cold.result()
+        variables = model.state_dict()
+        out["dcn_steady"] = in_turns(dict(
+            eager=lambda: fn(model, batch),
+            aot=lambda: aot(variables, batch)))
+        paths[label("serving_dcn", "bfloat16")] = (
+            [], out["dcn_aot"]["launches_profiled"], {})
+        del aot, fn, model, batch, variables
+        torch.cuda.empty_cache()
+
+        for head, make, per, kw in (
+                ("mask", mask_model, PER_MASK_FORWARD, "with_masks"),
+                ("keypoint", keypoint_model, PER_KP_FORWARD,
+                 "with_keypoints")):
+            cfg, fn, model, batches = make(dev, "bfloat16")
+            batch = batches[0]
+            check = keypoints_within_rerun_bound(model, cfg, batch) \
+                if head == "keypoint" else None
+            aot, out[f"{head}_aot"] = serve_artifact(
+                f"serving {head} aot", cfg, model, fn, batch, per, "aot",
+                os.path.join(root, f"{head}_aot.pt2"), {kw: True},
+                check=check)
+            variables = model.state_dict()
+            out[f"{head}_steady"] = in_turns(dict(
+                eager=lambda: fn(model, batch),
+                aot=lambda: aot(variables, batch)))
+            paths[label(f"serving_{head}", "bfloat16")] = (
+                [], out[f"{head}_aot"]["launches_profiled"], {})
+            del aot, fn, model, batches, batch, variables, check
+            torch.cuda.empty_cache()
+    emit("serving_bf16", canvas=dict(flagship=list(CANVAS), dcn=list(CANVAS),
+                                     mask=list(MASK_CANVAS),
+                                     keypoint=list(MASK_CANVAS)),
+         note="launches_counted_at_load: kernels.LAUNCHES counts an aot "
+              "artifact's warm-up and capture only (a replay runs no "
+              "Python); launches_profiled: read by kernel name from a "
+              "profile of a call", **out)
+    return paths
+
+
+def rewrite_meta(src: str, dst: str, **changes) -> None:
+    """Copy serving artifact ``src`` to ``dst`` with its metadata
+    changed."""
+    import zipfile
+
+    from da_detect_tpu_torch.engine.serving import META_FILE
+
+    with zipfile.ZipFile(src) as zin, zipfile.ZipFile(dst, "w") as zout:
+        for item in zin.infolist():
+            data = zin.read(item.filename)
+            if item.filename.endswith(f"extra/{META_FILE}"):
+                data = json.dumps({**json.loads(data), **changes}).encode()
+            zout.writestr(item, data)
+
+
 def path_summary(sites, launches: int, device=None) -> dict:
     """A kernel's launches in a path's run, and its times and bound summed
     over the sites of one forward or step of that path: CUDA events around
@@ -5410,12 +5793,14 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count()}}))
         return 0
     errs = phase_kernels(dev)
+    serving_paths = phase_serving(dev)
     paths, f32_errs, scatter, _ = run_dtype(dev, "float32")
     for k, v in f32_errs.items():
         errs[k] = max(errs[k], v)
     bf16_paths, bf16_errs, bf16_scatter, f32_paths = run_dtype(dev,
                                                                "bfloat16")
     paths.update(bf16_paths)
+    paths.update(serving_paths)
     for k, v in bf16_errs.items():
         key = label(k, "bfloat16") if k in BF16_KERNELS else k
         errs[key] = max(errs.get(key, 0.0), v)

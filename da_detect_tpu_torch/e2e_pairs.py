@@ -3,14 +3,16 @@
 one card.
 
     python3 da_detect_tpu_torch/e2e_pairs.py --trees PARENT CHANGE [--rounds 3]
+        [--dtype float32|bfloat16]
 
 PARENT and CHANGE are roots of two checkouts of the repository (for example
 ``git archive`` of two commits unpacked side by side). Each round runs one
 process a tree, in the order PARENT, CHANGE, CHANGE, PARENT, so that a drift
 of the card or the host over the call falls on both alike. A process imports
 ``da_detect_tpu_torch`` from its own tree, builds that tree's kernels, and
-measures the flagship R-50-C4 YAML at 608x1216 in float32 with random weights
-from seed 0, as ``chip_smoke.py`` drives it:
+measures the flagship R-50-C4 YAML at 608x1216 in ``--dtype`` (default
+float32; the X-101-FPN-DCN step below too) with random weights from seed 0,
+as ``chip_smoke.py`` drives it:
 
 - ``forward_ms``: an eval request of batch 1 (class scores x 30), host clock
   to the synchronize, median of 20 after 3;
@@ -37,7 +39,10 @@ from seed 0, as ``chip_smoke.py`` drives it:
   function with a dense [S, C] output; device time a step, median of 3
   profiles taken in turns with ``scatter_library_device_ms``, the same
   calls as torch.zeros + ``index_add_``. ``scatter_long_row_share``: the
-  share of the calls' sources whose destination row owns more than 64.
+  share of the calls' sources whose destination row owns more than 64;
+- ``dcn_step_ms``: that DCN train step after the recorded one, host clock
+  to the synchronize, median of DCN_STEP_RUNS. ``--dcn-step-only``
+  measures this step and its scatter-add alone.
 
 Prints one JSON line a process, the card's name and power limit, and last a
 summary: for each tree and metric the median over its processes and each
@@ -61,7 +66,7 @@ FLAGSHIP_YAML = os.path.join(
 SCORE_SCALE = 30.0
 FORWARD_RUNS, STEP_RUNS, PROFILE_RUNS, WARMUP = 20, 12, 3, 3
 POOLER_RUNS, POOLER_ROIS, FPN_CHANNELS = 10, 1000, 256
-SCATTER_PROFILES, SCATTER_LONG_ROW = 3, 64
+SCATTER_PROFILES, SCATTER_LONG_ROW, DCN_STEP_RUNS = 3, 64, 4
 # conv_offset kernels drawn from this seed, each scaled so that its offsets
 # have this standard deviation (pixels): samples spread over about +-2 px
 DCN_SEED, DCN_OFFSET_STD = 0, 1.0
@@ -72,16 +77,16 @@ WAIT_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
 METRICS = tuple(f"{name}_{m}" for name in ("forward", "step")
                 for m in ("ms", "profiled_ms", "device_ms", "host_wait_ms")
                 ) + ("pooler_device_ms", "scatter_device_ms",
-                     "scatter_library_device_ms")
+                     "scatter_library_device_ms", "dcn_step_ms")
 
 
-def flagship_cfg(tree: str, canvas):
+def flagship_cfg(tree: str, canvas, dtype: str = "float32"):
     from da_detect_tpu_torch.config import get_cfg
 
     cfg = get_cfg()
     cfg.merge_from_file(os.path.join(tree, FLAGSHIP_YAML))
     cfg.TPU.IMAGE_SHAPE = tuple(canvas)
-    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TPU.COMPUTE_DTYPE = dtype
     return cfg
 
 
@@ -182,8 +187,9 @@ def spread_dcn(model, batch) -> list:
 
 
 def dcn_scatter(cfg, device: str, sync, cuda: bool) -> dict:
-    """``scatter_device_ms``, ``scatter_library_device_ms`` and
-    ``scatter_long_row_share`` (see above) of the DCN train step ``cfg``."""
+    """``scatter_device_ms``, ``scatter_library_device_ms``,
+    ``scatter_long_row_share`` and ``dcn_step_ms`` (see above) of the DCN
+    train step ``cfg``."""
     import torch
 
     from da_detect_tpu_torch import entry
@@ -199,11 +205,17 @@ def dcn_scatter(cfg, device: str, sync, cuda: bool) -> dict:
 
     gather_cuda.row_scatter_add = record
     try:
-        step(state, *args)
+        state, _ = step(state, *args)
         sync()
     finally:
         gather_cuda.row_scatter_add = kernel
-    del step, state, args
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], *args)
+
+    steps = host_ms(one_step, DCN_STEP_RUNS, sync)
+    del step, state, args, holder
     buf = torch.randn(max(c * idx.numel() for c, idx, _, _ in calls),
                       device=device, generator=torch.Generator(
                           device=device).manual_seed(0))
@@ -231,7 +243,8 @@ def dcn_scatter(cfg, device: str, sync, cuda: bool) -> dict:
         counts = torch.bincount(idx.long().clamp(0, num_rows - 1),
                                 minlength=num_rows)
         long_sources += int(counts[counts > SCATTER_LONG_ROW].sum())
-    return dict(**{f"{name}_device_ms": statistics.median(t)
+    return dict(dcn_step_ms=statistics.median(steps), dcn_steps_ms=steps,
+                **{f"{name}_device_ms": statistics.median(t)
                    for name, t in times.items()},
                 **{f"{name}_profiles_ms": t for name, t in times.items()},
                 scatter_calls=len(calls),
@@ -239,8 +252,10 @@ def dcn_scatter(cfg, device: str, sync, cuda: bool) -> dict:
                     idx.numel() for _, idx, _, _ in calls))
 
 
-def measure(tree: str, device: str = "cuda", canvas=CANVAS) -> dict:
-    """One process's numbers for the port found under ``tree``."""
+def measure(tree: str, device: str = "cuda", canvas=CANVAS,
+            dtype: str = "float32", dcn_only: bool = False) -> dict:
+    """One process's numbers for the port found under ``tree``; with
+    ``dcn_only``, those of the DCN train step alone."""
     import torch
 
     from da_detect_tpu_torch import entry, kernels
@@ -252,7 +267,26 @@ def measure(tree: str, device: str = "cuda", canvas=CANVAS) -> dict:
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     if cuda:
         kernels.build()
-    cfg = flagship_cfg(tree, canvas)
+    out = dict(tree=tree, package=os.path.dirname(entry.__file__),
+               dtype=dtype)
+    if not dcn_only:
+        out.update(flagship_and_pooler(tree, device, canvas, dtype, sync,
+                                       cuda))
+    cfg = entry.dcn_train_cfg(canvas)
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    cfg.freeze()
+    out.update(dcn_scatter(cfg, device, sync, cuda))
+    return out
+
+
+def flagship_and_pooler(tree: str, device: str, canvas, dtype: str, sync,
+                        cuda: bool) -> dict:
+    """The flagship's forward and step numbers and the DCN pooler's."""
+    import torch
+
+    from da_detect_tpu_torch import entry
+
+    cfg = flagship_cfg(tree, canvas, dtype)
     cfg.freeze()
     fn, (model, _) = entry.entry(device=device, seed=0, cfg=cfg)
     with torch.no_grad():
@@ -264,7 +298,7 @@ def measure(tree: str, device: str = "cuda", canvas=CANVAS) -> dict:
                                cuda, "forward")
     del fn, model, batch
 
-    cfg = flagship_cfg(tree, canvas)
+    cfg = flagship_cfg(tree, canvas, dtype)
     cfg.freeze()
     step, (state, args) = entry.train_entry(device=device, seed=0, cfg=cfg)
     holder = [state]
@@ -287,25 +321,18 @@ def measure(tree: str, device: str = "cuda", canvas=CANVAS) -> dict:
 
     pool()
     pooler = profiled(pool, POOLER_RUNS, sync, cuda, "pooler")
-    del maps, rois
-
-    cfg = entry.dcn_train_cfg(canvas)
-    cfg.TPU.COMPUTE_DTYPE = "float32"
-    cfg.freeze()
-    scatter = dcn_scatter(cfg, device, sync, cuda)
-    out = dict(tree=tree, package=os.path.dirname(entry.__file__),
-               forward_ms=statistics.median(forward),
-               step_ms=statistics.median(steps),
-               **forward_profile, **step_profile,
-               pooler_device_ms=pooler["pooler_device_ms"], **scatter,
-               forward_runs_ms=forward, step_runs_ms=steps)
-    return out
+    return dict(forward_ms=statistics.median(forward),
+                step_ms=statistics.median(steps),
+                **forward_profile, **step_profile,
+                pooler_device_ms=pooler["pooler_device_ms"],
+                forward_runs_ms=forward, step_runs_ms=steps)
 
 
-def run_tree(tree: str, timeout: int) -> dict:
+def run_tree(tree: str, timeout: int, dtype: str, dcn_only: bool) -> dict:
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--tree", tree], capture_output=True, text=True,
-                          timeout=timeout)
+                           "--tree", tree, "--dtype", dtype]
+                          + ["--dcn-step-only"] * dcn_only,
+                          capture_output=True, text=True, timeout=timeout)
     if proc.returncode != 0:
         raise RuntimeError(f"{tree}: rc {proc.returncode}\n{proc.stderr}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -314,11 +341,12 @@ def run_tree(tree: str, timeout: int) -> dict:
 def summarize(results: list[dict], parent: str, change: str) -> dict:
     """Per tree and metric the median and each value; per round, CHANGE
     minus PARENT (each the mean of the round's two processes)."""
+    metrics = [m for m in METRICS if all(m in r for r in results)]
     out = {}
     for label, tree in (("parent", parent), ("change", change)):
         mine = [r for r in results if r["tree"] == tree]
         out[label] = {m: dict(median=statistics.median(r[m] for r in mine),
-                              values=[r[m] for r in mine]) for m in METRICS}
+                              values=[r[m] for r in mine]) for m in metrics}
     rounds = sorted({r["round"] for r in results})
     out["change_minus_parent"] = {
         m: [statistics.mean(r[m] for r in results
@@ -326,7 +354,7 @@ def summarize(results: list[dict], parent: str, change: str) -> dict:
             - statistics.mean(r[m] for r in results
                               if r["round"] == i and r["tree"] == parent)
             for i in rounds]
-        for m in METRICS}
+        for m in metrics}
     return out
 
 
@@ -336,12 +364,19 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--timeout", type=int, default=600,
                     help="seconds a process may take")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="TPU.COMPUTE_DTYPE of the flagship and DCN models")
+    ap.add_argument("--dcn-step-only", action="store_true",
+                    help="measure the DCN train step (and its scatter-add) "
+                         "alone")
     ap.add_argument("--tree", help=argparse.SUPPRESS)  # one process's tree
     a = ap.parse_args()
     if a.tree:
         tree = os.path.abspath(a.tree)
         sys.path[0] = tree  # the tree's package, not this file's
-        print(json.dumps(measure(tree)), flush=True)
+        print(json.dumps(measure(tree, dtype=a.dtype,
+                                 dcn_only=a.dcn_step_only)), flush=True)
         return 0
     if not a.trees:
         ap.error("--trees PARENT CHANGE is required")
@@ -349,7 +384,8 @@ def main() -> int:
     results = []
     for i in range(a.rounds):
         for tree in (parent, change, change, parent):
-            r = dict(run_tree(tree, a.timeout), round=i)
+            r = dict(run_tree(tree, a.timeout, a.dtype, a.dcn_step_only),
+                     round=i)
             results.append(r)
             print(json.dumps(r), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -43,6 +43,7 @@ from .config import get_cfg
 from .engine.trainer import create_train_state, make_train_step
 from .models import build_detection_model
 from .structures.image_batch import MASK_RESOLUTION, ImageBatch, Targets
+from .utils.env import reference_numerics
 
 DCN_YAML = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs",
@@ -252,10 +253,7 @@ def prepare_model(model, device):
     the JAX package's do. The port's modules behave the same in train and
     eval mode (FrozenBN; the DA dropout follows ``deterministic``)."""
     if device.type == "cuda":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
-            = False
+        reference_numerics()
     return model.to(device=device, memory_format=torch.channels_last).eval()
 
 

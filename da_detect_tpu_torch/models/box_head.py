@@ -34,6 +34,7 @@ from ..ops.matcher import match_proposals
 from ..ops.nms import nms_topk
 from ..ops.sampler import balanced_sample, selection_to_indices
 from ..parallel.ddp import global_mean
+from ..structures.detections import Detections
 from .backbone.resnet import ResNetHead
 from .poolers import pool_rois, pooler_config
 
@@ -227,13 +228,6 @@ def fast_rcnn_loss(class_logits, box_regression, sampled: SampledRois,
                        weights=pos[:, None].float(), reduction="sum"),
         w.sum(), 1.0)
     return cls_loss, box_loss
-
-
-class Detections(NamedTuple):
-    boxes: torch.Tensor   # [B, D, 4]
-    scores: torch.Tensor  # [B, D]
-    labels: torch.Tensor  # [B, D] int64 (1..C-1)
-    valid: torch.Tensor   # [B, D]
 
 
 def postprocess_detections(class_logits, box_regression, proposal_boxes,

@@ -26,7 +26,11 @@ backward. Without one, the scatter-add builds it itself.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs the plain version (``ops/gather.py``), which autograd
-differentiates, and ignores ``csr``.
+differentiates, and ignores ``csr``. A gather that needs no gradient goes
+through its operator (``da_detect::row_gather``, ``row_gather_bulk``:
+``ops/library.py``), whose CUDA implementation is ``launch`` and whose CPU
+implementation is the plain version; a differentiable one launches from
+its autograd function.
 """
 
 from __future__ import annotations
@@ -66,8 +70,12 @@ def _launcher(name: str, dtype: torch.dtype):
 
 
 def _check_table(name: str, table: torch.Tensor, what: str) -> None:
-    if table.dim() != 2 or table.stride(1) != 1 \
-            or table.stride(0) < table.shape[1]:
+    """[S, C] with unit column stride. A traced table's strides are the
+    fake kernels' guess (a traced convolution's output need not be
+    channels-last where the card's is): they are checked on the real
+    table, at launch."""
+    if table.dim() != 2 or not torch.compiler.is_compiling() and (
+            table.stride(1) != 1 or table.stride(0) < table.shape[1]):
         raise ValueError(f"kernel {name}: {what} must be [S, C] with unit "
                          f"column stride, got {tuple(table.shape)} strides "
                          f"{table.stride()}")
@@ -102,8 +110,14 @@ def _run(name: str, dtype: torch.dtype, device: torch.device,
     kernels.LAUNCHES[name] += 1
 
 
-def _launch(name: str, table: torch.Tensor, idx: torch.Tensor
-            ) -> torch.Tensor:
+def launch(name: str, table: torch.Tensor, idx: torch.Tensor
+           ) -> torch.Tensor:
+    """Gather kernel ``name``'s launch on checked CUDA inputs: the
+    operator's CUDA implementation. The table's memory is checked here, on
+    the real tensor (``_check_table``, ``_check_bulk_rows``)."""
+    _check_table(name, table, "table")
+    if name == BULK:
+        _check_bulk_rows(table)
     out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype,
                       device=table.device)
     if out.numel():
@@ -111,6 +125,10 @@ def _launch(name: str, table: torch.Tensor, idx: torch.Tensor
             table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
             table.shape[0], table.shape[1], table.stride(0)])
     return out
+
+
+def _needs_grad(table: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and table.requires_grad
 
 
 class _RowGather(torch.autograd.Function):
@@ -121,15 +139,15 @@ class _RowGather(torch.autograd.Function):
     def gather(cls, name: str, table: torch.Tensor, idx: torch.Tensor,
                csr) -> torch.Tensor:
         idx = idx.contiguous()
-        if torch.is_grad_enabled() and table.requires_grad:
+        if _needs_grad(table):
             return cls.apply(table, idx, name, *(csr or (None, None)))
-        return _launch(name, table, idx)
+        return getattr(torch.ops.da_detect, name)(table, idx)
 
     @staticmethod
     def forward(ctx, table, idx, name, perm, row_ptr):
         ctx.num_rows = table.shape[0]
         ctx.save_for_backward(idx, perm, row_ptr)
-        return _launch(name, table, idx)
+        return launch(name, table, idx)
 
     @staticmethod
     def backward(ctx, grad):
@@ -147,7 +165,9 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor, csr=None
     """table [S, C] f32/bf16, idx [P] int32 -> [P, C] (the warp kernel).
     ``csr``: ``row_csr(idx, S)``, kept for the backward, or None."""
     if table.device.type == "cpu":
-        return row_gather_plain(table, idx)
+        if _needs_grad(table):
+            return row_gather_plain(table, idx)
+        return torch.ops.da_detect.row_gather(table, idx)
     _check(GATHER, table, idx)
     return _RowGather.gather(GATHER, table, idx, csr)
 
@@ -159,19 +179,29 @@ def row_gather_bulk(table: torch.Tensor, idx: torch.Tensor, csr=None
     bytes and the table's address multiples of 16. ``csr`` as for
     ``row_gather``."""
     if table.device.type == "cpu":
-        return row_gather_plain(table, idx)
+        if _needs_grad(table):
+            return row_gather_plain(table, idx)
+        return torch.ops.da_detect.row_gather_bulk(table, idx)
     _check(BULK, table, idx)
+    _check_bulk_rows(table)
     item = table.element_size()
-    if (table.shape[1] * item) % 16 or (table.stride(0) * item) % 16 \
-            or table.data_ptr() % 16:
-        raise ValueError(f"gather kernel {BULK}: rows must be 16-byte "
-                         f"aligned (C={table.shape[1]}, row stride "
-                         f"{table.stride(0)}, {table.dtype})")
     if table.shape[1] * item > 227 * 1024:
         raise ValueError(f"gather kernel {BULK}: a row of "
                          f"{table.shape[1] * item} B exceeds a block's "
                          "shared memory")
     return _RowGather.gather(BULK, table, idx, csr)
+
+
+def _check_bulk_rows(table: torch.Tensor) -> None:
+    """The bulk copy's rows: C * itemsize, and on a real table (not a
+    traced one, ``_check_table``) the row stride in bytes and the address,
+    multiples of 16."""
+    item = table.element_size()
+    if (table.shape[1] * item) % 16 or not torch.compiler.is_compiling() and (
+            (table.stride(0) * item) % 16 or table.data_ptr() % 16):
+        raise ValueError(f"gather kernel {BULK}: rows must be 16-byte "
+                         f"aligned (C={table.shape[1]}, row stride "
+                         f"{table.stride(0)}, {table.dtype})")
 
 
 def _scatter(dst: torch.Tensor, grad: torch.Tensor, idx: torch.Tensor,

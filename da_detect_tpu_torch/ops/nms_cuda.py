@@ -3,9 +3,11 @@
 
 ``nms_mask_sorted`` takes score-descending boxes, like
 ``nms_mask_pallas_sorted``, and optionally ``max_keep``: the mask then ends
-after its ``max_keep``-th kept box, and the kernel's walk stops there. On a
-CUDA tensor it launches the kernel or raises; on a CPU tensor it runs the
-plain version, ``ops.nms.nms_mask_sorted``. Callers reach it through
+after its ``max_keep``-th kept box, and the kernel's walk stops there. It
+checks its inputs and calls the operator ``da_detect::nms_keep``
+(``ops/library.py``): on a CUDA tensor that launches the kernel
+(``launch``) or raises; on a CPU tensor it runs the plain version,
+``ops.nms.nms_mask_sorted``. Callers reach it through
 ``ops.nms.nms_mask``/``nms_topk`` with ``impl="cuda"``.
 """
 
@@ -16,7 +18,6 @@ import ctypes
 import torch
 
 from .. import kernels
-from .nms import nms_mask_sorted as nms_mask_sorted_plain
 
 KERNEL = "nms"
 
@@ -46,23 +47,32 @@ def nms_mask_sorted(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
     bool -> [B, N] bool. Legacy +1 widths; IoU > threshold suppresses. With
     ``max_keep``, only the first ``max_keep`` kept boxes of each image."""
     device = boxes_sorted.device
-    if device.type == "cpu":
-        return nms_mask_sorted_plain(boxes_sorted, valid_sorted, iou_threshold,
-                                     max_keep)
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"NMS kernel: unsupported device {device}")
-    if boxes_sorted.dtype != torch.float32 or boxes_sorted.dim() != 3 \
-            or boxes_sorted.shape[2] != 4:
-        raise ValueError("NMS kernel: boxes must be float32 [B, N, 4], got "
-                         f"{boxes_sorted.dtype} {tuple(boxes_sorted.shape)}")
-    batch, n = boxes_sorted.shape[:2]
-    if valid_sorted.shape != (batch, n) or valid_sorted.device != device:
-        raise ValueError("NMS kernel: valid must be [B, N] on the boxes' "
-                         f"device, got {tuple(valid_sorted.shape)}")
-    if n > MAX_BOXES:
-        raise ValueError(f"NMS kernel: N={n} exceeds {MAX_BOXES}")
     if max_keep is not None and max_keep < 1:
         raise ValueError(f"NMS kernel: max_keep must be >= 1, got {max_keep}")
+    if device.type == "cuda":
+        if boxes_sorted.dtype != torch.float32 or boxes_sorted.dim() != 3 \
+                or boxes_sorted.shape[2] != 4:
+            raise ValueError("NMS kernel: boxes must be float32 [B, N, 4], "
+                             f"got {boxes_sorted.dtype} "
+                             f"{tuple(boxes_sorted.shape)}")
+        batch, n = boxes_sorted.shape[:2]
+        if valid_sorted.shape != (batch, n) or valid_sorted.device != device:
+            raise ValueError("NMS kernel: valid must be [B, N] on the boxes' "
+                             f"device, got {tuple(valid_sorted.shape)}")
+        if n > MAX_BOXES:
+            raise ValueError(f"NMS kernel: N={n} exceeds {MAX_BOXES}")
+    return torch.ops.da_detect.nms_keep(boxes_sorted, valid_sorted,
+                                        float(iou_threshold), max_keep or 0)
+
+
+def launch(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
+           iou_threshold: float, max_keep: int) -> torch.Tensor:
+    """The kernel's launch on checked CUDA inputs (``max_keep`` 0: the whole
+    mask): the operator's CUDA implementation."""
+    device = boxes_sorted.device
+    batch, n = boxes_sorted.shape[:2]
     keep = torch.empty((batch, n), dtype=torch.uint8, device=device)
     if batch == 0 or n == 0:
         return keep.bool()
@@ -75,9 +85,8 @@ def nms_mask_sorted(boxes_sorted: torch.Tensor, valid_sorted: torch.Tensor,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _launcher()(boxes.data_ptr(), valid.data_ptr(),
-                         float(iou_threshold), batch, n,
-                         min(max_keep or 0, n), mask.data_ptr(),
-                         keep.data_ptr(), stream)
+                         float(iou_threshold), batch, n, min(max_keep, n),
+                         mask.data_ptr(), keep.data_ptr(), stream)
     kernels.check(rc, KERNEL)
     kernels.LAUNCHES[KERNEL] += 1
     return keep.bool()

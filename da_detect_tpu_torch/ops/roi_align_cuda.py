@@ -33,6 +33,13 @@ only (plain version: ``ops.roi_align.roi_align_levels``, every ROI from
 every level, then a mask). ``roi_align_levels`` is its autograd function;
 its backward runs the backward kernel once a level on the gradient masked
 to that level's ROIs.
+
+The two forward wrappers check their inputs and call the operators
+``da_detect::roi_align`` and ``roi_align_levels`` (``ops/library.py``):
+on the card they launch the kernel (``launch_pool``), on the CPU they run
+the plain versions. ``roi_align`` and ``roi_align_levels`` go through
+their autograd functions only where a gradient is needed; otherwise they
+are the forward wrappers, on either device.
 """
 
 from __future__ import annotations
@@ -97,7 +104,7 @@ def _launcher(name: str, dtype: torch.dtype):
 
 def _per16(dtype: torch.dtype) -> int:
     """Elements of ``dtype`` in a 16-byte word."""
-    return 16 // torch.empty((), dtype=dtype).element_size()
+    return 16 // dtype.itemsize
 
 
 def _check_cuda(name: str, x: torch.Tensor, what: str, rois: torch.Tensor,
@@ -111,7 +118,7 @@ def _check_cuda(name: str, x: torch.Tensor, what: str, rois: torch.Tensor,
         raise ValueError(f"ROIAlign kernel {name}: {what} must be float32 "
                          f"or bfloat16, got {x.dtype}")
     per = _per16(x.dtype)
-    if x.shape[-1] % per or x.data_ptr() % 16:
+    if x.shape[-1] % per:
         raise ValueError(f"ROIAlign kernel {name}: needs C % {per} == 0 and "
                          f"16-byte aligned {what} (C={x.shape[-1]}, "
                          f"{x.dtype})")
@@ -124,6 +131,14 @@ def _check_cuda(name: str, x: torch.Tensor, what: str, rois: torch.Tensor,
     if sampling_ratio <= 0 and max_samples <= 0:
         raise ValueError(f"ROIAlign kernel {name}: max_samples must be "
                          "positive")
+
+
+def _check_aligned(name: str, x: torch.Tensor, what: str) -> None:
+    """Raise unless ``x``'s memory starts 16-byte aligned: a check of the
+    real tensor at launch (a traced tensor has no address)."""
+    if x.data_ptr() % 16:
+        raise ValueError(f"ROIAlign kernel {name}: needs 16-byte aligned "
+                         f"{what}")
 
 
 def _launch(name: str, dtype: torch.dtype, device: torch.device,
@@ -207,10 +222,10 @@ def _pool(features: Sequence[torch.Tensor], rois: torch.Tensor,
           levels: torch.Tensor | None, scales: Sequence[float],
           output_size: int, sampling_ratio: int,
           max_samples: int) -> torch.Tensor:
-    """One forward launch over 1 to MAX_LEVELS maps [B, C, H_l, W_l] f32
-    or bf16 (channels-last memory, one dtype) pooled at ``scales``;
-    ``levels`` [B, R] (int32 or int64; None: every ROI on the first map) ->
-    [B, R, C, P, P] in the maps' dtype."""
+    """Check the shapes, dtypes and devices of 1 to MAX_LEVELS maps
+    [B, C, H_l, W_l] f32 or bf16 (one dtype) on the card, ``scales``, ROIs
+    and ``levels`` [B, R] (int32 or int64; None: one map), then call the
+    operator: [B, R, C, P, P] in the maps' dtype."""
     if not 1 <= len(features) <= MAX_LEVELS or len(scales) != len(features):
         raise ValueError(f"ROIAlign kernel: 1 to {MAX_LEVELS} maps, one "
                          f"scale each, got {len(features)} maps and "
@@ -221,9 +236,6 @@ def _pool(features: Sequence[torch.Tensor], rois: torch.Tensor,
                              f"[B, C, H, W], got {tuple(f.shape)}")
         _check_cuda(FORWARD, f.permute(0, 2, 3, 1), "features", rois,
                     sampling_ratio, max_samples)
-        if not f.is_contiguous(memory_format=torch.channels_last):
-            raise ValueError("ROIAlign kernel: features must be "
-                             "channels_last")
     batch, c = features[0].shape[:2]
     dtype = features[0].dtype
     if any(f.shape[:2] != (batch, c) or f.device != rois.device
@@ -231,14 +243,37 @@ def _pool(features: Sequence[torch.Tensor], rois: torch.Tensor,
         raise ValueError("ROIAlign kernel: the levels must share B, C, the "
                          "dtype and the device, got "
                          f"{[(tuple(f.shape), f.dtype) for f in features]}")
+    kw = (output_size, int(sampling_ratio), int(max_samples))
+    if levels is None:
+        return torch.ops.da_detect.roi_align(features[0], rois,
+                                             float(scales[0]), *kw)
+    if levels.shape != (batch, rois.shape[1]) \
+            or levels.device != rois.device \
+            or levels.dtype not in (torch.int32, torch.int64):
+        raise ValueError("ROIAlign kernel: levels must be int32 or int64 "
+                         f"[B, R] on the ROIs' device, got {levels.dtype} "
+                         f"{tuple(levels.shape)} on {levels.device}")
+    return torch.ops.da_detect.roi_align_levels(
+        list(features), rois, levels.to(torch.int64),
+        [float(x) for x in scales], *kw)
+
+
+def launch_pool(features: Sequence[torch.Tensor], rois: torch.Tensor,
+                levels: torch.Tensor | None, scales: Sequence[float],
+                output_size: int, sampling_ratio: int,
+                max_samples: int) -> torch.Tensor:
+    """One forward launch on inputs ``_pool`` checked: the operators' CUDA
+    implementation. The maps' memory is checked here, on the real tensors
+    (channels-last, 16-byte aligned): a traced map's strides are the fake
+    convolution's guess, and it has no address."""
+    for f in features:
+        if not f.is_contiguous(memory_format=torch.channels_last):
+            raise ValueError("ROIAlign kernel: features must be "
+                             "channels_last")
+        _check_aligned(FORWARD, f, "features")
+    batch, c = features[0].shape[:2]
+    dtype = features[0].dtype
     r, p = rois.shape[1], output_size
-    if levels is not None:
-        if levels.shape != (batch, r) or levels.device != rois.device \
-                or levels.dtype not in (torch.int32, torch.int64):
-            raise ValueError("ROIAlign kernel: levels must be int32 or int64 "
-                             f"[B, R] on the ROIs' device, got {levels.dtype} "
-                             f"{tuple(levels.shape)} on {levels.device}")
-        levels = levels.to(torch.int64).contiguous()
     out = torch.empty((batch, r, p, p, c), dtype=dtype, device=rois.device)
     if out.numel():
         samples = sampling_ratio if sampling_ratio > 0 else max_samples
@@ -246,6 +281,8 @@ def _pool(features: Sequence[torch.Tensor], rois: torch.Tensor,
                                     out.element_size()) for f in features)
         n = len(features)
         rois = rois.contiguous()
+        if levels is not None:
+            levels = levels.to(torch.int64).contiguous()
         _launch(FORWARD, dtype, rois.device, [
             (ctypes.c_void_p * n)(*[f.data_ptr() for f in features]),
             (ctypes.c_int * n)(*[f.shape[2] for f in features]),
@@ -265,10 +302,9 @@ def roi_align_forward(features: torch.Tensor, rois: torch.Tensor, *,
     memory), rois [B, R, 4] f32 -> [B, R, C, P, P] in the features' dtype.
     Not differentiable itself."""
     if features.device.type == "cpu":
-        return roi_align_plain(features, rois, spatial_scale=spatial_scale,
-                               output_size=output_size,
-                               sampling_ratio=sampling_ratio,
-                               max_samples=max_samples)
+        return torch.ops.da_detect.roi_align(
+            features, rois, float(spatial_scale), output_size,
+            int(sampling_ratio), int(max_samples))
     return _pool([features], rois, None, [spatial_scale], output_size,
                  sampling_ratio, max_samples)
 
@@ -282,10 +318,10 @@ def roi_align_levels_forward(features: Sequence[torch.Tensor],
     bf16 (channels-last memory) at ``scales``, rois [B, R, 4] f32, levels
     [B, R] (each ROI's index into the maps) -> [B, R, C, P, P] in the maps'
     dtype, each ROI pooled from its own level. Not differentiable itself."""
-    kw = dict(scales=scales, output_size=output_size,
-              sampling_ratio=sampling_ratio, max_samples=max_samples)
     if features[0].device.type == "cpu":
-        return roi_align_levels_plain(features, rois, levels, **kw)
+        return torch.ops.da_detect.roi_align_levels(
+            list(features), rois, levels, [float(x) for x in scales],
+            output_size, int(sampling_ratio), int(max_samples))
     return _pool(features, rois, levels, scales, output_size, sampling_ratio,
                  max_samples)
 
@@ -310,6 +346,7 @@ def roi_align_backward(grad: torch.Tensor, rois: torch.Tensor, *,
     batch, r, c = grad.shape[:3]
     g, _ = grad_view(grad)
     _check_cuda(BACKWARD, g, "grad", rois, sampling_ratio, max_samples)
+    _check_aligned(BACKWARD, g, "grad")
     # the kernel writes every value of dF; with no ROI it does not run
     dfeat = (torch.empty if g.numel() else torch.zeros)(
         (batch, height, width, c), dtype=torch.float32, device=grad.device)
@@ -323,6 +360,11 @@ def roi_align_backward(grad: torch.Tensor, rois: torch.Tensor, *,
             batch, height, width, c, r, output_size, float(spatial_scale),
             int(sampling_ratio), int(max_samples), smem])
     return dfeat.to(grad.dtype).permute(0, 3, 1, 2)
+
+
+def _needs_grad(features: Sequence[torch.Tensor]) -> bool:
+    return torch.is_grad_enabled() and any(f.requires_grad
+                                           for f in features)
 
 
 class _RoIAlign(torch.autograd.Function):
@@ -352,6 +394,12 @@ def roi_align(features: torch.Tensor, rois: torch.Tensor, *,
               max_samples: int = 8) -> torch.Tensor:
     """Differentiable batched ROIAlign through the kernels: features
     [B, C, H, W] f32 or bf16, rois [B, R, 4] f32 -> [B, R, C, P, P]."""
+    if not _needs_grad([features]):
+        return roi_align_forward(features, rois.detach(),
+                                 spatial_scale=spatial_scale,
+                                 output_size=output_size,
+                                 sampling_ratio=sampling_ratio,
+                                 max_samples=max_samples)
     if features.device.type == "cpu":
         return roi_align_plain(features, rois.detach(),
                                spatial_scale=spatial_scale,
@@ -398,6 +446,8 @@ def roi_align_levels(features: Sequence[torch.Tensor], rois: torch.Tensor,
     On CPU maps the plain version, which autograd differentiates."""
     kw = dict(scales=tuple(scales), output_size=output_size,
               sampling_ratio=sampling_ratio, max_samples=max_samples)
+    if not _needs_grad(features):
+        return roi_align_levels_forward(features, rois.detach(), levels, **kw)
     if features[0].device.type == "cpu":
         return roi_align_levels_plain(features, rois.detach(), levels, **kw)
     return _RoIAlignLevels.apply(rois.detach(), levels, kw, *features)

@@ -14,6 +14,8 @@ import importlib
 import importlib.util
 import os
 
+import torch
+
 ENV_MODULE = "TORCH_DETECTRON_ENV_MODULE"
 
 
@@ -32,3 +34,15 @@ def setup_environment() -> None:
         raise ImportError(f"{ENV_MODULE}={path}: the module has no "
                           "setup_environment()")
     module.setup_environment()
+
+
+def reference_numerics() -> None:
+    """Make float32 convolutions and matmuls on the card full float32
+    (cuDNN defaults to TF32 for convolutions) and bfloat16 matmuls
+    accumulate in float32, as the JAX package's do: the arithmetic of the
+    eager model (``entry.prepare_model``) and of a serving artifact loaded
+    for the card (``engine/serving.py::load_serving``). The settings are
+    the process's."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

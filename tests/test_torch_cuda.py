@@ -75,6 +75,11 @@ The data path: the packed transport (one pinned buffer a step, copied on a
 side stream) gives the CPU loader's batches bit for bit to a consumer that
 reads each batch late; the TTA merge's NMS launch keeps the plain version's
 indices.
+
+Serving: each kernel's operator (``ops/library.py``) launches its kernel
+once and equals its wrapper bit for bit; the bfloat16 flagship at 320x640
+exported as an ``aot`` artifact answers as the eager forward bit for bit,
+a replay launching what an eager request launches (read from a profile).
 """
 
 import time
@@ -1637,3 +1642,133 @@ def test_coco_demo_on_the_card(dev):
     np.testing.assert_allclose(sk, sp, rtol=0, atol=1e-4)
     np.testing.assert_allclose(kk[..., :2], kp[..., :2], rtol=0, atol=1e-2)
     assert demo.run_on_opencv_image(img).shape == img.shape
+
+
+# -- serving: the kernels' operators and a CUDA-graph ``aot`` artifact ------
+def _operator_cases(dev):
+    boxes, valid = (t.to(dev) for t in _boxes(7, 2, 700))
+    feats = torch.randn(1, 38, 76, 64, generator=torch.Generator()
+                        .manual_seed(1)).to(dev).permute(0, 3, 1, 2)
+    rois = _rois(2, 1, 50, 38, 76, 400.0).to(dev)
+    maps, lrois, levels = _fpn_inputs(3, 1, 200, 64, dev)
+    table = torch.randn(500, 64, generator=torch.Generator()
+                        .manual_seed(4)).to(dev)
+    idx = torch.randint(-5, 505, (900,), generator=torch.Generator()
+                        .manual_seed(5), dtype=torch.int32).to(dev)
+    ops = torch.ops.da_detect
+    kw = dict(spatial_scale=1 / 16, output_size=7, sampling_ratio=2,
+              max_samples=8)
+    lkw = dict(scales=FPN_SCALES, output_size=7, sampling_ratio=2,
+               max_samples=8)
+    return {
+        "nms_keep": (
+            "nms", lambda: ops.nms_keep(boxes, valid, 0.7, 100),
+            lambda: nms_cuda.nms_mask_sorted(boxes, valid, 0.7, 100),
+            lambda: nms.nms_mask_sorted(boxes, valid, 0.7, 100), 0),
+        "roi_align": (
+            "roi_align_fwd", lambda: ops.roi_align(feats, rois, 1 / 16, 7, 2,
+                                                   8),
+            lambda: roi_align_cuda.roi_align_forward(feats, rois, **kw),
+            lambda: roi_align.roi_align(feats, rois, **kw), 1e-5),
+        "roi_align_levels": (
+            "roi_align_fwd",
+            lambda: ops.roi_align_levels(maps, lrois, levels,
+                                         list(FPN_SCALES), 7, 2, 8),
+            lambda: roi_align_cuda.roi_align_levels_forward(
+                maps, lrois, levels, **lkw),
+            lambda: roi_align.roi_align_levels(maps, lrois, levels, **lkw),
+            1e-5),
+        "row_gather": (
+            "row_gather", lambda: ops.row_gather(table, idx),
+            lambda: gather_cuda.row_gather(table, idx),
+            lambda: gather.row_gather(table, idx), 0),
+        "row_gather_bulk": (
+            "row_gather_bulk", lambda: ops.row_gather_bulk(table, idx),
+            lambda: gather_cuda.row_gather_bulk(table, idx),
+            lambda: gather.row_gather(table, idx), 0),
+    }
+
+
+@pytest.mark.parametrize("case", ["nms_keep", "roi_align", "roi_align_levels",
+                                  "row_gather", "row_gather_bulk"])
+def test_operator_is_its_kernel(dev, case):
+    """Each operator on CUDA tensors launches its kernel once: bit for bit
+    its wrapper's kernel output, and its plain version's within the
+    kernel's own tolerance (exact for NMS and the gathers)."""
+    kernel, op, wrapper, plain, tol = _operator_cases(dev)[case]
+    before = kernels.LAUNCHES[kernel]
+    got = op()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[kernel] == before + 1
+    want = wrapper()
+    assert got.stride() == want.stride()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(got, plain(), rtol=tol, atol=tol)
+
+
+def _replay_launches(run) -> dict:
+    """Device kernels by name in a profile of ``run()``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = {"nms": "nms_walk_kernel", "roi_align_fwd": "roi_align_fwd_kernel"}
+    return {k: sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and name in e.key)
+            for k, name in names.items()}
+
+
+def test_aot_artifact_replays_the_eager_forward(dev, tmp_path):
+    """The bfloat16 flagship at 320x640 as an ``aot`` artifact: its load
+    runs the program twice and captures it once (kernels.LAUNCHES counts
+    those three forwards, a replay none), its request equals the eager
+    forward's bit for bit, a profile of a replay shows the eager request's
+    launches (NMS 2, ROIAlign 1), and an edited device kind is refused."""
+    import json
+    import zipfile
+
+    from da_detect_tpu_torch.engine.serving import (META_FILE,
+                                                    export_serving,
+                                                    load_serving)
+
+    fn, (model, batch) = entry.entry(device="cuda", seed=0)
+    with torch.no_grad():
+        model.rpn["head"].cls_logits.weight.mul_(30.0)
+        model.roi_heads["box"]["predictor"].cls_score.weight.mul_(30.0)
+    cfg = entry.flagship_cfg()
+    path = str(tmp_path / "flagship_aot.pt2")
+    meta = export_serving(cfg, model, model.state_dict(), path, fmt="aot")
+    assert meta["platform"] == "gpu" and meta["device_kind"] == \
+        torch.cuda.get_device_name(0)
+    before = dict(kernels.LAUNCHES)
+    serving = load_serving(path)
+    torch.cuda.synchronize()
+    per = {"nms": 2, "roi_align_fwd": 1}
+    assert {k: kernels.LAUNCHES[k] - before.get(k, 0) for k in per} == {
+        k: 3 * n for k, n in per.items()}
+    want = fn(model, batch)
+    before = dict(kernels.LAUNCHES)
+    got = serving(model.state_dict(), batch)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before.get(k, 0) for k in per} == \
+        dict.fromkeys(per, 0)
+    assert int(want.valid.sum()) > 0
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert _replay_launches(
+        lambda: serving(model.state_dict(), batch)) == per
+    assert _replay_launches(lambda: fn(model, batch)) == per
+    edited = str(tmp_path / "edited.pt2")
+    with zipfile.ZipFile(path) as zin, zipfile.ZipFile(edited, "w") as zout:
+        for item in zin.infolist():
+            data = zin.read(item.filename)
+            if item.filename.endswith(f"extra/{META_FILE}"):
+                data = json.dumps({**json.loads(data),
+                                   "device_kind": "GPU v99"}).encode()
+            zout.writestr(item, data)
+    with pytest.raises(RuntimeError, match="GPU v99"):
+        load_serving(edited)
