@@ -159,7 +159,20 @@ Phases, one JSON line each:
                timed steps with exact launches (NMS 5, ROIAlign forward 2,
                backward 8), a profile, peak memory, one step's kernel inputs
                checked and timed
- 11. *_bf16    phases 4-10d (7b excepted) again with TPU.COMPUTE_DTYPE
+ 10e. vgg      the VGG-16 DA-Faster R-CNN (``entry.vgg_cfg()``: the
+               flagship triplet-DA YAML on VGG-16 with the FPN2MLP head
+               over its one stride-16 map) at 608x1216: 4 requests with
+               the flagship's launches (NMS 2, ROIAlign forward 1: one
+               38x76 map of 512 channels at P 7, adaptive sampling),
+               kernel run against plain run, its sites timed, a profile
+               with its busy share and convolution census, peak memory;
+               then ``vgg_train``: the triplet step through
+               ``train_entry(cfg=vgg_cfg())`` (no parameter frozen, as in
+               JAX): kernel-run against plain-run step 1 (the ReLU flips
+               of the box MLP and the DA instance head left out), 6 timed
+               steps with exact launches, a profile, peak memory, one
+               step's kernel inputs checked and timed, 2 aligned steps
+ 11. *_bf16    phases 4-10e (7b excepted) again with TPU.COMPUTE_DTYPE
                bfloat16, the
                JAX package's default: the same launch counts, each bf16
                kernel held to its plain version (BF16_* tolerances) on the
@@ -173,6 +186,23 @@ Phases, one JSON line each:
                both dtypes) is not timed again, the DCN train step runs
                "four" only, BF16_DCN_TRAIN_STEPS timed steps, and step 1's
                inputs are its sites
+The remaining single-card modules, float32:
+ 11a. derain   ``tools/train_derain.main`` at its defaults (crop 224, batch
+               8) for 40 iterations on 12 PNGs written at run time, rain
+               synthesized (cv2): its checkpoint's keys, validation PSNR
+               and SSIM, iterations a second; the KPN step's device time,
+               profile and peak memory, and the per-pixel filtering's
+               share of it; the JAX package's learning check on the card
+               (KPN base 8, 200 Adam steps); KPNRef at 224 against the CPU
+ 11b. aux_deform_pool  ``DeformRoIPooling`` at P 7, C' 9, 4 x 4 samples a
+               bin, 256 ROIs on 38x76 score maps, offsets drawn nonzero:
+               exact launches (2 row gathers, 2 scatter-adds and their 2
+               CSR builds), output bit for bit and gradients within 1e-5
+               of the plain run, the gradients bit for bit their rerun,
+               the gathers' and scatter-adds' device times against the
+               plain versions and index_select / index_add_; then ``aux``:
+               PAM, CAM, MultiLevelDAModule and Boxes on the card against
+               the CPU
 The from-scratch learning gate, in bfloat16 (the JAX package's
 ``tools/sanity_check.py``, ported; its synthetic 120x160 datasets written at
 run time, seed 3, 16 images a domain):
@@ -268,7 +298,10 @@ for the TTA merge's NMS site; the float32 NMS and ROIAlign rows also under
 the path "sanity_bf16", the ablation's run, and the bfloat16 FBNet paths,
 whose poolers pool float32 maps; the serving paths of phase 3a,
 "serving_*_bf16", with an aot request's launches read from a replay's
-profile, under the forward kernels' rows), the nvidia-smi line of the
+profile, under the forward kernels' rows; the VGG paths "vgg_*"; the deform
+pool's gathers and scatter-adds, "aux_deform_pool", under the float32
+row_gather and row_scatter_add rows, with device times), the nvidia-smi
+line of the
 card, and last ``{"ok": true, "device": {...}}``. Any failure raises: the
 script exits non-zero and prints no result. With no CUDA device it exits 1
 at once.
@@ -1844,17 +1877,19 @@ def phase_times(model, fn, batches, captured,
 
 # ---------------------------------------------------------------- training
 
-def train_cfg(aligned: bool, dtype: str = "float32"):
-    """The flagship YAML at the 608x1216 canvas in ``dtype``. ``aligned``: the
-    aligned variant with its instance triplet on (weight 1.0), as the
-    reference's aligned triplet trainer runs it; the YAML's weight 0 would
-    leave the re-pooled members unused."""
+def train_cfg(aligned: bool, dtype: str = "float32", cfg=None):
+    """The flagship YAML at the 608x1216 canvas in ``dtype``, or ``cfg``
+    (the VGG model's). ``aligned``: the aligned variant with its instance
+    triplet on (weight 1.0), as the reference's aligned triplet trainer
+    runs it; the YAML's weight 0 would leave the re-pooled members
+    unused."""
     from da_detect_tpu_torch.config import get_cfg
 
-    cfg = get_cfg()
-    cfg.merge_from_file(FLAGSHIP_YAML)
-    cfg.TPU.IMAGE_SHAPE = CANVAS
-    cfg.TPU.COMPUTE_DTYPE = dtype
+    if cfg is None:
+        cfg = get_cfg()
+        cfg.merge_from_file(FLAGSHIP_YAML)
+        cfg.TPU.IMAGE_SHAPE = CANVAS
+        cfg.TPU.COMPUTE_DTYPE = dtype
     if aligned:
         cfg.MODEL.DA_HEADS.ALIGNMENT = True
         cfg.MODEL.DA_HEADS.DA_TRIPLET_INS_WEIGHT = 1.0
@@ -1886,13 +1921,19 @@ RELU_LAYERS = ("fc6", "fc7")
 
 @contextlib.contextmanager
 def relu_inputs(model):
-    """While open, the box head's fc6 and fc7 outputs and, with a keypoint
-    head, its conv_fcn outputs, the inputs of their ReLUs, on each call:
-    yields a dict parameter prefix -> list of [..., units] float32 copies
-    (a conv's output channels last)."""
+    """While open, the box head's fc6 and fc7 outputs, with a keypoint
+    head its conv_fcn outputs, and with DA heads their instance head's
+    fc1_da and fc2_da outputs (on the VGG model the MLP features feed
+    them), the inputs of their ReLUs, on each call: yields a dict
+    parameter prefix -> list of [..., units] float32 copies (a conv's
+    output channels last)."""
     layers = {f"roi_heads.box.feature_extractor.{n}":
               getattr(model.roi_heads["box"]["feature_extractor"], n)
               for n in RELU_LAYERS}
+    if getattr(model, "da_heads", None) is not None:
+        layers.update({f"da_heads.inshead.{n}":
+                       getattr(model.da_heads.inshead, n)
+                       for n in ("fc1_da", "fc2_da")})
     kp = getattr(model, "keypoint_head", None)
     if kp is not None:
         layers.update({
@@ -5200,6 +5241,564 @@ def phase_tta(dev, data: dict) -> dict:
     return dict(sites=sites, launches=launches, err=err)
 
 
+# ---------------------------------------------------------------- VGG-16
+
+# the VGG-16 DA-Faster R-CNN (``entry.vgg_cfg``: the flagship triplet-DA
+# YAML on VGG-16 at 608x1216): one stride-16 map of 512 channels (38x76),
+# pooled at P 7 with adaptive sampling by the FPN2MLP box head (1000 ROIs a
+# request, 256 sampled ROIs an image a step); the flagship's launches a
+# request and a step (NMS in the RPN and the box head; ROIAlign once a
+# box-head pass)
+VGG_MAP, VGG_CHANNELS, VGG_POOL = (38, 76), 512, 7
+VGG_TRAIN_STEPS, VGG_PROFILE_STEPS = 6, 2
+VGG_NMS_SITES = ("rpn", "box_head")
+
+
+def vgg_model(dev, dtype: str):
+    """``entry.vgg_cfg(dtype)`` through ``entry(cfg=...)``, random weights
+    from seed 0, score layers spread; and REQUESTS batches."""
+    from da_detect_tpu_torch import entry
+
+    cfg = entry.vgg_cfg(dtype)
+    cfg.freeze()
+    fn, (model, _) = entry.entry(device=str(dev), seed=0, cfg=cfg)
+    spread_scores(model)
+    batches = [entry.make_batch(cfg, 1, seed=s, device=dev)[0]
+               for s in range(REQUESTS)]
+    return cfg, fn, model, batches
+
+
+def vgg_pooled(captured) -> list:
+    """The captured ROIAlign maps' shapes and dtypes; raises unless each is
+    one [1 or 2, 512, 38, 76] map pooled at P 7 with adaptive sampling."""
+    seen = []
+    for maps, rois, levels, kw in captured["roi_align_fwd"]:
+        m = maps[0]
+        if len(maps) != 1 or levels is not None \
+                or tuple(m.shape[1:]) != (VGG_CHANNELS, *VGG_MAP) \
+                or kw["output_size"] != VGG_POOL \
+                or kw["sampling_ratio"] != 0:
+            raise AssertionError(f"VGG pooler launch on {len(maps)} maps "
+                                 f"{[tuple(x.shape) for x in maps]} {kw}")
+        seen.append(dict(map=list(m.shape), dtype=str(m.dtype)[6:],
+                         rois=list(rois.shape)))
+    return seen
+
+
+def phase_vgg(dev, dtype: str = "float32") -> tuple[dict, dict]:
+    """The VGG-16 DA-Faster R-CNN in ``dtype``. Eval: REQUESTS batch-1
+    requests with exact launch counts (the flagship's), kernel run against
+    plain run (``match_detections``), the pooler's site (one 38x76 map of
+    512 channels, P 7, adaptive sampling) and the NMS sites timed, a
+    profile with its busy share and convolution census, peak memory. Train:
+    the triplet step (the YAML's DA settings) through ``train_entry``:
+    kernel-run against plain-run step 1 (``compare_steps``; in float32 with
+    the box head's ReLU flips left out), VGG_TRAIN_STEPS timed steps with
+    exact launches, a profile, peak memory, one step's kernel inputs
+    checked and timed; then ALIGNED_STEPS aligned steps (instance triplet
+    on). Returns ({path: (sites, launches)}, the largest error a
+    kernel)."""
+    from da_detect_tpu_torch import entry
+
+    name, bf16 = label("vgg", dtype), dtype == "bfloat16"
+    cfg, fn, model, batches = vgg_model(dev, dtype)
+    answers, launches, seconds = serve_requests(fn, model, batches,
+                                                PER_FORWARD, name)
+    summary = [check_detections(cfg, dets) for dets in answers]
+    with record_kernel_inputs() as captured:
+        dets_k = fn(model, batches[0])
+    pooled = vgg_pooled(captured)
+    agreement = match_detections(
+        dets_k, model(batches[0], impl="plain"),
+        f32_copy(model, cfg)(batches[0], impl="plain") if bf16 else None)
+    errs = check_captured(captured)
+    eval_sites = time_sites(captured, label("vgg_eval", dtype),
+                            VGG_NMS_SITES if not bf16 else ())
+    forward_ms = host_ms(lambda: fn(model, batches[0]), runs=10)
+    profile = device_profile(lambda: fn(model, batches[0]), DCN_PROFILE_RUNS)
+    census = conv_census(profile, bf16, name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn(model, batches[0])
+    torch.cuda.synchronize()
+    emit(name, config="entry.vgg_cfg", dtype=dtype,
+         canvas=list(cfg.TPU.IMAGE_SHAPE), requests=REQUESTS,
+         seconds=seconds, launches=launches, detections=summary,
+         plain_agreement=agreement, forward_ms=forward_ms, sites=eval_sites,
+         pooled=pooled, profile=profile, conv_kernels_by_dtype=census,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         max_abs_err=errs)
+    del model, fn, batches, captured, answers
+
+    t_name = label("vgg_train", dtype)
+    cfg = train_cfg(False, cfg=entry.vgg_cfg(dtype))
+    step, (state, args) = entry.train_entry(device=str(dev), seed=0, cfg=cfg)
+    frozen = [n for n, p in state.model.named_parameters()
+              if not p.requires_grad]
+    if frozen:
+        raise AssertionError(f"{t_name}: frozen parameters {frozen[:4]}: "
+                             "the JAX package trains every VGG conv")
+    if bf16:
+        t_agreement = compare_steps(
+            train_step_one(state, args, "cuda"),
+            train_step_one(state, args, "plain"),
+            f32_step_one(state, cfg, args))
+    else:
+        with relu_inputs(state.model) as pre_k:
+            kernel = train_step_one(state, args, "cuda")
+        with relu_inputs(state.model) as pre_p:
+            plain = train_step_one(state, args, "plain")
+        t_agreement = compare_steps(kernel, plain,
+                                    flips=relu_flips(pre_k, pre_p))
+        del kernel, plain, pre_k, pre_p
+    state, record, t_captured = measure_train_path(
+        step, state, args, t_name, bf16, VGG_TRAIN_STEPS, PER_TRAIN_STEP,
+        VGG_PROFILE_STEPS)
+    del step, state
+    t_pooled = vgg_pooled(t_captured)
+    merge_errs(errs, check_captured(t_captured))
+    train_sites = time_sites(t_captured, t_name,
+                             ("rpn_source", "rpn_target") if not bf16 else ())
+    t_inputs = train_inputs(t_captured)
+    del t_captured
+
+    a_cfg = train_cfg(True, cfg=entry.vgg_cfg(dtype))
+    a_step, (a_state, a_args) = entry.train_entry(device=str(dev), seed=0,
+                                                  cfg=a_cfg)
+    a_state, a_launches, a_times, a_metrics = run_steps(
+        a_step, a_state, a_args, ALIGNED_STEPS, PER_ALIGNED_STEP,
+        label("vgg_aligned", dtype))
+    if not all(m["triplet_loss_instance"] >= 0 for m in a_metrics):
+        raise AssertionError(f"{t_name}: aligned step without its instance "
+                             f"triplet: {a_metrics}")
+    del a_step, a_state
+    emit(t_name, config="entry.vgg_cfg", dtype=dtype,
+         canvas=list(cfg.TPU.IMAGE_SHAPE), plain_agreement=t_agreement,
+         sites=train_sites, pooled=t_pooled, main_path_inputs=t_inputs,
+         max_abs_err=errs, **record,
+         aligned=dict(steps=ALIGNED_STEPS, launches=a_launches,
+                      step_ms=a_times,
+                      losses=[{k: float(v) for k, v in m.items()}
+                              for m in a_metrics]))
+    return {label("vgg_eval", dtype): (eval_sites, launches),
+            t_name: (train_sites, record["launches"]),
+            label("vgg_aligned", dtype): ([], a_launches)}, errs
+
+
+# ---------------------------------------------------------------- derain
+
+# the deraining CLI at its defaults (crop 224, batch 8) for DERAIN_ITERS
+# iterations on DERAIN_IMAGES clean PNGs of DERAIN_HW written at run time
+# (rain synthesized on the fly, cv2); the step's device split measured on
+# DERAIN_TIMED_STEPS steps of one batch; the learning check (base 8, 32x32,
+# 200 Adam steps); KPNRef's forward at 224 against the same weights on the
+# CPU (KPNREF_REL of its largest |output|: float32 sums in another order)
+DERAIN_ITERS, DERAIN_IMAGES, DERAIN_HW = 40, 12, (512, 1024)
+DERAIN_CROP, DERAIN_BATCH = 224, 8      # the CLI's defaults
+DERAIN_TIMED_STEPS = 10
+KPNREF_HW, KPNREF_REL = 224, 1e-4
+
+
+def derain_images(root: str, n: int, hw, seed: int) -> str:
+    """``n`` smooth RGB PNGs of ``hw`` with coloured discs, written with the
+    port's PNG writer under ``root/clean``."""
+    from da_detect_tpu_torch.data.image_io import write_png
+
+    rng = np.random.RandomState(seed)
+    out = os.path.join(root, "clean")
+    os.makedirs(out)
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    for i in range(n):
+        img = 96 + 60 * np.sin(2 * np.pi * (yy / h + xx / w * rng.uniform(
+            0.5, 2.0)))[..., None] * rng.uniform(0.3, 1.0, 3)
+        for _ in range(6):
+            cy, cx, r = rng.uniform(0, h), rng.uniform(0, w), rng.uniform(
+                20, 120)
+            disc = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+            img[disc] = rng.uniform(0, 255, 3)
+        write_png(os.path.join(out, f"{i:03d}.png"),
+                  np.clip(img, 0, 255).astype(np.uint8))
+    return out
+
+
+def derain_step_split(dev) -> dict:
+    """The CLI's step (``train_derain.make_train_step``: KPN base 32, Adam)
+    on one batch of 8 224x224 crops: its device time (CUDA events, median of
+    DERAIN_TIMED_STEPS), peak memory, a profile (busy share, top kernels),
+    and the per-pixel filtering's forward and backward alone on the step's
+    shapes (events) as a share of the step."""
+    from da_detect_tpu_torch.models.derain import KPN, apply_per_pixel_kernels
+    from da_detect_tpu_torch.tools import train_derain
+
+    gen = torch.Generator().manual_seed(0)
+    model = KPN()
+    train_derain.init_kpn(model, gen)
+    model = model.to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=2e-4, betas=(0.5, 0.999))
+    step = train_derain.make_train_step(
+        model, opt, 0.0, train_derain.lr_schedule(2e-4, 2000, 1000))
+    shape = (DERAIN_BATCH, 3, DERAIN_CROP, DERAIN_CROP)
+    rainy = torch.rand(*shape, generator=gen).to(dev)
+    clean = torch.rand(*shape, generator=gen).to(dev)
+    step_ms = time_ms(lambda: step(rainy, clean), runs=DERAIN_TIMED_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(rainy, clean)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    profile = device_profile(lambda: step(rainy, clean), 3)
+    kernels_ = torch.softmax(torch.randn(
+        DERAIN_BATCH, 25, DERAIN_CROP, DERAIN_CROP, generator=gen), 1).to(
+        dev).requires_grad_()
+    x = rainy.clone().requires_grad_()
+
+    def filtering():
+        out = apply_per_pixel_kernels(x, kernels_, 5)
+        torch.autograd.grad(out.sum(), (x, kernels_))
+
+    filter_ms = time_ms(filtering, runs=DERAIN_TIMED_STEPS)
+    return dict(step_ms=step_ms, max_memory_allocated=peak, profile=profile,
+                filter_fwd_bwd_ms=filter_ms,
+                filter_share_of_step=filter_ms / step_ms)
+
+
+def derain_learning_check(dev) -> dict:
+    """The JAX package's ``test_kpn_reduces_rain`` on the card: KPN base 8
+    on two smooth 32x32 images with rain every 4th column, 200 Adam steps
+    (lr 1e-3) of derain_loss; the loss must halve and the MSE to the clean
+    images fall below a fifth of the rain's."""
+    from da_detect_tpu_torch.models.derain import KPN, derain_loss
+    from da_detect_tpu_torch.tools import train_derain
+
+    rng = np.random.RandomState(2)
+    yy, xx = np.mgrid[0:32, 0:32].astype(np.float32) / 32.0
+    base_img = 0.5 + 0.4 * np.sin(2 * np.pi * (yy + 0.5 * xx))
+    clean = np.stack([np.clip(base_img + 0.05 * rng.randn(32, 32), 0, 1)
+                      for _ in range(2)], 0).astype(np.float32)
+    clean = np.repeat(clean[..., None], 3, axis=-1)
+    rain = clean.copy()
+    rain[:, :, ::4, :] = np.minimum(rain[:, :, ::4, :] + 0.7, 1.0)
+    clean_t = train_derain.to_nchw(clean, dev)
+    rain_t = train_derain.to_nchw(rain, dev)
+    model = KPN(base=8)
+    train_derain.init_kpn(model, torch.Generator().manual_seed(0))
+    model = model.to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(200):
+        opt.zero_grad(set_to_none=True)
+        loss = derain_loss(model(rain_t), clean_t)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    losses = [float(v) for v in losses]
+    seconds = time.perf_counter() - t0
+    base_err = float(torch.mean((rain_t - clean_t) ** 2))
+    with torch.no_grad():
+        final_err = float(torch.mean((model(rain_t) - clean_t) ** 2))
+    if not (losses[-1] < losses[0] * 0.5 and final_err < base_err * 0.2):
+        raise AssertionError(f"derain learning check: losses {losses[:3]} "
+                             f"... {losses[-3:]}, MSE {final_err} against "
+                             f"the rain's {base_err}")
+    return dict(first_loss=losses[0], last_loss=losses[-1],
+                final_mse=final_err, rain_mse=base_err, seconds=seconds)
+
+
+def kpnref_check(dev) -> dict:
+    """KPNRef (its reference widths, 3x3 kernels at rates 1-4) forward on a
+    1x3x224x224 image on the card, against the same weights on the CPU;
+    its time."""
+    from da_detect_tpu_torch.models.derain import KPNRef
+    from da_detect_tpu_torch.tools import train_derain
+
+    model = KPNRef()
+    train_derain.init_kpn(model, torch.Generator().manual_seed(1))
+    x = torch.rand(1, 3, KPNREF_HW, KPNREF_HW,
+                   generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        want = model(x)
+        model = model.to(dev)
+        got = model(x.to(dev))
+        ms = time_ms(lambda: model(x.to(dev)), runs=10)
+    scale = float(want.abs().max())
+    err = float((got.cpu() - want).abs().max())
+    if tuple(got.shape) != (1, 3, KPNREF_HW, KPNREF_HW) \
+            or not bool(torch.isfinite(got).all()) \
+            or not err <= KPNREF_REL * scale:
+        raise AssertionError(f"KPNRef on the card: {tuple(got.shape)}, "
+                             f"err {err} of max {scale}")
+    return dict(shape=list(got.shape), max_abs_err=err, max_abs=scale,
+                forward_ms=ms)
+
+
+def phase_derain(dev) -> None:
+    """The deraining path in float32 (no NMS, ROIAlign or gather kernel:
+    its per-pixel filtering is stock PyTorch): ``train_derain.main`` at
+    its defaults but DERAIN_ITERS iterations (crop 224, batch 8, rain
+    synthesized) on PNGs written at run time, its checkpoint's keys and
+    validation; the step's device split (``derain_step_split``); the
+    learning check on the card; KPNRef at 224 against the CPU."""
+    from da_detect_tpu_torch.tools import train_derain
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_derain_") as root:
+        clean = derain_images(root, DERAIN_IMAGES, DERAIN_HW, seed=5)
+        out = os.path.join(root, "out")
+        t0 = time.perf_counter()
+        cli = train_derain.main([
+            "--clean-dir", clean, "--iters", str(DERAIN_ITERS), "--crop",
+            str(DERAIN_CROP), "--batch", str(DERAIN_BATCH), "--out", out])
+        cli_s = time.perf_counter() - t0
+        with np.load(cli["checkpoint"]) as saved:
+            keys = sorted(saved.files)
+            head = saved["['kernel_head']['kernel']"].shape \
+                if "['kernel_head']['kernel']" in keys else None
+        if len(keys) != 30 or head != (3, 3, 32, 25):
+            raise AssertionError(f"kpn_final.npz keys {keys[:4]}...")
+        if not (np.isfinite(cli["loss"]) and cli["psnr"] > 0
+                and 0 < cli["ssim"] <= 1):
+            raise AssertionError(f"derain CLI: {cli}")
+    emit("derain", cli=dict(iters=DERAIN_ITERS, crop=DERAIN_CROP,
+                            batch=DERAIN_BATCH,
+                            images=DERAIN_IMAGES, image_hw=list(DERAIN_HW),
+                            seconds=cli_s, loop_seconds=cli["seconds"],
+                            iters_per_s=DERAIN_ITERS / cli["seconds"],
+                            loss=cli["loss"], val_psnr=cli["psnr"],
+                            val_ssim=cli["ssim"], npz_keys=len(keys)),
+         step=derain_step_split(dev),
+         learning_check=derain_learning_check(dev),
+         kpnref=kpnref_check(dev))
+
+
+# ---------------------------------------------------------------- aux
+
+# deformable PS-ROI pooling at DCN's R-FCN head shape on the VGG model's
+# stride-16 map of 608x1216: 38x76 score maps of P*P*C' = 49 * 9 channels,
+# 256 ROIs, P 7, 4 x 4 samples a bin, offsets from a drawn (nonzero)
+# offset_fc2; the module pools twice (without offsets, then with them), so
+# a forward gathers twice and its backward scatter-adds twice (the
+# features take both pools' gradients), each scatter-add building its CSR
+AUX_POOL = dict(spatial_scale=1 / 16, output_size=7, out_channels=9)
+AUX_ROIS, AUX_SAMPLES = 256, 4
+PER_AUX_POOL = {"row_gather": 2, "row_scatter_add": 2, "row_csr": 2}
+AUX_REL = 1e-5
+# the deform pool's gathers and scatter-adds are timed AUX_CALLS calls back
+# to back between two CUDA events, AUX_RUNS times: each launch is longer
+# than the host's work to launch it, so the queue stays full and the time a
+# call is its device time (profiles of so few launches now and then
+# recorded none of them)
+AUX_CALLS, AUX_RUNS = 50, 5
+
+
+def batched_ms(fn) -> float:
+    """Median over AUX_RUNS of the time of AUX_CALLS back-to-back calls of
+    ``fn`` (CUDA events at the ends), a call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(AUX_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(AUX_CALLS):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / AUX_CALLS)
+    return statistics.median(times)
+
+
+def aux_device_ms(gathers, records) -> tuple[dict, dict]:
+    """A forward's gathers (``gathers``: each launch's table, detached, and
+    indices) and a backward's scatter-adds (``records`` from
+    ``record_kernel_inputs``, random rows of the recorded shapes) timed by
+    ``batched_ms``: the kernel, the plain version and the library call
+    (``index_select``; ``torch.zeros`` + ``index_add_``); the scatter-add
+    with its CSR built ahead (``ms``) and by the wrapper, as the path
+    calls it (``csr_build_ms``)."""
+    from da_detect_tpu_torch.ops import gather, gather_cuda
+
+    def each(fn, calls):
+        return lambda: [fn(*c) for c in calls]
+
+    g = {"ms": batched_ms(each(gather_cuda.row_gather, gathers)),
+         "plain_ms": batched_ms(each(gather.row_gather, gathers)),
+         "library_ms": batched_ms(each(
+             lambda t, i: torch.index_select(t, 0, i), gathers))}
+    gen = torch.Generator(device=records[0]["idx"].device).manual_seed(0)
+    calls = [(rec["shape"][0], torch.randn(
+        rec["idx"].numel(), rec["shape"][1], generator=gen,
+        device=rec["idx"].device), rec["idx"]) for rec in records]
+    csr = [(s, grad, idx, gather.row_csr(idx, s)) for s, grad, idx in calls]
+    sc = {"ms": batched_ms(each(
+              lambda s, grad, idx, c: gather_cuda.row_scatter_add(
+                  grad, idx, s, c), csr)),
+          "csr_build_ms": batched_ms(each(
+              lambda s, grad, idx: gather_cuda.row_scatter_add(grad, idx, s),
+              calls)),
+          "plain_ms": batched_ms(each(
+              lambda s, grad, idx: gather.row_scatter_add(grad, idx, s),
+              calls)),
+          "library_ms": batched_ms(each(
+              lambda s, grad, idx: torch.zeros(
+                  s, grad.shape[1], device=grad.device).index_add_(
+                  0, idx, grad), calls))}
+    return g, sc
+
+
+def aux_pool_inputs(dev):
+    """The score maps [38, 76, 441] (needing a gradient), the ROIs [256, 4]
+    over the 608x1216 canvas, the module with its offset layers drawn, and a
+    cotangent [256, 7, 7, 9], all from seeds."""
+    from da_detect_tpu_torch.layers.deform_pool import DeformRoIPooling
+
+    gen = torch.Generator().manual_seed(7)
+    p, c = AUX_POOL["output_size"], AUX_POOL["out_channels"]
+    feats = torch.randn(*VGG_MAP, p * p * c, generator=gen).to(dev)
+    rng = np.random.RandomState(7)
+    xy = rng.uniform(-40, (CANVAS[1] - 40, CANVAS[0] - 40), (AUX_ROIS, 2))
+    side = rng.uniform(16, 400, (AUX_ROIS, 2))
+    rois = torch.from_numpy(np.concatenate([xy, xy + side], -1).astype(
+        np.float32)).to(dev)
+    module = DeformRoIPooling(**AUX_POOL)
+    with torch.no_grad():
+        module.offset_fc2.weight.normal_(0.0, 0.01, generator=gen)
+        module.offset_fc2.bias.normal_(0.0, 0.1, generator=gen)
+    cot = torch.randn(AUX_ROIS, p, p, c, generator=gen).to(dev)
+    return feats, rois, module.to(dev), cot
+
+
+def aux_pool_run(module, feats, rois, cot, impl: str):
+    """The module's forward and its gradients (features and every
+    parameter) under ``cot``."""
+    f = feats.clone().requires_grad_()
+    module.zero_grad(set_to_none=True)
+    out = module(f, rois, impl=impl)
+    (out * cot).sum().backward()
+    torch.cuda.synchronize()
+    return out.detach(), f.grad, {n: p.grad.clone()
+                                  for n, p in module.named_parameters()}
+
+
+def phase_aux(dev) -> tuple[dict, dict, dict]:
+    """The remaining single-card modules on the card. ``DeformRoIPooling``
+    (``layers/deform_pool.py``) at AUX_POOL with nonzero offsets: the main
+    path (counts set to 0, one forward and backward through the row-gather
+    kernel and the scatter-add kernel, counts read: PER_AUX_POOL), its
+    kernels checked on its own inputs (``record_kernel_inputs``), the
+    output and every gradient against the plain run (the output bit for
+    bit: the gather is a copy; the gradients within AUX_REL of each one's
+    largest, the plain one adding with atomics), the kernel run's gradients
+    again bit for bit, the gather and scatter-add sites timed against the
+    plain versions and the library calls (``aux_device_ms``). Then one
+    call each of PAM, CAM and MultiLevelDAModule on the card against the
+    CPU, and Boxes' methods.
+    Returns ({path: (sites, launches, the gathers' device times)},
+    errors, the scatter-add's summary)."""
+    from da_detect_tpu_torch.layers.deform_pool import deform_ps_roi_pool
+    from da_detect_tpu_torch.models import attention, da_fpn
+    from da_detect_tpu_torch.structures import Boxes, concat_boxes
+
+    feats, rois, module, cot = aux_pool_inputs(dev)
+    clear_counts()
+    out_k, gf_k, gp_k = aux_pool_run(module, feats, rois, cot, "cuda")
+    launches = read_counts(PER_AUX_POOL, 1, "aux_deform_pool",
+                           "forward and backward")
+    with record_kernel_inputs() as captured:
+        aux_pool_run(module, feats, rois, cot, "cuda")
+    out_p, gf_p, gp_p = aux_pool_run(module, feats, rois, cot, "plain")
+    if not torch.equal(out_k, out_p):
+        raise AssertionError("deform pool: kernel-run output differs from "
+                             "the plain run")
+    grads = {"features": (gf_k, gf_p), **{n: (gp_k[n], gp_p[n])
+                                          for n in gp_p}}
+    rel = {}
+    for n, (a, b) in grads.items():
+        scale = float(b.abs().max())
+        rel[n] = float((a - b).abs().max()) / scale if scale else 0.0
+        if not rel[n] <= AUX_REL:
+            raise AssertionError(f"deform pool gradient of {n}: "
+                                 f"{rel[n]:.3e} of its largest")
+    _, gf_again, gp_again = aux_pool_run(module, feats, rois, cot, "cuda")
+    rerun = torch.equal(gf_again, gf_k) and all(
+        torch.equal(gp_again[n], gp_k[n]) for n in gp_k)
+    if not rerun:
+        raise AssertionError("deform pool: the kernel run's gradients "
+                             "differ from their rerun")
+    with torch.no_grad():
+        unmoved = deform_ps_roi_pool(feats, rois, None, impl="plain",
+                                     sample_per_part=AUX_SAMPLES, **AUX_POOL)
+    offsets_moved = float((out_k - unmoved).abs().max())
+    if not offsets_moved > 0:
+        raise AssertionError("deform pool: the offsets moved nothing")
+    errs = check_captured(captured)
+    sites = time_sites(captured, "aux_deform_pool")
+    records = captured["row_scatter_add"]
+    gathers, device = aux_device_ms(
+        [(t.detach(), i) for t, i in captured["row_gather"]], records)
+    bound_ms, by = bound(scatter_work(records), 0)
+    scatter = dict(launches=launches["row_scatter_add"], **device,
+                   bound_ms=bound_ms, bound_by=by,
+                   bit_checks=[r["bits"] for r in records if "bits" in r])
+    del captured, records
+    emit("aux_deform_pool", pool=dict(AUX_POOL, rois=AUX_ROIS,
+                                      sample_per_part=AUX_SAMPLES,
+                                      features=list(feats.shape)),
+         launches=launches, grad_rel_err=rel, rerun_identical=rerun,
+         output_identical=True, offsets_moved=offsets_moved, sites=sites,
+         gather_device=gathers, scatter=scatter, max_abs_err=errs)
+
+    gen = torch.Generator().manual_seed(9)
+    # std 0.1: CAM's channel energies of std-1 maps over 722 positions
+    # reach ~10^3, where its softmax turns float32 rounding of an energy
+    # into a 1e-4 relative change of the output on either device
+    x = 0.1 * torch.randn(2, 64, 19, 38, generator=gen)
+    checks = {}
+    for name, mod in (("PAM", attention.PAM(64)), ("CAM", attention.CAM())):
+        with torch.no_grad():
+            mod.gamma.fill_(0.5)
+            want = mod(x)
+            got = mod.to(dev)(x.to(dev).contiguous(
+                memory_format=torch.channels_last)).cpu()
+        checks[name] = float((got - want).abs().max()) / float(
+            want.abs().max())
+    levels = [torch.randn(2, 64, h, w, generator=gen)
+              for h, w in ((76, 152), (38, 76), (19, 38))]
+    is_source = torch.tensor([True, False])
+    mlvl = da_fpn.MultiLevelDAModule(64, 3)
+    want = {k: float(v) for k, v in mlvl(levels, is_source).items()}
+    mlvl = mlvl.to(dev)
+    got = {k: float(v) for k, v in mlvl([f.to(dev) for f in levels],
+                                         is_source.to(dev)).items()}
+    checks["MultiLevelDAModule"] = max(abs(got[k] - want[k]) / abs(want[k])
+                                       for k in want)
+    xyxy = torch.rand(2, 50, 4, generator=gen) * 600
+    xyxy[..., 2:] += xyxy[..., :2]
+    boxes = Boxes(xyxy=xyxy.to(dev), valid=torch.ones(2, 50, dtype=torch.bool,
+                                                      device=dev),
+                  fields={"scores": torch.rand(2, 50, generator=gen).to(dev)})
+    done = concat_boxes([boxes.clip_to_image(608, 1216).hflip(1216)
+                         .scale(0.5, 0.5).prune_small(8.0),
+                         boxes.take(torch.arange(10, device=dev)
+                                    .expand(2, 10))])
+    cpu = Boxes(xyxy=xyxy, valid=torch.ones(2, 50, dtype=torch.bool),
+                fields={"scores": boxes.fields["scores"].cpu()})
+    want_b = concat_boxes([cpu.clip_to_image(608, 1216).hflip(1216)
+                           .scale(0.5, 0.5).prune_small(8.0),
+                           cpu.take(torch.arange(10).expand(2, 10))])
+    checks["Boxes"] = float((done.xyxy.cpu() - want_b.xyxy).abs().max())
+    if not (torch.equal(done.valid.cpu(), want_b.valid)
+            and checks["Boxes"] == 0.0
+            and all(v <= AUX_REL for k, v in checks.items()
+                    if k != "Boxes")):
+        raise AssertionError(f"aux modules on the card: {checks}")
+    emit("aux", rel_err_against_cpu=checks, boxes_area=float(
+        done.area().sum()))
+    return {"aux_deform_pool": (sites, launches,
+                                {"row_gather": gathers})}, errs, scatter
+
+
 # ---------------------------------------------------------------- serving
 # the device kernel whose calls count one launch of each forward kernel in
 # a profile (an NMS launch runs its mask kernel, then its walk kernel)
@@ -5640,8 +6239,9 @@ def run_dtype(dev, dtype: str) -> tuple[dict, dict, dict, list]:
     "quad") and its times, the DCN train step, the Cityscapes Mask R-CNN's
     eval forward with masks and its source-only train step, Keypoint
     R-CNN's eval forward with keypoints and its train step, the FBNet
-    models' eval forwards and the FBNet mask model's train step, and
-    RetinaNet's eval forward and train step. Returns (paths for
+    models' eval forwards and the FBNet mask model's train step,
+    RetinaNet's eval forward and train step, and the VGG-16 DA-Faster
+    R-CNN's eval forward and triplet train steps. Returns (paths for
     ``kernel_line``, the largest error a kernel, the scatter-add's summary,
     the paths whose float32 ROIAlign and NMS launches a bfloat16 model made:
     (path, sites, launches, errors) each, for ``add_f32_path``)."""
@@ -5671,9 +6271,10 @@ def run_dtype(dev, dtype: str) -> tuple[dict, dict, dict, list]:
      kp_errs) = phase_keypoint(dev, dtype)
     fbnet_paths, fbnet_errs = phase_fbnet(dev, dtype)
     retina_paths, retina_errs = phase_retinanet(dev, dtype)
+    vgg_paths, vgg_errs = phase_vgg(dev, dtype)
     errs = {}
     parts = [eval_errs, train_errs, dcn_errs, dcn_train_errs, mask_errs,
-             kp_errs, retina_errs]
+             kp_errs, retina_errs, vgg_errs]
     f32_paths = []
     if dtype == "float32":
         parts.append(fbnet_errs)
@@ -5698,7 +6299,7 @@ def run_dtype(dev, dtype: str) -> tuple[dict, dict, dict, list]:
              label("keypoint_train", dtype): (kp_train_sites,
                                               kp_train_launches, {}), **ddp,
              **{path: (sites, launches, {}) for path, (sites, launches) in
-                {**fbnet_paths, **retina_paths}.items()}}
+                {**fbnet_paths, **retina_paths, **vgg_paths}.items()}}
     return paths, errs, scatter, f32_paths
 
 
@@ -5804,6 +6405,11 @@ def main(argv=None) -> int:
     for k, v in bf16_errs.items():
         key = label(k, "bfloat16") if k in BF16_KERNELS else k
         errs[key] = max(errs.get(key, 0.0), v)
+    phase_derain(dev)
+    aux_paths, aux_errs, aux_scatter = phase_aux(dev)
+    for k, v in aux_errs.items():
+        errs[k] = max(errs.get(k, 0.0), v)
+    paths.update(aux_paths)
     sanity_sites, sanity_launches, sanity_errs = phase_sanity(dev)
     tta, tools_launches = run_data_path(dev)
     paths["tools_ddp_bf16"] = ([], tools_launches, {})
@@ -5813,7 +6419,8 @@ def main(argv=None) -> int:
     paths["keypoint_cli_bf16"] = ([], phase_keypoint_cli(dev), {})
     paths["demo_bf16"] = ([], phase_demo(dev), {})
     line = kernel_line(
-        paths, errs, {"row_scatter_add": {"dcn_train": scatter},
+        paths, errs, {"row_scatter_add": {"dcn_train": scatter,
+                                          "aux_deform_pool": aux_scatter},
                       "row_scatter_add_bf16": {"dcn_train_bf16":
                                                bf16_scatter}})
     add_f32_path(line, "sanity_bf16", sanity_sites, sanity_launches,

@@ -18,7 +18,9 @@ serve and train the same way, at their YAMLs' canvases.
 ``entry(cfg=keypoint_cfg(), with_keypoints=True)`` is the eval forward of
 Keypoint R-CNN (R-50-FPN, ``KEYPOINT_ON``) with each detection's 17
 keypoints, and ``source_train_entry(cfg=keypoint_cfg())`` its source-only
-train step on 2 images with GT keypoints.
+train step on 2 images with GT keypoints. ``entry(cfg=vgg_cfg())`` and
+``train_entry(cfg=vgg_cfg())`` serve and train the VGG-16 DA-Faster R-CNN
+on the flagship's triplet-DA settings.
 ``dryrun_multichip(n)`` runs the train step data-parallel over n ranks
 (DDP) against one process on the same global batch. All run on the card unless the caller asks for ``device="cpu"``;
 with no card and no explicit CPU they raise.
@@ -62,6 +64,9 @@ FBNET_CHAM_YAML = os.path.join(CONFIGS,
 RETINANET_YAML = os.path.join(CONFIGS, "retinanet",
                               "retinanet_R-50-FPN_1x.yaml")
 KEYPOINT_YAML = os.path.join(CONFIGS, "e2e_keypoint_rcnn_R_50_FPN_1x.yaml")
+FLAGSHIP_YAML = os.path.join(
+    CONFIGS, "da_faster_rcnn",
+    "e2e_triplet_da_faster_rcnn_R_50_C4_cityscapes_to_foggy_cityscapes.yaml")
 
 
 def flagship_cfg(canvas=(320, 640), train_tops=(600, 128),
@@ -153,6 +158,26 @@ def keypoint_cfg(dtype: str = "bfloat16"):
     an image, the keypoint pooler at P 14, sampling 2, over P2-P5) by
     ``_yaml_cfg``, uncut: 800 x 1344."""
     return _yaml_cfg(KEYPOINT_YAML, dtype)
+
+
+def vgg_cfg(dtype: str = "bfloat16"):
+    """The flagship triplet-DA YAML (Cityscapes -> Foggy Cityscapes with the
+    rainy negative domain, 9 classes, AdvGRL, image and instance triplet) on
+    the VGG-16 body of the original DA-Faster R-CNN, by ``_yaml_cfg`` at
+    the YAML's 608 x 1216 canvas: ``CONV_BODY "VGG-16"`` (one stride-16
+    map of 512 channels), ``FPN2MLPFeatureExtractor`` over that one level
+    (``POOLER_SCALES (0.0625,)``, ``POOLER_RESOLUTION 7``), the
+    ``FPNPredictor`` and ``MLP_HEAD_DIM 1024``; the DA instance head reads
+    the MLP features (the VGG branch of ``models/da.py``)."""
+    cfg = _yaml_cfg(FLAGSHIP_YAML, dtype)
+    cfg.merge_from_list([
+        "MODEL.BACKBONE.CONV_BODY", "VGG-16",
+        "MODEL.ROI_BOX_HEAD.FEATURE_EXTRACTOR", "FPN2MLPFeatureExtractor",
+        "MODEL.ROI_BOX_HEAD.POOLER_SCALES", (0.0625,),
+        "MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION", 7,
+        "MODEL.ROI_BOX_HEAD.PREDICTOR", "FPNPredictor",
+        "MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM", 1024])
+    return cfg
 
 
 def per_card_images(cfg) -> int:

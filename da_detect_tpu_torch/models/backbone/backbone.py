@@ -1,19 +1,21 @@
 """Backbone factory (port of ``da_detect_tpu/models/backbone/backbone.py``).
 
-This port builds the ResNe[X]t bodies: the C4 bodies (``R-50-C4``,
-``R-101-C4``, ``R-152-C4``) and the FPN bodies (``R-50-FPN``,
+``build_backbone(cfg)`` returns (module, BackboneSpec). ``BACKBONES`` holds
+the ResNe[X]t bodies under the JAX package's CONV_BODY names, in its order:
+the C4 bodies (``R-50-C4``, ``R-101-C4``, ``R-152-C4``: 3 stages, one
+stride-16 map), the C5 bodies (``R-50-C5``, ``R-101-C5``, ``R-152-C5``: 4
+stages, no FPN, one stride-32 map), the FPN bodies (``R-50-FPN``,
 ``R-101-FPN``, ``R-152-FPN``, ``X-101-32x8d-FPN``, the last with its groups
-and width from ``MODEL.RESNETS``), each with deformable ``conv2`` in the
-stages of ``STAGE_WITH_DCN``, with FrozenBatchNorm or, under
-``BACKBONE.USE_GN``, GroupNorm; the FPN with ``FPN.USE_GN`` and
-``FPN.USE_RELU``; the RetinaNet bodies (``R-50-FPN-RETINANET``,
-``R-101-FPN-RETINANET``, ``R-152-FPN-RETINANET``, the last two also with
-ResNeXt groups from ``MODEL.RESNETS``): the FPN over C3-C5 with the P6/P7
-top block, strides 8 to 128; and the FBNet trunk (``CONV_BODY: "FBNet"``,
-``FBNET.ARCH``; ``fbnet.py``): one map at stride 16. VGG bodies are a later
-slice and raise ``NotImplementedError``. Bodies and FPN compute in
-``TPU.COMPUTE_DTYPE`` (GroupNorm and FBNet's BatchNorm output float32,
-``layers/norms.py``).
+and width from ``MODEL.RESNETS``) and the RetinaNet bodies
+(``R-{50,101,152}-FPN-RETINANET``: the FPN over C3-C5 with the P6/P7 top
+block, strides 8 to 128); each with deformable ``conv2`` in the stages of
+``STAGE_WITH_DCN``, with FrozenBatchNorm or, under ``BACKBONE.USE_GN``,
+GroupNorm; the FPN with ``FPN.USE_GN`` and ``FPN.USE_RELU``. A CONV_BODY
+starting with "FBNet" builds the FBNet trunk (``FBNET.ARCH``; ``fbnet.py``:
+one map at stride 16), one starting with "V" the VGG-16 body (``vgg.py``:
+one stride-16 map of 512 channels). Any other name raises ``KeyError``, as
+in the JAX package. Bodies and FPN compute in ``TPU.COMPUTE_DTYPE``
+(GroupNorm and FBNet's BatchNorm output float32, ``layers/norms.py``).
 """
 
 from __future__ import annotations
@@ -23,8 +25,12 @@ import dataclasses
 from torch import nn
 
 from ...layers import compute_dtype
+from ...utils.registry import Registry
 from .fpn import FPN
 from .resnet import ResNet
+
+# CONV_BODY -> (depth, stages, with FPN, FPN top block)
+BACKBONES = Registry()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,30 +59,37 @@ class ResNetBackbone(nn.Module):
         return self.fpn(feats[self.first_level:])
 
 
-# CONV_BODY -> (depth, with FPN, FPN top block)
-_BODIES = {
-    **{f"R-{d}-C4": (d, False, None) for d in (50, 101, 152)},
-    **{f"R-{d}-FPN": (d, True, "maxpool") for d in (50, 101, 152)},
-    **{f"R-{d}-FPN-RETINANET": (d, True, "p6p7") for d in (50, 101, 152)},
-    "X-101-32x8d-FPN": (101, True, "maxpool"),
-}
+def _register_resnets():
+    for depth in (50, 101, 152):
+        BACKBONES.register(f"R-{depth}-C4", (depth, 3, False, "maxpool"))
+        BACKBONES.register(f"R-{depth}-C5", (depth, 4, False, "maxpool"))
+        BACKBONES.register(f"R-{depth}-FPN", (depth, 4, True, "maxpool"))
+        BACKBONES.register(f"R-{depth}-FPN-RETINANET",
+                           (depth, 4, True, "p6p7"))
+    # ResNeXt bodies use the same specs; groups/width come from cfg
+    BACKBONES.register("X-101-32x8d-FPN", (101, 4, True, "maxpool"))
+
+
+_register_resnets()
 
 
 def build_backbone(cfg) -> tuple[nn.Module, BackboneSpec]:
     body = cfg.MODEL.BACKBONE.CONV_BODY
     dtype = compute_dtype(cfg)
-    if body == "FBNet":
+    if body.startswith("FBNet"):
         from .fbnet import build_fbnet_backbone
 
         trunk, out_ch = build_fbnet_backbone(cfg, dtype)
         return trunk, BackboneSpec(out_channels=out_ch, strides=(16,))
-    if body not in _BODIES:
-        raise NotImplementedError(
-            f"CONV_BODY {body}: the PyTorch port builds FBNet, "
-            f"{', '.join(_BODIES)}; the others are later slices")
-    depth, with_fpn, top_block = _BODIES[body]
+    if body.startswith("V"):  # VGG-16 (the original DA-Faster backbone)
+        from .vgg import build_vgg_backbone
+
+        vgg, out_ch = build_vgg_backbone(dtype)
+        return vgg, BackboneSpec(out_channels=out_ch, strides=(16,))
+    if body not in BACKBONES:
+        raise KeyError(f"unknown CONV_BODY: {body}")
+    depth, stages, with_fpn, top_block = BACKBONES[body]
     r = cfg.MODEL.RESNETS
-    stages = 4 if with_fpn else 3
     resnet = ResNet(
         depth=depth, stages=stages, num_groups=r.NUM_GROUPS,
         width_per_group=r.WIDTH_PER_GROUP,

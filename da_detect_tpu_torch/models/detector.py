@@ -45,6 +45,7 @@ from ..layers import DeformConv2d, compute_dtype
 from ..structures.image_batch import ImageBatch
 from .anchors import AnchorGenerator, make_anchor_generator
 from .backbone.fbnet import FBNetRPNHead, make_fbnet_rpn_head
+from .backbone.vgg import VGG16
 from .box_head import (Detections, FPN2MLPFeatureExtractor,
                        FPNXconv1fcFeatureExtractor, fast_rcnn_loss,
                        make_box_feature_extractor,
@@ -340,7 +341,8 @@ def init_parameters(model: GeneralizedRCNN,
                     generator: torch.Generator) -> None:
     """Random init from ``generator``, with the JAX package's initializer
     scales: convs of the body and res5 head lecun-normal (std
-    1/sqrt(fan_in)), the RPN head normal(0.01), the predictor's cls_score
+    1/sqrt(fan_in)), the VGG-16 body's too with their biases 0, the RPN
+    head normal(0.01), the predictor's cls_score
     normal(0.01) and bbox_pred normal(0.001), the DA heads' convs
     normal(0.001) and fc1/fc2/fc3 normal(0.01/0.01/0.05), biases 0, FrozenBN
     scale 1 and bias 0; the mask head's convs (``mask_fcn*``,
@@ -353,11 +355,15 @@ def init_parameters(model: GeneralizedRCNN,
     kaiming-uniform with a=1 (bound sqrt(3/fan_in)), biases 0; the conv
     head's convs normal(0.01) and its fc6 kaiming-uniform; GroupNorm scale 1
     and bias 0 (set at construction)."""
+    vgg = set(model.backbone.modules()) \
+        if isinstance(model.backbone, VGG16) else set()
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, nn.Conv2d) and m.bias is None:
+            if isinstance(m, nn.Conv2d) and (m.bias is None or m in vgg):
                 fan_in = m.weight[0].numel()
                 m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
             elif isinstance(m, DeformConv2d):
                 fan_in = m.weight[0].numel()
                 m.weight.normal_(0.0, (2.0 / fan_in) ** 0.5,

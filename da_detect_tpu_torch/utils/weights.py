@@ -52,6 +52,18 @@ checkpoint converter uses in the other direction:
         (flipped as ``conv5_mask``: Flax's padding (1, 1) on the dilated
         input is torch's ``padding=2``)
 
+A module that is not a detector (no ``backbone``: the deraining nets,
+``DeformRoIPooling``, ``PAM``, ``CAM``, ``MultiLevelDAModule``) takes its
+variables by their own paths, the same layouts:
+
+    params/enc1/conv0/kernel      -> enc1.conv0.weight     (KPN)
+    params/offset_fc1/kernel      -> offset_fc1.weight     (DeformRoIPooling)
+    params/gamma                  -> gamma                 (PAM, CAM)
+    params/scale_head/conv1_joint/kernel -> scale_head.conv1_joint.weight
+
+A detector's VGG-16 body maps as ``params/backbone/conv1_1/kernel ->
+backbone.conv1_1.weight``.
+
 Any key that names nothing in the model raises, as does any model entry left
 unset or a shape that disagrees, with one exception: variables with no
 ``da_heads`` subtree at all (what the JAX package's eval ``init`` creates,
@@ -112,6 +124,12 @@ def torch_name(path: str) -> str:
     raise KeyError(f"JAX variable {path!r} has no counterpart in the port")
 
 
+def module_name(path: str) -> str:
+    """A module's own JAX path -> its state_dict name: "/" to ".", Flax's
+    ``kernel`` and ``scale`` to ``weight``."""
+    return ".".join(_PARTS.get(p, p) for p in path.split("/"))
+
+
 def _to_torch_layout(path: str, value: np.ndarray,
                      fc6_chw=None) -> np.ndarray:
     if path == "feature_extractor/fc6/kernel":
@@ -134,10 +152,11 @@ def _to_torch_layout(path: str, value: np.ndarray,
 _STATS = {"mean": "running_mean", "var": "running_var"}
 
 
-def jax_state_dict(variables: dict,
-                   fc6_chw=None) -> dict[str, torch.Tensor]:
+def jax_state_dict(variables: dict, fc6_chw=None,
+                   detector: bool = True) -> dict[str, torch.Tensor]:
     """The port's state_dict entries for the JAX ``variables``.
-    ``fc6_chw``: the (C, P, P) pooled map an FPN MLP head's fc6 reads."""
+    ``fc6_chw``: the (C, P, P) pooled map an FPN MLP head's fc6 reads;
+    ``detector`` False: a standalone module's own names."""
     unknown = set(variables) - {"params", "frozen", "batch_stats"}
     if unknown:
         raise KeyError(f"unknown variable collections: {sorted(unknown)}")
@@ -146,14 +165,15 @@ def jax_state_dict(variables: dict,
         for path, value in _flatten(variables.get(collection, {})):
             value = _to_torch_layout(path, np.array(value, np.float32),
                                      fc6_chw)
-            name = torch_name(path)
+            name = torch_name(path) if detector else module_name(path)
             if collection == "batch_stats":
                 head, _, leaf = name.rpartition(".")
                 if leaf not in _STATS:
                     raise KeyError(f"JAX variable batch_stats/{path!r} has "
                                    "no counterpart in the port")
                 name = f"{head}.{_STATS[leaf]}"
-            state[name] = torch.from_numpy(np.ascontiguousarray(value))
+            # np.array, not ascontiguousarray: a 0-d leaf (gamma) stays 0-d
+            state[name] = torch.from_numpy(np.array(value, order="C"))
     return state
 
 
@@ -171,8 +191,10 @@ def fc6_chw(model: torch.nn.Module):
 
 
 def load_jax_variables(model: torch.nn.Module, variables: dict) -> None:
-    """Load the JAX model's variables into ``model`` in place, strictly."""
-    state = jax_state_dict(variables, fc6_chw(model))
+    """Load the JAX model's variables into ``model`` (a detector, or a
+    standalone module of this package) in place, strictly."""
+    state = jax_state_dict(variables, fc6_chw(model),
+                           detector=hasattr(model, "backbone"))
     own = model.state_dict()
     extra = sorted(set(state) - set(own))
     if extra:

@@ -80,6 +80,16 @@ Serving: each kernel's operator (``ops/library.py``) launches its kernel
 once and equals its wrapper bit for bit; the bfloat16 flagship at 320x640
 exported as an ``aot`` artifact answers as the eager forward bit for bit,
 a replay launching what an eager request launches (read from a profile).
+
+VGG-16 and the remaining modules: the ROIAlign kernels at the VGG pooler's
+site (one 38x76 map of 512 channels, P 7, adaptive sampling) in both
+dtypes, forward and backward; a narrowed VGG eval forward and aligned
+triplet step through the kernels against their plain runs with exact
+launches; deformable PS-ROI pooling through the row gather (its output
+bit for bit the plain run's, a copy) and the scatter-add kernel (its
+gradients within 1e-5 of the plain run's largest, and bit for bit their
+rerun); PAM, CAM, the multi-level DA heads, Boxes and the deraining nets
+on the card against the CPU (1e-5 of the largest value; KPNRef 1e-4).
 """
 
 import time
@@ -188,7 +198,10 @@ def _rois(seed, b, r, h, w, max_side):
     # the FBNet poolers: P 6, adaptive sampling, 16 images of 512 ROIs on
     # the 320x640 map at 128 channels and the 600x1000 one at 88 (the last
     # 32-channel slice 24 wide)
-    (16, 512, 20, 40, 128, 6, 0, 8), (16, 512, 38, 63, 88, 6, 0, 8)])
+    (16, 512, 20, 40, 128, 6, 0, 8), (16, 512, 38, 63, 88, 6, 0, 8),
+    # the VGG-16 pooler: one 38x76 map of 512 channels, P 7, adaptive
+    # sampling; 1000 ROIs a request, 256 sampled ROIs on each of 2 images
+    (1, 1000, 38, 76, 512, 7, 0, 8), (2, 256, 38, 76, 512, 7, 0, 8)])
 def test_roi_align_kernel_matches_plain(dev, b, r, h, w, c, p, sr, cap):
     feats = torch.randn(b, h, w, c, generator=torch.Generator().manual_seed(r)
                         ).to(dev).permute(0, 3, 1, 2)
@@ -374,6 +387,8 @@ BWD_CASES = {
     # the FBNet poolers' train step: P 6, adaptive sampling, 16 x 512 ROIs
     "fbnet_c128": (16, 128, 20, 40, 6, 0, 1 / 16, (16, 512)),
     "fbnet_c88": (16, 88, 38, 63, 6, 0, 1 / 16, (16, 512)),
+    # the VGG-16 train step: P 7, adaptive sampling, 2 x 256 ROIs, C 512
+    "vgg_c512": (2, 512, 38, 76, 7, 0, 1 / 16, (2, 256)),
 }
 
 
@@ -976,7 +991,9 @@ def _ulps_within(got, want32, ulps=1.0, floor=0.0):
 @pytest.mark.parametrize("b,r,h,w,c,p,sr,cap", [
     (2, 11, 10, 16, 128, 7, 2, 8), (1, 37, 38, 76, 64, 14, 0, 8),
     (1, 9, 38, 76, 8, 14, 0, 4), (2, 5, 7, 9, 16, 7, 0, 8),
-    (1, 256, 38, 76, 1024, 14, 0, 8)])
+    (1, 256, 38, 76, 1024, 14, 0, 8),
+    # the bfloat16 VGG-16 pooler (request and train step)
+    (1, 1000, 38, 76, 512, 7, 0, 8), (2, 256, 38, 76, 512, 7, 0, 8)])
 def test_roi_align_bf16_kernel_matches_plain(dev, b, r, h, w, c, p, sr, cap):
     """A bfloat16 map pooled through the bfloat16 kernel: the output is
     bfloat16, within one ulp of each value of the float32 plain version on
@@ -1772,3 +1789,184 @@ def test_aot_artifact_replays_the_eager_forward(dev, tmp_path):
             zout.writestr(item, data)
     with pytest.raises(RuntimeError, match="GPU v99"):
         load_serving(edited)
+
+
+# ---------------------------------------------------------------- VGG-16
+
+
+def _vgg_cfg(aligned: bool):
+    """``entry.vgg_cfg`` in float32 at 128x192, MLP head 64, the flagship's
+    narrowed budgets."""
+    cfg = entry.vgg_cfg("float32")
+    cfg.merge_from_list([
+        "TPU.IMAGE_SHAPE", (128, 192), "TPU.MAX_GT_BOXES", 8,
+        "MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM", 64,
+        "MODEL.RPN.PRE_NMS_TOP_N_TRAIN", 600,
+        "MODEL.RPN.POST_NMS_TOP_N_TRAIN", 128,
+        "MODEL.RPN.PRE_NMS_TOP_N_TEST", 600,
+        "MODEL.RPN.POST_NMS_TOP_N_TEST", 128,
+        "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", 64,
+        "MODEL.DA_HEADS.ALIGNMENT", aligned,
+        "MODEL.DA_HEADS.DA_TRIPLET_INS_WEIGHT", 1.0 if aligned else 0.0])
+    return cfg
+
+
+def test_vgg_eval_kernels_match_plain(dev):
+    """A narrowed VGG-16 request through the kernels (NMS 2, ROIAlign 1)
+    against the same request through the plain versions: the same valid
+    count, and each detection's box within 1e-2 px and score within 1e-4
+    of the plain run's same slot."""
+    cfg = _vgg_cfg(False)
+    fn, (model, batch) = entry.entry(device="cuda", seed=0, cfg=cfg)
+    with torch.no_grad():
+        model.rpn["head"].cls_logits.weight.mul_(30.0)
+        model.roi_heads["box"]["predictor"].cls_score.weight.mul_(30.0)
+    before = dict(kernels.LAUNCHES)
+    got = fn(model, batch)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - before.get(k, 0)
+            for k in ("nms", "roi_align_fwd")} == {"nms": 2,
+                                                   "roi_align_fwd": 1}
+    want = model(batch, impl="plain")
+    assert int(want.valid.sum()) > 0
+    assert torch.equal(got.valid, want.valid)
+    torch.testing.assert_close(got.boxes[got.valid], want.boxes[want.valid],
+                               rtol=0, atol=1e-2)
+    torch.testing.assert_close(got.scores, want.scores, rtol=0, atol=1e-4)
+
+
+def test_vgg_step_kernels_match_plain(dev):
+    """One aligned triplet step of the narrowed VGG-16 model through the
+    kernels (NMS 2, ROIAlign forward 4 and backward 4) against the plain
+    run: losses rtol 1e-4, every gradient within 1e-3 of its leaf's largest
+    |g| plus 1e-6 of the model's largest; no parameter frozen."""
+    step, (state, args) = entry.train_entry(device="cuda", seed=0,
+                                            cfg=_vgg_cfg(True))
+    model = state.model
+    assert all(p.requires_grad for p in model.parameters())
+    results = []
+    for impl in ("cuda", "plain"):
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        before = dict(kernels.LAUNCHES)
+        losses, _ = model.train_forward(*args[:2], state.da_state, *args[2:],
+                                        aligned=True, deterministic=True,
+                                        generator=gen, impl=impl)
+        sum(losses.values()).backward()
+        torch.cuda.synchronize()
+        launched = {k: kernels.LAUNCHES[k] - before.get(k, 0)
+                    for k in ("nms", "roi_align_fwd", "roi_align_bwd")}
+        assert launched == ({"nms": 2, "roi_align_fwd": 4,
+                             "roi_align_bwd": 4} if impl == "cuda"
+                            else dict.fromkeys(launched, 0)), launched
+        results.append(({k: v.item() for k, v in losses.items()},
+                        {n: p.grad.clone()
+                         for n, p in model.named_parameters()}))
+    (lk, gk), (lp, gp) = results
+    assert "triplet_loss_instance" in lp
+    for k in lp:
+        assert lk[k] == pytest.approx(lp[k], rel=1e-4), (k, lk, lp)
+    floor = 1e-6 * max(float(g.abs().max()) for g in gp.values())
+    for n, g in gp.items():
+        torch.testing.assert_close(gk[n], g, rtol=0,
+                                   atol=1e-3 * float(g.abs().max()) + floor)
+
+
+# ---------------------------------------------------------------- aux
+
+
+def test_deform_pool_kernels_match_plain(dev):
+    """``DeformRoIPooling`` at P 7, C' 9, 4 x 4 samples, 256 ROIs on a 38x76
+    map, offsets drawn nonzero: through the kernels (2 gathers forward, 2
+    scatter-adds backward) its output equals the plain run's bit for bit,
+    every gradient lies within 1e-5 of the plain run's largest, and a
+    second kernel run gives the same gradients bit for bit."""
+    from da_detect_tpu_torch.layers.deform_pool import DeformRoIPooling
+
+    gen = torch.Generator().manual_seed(5)
+    feats = torch.randn(38, 76, 49 * 9, generator=gen).to(dev)
+    xy = torch.rand(256, 2, generator=gen) * torch.tensor([1150.0, 560.0])
+    rois = torch.cat([xy, xy + 16 + 380 * torch.rand(256, 2, generator=gen)],
+                     -1).to(dev)
+    module = DeformRoIPooling(1 / 16, 7, 9)
+    with torch.no_grad():
+        module.offset_fc2.weight.normal_(0.0, 0.01, generator=gen)
+        module.offset_fc2.bias.normal_(0.0, 0.1, generator=gen)
+    module = module.to(dev)
+    cot = torch.randn(256, 7, 7, 9, generator=gen).to(dev)
+
+    def run(impl):
+        f = feats.clone().requires_grad_()
+        module.zero_grad(set_to_none=True)
+        out = module(f, rois, impl=impl)
+        (out * cot).sum().backward()
+        torch.cuda.synchronize()
+        return out.detach(), {"features": f.grad, **{
+            n: p.grad.clone() for n, p in module.named_parameters()}}
+
+    before = dict(kernels.LAUNCHES)
+    out_k, g_k = run("cuda")
+    assert {k: kernels.LAUNCHES[k] - before.get(k, 0)
+            for k in ("row_gather", "row_scatter_add")} == {
+        "row_gather": 2, "row_scatter_add": 2}
+    out_p, g_p = run("plain")
+    assert torch.equal(out_k, out_p)
+    for n, g in g_p.items():
+        torch.testing.assert_close(g_k[n], g, rtol=0,
+                                   atol=1e-5 * float(g.abs().max()), msg=n)
+    _, again = run("cuda")
+    for n, g in g_k.items():
+        assert torch.equal(again[n], g), n
+
+
+def test_aux_modules_on_the_card(dev):
+    """PAM and CAM (gamma 0.5), the multi-level DA heads' losses and
+    Boxes' geometry on the card against the CPU."""
+    from da_detect_tpu_torch.models.attention import CAM, PAM
+    from da_detect_tpu_torch.models.da_fpn import MultiLevelDAModule
+    from da_detect_tpu_torch.structures import Boxes
+
+    gen = torch.Generator().manual_seed(6)
+    # std 0.1: CAM's channel energies of std-1 maps over 722 positions
+    # reach ~10^3, where its softmax turns float32 rounding of an energy
+    # into a 1e-4 relative change of the output on either device
+    x = 0.1 * torch.randn(2, 64, 19, 38, generator=gen)
+    for mod in (PAM(64), CAM()):
+        with torch.no_grad():
+            mod.gamma.fill_(0.5)
+            want = mod(x)
+            got = mod.to(dev)(x.to(dev)).cpu()
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+    levels = [torch.randn(2, 64, h, w, generator=gen)
+              for h, w in ((38, 76), (19, 38))]
+    is_source = torch.tensor([True, False])
+    mlvl = MultiLevelDAModule(64, 2)
+    want = mlvl(levels, is_source)
+    got = mlvl.to(dev)([f.to(dev) for f in levels], is_source.to(dev))
+    for k, v in want.items():
+        assert got[k].item() == pytest.approx(v.item(), rel=1e-5), k
+    xyxy = torch.rand(2, 30, 4, generator=gen) * 600
+    xyxy[..., 2:] += xyxy[..., :2]
+    valid = torch.rand(2, 30, generator=gen) > 0.2
+    b_cpu = Boxes(xyxy, valid).clip_to_image(608, 1216).hflip(1216)
+    b_dev = Boxes(xyxy.to(dev), valid.to(dev)).clip_to_image(
+        608, 1216).hflip(1216)
+    assert torch.equal(b_dev.xyxy.cpu(), b_cpu.xyxy)
+    assert torch.equal(b_dev.area().cpu(), b_cpu.area())
+
+
+def test_derain_nets_on_the_card(dev):
+    """KPN (base 32) and KPNRef forwards on the card, full float32
+    convolutions (``reference_numerics``), against the CPU."""
+    from da_detect_tpu_torch.models.derain import KPN, KPNRef
+    from da_detect_tpu_torch.utils.env import reference_numerics
+
+    reference_numerics()
+    x = torch.rand(2, 3, 72, 88, generator=torch.Generator().manual_seed(7))
+    for mod, rel in ((KPN(), 1e-5), (KPNRef(), 1e-4)):
+        with torch.no_grad():
+            want = mod(x)
+            got = mod.to(dev)(x.to(dev)).cpu()
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=rel * float(want.abs().max()))

@@ -145,7 +145,8 @@ def test_unsupported_configs_raise():
     """The default config (COMPUTE_DTYPE bfloat16, as in the JAX package)
     builds a bfloat16 model with float32 parameters; another compute dtype
     raises. GroupNorm bodies, the mask head, the keypoint head (every
-    keypoint YAML) and RetinaNet build; RetinaNet with the DA heads raises
+    keypoint YAML), RetinaNet, the VGG-16 body and the C5 bodies build, and
+    an unknown CONV_BODY raises KeyError; RetinaNet with the DA heads raises
     ValueError, as in the JAX package."""
     from da_detect_tpu_torch.layers import Conv2d, Linear
     from da_detect_tpu_torch.models import build_detection_model
@@ -188,6 +189,45 @@ def test_unsupported_configs_raise():
     cfg = entry.flagship_cfg(dtype="float32")
     cfg.merge_from_list(["MODEL.MASK_ON", True])
     assert build_detection_model(cfg).mask_head is not None
+    from da_detect_tpu_torch.models.backbone.vgg import VGG16
+
+    cfg = entry.vgg_cfg()
+    cfg.merge_from_list(["MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM", 16])
+    vgg = build_detection_model(cfg)
+    assert isinstance(vgg.backbone, VGG16)
+    assert vgg.backbone.conv5_3.compute_dtype == torch.bfloat16
+    for body in ("R-50-C5", "R-101-C5", "R-152-C5"):
+        cfg = entry.flagship_cfg(dtype="float32")
+        cfg.merge_from_list(["MODEL.BACKBONE.CONV_BODY", body,
+                             "MODEL.RESNETS.WIDTH_PER_GROUP", 4,
+                             "MODEL.ROI_BOX_HEAD.FEATURE_EXTRACTOR",
+                             "FPN2MLPFeatureExtractor",
+                             "MODEL.ROI_BOX_HEAD.POOLER_SCALES", (1 / 32,),
+                             "MODEL.ROI_BOX_HEAD.MLP_HEAD_DIM", 16])
+        body_net = build_detection_model(cfg).backbone.body
+        assert body_net.stage_names == ["layer1", "layer2", "layer3",
+                                        "layer4"]
+        assert not body_net.return_all
+    cfg = entry.flagship_cfg(dtype="float32")
+    cfg.MODEL.BACKBONE.CONV_BODY = "R-34-C4"
+    with pytest.raises(KeyError, match="unknown CONV_BODY"):
+        build_detection_model(cfg)
+
+
+# the modules of the slice that ported the VGG-16 body, the derain path and
+# the remaining single-card modules: each scanned by test_port_imports_no_jax
+NEW_MODULES = ("utils/registry.py", "models/backbone/vgg.py", "ops/ssim.py",
+               "models/derain.py", "tools/train_derain.py",
+               "layers/deform_pool.py", "models/attention.py",
+               "models/da_fpn.py", "structures/boxes.py")
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_new_modules_are_scanned(module):
+    path = os.path.join(os.path.dirname(da_detect_tpu_torch.__file__),
+                        module)
+    assert path in PORT_FILES
+    assert not set(_imported_roots(path)) & set(FORBIDDEN)
 
 
 @pytest.mark.parametrize("names", [None, ["roi_align_bwd"]])

@@ -61,7 +61,7 @@ def random_variables(shapes, seed: int, scales: dict | None = None) -> dict:
         for suffix, factor in scales.items():
             if name.endswith(suffix):
                 v = v * factor
-        return v.astype(np.float32)
+        return np.asarray(v).astype(np.float32)  # a 0-d leaf too (gamma)
 
     return jax.tree_util.tree_map_with_path(draw, shapes)
 
@@ -133,11 +133,14 @@ DA_STATE_FIELDS = ("margin_img", "margin_ins", "last_triplet_img",
 
 
 def cfg_fc6_chw(cfg):
-    """The (C, P, P) pooled map an FPN MLP head's fc6 reads, or None."""
+    """The (C, P, P) pooled map an FPN MLP head's fc6 reads (the VGG-16
+    body's 512 channels, else the FPN's), or None."""
     if cfg.MODEL.ROI_BOX_HEAD.FEATURE_EXTRACTOR != "FPN2MLPFeatureExtractor":
         return None
     p = cfg.MODEL.ROI_BOX_HEAD.POOLER_RESOLUTION
-    return cfg.MODEL.BACKBONE.OUT_CHANNELS, p, p
+    c = 512 if cfg.MODEL.BACKBONE.CONV_BODY.startswith("V") \
+        else cfg.MODEL.BACKBONE.OUT_CHANNELS
+    return c, p, p
 
 
 def port_step_one(model, state, args, aligned, impl=None, with_state=False):
