@@ -553,8 +553,32 @@ GATHER_CASES = {
     "c6_scalar": (50, 6, 333, None),        # rows of 24 B: no 16-byte vectors
     "column_slice": (40, 16, 257, 48),      # one deformable group's columns
     "empty": (10, 8, 0, None),
+    # narrow rows, which the kernel maps over the flat output: the deform
+    # pool's score maps (rows of 9 floats), one element, a narrow column
+    # slice, a flat output ending in a ragged run (1655 elements), and
+    # float32 rows either side of the crossovers (1024 B for rows of
+    # 16-byte words, 512 B for others)
+    "deform_pool": (38 * 76 * 49, 9, 802816, None),
+    "c1": (1000, 1, 4097, None),
+    "c3_column_slice": (40, 3, 257, 48),
+    "c5_ragged": (50, 5, 331, None),
+    "below_crossover": (300, 252, 1001, None),
+    "above_crossover": (300, 260, 1001, None),
+    "below_unaligned": (300, 127, 1001, None),
+    "above_unaligned": (300, 129, 1001, None),
 }
-GATHER_BF16_CASES = ("probe", "quad_res3", "column_slice")
+GATHER_BF16_CASES = ("probe", "quad_res3", "column_slice", "deform_pool",
+                     "c1", "c3_column_slice", "c5_ragged", "below_crossover",
+                     "above_crossover", "below_unaligned", "above_unaligned")
+# phase gather_sweep: the row gather through each of its mappings (a warp
+# a row, flat) against index_select, at these row widths in bytes, in
+# float32 (20 B for 18: no float32 row has 18) and bfloat16; the deform
+# pool's indices a launch into a table of at most SWEEP_TABLE_BYTES
+# (L2-resident, as the paths' tables are) and at most its rows;
+# SWEEP_RUNS calls a variant under the profiler
+SWEEP_ROW_BYTES = (4, 18, 36, 64, 100, 128, 256, 260, 512, 516, 1024, 2048)
+SWEEP_INDICES, SWEEP_TABLE_ROWS = 802816, 38 * 76 * 49
+SWEEP_TABLE_BYTES, SWEEP_RUNS = 24 * 2 ** 20, 10
 
 SOURCES = {
     "nms": ("da_detect_tpu_torch/kernels/csrc/nms.cu",
@@ -2237,6 +2261,29 @@ def float32_head_kernels(prof) -> dict:
     return held
 
 
+def device_kernels(prof) -> list:
+    """The device events of a profile summed by name, as
+    ``prof.key_averages()`` sums its device rows, but over the device
+    events alone: each entry has ``key``, ``count`` and
+    ``self_device_time_total`` (us). ``key_averages`` also totals every
+    host op's time through its children, which took ~60 s on the ~450,000
+    events of one profiled DCN train step."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    sums: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = (e.key, getattr(e, "is_user_annotation", False))
+        total, count = sums.get(key, (0.0, 0))
+        sums[key] = (total + e.self_device_time_total, count + 1)
+    return [SimpleNamespace(key=key, self_device_time_total=total,
+                            count=count)
+            for (key, _), (total, count) in sums.items()]
+
+
 def device_profile(run, runs: int, kernels=(), attempts: int = 3) -> dict:
     """``runs`` calls of ``run()`` (a train step, a forward, one kernel's
     wrapper) under ``torch.profiler``: device time and device launches a
@@ -2249,7 +2296,6 @@ def device_profile(run, runs: int, kernels=(), attempts: int = 3) -> dict:
     times leave out the host's launch work. Now and then a profile records
     no launch of a kernel that ran: it is then taken again, up to
     ``attempts`` times, and a time still missing is None, not 0."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(attempts):
@@ -2262,9 +2308,8 @@ def device_profile(run, runs: int, kernels=(), attempts: int = 3) -> dict:
                 run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        kern = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total > 0]
+        kern = [e for e in device_kernels(prof)
+                if e.self_device_time_total > 0]
         named = {name: sum(e.self_device_time_total for e in kern
                            if name in e.key) / 1e3 / runs
                  for name in kernels}
@@ -2792,16 +2837,21 @@ def phase_dcn(dev, dtype: str = "float32"):
             launches, q_launches, errs)
 
 
-def gather_device_ms(inputs, name: str) -> dict:
+def gather_device_ms(inputs, name: str, runs: int = GATHER_TIMING_RUNS,
+                     profiles: int = GATHER_PROFILES) -> dict:
     """Device time of one forward's gathers (``inputs``: the (table, idx)
     of each recorded launch), for the kernel, the plain version and
-    ``torch.index_select``: each variant called once per input,
-    GATHER_TIMING_RUNS times over under ``torch.profiler`` after a warm-up
-    pass, its kernels' own device time summed per pass. GATHER_PROFILES
-    such profiles, the three variants in turns; the median and every
-    profile's number are kept. Unlike CUDA events around each call, this
-    leaves out the host's launch overhead, which is as long as a small
-    gather itself."""
+    ``torch.index_select``: each variant called once per input, ``runs``
+    times over under ``torch.profiler`` after a warm-up pass, its kernels'
+    own device time summed per pass. ``profiles`` such profiles, the three
+    variants in turns. Now and then a profile misses some of the launches
+    (one of three caught 3% of a deform-pool run's): a variant's profiles
+    that caught fewer device launches than its most complete one are left
+    out, and more are taken, up to ``profiles`` more, until ``profiles``
+    complete ones are kept. The median of those, every profile's number
+    and the launches a pass are kept. Unlike CUDA events around each call,
+    this leaves out the host's launch overhead, which is as long as a
+    small gather itself."""
     from da_detect_tpu_torch.ops import gather, gather_cuda
 
     variants = {"ms": getattr(gather_cuda, name),
@@ -2814,21 +2864,100 @@ def gather_device_ms(inputs, name: str) -> dict:
                 fn(table, idx)
         return run
 
+    taken = {key: [] for key in variants}
+
+    def take(key):
+        prof = device_profile(runner(variants[key]), runs)
+        taken[key].append((round(prof["device_calls_per_run"] * runs),
+                           prof["device_ms_per_run"],
+                           prof["device_busy_share"]))
+
     for fn in variants.values():
         runner(fn)()
-    profiles = {key: [] for key in variants}
-    busy = {key: [] for key in variants}
-    for _ in range(GATHER_PROFILES):
-        for key, fn in variants.items():
-            prof = device_profile(runner(fn), GATHER_TIMING_RUNS)
-            profiles[key].append(prof["device_ms_per_run"])
-            busy[key].append(prof["device_busy_share"])
+    for _ in range(profiles):
+        for key in variants:
+            take(key)
     out = {}
     for key in variants:
-        out[key] = statistics.median(profiles[key])
-        out[key.replace("ms", "profiles_ms")] = profiles[key]
-        out[key.replace("ms", "busy_share")] = statistics.median(busy[key])
+        for _ in range(profiles):
+            most = max(calls for calls, _, _ in taken[key])
+            if sum(calls == most for calls, _, _ in taken[key]) >= profiles:
+                break
+            take(key)
+        most = max(calls for calls, _, _ in taken[key])
+        kept = [(ms, b) for calls, ms, b in taken[key] if calls == most]
+        out[key] = statistics.median(ms for ms, _ in kept)
+        out[key.replace("ms", "profiles_ms")] = [ms for _, ms, _ in
+                                                 taken[key]]
+        out[key.replace("ms", "busy_share")] = statistics.median(
+            b for _, b in kept)
+        out[key.replace("ms", "launches_per_pass")] = most / runs
     return out
+
+
+def sweep_point(table, idx) -> dict:
+    """Device time a call (``torch.profiler``, SWEEP_RUNS calls each) of
+    the row gather through each mapping and of ``index_select`` on one
+    table, each output bit for bit ``index_select``'s; and the bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from da_detect_tpu_torch.ops import gather_cuda
+
+    variants = {
+        "rows_ms": lambda: gather_cuda.row_gather_mapped(table, idx, "rows"),
+        "flat_ms": lambda: gather_cuda.row_gather_mapped(table, idx, "flat"),
+        "library_ms": lambda: torch.index_select(table, 0, idx)}
+    want = torch.index_select(table, 0, idx)
+    out = {}
+    for key, fn in variants.items():
+        if not torch.equal(fn(), want):
+            raise AssertionError(f"gather sweep: {key[:-3]} differs from "
+                                 f"index_select on {tuple(table.shape)} "
+                                 f"{table.dtype}")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(SWEEP_RUNS):
+                fn()
+            torch.cuda.synchronize()
+        out[key] = sum(e.self_device_time_total
+                       for e in device_kernels(prof)) / 1e3 / SWEEP_RUNS
+    row_bytes = table.shape[1] * table.element_size()
+    rows = int(torch.unique(idx).numel())
+    out["bound_ms"] = bound(rows * row_bytes + idx.numel() * (4 + row_bytes),
+                            0)[0]
+    return out
+
+
+def phase_gather_sweep(dev) -> list:
+    """The row gather's two mappings against ``index_select`` across row
+    widths (SWEEP_ROW_BYTES, both dtypes), on the deform pool's count of
+    indices: a line a width, each with the mapping the shapes pick; the
+    crossovers (``gather_cuda.WIDE_WORD_ROW_BYTES``, ``WIDE_ROW_BYTES``)
+    are where the flat mapping stops winning."""
+    from da_detect_tpu_torch.ops import gather_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    points = []
+    for dtype in (torch.float32, torch.bfloat16):
+        item = torch.tensor([], dtype=dtype).element_size()
+        for nbytes in SWEEP_ROW_BYTES:
+            c = -(-nbytes // item)
+            s = min(SWEEP_TABLE_ROWS, SWEEP_TABLE_BYTES // (c * item))
+            table = torch.randn(s, c, device=dev, generator=gen).to(dtype)
+            idx = torch.randint(0, s, (SWEEP_INDICES,), device=dev,
+                                generator=gen, dtype=torch.int32)
+            point = dict(dtype=str(dtype)[6:], row_bytes=c * item, c=c,
+                         table_rows=s, indices=SWEEP_INDICES,
+                         picked=gather_cuda.row_gather_mapping(table),
+                         **sweep_point(table, idx))
+            for key in ("rows_ms", "flat_ms", "library_ms"):
+                point[key.replace("ms", "share_of_bound")] = (
+                    point["bound_ms"] / point[key] if point[key] else None)
+            emit("gather_sweep", **point)
+            points.append(point)
+            del table, idx
+    return points
 
 
 def pooler_device_ms(captured) -> dict:
@@ -5584,11 +5713,14 @@ AUX_ROIS, AUX_SAMPLES = 256, 4
 PER_AUX_POOL = {"row_gather": 2, "row_scatter_add": 2, "row_csr": 2}
 AUX_REL = 1e-5
 # the deform pool's gathers and scatter-adds are timed AUX_CALLS calls back
-# to back between two CUDA events, AUX_RUNS times: each launch is longer
-# than the host's work to launch it, so the queue stays full and the time a
-# call is its device time (profiles of so few launches now and then
-# recorded none of them)
+# to back between two CUDA events, AUX_RUNS times: where a launch is longer
+# than the host's work to launch it the queue stays full and the time a
+# call is its device time; a shorter one (the narrow-row gather) gives the
+# host's time, so the gathers' device time is also read from AUX_PROFILES
+# profiles of AUX_PROFILE_RUNS passes each (profiles of a pass or two now
+# and then recorded none of the launches)
 AUX_CALLS, AUX_RUNS = 50, 5
+AUX_PROFILE_RUNS, AUX_PROFILES = 20, 3
 
 
 def batched_ms(fn) -> float:
@@ -5691,7 +5823,9 @@ def phase_aux(dev) -> tuple[dict, dict, dict]:
     bit: the gather is a copy; the gradients within AUX_REL of each one's
     largest, the plain one adding with atomics), the kernel run's gradients
     again bit for bit, the gather and scatter-add sites timed against the
-    plain versions and the library calls (``aux_device_ms``). Then one
+    plain versions and the library calls (``aux_device_ms``), and the
+    gathers' profiler device time and share of their bound
+    (``gather_device_ms``; the kernel line's numbers). Then one
     call each of PAM, CAM and MultiLevelDAModule on the card against the
     CPU, and Boxes' methods.
     Returns ({path: (sites, launches, the gathers' device times)},
@@ -5735,8 +5869,19 @@ def phase_aux(dev) -> tuple[dict, dict, dict]:
     errs = check_captured(captured)
     sites = time_sites(captured, "aux_deform_pool")
     records = captured["row_scatter_add"]
-    gathers, device = aux_device_ms(
-        [(t.detach(), i) for t, i in captured["row_gather"]], records)
+    gather_inputs = [(t.detach(), i) for t, i in captured["row_gather"]]
+    events, device = aux_device_ms(gather_inputs, records)
+    # the gathers' own device time: at ~15 us a launch the events' time
+    # above also holds the operator's host path on each call
+    gathers = gather_device_ms(gather_inputs, "row_gather",
+                               runs=AUX_PROFILE_RUNS,
+                               profiles=AUX_PROFILES)
+    gather_bound = sum(s["bound_ms"] for s in sites
+                       if s["kernel"] == "row_gather")
+    gathers.update(bound_ms=gather_bound, events=events, **{
+        key.replace("ms", "share_of_bound"): (
+            gather_bound / gathers[key] if gathers[key] else None)
+        for key in ("ms", "plain_ms", "library_ms")})
     bound_ms, by = bound(scatter_work(records), 0)
     scatter = dict(launches=launches["row_scatter_add"], **device,
                    bound_ms=bound_ms, bound_by=by,
@@ -5877,7 +6022,6 @@ def request_profile(run, runs: int = SERVING_PROFILE_RUNS) -> dict:
     kernels' launches a call, read by kernel name (a CUDA graph's replay
     included), the device time a call and the device's busy share of the
     wall clock (under the profiler's own overhead)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -5888,8 +6032,7 @@ def request_profile(run, runs: int = SERVING_PROFILE_RUNS) -> dict:
             run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    kern = device_kernels(prof)
     counts = {k: sum(e.count for e in kern if name in e.key) / runs
               for k, name in LAUNCH_KERNEL_NAMES.items()}
     device_ms = sum(e.self_device_time_total for e in kern) / 1e3
@@ -6394,6 +6537,7 @@ def main(argv=None) -> int:
             "count": torch.cuda.device_count()}}))
         return 0
     errs = phase_kernels(dev)
+    phase_gather_sweep(dev)
     serving_paths = phase_serving(dev)
     paths, f32_errs, scatter, _ = run_dtype(dev, "float32")
     for k, v in f32_errs.items():

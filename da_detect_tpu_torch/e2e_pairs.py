@@ -43,6 +43,17 @@ as ``chip_smoke.py`` drives it:
 - ``dcn_step_ms``: that DCN train step after the recorded one, host clock
   to the synchronize, median of DCN_STEP_RUNS. ``--dcn-step-only``
   measures this step and its scatter-add alone.
+- ``--gathers-only`` measures the row gathers alone. ``dcn_gather_device_ms``:
+  the 270 calls of one X-101-FPN-DCN eval forward ("four", ``--dtype``) to
+  the tree's ``gather_cuda.row_gather``, recorded and replayed as the
+  forward made them, device time a forward, median of GATHER_PROFILES
+  profiles of GATHER_RUNS passes, taken in turns with
+  ``dcn_gather_library_device_ms`` (``index_select`` on the same calls);
+  ``pool_gather_device_ms`` and ``pool_gather_library_device_ms``: likewise
+  the 2 gathers of a deformable PS-ROI pooling forward (without offsets,
+  then with them) on float32 score maps [38, 76, 49 * 9] (rows of 36 B)
+  and 256 ROIs over the canvas, from a seed, POOL_GATHER_RUNS passes a
+  profile.
 
 Prints one JSON line a process, the card's name and power limit, and last a
 summary: for each tree and metric the median over its processes and each
@@ -74,10 +85,16 @@ FPN_SCALES = (1 / 4, 1 / 8, 1 / 16, 1 / 32)
 # CUDA runtime calls in which the host waits for the device
 WAIT_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cudaMemcpyAsync", "cudaMemcpy")
+GATHER_PROFILES, GATHER_RUNS, POOL_GATHER_RUNS = 3, 3, 20
+# the deform pool's score maps (38x76, P 7, C' 9), ROIs and offsets' scale
+POOL_MAP, POOL_P, POOL_C, POOL_ROIS, POOL_OFFSET_STD = (38, 76), 7, 9, 256, 0.1
 METRICS = tuple(f"{name}_{m}" for name in ("forward", "step")
                 for m in ("ms", "profiled_ms", "device_ms", "host_wait_ms")
                 ) + ("pooler_device_ms", "scatter_device_ms",
-                     "scatter_library_device_ms", "dcn_step_ms")
+                     "scatter_library_device_ms", "dcn_step_ms",
+                     "dcn_gather_device_ms", "dcn_gather_library_device_ms",
+                     "pool_gather_device_ms",
+                     "pool_gather_library_device_ms")
 
 
 def flagship_cfg(tree: str, canvas, dtype: str = "float32"):
@@ -252,10 +269,103 @@ def dcn_scatter(cfg, device: str, sync, cuda: bool) -> dict:
                     idx.numel() for _, idx, _, _ in calls))
 
 
+def recorded_gathers(run) -> list:
+    """The (table, idx) of each call to ``gather_cuda.row_gather`` that
+    ``run()`` makes, tables detached."""
+    from da_detect_tpu_torch.ops import gather_cuda
+
+    kernel, calls = gather_cuda.row_gather, []
+
+    def record(table, idx, *rest):
+        calls.append((table.detach(), idx.clone()))
+        return kernel(table, idx, *rest)
+
+    gather_cuda.row_gather = record
+    try:
+        run()
+    finally:
+        gather_cuda.row_gather = kernel
+    return calls
+
+
+def gather_device(calls, runs: int, sync, cuda: bool, name: str) -> dict:
+    """Device time a pass over ``calls`` of the tree's row gather and of
+    ``index_select``: GATHER_PROFILES profiles of ``runs`` passes, the two
+    in turns; the median and each profile's number."""
+    import torch
+
+    from da_detect_tpu_torch.ops import gather_cuda
+
+    variants = {name: gather_cuda.row_gather,
+                f"{name}_library": lambda t, i: torch.index_select(t, 0, i)}
+
+    def passes(fn):
+        def run():
+            for table, idx in calls:
+                fn(table, idx)
+        return run
+
+    times = {key: [] for key in variants}
+    for fn in variants.values():
+        passes(fn)()
+    for _ in range(GATHER_PROFILES):
+        for key, fn in variants.items():
+            times[key].append(profiled(passes(fn), runs, sync, cuda, key)[
+                f"{key}_device_ms"])
+    return {**{f"{key}_device_ms": statistics.median(t)
+               for key, t in times.items()},
+            **{f"{key}_profiles_ms": t for key, t in times.items()}}
+
+
+def gathers(device: str, canvas, dtype: str, sync, cuda: bool) -> dict:
+    """``dcn_gather*`` and ``pool_gather*`` (see above)."""
+    import numpy as np
+    import torch
+
+    from da_detect_tpu_torch import entry
+    from da_detect_tpu_torch.layers.deform_pool import deform_ps_roi_pool
+
+    cfg = entry.dcn_cfg(canvas, dtype)
+    cfg.TPU.DCN_GATHER = "four"
+    cfg.freeze()
+    fn, (model, _) = entry.entry(device=device, seed=0, cfg=cfg)
+    batch = entry.make_batch(cfg, 1, seed=0, device=device)[0]
+    spread_dcn(model, batch)
+    calls = recorded_gathers(lambda: fn(model, batch))
+    out = dict(dcn_gather_calls=len(calls),
+               **gather_device(calls, GATHER_RUNS, sync, cuda, "dcn_gather"))
+    del fn, model, batch, calls
+
+    rng = np.random.RandomState(7)
+    maps = torch.from_numpy(rng.randn(
+        *POOL_MAP, POOL_P * POOL_P * POOL_C).astype(np.float32)).to(device)
+    xy = rng.uniform(-40, (canvas[1] - 40, canvas[0] - 40), (POOL_ROIS, 2))
+    side = rng.uniform(16, 400, (POOL_ROIS, 2))
+    rois = torch.from_numpy(np.concatenate([xy, xy + side], -1).astype(
+        np.float32)).to(device)
+    offsets = torch.from_numpy(rng.normal(0.0, POOL_OFFSET_STD, (
+        POOL_ROIS, POOL_P, POOL_P, 2)).astype(np.float32)).to(device)
+    kw = dict(spatial_scale=1 / 16, output_size=POOL_P,
+              out_channels=POOL_C, impl="cuda")
+
+    def pool():
+        with torch.no_grad():
+            for off in (None, offsets):
+                deform_ps_roi_pool(maps, rois, off, **kw)
+
+    calls = recorded_gathers(pool)
+    out.update(pool_gather_calls=len(calls),
+               **gather_device(calls, POOL_GATHER_RUNS, sync, cuda,
+                               "pool_gather"))
+    return out
+
+
 def measure(tree: str, device: str = "cuda", canvas=CANVAS,
-            dtype: str = "float32", dcn_only: bool = False) -> dict:
+            dtype: str = "float32", dcn_only: bool = False,
+            gathers_only: bool = False) -> dict:
     """One process's numbers for the port found under ``tree``; with
-    ``dcn_only``, those of the DCN train step alone."""
+    ``dcn_only``, those of the DCN train step alone; with
+    ``gathers_only``, those of the row gathers alone."""
     import torch
 
     from da_detect_tpu_torch import entry, kernels
@@ -269,6 +379,9 @@ def measure(tree: str, device: str = "cuda", canvas=CANVAS,
         kernels.build()
     out = dict(tree=tree, package=os.path.dirname(entry.__file__),
                dtype=dtype)
+    if gathers_only:
+        out.update(gathers(device, canvas, dtype, sync, cuda))
+        return out
     if not dcn_only:
         out.update(flagship_and_pooler(tree, device, canvas, dtype, sync,
                                        cuda))
@@ -328,10 +441,12 @@ def flagship_and_pooler(tree: str, device: str, canvas, dtype: str, sync,
                 forward_runs_ms=forward, step_runs_ms=steps)
 
 
-def run_tree(tree: str, timeout: int, dtype: str, dcn_only: bool) -> dict:
+def run_tree(tree: str, timeout: int, dtype: str, dcn_only: bool,
+             gathers_only: bool) -> dict:
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                            "--tree", tree, "--dtype", dtype]
-                          + ["--dcn-step-only"] * dcn_only,
+                          + ["--dcn-step-only"] * dcn_only
+                          + ["--gathers-only"] * gathers_only,
                           capture_output=True, text=True, timeout=timeout)
     if proc.returncode != 0:
         raise RuntimeError(f"{tree}: rc {proc.returncode}\n{proc.stderr}")
@@ -370,13 +485,17 @@ def main() -> int:
     ap.add_argument("--dcn-step-only", action="store_true",
                     help="measure the DCN train step (and its scatter-add) "
                          "alone")
+    ap.add_argument("--gathers-only", action="store_true",
+                    help="measure the row gathers (DCN forward, deform "
+                         "pool) alone")
     ap.add_argument("--tree", help=argparse.SUPPRESS)  # one process's tree
     a = ap.parse_args()
     if a.tree:
         tree = os.path.abspath(a.tree)
         sys.path[0] = tree  # the tree's package, not this file's
         print(json.dumps(measure(tree, dtype=a.dtype,
-                                 dcn_only=a.dcn_step_only)), flush=True)
+                                 dcn_only=a.dcn_step_only,
+                                 gathers_only=a.gathers_only)), flush=True)
         return 0
     if not a.trees:
         ap.error("--trees PARENT CHANGE is required")
@@ -384,8 +503,8 @@ def main() -> int:
     results = []
     for i in range(a.rounds):
         for tree in (parent, change, change, parent):
-            r = dict(run_tree(tree, a.timeout, a.dtype, a.dcn_step_only),
-                     round=i)
+            r = dict(run_tree(tree, a.timeout, a.dtype, a.dcn_step_only,
+                              a.gathers_only), round=i)
             results.append(r)
             print(json.dumps(r), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -7,10 +7,13 @@ scatter-add that XLA's autodiff makes of a take, ``row_scatter_add.cu``).
 Both gathers compute ``out[i] = table[clamp(idx[i], 0, S - 1)]`` for a table
 [S, C] in float32 or bfloat16 whose rows may lie ``table.stride(0)`` elements
 apart (a column slice of a wider map), and int32 indices [P]; they return a
-new contiguous [P, C]. ``row_gather`` moves a row with one warp's 16-byte
-loads; ``row_gather_bulk`` with one bulk copy (TMA) a row and needs 16-byte
-aligned rows. Both are differentiable with respect to the table: the
-backward is the scatter-add kernel (``row_scatter_add``), float32 or
+new contiguous [P, C]. ``row_gather`` picks its mapping from the shapes
+(``row_gather_mapping``): a wide row moves with one warp's loads, a narrow
+one through threads mapped over the flat output, each writing one 16-byte
+run (``kernels/csrc/row_gather.cu``); ``row_gather_bulk`` moves a row with
+one bulk copy (TMA) and needs 16-byte aligned rows. Both are
+differentiable with respect to the table: the backward is the scatter-add
+kernel (``row_scatter_add``), float32 or
 bfloat16 (summed in float32, each value rounded once), which writes a fresh
 [S, C] whole (``torch.empty``, no zero-fill).
 ``row_scatter_add_`` adds into a caller's [S, C] view in place (any row
@@ -55,6 +58,18 @@ _ARGTYPES = {GATHER: [_P, _P, _P, _L, _I, _I, _L, _P],
              BULK: [_P, _P, _P, _L, _I, _I, _L, _P],
              SCATTER: [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _P]}
 
+# row_gather.cu's crossovers (kWideWordRowBytes, kWideRowBytes): rows of
+# whole 16-byte words from WIDE_WORD_ROW_BYTES on, and other rows from
+# WIDE_ROW_BYTES on, take a warp a row; narrower ones the flat mapping
+WIDE_WORD_ROW_BYTES, WIDE_ROW_BYTES = 1024, 512
+# the row gather's entry point through a named mapping: the gathers'
+# arguments with the mapping before the stream
+MAPPED = "row_gather_mapped"
+_ARGTYPES[MAPPED] = [_P, _P, _P, _L, _I, _I, _L, _I, _P]
+# row_gather.cu's mappings: a warp a row, flat, flat with 64-bit positions
+# whatever the size
+MAPPINGS = {"rows": 1, "flat": 2, "flat64": 3}
+
 _fns: dict = {}
 
 
@@ -62,7 +77,8 @@ def _launcher(name: str, dtype: torch.dtype):
     key = (name, dtype)
     fn = _fns.get(key)
     if fn is None:
-        fn = getattr(kernels.load(name), f"{name}_{_SUFFIX[dtype]}")
+        lib = kernels.load(GATHER if name == MAPPED else name)
+        fn = getattr(lib, f"{name}_{_SUFFIX[dtype]}")
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _fns[key] = fn
@@ -102,12 +118,13 @@ def _check(name: str, table: torch.Tensor, idx: torch.Tensor) -> None:
 
 
 def _run(name: str, dtype: torch.dtype, device: torch.device,
-         args: list) -> None:
+         args: list, count: bool = True) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _launcher(name, dtype)(*args, stream)
     kernels.check(rc, name)
-    kernels.LAUNCHES[name] += 1
+    if count:
+        kernels.LAUNCHES[name] += 1
 
 
 def launch(name: str, table: torch.Tensor, idx: torch.Tensor
@@ -124,6 +141,35 @@ def launch(name: str, table: torch.Tensor, idx: torch.Tensor
         _run(name, table.dtype, table.device, [
             table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
             table.shape[0], table.shape[1], table.stride(0)])
+    return out
+
+
+def row_gather_mapping(table: torch.Tensor) -> str:
+    """The mapping that ``row_gather``'s kernel picks for ``table`` (a
+    fresh, aligned output): "rows" (a warp a row) or "flat"."""
+    item = table.element_size()
+    row_bytes = table.shape[1] * item
+    words = not (row_bytes % 16 or table.stride(0) * item % 16
+                 or table.data_ptr() % 16)
+    wide = WIDE_WORD_ROW_BYTES if words else WIDE_ROW_BYTES
+    return "rows" if row_bytes >= wide else "flat"
+
+
+def row_gather_mapped(table: torch.Tensor, idx: torch.Tensor,
+                      mapping: str) -> torch.Tensor:
+    """``row_gather``'s kernel through a named mapping (``MAPPINGS``) in
+    place of the one its shapes pick: the width sweep times each mapping
+    with it and the card tests hold each to the plain version. No autograd,
+    and not counted in ``kernels.LAUNCHES``: no path of the port calls
+    it."""
+    _check(GATHER, table, idx)
+    out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype,
+                      device=table.device)
+    if out.numel():
+        _run(MAPPED, table.dtype, table.device, [
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
+            table.shape[0], table.shape[1], table.stride(0),
+            MAPPINGS[mapping]], count=False)
     return out
 
 

@@ -585,6 +585,7 @@ def test_retinanet_kernel_route_matches_plain(dev):
     assert all(np.isfinite(float(v)) for v in metrics.values())
 
 
+WORDS, OTHER = gather_cuda.WIDE_WORD_ROW_BYTES, gather_cuda.WIDE_ROW_BYTES
 GATHER_CASES = {
     # name: (S, C, P, row stride or None)
     "probe": (76 * 152, 512, 4 * 76 * 152, None),   # the TPU probe's shape
@@ -593,7 +594,27 @@ GATHER_CASES = {
     "c6_scalar": (50, 6, 333, None),                # no 16-byte vectors
     "column_slice": (40, 16, 257, 48),              # a deformable group
     "empty": (10, 8, 0, None),
+    # narrow rows, mapped over the flat output: the deform pool's table
+    # (rows of 36 B in float32), one element, a narrow column slice, a flat
+    # output that ends in a ragged run (1655 elements)
+    "deform_pool": (141512, 9, 802816, None),
+    "c1": (1000, 1, 4097, None),
+    "c3_column_slice": (40, 3, 257, 48),
+    "c5_ragged": (50, 5, 331, None),
+    # either side of the crossovers, float32 rows: rows of 16-byte words
+    # (WIDE_WORD_ROW_BYTES) narrow in both dtypes, wide in float32 only,
+    # wide in both; other rows (WIDE_ROW_BYTES) likewise
+    "below_crossover": (300, WORDS // 4 - 4, 1001, None),
+    "f32_above_crossover": (300, WORDS // 4 + 4, 1001, None),
+    "above_crossover": (300, WORDS // 2 + 4, 1001, None),
+    "below_unaligned": (300, OTHER // 4 - 1, 1001, None),
+    "f32_above_unaligned": (300, OTHER // 4 + 1, 1001, None),
+    "above_unaligned": (300, OTHER // 2 + 1, 1001, None),
 }
+# the cases that every mapping of row_gather.cu serves
+MAPPING_CASES = ("probe", "column_slice", "c6_scalar", "deform_pool", "c1",
+                 "c3_column_slice", "c5_ragged", "below_crossover",
+                 "below_unaligned", "f32_above_unaligned")
 
 
 def _gather_inputs(case, dtype, dev):
@@ -613,7 +634,9 @@ def _gather_inputs(case, dtype, dev):
 def test_row_gather_kernels_match_plain(dev, name, case, dtype):
     table, idx = _gather_inputs(case, dtype, dev)
     fn = getattr(gather_cuda, name)
-    if name == "row_gather_bulk" and case == "c6_scalar":
+    if name == "row_gather_bulk" and (
+            table.shape[1] * table.element_size() % 16
+            or table.stride(0) * table.element_size() % 16):
         with pytest.raises(ValueError, match="16-byte"):
             fn(table, idx)
         return
@@ -798,26 +821,51 @@ def test_row_scatter_add_refuses_other_dtypes(dev):
             gather_cuda.row_scatter_add_(dst.float(), grad.float(), idx, bad)
 
 
-@pytest.mark.parametrize("case", ["probe", "quad_res3", "column_slice"])
-@pytest.mark.parametrize("name", ["row_gather", "row_gather_bulk"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MAPPING_CASES)
+@pytest.mark.parametrize("mapping", ["rows", "flat", "flat64"])
+def test_row_gather_mappings_match_plain(dev, mapping, case, dtype):
+    """Each mapping of the row-gather kernel (a warp a row; flat; flat with
+    64-bit positions, which otherwise only outputs of 2^32 elements take),
+    whatever the shapes would pick, bit for bit the plain version; a
+    launch through a named mapping is not counted."""
+    table, idx = _gather_inputs(case, dtype, dev)
+    before = dict(kernels.LAUNCHES)
+    got = gather_cuda.row_gather_mapped(table, idx, mapping)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == before
+    assert torch.equal(got, gather.row_gather(table, idx))
+
+
+@pytest.mark.parametrize("name,case", [
+    (name, case) for name in ("row_gather", "row_gather_bulk")
+    for case in ("probe", "quad_res3", "column_slice")] + [
+    ("row_gather", case) for case in (
+        "deform_pool", "c1", "c3_column_slice", "c5_ragged",
+        "below_crossover", "f32_above_crossover", "above_crossover",
+        "below_unaligned", "f32_above_unaligned", "above_unaligned")])
 def test_row_gather_autograd_matches_plain(dev, name, case):
-    """A gather's output has a grad_fn on a table that needs a gradient;
-    its backward (one scatter-add launch) equals autograd of the plain
-    gather to 1e-5 of the largest |dtable|."""
+    """A gather's output has a grad_fn on a table that needs a gradient,
+    and equals the plain gather's bit for bit; its backward (one
+    scatter-add launch) equals autograd of the plain gather to 1e-5 of the
+    largest |dtable|."""
     table, idx = _gather_inputs(case, torch.float32, dev)
     cot = torch.randn(idx.shape[0], table.shape[1],
                       generator=torch.Generator().manual_seed(5)).to(dev)
     grads = []
+    outs = []
     for fn in (getattr(gather_cuda, name), gather.row_gather):
         leaf = table.detach().clone().requires_grad_()
         out = fn(leaf, idx)
         assert out.grad_fn is not None
+        outs.append(out.detach())
         before = kernels.LAUNCHES["row_scatter_add"]
         (out * cot).sum().backward()
         torch.cuda.synchronize()
         grads.append(leaf.grad)
         if fn is not gather.row_gather:
             assert kernels.LAUNCHES["row_scatter_add"] == before + 1
+    assert torch.equal(*outs)
     got, want = grads
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-5 * float(want.abs().max()))

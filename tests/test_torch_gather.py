@@ -100,10 +100,11 @@ def test_port_matches_probe_kernels(interpret, mode, dtype):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("c", [6, 128])
+@pytest.mark.parametrize("c", [1, 6, 9, 128])
 def test_out_of_range_indices_clip(dtype, c):
     """Indices on both sides of [0, S) clamp, as jnp.take(mode="clip");
-    C = 6 is not a multiple of 4."""
+    C = 1, 6 and 9 (the deform pool's rows) are not multiples of 4, the
+    narrow rows that the kernel maps over the flat output."""
     jtbl, jidx, tbl, idx = _inputs(2, 30, c, 200, dtype, lo=-20, hi=50)
     assert int(idx.min()) < 0 and int(idx.max()) >= 30
     want = jnp.take(jtbl, jidx, axis=0, mode="clip")
@@ -120,6 +121,19 @@ def test_column_slice_of_wider_table(dtype):
     jtbl, jidx, tbl, idx = _inputs(3, 50, 48, 77, dtype, lo=-3, hi=53)
     want = jnp.take(jtbl[:, 8:24], jidx, axis=0, mode="clip")
     view = tbl[:, 8:24]
+    assert view.stride() == (48, 1)
+    for fn in PORT_GATHERS.values():
+        _same(fn(view, idx), want)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_narrow_column_slice_of_wider_table(dtype):
+    """A narrow column slice: columns 8..11 of a [50, 48] map (rows of 3
+    elements, 48 apart), gathered without a copy; 77 indices, so the flat
+    output (231 elements) ends in a ragged run."""
+    jtbl, jidx, tbl, idx = _inputs(4, 50, 48, 77, dtype, lo=-3, hi=53)
+    want = jnp.take(jtbl[:, 8:11], jidx, axis=0, mode="clip")
+    view = tbl[:, 8:11]
     assert view.stride() == (48, 1)
     for fn in PORT_GATHERS.values():
         _same(fn(view, idx), want)

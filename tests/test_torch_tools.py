@@ -30,6 +30,7 @@ import torch
 
 import tests.data_factory as factory
 from da_detect_tpu.config import get_cfg as j_get_cfg
+from da_detect_tpu.config.catalog import DatasetCatalog as JCatalog
 from da_detect_tpu_torch.config import get_cfg
 from da_detect_tpu_torch.data import (image_io, make_data_loader,
                                       make_data_loader_da, prestage_datasets)
@@ -39,7 +40,7 @@ from da_detect_tpu_torch.tools import (stage_dataset, test_net,
                                        train_net_img, train_net_ins,
                                        train_net_triplet)
 from tests.test_torch_cli import CPU, _opts
-from tests.torch_harness import write_user_catalog
+from tests.torch_harness import register_port_tiny_catalog, write_user_catalog
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -57,6 +58,10 @@ def tiny(tmp_path_factory):
     write_user_catalog(dirs, root)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("DA_DETECT_DATA_DIR", root)
+        # data_factory.register_tiny_catalog patches the JAX catalog for the
+        # rest of the process: a module that ran before this one in the same
+        # process may have left its tiny_* names on a tree of another size
+        register_port_tiny_catalog(dirs, mp, catalog=JCatalog)
         yield dirs
 
 

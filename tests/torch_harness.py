@@ -389,13 +389,17 @@ TINY_NAMES = {"tiny_clean_cocostyle": "clean",
               "tiny_rainy_cocostyle": "rainy"}
 
 
-def register_port_tiny_catalog(dirs: dict, monkeypatch) -> None:
-    """Point the ``tiny_*`` names of the port's ``DatasetCatalog`` at the
-    ``tests/data_factory.make_triplet_datasets`` tree ``dirs``, undone with
-    ``monkeypatch``; other names resolve as before."""
-    from da_detect_tpu_torch.config.catalog import DatasetCatalog
+def register_port_tiny_catalog(dirs: dict, monkeypatch,
+                               catalog=None) -> None:
+    """Point the ``tiny_*`` names of ``catalog`` (default the port's
+    ``DatasetCatalog``) at the ``tests/data_factory.make_triplet_datasets``
+    tree ``dirs``, undone with ``monkeypatch``; other names resolve as
+    before."""
+    if catalog is None:
+        from da_detect_tpu_torch.config.catalog import DatasetCatalog
+        catalog = DatasetCatalog
 
-    original = DatasetCatalog.get
+    original = catalog.get
 
     def get(name):
         if name not in TINY_NAMES:
@@ -404,7 +408,7 @@ def register_port_tiny_catalog(dirs: dict, monkeypatch) -> None:
         return {"factory": "COCODataset",
                 "args": {"root": img_dir, "ann_file": ann}}
 
-    monkeypatch.setattr(DatasetCatalog, "get", staticmethod(get))
+    monkeypatch.setattr(catalog, "get", staticmethod(get))
 
 
 def write_user_catalog(dirs: dict, root: str) -> None:
