@@ -73,6 +73,15 @@ Phases, one JSON line each:
                2-triple batch on the same sampler draws (losses, DAState,
                parameters); each rank launches NMS and both ROIAlign
                kernels; then each side's step times
+ 7c. mesh2     (float32, in ddp2's spawn) the same two ranks as the
+               (data=1, space=2) and the (data=1, model=2) mesh
+               (``parallel.parallelize``): one triple's step 1 against one
+               process's on the same draws (ddp2's bounds; split leaves
+               gathered first), the replicated parameters bit for bit
+               alike on both ranks, each rank's launches (the train
+               phase's a step), an eval request's detections against one
+               process's; each rank's step times, peak memory, and
+               parameter and momentum bytes
   8. dcn       the X-101-32x8d-FPN-DCN YAML at 608x1216 in float32 through
                ``entry(cfg=dcn_cfg())``: 4 requests with exact launch counts
                (row_gather 270 a forward, NMS 6, ROIAlign 1: each ROI from
@@ -402,10 +411,10 @@ ROI_BWD_REL = 1e-5
 # from its own level, in one launch
 PER_DCN_FORWARD = {"row_gather": 270, "nms": 6, "roi_align_fwd": 1}
 PER_QUAD_FORWARD = {"row_gather_bulk": 270, "nms": 6, "roi_align_fwd": 1}
-# (gathers and scatter-adds: 2 profiles of 3 passes, and 2 timed DCN train
-# steps a dtype, since the serving phase joined the run: the script's
-# whole run must stay inside its time limit on a slow host)
-DCN_PROFILE_RUNS, GATHER_TIMING_RUNS, GATHER_PROFILES = 3, 3, 2
+# (gathers and scatter-adds: 2 profiles of 2 passes, and 2 timed DCN train
+# steps a dtype, since the serving and mesh phases joined the run: the
+# script's whole run must stay inside its time limit on a slow host)
+DCN_PROFILE_RUNS, GATHER_TIMING_RUNS, GATHER_PROFILES = 3, 2, 2
 # the DCN model's train step, "four" gathers (deformable_groups 1): each of
 # the 3 backbone passes (source, positive, negative) gathers once a tap of
 # its 30 deformable convs (270) forward and once more in the backward (the
@@ -449,7 +458,7 @@ SCATTER_CASES = {
 # calls of each NMS and ROIAlign site under torch.profiler for the device
 # time of its kernels (NMS: the mask launch and the walk apart), and of the
 # DCN model's whole pooler
-KERNEL_PROFILE_RUNS = 10
+KERNEL_PROFILE_RUNS = 5
 # the plain NMS (a host-driven loop, 40-180 ms a call) is timed over fewer
 # calls than the kernels
 NMS_PLAIN_RUNS = 5
@@ -2475,6 +2484,11 @@ DDP_STEPS, DDP_TIMED_STEPS = 3, 6
 # DDP2_PARAM_REL of its largest change plus a float32 ulp of its weights
 # (the ranks sum the batch's gradients in another order)
 DDP2_WORLD, DDP2_TIMED_STEPS, DDP2_PARAM_REL = 2, 4, 1e-3
+# phase mesh2, in ddp2's spawn: the flagship step on one triple under each
+# (label, space, model) mesh of the two ranks, against one process's step
+# (ddp2's bounds); then MESH2_TIMED_STEPS steps of each rank timed
+MESH2_MODES = (("sp2", 2, 1), ("tp2", 1, 2))
+MESH2_TIMED_STEPS = 2
 
 
 @contextlib.contextmanager
@@ -2638,10 +2652,70 @@ def ddp2_model(cfg, dev):
     return create_train_state(cfg, model, 0, "cosine")
 
 
-def ddp2_rank(rank, world, init_method, cfg, args, draws):
-    """One rank of phase ddp2 on cuda:0, gloo: its triple of ``args``,
-    step 1 on the recorded draws' rows of its image, launches counted;
-    then DDP2_TIMED_STEPS steps timed."""
+def mesh2_rank(cfg, dev, spec: dict, spatial: int, model_ranks: int):
+    """One rank's run of phase mesh2 under the (1, spatial, model_ranks)
+    mesh: the eval request at the initial weights, step 1 on one triple on
+    the recorded draws (launches counted, peak memory), the whole
+    parameters (split leaves gathered) and this rank's own, its parameter
+    and momentum bytes; then MESH2_TIMED_STEPS steps timed."""
+    from da_detect_tpu_torch import kernels
+    from da_detect_tpu_torch.engine.trainer import (create_train_state,
+                                                    make_train_step)
+    from da_detect_tpu_torch.entry import prepare_model
+    from da_detect_tpu_torch.models import build_detection_model
+    from da_detect_tpu_torch.parallel import (make_mesh, parallelize,
+                                              set_mesh, wrap_train_forward)
+    from da_detect_tpu_torch.parallel.tensor import full_state_dict
+
+    mesh = make_mesh(spatial=spatial, model=model_ranks)
+    set_mesh(mesh)
+    try:
+        model = prepare_model(build_detection_model(cfg, seed=0), dev)
+        spread_scores(model)
+        parallelize(model, mesh)
+        state = create_train_state(cfg, model, 0, "cosine")
+        with torch.no_grad():
+            dets = model(spec["eval_batch"].to(dev))
+        torch.cuda.synchronize()
+        dets = type(dets)(*[t.cpu() for t in dets])
+        step = make_train_step(
+            model, state.optimizer, aligned=False, deterministic=True,
+            forward=wrap_train_forward(model, "da_triplet"))
+        args = tuple(a.to(dev) for a in spec["args"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.LAUNCHES.clear()
+        with spec["draws"].inject(slice(0, 1)):
+            state, metrics = step(state, *args)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        out = step_record(state, metrics)
+        full = full_state_dict(model)
+        out["params"] = {n: full[n].to("cpu", copy=True) for n, _ in
+                         model.named_parameters()}
+        out["local"] = {n: p.detach().to("cpu", copy=True) for n, p in
+                        model.named_parameters()}
+        param_bytes = sum(p.numel() * p.element_size()
+                          for p in model.parameters())
+        momentum_bytes = sum(b.numel() * b.element_size() for b in
+                             state.optimizer.momentum_buffers().values())
+        times = []
+        for _ in range(MESH2_TIMED_STEPS):
+            state, ms = timed_step(step, state, args)
+            times.append(ms)
+        return dict(out, launches=launches, peak_bytes=peak, dets=dets,
+                    param_bytes=param_bytes, momentum_bytes=momentum_bytes,
+                    split_leaves=len(model._tp_plan), step_ms=times)
+    finally:
+        set_mesh(None)
+
+
+def ddp2_rank(rank, world, init_method, cfg, args, draws, mesh_spec):
+    """One rank of phases ddp2 and mesh2 on cuda:0, gloo: its triple of
+    ``args``, step 1 on the recorded draws' rows of its image, launches
+    counted; then DDP2_TIMED_STEPS steps timed; then each mesh of
+    MESH2_MODES (``mesh2_rank``)."""
     from da_detect_tpu_torch import kernels
     from da_detect_tpu_torch.engine.trainer import make_train_step
     from da_detect_tpu_torch.parallel import (init_distributed, shard,
@@ -2667,12 +2741,143 @@ def ddp2_rank(rank, world, init_method, cfg, args, draws):
     for _ in range(DDP2_TIMED_STEPS):
         state, ms = timed_step(step, state, mine)
         times.append(ms)
+    del state, step
+    torch.cuda.empty_cache()
+    meshes = {label: mesh2_rank(cfg, dev, mesh_spec, spatial, model_ranks)
+              for label, spatial, model_ranks in MESH2_MODES}
     return dict(out, launches=launches, step_ms=times,
-                device=torch.cuda.get_device_name(dev))
+                device=torch.cuda.get_device_name(dev), meshes=meshes)
+
+
+def mesh2_reference(cfg, dev) -> dict:
+    """Phase mesh2's single process: the eval request at the initial
+    weights, then step 1 on one triple with its sampler draws recorded
+    (peak memory), then MESH2_TIMED_STEPS steps timed."""
+    from da_detect_tpu_torch import entry
+    from da_detect_tpu_torch.engine.trainer import make_train_step
+
+    state = ddp2_model(cfg, dev)
+    init = {n: p.detach().to("cpu", copy=True)
+            for n, p in state.model.named_parameters()}
+    eval_batch, _ = entry.make_batch(cfg, 1, seed=5, device=dev)
+    with torch.no_grad():
+        dets = state.model(eval_batch)
+    step = make_train_step(state.model, state.optimizer, aligned=False,
+                           deterministic=True)
+    args = entry.triplet_batches(cfg, 1, seed=0, device=dev)
+    draws = SamplerDraws()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with draws.record():
+        state, metrics = step(state, *args)
+    torch.cuda.synchronize()
+    want = step_record(state, metrics)
+    want["params"] = {n: p.to("cpu", copy=True)
+                      for n, p in zip(init, want["params"])}
+    want["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    times = []
+    for _ in range(MESH2_TIMED_STEPS):
+        state, ms = timed_step(step, state, args)
+        times.append(ms)
+    want["step_ms"] = times
+    want["param_bytes"] = sum(p.numel() * p.element_size()
+                              for p in state.model.parameters())
+    want["momentum_bytes"] = sum(
+        b.numel() * b.element_size()
+        for b in state.optimizer.momentum_buffers().values())
+    spec = dict(eval_batch=eval_batch.to("cpu"), draws=draws,
+                args=tuple(a.to("cpu") for a in args))
+    return dict(want=want, init=init, dets=type(dets)(
+        *[t.cpu() for t in dets]), spec=spec)
+
+
+def check_mesh2(ref: dict, ranks: list) -> dict:
+    """Phase mesh2's checks of each mesh's two ranks against the single
+    process (ddp2's bounds) and each other; emits its line; returns each
+    mesh's launches (both ranks')."""
+    want, init = ref["want"], ref["init"]
+    paths, summary = {}, {}
+    for label, _, _ in MESH2_MODES:
+        runs = [r["meshes"][label] for r in ranks]
+        for r, got in enumerate(runs):
+            for k, n in PER_TRAIN_STEP.items():
+                if got["launches"].get(k) != n:
+                    raise AssertionError(
+                        f"mesh2 {label}: rank {r} launched {k} "
+                        f"{got['launches'].get(k)} times, expected {n}")
+            diff = first_difference(
+                dict(got, params=list(got["params"].values())),
+                dict(runs[0], params=list(runs[0]["params"].values())),
+                list(got["params"]))
+            if diff is not None:
+                raise AssertionError(f"mesh2 {label}: rank {r} differs "
+                                     f"from rank 0: {diff}")
+            if any(not torch.equal(a, b) for a, b in zip(got["dets"],
+                                                         runs[0]["dets"])):
+                raise AssertionError(f"mesh2 {label}: rank {r}'s "
+                                     "detections differ from rank 0's")
+        got = runs[0]
+        replicated = [n for n, p in got["local"].items()
+                      if p.shape == got["params"][n].shape]
+        for n in replicated:
+            if not torch.equal(runs[1]["local"][n], got["local"][n]):
+                raise AssertionError(f"mesh2 {label}: replicated {n} "
+                                     "differs between the ranks")
+        bad = {k: (got["losses"][k], v) for k, v in want["losses"].items()
+               if abs(got["losses"][k] - v) > TRAIN_LOSS_RTOL * abs(v)}
+        if bad or set(got["losses"]) != set(want["losses"]):
+            raise AssertionError(f"mesh2 {label}: losses differ from one "
+                                 f"process's: {bad}")
+        state_tol = [1e-6, 1e-6] + [TRAIN_LOSS_RTOL * abs(v)
+                                    for v in want["da_state"][2:]]
+        if any(abs(a - b) > t for a, b, t in zip(
+                got["da_state"], want["da_state"], state_tol)):
+            raise AssertionError(f"mesh2 {label}: DAState "
+                                 f"{got['da_state']} against "
+                                 f"{want['da_state']}")
+        worst, worst_leaf = 0.0, None
+        for n, p0 in init.items():
+            p, q = want["params"][n], got["params"][n]
+            change = float((p - p0).abs().max())
+            ulp = 1.2e-7 * float(p0.abs().max())
+            ratio = float((q - p).abs().max()) / (
+                DDP2_PARAM_REL * change + ulp + 1e-30)
+            if ratio > worst:
+                worst, worst_leaf = ratio, n
+        if worst > 1.0:
+            raise AssertionError(f"mesh2 {label}: parameter {worst_leaf} "
+                                 f"off one process's step: {worst:.3f} x "
+                                 "its bound")
+        dets = match_detections(got["dets"], ref["dets"])
+        paths[f"mesh2_{label}"] = {
+            k: sum(r["launches"].get(k, 0) for r in runs)
+            for k in PER_TRAIN_STEP}
+        summary[label] = dict(
+            losses=got["losses"], da_state=got["da_state"],
+            param_bound_used=worst, worst_param_leaf=worst_leaf,
+            replicated_leaves_bitwise=len(replicated),
+            split_leaves=got["split_leaves"],
+            launches_by_rank=[r["launches"] for r in runs],
+            detections=dets,
+            step_ms={f"rank{r}": x["step_ms"] for r, x in enumerate(runs)},
+            step_ms_median={f"rank{r}": statistics.median(x["step_ms"])
+                            for r, x in enumerate(runs)},
+            peak_bytes=[x["peak_bytes"] for x in runs],
+            param_bytes=[x["param_bytes"] for x in runs],
+            momentum_bytes=[x["momentum_bytes"] for x in runs])
+    emit("mesh2", world=DDP2_WORLD, backend="gloo", triples=1,
+         single=dict(losses=want["losses"], step_ms=want["step_ms"],
+                     step_ms_median=statistics.median(want["step_ms"]),
+                     peak_bytes=want["peak_bytes"],
+                     param_bytes=want["param_bytes"],
+                     momentum_bytes=want["momentum_bytes"]),
+         meshes=summary)
+    return paths
 
 
 def phase_ddp2(dev) -> dict:
-    """Two ranks on the one card through gloo (CUDA tensors), k = 1 triple
+    """Phases ddp2 and mesh2 in one spawn of two ranks. ddp2: two ranks on
+    the one card through gloo (CUDA tensors), k = 1 triple
     each, the flagship at 608x1216 in float32, dropout off: step 1 against
     one process's step on the 2-triple batch, both on the same sampler
     draws (recorded in the single step, each rank given its image's rows):
@@ -2680,7 +2885,9 @@ def phase_ddp2(dev) -> dict:
     losses), each leaf's change within DDP2_PARAM_REL of its largest plus a
     float32 ulp, the two ranks' parameters bit for bit equal; every rank
     launched NMS and both ROIAlign kernels (the train phase's counts a
-    step). Then each side's step times."""
+    step). Then each side's step times. Then mesh2 (``check_mesh2``): one
+    triple under (data=1, space=2) and (data=1, model=2). Returns each
+    path's launches: "ddp2", "mesh2_sp2", "mesh2_tp2"."""
     from da_detect_tpu_torch import entry, parallel
     from da_detect_tpu_torch.engine.trainer import make_train_step
 
@@ -2703,8 +2910,11 @@ def phase_ddp2(dev) -> dict:
     cpu_args = tuple(a.to("cpu") for a in args)
     del state, step, args, metrics
     torch.cuda.empty_cache()
+    ref = mesh2_reference(cfg, dev)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = parallel.spawn(ddp2_rank, DDP2_WORLD, cfg, cpu_args, draws)
+    ranks = parallel.spawn(ddp2_rank, DDP2_WORLD, cfg, cpu_args, draws,
+                           ref["spec"])
     spawn_s = time.perf_counter() - t0
     for r, got in enumerate(ranks):
         for k, n in PER_TRAIN_STEP.items():
@@ -2752,7 +2962,7 @@ def phase_ddp2(dev) -> dict:
          step_ms_median={"single_2_triples": statistics.median(single_ms),
                          **{f"rank{r}": statistics.median(x["step_ms"])
                             for r, x in enumerate(ranks)}})
-    return launches
+    return {"ddp2": launches, **check_mesh2(ref, ranks)}
 
 
 # ---------------------------------------------------------------- DCN
@@ -5952,7 +6162,7 @@ LAUNCH_KERNEL_NAMES = {"nms": "nms_walk_kernel",
                        "row_gather": "row_gather_kernel",
                        "row_gather_bulk": "row_gather_bulk_kernel"}
 # steady requests a mode, taken in turns; requests a busy-share profile
-SERVING_ROUNDS, SERVING_PROFILE_RUNS = 10, 3
+SERVING_ROUNDS, SERVING_PROFILE_RUNS = 5, 3
 COLD_START_TIMEOUT = 300
 # a process from its start to its first detection (cold start, as the JAX
 # package's scripts/bench_serving.py defines it): the flagship's weights
@@ -6400,7 +6610,8 @@ def run_dtype(dev, dtype: str) -> tuple[dict, dict, dict, list]:
     del captured
     ddp = {label("ddp", dtype): ([], phase_ddp(dev, dtype), {})}
     if dtype == "float32":
-        ddp["ddp2"] = ([], phase_ddp2(dev), {})
+        ddp.update({path: ([], launches, {}) for path, launches in
+                    phase_ddp2(dev).items()})
     (model, fn, q_model, q_fn, batch, captured, q_captured, dcn_launches,
      quad_launches, dcn_errs) = phase_dcn(dev, dtype)
     dcn_sites, quad_sites, device = phase_dcn_times(

@@ -33,12 +33,13 @@ epoch's shuffle from ``RandomState(seed + epoch)``; so one seed gives the
 same images, flips and scales in both packages.
 
 Data-parallel runs: each loader takes this process's ``rank`` of ``world``
-(default ``utils.comm``'s) and reads its shard of every epoch's order,
-``order[rank::world]``, as the JAX package's process ``rank`` does (the
-reference's DistributedSampler): the same batches. The triplet loader gives
-every process k = IMS_PER_BATCH // 2 triples a step, so a step's global
-batch holds world * k triples; an eval loader's shards partition the
-dataset.
+(default its data rank and size: a mesh's, where the ranks of one data
+slice read the same shard, else ``utils.comm``'s) and reads its shard of
+every epoch's order, ``order[rank::world]``, as the JAX package's process
+``rank`` does (the reference's DistributedSampler): the same batches. The
+triplet loader gives every process k = IMS_PER_BATCH // 2 triples a step,
+so a step's global batch holds world * k triples; an eval loader's shards
+partition the dataset.
 """
 
 from __future__ import annotations
@@ -56,7 +57,6 @@ import torch
 from ..config.catalog import DatasetCatalog
 from ..entry import resolve_device
 from ..structures.image_batch import MASK_RESOLUTION, ImageBatch, Targets
-from ..utils import comm
 from . import datasets as D
 from . import image_io
 from .staging import make_stage_cache
@@ -349,8 +349,9 @@ def _transport(cfg, device, packed: bool) -> Transport:
 
 
 def _shard(rank, world) -> tuple[int, int]:
-    return (comm.get_rank() if rank is None else rank,
-            comm.get_world_size() if world is None else world)
+    from ..parallel.mesh import data_rank, data_world
+    return (data_rank() if rank is None else rank,
+            data_world() if world is None else world)
 
 
 def make_data_loader(cfg, *, is_train: bool, device=None, dataset_names=None,

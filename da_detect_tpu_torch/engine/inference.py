@@ -100,13 +100,19 @@ def evaluate_merged(dataset, predictions: dict, **kwargs):
     shard): in a process group the shards are merged on every rank
     (``comm.accumulate_predictions``, the JAX package's :156-157) and
     evaluated once, on the main process, which writes the outputs; every
-    rank returns its results. Returns (results, merged predictions); no
-    predictions are not evaluated (results None)."""
+    rank returns its results. Under a mesh the ranks of a data slice hold
+    the same predictions: one of them (``Mesh.is_data_leader``) adds them.
+    Returns (results, merged predictions); no predictions are not
+    evaluated (results None)."""
     from ..data.evaluation import evaluate
+    from ..parallel.mesh import current_mesh
     from ..utils import comm
 
     world = comm.get_world_size()
     if world > 1:
+        mesh = current_mesh()
+        if mesh is not None and not mesh.is_data_leader:
+            predictions = {}  # its data slice's leader has the same ones
         predictions = comm.accumulate_predictions(predictions)
     if not predictions:
         return None, predictions

@@ -10,7 +10,10 @@ Unlike the JAX package's pure step, the port updates the model, the
 optimizer and the ``TrainState`` in place (no second copy of the weights).
 On N ranks the step runs through DDP (``parallel/ddp.py``): each rank's
 losses are its share of the global batch's, its gradients DDP's mean, and
-its ``DAState`` the same as every other rank's.
+its ``DAState`` the same as every other rank's. Under a (data, space,
+model) mesh (``parallel/mesh.py``) those are the data group's ranks, and
+the backbone's partial gradients of a space mesh are summed over space
+after the backward (``parallel.reduce_partial_grads``).
 ``profile_dir`` traces a range of iterations with ``torch.profiler`` (the
 reference has only wall-clock meters).
 """
@@ -28,8 +31,10 @@ import torch
 
 from ..models.da import DAState
 from ..parallel.ddp import global_average
+from ..parallel.mesh import data_rank, data_world
+from ..parallel.spatial import reduce_partial_grads
 from ..solver.optim import DetectronSGD, make_optimizer
-from ..utils.comm import get_rank, get_world_size
+from ..utils.comm import get_rank
 from ..utils.metric_logger import MetricLogger, eta_string
 
 log = logging.getLogger(__name__)
@@ -52,7 +57,8 @@ def create_train_state(cfg, model: torch.nn.Module, seed: int = 0,
     """A TrainState at step 0 for ``model`` (already on its device): the
     optimizer, ``DAState`` seeded from ``TRIPLET_MARGIN_IMG/INS`` and a
     generator on the model's device seeded with ``seed`` plus the process's
-    rank (the ranks of a data-parallel run draw apart)."""
+    data rank (the ranks of a data-parallel run draw apart; the ranks of
+    one data slice of a mesh draw alike)."""
     dev = next(model.parameters()).device
     da = cfg.MODEL.DA_HEADS
     return TrainState(
@@ -60,7 +66,7 @@ def create_train_state(cfg, model: torch.nn.Module, seed: int = 0,
         optimizer=make_optimizer(cfg, model, schedule_kind),
         da_state=DAState.create(da.TRIPLET_MARGIN_IMG, da.TRIPLET_MARGIN_INS,
                                 device=dev),
-        generator=torch.Generator(device=dev).manual_seed(seed + get_rank()))
+        generator=torch.Generator(device=dev).manual_seed(seed + data_rank()))
 
 
 def _global_metrics(losses: dict, total: torch.Tensor) -> dict:
@@ -68,7 +74,7 @@ def _global_metrics(losses: dict, total: torch.Tensor) -> dict:
     their shares, in one all-reduce (a single process: its own)."""
     metrics = {k: v.detach() for k, v in losses.items()}
     metrics["loss_total"] = total.detach()
-    if get_world_size() == 1:
+    if data_world() == 1:
         return metrics
     mean = global_average(torch.stack([v.float() for v in metrics.values()]))
     return dict(zip(metrics, mean.unbind()))
@@ -93,6 +99,7 @@ def make_train_step(model: torch.nn.Module, optimizer: DetectronSGD, *,
             deterministic=deterministic, generator=state.generator)
         total = sum(v.float() for v in losses.values())
         total.backward()
+        reduce_partial_grads(model)
         optimizer.step(state.step)
         state.step += 1
         state.da_state = new_da

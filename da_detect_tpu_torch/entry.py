@@ -386,52 +386,77 @@ def dryrun_cfg():
 
 def _dryrun_steps(step, state, args) -> dict:
     """``DRYRUN_STEPS`` steps: each step's global losses and margin, and the
-    final parameters and DAState, on the CPU."""
+    final parameters (whole: a split leaf gathered) and DAState, on the
+    CPU."""
+    from .parallel.tensor import full_state_dict
+
     losses, margins = [], []
     for _ in range(DRYRUN_STEPS):
         state, metrics = step(state, *args)
         losses.append({k: float(v) for k, v in metrics.items()})
         margins.append(float(state.da_state.margin_img))
+    full = full_state_dict(state.model)
     return dict(losses=losses, margins=margins,
-                params={n: p.detach().cpu().clone()
-                        for n, p in state.model.named_parameters()},
+                params={n: full[n].detach().cpu().clone()
+                        for n, _ in state.model.named_parameters()},
                 da_state={f.name: float(getattr(state.da_state, f.name))
                           for f in dataclasses.fields(state.da_state)})
 
 
+def _dryrun_modes(n: int) -> list:
+    """(label, spatial, model) of each run of ``dryrun_multichip(n)``: dp,
+    and with n >= 4 and even the JAX dry run's "dp x sp2" and "dp x tp2"
+    meshes."""
+    modes = [("dp", 1, 1)]
+    if n >= 4 and n % 2 == 0:
+        modes += [(f"dp{n // 2} x sp2", 2, 1), (f"dp{n // 2} x tp2", 1, 2)]
+    return modes
+
+
 def _dryrun_rank(rank, world, init_method, cfg, device_type, threads):
-    """One rank of ``dryrun_multichip``: its 1 of the ``world`` triples,
-    the step through DDP."""
-    from .parallel import init_distributed, shard, wrap_train_forward
+    """One rank of ``dryrun_multichip``: each mode's run, its data slice of
+    the ``world`` triples, the step through DDP over the data group."""
+    from .parallel import (data_shard, init_distributed, make_mesh,
+                           parallelize, set_mesh, wrap_train_forward)
 
     torch.set_num_threads(threads)
     dev = torch.device("cuda", rank) if device_type == "cuda" \
         else torch.device("cpu")
     dev = init_distributed(dev, init_method=init_method, rank=rank,
                            world_size=world)
-    model = prepare_model(build_detection_model(cfg, seed=0), dev)
-    state = create_train_state(cfg, model, 0, "cosine")
-    step = make_train_step(model, state.optimizer, aligned=True,
-                           deterministic=True,
-                           forward=wrap_train_forward(model, "da_triplet"))
-    args = shard(triplet_batches(cfg, world, seed=0, device=dev), rank,
-                 world)
-    return _dryrun_steps(step, state, args)
+    out = {}
+    for label, spatial, model_ranks in _dryrun_modes(world):
+        mesh = make_mesh(spatial=spatial, model=model_ranks)
+        set_mesh(None if label == "dp" else mesh)
+        model = parallelize(prepare_model(build_detection_model(cfg, seed=0),
+                                          dev))
+        state = create_train_state(cfg, model, 0, "cosine")
+        step = make_train_step(model, state.optimizer, aligned=True,
+                               deterministic=True,
+                               forward=wrap_train_forward(model,
+                                                          "da_triplet"))
+        args = data_shard(triplet_batches(cfg, world, seed=0, device=dev),
+                          mesh)
+        out[label] = _dryrun_steps(step, state, args)
+        set_mesh(None)
+    return out
 
 
 def dryrun_multichip(n: int, device: Optional[str] = None, cfg=None) -> dict:
-    """The triplet-DA step data-parallel over ``n`` ranks against one
-    process on the same global batch (the counterpart of
-    ``__graft_entry__.dryrun_multichip``, data-parallel mode): ``cfg``
-    (default ``dryrun_cfg()``, the flagship at 64x96), n triples (the positive a pixel copy of the source), dropout
-    off, ``DRYRUN_STEPS`` steps. The ranks are spawned processes, each with
-    its 1 triple, through NCCL on ``n`` cards (``device`` None or "cuda")
-    or gloo on the CPU. Raises unless every rank's losses match the single
-    process's (rtol ``DRYRUN_LOSS_RTOL``), the margins are
-    ``DRYRUN_MARGINS`` on every rank, the ranks' final parameters and
-    DAState are identical, and they match the single process's
-    (``DRYRUN_PARAM_REL``). Prints a line as each run finishes (a cut run
-    leaves its tail); returns the comparison."""
+    """The triplet-DA step over ``n`` ranks against one process on the same
+    global batch (the counterpart of ``__graft_entry__.dryrun_multichip``):
+    ``cfg`` (default ``dryrun_cfg()``, the flagship at 64x96), n triples
+    (the positive a pixel copy of the source), dropout off,
+    ``DRYRUN_STEPS`` steps; data-parallel, and with n >= 4 and even also
+    under the (data=n/2, space=2) and (data=n/2, model=2) meshes, as the
+    JAX dry run's "dp x sp2" and "dp x tp2". The ranks are spawned
+    processes (one spawn runs every mode), through NCCL on ``n`` cards
+    (``device`` None or "cuda") or gloo on the CPU. Raises unless, in every
+    mode, every rank's losses match the single process's (rtol
+    ``DRYRUN_LOSS_RTOL``), the margins are ``DRYRUN_MARGINS`` on every rank,
+    the ranks' final (whole) parameters and DAState are identical, and they
+    match the single process's (``DRYRUN_PARAM_REL``). Prints a line a
+    run; returns the dp comparison, with each mesh's under ``meshes``."""
     from .parallel import spawn
 
     dev = resolve_device(device)
@@ -451,21 +476,31 @@ def dryrun_multichip(n: int, device: Optional[str] = None, cfg=None) -> dict:
           f"{single['margins']}", flush=True)
     threads = max(1, torch.get_num_threads() // n)
     ranks = spawn(_dryrun_rank, n, cfg, dev.type, threads)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    out = {}
+    for label, _, _ in _dryrun_modes(n):
+        out[label] = _dryrun_check(n, label, [r[label] for r in ranks],
+                                   single, init, backend)
+    return dict(out["dp"], meshes={k: v for k, v in out.items()
+                                   if k != "dp"})
+
+
+def _dryrun_check(n, label, ranks, single, init, backend) -> dict:
     for r, got in enumerate(ranks):
         if got["da_state"] != ranks[0]["da_state"] or any(
                 not torch.equal(p, ranks[0]["params"][k])
                 for k, p in got["params"].items()):
-            raise AssertionError(f"dryrun_multichip({n}): rank {r}'s "
+            raise AssertionError(f"dryrun_multichip({n}) {label}: rank {r}'s "
                                  "parameters or DAState differ from rank 0's")
         for i, (a, b) in enumerate(zip(got["losses"], single["losses"])):
             bad = {k: (a[k], b[k]) for k in b
                    if abs(a[k] - b[k]) > DRYRUN_LOSS_RTOL * abs(b[k]) + 1e-7}
             if bad or set(a) != set(b):
-                raise AssertionError(f"dryrun_multichip({n}): rank {r} step "
-                                     f"{i + 1} losses {bad}")
+                raise AssertionError(f"dryrun_multichip({n}) {label}: rank "
+                                     f"{r} step {i + 1} losses {bad}")
     got = ranks[0]
     if not np.allclose(got["margins"], DRYRUN_MARGINS, rtol=0, atol=1e-6):
-        raise AssertionError(f"dryrun_multichip({n}): margins "
+        raise AssertionError(f"dryrun_multichip({n}) {label}: margins "
                              f"{got['margins']} != {DRYRUN_MARGINS}")
     worst = 0.0
     for k, p in single["params"].items():
@@ -474,17 +509,17 @@ def dryrun_multichip(n: int, device: Optional[str] = None, cfg=None) -> dict:
         err = float((got["params"][k] - p).abs().max())
         worst = max(worst, err / (DRYRUN_PARAM_REL * change + ulp + 1e-30))
     if worst > 1.0:
-        raise AssertionError(f"dryrun_multichip({n}): final parameters off "
-                             f"the single process's: {worst:.3f} x the "
-                             "bound")
+        raise AssertionError(f"dryrun_multichip({n}) {label}: final "
+                             f"parameters off the single process's: "
+                             f"{worst:.3f} x the bound")
     for key, v in single["da_state"].items():
         if abs(got["da_state"][key] - v) > 1e-6:
-            raise AssertionError(f"dryrun_multichip({n}): DAState {key} "
-                                 f"{got['da_state'][key]} != {v}")
-    print(f"dryrun_multichip({n}): dp ok over {n} ranks "
-          f"({'nccl' if dev.type == 'cuda' else 'gloo'}), {DRYRUN_STEPS}-step "
-          f"loss_total={got['losses'][-1]['loss_total']:.6f}, margins match, "
-          f"params within {worst:.3f} of the bound", flush=True)
-    return dict(world=n, backend="nccl" if dev.type == "cuda" else "gloo",
-                losses=got["losses"], single_losses=single["losses"],
-                margins=got["margins"], param_bound_used=worst)
+            raise AssertionError(f"dryrun_multichip({n}) {label}: DAState "
+                                 f"{key} {got['da_state'][key]} != {v}")
+    print(f"dryrun_multichip({n}): {label} ok over {n} ranks ({backend}), "
+          f"{DRYRUN_STEPS}-step loss_total="
+          f"{got['losses'][-1]['loss_total']:.6f}, margins match, params "
+          f"within {worst:.3f} of the bound", flush=True)
+    return dict(world=n, backend=backend, losses=got["losses"],
+                single_losses=single["losses"], margins=got["margins"],
+                param_bound_used=worst)

@@ -41,11 +41,19 @@ class Conv2d(nn.Conv2d):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x, self.weight, self.bias, self.padding,
+                         self.groups)
+
+    def conv(self, x, weight, bias, padding, groups: int) -> torch.Tensor:
+        """The layer's computation on these operands (the mesh's row shards
+        and split kernels pass their own)."""
         d = self.compute_dtype
         if d == torch.float32:
-            return super().forward(x)
-        y = self._conv_forward(x.to(d), self.weight.to(d), None)
-        return y if self.bias is None else _bias_after(y, self.bias, 1)
+            return F.conv2d(x, weight, bias, self.stride, padding,
+                            self.dilation, groups)
+        y = F.conv2d(x.to(d), weight.to(d), None, self.stride, padding,
+                     self.dilation, groups)
+        return y if bias is None else _bias_after(y, bias, 1)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -58,13 +66,19 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x, self.weight, self.bias)
+
+    def conv(self, x, weight, bias) -> torch.Tensor:
+        """The layer's computation on these operands."""
         d = self.compute_dtype
         if d == torch.float32:
-            return super().forward(x)
-        y = F.conv_transpose2d(x.to(d), self.weight.to(d), None, self.stride,
+            return F.conv_transpose2d(x, weight, bias, self.stride,
+                                      self.padding, self.output_padding,
+                                      self.groups, self.dilation)
+        y = F.conv_transpose2d(x.to(d), weight.to(d), None, self.stride,
                                self.padding, self.output_padding, self.groups,
                                self.dilation)
-        return y if self.bias is None else _bias_after(y, self.bias, 1)
+        return y if bias is None else _bias_after(y, bias, 1)
 
 
 class Linear(nn.Linear):
@@ -76,8 +90,12 @@ class Linear(nn.Linear):
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear(x, self.weight, self.bias)
+
+    def linear(self, x, weight, bias) -> torch.Tensor:
+        """The layer's computation on these operands."""
         d = self.compute_dtype
         if d == torch.float32:
-            return super().forward(x)
-        y = F.linear(x.to(d), self.weight.to(d))
-        return y if self.bias is None else _bias_after(y, self.bias, -1)
+            return F.linear(x, weight, bias)
+        y = F.linear(x.to(d), weight.to(d))
+        return y if bias is None else _bias_after(y, bias, -1)

@@ -196,13 +196,17 @@ class DeformConv2d(nn.Module):
         nn.init.zeros_(self.conv_offset.bias)
         nn.init.kaiming_normal_(self.weight)
 
-    def _sample_grid(self, x: torch.Tensor):
+    def _sample_grid(self, x: torch.Tensor, om=None, row0: int = 0):
         """Sample coordinates ys, xs [B, oh, ow, dg, nk] and the DCNv2 mask
-        [B, oh, ow, dg, nk] (None for DCNv1), from ``conv_offset``."""
-        b = x.shape[0]
+        [B, oh, ow, dg, nk] (None for DCNv1), from ``conv_offset``'s output
+        ``om`` (default: on ``x``), whose first row is output row
+        ``row0``."""
+        if om is None:
+            om = self.conv_offset(x)
+        b = om.shape[0]
         k, dg, nk = self.kernel_size, self.deformable_groups, \
             self.kernel_size ** 2
-        om = self.conv_offset(x).float().permute(0, 2, 3, 1)
+        om = om.float().permute(0, 2, 3, 1)
         oh, ow = om.shape[1:3]
         mask = None
         if self.modulated:
@@ -210,18 +214,28 @@ class DeformConv2d(nn.Module):
                 b, oh, ow, dg, nk)
             om = om[..., :dg * 2 * nk]
         off = om.reshape(b, oh, ow, dg, nk, 2)
-        f32 = dict(dtype=torch.float32, device=x.device)
+        f32 = dict(dtype=torch.float32, device=om.device)
         ky, kx = torch.meshgrid(torch.arange(k, **f32),
                                 torch.arange(k, **f32), indexing="ij")
         ky = (ky * self.dilation).reshape(-1)
         kx = (kx * self.dilation).reshape(-1)
-        base_y = torch.arange(oh, **f32) * self.stride - self.padding
+        base_y = torch.arange(row0, row0 + oh, **f32) * self.stride \
+            - self.padding
         base_x = torch.arange(ow, **f32) * self.stride - self.padding
         by = (base_y[:, None] + ky[None, :]).reshape(1, oh, 1, 1, nk)
         bx = (base_x[:, None] + kx[None, :]).reshape(1, 1, ow, 1, nk)
         return by + off[..., 0], bx + off[..., 1], mask
 
     def forward(self, x: torch.Tensor, impl: str = "cuda") -> torch.Tensor:
+        return self.deform(x, self.conv_offset(x), impl)
+
+    def deform(self, x: torch.Tensor, om: torch.Tensor, impl: str = "cuda",
+               row0: int = 0, weight=None, groups=None) -> torch.Tensor:
+        """The layer on the map ``x`` with ``conv_offset``'s output ``om``
+        for the output rows from ``row0`` (the mesh's row shards), with
+        ``weight`` in ``groups`` (the mesh's split kernel; default the
+        layer's)."""
+        weight = self.weight if weight is None else weight
         if impl == "cuda":
             take, take_wide = gather_cuda.row_gather, \
                 gather_cuda.row_gather_bulk
@@ -233,8 +247,8 @@ class DeformConv2d(nn.Module):
             raise ValueError(f"unknown gather impl: {impl!r}")
         b, c, h, w = x.shape
         dg, nk, fg = self.deformable_groups, self.kernel_size ** 2, \
-            self.groups
-        ys, xs, mask = self._sample_grid(x)
+            self.groups if groups is None else groups
+        ys, xs, mask = self._sample_grid(x, om, row0)
         oh, ow = ys.shape[1:3]
         p = b * oh * ow
         quad = self.gather_mode == "quad" and dg == 1 and h >= 2 and w >= 2
@@ -260,11 +274,11 @@ class DeformConv2d(nn.Module):
         if quad:
             flat2 = torch.cat([flat[:-1], flat[1:]], dim=-1)
             table = torch.cat([flat2[:-w], flat2[w:]], dim=-1)
-        cpf, fpg = c // fg, self.weight.shape[0] // fg
+        cpf, fpg = c // fg, weight.shape[0] // fg
         # [nk, fg, C/fg, F/fg]: tap t, group g -> that group's kernel slice
-        wk = self.weight.to(self.dtype).reshape(fg, fpg, cpf, nk).permute(
+        wk = weight.to(self.dtype).reshape(fg, fpg, cpf, nk).permute(
             3, 0, 2, 1)
-        acc = torch.zeros((p, self.weight.shape[0]), dtype=torch.float32,
+        acc = torch.zeros((p, weight.shape[0]), dtype=torch.float32,
                           device=x.device)
         # with autograd on, each tap runs under a non-reentrant checkpoint:
         # the backward gathers the tap's rows again instead of keeping them

@@ -19,8 +19,11 @@ every rank takes the same GRL weight and keeps the same ``DAState``.
 In a single process (no process group, or world size 1) every helper is the
 identity, and the losses are computed as before, bit for bit.
 
-Spatial and tensor parallelism (``TPU.MESH_SPATIAL`` / ``TPU.MESH_MODEL``)
-are a later slice of the port: ``check_mesh`` raises on them.
+Under a (data, space, model) mesh (``mesh.py``; ``TPU.MESH_SPATIAL`` /
+``TPU.MESH_MODEL``) the ranks of one data slice hold the same batch and
+compute the same losses, so DDP and these reductions run over the mesh's
+data group only: ``N`` above is the data size, not the world's.
+``check_mesh`` validates the keys against the world size.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import torch.distributed as dist
 from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
-from ..utils.comm import get_world_size
+from .mesh import current_mesh, data_group, data_world
 
 
 def init_distributed(device: torch.device, *, backend: str | None = None,
@@ -45,8 +48,9 @@ def init_distributed(device: torch.device, *, backend: str | None = None,
     WORLD_SIZE; LOCAL_RANK picks the card); without WORLD_SIZE and without
     them the process is alone and nothing starts. The backend is NCCL on
     the card (device ``cuda:LOCAL_RANK``) and gloo on the CPU; ``backend``
-    overrides it (gloo on the card: two ranks sharing one card). A backend
-    that fails to start raises."""
+    overrides it (gloo on the card: ranks sharing a card, rank LOCAL_RANK on
+    card LOCAL_RANK modulo the cards; NCCL refuses two ranks on one card).
+    A backend that fails to start raises."""
     if dist.is_initialized():
         return device
     if world_size is None:
@@ -55,7 +59,10 @@ def init_distributed(device: torch.device, *, backend: str | None = None,
         world_size = int(os.environ["WORLD_SIZE"])
         rank = int(os.environ["RANK"])
     if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        if backend == "gloo":
+            local %= torch.cuda.device_count()
+        device = torch.device("cuda", local)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
@@ -100,17 +107,23 @@ def spawn(fn, world: int, *args, tmp_dir: str | None = None) -> list:
 
 
 def check_mesh(cfg, world: int) -> None:
-    """``TPU.MESH_DATA`` is -1 or the world size; spatial or tensor
-    parallelism raises."""
+    """``TPU.MESH_SPATIAL`` and ``TPU.MESH_MODEL`` are at least 1 and their
+    product divides the ``world`` processes; ``TPU.MESH_DATA`` is -1 (the
+    rest) or world / (spatial * model). Each error names its key."""
     t = cfg.TPU
     for key in ("MESH_SPATIAL", "MESH_MODEL"):
-        if t[key] > 1:
-            raise NotImplementedError(
-                f"TPU.{key}={t[key]}: spatial and tensor parallelism are a "
-                "later slice of the port; it trains data-parallel only")
-    if t.MESH_DATA not in (-1, world):
+        if t[key] < 1:
+            raise ValueError(f"TPU.{key}={t[key]}: at least 1")
+    inner = t.MESH_SPATIAL * t.MESH_MODEL
+    if world % inner:
+        raise ValueError(
+            f"TPU.MESH_SPATIAL={t.MESH_SPATIAL} x TPU.MESH_MODEL="
+            f"{t.MESH_MODEL} = {inner} does not divide the {world} "
+            "processes")
+    if t.MESH_DATA not in (-1, world // inner):
         raise ValueError(f"TPU.MESH_DATA={t.MESH_DATA} with {world} "
-                         "processes: set -1 (all) or the world size")
+                         f"processes and {inner} a data slice: set -1 (all) "
+                         f"or {world // inner}")
 
 
 def check_divisible(batch_size: int, world: int, group: int = 1) -> None:
@@ -139,12 +152,12 @@ def shard(args: tuple, rank: int, world: int) -> tuple:
 
 
 def global_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the ranks, without a gradient; ``x`` itself in a
-    single process."""
-    if get_world_size() == 1:
+    """``x`` summed over the ranks (of the data group), without a gradient;
+    ``x`` itself in a single process."""
+    if data_world() == 1:
         return x
     y = x.detach().clone()
-    dist.all_reduce(y)
+    dist.all_reduce(y, group=data_group())
     return y
 
 
@@ -152,7 +165,7 @@ def global_average(x: torch.Tensor) -> torch.Tensor:
     """The ranks' mean of ``x``, without a gradient: the global value of a
     mean over a count that is the same on every rank, or of a rank's share
     from ``global_mean``."""
-    world = get_world_size()
+    world = data_world()
     return x if world == 1 else global_sum(x) / world
 
 
@@ -162,7 +175,7 @@ def global_mean(num: torch.Tensor, den: torch.Tensor,
     ranks' mean of the shares is that global value, and DDP's mean of their
     gradients its gradient. ``num / max(den, floor)`` in a single
     process."""
-    world = get_world_size()
+    world = data_world()
     if world == 1:
         return num / den.clamp(min=floor)
     return num * world / global_sum(den).clamp(min=floor)
@@ -214,14 +227,21 @@ def unused_parameters(model, mode: str) -> list[str]:
                      if p.requires_grad]
 
 
-def wrap_train_forward(model, mode: str) -> DistributedDataParallel:
+def wrap_train_forward(model, mode: str, group=None) -> nn.Module:
     """DDP over ``TrainForward(model)``: call it as ``train_forward``. The
     parameters ``unused_parameters`` names are left out of the reduction
     (their gradients stay None, as in a single process) instead of
     ``find_unused_parameters``, which would search the graph every step;
     buffers are not broadcast (FrozenBN's are constants), as the reference
-    sets it."""
+    sets it. Under a mesh DDP runs over its data group (``group``
+    overrides it), and a mesh of one data slice needs none: the plain
+    ``TrainForward``."""
     module = TrainForward(model)
+    mesh = current_mesh()
+    if group is None and mesh is not None:
+        if mesh.data == 1:
+            return module
+        group = mesh.data_group
     DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(
         module, [f"model.{n}" for n in unused_parameters(model, mode)])
     dev = next(model.parameters()).device
@@ -232,4 +252,4 @@ def wrap_train_forward(model, mode: str) -> DistributedDataParallel:
                                 FutureWarning)
         return DistributedDataParallel(
             module, device_ids=[dev.index] if dev.type == "cuda" else None,
-            broadcast_buffers=False)
+            broadcast_buffers=False, process_group=group)

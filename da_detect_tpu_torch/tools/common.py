@@ -14,6 +14,12 @@ Under ``torchrun --nproc_per_node N -m da_detect_tpu_torch.tools.<cli>``
 IMS_PER_BATCH // 2 triples and evaluates its shard of the test set. The
 main process creates the output directory and logs to stdout; every rank
 logs to ``log_rank<r>.txt`` there. Run plainly, a CLI is one process.
+``TPU.MESH_SPATIAL S`` and ``TPU.MESH_MODEL M`` fold the ranks into the
+(data, space, model) mesh (``parallel/mesh.py``): each data slice of S * M
+ranks trains on one rank's worth of triples, its backbone on row shards
+over space and its wide layers split over model. ``--dist-backend gloo``
+lets ranks share a card (rank r on card r modulo the cards; NCCL refuses
+two ranks on one card).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from ..config import get_cfg
 from ..config.catalog import load_user_catalog
 from ..entry import resolve_device
 from ..parallel.ddp import check_mesh, init_distributed
+from ..parallel.mesh import init_mesh
 from ..utils import comm
 from ..utils.env import setup_environment
 from ..utils.logging_utils import collect_env_info, setup_logger
@@ -48,6 +55,10 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--profile", default="",
                    help="directory to write a torch.profiler trace of "
                         "iterations 10-20")
+    p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                   help="under torchrun: the process group's backend "
+                        "(default NCCL on the card, gloo on the CPU; gloo "
+                        "lets ranks share a card)")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     return p
 
@@ -56,9 +67,11 @@ def setup(args, logger_name: str):
     """Returns (cfg, logger, device). ``MODEL.OUTPUT_DIR`` becomes
     ``OUTPUT_DIR/OUTPUT_SAVE_NAME``; ``PATHS_CATALOG`` names a user catalog
     module. Under ``torchrun`` the process group starts here (the device is
-    the rank's card) and ``TPU.MESH_*`` are checked against its size."""
+    the rank's card), ``TPU.MESH_*`` are checked against its size and the
+    mesh is made (``parallel.init_mesh``)."""
     setup_environment()
-    device = init_distributed(resolve_device(args.device))
+    device = init_distributed(resolve_device(args.device),
+                              backend=getattr(args, "dist_backend", None))
     rank, world = comm.get_rank(), comm.get_world_size()
     cfg = get_cfg()
     if args.config_file:
@@ -69,6 +82,7 @@ def setup(args, logger_name: str):
     cfg.MODEL.OUTPUT_DIR = output_dir
     cfg.freeze()
     check_mesh(cfg, world)
+    init_mesh(cfg.TPU.MESH_SPATIAL, cfg.TPU.MESH_MODEL)
     if cfg.PATHS_CATALOG:
         if not os.path.exists(cfg.PATHS_CATALOG):
             raise FileNotFoundError(f"PATHS_CATALOG {cfg.PATHS_CATALOG}")

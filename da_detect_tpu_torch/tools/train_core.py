@@ -12,6 +12,7 @@ from ..engine.inference import evaluate_merged, inference
 from ..engine.trainer import create_train_state, do_train
 from ..entry import prepare_model
 from ..models import build_detection_model
+from ..parallel import parallelize
 from ..parallel.ddp import wrap_train_forward
 from ..utils import comm
 from ..utils.checkpoint import Checkpointer, load_weight_file
@@ -22,8 +23,11 @@ def build_model(cfg, device, seed: int):
     """The detector of ``cfg`` on ``device`` (a ``GeneralizedRCNN``, or a
     ``RetinaNet`` under ``MODEL.RETINANET_ON``, which trains source-only
     and answers with the same ``Detections``), random weights from
-    ``seed`` (a checkpoint or ``MODEL.WEIGHT`` replaces them)."""
-    return prepare_model(build_detection_model(cfg, seed=seed), device)
+    ``seed`` (a checkpoint or ``MODEL.WEIGHT`` replaces them), under the
+    process's mesh (``parallel.parallelize``; nothing changes without
+    one)."""
+    return parallelize(prepare_model(build_detection_model(cfg, seed=seed),
+                                     device))
 
 
 def run_training(cfg, logger, *, mode: str, schedule_kind: str, device,

@@ -4,7 +4,10 @@ JAX package's orbax ``utils/checkpoint.py``).
 ``Checkpointer.save(step, state)`` writes ``model_{step:07d}.pth`` under the
 output directory (model ``state_dict``, optimizer state, ``DAState``, step,
 generator state; on the main process only in a process group) and points
-``last_checkpoint`` at it; ``resume(state)``
+``last_checkpoint`` at it; a model split over a mesh's ``model`` group
+(``parallel/tensor.py``) is saved whole, parameters and momentum gathered,
+so the file equals one process's, and every load cuts it to the rank's
+slices; ``resume(state)``
 restores the newest into a ``TrainState`` in place, ``resume_model(model)``
 only its model (evaluation); ``all_steps()`` and ``load_model(model, step)``
 reach every checkpoint of the directory (batch evaluation). A checkpoint
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from ..config.catalog import ModelCatalog
+from ..parallel import tensor
 from . import c2_loading, comm
 
 log = logging.getLogger(__name__)
@@ -47,12 +51,15 @@ class Checkpointer:
         barrier until the file is there."""
         path = os.path.join(self.output_dir, f"model_{step:07d}.pth")
         generators = comm.all_gather(state.generator.get_state())
+        model_state = tensor.full_state_dict(state.model)
+        optimizer_state = tensor.full_optimizer_state(state.optimizer,
+                                                      state.model)
         if comm.is_main_process():
             os.makedirs(self.output_dir, exist_ok=True)
             ckpt = {
                 "step": int(step),
-                "model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
+                "model": model_state,
+                "optimizer": optimizer_state,
                 "da_state": dataclasses.asdict(state.da_state),
                 "generator": generators[0],
             }
@@ -98,7 +105,7 @@ class Checkpointer:
         if model.da_heads is None:
             weights = {k: v for k, v in weights.items()
                        if not k.startswith("da_heads.")}
-        model.load_state_dict(weights)
+        model.load_state_dict(tensor.local_state_dict(model, weights))
         log.info("loaded the model of %s (iteration %d)", path, ckpt["step"])
         return ckpt["step"]
 
@@ -111,8 +118,10 @@ class Checkpointer:
             return state, 0
         path = self._newest()
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
-        state.model.load_state_dict(ckpt["model"])
-        state.optimizer.load_state_dict(ckpt["optimizer"])
+        state.model.load_state_dict(
+            tensor.local_state_dict(state.model, ckpt["model"]))
+        state.optimizer.load_state_dict(tensor.local_optimizer_state(
+            state.optimizer, state.model, ckpt["optimizer"]))
         dev = next(state.model.parameters()).device
         state.da_state = type(state.da_state)(
             **{k: v.to(dev) for k, v in ckpt["da_state"].items()})
@@ -156,6 +165,9 @@ def load_weight_file(path: str, model: torch.nn.Module,
                 f"{path}: its fc6 implies box pooler resolution {inferred}, "
                 f"the model's is {pool_resolution}")
         state = c2_loading.torch_state(raw)
+    state = tensor.local_state_dict(model, {
+        k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in
+        state.items()}) if getattr(model, "_tp_plan", None) else state
     applied, unmatched = [], []
     for name, value in state.items():
         if name not in own:

@@ -195,6 +195,9 @@ def load_jax_variables(model: torch.nn.Module, variables: dict) -> None:
     standalone module of this package) in place, strictly."""
     state = jax_state_dict(variables, fc6_chw(model),
                            detector=hasattr(model, "backbone"))
+    if getattr(model, "_tp_plan", None):
+        from ..parallel.tensor import local_state_dict
+        state = local_state_dict(model, state)  # whole, cut to the slices
     own = model.state_dict()
     extra = sorted(set(state) - set(own))
     if extra:
@@ -228,6 +231,9 @@ def load_jax_train_state(state, jax_state) -> None:
     state.step = int(np.asarray(jax_state.step))
     momentum = jax_state_dict({"params": jax_state.opt_state[1].momentum},
                               fc6_chw(model))
+    if getattr(model, "_tp_plan", None):
+        from ..parallel.tensor import local_state_dict
+        momentum = local_state_dict(model, momentum)
     trainable = dict(model.named_parameters())
     state.optimizer.set_momentum_buffers(
         {k: v for k, v in momentum.items() if trainable[k].requires_grad})

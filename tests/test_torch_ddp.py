@@ -511,12 +511,15 @@ def test_loader_rank_defaults_to_comm(tiny, monkeypatch):
 
 
 @pytest.mark.parametrize("key,value,error", [
-    ("TPU.MESH_SPATIAL", 2, NotImplementedError),
-    ("TPU.MESH_MODEL", 2, NotImplementedError),
+    ("TPU.MESH_SPATIAL", 3, ValueError),
+    ("TPU.MESH_MODEL", 3, ValueError),
     ("TPU.MESH_DATA", 4, ValueError),
 ])
 def test_mesh_options_beyond_data_parallel_raise(key, value, error,
                                                  tmp_path):
+    """Mesh keys the world cannot hold raise, naming the key: a space or
+    model size that does not divide the 2 processes (or the one process
+    of a plain CLI run), a data size other than world / (S * M)."""
     _, pcfg = tiny_cfgs()
     pcfg.merge_from_list([key, value])
     with pytest.raises(error, match=key):
@@ -532,6 +535,13 @@ def test_mesh_data_default_and_world_pass():
     parallel.check_mesh(pcfg, 3)
     pcfg.TPU.MESH_DATA = 3
     parallel.check_mesh(pcfg, 3)
+    # a (data, space, model) mesh: MESH_DATA -1 or world / (S * M)
+    pcfg.TPU.MESH_SPATIAL, pcfg.TPU.MESH_MODEL = 2, 2
+    for data in (-1, 2):
+        pcfg.TPU.MESH_DATA = data
+        parallel.check_mesh(pcfg, 8)
+    with pytest.raises(ValueError, match="TPU.MESH_DATA"):
+        parallel.check_mesh(pcfg, 4)
     with pytest.raises(ValueError, match="not divisible by 3"):
         parallel.shard(entry.triplet_batches(pcfg, 2), 0, 3)
 
@@ -549,6 +559,24 @@ def test_dryrun_multichip_on_two_cpu_ranks(capsys):
     assert lines[-1].startswith("dryrun_multichip(2): dp ok over 2 ranks")
     assert out["backend"] == "gloo" and out["param_bound_used"] <= 1.0
     assert np.allclose(out["margins"], entry.DRYRUN_MARGINS, atol=1e-6)
+
+
+def test_dryrun_multichip_meshes_on_four_cpu_ranks(capsys):
+    """With 4 ranks the dry run adds the JAX dry run's "dp2 x sp2" and
+    "dp2 x tp2" meshes (one spawn), each held to the single process."""
+    cfg = entry.dryrun_cfg()
+    cfg.MODEL.RESNETS.STEM_OUT_CHANNELS = 16
+    cfg.MODEL.RESNETS.WIDTH_PER_GROUP = 8
+    cfg.MODEL.RESNETS.RES2_OUT_CHANNELS = 32
+    out = entry.dryrun_multichip(4, device="cpu", cfg=cfg)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [ln.split(" ok")[0] for ln in lines] == [
+        "dryrun_multichip(4): single process", "dryrun_multichip(4): dp",
+        "dryrun_multichip(4): dp2 x sp2", "dryrun_multichip(4): dp2 x tp2"]
+    assert sorted(out["meshes"]) == ["dp2 x sp2", "dp2 x tp2"]
+    for got in [out] + list(out["meshes"].values()):
+        assert got["param_bound_used"] <= 1.0
+        assert np.allclose(got["margins"], entry.DRYRUN_MARGINS, atol=1e-6)
 
 
 def test_setup_environment_runs_the_named_module(tmp_path, monkeypatch):
