@@ -1182,38 +1182,6 @@ def check_captured(captured) -> dict:
     return errs
 
 
-def twins(a, b, box_atol: float, score_atol: float) -> dict:
-    """Each valid detection of ``a`` paired with its own twin in ``b``
-    (same label, boxes and scores within the bounds): the valid counts, the
-    detections of ``a`` without a twin, the largest errors of the pairs.
-    Near-tied scores may swap places, so order is not compared."""
-    av, bv = a.valid[0].cpu(), b.valid[0].cpu()
-    boxes_a, boxes_b = a.boxes[0].cpu()[av], b.boxes[0].cpu()[bv]
-    scores_a, scores_b = a.scores[0].cpu()[av], b.scores[0].cpu()[bv]
-    labels_a, labels_b = a.labels[0].cpu()[av], b.labels[0].cpu()[bv]
-    used = torch.zeros(len(labels_b), dtype=torch.bool)
-    box_err = score_err = 0.0
-    lone = []
-    for i in range(len(labels_a)):
-        d_box = (boxes_b - boxes_a[i]).abs().amax(dim=1)
-        d_score = (scores_b - scores_a[i]).abs()
-        ok = ((labels_b == labels_a[i]) & (d_box <= box_atol)
-              & (d_score <= score_atol) & ~used)
-        if not bool(ok.any()):
-            lone.append(dict(index=i, label=int(labels_a[i]),
-                             score=float(scores_a[i])))
-            continue
-        j = int(torch.nonzero(ok)[0])
-        used[j] = True
-        box_err = max(box_err, float(d_box[j]))
-        score_err = max(score_err, float(d_score[j]))
-    return dict(valid=(int(av.sum()), int(bv.sum())),
-                matched=int(used.sum()), without_twin=lone,
-                max_box_err=box_err, max_score_err=score_err,
-                same_order=bool(torch.equal(labels_a, labels_b)
-                                and torch.equal(boxes_a, boxes_b)))
-
-
 def match_detections(a, b, bf16_ref=None) -> dict:
     """The kernel run's detections ``a`` against the plain run's ``b``.
     float32 (``bf16_ref`` None): equal valid counts and every detection of
@@ -1224,6 +1192,8 @@ def match_detections(a, b, bf16_ref=None) -> dict:
     the kernels move a request's detections no more than bfloat16 itself
     does (with random weights, ulp-apart scores reorder the per-class NMS
     and keep other boxes)."""
+    from da_detect_tpu_torch.e2e_pairs import twins
+
     if bf16_ref is None:
         out = twins(a, b, DET_BOX_ATOL, DET_SCORE_ATOL)
         if out["valid"][0] != out["valid"][1]:
@@ -2712,7 +2682,8 @@ def mesh2_rank(cfg, dev, spec: dict, spatial: int, model_ranks: int):
 
 
 def ddp2_rank(rank, world, init_method, cfg, args, draws, mesh_spec):
-    """One rank of phases ddp2 and mesh2 on cuda:0, gloo: its triple of
+    """One rank of phases ddp2 and mesh2 (on one card both ranks on cuda:0,
+    through gloo: ``parallel.ddp.card_for``): its triple of
     ``args``, step 1 on the recorded draws' rows of its image, launches
     counted; then DDP2_TIMED_STEPS steps timed; then each mesh of
     MESH2_MODES (``mesh2_rank``)."""
@@ -2721,9 +2692,8 @@ def ddp2_rank(rank, world, init_method, cfg, args, draws, mesh_spec):
     from da_detect_tpu_torch.parallel import (init_distributed, shard,
                                               wrap_train_forward)
 
-    dev = init_distributed(torch.device("cuda", 0), backend="gloo",
-                           init_method=init_method, rank=rank,
-                           world_size=world)
+    dev = init_distributed(torch.device("cuda"), init_method=init_method,
+                           rank=rank, world_size=world)
     state = ddp2_model(cfg, dev)
     step = make_train_step(
         state.model, state.optimizer, aligned=False, deterministic=True,
@@ -2746,7 +2716,8 @@ def ddp2_rank(rank, world, init_method, cfg, args, draws, mesh_spec):
     meshes = {label: mesh2_rank(cfg, dev, mesh_spec, spatial, model_ranks)
               for label, spatial, model_ranks in MESH2_MODES}
     return dict(out, launches=launches, step_ms=times,
-                device=torch.cuda.get_device_name(dev), meshes=meshes)
+                device=torch.cuda.get_device_name(dev), meshes=meshes,
+                backend=torch.distributed.get_backend())
 
 
 def mesh2_reference(cfg, dev) -> dict:
@@ -2865,7 +2836,7 @@ def check_mesh2(ref: dict, ranks: list) -> dict:
             peak_bytes=[x["peak_bytes"] for x in runs],
             param_bytes=[x["param_bytes"] for x in runs],
             momentum_bytes=[x["momentum_bytes"] for x in runs])
-    emit("mesh2", world=DDP2_WORLD, backend="gloo", triples=1,
+    emit("mesh2", world=DDP2_WORLD, backend=ranks[0]["backend"], triples=1,
          single=dict(losses=want["losses"], step_ms=want["step_ms"],
                      step_ms_median=statistics.median(want["step_ms"]),
                      peak_bytes=want["peak_bytes"],
@@ -2951,7 +2922,8 @@ def phase_ddp2(dev) -> dict:
                              f"process's step: {worst:.3f} x its bound")
     launches = {k: sum(r["launches"].get(k, 0) for r in ranks)
                 for k in PER_TRAIN_STEP}
-    emit("ddp2", world=DDP2_WORLD, backend="gloo", device=got["device"],
+    emit("ddp2", world=DDP2_WORLD, backend=got["backend"],
+         device=got["device"],
          triples_per_rank=1, losses=got["losses"],
          single_losses=want["losses"], da_state=got["da_state"],
          param_bound_used=worst, worst_param_leaf=worst_leaf,

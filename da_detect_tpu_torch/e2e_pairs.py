@@ -166,6 +166,40 @@ def pooler_inputs(device: str, canvas, seed: int = 0):
     return maps, rois
 
 
+def twins(a, b, box_atol: float, score_atol: float) -> dict:
+    """Each valid detection of ``a`` paired with its own twin in ``b``
+    (same label, boxes and scores within the bounds): the valid counts, the
+    detections of ``a`` without a twin, the largest errors of the pairs.
+    Near-tied scores may swap places, so order is not compared."""
+    import torch
+
+    av, bv = a.valid[0].cpu(), b.valid[0].cpu()
+    boxes_a, boxes_b = a.boxes[0].cpu()[av], b.boxes[0].cpu()[bv]
+    scores_a, scores_b = a.scores[0].cpu()[av], b.scores[0].cpu()[bv]
+    labels_a, labels_b = a.labels[0].cpu()[av], b.labels[0].cpu()[bv]
+    used = torch.zeros(len(labels_b), dtype=torch.bool)
+    box_err = score_err = 0.0
+    lone = []
+    for i in range(len(labels_a)):
+        d_box = (boxes_b - boxes_a[i]).abs().amax(dim=1)
+        d_score = (scores_b - scores_a[i]).abs()
+        ok = ((labels_b == labels_a[i]) & (d_box <= box_atol)
+              & (d_score <= score_atol) & ~used)
+        if not bool(ok.any()):
+            lone.append(dict(index=i, label=int(labels_a[i]),
+                             score=float(scores_a[i])))
+            continue
+        j = int(torch.nonzero(ok)[0])
+        used[j] = True
+        box_err = max(box_err, float(d_box[j]))
+        score_err = max(score_err, float(d_score[j]))
+    return dict(valid=(int(av.sum()), int(bv.sum())),
+                matched=int(used.sum()), without_twin=lone,
+                max_box_err=box_err, max_score_err=score_err,
+                same_order=bool(torch.equal(labels_a, labels_b)
+                                and torch.equal(boxes_a, boxes_b)))
+
+
 def spread_dcn(model, batch) -> list:
     """What the measurements change in a random DCN model: the score layers
     x SCORE_SCALE, as for the flagship, and every ``conv_offset`` kernel

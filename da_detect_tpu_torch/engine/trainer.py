@@ -12,8 +12,9 @@ On N ranks the step runs through DDP (``parallel/ddp.py``): each rank's
 losses are its share of the global batch's, its gradients DDP's mean, and
 its ``DAState`` the same as every other rank's. Under a (data, space,
 model) mesh (``parallel/mesh.py``) those are the data group's ranks, and
-the backbone's partial gradients of a space mesh are summed over space
-after the backward (``parallel.reduce_partial_grads``).
+the gradients are made the data slice's after the backward
+(``parallel.reduce_mesh_grads``: the backbone's partial sums of a space
+mesh summed, the replicated leaves averaged over the slice).
 ``profile_dir`` traces a range of iterations with ``torch.profiler`` (the
 reference has only wall-clock meters).
 """
@@ -31,8 +32,7 @@ import torch
 
 from ..models.da import DAState
 from ..parallel.ddp import global_average
-from ..parallel.mesh import data_rank, data_world
-from ..parallel.spatial import reduce_partial_grads
+from ..parallel.mesh import data_rank, data_world, reduce_mesh_grads
 from ..solver.optim import DetectronSGD, make_optimizer
 from ..utils.comm import get_rank
 from ..utils.metric_logger import MetricLogger, eta_string
@@ -99,7 +99,7 @@ def make_train_step(model: torch.nn.Module, optimizer: DetectronSGD, *,
             deterministic=deterministic, generator=state.generator)
         total = sum(v.float() for v in losses.values())
         total.backward()
-        reduce_partial_grads(model)
+        reduce_mesh_grads(model)
         optimizer.step(state.step)
         state.step += 1
         state.da_state = new_da

@@ -82,9 +82,8 @@ def _rank(rank, world, init_method, cfg, state, batch, n):
     from da_detect_tpu_torch.parallel import (init_distributed, make_mesh,
                                               parallelize, set_mesh)
 
-    dev = init_distributed(torch.device("cuda", 0), backend="gloo",
-                           init_method=init_method, rank=rank,
-                           world_size=world)
+    dev = init_distributed(torch.device("cuda"), init_method=init_method,
+                           rank=rank, world_size=world)
     out = {}
     for label, spatial, model_ranks in MODES:
         mesh = make_mesh(spatial=spatial, model=model_ranks)
@@ -101,26 +100,6 @@ def _rank(rank, world, init_method, cfg, state, batch, n):
 TWIN_BOUNDS = {"float32": (1e-2, 1e-4), "bfloat16": (1.0, 2e-2)}
 
 
-def _twins(a, b, box_atol: float, score_atol: float) -> dict:
-    """How many of ``a``'s valid detections have their own twin among
-    ``b``'s."""
-    import torch
-
-    av, bv = a.valid[0], b.valid[0]
-    boxes_b, scores_b, labels_b = b.boxes[0][bv], b.scores[0][bv], \
-        b.labels[0][bv]
-    used = torch.zeros(len(labels_b), dtype=torch.bool)
-    for box, score, label in zip(a.boxes[0][av], a.scores[0][av],
-                                 a.labels[0][av]):
-        ok = ((labels_b == label) & ~used
-              & ((boxes_b - box).abs().amax(dim=1) <= box_atol)
-              & ((scores_b - score).abs() <= score_atol))
-        if bool(ok.any()):
-            used[int(torch.nonzero(ok)[0])] = True
-    return dict(valid=(int(av.sum()), int(bv.sum())),
-                with_twin=int(used.sum()))
-
-
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--dtype", default="bfloat16",
@@ -134,7 +113,7 @@ def main(argv=None) -> int:
         print("mesh_request: no CUDA device", file=sys.stderr)
         return 1
     from da_detect_tpu_torch import entry, kernels, parallel
-    from da_detect_tpu_torch.e2e_pairs import spread_dcn
+    from da_detect_tpu_torch.e2e_pairs import spread_dcn, twins
 
     kernels.build()
     dev = torch.device("cuda", 0)
@@ -153,7 +132,7 @@ def main(argv=None) -> int:
         ref = _model(f32, dev, state)
         with torch.no_grad():
             dets = ref(batch)
-        lines[0]["bf16_vs_f32"] = _twins(lines[0]["dets"], type(dets)(
+        lines[0]["bf16_vs_f32"] = twins(lines[0]["dets"], type(dets)(
             *[t.cpu() for t in dets]), *bounds)
         del ref
     del model
@@ -164,7 +143,7 @@ def main(argv=None) -> int:
         for r, got in enumerate(ranks):
             lines.append(dict(run=label, rank=r, dtype=args.dtype,
                               **got[label],
-                              twins=_twins(got[label]["dets"],
+                              twins=twins(got[label]["dets"],
                                            lines[0]["dets"], *bounds)))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

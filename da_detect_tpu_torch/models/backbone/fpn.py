@@ -23,17 +23,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import Conv2d, make_norm
+from ...layers import Conv2d, RowOps, make_norm
 
 
-def upsample_nearest_2x(x: torch.Tensor, out_hw) -> torch.Tensor:
-    """Nearest 2x upsample [B, C, H, W] -> [B, C, 2H, 2W], cropped to
-    ``out_hw`` (odd lateral sizes)."""
-    up = F.interpolate(x, scale_factor=2, mode="nearest")
-    return up[:, :, :out_hw[0], :out_hw[1]]
-
-
-class FPN(nn.Module):
+class FPN(RowOps, nn.Module):
     def __init__(self, in_channels_list, out_channels: int = 256,
                  norm: str = "none", use_relu: bool = False,
                  top_block: str = "maxpool",
@@ -74,13 +67,13 @@ class FPN(nn.Module):
                  for i, f in enumerate(features)]
         merged = [inner[-1]]
         for i in range(len(inner) - 2, -1, -1):
-            td = upsample_nearest_2x(merged[0], inner[i].shape[2:])
-            merged.insert(0, inner[i] + td)
+            merged.insert(0, inner[i] + self.upsample_2x(merged[0],
+                                                         inner[i]))
         outs = [self._conv(f"fpn_layer{i + 1}", m)
                 for i, m in enumerate(merged)]
         if self.top_block == "p6p7":
             p6 = self.fpn_p6(features[-1])
             return outs + [p6, self.fpn_p7(F.relu(p6))]
         # LastLevelMaxPool: max pool of kernel 1, stride 2
-        outs.append(F.max_pool2d(outs[-1], kernel_size=1, stride=2))
+        outs.append(self.max_pool(outs[-1], 1, 2))
         return outs

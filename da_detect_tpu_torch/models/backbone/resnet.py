@@ -28,7 +28,7 @@ import torch.nn.functional as F
 import torch
 from torch import nn
 
-from ...layers import Conv2d, DeformConv2d, make_norm
+from ...layers import Conv2d, DeformConv2d, RowOps, make_norm
 
 
 def _conv(cin, cout, k, stride=1, padding=0, dilation=1, groups=1,
@@ -85,7 +85,7 @@ class Bottleneck(nn.Module):
         return F.relu(out + shortcut)
 
 
-class Stem(nn.Module):
+class Stem(RowOps, nn.Module):
     def __init__(self, out_channels: int = 64, norm: str = "frozen_bn",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -95,7 +95,7 @@ class Stem(nn.Module):
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))
-        return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
+        return self.max_pool(x, 3, 2, 1)
 
 
 class ResStage(nn.Sequential):

@@ -19,13 +19,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import Conv2d
+from ...layers import Conv2d, RowOps
 
 # channels per conv block (VGG-16 "D" configuration)
 _BLOCKS = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
 
 
-class VGG16(nn.Module):
+class VGG16(RowOps, nn.Module):
     def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
@@ -47,7 +47,7 @@ class VGG16(nn.Module):
             for name in block:
                 x = F.relu(getattr(self, name)(x))
             if bi < len(self.names) - 1:  # no pool after conv5_3: stride 16
-                x = F.max_pool2d(x, 2, 2)
+                x = self.max_pool(x, 2, 2)
         return [x]
 
 

@@ -3,16 +3,14 @@
 partitioning of the backbone (``spatial.py``) and the tensor-parallel
 column split (``tensor.py``), put on a model by ``parallelize``."""
 
-import torch
-
-from .ddp import (check_divisible, check_mesh, global_average, global_mean,
-                  global_sum, init_distributed, shard, shutdown, spawn,
-                  unused_parameters, wrap_train_forward)
-from .mesh import (Mesh, batch_sharding, current_mesh, data_axis_size,
-                   data_shard, init_mesh, make_mesh, model_axis_size,
-                   replicate, set_mesh, shard_batch)
-from .mesh import check_divisible as check_mesh_divisible
-from .spatial import partition_backbone, reduce_partial_grads
+from .ddp import (check_mesh, global_average, global_mean, global_sum,
+                  init_distributed, shard, shutdown, spawn, unused_parameters,
+                  wrap_train_forward)
+from .mesh import (Mesh, batch_sharding, check_divisible, current_mesh,
+                   data_axis_size, data_shard, init_mesh, make_mesh,
+                   model_axis_size, reduce_mesh_grads, replicate, set_mesh,
+                   shard_batch)
+from .spatial import partition_backbone
 from .tensor import shard_model, split_plan
 
 
@@ -22,21 +20,11 @@ def parallelize(model, mesh=None, min_channels: int = 256):
     leaves of at least ``min_channels``), its backbone on row shards over
     ``space`` (``partition_backbone``). Without a mesh, or at S = M = 1,
     the model is left as it is. Call it before the optimizer is made (it
-    replaces the split parameters by their slices).
-
-    The ranks of a data slice compute everything outside the split layers
-    and the backbone's row shards whole, each on its own, and nothing
-    reduces those gradients between them: they stay alike only if each
-    rank computes them bit for bit alike. On the card this sets
-    ``torch.backends.cudnn.deterministic`` (cuDNN's backward may otherwise
-    sum in another order on each rank; the port's kernels are
-    deterministic)."""
+    replaces the split parameters by their slices); a training step
+    reduces its gradients over the data slice (``reduce_mesh_grads``)."""
     mesh = current_mesh() if mesh is None else mesh
     if mesh is None or (mesh.space == 1 and mesh.model == 1):
         return model
-    if next(model.parameters()).is_cuda:
-        torch.backends.cudnn.deterministic = True
-        torch.backends.cudnn.benchmark = False
     model._mesh = mesh
     model._tp_plan = shard_model(model, mesh, min_channels)
     if mesh.space > 1:
@@ -45,10 +33,10 @@ def parallelize(model, mesh=None, min_channels: int = 256):
 
 
 __all__ = ["Mesh", "batch_sharding", "check_divisible", "check_mesh",
-           "check_mesh_divisible", "current_mesh", "data_axis_size",
+           "current_mesh", "data_axis_size",
            "data_shard", "global_average", "global_mean", "global_sum",
            "init_distributed", "init_mesh", "make_mesh", "model_axis_size",
-           "parallelize", "partition_backbone", "reduce_partial_grads",
+           "parallelize", "partition_backbone", "reduce_mesh_grads",
            "replicate", "set_mesh", "shard", "shard_batch", "shard_model",
            "shutdown", "spawn", "split_plan", "unused_parameters",
            "wrap_train_forward"]

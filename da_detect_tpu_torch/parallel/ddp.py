@@ -37,20 +37,31 @@ import torch.distributed as dist
 from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
-from .mesh import current_mesh, data_group, data_world
+from .mesh import check_divisible, current_mesh, data_group, data_world
 
 
-def init_distributed(device: torch.device, *, backend: str | None = None,
-                     init_method: str = "env://", rank: int | None = None,
+def card_for(local_rank: int, local_world: int,
+             cards: int) -> tuple[str, int]:
+    """(backend, card) of local rank ``local_rank`` of the ``local_world``
+    processes of a host with ``cards`` cards: NCCL, a card a rank, when
+    there are enough; else gloo, ranks sharing the cards (rank r on card
+    r modulo the cards; NCCL refuses two ranks on one card)."""
+    if local_world <= cards:
+        return "nccl", local_rank
+    return "gloo", local_rank % cards
+
+
+def init_distributed(device: torch.device, *, init_method: str = "env://",
+                     rank: int | None = None,
                      world_size: int | None = None) -> torch.device:
     """Start this process's group and return its device. ``rank`` and
     ``world_size`` default to the ``torchrun`` environment (RANK,
-    WORLD_SIZE; LOCAL_RANK picks the card); without WORLD_SIZE and without
-    them the process is alone and nothing starts. The backend is NCCL on
-    the card (device ``cuda:LOCAL_RANK``) and gloo on the CPU; ``backend``
-    overrides it (gloo on the card: ranks sharing a card, rank LOCAL_RANK on
-    card LOCAL_RANK modulo the cards; NCCL refuses two ranks on one card).
-    A backend that fails to start raises."""
+    WORLD_SIZE); without WORLD_SIZE and without them the process is alone
+    and nothing starts. On the CPU the backend is gloo; on the card it is
+    ``card_for``'s, of the host's local ranks (LOCAL_RANK and
+    LOCAL_WORLD_SIZE, else ``rank`` and ``world_size``: the processes
+    ``spawn`` starts on one host): a device without an index becomes the
+    rank's card. A backend that fails to start raises."""
     if dist.is_initialized():
         return device
     if world_size is None:
@@ -58,14 +69,15 @@ def init_distributed(device: torch.device, *, backend: str | None = None,
             return device
         world_size = int(os.environ["WORLD_SIZE"])
         rank = int(os.environ["RANK"])
-    if device.type == "cuda" and device.index is None:
-        local = int(os.environ.get("LOCAL_RANK", 0))
-        if backend == "gloo":
-            local %= torch.cuda.device_count()
-        device = torch.device("cuda", local)
+    backend = "gloo"
     if device.type == "cuda":
+        backend, card = card_for(
+            int(os.environ.get("LOCAL_RANK", rank)),
+            int(os.environ.get("LOCAL_WORLD_SIZE", world_size)),
+            torch.cuda.device_count())
+        if device.index is None:
+            device = torch.device("cuda", card)
         torch.cuda.set_device(device)
-    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     kw = dict(device_id=device) if backend == "nccl" else {}
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world_size, **kw)
@@ -124,14 +136,6 @@ def check_mesh(cfg, world: int) -> None:
         raise ValueError(f"TPU.MESH_DATA={t.MESH_DATA} with {world} "
                          f"processes and {inner} a data slice: set -1 (all) "
                          f"or {world // inner}")
-
-
-def check_divisible(batch_size: int, world: int, group: int = 1) -> None:
-    """A global batch of ``batch_size`` images in groups of ``group`` (3 for
-    a triple) must split evenly over the ranks (JAX ``check_divisible``)."""
-    if (batch_size // group) % world:
-        raise ValueError(f"batch of {batch_size // group} groups not "
-                         f"divisible by {world} ranks")
 
 
 def shard(args: tuple, rank: int, world: int) -> tuple:

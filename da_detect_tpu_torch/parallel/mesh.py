@@ -27,11 +27,20 @@ The collectives each mode runs in a training step, and over which group
   convolution one all-gather of the map forward and one all-reduce of its
   gradient backward; per output map of the backbone one all-gather forward
   (the backward keeps the own rows, no collective); after the backward one
-  all-reduce (sum) of the backbone's gradients; all over the space group.
+  all-reduce of every gradient (``reduce_mesh_grads``: the backbone's
+  partial sums summed, the rest averaged); all over the space group.
 - model (``model`` > 1): per split layer one all-gather of the output
   channels forward and one all-reduce of the input gradient backward; per
   split norm one all-gather of its vectors forward (the backward keeps the
-  own slice); over the model group.
+  own slice); after the backward one all-reduce (mean) of the replicated
+  leaves' gradients (``reduce_mesh_grads``); over the model group.
+
+The ranks of a data slice compute the replicated leaves' gradients each on
+its own. They agree only to rounding where an operation's order is not
+fixed (cuDNN's backward, say), so ``reduce_mesh_grads`` averages them over
+the slice: every rank then applies the same bits and the replicated
+parameters never drift apart, whatever the ops. Its cost is one all-reduce
+of those gradients a step (PERF.md, phase ``mesh2``).
 
 A single process (no process group) has no mesh: ``current_mesh()`` is
 None and every helper is the identity.
@@ -189,12 +198,51 @@ def data_rank() -> int:
     return comm.get_rank()
 
 
-def check_divisible(batch_size: int, mesh: Mesh | None, group: int = 1):
-    n = data_axis_size(mesh)
-    if (batch_size // group) % n != 0:
-        raise ValueError(
-            f"batch of {batch_size // group} groups not divisible by "
-            f"{n}-device data mesh")
+def check_divisible(batch_size: int, parts: int, group: int = 1) -> None:
+    """A global batch of ``batch_size`` images in groups of ``group`` (3 for
+    a triple) must split evenly over ``parts`` data ranks (JAX
+    ``check_divisible`` with ``parts = data_axis_size(mesh)``)."""
+    if (batch_size // group) % parts:
+        raise ValueError(f"batch of {batch_size // group} groups not "
+                         f"divisible by {parts} data ranks")
+
+
+def _all_reduce_flat(grads: list, group) -> None:
+    """Sum ``grads`` over ``group`` in place, in one all-reduce."""
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    at = 0
+    for g in grads:
+        g.copy_(flat[at:at + g.numel()].view_as(g))
+        at += g.numel()
+
+
+def reduce_mesh_grads(model) -> None:
+    """Make the gradients of ``model`` (under ``parallelize``) those of its
+    data slice, after the backward (DDP averages over data). Over space:
+    the backbone's are partial sums (``partition_backbone``), summed; every
+    other is whole on each rank, averaged. Over model: each rank's slice
+    of a split leaf is its own; every replicated leaf's is averaged.
+    Nothing for a model outside a mesh."""
+    mesh = getattr(model, "_mesh", None)
+    if mesh is None:
+        return
+    named = [(n, p) for n, p in model.named_parameters()
+             if p.grad is not None]
+    if mesh.space > 1:
+        partial = {id(p) for p in model._space_partial}
+        grads = [p.grad for _, p in named]
+        _all_reduce_flat(grads, mesh.space_group)
+        for _, p in named:
+            if id(p) not in partial:
+                p.grad.div_(mesh.space)
+    if mesh.model > 1:
+        grads = [p.grad for n, p in named if n not in model._tp_plan]
+        _all_reduce_flat(grads, mesh.model_group)
+        for g in grads:
+            g.div_(mesh.model)
 
 
 def replicate(tensors, mesh: Mesh | None):
@@ -249,7 +297,7 @@ class BatchSharding:
             if isinstance(node, (tuple, list)):
                 return type(node)(go(n) for n in node)
             if dataclasses.is_dataclass(node):
-                check_divisible(_leading(node), mesh)
+                check_divisible(_leading(node), mesh.data)
                 return dataclasses.replace(node, **{
                     f.name: cut(getattr(node, f.name), f.name == "images")
                     for f in dataclasses.fields(node)

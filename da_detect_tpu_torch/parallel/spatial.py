@@ -15,16 +15,18 @@ backward sends each fetched row's gradient back to its owner (one
 all-reduce of the strips' gradients) and adds it there. Layers:
 
 - ``MeshConv2d`` (every convolution of the body and the FPN: the 7x7/s2
-  stem, strided 3x3 and 1x1, grouped, the laterals, P6/P7) and the stem's
-  and the FPN's max pools: the H padding becomes fetched or padding rows;
+  stem, strided 3x3 and 1x1, grouped, the laterals, P6/P7) and the max
+  pools of the stem, the FPN and VGG-16 (``MeshRowOps``, replacing their
+  ``layers.RowOps`` methods): the H padding becomes fetched or padding
+  rows;
 - FrozenBN, ReLU and the residual sums: row-local, unchanged;
 - ``MeshGroupNorm``: each group's sum all-reduced over space for the mean,
   then its centred sum of squares for the variance (two passes, as
   accurate as the single process's Welford sums; Flax's E[x²] - E[x]²
   cancels in float32);
-- the FPN's nearest 2x upsample: the rows it repeats fetched (the range
-  of a map and of its upsampled lateral do not line up after an uneven
-  split);
+- the FPN's nearest 2x upsample (``MeshRowOps``): the rows it repeats
+  fetched (the range of a map and of its upsampled lateral do not line up
+  after an uneven split);
 - ``MeshDeformConv2d``: its samples reach anywhere, so it reads the whole
   map (one all-gather) and computes its own output rows; the backward sums
   the map's gradient over space (all-reduce) and keeps its own rows.
@@ -32,10 +34,11 @@ all-reduce of the strips' gradients) and adds it there. Layers:
 The backbone takes its data slice's whole canvases, cuts its own rows, and
 all-gathers each output map over space (backward: each rank keeps its own
 rows of the gradient): everything downstream (RPN, NMS, ROIAlign, heads,
-DA heads, losses) runs whole and identically on every space rank. The
-gradients of the backbone's parameters are partial sums, one a space rank:
-``reduce_partial_grads`` sums them over space after the backward (the data
-average is DDP's).
+DA heads, losses) runs whole on every space rank. The gradients of the
+backbone's parameters are partial sums, one a space rank, and those of
+the rest whole on each: ``mesh.reduce_mesh_grads`` sums the first and
+averages the second over space after the backward (the data average is
+DDP's).
 
 Global heights: a rank sees only its rows, so the backbone records each
 map's H under its width W and the rank's row count (W is never split;
@@ -54,7 +57,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..layers import Conv2d, DeformConv2d, GroupNorm
+from ..layers import Conv2d, DeformConv2d, GroupNorm, RowOps
 
 _HEIGHTS: dict | None = None  # the pass's {(W, own rows): global H}
 
@@ -333,7 +336,7 @@ def row_max_pool(x: torch.Tensor, mesh, k: int, s: int,
 
 
 def row_upsample_2x(x: torch.Tensor, mesh, like: torch.Tensor):
-    """``fpn.upsample_nearest_2x(x, like.shape[2:])`` on row shards: the
+    """``RowOps.upsample_2x(x, like)`` on row shards: the
     rows of ``like``'s range, output row o repeating input row o // 2."""
     h_out = global_height(like)
     needs = [(o0 // 2, (o1 - 1) // 2 + 1)
@@ -387,35 +390,17 @@ class MeshDeformConv2d(DeformConv2d):
             xs, om, impl, row0=row0, weight=w, groups=g))
 
 
-def stem_forward(stem, x: torch.Tensor) -> torch.Tensor:
-    x = F.relu(stem.bn1(stem.conv1(x)))
-    return row_max_pool(x, stem.conv1._mesh, 3, 2, 1)
+class MeshRowOps:
+    """Mixed into a backbone module's class (``layers.RowOps``): its max
+    pool and 2x upsample on row shards."""
 
+    def max_pool(self, x: torch.Tensor, kernel_size: int, stride: int,
+                 padding: int = 0) -> torch.Tensor:
+        return row_max_pool(x, self._mesh, kernel_size, stride, padding)
 
-def fpn_forward(fpn, features: list) -> list:
-    """``FPN.forward`` on row shards."""
-    mesh = fpn._mesh
-    inner = [fpn._conv(f"fpn_inner{i + 1}", f)
-             for i, f in enumerate(features)]
-    merged = [inner[-1]]
-    for i in range(len(inner) - 2, -1, -1):
-        merged.insert(0, inner[i] + row_upsample_2x(merged[0], mesh,
-                                                    inner[i]))
-    outs = [fpn._conv(f"fpn_layer{i + 1}", m) for i, m in enumerate(merged)]
-    if fpn.top_block == "p6p7":
-        p6 = fpn.fpn_p6(features[-1])
-        return outs + [p6, fpn.fpn_p7(F.relu(p6))]
-    return outs + [row_max_pool(outs[-1], mesh, 1, 2, 0)]
-
-
-def vgg_forward(vgg, x: torch.Tensor, impl: str = "cuda") -> list:
-    x = x.to(vgg.dtype)
-    for bi, block in enumerate(vgg.names):
-        for name in block:
-            x = F.relu(getattr(vgg, name)(x))
-        if bi < len(vgg.names) - 1:
-            x = row_max_pool(x, vgg._mesh, 2, 2, 0)
-    return [x]
+    def upsample_2x(self, x: torch.Tensor,
+                    like: torch.Tensor) -> torch.Tensor:
+        return row_upsample_2x(x, self._mesh, like)
 
 
 class SpatialBackbone:
@@ -447,14 +432,10 @@ def partition_backbone(model, mesh) -> list:
     """Put ``model.backbone`` on row shards over ``mesh``'s space group;
     returns its parameters (their gradients are partial sums)."""
     from ..models.backbone.backbone import ResNetBackbone
-    from ..models.backbone.fpn import FPN
-    from ..models.backbone.resnet import Stem
     from ..models.backbone.vgg import VGG16
 
     bb = model.backbone
-    if isinstance(bb, VGG16):
-        bb.__class__ = type("MeshVGG16", (VGG16,), {"forward": vgg_forward})
-    elif not isinstance(bb, ResNetBackbone):
+    if not isinstance(bb, (ResNetBackbone, VGG16)):
         raise NotImplementedError(
             f"spatial partitioning of a {type(bb).__name__} backbone "
             "(TPU.MESH_SPATIAL > 1 covers the ResNe[X]t, FPN and VGG-16 "
@@ -468,35 +449,18 @@ def partition_backbone(model, mesh) -> list:
             _swap(m, MeshConv2d, mesh)
         elif isinstance(m, GroupNorm):
             _swap(m, MeshGroupNorm, mesh)
+        elif isinstance(m, RowOps):
+            m.__class__ = _mixed(MeshRowOps, type(m))
+            m._mesh = mesh
+            continue
         else:
             continue
         m._rows = True
-    for m in bb.modules():
-        if isinstance(m, Stem):
-            m.__class__ = type("MeshStem", (Stem,),
-                               {"forward": stem_forward})
-        elif isinstance(m, FPN):
-            m.__class__ = type("MeshFPN", (FPN,), {"forward": fpn_forward})
-            m._mesh = mesh
-    base = type(bb)
-    bb.__class__ = type(f"Spatial{base.__name__}", (SpatialBackbone, base),
-                        {})
+    bb.__class__ = _mixed(SpatialBackbone, type(bb))
     bb._mesh = mesh
     return [p for p in bb.parameters() if p.requires_grad]
 
 
-def reduce_partial_grads(model) -> None:
-    """Sum the backbone's partial gradients over the space group (one
-    all-reduce); nothing for a model that is not on row shards."""
-    params = getattr(model, "_space_partial", None)
-    if not params:
-        return
-    grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
-        return
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=model._mesh.space_group)
-    at = 0
-    for g in grads:
-        g.copy_(flat[at:at + g.numel()].view_as(g))
-        at += g.numel()
+def _mixed(mixin, cls):
+    """``cls`` with ``mixin``'s methods first."""
+    return type(f"{mixin.__name__}{cls.__name__}", (mixin, cls), {})

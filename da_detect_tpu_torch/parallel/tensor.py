@@ -240,28 +240,34 @@ def _momentum_names(optimizer) -> list:
             for p in g["params"]]
 
 
-def full_optimizer_state(optimizer, model: nn.Module) -> dict:
-    """``optimizer.state_dict()`` with every split leaf's momentum whole."""
-    state = optimizer.state_dict()
+def _with_momentum(optimizer, model: nn.Module, state: dict, fn) -> dict:
+    """``state`` (an optimizer's state dict) with each split leaf's
+    momentum replaced by ``fn(momentum, dim)``, in copies of the
+    per-parameter dicts: ``optimizer.state_dict()`` packs the live ones,
+    which must keep their slices."""
     plan = _plan(model)
     if not plan:
         return state
     names = _momentum_names(optimizer)
-    for i, st in state["state"].items():
-        if names[i] in plan and st.get("momentum_buffer") is not None:
-            st["momentum_buffer"] = _full(st["momentum_buffer"],
-                                          plan[names[i]], model._mesh)
-    return state
+    out = dict(state, state={i: dict(st) for i, st in state["state"].items()})
+    for i, st in out["state"].items():
+        name = names[int(i)]
+        if name in plan and st.get("momentum_buffer") is not None:
+            st["momentum_buffer"] = fn(st["momentum_buffer"], plan[name])
+    return out
+
+
+def full_optimizer_state(optimizer, model: nn.Module) -> dict:
+    """``optimizer.state_dict()`` with every split leaf's momentum whole
+    (gathered over model: every rank calls it); the optimizer keeps its
+    slices."""
+    return _with_momentum(optimizer, model, optimizer.state_dict(),
+                          lambda m, dim: _full(m, dim, model._mesh))
 
 
 def local_optimizer_state(optimizer, model: nn.Module, state: dict) -> dict:
-    plan = _plan(model)
-    if not plan:
-        return state
-    names = _momentum_names(optimizer)
-    for i, st in state["state"].items():
-        if names[int(i)] in plan and st.get("momentum_buffer") is not None:
-            st["momentum_buffer"] = local_value(
-                st["momentum_buffer"], plan[names[int(i)]],
-                model._mesh).clone()
-    return state
+    """A whole optimizer ``state`` (a checkpoint's) cut to this rank's
+    slices of the split leaves' momentum."""
+    return _with_momentum(
+        optimizer, model, state,
+        lambda m, dim: local_value(m, dim, model._mesh).clone())

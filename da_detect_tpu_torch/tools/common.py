@@ -17,8 +17,8 @@ logs to ``log_rank<r>.txt`` there. Run plainly, a CLI is one process.
 ``TPU.MESH_SPATIAL S`` and ``TPU.MESH_MODEL M`` fold the ranks into the
 (data, space, model) mesh (``parallel/mesh.py``): each data slice of S * M
 ranks trains on one rank's worth of triples, its backbone on row shards
-over space and its wide layers split over model. ``--dist-backend gloo``
-lets ranks share a card (rank r on card r modulo the cards; NCCL refuses
+over space and its wide layers split over model. More ranks than cards
+share them through gloo (rank r on card r modulo the cards; NCCL refuses
 two ranks on one card).
 """
 
@@ -55,10 +55,6 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--profile", default="",
                    help="directory to write a torch.profiler trace of "
                         "iterations 10-20")
-    p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
-                   help="under torchrun: the process group's backend "
-                        "(default NCCL on the card, gloo on the CPU; gloo "
-                        "lets ranks share a card)")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     return p
 
@@ -70,8 +66,7 @@ def setup(args, logger_name: str):
     the rank's card), ``TPU.MESH_*`` are checked against its size and the
     mesh is made (``parallel.init_mesh``)."""
     setup_environment()
-    device = init_distributed(resolve_device(args.device),
-                              backend=getattr(args, "dist_backend", None))
+    device = init_distributed(resolve_device(args.device))
     rank, world = comm.get_rank(), comm.get_world_size()
     cfg = get_cfg()
     if args.config_file:

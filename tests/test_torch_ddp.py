@@ -510,6 +510,16 @@ def test_loader_rank_defaults_to_comm(tiny, monkeypatch):
     assert [ids for _, ids in got] == [ids for _, ids in want]
 
 
+@pytest.mark.parametrize("local_rank,local_world,cards,want", [
+    (1, 2, 2, ("nccl", 1)), (0, 1, 1, ("nccl", 0)), (0, 2, 1, ("gloo", 0)),
+    (1, 2, 1, ("gloo", 0)), (3, 4, 2, ("gloo", 1))])
+def test_backend_follows_local_ranks_per_card(local_rank, local_world,
+                                              cards, want):
+    """NCCL with a card a local rank; more local ranks than cards share
+    them through gloo, rank r on card r modulo the cards."""
+    assert parallel.ddp.card_for(local_rank, local_world, cards) == want
+
+
 @pytest.mark.parametrize("key,value,error", [
     ("TPU.MESH_SPATIAL", 3, ValueError),
     ("TPU.MESH_MODEL", 3, ValueError),

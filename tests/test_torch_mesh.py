@@ -113,7 +113,8 @@ def test_make_mesh_not_divisible():
         with pytest.raises(ValueError, match="not divisible"):
             parallel.make_mesh(8, **kw)
     with pytest.raises(ValueError, match="not divisible"):
-        parallel.check_mesh_divisible(6, parallel.make_mesh(8, spatial=2))
+        parallel.check_divisible(
+            6, parallel.data_axis_size(parallel.make_mesh(8, spatial=2)))
 
 
 @pytest.mark.parametrize("spatial,model", [(4, 1), (2, 2)])
@@ -375,6 +376,20 @@ def test_split_layers_match_one_process(run):
                                        atol=1e-5, msg=n)
 
 
+def test_replicated_gradients_averaged_over_the_slice(run):
+    """Under (data=2, model=2), gradients that differ by rank: a split
+    leaf's slice stays the rank's own; a replicated leaf's becomes its
+    model group's mean, the same bits on both ranks (DDP then averages
+    over data)."""
+    for r, got in enumerate(run["ranks"]):
+        g = got["grad_mean"]
+        assert set(g["plan"]) == {"wide.weight", "wide.bias"}
+        mate = r ^ 1  # the other rank of its model group
+        for n, grad in g["grads"].items():
+            want = r + 1.0 if n in g["plan"] else (r + mate + 2) / 2
+            assert torch.equal(grad, torch.full_like(grad, want)), n
+
+
 def _close(got: dict, want: dict, rtol: float, atol: float) -> list:
     """The leaves of ``got`` off ``want`` beyond rtol/atol."""
     return [n for n, w in want.items() if not np.allclose(
@@ -501,19 +516,24 @@ def test_backbone_on_row_shards_matches_single_process(run, label):
 
 
 def test_model_split_checkpoint_equals_single_process(run, tmp_path):
-    """A checkpoint written under model=2 holds one process's keys and
-    shapes, and values within the step bound of its 2 steps; its momentum
-    is whole; a fresh split model resumes it exactly."""
+    """A run under model=2 that saves after step 1 and trains on takes the
+    same steps, bit for bit, as (d)'s run that never saves. Its last
+    checkpoint holds one process's keys and shapes, and values within the
+    step bound of its steps; its momentum is whole; a fresh split model
+    resumes it exactly."""
     from da_detect_tpu_torch.utils.checkpoint import Checkpointer
 
     got = [r["checkpoint"] for r in run["ranks"]]
-    assert all(g["start"] == 2 and g["resumed_model"]
+    for g, unsaved in zip(got, (r["model"] for r in run["ranks"])):
+        assert g["losses"] == unsaved["losses"]
+        for n, p in unsaved["params"].items():
+            assert torch.equal(g["params"][n], p), n
+    assert all(g["start"] == STEPS and g["resumed_model"]
                and g["resumed_momentum"] for g in got)
     saved = torch.load(got[0]["path"], weights_only=True)
-    single = _single_run(run["pcfg"], run["variables"],
-                         _to_port(_global_batch(_step_cfgs()[0])), 2)
+    single = run["single"]
     model = single["state"].model
-    path = Checkpointer(str(tmp_path)).save(2, single["state"])
+    path = Checkpointer(str(tmp_path)).save(STEPS, single["state"])
     ref = torch.load(path, weights_only=True)
     assert set(saved["model"]) == set(ref["model"])
     for k, v in ref["model"].items():

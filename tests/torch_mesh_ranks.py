@@ -38,10 +38,11 @@ def _full_params(model) -> dict:
     return {n: full[n].clone() for n, _ in model.named_parameters()}
 
 
-def _steps(spec, mesh, ddp_group=None) -> dict:
+def _steps(spec, mesh, ddp_group=None, after_first=None) -> dict:
     """``spec["steps"]`` triplet steps on this rank's data slice of the
     global batch: each step's losses and DAState, the whole parameters
-    after step 1 and at the end, and this rank's own slices."""
+    after step 1 and at the end, and this rank's own slices.
+    ``after_first(state)`` runs after step 1."""
     from da_detect_tpu_torch.engine.trainer import (create_train_state,
                                                     make_train_step)
     from da_detect_tpu_torch.parallel import data_shard, wrap_train_forward
@@ -62,6 +63,8 @@ def _steps(spec, mesh, ddp_group=None) -> dict:
                        for f in dataclasses.fields(state.da_state)})
         if i == 0:
             first = _full_params(model)
+            if after_first is not None:
+                after_first(state)
     return dict(losses=losses, da_states=states, first=first,
                 params=_full_params(model),
                 local={n: p.detach().clone()
@@ -71,17 +74,19 @@ def _steps(spec, mesh, ddp_group=None) -> dict:
 
 
 def _checkpoint(spec, mesh, out_dir: str) -> dict:
-    """Two steps under ``mesh`` (model=2), a save by every rank, then a
-    fresh split model and optimizer resumed from it: its whole parameters
-    and momentum against the file's."""
+    """The steps under ``mesh`` (model=2) with a save by every rank after
+    step 1 (training goes on from the live state) and at the end, then a
+    fresh split model and optimizer resumed from the last file: its whole
+    parameters and momentum against the file's."""
     from da_detect_tpu_torch.engine.trainer import create_train_state
     from da_detect_tpu_torch.parallel.tensor import (full_optimizer_state,
                                                      full_state_dict)
     from da_detect_tpu_torch.utils.checkpoint import Checkpointer
 
-    run = _steps(dict(spec, steps=2), mesh)
-    state = run["state"]
     ckpt = Checkpointer(out_dir)
+    run = _steps(spec, mesh,
+                 after_first=lambda st: ckpt.save(st.step, st))
+    state = run["state"]
     path = ckpt.save(state.step, state)
     fresh_model = _model(spec["cfg"], spec["variables"], mesh,
                          spec["min_channels"])
@@ -91,7 +96,8 @@ def _checkpoint(spec, mesh, out_dir: str) -> dict:
     model_state = full_state_dict(fresh.model)
     momentum = full_optimizer_state(fresh.optimizer, fresh.model)["state"]
     return dict(
-        path=path, start=start, local_shapes={
+        path=path, start=start, losses=run["losses"], params=run["params"],
+        local_shapes={
             n: tuple(p.shape) for n, p in fresh.model.named_parameters()},
         resumed_model=all(torch.equal(v, saved["model"][k])
                           for k, v in model_state.items())
@@ -119,8 +125,7 @@ def backbone_pass(cfg, images, mesh=None, seed: int = 0) -> dict:
     its parameters (a space mesh's partial sums summed over space)."""
     from da_detect_tpu_torch.entry import prepare_model
     from da_detect_tpu_torch.models import build_detection_model
-    from da_detect_tpu_torch.parallel import (parallelize,
-                                              reduce_partial_grads)
+    from da_detect_tpu_torch.parallel import parallelize, reduce_mesh_grads
 
     model = prepare_model(build_detection_model(cfg, seed=0), CPU)
     parallelize(model, mesh)
@@ -129,7 +134,7 @@ def backbone_pass(cfg, images, mesh=None, seed: int = 0) -> dict:
     loss = sum((f.float() * torch.randn(f.shape, generator=gen)).sum()
                for f in feats)
     loss.backward()
-    reduce_partial_grads(model)
+    reduce_mesh_grads(model)
     return dict(feats=[f.detach() for f in feats],
                 grads={n: p.grad.clone() for n, p in
                        model.backbone.named_parameters()
@@ -168,6 +173,23 @@ def layer_pass(mesh=None) -> dict:
         for n, p in stack.named_parameters()})
 
 
+def grad_mean(mesh, rank: int) -> dict:
+    """Two linear layers under ``mesh`` (model=2; the first split, at 32
+    channels), each gradient set to rank + 1 as if the ranks had summed
+    in another order: the gradients ``reduce_mesh_grads`` leaves."""
+    from da_detect_tpu_torch.layers import Linear
+    from da_detect_tpu_torch.parallel import parallelize, reduce_mesh_grads
+
+    torch.manual_seed(0)
+    stack = torch.nn.ModuleDict(dict(wide=Linear(8, 32), head=Linear(32, 4)))
+    parallelize(stack, mesh, 32)
+    for p in stack.parameters():
+        p.grad = torch.full_like(p, float(rank + 1))
+    reduce_mesh_grads(stack)
+    return dict(plan=dict(stack._tp_plan),
+                grads={n: p.grad for n, p in stack.named_parameters()})
+
+
 def rank_work(rank: int, world: int, init_method: str, spec: dict) -> dict:
     from da_detect_tpu_torch import parallel
     from da_detect_tpu_torch.parallel import (init_distributed, make_mesh,
@@ -187,6 +209,7 @@ def rank_work(rank: int, world: int, init_method: str, spec: dict) -> dict:
     out["replicated"] = parallel.replicate(
         [torch.full((3,), float(rank))], mesh)[0]
     out["layers"] = layer_pass(under(1, 2))
+    out["grad_mean"] = grad_mean(under(1, 2), rank)
     for label, s, m in spec["meshes"]:
         run = _steps(spec["step"], under(s, m))
         run.pop("state")
