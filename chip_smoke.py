@@ -81,7 +81,15 @@ Phases, one JSON line each:
                alike on both ranks, each rank's launches (the train
                phase's a step), an eval request's detections against one
                process's; each rank's step times, peak memory, and
-               parameter and momentum bytes
+               parameter and momentum bytes. Then the FBNet models at
+               their published widths under both meshes (line
+               "mesh2_fbnet"): the xirb16d_dsmask Mask R-CNN at 320x640
+               (a request with masks, every detection with its twin in
+               one process's; its source-only step 1 on 2 images on the
+               same draws, with the same checks as the flagship's) and,
+               under space=2, a request of the chamv1a Faster R-CNN at
+               600x1000; exact launches a rank; each rank's request and
+               step times and peak memory
   8. dcn       the X-101-32x8d-FPN-DCN YAML at 608x1216 in float32 through
                ``entry(cfg=dcn_cfg())``: 4 requests with exact launch counts
                (row_gather 270 a forward, NMS 6, ROIAlign 1: each ROI from
@@ -334,6 +342,7 @@ see BF16_ROI_ULPS and the notes beside it.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import logging
@@ -2459,6 +2468,16 @@ DDP2_WORLD, DDP2_TIMED_STEPS, DDP2_PARAM_REL = 2, 4, 1e-3
 # (ddp2's bounds); then MESH2_TIMED_STEPS steps of each rank timed
 MESH2_MODES = (("sp2", 2, 1), ("tp2", 1, 2))
 MESH2_TIMED_STEPS = 2
+# phase mesh2's FBNet runs, in the same spawn, each against one process:
+# the xirb16d_dsmask Mask R-CNN at its published widths and 320x640 canvas
+# (one eval request with masks, then one source-only step on
+# FBNET_MESH_IMAGES images) under each (label, space, model) mesh, and one
+# request of the chamv1a Faster R-CNN at 600x1000 under space=2 (its
+# depthwise kernels reach 5 and 7, its 75-row map pads 1/1 before a
+# stride-2 conv); each request timed MESH_REQUEST_RUNS more times
+FBNET_MESH_MODES = (("fbnet_sp2", 2, 1), ("fbnet_tp2", 1, 2))
+FBNET_CHAM_MESH_MODES = (("fbnet_cham_sp2", 2, 1),)
+FBNET_MESH_IMAGES, MESH_REQUEST_RUNS = 2, 3
 
 
 @contextlib.contextmanager
@@ -2622,20 +2641,52 @@ def ddp2_model(cfg, dev):
     return create_train_state(cfg, model, 0, "cosine")
 
 
+def mesh_step(model, state, step, args, draws, rows: slice, dev) -> dict:
+    """Step 1 of ``step`` on ``args`` with the recorded ``draws``' ``rows``
+    (launches counted, peak memory), the whole parameters (split leaves
+    gathered) and this rank's own, its parameter and momentum bytes; then
+    MESH2_TIMED_STEPS steps timed."""
+    from da_detect_tpu_torch import kernels
+    from da_detect_tpu_torch.parallel.tensor import full_state_dict
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.LAUNCHES.clear()
+    with draws.inject(rows):
+        state, metrics = step(state, *args)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    out = step_record(state, metrics)
+    full = full_state_dict(model)
+    out["params"] = {n: full[n].to("cpu", copy=True) for n, _ in
+                     model.named_parameters()}
+    out["local"] = {n: p.detach().to("cpu", copy=True) for n, p in
+                    model.named_parameters()}
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    momentum_bytes = sum(b.numel() * b.element_size() for b in
+                         state.optimizer.momentum_buffers().values())
+    times = []
+    for _ in range(MESH2_TIMED_STEPS):
+        state, ms = timed_step(step, state, args)
+        times.append(ms)
+    return dict(out, launches=launches, peak_bytes=peak,
+                param_bytes=param_bytes, momentum_bytes=momentum_bytes,
+                split_leaves=len(model._tp_plan),
+                step_ms=times)
+
+
 def mesh2_rank(cfg, dev, spec: dict, spatial: int, model_ranks: int):
     """One rank's run of phase mesh2 under the (1, spatial, model_ranks)
-    mesh: the eval request at the initial weights, step 1 on one triple on
-    the recorded draws (launches counted, peak memory), the whole
-    parameters (split leaves gathered) and this rank's own, its parameter
-    and momentum bytes; then MESH2_TIMED_STEPS steps timed."""
-    from da_detect_tpu_torch import kernels
+    mesh: the eval request at the initial weights, then ``mesh_step`` on
+    one triple on the recorded draws."""
     from da_detect_tpu_torch.engine.trainer import (create_train_state,
                                                     make_train_step)
     from da_detect_tpu_torch.entry import prepare_model
     from da_detect_tpu_torch.models import build_detection_model
     from da_detect_tpu_torch.parallel import (make_mesh, parallelize,
                                               set_mesh, wrap_train_forward)
-    from da_detect_tpu_torch.parallel.tensor import full_state_dict
 
     mesh = make_mesh(spatial=spatial, model=model_ranks)
     set_mesh(mesh)
@@ -2652,33 +2703,103 @@ def mesh2_rank(cfg, dev, spec: dict, spatial: int, model_ranks: int):
             model, state.optimizer, aligned=False, deterministic=True,
             forward=wrap_train_forward(model, "da_triplet"))
         args = tuple(a.to(dev) for a in spec["args"])
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        kernels.LAUNCHES.clear()
-        with spec["draws"].inject(slice(0, 1)):
-            state, metrics = step(state, *args)
-        torch.cuda.synchronize()
-        launches = dict(kernels.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated(dev)
-        out = step_record(state, metrics)
-        full = full_state_dict(model)
-        out["params"] = {n: full[n].to("cpu", copy=True) for n, _ in
-                         model.named_parameters()}
-        out["local"] = {n: p.detach().to("cpu", copy=True) for n, p in
-                        model.named_parameters()}
-        param_bytes = sum(p.numel() * p.element_size()
-                          for p in model.parameters())
-        momentum_bytes = sum(b.numel() * b.element_size() for b in
-                             state.optimizer.momentum_buffers().values())
-        times = []
-        for _ in range(MESH2_TIMED_STEPS):
-            state, ms = timed_step(step, state, args)
-            times.append(ms)
-        return dict(out, launches=launches, peak_bytes=peak, dets=dets,
-                    param_bytes=param_bytes, momentum_bytes=momentum_bytes,
-                    split_leaves=len(model._tp_plan), step_ms=times)
+        out = mesh_step(model, state, step, args, spec["draws"],
+                        slice(0, 1), dev)
+        return dict(out, dets=dets)
     finally:
         set_mesh(None)
+
+
+def fbnet_mesh_model(yaml: str, dev, mesh=None):
+    """(cfg, model): an FBNet YAML at its own canvas in float32 (phase
+    fbnet's: ``entry.fbnet_cfg``, weights from seed 0, score layers
+    spread), under ``mesh`` (``parallelize``) when given."""
+    from da_detect_tpu_torch import entry
+    from da_detect_tpu_torch.models import build_detection_model
+    from da_detect_tpu_torch.parallel import parallelize
+
+    cfg = entry.fbnet_cfg(yaml, "float32")
+    cfg.freeze()
+    model = entry.prepare_model(build_detection_model(cfg, seed=0), dev)
+    spread_scores(model)
+    if mesh is not None:
+        parallelize(model, mesh)
+    return cfg, model
+
+
+def mesh_request(model, batch, masks: bool, dev) -> dict:
+    """One eval request (with masks for a mask model), launches counted,
+    peak memory: its detections (and mask probabilities) on the CPU; then
+    MESH_REQUEST_RUNS more requests timed on the host's clock."""
+    from da_detect_tpu_torch import kernels
+
+    def request():
+        with torch.no_grad():
+            return model(batch, with_masks=True) if masks else model(batch)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.LAUNCHES.clear()
+    out = request()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    dets, probs = out if masks else (out, None)
+    times = []
+    for _ in range(MESH_REQUEST_RUNS):
+        t0 = time.perf_counter()
+        request()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return dict(dets=type(dets)(*[t.cpu() for t in dets]),
+                probs=None if probs is None else probs.cpu(),
+                launches=launches, peak_bytes=peak, request_ms=times)
+
+
+def fbnet_mesh_rank(dev, spec: dict, spatial: int, model_ranks: int):
+    """One rank's FBNet runs of phase mesh2 under the (1, spatial,
+    model_ranks) mesh: the mask model's request (``mesh_request``) at the
+    initial weights, then its source-only step on FBNET_MESH_IMAGES images
+    on the recorded draws (``mesh_step``)."""
+    from da_detect_tpu_torch import entry
+    from da_detect_tpu_torch.engine.trainer import (create_train_state,
+                                                    make_train_step)
+    from da_detect_tpu_torch.parallel import (make_mesh, set_mesh,
+                                              wrap_train_forward)
+
+    mesh = make_mesh(spatial=spatial, model=model_ranks)
+    set_mesh(mesh)
+    try:
+        cfg, model = fbnet_mesh_model(entry.FBNET_MASK_YAML, dev, mesh)
+        request = mesh_request(model, spec["batch"].to(dev), True, dev)
+        state = create_train_state(cfg, model, 0, "multistep")
+        step = make_train_step(
+            model, state.optimizer, aligned=False, deterministic=True,
+            forward=wrap_train_forward(model, "source_only"))
+        args = tuple(a.to(dev) for a in spec["args"])
+        out = mesh_step(model, state, step, args, spec["draws"],
+                        slice(0, FBNET_MESH_IMAGES), dev)
+        return dict(out, request=request)
+    finally:
+        set_mesh(None)
+        torch.cuda.empty_cache()
+
+
+def fbnet_cham_mesh_rank(dev, spec: dict, spatial: int, model_ranks: int):
+    """One rank's request of the chamv1a Faster R-CNN under the (1,
+    spatial, model_ranks) mesh (``mesh_request``)."""
+    from da_detect_tpu_torch import entry
+    from da_detect_tpu_torch.parallel import make_mesh, set_mesh
+
+    mesh = make_mesh(spatial=spatial, model=model_ranks)
+    set_mesh(mesh)
+    try:
+        _, model = fbnet_mesh_model(entry.FBNET_CHAM_YAML, dev, mesh)
+        return dict(request=mesh_request(
+            model, spec["cham_batch"].to(dev), False, dev))
+    finally:
+        set_mesh(None)
+        torch.cuda.empty_cache()
 
 
 def ddp2_rank(rank, world, init_method, cfg, args, draws, mesh_spec):
@@ -2715,8 +2836,16 @@ def ddp2_rank(rank, world, init_method, cfg, args, draws, mesh_spec):
     torch.cuda.empty_cache()
     meshes = {label: mesh2_rank(cfg, dev, mesh_spec, spatial, model_ranks)
               for label, spatial, model_ranks in MESH2_MODES}
+    t0 = time.perf_counter()
+    fbnet = {label: fbnet_mesh_rank(dev, mesh_spec["fbnet"], spatial,
+                                    model_ranks)
+             for label, spatial, model_ranks in FBNET_MESH_MODES}
+    fbnet.update({label: fbnet_cham_mesh_rank(dev, mesh_spec["fbnet"],
+                                              spatial, model_ranks)
+                  for label, spatial, model_ranks in FBNET_CHAM_MESH_MODES})
     return dict(out, launches=launches, step_ms=times,
                 device=torch.cuda.get_device_name(dev), meshes=meshes,
+                fbnet=fbnet, fbnet_s=time.perf_counter() - t0,
                 backend=torch.distributed.get_backend())
 
 
@@ -2762,6 +2891,116 @@ def mesh2_reference(cfg, dev) -> dict:
         *[t.cpu() for t in dets]), spec=spec)
 
 
+def check_launches(got: dict, expected: dict, what: str) -> None:
+    """Raises unless ``got`` (a rank's ``kernels.LAUNCHES``) holds exactly
+    ``expected``'s launches, and no other kernel's."""
+    got = {k: n for k, n in got.items() if n}
+    if got != expected:
+        raise AssertionError(f"{what}: launched {got}, expected {expected}")
+
+
+def check_mesh_step(label: str, runs: list, want: dict, init: dict,
+                    per_step: dict) -> dict:
+    """A mesh's two ranks' step 1 (``mesh_step``) against one process's
+    (ddp2's bounds) and each other: exact launches (``per_step``), the
+    ranks' losses, DAState and whole parameters bit for bit alike, the
+    replicated leaves bit for bit alike, the losses and DAState within
+    TRAIN_LOSS_RTOL and each leaf's change within DDP2_PARAM_REL of one
+    process's. Returns the step's summary."""
+    for r, got in enumerate(runs):
+        check_launches(got["launches"], per_step, f"{label}: rank {r}")
+        diff = first_difference(
+            dict(got, params=list(got["params"].values())),
+            dict(runs[0], params=list(runs[0]["params"].values())),
+            list(got["params"]))
+        if diff is not None:
+            raise AssertionError(f"{label}: rank {r} differs from rank 0: "
+                                 f"{diff}")
+    got = runs[0]
+    replicated = [n for n, p in got["local"].items()
+                  if p.shape == got["params"][n].shape]
+    for n in replicated:
+        if not torch.equal(runs[1]["local"][n], got["local"][n]):
+            raise AssertionError(f"{label}: replicated {n} differs "
+                                 "between the ranks")
+    bad = {k: (got["losses"][k], v) for k, v in want["losses"].items()
+           if abs(got["losses"][k] - v) > TRAIN_LOSS_RTOL * abs(v)}
+    if bad or set(got["losses"]) != set(want["losses"]):
+        raise AssertionError(f"{label}: losses differ from one process's: "
+                             f"{bad}")
+    state_tol = [1e-6, 1e-6] + [TRAIN_LOSS_RTOL * abs(v)
+                                for v in want["da_state"][2:]]
+    if any(abs(a - b) > t for a, b, t in zip(
+            got["da_state"], want["da_state"], state_tol)):
+        raise AssertionError(f"{label}: DAState {got['da_state']} against "
+                             f"{want['da_state']}")
+    worst, worst_leaf = 0.0, None
+    for n, p0 in init.items():
+        p, q = want["params"][n], got["params"][n]
+        change = float((p - p0).abs().max())
+        ulp = 1.2e-7 * float(p0.abs().max())
+        ratio = float((q - p).abs().max()) / (
+            DDP2_PARAM_REL * change + ulp + 1e-30)
+        if ratio > worst:
+            worst, worst_leaf = ratio, n
+    if worst > 1.0:
+        raise AssertionError(f"{label}: parameter {worst_leaf} off one "
+                             f"process's step: {worst:.3f} x its bound")
+    return dict(
+        losses=got["losses"], da_state=got["da_state"],
+        param_bound_used=worst, worst_param_leaf=worst_leaf,
+        replicated_leaves_bitwise=len(replicated),
+        split_leaves=got["split_leaves"],
+        launches_by_rank=[r["launches"] for r in runs],
+        step_ms={f"rank{r}": x["step_ms"] for r, x in enumerate(runs)},
+        step_ms_median={f"rank{r}": statistics.median(x["step_ms"])
+                        for r, x in enumerate(runs)},
+        peak_bytes=[x["peak_bytes"] for x in runs],
+        param_bytes=[x["param_bytes"] for x in runs],
+        momentum_bytes=[x["momentum_bytes"] for x in runs])
+
+
+def check_mesh_request(label: str, requests: list, want: dict,
+                       per_forward: dict) -> dict:
+    """A mesh's two ranks' request (``mesh_request``) against one
+    process's: exact launches (``per_forward``), the ranks' detections and
+    masks bit for bit alike, every detection with its twin in one
+    process's (``match_detections``: DET_BOX_ATOL, DET_SCORE_ATOL) and, on
+    the same detections in the same order, the largest mask probability
+    difference. Returns the request's summary."""
+    got = requests[0]
+    if not bool(want["dets"].valid.any()):
+        raise AssertionError(f"{label}: one process's request detected "
+                             "nothing, so nothing is compared")
+    for r, req in enumerate(requests):
+        check_launches(req["launches"], per_forward, f"{label}: rank {r}")
+        if any(not torch.equal(a, b) for a, b in zip(req["dets"],
+                                                     got["dets"])) \
+                or (got["probs"] is not None
+                    and not torch.equal(req["probs"], got["probs"])):
+            raise AssertionError(f"{label}: rank {r}'s request differs "
+                                 "from rank 0's")
+    dets = match_detections(got["dets"], want["dets"])
+    out = dict(detections=dets,
+               request_ms={f"rank{r}": x["request_ms"]
+                           for r, x in enumerate(requests)},
+               request_ms_median={f"rank{r}": statistics.median(
+                   x["request_ms"]) for r, x in enumerate(requests)},
+               request_peak_bytes=[x["peak_bytes"] for x in requests])
+    if got["probs"] is not None:
+        probs, valid = got["probs"], got["dets"].valid
+        if tuple(probs.shape) != tuple(want["probs"].shape) \
+                or not bool(((probs >= 0) & (probs <= 1)).all()):
+            raise AssertionError(f"{label}: mask probabilities "
+                                 f"{tuple(probs.shape)}")
+        same_order = torch.equal(valid, want["dets"].valid) and torch.equal(
+            got["dets"].labels[valid], want["dets"].labels[valid])
+        out["mask_max_abs_diff"] = float(
+            (probs[valid] - want["probs"][valid]).abs().max()) \
+            if same_order else None
+    return out
+
+
 def check_mesh2(ref: dict, ranks: list) -> dict:
     """Phase mesh2's checks of each mesh's two ranks against the single
     process (ddp2's bounds) and each other; emits its line; returns each
@@ -2771,77 +3010,113 @@ def check_mesh2(ref: dict, ranks: list) -> dict:
     for label, _, _ in MESH2_MODES:
         runs = [r["meshes"][label] for r in ranks]
         for r, got in enumerate(runs):
-            for k, n in PER_TRAIN_STEP.items():
-                if got["launches"].get(k) != n:
-                    raise AssertionError(
-                        f"mesh2 {label}: rank {r} launched {k} "
-                        f"{got['launches'].get(k)} times, expected {n}")
-            diff = first_difference(
-                dict(got, params=list(got["params"].values())),
-                dict(runs[0], params=list(runs[0]["params"].values())),
-                list(got["params"]))
-            if diff is not None:
-                raise AssertionError(f"mesh2 {label}: rank {r} differs "
-                                     f"from rank 0: {diff}")
             if any(not torch.equal(a, b) for a, b in zip(got["dets"],
                                                          runs[0]["dets"])):
                 raise AssertionError(f"mesh2 {label}: rank {r}'s "
                                      "detections differ from rank 0's")
-        got = runs[0]
-        replicated = [n for n, p in got["local"].items()
-                      if p.shape == got["params"][n].shape]
-        for n in replicated:
-            if not torch.equal(runs[1]["local"][n], got["local"][n]):
-                raise AssertionError(f"mesh2 {label}: replicated {n} "
-                                     "differs between the ranks")
-        bad = {k: (got["losses"][k], v) for k, v in want["losses"].items()
-               if abs(got["losses"][k] - v) > TRAIN_LOSS_RTOL * abs(v)}
-        if bad or set(got["losses"]) != set(want["losses"]):
-            raise AssertionError(f"mesh2 {label}: losses differ from one "
-                                 f"process's: {bad}")
-        state_tol = [1e-6, 1e-6] + [TRAIN_LOSS_RTOL * abs(v)
-                                    for v in want["da_state"][2:]]
-        if any(abs(a - b) > t for a, b, t in zip(
-                got["da_state"], want["da_state"], state_tol)):
-            raise AssertionError(f"mesh2 {label}: DAState "
-                                 f"{got['da_state']} against "
-                                 f"{want['da_state']}")
-        worst, worst_leaf = 0.0, None
-        for n, p0 in init.items():
-            p, q = want["params"][n], got["params"][n]
-            change = float((p - p0).abs().max())
-            ulp = 1.2e-7 * float(p0.abs().max())
-            ratio = float((q - p).abs().max()) / (
-                DDP2_PARAM_REL * change + ulp + 1e-30)
-            if ratio > worst:
-                worst, worst_leaf = ratio, n
-        if worst > 1.0:
-            raise AssertionError(f"mesh2 {label}: parameter {worst_leaf} "
-                                 f"off one process's step: {worst:.3f} x "
-                                 "its bound")
-        dets = match_detections(got["dets"], ref["dets"])
+        summary[label] = dict(
+            check_mesh_step(f"mesh2 {label}", runs, want, init,
+                            PER_TRAIN_STEP),
+            detections=match_detections(runs[0]["dets"], ref["dets"]))
         paths[f"mesh2_{label}"] = {
             k: sum(r["launches"].get(k, 0) for r in runs)
             for k in PER_TRAIN_STEP}
-        summary[label] = dict(
-            losses=got["losses"], da_state=got["da_state"],
-            param_bound_used=worst, worst_param_leaf=worst_leaf,
-            replicated_leaves_bitwise=len(replicated),
-            split_leaves=got["split_leaves"],
-            launches_by_rank=[r["launches"] for r in runs],
-            detections=dets,
-            step_ms={f"rank{r}": x["step_ms"] for r, x in enumerate(runs)},
-            step_ms_median={f"rank{r}": statistics.median(x["step_ms"])
-                            for r, x in enumerate(runs)},
-            peak_bytes=[x["peak_bytes"] for x in runs],
-            param_bytes=[x["param_bytes"] for x in runs],
-            momentum_bytes=[x["momentum_bytes"] for x in runs])
     emit("mesh2", world=DDP2_WORLD, backend=ranks[0]["backend"], triples=1,
          single=dict(losses=want["losses"], step_ms=want["step_ms"],
                      step_ms_median=statistics.median(want["step_ms"]),
                      peak_bytes=want["peak_bytes"],
                      param_bytes=want["param_bytes"],
                      momentum_bytes=want["momentum_bytes"]),
+         meshes=summary)
+    return paths
+
+
+def fbnet_mesh_reference(dev) -> dict:
+    """Phase mesh2's FBNet single process: the mask model's request
+    (``mesh_request``), then its source-only step 1 on FBNET_MESH_IMAGES
+    images with the sampler draws recorded (peak memory) and
+    MESH2_TIMED_STEPS steps timed; then the chamv1a model's request."""
+    from da_detect_tpu_torch import entry
+    from da_detect_tpu_torch.engine.trainer import (create_train_state,
+                                                    make_train_step)
+
+    t0 = time.perf_counter()
+    cfg, model = fbnet_mesh_model(entry.FBNET_MASK_YAML, dev)
+    init = {n: p.detach().to("cpu", copy=True)
+            for n, p in model.named_parameters()}
+    batch, _ = entry.make_batch(cfg, 1, seed=5, device=dev)
+    request = mesh_request(model, batch, True, dev)
+    state = create_train_state(cfg, model, 0, "multistep")
+    step = make_train_step(model, state.optimizer, aligned=False,
+                           deterministic=True)
+    args = entry.make_batch(cfg, FBNET_MESH_IMAGES, seed=0, device=dev,
+                            with_masks=True)
+    draws = SamplerDraws()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with draws.record():
+        state, metrics = step(state, *args)
+    torch.cuda.synchronize()
+    want = step_record(state, metrics)
+    want["params"] = {n: p.to("cpu", copy=True)
+                      for n, p in zip(init, want["params"])}
+    want["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    want["step_ms"] = []
+    for _ in range(MESH2_TIMED_STEPS):
+        state, ms = timed_step(step, state, args)
+        want["step_ms"].append(ms)
+    want["param_bytes"] = sum(p.numel() * p.element_size()
+                              for p in model.parameters())
+    del state, step, model
+    c_cfg, c_model = fbnet_mesh_model(entry.FBNET_CHAM_YAML, dev)
+    c_batch, _ = entry.make_batch(c_cfg, 1, seed=5, device=dev)
+    cham = mesh_request(c_model, c_batch, False, dev)
+    del c_model
+    torch.cuda.empty_cache()
+    spec = dict(batch=batch.to("cpu"), draws=draws,
+                args=tuple(a.to("cpu") for a in args),
+                cham_batch=c_batch.to("cpu"))
+    return dict(want=want, init=init, request=request, cham=cham,
+                spec=spec, seconds=time.perf_counter() - t0)
+
+
+def check_fbnet_mesh2(ref: dict, ranks: list) -> dict:
+    """Phase mesh2's FBNet checks: under each mesh of FBNET_MESH_MODES the
+    mask model's request (``check_mesh_request``, PER_FBNET_FORWARD) and
+    step (``check_mesh_step``, PER_FBNET_TRAIN_STEP), under
+    FBNET_CHAM_MESH_MODES the chamv1a request (PER_FBNET_FASTER_FORWARD),
+    each against the single process; emits line "mesh2_fbnet"; returns
+    each mesh's launches (requests and step, both ranks')."""
+    paths, summary = {}, {}
+    for label, _, _ in FBNET_MESH_MODES + FBNET_CHAM_MESH_MODES:
+        runs = [r["fbnet"][label] for r in ranks]
+        cham = any(label == m[0] for m in FBNET_CHAM_MESH_MODES)
+        summary[label] = check_mesh_request(
+            f"mesh2 {label}", [x["request"] for x in runs],
+            ref["cham" if cham else "request"],
+            PER_FBNET_FASTER_FORWARD if cham else PER_FBNET_FORWARD)
+        launches = collections.Counter()
+        for x in runs:
+            launches.update(x["request"]["launches"])
+        if not cham:
+            summary[label].update(check_mesh_step(
+                f"mesh2 {label}", runs, ref["want"], ref["init"],
+                PER_FBNET_TRAIN_STEP))
+            for x in runs:
+                launches.update(x["launches"])
+        paths[f"mesh2_{label}"] = dict(launches)
+    want = ref["want"]
+    emit("mesh2_fbnet", world=DDP2_WORLD, backend=ranks[0]["backend"],
+         images=FBNET_MESH_IMAGES, seconds=dict(
+             single=ref["seconds"], ranks=[r["fbnet_s"] for r in ranks]),
+         single=dict(
+             losses=want["losses"], step_ms=want["step_ms"],
+             step_ms_median=statistics.median(want["step_ms"]),
+             peak_bytes=want["peak_bytes"], param_bytes=want["param_bytes"],
+             request_ms=ref["request"]["request_ms"],
+             request_peak_bytes=ref["request"]["peak_bytes"],
+             cham_request_ms=ref["cham"]["request_ms"],
+             cham_request_peak_bytes=ref["cham"]["peak_bytes"]),
          meshes=summary)
     return paths
 
@@ -2857,8 +3132,10 @@ def phase_ddp2(dev) -> dict:
     float32 ulp, the two ranks' parameters bit for bit equal; every rank
     launched NMS and both ROIAlign kernels (the train phase's counts a
     step). Then each side's step times. Then mesh2 (``check_mesh2``): one
-    triple under (data=1, space=2) and (data=1, model=2). Returns each
-    path's launches: "ddp2", "mesh2_sp2", "mesh2_tp2"."""
+    triple under (data=1, space=2) and (data=1, model=2); and its FBNet
+    runs (``check_fbnet_mesh2``). Returns each path's launches: "ddp2",
+    "mesh2_sp2", "mesh2_tp2", "mesh2_fbnet_sp2", "mesh2_fbnet_tp2",
+    "mesh2_fbnet_cham_sp2"."""
     from da_detect_tpu_torch import entry, parallel
     from da_detect_tpu_torch.engine.trainer import make_train_step
 
@@ -2883,6 +3160,8 @@ def phase_ddp2(dev) -> dict:
     torch.cuda.empty_cache()
     ref = mesh2_reference(cfg, dev)
     torch.cuda.empty_cache()
+    f_ref = fbnet_mesh_reference(dev)
+    ref["spec"]["fbnet"] = f_ref["spec"]
     t0 = time.perf_counter()
     ranks = parallel.spawn(ddp2_rank, DDP2_WORLD, cfg, cpu_args, draws,
                            ref["spec"])
@@ -2934,7 +3213,8 @@ def phase_ddp2(dev) -> dict:
          step_ms_median={"single_2_triples": statistics.median(single_ms),
                          **{f"rank{r}": statistics.median(x["step_ms"])
                             for r, x in enumerate(ranks)}})
-    return {"ddp2": launches, **check_mesh2(ref, ranks)}
+    return {"ddp2": launches, **check_mesh2(ref, ranks),
+            **check_fbnet_mesh2(f_ref, ranks)}
 
 
 # ---------------------------------------------------------------- DCN

@@ -16,7 +16,8 @@ As in the JAX package:
   bfloat16, and the poolers pool float32 maps;
 * a stride-2 conv pads as Flax's ``padding="SAME"`` does, asymmetrically
   (``same_pad``: on an even side 0 before and ``k - 2`` after at k 3, 1/2 at
-  5, 2/3 at 7), not ``k // 2`` on both sides;
+  5, 2/3 at 7), not ``k // 2`` on both sides; the trunk and its blocks call
+  it as a ``layers.RowOps`` method, which a space mesh replaces;
 * a negative stride upsamples by nearest neighbour after the pointwise
   expansion (``jax.image.resize(..., "nearest")`` at an integer factor is
   ``F.interpolate(mode="nearest")``), then the depthwise conv runs at
@@ -38,7 +39,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...layers import BatchNorm, Conv2d
+from ...layers import BatchNorm, Conv2d, RowOps
+from ...layers.rows import same_pad  # noqa: F401 (the plain function)
 
 # per arch: first conv (channels, stride), stages as groups of
 # (expansion, channels, num_blocks, stride, kernel), and which stage indices
@@ -113,19 +115,7 @@ def _divisible(c: float, divisor: int) -> int:
     return max(d, int(c + d / 2) // d * d)
 
 
-def same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
-    """``x`` [B, C, H, W] padded with zeros as Flax's ``padding="SAME"``
-    pads for a ``kernel`` x ``kernel`` conv at ``stride``: a total of
-    ``max((ceil(n / s) - 1) * s + k - n, 0)`` a side, the smaller half
-    before."""
-    pads = []
-    for n in (x.shape[3], x.shape[2]):  # F.pad takes the last axis first
-        total = max((-(-n // stride) - 1) * stride + kernel - n, 0)
-        pads += [total // 2, total - total // 2]
-    return F.pad(x, pads).contiguous(memory_format=torch.channels_last)
-
-
-class MBConv(nn.Module):
+class MBConv(RowOps, nn.Module):
     """Inverted residual block (fbnet_builder.IRFBlock): ``pw`` 1x1
     expansion + ``pw_bn`` + ReLU, nearest upsampling at a negative stride,
     ``dw`` depthwise k x k (``dw_bn`` unless ``dw_skip_bn``, ReLU unless
@@ -156,7 +146,7 @@ class MBConv(nn.Module):
         if self.stride < 0:
             h = F.interpolate(h, scale_factor=-self.stride, mode="nearest")
         elif self.stride > 1:
-            h = same_pad(h, self.kernel, self.stride)
+            h = self.same_pad(h, self.kernel, self.stride)
         h = self.dw(h)
         if self.dw_bn is not None:
             h = self.dw_bn(h)
@@ -215,7 +205,7 @@ class _Opts:
         return _head_out_channels(self.arch, which, self.scale, self.divisor)
 
 
-class FBNetTrunk(nn.Module):
+class FBNetTrunk(RowOps, nn.Module):
     """``first`` 3x3 conv (SAME at its stride) + ``first_bn`` + ReLU, then
     the trunk's blocks (``stages``): one stride-16 map, float32."""
 
@@ -233,7 +223,7 @@ class FBNetTrunk(nn.Module):
     def forward(self, x: torch.Tensor, impl: str = "cuda"):
         x = x.to(self.dtype)
         if self.first_stride > 1:
-            x = same_pad(x, 3, self.first_stride)
+            x = self.same_pad(x, 3, self.first_stride)
         x = F.relu(self.first_bn(self.first(x)))
         return [self.stages(x).contiguous(memory_format=torch.channels_last)]
 

@@ -15,11 +15,19 @@ backward sends each fetched row's gradient back to its owner (one
 all-reduce of the strips' gradients) and adds it there. Layers:
 
 - ``MeshConv2d`` (every convolution of the body and the FPN: the 7x7/s2
-  stem, strided 3x3 and 1x1, grouped, the laterals, P6/P7) and the max
-  pools of the stem, the FPN and VGG-16 (``MeshRowOps``, replacing their
-  ``layers.RowOps`` methods): the H padding becomes fetched or padding
-  rows;
-- FrozenBN, ReLU and the residual sums: row-local, unchanged;
+  stem, strided 3x3 and 1x1, grouped and depthwise, the laterals, P6/P7)
+  and the max pools of the stem, the FPN and VGG-16 (``MeshRowOps``,
+  replacing their ``layers.RowOps`` methods): the H padding becomes
+  fetched or padding rows;
+- FBNet's SAME padding before its stride-2 convs (``MeshRowOps.same_pad``):
+  W padded locally; the H pads, asymmetric and set by the map's global
+  height (0 before and k - 2 after on an even side at stride 2), become
+  padding rows above the map's top and below its bottom, fetched together
+  with the rows the next conv's window reads from the other ranks, in one
+  fetch. The result is marked (``_WINDOW``), so the unpadded conv that
+  follows computes on it as it is and fetches nothing;
+- FrozenBN, FBNet's fixed-statistics BatchNorm, ReLU and the residual sums:
+  row-local, unchanged;
 - ``MeshGroupNorm``: each group's sum all-reduced over space for the mean,
   then its centred sum of squares for the variance (two passes, as
   accurate as the single process's Welford sums; Flax's E[x²] - E[x]²
@@ -45,8 +53,9 @@ map's H under its width W and the rank's row count (W is never split;
 every level of a pyramid has its own W but where W reaches 1, and there
 the row counts differ), starting from the canvas, and each layer looks
 its input's H up and records its output's (a conflict raises). A map
-with fewer rows than space ranks raises. FBNet bodies are not partitioned
-(``NotImplementedError``).
+with fewer rows than space ranks raises. The bodies on row shards: the
+ResNe(X)t bodies and their FPNs (deformable stages included), VGG-16 and
+the FBNet trunks; another backbone raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -58,8 +67,13 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..layers import Conv2d, DeformConv2d, GroupNorm, RowOps
+from ..layers.rows import same_pads
 
 _HEIGHTS: dict | None = None  # the pass's {(W, own rows): global H}
+# the attribute marking a map that holds exactly the rows its rank's
+# output rows of the unpadded conv that follows read, padding rows
+# included; its value is that conv's output height
+_WINDOW = "_row_window"
 
 
 def row_range(n: int, parts: int, i: int) -> tuple[int, int]:
@@ -247,21 +261,24 @@ def fetch_rows(x: torch.Tensor, mesh, h: int, needs: list,
     return _Fetch.apply(x, geo, mesh.space_rank, mesh.space_group, fill)
 
 
-def window_needs(h: int, parts: int, k: int, s: int, p: int, d: int):
+def window_needs(h: int, parts: int, k: int, s: int, pad: tuple,
+                 d: int = 1):
     """(output height, every rank's input rows) of a window of size ``k``,
-    stride ``s``, padding ``p`` and dilation ``d`` over ``h`` rows: rank q's
-    output rows [o0, o1) read [o0*s - p, (o1 - 1)*s - p + d*(k - 1) + 1)."""
-    ho = (h + 2 * p - d * (k - 1) - 1) // s + 1
-    needs = [(o0 * s - p, (o1 - 1) * s - p + d * (k - 1) + 1)
+    stride ``s``, padding ``pad`` = (top, bottom) and dilation ``d`` over
+    ``h`` rows: rank q's output rows [o0, o1) read
+    [o0*s - top, (o1 - 1)*s - top + d*(k - 1) + 1)."""
+    top, bottom = pad
+    ho = (h + top + bottom - d * (k - 1) - 1) // s + 1
+    needs = [(o0 * s - top, (o1 - 1) * s - top + d * (k - 1) + 1)
              for o0, o1 in _ranges(ho, parts)]
     return ho, needs
 
 
-def halo(x: torch.Tensor, mesh, k: int, s: int, p: int, d: int = 1,
+def halo(x: torch.Tensor, mesh, k: int, s: int, pad: tuple, d: int = 1,
          fill: float = 0.0):
     """(the input rows this rank's output rows of a window read, padding
     rows included; the output's global height)."""
-    ho, needs = window_needs(global_height(x), mesh.space, k, s, p, d)
+    ho, needs = window_needs(global_height(x), mesh.space, k, s, pad, d)
     return fetch_rows(x, mesh, global_height(x), needs, fill), ho
 
 
@@ -319,8 +336,11 @@ class MeshConv2d(Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mesh, padding, ho = self._mesh, self.padding, None
         if self._rows:
-            x, ho = halo(x, mesh, self.kernel_size[0], self.stride[0],
-                         self.padding[0], self.dilation[0])
+            # a ``row_same_pad`` output holds this conv's rows already
+            ho = getattr(x, _WINDOW, None)
+            if ho is None:
+                x, ho = halo(x, mesh, self.kernel_size[0], self.stride[0],
+                             (self.padding[0],) * 2, self.dilation[0])
             padding = (0, self.padding[1])
         from .tensor import split_call
         y = split_call(self, x, lambda xs, w, b, g: self.conv(
@@ -331,8 +351,22 @@ class MeshConv2d(Conv2d):
 def row_max_pool(x: torch.Tensor, mesh, k: int, s: int,
                  p: int) -> torch.Tensor:
     """``F.max_pool2d(x, k, s, p)`` on row shards (-inf padding rows)."""
-    xs, ho = halo(x, mesh, k, s, p, fill=float("-inf"))
+    xs, ho = halo(x, mesh, k, s, (p, p), fill=float("-inf"))
     return _record(F.max_pool2d(xs, k, s, padding=(0, p)), ho)
+
+
+def row_same_pad(x: torch.Tensor, mesh, k: int, s: int) -> torch.Tensor:
+    """``RowOps.same_pad(x, k, s)`` on row shards: W padded here, and the
+    rows this rank's output rows of the unpadded k x k conv at stride s
+    read, SAME's H pads (from the global height) as zero rows; marked
+    (``_WINDOW``) with that conv's output height."""
+    h = global_height(x)
+    x = F.pad(x, same_pads(x.shape[3], k, s) + [0, 0]).contiguous(
+        memory_format=torch.channels_last)
+    ho, needs = window_needs(h, mesh.space, k, s, tuple(same_pads(h, k, s)))
+    xs = fetch_rows(x, mesh, h, needs)
+    setattr(xs, _WINDOW, ho)
+    return xs
 
 
 def row_upsample_2x(x: torch.Tensor, mesh, like: torch.Tensor):
@@ -392,7 +426,7 @@ class MeshDeformConv2d(DeformConv2d):
 
 class MeshRowOps:
     """Mixed into a backbone module's class (``layers.RowOps``): its max
-    pool and 2x upsample on row shards."""
+    pool, 2x upsample and SAME padding on row shards."""
 
     def max_pool(self, x: torch.Tensor, kernel_size: int, stride: int,
                  padding: int = 0) -> torch.Tensor:
@@ -401,6 +435,10 @@ class MeshRowOps:
     def upsample_2x(self, x: torch.Tensor,
                     like: torch.Tensor) -> torch.Tensor:
         return row_upsample_2x(x, self._mesh, like)
+
+    def same_pad(self, x: torch.Tensor, kernel: int,
+                 stride: int) -> torch.Tensor:
+        return row_same_pad(x, self._mesh, kernel, stride)
 
 
 class SpatialBackbone:
@@ -432,14 +470,15 @@ def partition_backbone(model, mesh) -> list:
     """Put ``model.backbone`` on row shards over ``mesh``'s space group;
     returns its parameters (their gradients are partial sums)."""
     from ..models.backbone.backbone import ResNetBackbone
+    from ..models.backbone.fbnet import FBNetTrunk
     from ..models.backbone.vgg import VGG16
 
     bb = model.backbone
-    if not isinstance(bb, (ResNetBackbone, VGG16)):
+    if not isinstance(bb, (ResNetBackbone, VGG16, FBNetTrunk)):
         raise NotImplementedError(
             f"spatial partitioning of a {type(bb).__name__} backbone "
-            "(TPU.MESH_SPATIAL > 1 covers the ResNe[X]t, FPN and VGG-16 "
-            "bodies)")
+            "(TPU.MESH_SPATIAL > 1 covers the ResNe[X]t, FPN, VGG-16 and "
+            "FBNet bodies)")
     for m in bb.modules():
         if isinstance(m, DeformConv2d):
             _swap(m, MeshDeformConv2d, mesh)

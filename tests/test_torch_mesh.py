@@ -13,7 +13,13 @@ port's single process with tests/test_torch_ddp.py's bounds; (e) the
 narrowed FPN-DCN's eval forward (depth 50, grouped and deformable convs)
 under three meshes against JAX's ``__call__``; (f) a checkpoint written
 under model=2 against one process's, and its resume; (g) DDP over the whole
-world under model=2 fails (d)'s comparison.
+world under model=2 fails (d)'s comparison; (h) FBNet: SAME padding and a
+conv on row shards, the trunks on row shards against one process, and the
+narrowed FBNet Mask R-CNN (tests/test_torch_fbnet.py::fbnet_cfgs) under
+three meshes: its eval forward against JAX's on one device and on JAX's
+own space mesh, its source-only step against one process and against the
+gradients of JAX's ``train_forward`` (the JAX trainer cannot step FBNet),
+with tests/test_torch_fbnet.py's tolerances.
 
 The ranks import no JAX (``tests/torch_mesh_ranks.py``); one module-scoped
 spawn of 4 ranks runs every piece. The step's budgets (from
@@ -38,6 +44,7 @@ from da_detect_tpu.engine.trainer import make_train_step as j_make_train_step
 from da_detect_tpu.models import build_detection_model as j_build_model
 from da_detect_tpu.models.da import DAState as JDAState
 from da_detect_tpu.parallel import make_mesh as j_make_mesh
+from da_detect_tpu.parallel import replicate as j_replicate
 from da_detect_tpu.parallel import shard_batch as j_shard_batch
 from da_detect_tpu.parallel import shard_model as j_shard_model
 from da_detect_tpu.solver.optim import make_optimizer as j_make_optimizer
@@ -53,10 +60,14 @@ from da_detect_tpu_torch.utils.weights import (jax_state_dict,
                                                torch_name)
 from tests.test_torch_ddp import (SCORE_SCALES, _global_batch, _plain,
                                   _step_cfgs, _to_port)
-from tests.torch_harness import (assert_twins, cfg_fc6_chw,
-                                 random_variables, tiny_cfgs)
+from tests.torch_harness import (assert_grads_match, assert_losses_match,
+                                 assert_twins, cfg_fc6_chw, mask_batches,
+                                 port_step_one, random_variables, tiny_cfgs)
 from tests.test_torch_cli import tiny  # noqa: F401 (the fixture)
-from tests.torch_mesh_ranks import rank_work
+from tests.test_torch_fbnet import MASK_YAML as FBNET_YAML
+from tests.test_torch_fbnet import _variables as fbnet_jax_variables
+from tests.test_torch_fbnet import fbnet_cfgs
+from tests.torch_mesh_ranks import SAME_PAD_HEIGHTS, rank_work
 
 WORLD, STEPS = 4, 3
 STEP_MIN, DCN_MIN = 32, 16
@@ -66,6 +77,20 @@ JAX_TOL = {"space": ((1e-4, 1e-6), (3e-4, 3e-6)),
            "space_model": ((1e-3, 1e-5), (3e-3, 3e-5))}
 MESHES = (("space", 2, 1), ("model", 1, 2), ("space_model", 2, 2))
 DCN_MESHES = (("space", 2, 1), ("model", 1, 2), ("space_model", 2, 2))
+# FBNet: the Mask R-CNN's eval forward and its source-only step; the model
+# split at 32 channels (most expansions and depthwise convs of the narrowed
+# widths)
+FBNET_MESHES = DCN_MESHES
+FBNET_STEP_MESHES = (("space", 2, 1), ("model", 1, 2))
+FBNET_MIN = 32
+# the mesh's scores against JAX's: two roundings of test_torch_fbnet.py's
+# 1e-5. The predictor's class weights are spread x30, so a float32 rounding
+# of a logit moves a mid-range score by ~1e-5: the port's single process is
+# 9.5e-6 off JAX's one device on these inputs, JAX's space mesh 4.8e-6 off
+# it, the port's space mesh 9.5e-6 off the port's single process and up to
+# 1.25e-5 off either JAX run
+FBNET_JAX_SCORE_ATOL = 2e-5
+SAME_PAD_CASES = [(k, s) for k in (3, 5, 7) for s in (1, 2)]
 MARGIN_ATOL = 1e-6
 # the port's single process: tests/test_torch_ddp.py's bounds
 LOSS_RTOL, PARAM_REL = 1e-4, 1e-3
@@ -186,7 +211,8 @@ def _jax_params_shapes(jcfg, train: bool):
 
 
 @pytest.mark.parametrize("case,min_channels", [
-    ("flagship", 256), ("flagship", STEP_MIN), ("dcn", DCN_MIN)])
+    ("flagship", 256), ("flagship", STEP_MIN), ("dcn", DCN_MIN),
+    ("fbnet", 256), ("fbnet", FBNET_MIN)])
 def test_split_plan_equals_jax_shard_model(case, min_channels):
     """``split_plan`` splits exactly the ``params`` leaves JAX
     ``shard_model`` puts on the model axis (through ``utils/weights.py``'s
@@ -195,6 +221,15 @@ def test_split_plan_equals_jax_shard_model(case, min_channels):
     if case == "flagship":
         jcfg, pcfg = _step_cfgs()
         shapes = _jax_params_shapes(jcfg, train=True)
+    elif case == "fbnet":
+        jcfg, pcfg = fbnet_cfgs(FBNET_YAML)
+        (jb, jt), _ = mask_batches(jcfg, pcfg)
+        jmodel = j_build_model(jcfg)
+        shapes = jax.eval_shape(lambda: jmodel.init(
+            {"params": jax.random.PRNGKey(0),
+             "sampling": jax.random.PRNGKey(1),
+             "dropout": jax.random.PRNGKey(2)}, jb, jt, JDAState.create(),
+            method=jmodel.train_forward))
     else:
         jcfg, pcfg = _dcn_cfgs()
         shapes = _jax_params_shapes(jcfg, train=True)
@@ -229,12 +264,26 @@ def test_grouped_split_needs_model_to_divide_the_groups():
 
 # ------------------------------------------------------ (d) - (g)
 
+# the FBNet trunks on row shards: (label, YAML, canvas). 100 rows are 50
+# at stride 2, 25, 13 and 7; 90 rows are 45, 23, 12 and 6: the stride-2
+# SAME pads of an even side (0 before, k - 2 after at k 3; 2/3 at k 7) and
+# of an odd one (split evenly), and maps split unevenly over 2 ranks
+FBNET_BODIES = (
+    ("fbnet_default", "configs/e2e_faster_rcnn_fbnet.yaml", (100, 64)),
+    ("fbnet_xirb16d_dsmask", FBNET_YAML, (90, 48)),
+    ("fbnet_cham_v1a", "configs/e2e_faster_rcnn_fbnet_chamv1a_600.yaml",
+     (100, 64)))
+
+
 def _body_cfgs() -> dict:
     """Backbones whose layers (d) and (e) do not reach, at canvases whose
     maps split unevenly over 2 space ranks (200 rows: 25 at stride 8, 13
     at 16, 7 at 32, 4 at 64, 2 at 128): a GroupNorm body and FPN (the GN
     Mask R-CNN YAML, narrowed as tests/torch_harness.py::mask_cfgs does),
-    RetinaNet's FPN with P6/P7, and VGG-16 (72 rows: 9 at stride 8)."""
+    RetinaNet's FPN with P6/P7, VGG-16 (72 rows: 9 at stride 8), and the
+    three FBNet trunks (FBNET_BODIES; widths at SCALE_FACTOR 0.5, as
+    tests/test_torch_fbnet.py::fbnet_cfgs narrows them; cham_v1a's
+    depthwise kernels 7 and 5)."""
     from da_detect_tpu_torch.entry import vgg_cfg
     from tests.torch_harness import MASK_GN_YAML, mask_cfgs
 
@@ -245,11 +294,17 @@ def _body_cfgs() -> dict:
     r.STEM_OUT_CHANNELS, r.WIDTH_PER_GROUP, r.RES2_OUT_CHANNELS = 16, 8, 32
     retina.MODEL.BACKBONE.OUT_CHANNELS = 32
     vgg = vgg_cfg("float32")
-    for cfg, canvas in ((gn, (200, 64)), (retina, (200, 64)),
-                        (vgg, (72, 48))):
+    cfgs = {"gn": (gn, (200, 64)), "retinanet": (retina, (200, 64)),
+            "vgg": (vgg, (72, 48))}
+    for label, yaml, canvas in FBNET_BODIES:
+        cfg = get_cfg()
+        cfg.merge_from_file(yaml)
+        cfg.MODEL.FBNET.SCALE_FACTOR = 0.5
+        cfgs[label] = (cfg, canvas)
+    for cfg, canvas in cfgs.values():
         cfg.TPU.IMAGE_SHAPE = canvas
         cfg.TPU.COMPUTE_DTYPE = "float32"
-    return {"gn": gn, "retinanet": retina, "vgg": vgg}
+    return {label: cfg for label, (cfg, _) in cfgs.items()}
 
 
 def _jax_run(jcfg, variables, jbatch, steps):
@@ -305,6 +360,43 @@ def _single_run(pcfg, variables, batch, steps):
                         for n, p in model.named_parameters()}, state=state)
 
 
+def _fbnet_jax(jmodel, variables, jb_eval, jb, jt) -> dict:
+    """JAX's FBNet Mask R-CNN: its eval forward with masks on one device
+    and on a (data=2, space=2) mesh of conftest's CPU devices (GSPMD's
+    halos), and the losses and gradients of its source-only
+    ``train_forward`` applied directly, under the port's names."""
+    fn = jax.jit(lambda v, b: jmodel.apply(v, b, with_masks=True))
+    mesh = j_make_mesh(4, spatial=2)
+    evals = {"one_device": jax.device_get(fn(variables, jb_eval)),
+             "space_mesh": jax.device_get(fn(j_replicate(variables, mesh),
+                                             j_shard_batch(jb_eval, mesh)))}
+
+    def loss_fn(params):
+        losses, _ = jmodel.apply(
+            {"params": params, "batch_stats": variables["batch_stats"]}, jb,
+            jt, JDAState.create(), method=jmodel.train_forward,
+            deterministic=True, rngs={"sampling": jax.random.PRNGKey(3)})
+        return sum(losses.values()), losses
+
+    (_, losses), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        variables["params"])
+    return dict(evals=evals, losses={k: float(v) for k, v in losses.items()},
+                grads=jax_state_dict({"params": grads}))
+
+
+def _fbnet_single(pcfg, variables, eval_batch, step_batch) -> dict:
+    """The port's FBNet Mask R-CNN in one process: its eval forward with
+    masks and one source-only step's losses and gradients."""
+    model = build_detection_model(pcfg)
+    load_jax_variables(model, variables)
+    model = prepare_model(model, CPU)
+    with torch.no_grad():
+        dets, probs = model(eval_batch, with_masks=True)
+    state = create_train_state(pcfg, model, 0, "multistep")
+    losses, grads = port_step_one(model, state, step_batch, aligned=False)
+    return dict(dets=dets, probs=probs, losses=losses, grads=grads)
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     root = tmp_path_factory.mktemp("mesh")
@@ -328,6 +420,14 @@ def run(tmp_path_factory):
     with torch.no_grad():
         dsingle = prepare_model(dmodel, CPU)(dbatch)
 
+    fjcfg, fpcfg = fbnet_cfgs(FBNET_YAML)
+    fjmodel = j_build_model(fjcfg)
+    (fjb, fjt), (fpb, fpt) = mask_batches(fjcfg, fpcfg)
+    fvars = fbnet_jax_variables(fjmodel, (fjb, fjt))
+    (fjb_eval, _), (fpb_eval, _) = mask_batches(fjcfg, fpcfg, seed=7)
+    fwant = _fbnet_jax(fjmodel, fvars, fjb_eval, fjb, fjt)
+    fsingle = _fbnet_single(fpcfg, fvars, fpb_eval, (fpb, fpt))
+
     bodies = _body_cfgs()
     body_images = {k: torch.randn((1, 3) + tuple(c.TPU.IMAGE_SHAPE),
                                   generator=torch.Generator().manual_seed(3)
@@ -340,11 +440,18 @@ def run(tmp_path_factory):
                   min_channels=STEP_MIN),
         dcn=dict(cfg=dpcfg, variables=dvars, batch=dbatch,
                  min_channels=DCN_MIN),
-        meshes=MESHES, dcn_meshes=DCN_MESHES, ckpt_dir=str(root / "ckpt"))
+        fbnet=dict(cfg=fpcfg, variables=fvars, batch=fpb_eval,
+                   min_channels=FBNET_MIN, with_masks=True),
+        fbnet_step=dict(cfg=fpcfg, variables=fvars, batch=(fpb, fpt),
+                        min_channels=FBNET_MIN),
+        meshes=MESHES, dcn_meshes=DCN_MESHES, fbnet_meshes=FBNET_MESHES,
+        fbnet_step_meshes=FBNET_STEP_MESHES, same_pad_cases=SAME_PAD_CASES,
+        ckpt_dir=str(root / "ckpt"))
     ranks = parallel.spawn(rank_work, WORLD, spec, tmp_dir=str(root))
     return dict(want=want, single=single, ranks=ranks, variables=variables,
                 pcfg=pcfg, dwant=dwant, dsingle=dsingle, root=root,
-                bodies=bodies, body_images=body_images)
+                bodies=bodies, body_images=body_images, fwant=fwant,
+                fsingle=fsingle)
 
 
 def test_ranks_import_no_jax(run):
@@ -491,12 +598,14 @@ def test_dcn_eval_forward_under_mesh_matches_jax(run, label):
                                rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("label", ["gn", "retinanet", "vgg"])
+@pytest.mark.parametrize("label", ["gn", "retinanet", "vgg"]
+                         + [b[0] for b in FBNET_BODIES])
 def test_backbone_on_row_shards_matches_single_process(run, label):
     """GroupNorm (sums over space), the FPN's upsample after uneven splits,
-    P6/P7 and the max pools on row shards: the gathered maps and, for a
-    random projection of them, the backbone's gradients (partial sums
-    summed over space) against one process's."""
+    P6/P7, the max pools and FBNet's SAME padding (kernels 3, 5 and 7) on
+    row shards: the gathered maps and, for a random projection of them,
+    the backbone's gradients (partial sums summed over space) against one
+    process's."""
     from tests.torch_mesh_ranks import backbone_pass
 
     want = backbone_pass(run["bodies"][label], run["body_images"][label])
@@ -513,6 +622,98 @@ def test_backbone_on_row_shards_matches_single_process(run, label):
             scale = float(g.abs().max())
             err = float((got["grads"][n] - g).abs().max())
             assert err <= 1e-4 * scale + 1e-7, (n, err, scale)
+
+
+@pytest.mark.parametrize("k,s", SAME_PAD_CASES)
+def test_same_pad_then_conv_on_row_shards_matches_one_process(run, k, s):
+    """``MeshRowOps.same_pad`` (W padded locally, SAME's H pads from the
+    global height as zero rows, the rows between ranks fetched) then the
+    unpadded conv, which fetches nothing more: one process's output, and
+    its input's and kernel's gradients, on 12 and 13 rows."""
+    from tests.torch_mesh_ranks import same_pad_pass
+
+    want = same_pad_pass(k, s)
+    for h in SAME_PAD_HEIGHTS:
+        w = want[h]
+        scale = float(w["y"].abs().max())
+        for q in (0, 1):  # the two space ranks of data slice 0
+            got = run["ranks"][q]["same_pad"][(k, s)][h]
+            assert float((got["y"] - w["y"]).abs().max()) <= 1e-5 * scale
+            torch.testing.assert_close(got["w_grad"], w["w_grad"],
+                                       rtol=1e-5, atol=1e-5)
+        x_grad = torch.cat([run["ranks"][q]["same_pad"][(k, s)][h]["x_grad"]
+                            for q in (0, 1)], dim=2)
+        torch.testing.assert_close(x_grad, w["x_grad"], rtol=1e-5, atol=1e-5)
+
+
+def _fbnet_eval_matches(dets, probs, jout, score_atol: float = 1e-5):
+    """tests/test_torch_fbnet.py's eval comparison: as many valid
+    detections an image, twins (box within 1e-3 px, score within
+    ``score_atol``), mask probabilities on the valid detections to
+    1e-5."""
+    jdets, jprobs = jout
+    valid = np.asarray(jdets.valid)
+    assert valid.sum() >= 4
+    np.testing.assert_array_equal(dets.valid.sum(1).numpy(), valid.sum(1))
+    assert_twins(dets, jdets, score_atol=score_atol)
+    np.testing.assert_allclose(probs.numpy()[valid],
+                               np.asarray(jprobs)[valid], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("label", [m[0] for m in FBNET_MESHES])
+def test_fbnet_eval_forward_under_mesh_matches_jax(run, label):
+    """The narrowed FBNet Mask R-CNN's eval forward with masks on 4 ranks
+    (the trunk on row shards under space, its expansions and depthwise
+    convs split on channels and groups under model): the ranks of a data
+    slice alike; the slices' detections and masks together JAX's on one
+    device and JAX's on its own (data=2, space=2) mesh (scores within
+    FBNET_JAX_SCORE_ATOL), and the port's single process (scores within
+    1e-5)."""
+    ranks = [r[f"fbnet_{label}"] for r in run["ranks"]]
+    spatial, model = next((s, m) for lab, s, m in FBNET_MESHES
+                          if lab == label)
+    if model > 1:
+        assert len(ranks[0]["plan"]) > 10
+    inner = spatial * model
+    slices = [ranks[d * inner] for d in range(WORLD // inner)]
+    for d in range(WORLD // inner):
+        for r in ranks[d * inner + 1:(d + 1) * inner]:
+            for a, b in zip(r["dets"], slices[d]["dets"]):
+                assert torch.equal(a, b)
+            assert torch.equal(r["probs"], slices[d]["probs"])
+    dets = type(slices[0]["dets"])(*[torch.cat(f) for f in zip(
+        *[s["dets"] for s in slices])])
+    probs = torch.cat([s["probs"] for s in slices])
+    for jout in run["fwant"]["evals"].values():
+        _fbnet_eval_matches(dets, probs, jout, FBNET_JAX_SCORE_ATOL)
+    single = run["fsingle"]
+    _fbnet_eval_matches(dets, probs, (single["dets"], single["probs"]))
+
+
+@pytest.mark.parametrize("label", [m[0] for m in FBNET_STEP_MESHES])
+def test_fbnet_source_step_under_mesh_matches_jax(run, label):
+    """One source-only step of the narrowed FBNet Mask R-CNN on 4 ranks,
+    one image a data slice: every rank's global losses alike and those of
+    JAX's ``train_forward`` and of one process; every gradient the step
+    applies (whole; under space the trunk's partial sums summed) equal on
+    every rank, against JAX's and one process's with
+    ``torch_harness.assert_grads_match``'s bounds."""
+    ranks = [r[f"fbnet_step_{label}"] for r in run["ranks"]]
+    got = ranks[0]
+    if label == "model":
+        assert len(got["plan"]) > 10
+    for r in ranks[1:]:
+        assert r["losses"] == got["losses"]
+        for n, g in got["grads"].items():
+            assert torch.equal(r["grads"][n], g), n
+    want, single = run["fwant"], run["fsingle"]
+    assert want["losses"]["loss_mask"] > 0
+    assert_losses_match(got["losses"], want["losses"])
+    assert_losses_match(got["losses"], single["losses"])
+    assert set(got["grads"]) == set(want["grads"]) == set(single["grads"])
+    assert_grads_match(got["grads"], want["grads"])
+    assert_grads_match(got["grads"], single["grads"])
 
 
 def test_model_split_checkpoint_equals_single_process(run, tmp_path):
@@ -558,13 +759,24 @@ def test_model_split_checkpoint_equals_single_process(run, tmp_path):
             saved["model"][name].shape[dim]
 
 
-@pytest.mark.parametrize("key", ["TPU.MESH_SPATIAL", "TPU.MESH_MODEL"])
-def test_cli_train_and_eval_under_torchrun_mesh(tiny, tmp_path, key):
+# the CLI cases: (trainer, the YAML and its narrowing; None: the flagship
+# triplet-DA defaults)
+FBNET_CLI = ("train_net", ["--config-file", FBNET_YAML],
+             ["MODEL.WEIGHT", "", "MODEL.FBNET.SCALE_FACTOR", "0.25"])
+
+
+@pytest.mark.parametrize("key,case", [
+    pytest.param("TPU.MESH_SPATIAL", None, id="TPU.MESH_SPATIAL"),
+    pytest.param("TPU.MESH_MODEL", None, id="TPU.MESH_MODEL"),
+    pytest.param("TPU.MESH_SPATIAL", FBNET_CLI, id="fbnet-TPU.MESH_SPATIAL")])
+def test_cli_train_and_eval_under_torchrun_mesh(tiny, tmp_path, key, case):
     """``torchrun --nproc_per_node 2`` of ``train_net_triplet`` (2 steps,
     then its eval) and of ``test_net`` on its checkpoint, ``--device cpu``,
     with ``key`` 2: one data slice of two gloo ranks (the C4 map of the
     128x160 canvas on row shards, or the wide leaves split); rank 0 writes
-    one whole checkpoint, both evaluate, the merge is evaluated once."""
+    one whole checkpoint, both evaluate, the merge is evaluated once. The
+    FBNet case: ``train_net`` source-only on the xirb16d_dsmask Mask R-CNN
+    YAML (widths at SCALE_FACTOR 0.25), its trunk on row shards."""
     import os
     import subprocess
     import sys
@@ -574,10 +786,11 @@ def test_cli_train_and_eval_under_torchrun_mesh(tiny, tmp_path, key):
 
     out = tmp_path / "out"
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    opts = CPU_ARGS + _opts(out) + ["MODEL.DOMAIN_ADAPTATION_ON", "True",
-                                    key, "2"]
+    trainer, yaml, narrow = case or (
+        "train_net_triplet", [], ["MODEL.DOMAIN_ADAPTATION_ON", "True"])
+    opts = yaml + CPU_ARGS + _opts(out) + narrow + [key, "2"]
     run_dir = out / "run"
-    for cli, extra in (("train_net_triplet", []),
+    for cli, extra in ((trainer, []),
                        ("test_net", ["--ckpt", str(run_dir)])):
         proc = subprocess.run(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -592,8 +805,9 @@ def test_cli_train_and_eval_under_torchrun_mesh(tiny, tmp_path, key):
     # the checkpoint holds one process's names and whole shapes
     ckpt = torch.load(run_dir / "model_0000002.pth", weights_only=True)
     single = get_cfg()
-    single.merge_from_list(_opts(out)[4:] + ["MODEL.DOMAIN_ADAPTATION_ON",
-                                             "True"])
+    if yaml:
+        single.merge_from_file(yaml[1])
+    single.merge_from_list(_opts(out)[4:] + narrow)
     shapes = {n: tuple(v.shape) for n, v in
               build_detection_model(single).state_dict().items()}
     assert {n: tuple(v.shape) for n, v in ckpt["model"].items()} == shapes

@@ -4,8 +4,10 @@ A module of its own, importing no JAX (the ranks are spawned processes
 that import the module holding their function). ``rank_work`` runs every
 piece in one process group (gloo on the CPU): the triplet steps under
 three meshes, the FPN-DCN eval forward under three, the GroupNorm,
-RetinaNet (P6/P7) and VGG-16 backbones on row shards, a checkpoint under
-model=2 and the DDP trap, and returns what the test compares.
+RetinaNet (P6/P7), VGG-16 and FBNet backbones on row shards, SAME padding
+and a conv on row shards, the FBNet Mask R-CNN's eval forward under three
+meshes and its source-only step under two, a checkpoint under model=2 and
+the DDP trap, and returns what the test compares.
 """
 
 from __future__ import annotations
@@ -108,15 +110,90 @@ def _checkpoint(spec, mesh, out_dir: str) -> dict:
             for i, st in momentum.items()))
 
 
-def _dcn_eval(spec, mesh) -> dict:
-    """The narrowed FPN-DCN's eval forward on this rank's data slice."""
+def _eval(spec, mesh) -> dict:
+    """A narrowed model's eval forward on this rank's data slice (with
+    masks when ``spec["with_masks"]``): its detections (and mask
+    probabilities)."""
     from da_detect_tpu_torch.parallel import data_shard
 
     model = _model(spec["cfg"], spec["variables"], mesh,
                    spec["min_channels"])
+    masks = spec.get("with_masks", False)
     with torch.no_grad():
-        dets = model(data_shard(spec["batch"], mesh))
-    return dict(dets=dets, plan=dict(model._tp_plan))
+        out = model(data_shard(spec["batch"], mesh),
+                    **({"with_masks": True} if masks else {}))
+    dets, probs = out if masks else (out, None)
+    return dict(dets=dets, probs=probs, plan=dict(model._tp_plan))
+
+
+def _source_step(spec, mesh) -> dict:
+    """One source-only step of a narrowed model on this rank's data slice
+    (DDP over the data group): the global losses and every trainable
+    gradient the step applies, whole (split leaves gathered)."""
+    from da_detect_tpu_torch.engine.trainer import (create_train_state,
+                                                    make_train_step)
+    from da_detect_tpu_torch.parallel import data_shard, wrap_train_forward
+    from da_detect_tpu_torch.parallel.tensor import _full
+
+    model = _model(spec["cfg"], spec["variables"], mesh,
+                   spec["min_channels"])
+    state = create_train_state(spec["cfg"], model, 0, "multistep")
+    step = make_train_step(model, state.optimizer, deterministic=True,
+                           forward=wrap_train_forward(model, "source_only"))
+    state, metrics = step(state, *data_shard(spec["batch"], mesh))
+    plan = model._tp_plan
+    return dict(
+        losses={k: float(v) for k, v in metrics.items()
+                if k != "loss_total"}, plan=dict(plan),
+        grads={n: _full(p.grad, plan[n], mesh) if n in plan
+               else p.grad.clone()
+               for n, p in model.named_parameters() if p.requires_grad})
+
+
+SAME_PAD_HEIGHTS = (12, 13)
+
+
+def same_pad_pass(k: int, s: int, mesh=None) -> dict:
+    """``layers.rows.same_pad`` then an unpadded k x k conv at stride s on
+    maps of SAME_PAD_HEIGHTS rows (at stride 2 the even side pads
+    (k - 2) // 2 rows before and one more after, the odd side (k - 1) / 2
+    on each; 13 rows split 7/6 over 2 ranks), for a fixed
+    random projection of the output: the output, the input's gradient and
+    the kernel's. With ``mesh``, each rank pads and fetches through
+    ``MeshRowOps.same_pad`` and convolves its own output rows
+    (``MeshConv2d``); the output is gathered whole, the input's gradient
+    is the rank's own rows and the kernel's is summed over space."""
+    from da_detect_tpu_torch.layers import Conv2d
+    from da_detect_tpu_torch.layers.rows import same_pad
+    from da_detect_tpu_torch.parallel import spatial
+
+    out = {}
+    for h in SAME_PAD_HEIGHTS:
+        gen = torch.Generator().manual_seed(10 * k + s + h)
+        x = torch.randn(1, 4, h, 9, generator=gen).contiguous(
+            memory_format=torch.channels_last)
+        conv = Conv2d(4, 3, k, stride=s, bias=False)
+        with torch.no_grad():
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen))
+        if mesh is None:
+            x.requires_grad_(True)
+            y = conv(same_pad(x, k, s))
+        else:
+            lo, hi = spatial.row_range(h, mesh.space, mesh.space_rank)
+            x = x[:, :, lo:hi].detach().requires_grad_(True)
+            spatial._swap(conv, spatial.MeshConv2d, mesh)
+            conv._rows = True
+            with spatial._pass(x, h):
+                ys = conv(spatial.row_same_pad(x, mesh, k, s))
+                y = spatial.gather_rows(ys, mesh, spatial.global_height(ys),
+                                        sum_grad=False)
+        proj = torch.randn(y.shape, generator=gen)
+        (y * proj).sum().backward()
+        w_grad = conv.weight.grad
+        if mesh is not None:
+            w_grad = spatial.all_reduce_sum(w_grad, mesh.space_group)
+        out[h] = dict(y=y.detach(), x_grad=x.grad, w_grad=w_grad)
+    return out
 
 
 def backbone_pass(cfg, images, mesh=None, seed: int = 0) -> dict:
@@ -215,10 +292,17 @@ def rank_work(rank: int, world: int, init_method: str, spec: dict) -> dict:
         run.pop("state")
         out[label] = run
     for label, s, m in spec["dcn_meshes"]:
-        out[f"dcn_{label}"] = _dcn_eval(spec["dcn"], under(s, m))
+        out[f"dcn_{label}"] = _eval(spec["dcn"], under(s, m))
     for label, cfg in spec["bodies"].items():
         out[f"body_{label}"] = backbone_pass(cfg, spec["body_images"][label],
                                              under(2, 1))
+    out["same_pad"] = {(k, s): same_pad_pass(k, s, under(2, 1))
+                       for k, s in spec["same_pad_cases"]}
+    for label, s, m in spec["fbnet_meshes"]:
+        out[f"fbnet_{label}"] = _eval(spec["fbnet"], under(s, m))
+    for label, s, m in spec["fbnet_step_meshes"]:
+        out[f"fbnet_step_{label}"] = _source_step(spec["fbnet_step"],
+                                                  under(s, m))
     out["checkpoint"] = _checkpoint(spec["step"], under(1, 2),
                                     spec["ckpt_dir"])
     trap = _steps(dict(spec["step"], steps=1), under(1, 2),
