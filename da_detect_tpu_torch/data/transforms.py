@@ -64,6 +64,22 @@ def resize_u8(image: np.ndarray, rh: int, rw: int) -> np.ndarray:
     return out[0].permute(1, 2, 0).numpy()
 
 
+def apply_geometry(image: np.ndarray, boxes: np.ndarray, *, min_size: int,
+                   max_size: int | None, hflip: bool):
+    """Resize (``compute_resize_hw``, ``resize_u8``), then an optional
+    horizontal flip, of a uint8 [H, W, 3] image and its boxes [N, 4].
+    Returns (image, boxes float32, (rh, rw)). The loaders and the demo do
+    the same through ``resize_flip_pad_u8`` and ``transform_boxes``."""
+    h, w = image.shape[:2]
+    oh, ow = compute_resize_hw(h, w, min_size, max_size)
+    if (oh, ow) != (h, w):
+        image = resize_u8(image, oh, ow)
+    if hflip:
+        image = image[:, ::-1]
+    return (np.ascontiguousarray(image),
+            transform_boxes(boxes, h, w, oh, ow, hflip), (oh, ow))
+
+
 def resize_flip_pad_u8(image: np.ndarray, canvas_hw, rh: int, rw: int,
                        hflip: bool) -> np.ndarray:
     """The uint8 transport (``TPU.TRANSPORT_PIXELS: uint8``): resize, flip

@@ -3,7 +3,8 @@
 one card.
 
     python3 da_detect_tpu_torch/e2e_pairs.py --trees PARENT CHANGE [--rounds 3]
-        [--dtype float32|bfloat16]
+        [--dtype float32|bfloat16] [--dcn-step-only | --gathers-only |
+        --keypoint-only]
 
 PARENT and CHANGE are roots of two checkouts of the repository (for example
 ``git archive`` of two commits unpacked side by side). Each round runs one
@@ -54,6 +55,17 @@ as ``chip_smoke.py`` drives it:
   then with them) on float32 score maps [38, 76, 49 * 9] (rows of 36 B)
   and 256 ROIs over the canvas, from a seed, POOL_GATHER_RUNS passes a
   profile.
+- ``--keypoint-only`` measures the Keypoint R-CNN YAML alone, uncut at
+  800x1344 (random weights from seed 0, class scores x 30), in float32 and
+  then bfloat16 in one process (``kp_f32_*``, ``kp_bf16_*``):
+  ``forward_ms``, a request with keypoints, median of KP_FORWARD_RUNS after
+  3; ``step_ms``, the source-only step on 2 images, median of KP_STEP_RUNS
+  after 3; ``forward_device_ms`` and ``step_device_ms`` from 3 profiled
+  calls each; ``predictor_request_device_ms``, the keypoint predictor
+  alone on a request's 100 ROIs (forward), and
+  ``predictor_step_device_ms``, on a step's 2 x 512 (forward and
+  backward), device time a call over KP_PREDICTOR_RUNS profiled calls, on
+  random inputs from a seed.
 
 Prints one JSON line a process, the card's name and power limit, and last a
 summary: for each tree and metric the median over its processes and each
@@ -88,9 +100,14 @@ WAIT_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
 GATHER_PROFILES, GATHER_RUNS, POOL_GATHER_RUNS = 3, 3, 20
 # the deform pool's score maps (38x76, P 7, C' 9), ROIs and offsets' scale
 POOL_MAP, POOL_P, POOL_C, POOL_ROIS, POOL_OFFSET_STD = (38, 76), 7, 9, 256, 0.1
+KP_FORWARD_RUNS, KP_STEP_RUNS, KP_PREDICTOR_RUNS = 10, 6, 10
+KP_METRICS = tuple(
+    f"kp_{d}_{m}" for d in ("f32", "bf16")
+    for m in ("forward_ms", "step_ms", "forward_device_ms", "step_device_ms",
+              "predictor_request_device_ms", "predictor_step_device_ms"))
 METRICS = tuple(f"{name}_{m}" for name in ("forward", "step")
                 for m in ("ms", "profiled_ms", "device_ms", "host_wait_ms")
-                ) + ("pooler_device_ms", "scatter_device_ms",
+                ) + KP_METRICS + ("pooler_device_ms", "scatter_device_ms",
                      "scatter_library_device_ms", "dcn_step_ms",
                      "dcn_gather_device_ms", "dcn_gather_library_device_ms",
                      "pool_gather_device_ms",
@@ -394,12 +411,72 @@ def gathers(device: str, canvas, dtype: str, sync, cuda: bool) -> dict:
     return out
 
 
+def keypoint(device: str, dtype: str, sync, cuda: bool) -> dict:
+    """The Keypoint R-CNN numbers of ``--keypoint-only`` in ``dtype``."""
+    import torch
+
+    from da_detect_tpu_torch import entry
+
+    d = "f32" if dtype == "float32" else "bf16"
+    cfg = entry.keypoint_cfg(dtype=dtype)
+    cfg.freeze()
+    fn, (model, _) = entry.entry(device=device, seed=0, cfg=cfg,
+                                 with_keypoints=True)
+    with torch.no_grad():
+        model.rpn["head"].cls_logits.weight.mul_(SCORE_SCALE)
+        model.roi_heads["box"]["predictor"].cls_score.weight.mul_(SCORE_SCALE)
+    batch = entry.make_batch(cfg, 1, seed=0, device=device)[0]
+    forward = host_ms(lambda: fn(model, batch), KP_FORWARD_RUNS, sync)
+    forward_profile = profiled(lambda: fn(model, batch), PROFILE_RUNS, sync,
+                               cuda, "forward")
+    predictor = model.keypoint_head.predictor
+    layer = predictor.kps_score_lowres
+    c, k = layer.in_channels, layer.out_channels
+    gen = torch.Generator().manual_seed(0)
+    compute = torch.float32 if dtype == "float32" else torch.bfloat16
+    x = torch.randn(1, 100, c, 14, 14, generator=gen).to(device, compute)
+    with torch.no_grad():
+        request = profiled(lambda: predictor(x), KP_PREDICTOR_RUNS, sync,
+                           cuda, "predictor")
+    x = torch.randn(2, 512, c, 14, 14, generator=gen).to(
+        device, compute).requires_grad_(True)
+    g = torch.randn(2, 512, k, 52, 52, generator=gen).to(device)
+    leaves = [x, *predictor.parameters()]
+    step_pred = profiled(
+        lambda: torch.autograd.grad(predictor(x), leaves, g),
+        KP_PREDICTOR_RUNS, sync, cuda, "predictor")
+    del fn, model, batch, predictor, x, g, leaves
+
+    step, (state, args) = entry.source_train_entry(device=device, seed=0,
+                                                   cfg=cfg)
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], *args)
+
+    steps = host_ms(one_step, KP_STEP_RUNS, sync)
+    step_profile = profiled(one_step, PROFILE_RUNS, sync, cuda, "step")
+    del step, state, args, holder
+    return {f"kp_{d}_forward_ms": statistics.median(forward),
+            f"kp_{d}_step_ms": statistics.median(steps),
+            f"kp_{d}_forward_device_ms": forward_profile["forward_device_ms"],
+            f"kp_{d}_step_device_ms": step_profile["step_device_ms"],
+            f"kp_{d}_predictor_request_device_ms":
+                request["predictor_device_ms"],
+            f"kp_{d}_predictor_step_device_ms":
+                step_pred["predictor_device_ms"],
+            f"kp_{d}_forward_runs_ms": forward,
+            f"kp_{d}_step_runs_ms": steps}
+
+
 def measure(tree: str, device: str = "cuda", canvas=CANVAS,
             dtype: str = "float32", dcn_only: bool = False,
-            gathers_only: bool = False) -> dict:
+            gathers_only: bool = False, keypoint_only: bool = False
+            ) -> dict:
     """One process's numbers for the port found under ``tree``; with
     ``dcn_only``, those of the DCN train step alone; with
-    ``gathers_only``, those of the row gathers alone."""
+    ``gathers_only``, those of the row gathers alone; with
+    ``keypoint_only``, the Keypoint R-CNN's in both dtypes."""
     import torch
 
     from da_detect_tpu_torch import entry, kernels
@@ -415,6 +492,10 @@ def measure(tree: str, device: str = "cuda", canvas=CANVAS,
                dtype=dtype)
     if gathers_only:
         out.update(gathers(device, canvas, dtype, sync, cuda))
+        return out
+    if keypoint_only:
+        for kp_dtype in ("float32", "bfloat16"):
+            out.update(keypoint(device, kp_dtype, sync, cuda))
         return out
     if not dcn_only:
         out.update(flagship_and_pooler(tree, device, canvas, dtype, sync,
@@ -476,11 +557,12 @@ def flagship_and_pooler(tree: str, device: str, canvas, dtype: str, sync,
 
 
 def run_tree(tree: str, timeout: int, dtype: str, dcn_only: bool,
-             gathers_only: bool) -> dict:
+             gathers_only: bool, keypoint_only: bool) -> dict:
     proc = subprocess.run([sys.executable, os.path.abspath(__file__),
                            "--tree", tree, "--dtype", dtype]
                           + ["--dcn-step-only"] * dcn_only
-                          + ["--gathers-only"] * gathers_only,
+                          + ["--gathers-only"] * gathers_only
+                          + ["--keypoint-only"] * keypoint_only,
                           capture_output=True, text=True, timeout=timeout)
     if proc.returncode != 0:
         raise RuntimeError(f"{tree}: rc {proc.returncode}\n{proc.stderr}")
@@ -522,6 +604,9 @@ def main() -> int:
     ap.add_argument("--gathers-only", action="store_true",
                     help="measure the row gathers (DCN forward, deform "
                          "pool) alone")
+    ap.add_argument("--keypoint-only", action="store_true",
+                    help="measure the Keypoint R-CNN request, step and "
+                         "predictor alone, in both dtypes")
     ap.add_argument("--tree", help=argparse.SUPPRESS)  # one process's tree
     a = ap.parse_args()
     if a.tree:
@@ -529,7 +614,9 @@ def main() -> int:
         sys.path[0] = tree  # the tree's package, not this file's
         print(json.dumps(measure(tree, dtype=a.dtype,
                                  dcn_only=a.dcn_step_only,
-                                 gathers_only=a.gathers_only)), flush=True)
+                                 gathers_only=a.gathers_only,
+                                 keypoint_only=a.keypoint_only)),
+              flush=True)
         return 0
     if not a.trees:
         ap.error("--trees PARENT CHANGE is required")
@@ -538,7 +625,7 @@ def main() -> int:
     for i in range(a.rounds):
         for tree in (parent, change, change, parent):
             r = dict(run_tree(tree, a.timeout, a.dtype, a.dcn_step_only,
-                              a.gathers_only), round=i)
+                              a.gathers_only, a.keypoint_only), round=i)
             results.append(r)
             print(json.dumps(r), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -18,14 +18,23 @@ worker process (``engine/_serving_worker.py``: XLA:CPU mis-serializes an
 executable compiled in a process with earlier compilations); this export
 runs in the caller's process and has no such worker.
 
-* ``fmt="stablehlo"``: the saved ``ExportedProgram``, run as it is. It is
-  free of model code (loading it imports the operators' registrations,
-  never ``models/``) and runs on the device it was exported on; inputs on
-  another device raise.
-* ``fmt="aot"``: the same program bound to the device kind it records
-  (platform, device name, compute capability, device count, torch and CUDA
-  versions); ``load_serving`` refuses another unless
-  ``allow_device_mismatch=True``. On a CUDA device the load warms the
+* ``fmt="stablehlo"``: the saved ``ExportedProgram``. It is free of model
+  code (loading it imports the operators' registrations, never
+  ``models/``) and loads on either device: on the one it was exported on
+  by default, on another with ``load_serving(path, device=...)``, which
+  moves the program there (``torch.export.passes.move_to_device_pass``:
+  its constants, such as the anchors cached on the export device, and
+  every device named in its graph). The operators dispatch on their
+  inputs' device, so a program exported on the CPU launches the
+  hand-written kernels on the card, and one exported on the card runs
+  their plain versions on the CPU. Inputs on another device than the one
+  loaded to raise.
+* ``fmt="aot"``: the same program bound to the device it was exported on
+  and the device kind it records (platform, device name, compute
+  capability, device count, torch and CUDA versions), as the JAX
+  package's ``aot`` executable is; ``load_serving`` refuses another
+  device, and another kind unless ``allow_device_mismatch=True``. On a
+  CUDA device the load warms the
   program up and captures it as one CUDA graph over static input buffers;
   a call copies the variables and the batch into them, replays the graph
   (the same kernels eager launches, the hand-written ones included) and
@@ -286,7 +295,7 @@ class ServingModel:
         if any(t.device != self.device for t in tensors):
             raise ValueError(
                 f"the artifact runs on {self.device} (where it was "
-                f"exported); got inputs on "
+                f"loaded); got inputs on "
                 f"{sorted({str(t.device) for t in tensors})}")
 
     def __call__(self, variables: dict, batch: ImageBatch):
@@ -300,20 +309,92 @@ class ServingModel:
             else (dets, out[4])
 
 
-def load_serving(path: str, *, allow_device_mismatch: bool = False
-                 ) -> ServingModel:
-    """Load an artifact written by ``export_serving``. ``aot`` refuses a
-    device other than the one it records unless ``allow_device_mismatch``;
-    on a CUDA device it warms up and captures its CUDA graph here, and a
-    capture that fails raises. For a CUDA artifact the process takes the
-    eager model's arithmetic settings (``utils/env.py::
+def _load_device(device, recorded: torch.device, path: str,
+                 fmt: str) -> torch.device:
+    """The device ``load_serving`` puts the program on: ``device``, or the
+    recorded one; a CUDA device needs one in this process (no fallback)."""
+    target = recorded if device is None else torch.device(device)
+    if target.type not in ("cpu", "cuda"):
+        raise ValueError(f"load_serving: unsupported device {target}")
+    if target.type == "cuda":
+        if not torch.cuda.is_available():
+            hint = ("load it on the CPU with load_serving(path, "
+                    "device='cpu')" if fmt == "stablehlo" else
+                    "an aot artifact runs on its own device only; export "
+                    "fmt='stablehlo' to load it elsewhere")
+            raise RuntimeError(f"{path} would run on {target} and this "
+                               f"process has no CUDA device: {hint}")
+        if target.index is None:
+            target = torch.device("cuda", torch.cuda.current_device())
+        if target.index >= torch.cuda.device_count():
+            raise RuntimeError(f"load_serving: no device {target} in this "
+                               f"process ({torch.cuda.device_count()} CUDA "
+                               "devices)")
+    return target
+
+
+def devices_named(ep) -> set:
+    """Every device an exported program names: its state and constants'
+    tensors, the devices in its graph nodes' arguments and the tensors of
+    their recorded values."""
+    found = {str(t.device) for t in (*ep.state_dict.values(),
+                                     *ep.constants.values())
+             if isinstance(t, torch.Tensor)}
+
+    def walk(v):
+        if isinstance(v, torch.device):
+            found.add(str(v))
+        elif isinstance(v, torch.Tensor):
+            found.add(str(v.device))
+        elif isinstance(v, (tuple, list)):
+            for x in v:
+                walk(x)
+        elif isinstance(v, dict):
+            for x in v.values():
+                walk(x)
+
+    for m in ep.graph_module.modules():
+        if isinstance(m, torch.fx.GraphModule):
+            for node in m.graph.nodes:
+                walk(node.args)
+                walk(node.kwargs)
+                walk(node.meta.get("val"))
+    return found
+
+
+def move_program(ep, src: torch.device, dst: torch.device):
+    """``ep`` moved from ``src`` to ``dst``; raises if any node or constant
+    still names ``src``."""
+    from torch.export.passes import move_to_device_pass
+
+    ep = move_to_device_pass(ep, {str(src): str(dst)})
+    left = {d for d in devices_named(ep) if torch.device(d) == src}
+    if left:
+        raise RuntimeError(f"serving program moved to {dst} still names "
+                           f"{sorted(left)}")
+    return ep
+
+
+def load_serving(path: str, *, device=None,
+                 allow_device_mismatch: bool = False) -> ServingModel:
+    """Load an artifact written by ``export_serving`` onto ``device`` (None:
+    the device it was exported on). A ``stablehlo`` artifact loads on any
+    CPU or CUDA device (``move_program``); ``aot`` refuses any device but
+    its own, and a device kind other than the one it records unless
+    ``allow_device_mismatch``. A device this process lacks raises. On a
+    CUDA device an ``aot`` load warms up and captures its CUDA graph here,
+    and a capture that fails raises. On a CUDA device the process takes
+    the eager model's arithmetic settings (``utils/env.py::
     reference_numerics``: no TF32, float32 sums in bfloat16 matmuls)."""
     meta = read_meta(path)
-    device = torch.device(meta["device"])
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{path} runs on {device} (where it was exported) "
-                           "and this process has no CUDA device")
+    recorded = torch.device(meta["device"])
+    device = _load_device(device, recorded, path, meta["format"])
     if meta["format"] == "aot":
+        if device != recorded:
+            raise RuntimeError(
+                f"aot serving artifact {path} was exported on {recorded} "
+                f"and runs there only, not on {device}: export "
+                "fmt='stablehlo' to load it on another device")
         here = device_record(device)
         keys = ("platform", "device_kind", "capability", "num_devices",
                 "torch_version", "cuda_version")
@@ -327,12 +408,18 @@ def load_serving(path: str, *, allow_device_mismatch: bool = False
                 f" but this process sees {here['num_devices']}x "
                 f"{here['device_kind']} ({here['platform']}, capability "
                 f"{here['capability']}, torch {here['torch_version']}, CUDA "
-                f"{here['cuda_version']}). Re-export, use fmt='stablehlo', "
-                "or pass allow_device_mismatch=True at your own risk.")
+                f"{here['cuda_version']}). Re-export, export "
+                "fmt='stablehlo' (load_serving(path, device=...) loads it "
+                "on any device), or pass allow_device_mismatch=True at your "
+                "own risk.")
     if device.type == "cuda":
         # the eager model's arithmetic (entry.prepare_model)
         reference_numerics()
-    module = torch.export.load(path).module()
+    ep = torch.export.load(path)
+    if device != recorded:
+        ep = move_program(ep, recorded, device)
+        meta = dict(meta, device=str(device), exported_on=str(recorded))
+    module = ep.module()
     if meta["format"] == "aot" and device.type == "cuda":
         return ServingModel(_GraphedProgram(module, meta, device), meta)
     return ServingModel(module, meta)

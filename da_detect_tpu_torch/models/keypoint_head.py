@@ -8,6 +8,10 @@ reference modeling/roi_heads/keypoint_head/).
 * predictor (``KeypointRCNNPredictor``): ``kps_score_lowres``, a 4x4
   transposed conv of stride 2 (Flax's padding (1, 1): 14 -> 26, not the
   reference's 28), then a 2x bilinear upsample (-> 52): K heatmaps a ROI.
+  The transposed conv is a channel product and a fold
+  (``FoldedConvTranspose2d``), and the upsample's gradient is two products
+  with its interpolation matrices (``upsample2x``), so the predictor's
+  sums, forward and backward, have a fixed order on the card.
   As the JAX package's (its Flax conv has no ``dtype`` and promotes to its
   float32 kernel), the input is rounded to ``dtype`` and the layer computes
   in float32; the logits are float32. Their size comes from their shape,
@@ -63,22 +67,81 @@ class KeypointRCNNFeatureExtractor(nn.Module):
         return x.reshape((b, r) + x.shape[1:])
 
 
+class FoldedConvTranspose2d(ConvTranspose2d):
+    """A transposed convolution (groups 1) as a product over the input
+    channels, then a fold: each input pixel's [K, kh, kw] patch is
+    ``x[pixel] @ weight.reshape(C, K * kh * kw)`` (one matmul over the
+    channels-last rows), and ``F.fold`` (col2im) sums the patches that
+    overlap each output pixel. Both sum in a fixed order on the card
+    (cuBLAS without atomics; col2im gathers each output pixel's taps in a
+    loop), so a rerun gives the same bits, where cuDNN's transposed
+    convolution may pick a kernel that sums with atomics. Its backward is
+    the matmul's and im2col's, fixed too. The parameters and their
+    state-dict names are ``nn.ConvTranspose2d``'s."""
+
+    def conv(self, x, weight, bias) -> torch.Tensor:
+        n, c, h, w = x.shape
+        k, kh, kw = weight.shape[1:]
+        out = [(size - 1) * s - 2 * p + d * (kk - 1) + op + 1
+               for size, s, p, d, kk, op in zip(
+                   (h, w), self.stride, self.padding, self.dilation,
+                   (kh, kw), self.output_padding)]
+        cols = x.permute(0, 2, 3, 1).reshape(n * h * w, c) \
+            @ weight.to(x.dtype).reshape(c, k * kh * kw)
+        y = F.fold(cols.view(n, h * w, -1).transpose(1, 2), out, (kh, kw),
+                   dilation=self.dilation, padding=self.padding,
+                   stride=self.stride)
+        return y if bias is None else y + bias.to(y.dtype).view(1, -1, 1, 1)
+
+
+def _upsample_matrix(n: int, like: torch.Tensor) -> torch.Tensor:
+    """[2n, n]: the weights of a 2x bilinear upsample (half-pixel centres)
+    along one axis, as ``F.interpolate`` applies them (0.25, 0.75 or 1)."""
+    eye = torch.eye(n, dtype=like.dtype, device=like.device)
+    return F.interpolate(eye[None, None], scale_factor=(2, 1),
+                         mode="bilinear", align_corners=False)[0, 0]
+
+
+class _Upsample2x(torch.autograd.Function):
+    """``F.interpolate``'s 2x bilinear upsample, whose gradient is
+    ``A_h^T @ g @ A_w`` (two matmuls, fixed sum order) instead of the CUDA
+    backward's atomic adds."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.hw = x.shape[-2:]
+        return F.interpolate(x, scale_factor=2, mode="bilinear",
+                             align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.hw
+        return _upsample_matrix(h, g).t() @ g @ _upsample_matrix(w, g)
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """2x bilinear upsample of [N, C, H, W], ``F.interpolate``'s values,
+    whose gradient sums in a fixed order (``_Upsample2x``)."""
+    return _Upsample2x.apply(x)
+
+
 class KeypointRCNNPredictor(nn.Module):
     """``kps_score_lowres`` and the 2x bilinear upsample: [B, R, C, P, P]
-    -> [B, R, K, 4P - 4, 4P - 4] float32."""
+    -> [B, R, K, 4P - 4, 4P - 4] float32. ``kps_score_lowres`` is a
+    ``FoldedConvTranspose2d`` and the upsample ``upsample2x``: the
+    heatmaps and their gradients rerun bit for bit on the card."""
 
     def __init__(self, in_channels: int, num_keypoints: int = 17,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
-        self.kps_score_lowres = ConvTranspose2d(in_channels, num_keypoints,
-                                                4, stride=2, padding=2)
+        self.kps_score_lowres = FoldedConvTranspose2d(
+            in_channels, num_keypoints, 4, stride=2, padding=2)
 
     def forward(self, x):
         b, r = x.shape[:2]
         x = self.kps_score_lowres(_rows(x).to(self.dtype).float())
-        x = F.interpolate(x, scale_factor=2, mode="bilinear",
-                          align_corners=False)
+        x = upsample2x(x)
         return x.reshape((b, r) + x.shape[1:])
 
 

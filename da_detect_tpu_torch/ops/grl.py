@@ -34,3 +34,9 @@ def gradient_scalar(x: torch.Tensor, weight) -> torch.Tensor:
     if isinstance(weight, torch.Tensor):
         weight = weight.detach()
     return _GradientScalar.apply(x, weight)
+
+
+def grad_reverse(x: torch.Tensor, weight) -> torch.Tensor:
+    """Gradient reversal with a positive-magnitude ``weight``:
+    ``gradient_scalar(x, -weight)``."""
+    return gradient_scalar(x, -weight)

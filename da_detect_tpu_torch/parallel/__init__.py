@@ -7,9 +7,9 @@ from .ddp import (check_mesh, global_average, global_mean, global_sum,
                   init_distributed, shard, shutdown, spawn, unused_parameters,
                   wrap_train_forward)
 from .mesh import (Mesh, batch_sharding, check_divisible, current_mesh,
-                   data_axis_size, data_shard, init_mesh, make_mesh,
-                   model_axis_size, reduce_mesh_grads, replicate, set_mesh,
-                   shard_batch)
+                   data_axis_size, data_shard, data_sharding, init_mesh,
+                   make_mesh, model_axis_size, put_batch, reduce_mesh_grads,
+                   replicate, set_mesh, shard_batch)
 from .spatial import partition_backbone
 from .tensor import shard_model, split_plan
 
@@ -33,10 +33,9 @@ def parallelize(model, mesh=None, min_channels: int = 256):
 
 
 __all__ = ["Mesh", "batch_sharding", "check_divisible", "check_mesh",
-           "current_mesh", "data_axis_size",
-           "data_shard", "global_average", "global_mean", "global_sum",
-           "init_distributed", "init_mesh", "make_mesh", "model_axis_size",
-           "parallelize", "partition_backbone", "reduce_mesh_grads",
-           "replicate", "set_mesh", "shard", "shard_batch", "shard_model",
-           "shutdown", "spawn", "split_plan", "unused_parameters",
-           "wrap_train_forward"]
+           "current_mesh", "data_axis_size", "data_shard", "data_sharding",
+           "global_average", "global_mean", "global_sum", "init_distributed",
+           "init_mesh", "make_mesh", "model_axis_size", "parallelize",
+           "partition_backbone", "put_batch", "reduce_mesh_grads", "replicate",
+           "set_mesh", "shard", "shard_batch", "shard_model", "shutdown",
+           "spawn", "split_plan", "unused_parameters", "wrap_train_forward"]

@@ -319,6 +319,48 @@ def batch_sharding(mesh: Mesh | None) -> BatchSharding:
     return BatchSharding(mesh)
 
 
+def data_sharding(mesh: Mesh | None) -> BatchSharding:
+    """JAX's ``NamedSharding(mesh, P("data"))``: every leaf's leading axis
+    over ``data``, whole over ``space`` and ``model``. Here a placement
+    whose ``put(tree)`` is this rank's part: every tensor field, images
+    too, cut over the mesh's data axis alone (``put_batch`` dispatches to
+    it). None, or one data rank: the whole batch."""
+    if mesh is None or mesh.data == 1:
+        return BatchSharding(None)
+    return BatchSharding(Mesh(mesh.data, mesh.data_rank))
+
+
+def put_batch(tree, sharding):
+    """``tree`` placed by ``sharding`` (JAX's ``put_batch``): None passes
+    it through; an object with ``.put`` (``BatchSharding``,
+    ``data_sharding``) is called on it; a device (a ``torch.device`` or
+    its name, as ``jax.device_put`` takes one) moves every tensor of it
+    there. JAX's plain ``NamedSharding`` has no counterpart here: a rank
+    holds its own part, which only a ``.put`` can cut."""
+    if sharding is None:
+        return tree
+    if hasattr(sharding, "put"):
+        return sharding.put(tree)
+    if isinstance(sharding, (torch.device, str)):
+        return _to_device(tree, torch.device(sharding))
+    raise TypeError(f"put_batch: no placement for {type(sharding).__name__}"
+                    " (None, an object with .put, or a device)")
+
+
+def _to_device(node, device: torch.device):
+    if isinstance(node, torch.Tensor):
+        return node.to(device)
+    if isinstance(node, (tuple, list)):
+        return type(node)(_to_device(n, device) for n in node)
+    if isinstance(node, dict):
+        return {k: _to_device(v, device) for k, v in node.items()}
+    if dataclasses.is_dataclass(node):
+        return dataclasses.replace(node, **{
+            f.name: _to_device(getattr(node, f.name), device)
+            for f in dataclasses.fields(node)})
+    return node
+
+
 def shard_batch(tree, mesh: Mesh | None):
     """This rank's part of the global batch ``tree`` (a batch, or a tuple
     of ``ImageBatch`` / ``Targets``), as JAX places it (``BatchSharding``).
@@ -331,7 +373,4 @@ def shard_batch(tree, mesh: Mesh | None):
 def data_shard(tree, mesh: Mesh | None):
     """This rank's data slice of the global batch ``tree``: every field cut
     over ``data`` only (what a model under the mesh takes)."""
-    if mesh is None or mesh.data == 1:
-        return tree
-    flat = Mesh(mesh.data, mesh.data_rank)
-    return BatchSharding(flat).put(tree)
+    return data_sharding(mesh).put(tree)

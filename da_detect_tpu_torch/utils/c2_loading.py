@@ -30,6 +30,7 @@ import pickle
 import re
 
 import numpy as np
+import torch
 
 # branch -> (conv module, bn module)
 _BRANCH = {"branch2a": ("conv1", "bn1"), "branch2b": ("conv2", "bn2"),
@@ -111,3 +112,32 @@ def infer_pool_resolution(state: dict):
         return None
     r = math.isqrt(in_f // chans)
     return r if r * r * chans == in_f else None
+
+
+def merge_into(target: dict, src: dict, path=()) -> list[str]:
+    """Copy the leaves of ``src`` whose paths ``target`` has into
+    ``target``, shape-checked and cast to the target's dtype (the JAX
+    package's ``merge_into``): a tensor leaf of ``target`` (a
+    ``state_dict()``'s, shared with its module) is written in place, any
+    other leaf replaced by a numpy array; nested dicts merge by path. Keys
+    of ``src`` that ``target`` lacks are skipped. Returns the applied
+    paths, "/"-joined."""
+    applied = []
+    for k, v in src.items():
+        if k not in target:
+            continue
+        if isinstance(v, dict) and isinstance(target[k], dict):
+            applied += merge_into(target[k], v, path + (k,))
+        elif not isinstance(v, dict):
+            tgt = target[k]
+            if tuple(np.shape(tgt)) != tuple(np.shape(v)):
+                raise ValueError(
+                    f"shape mismatch at {'/'.join(path + (k,))}: "
+                    f"{tuple(np.shape(tgt))} vs {tuple(np.shape(v))}")
+            if isinstance(tgt, torch.Tensor):
+                with torch.no_grad():
+                    tgt.copy_(torch.as_tensor(np.asarray(v)))
+            else:
+                target[k] = np.asarray(v).astype(np.asarray(tgt).dtype)
+            applied.append("/".join(path + (k,)))
+    return applied

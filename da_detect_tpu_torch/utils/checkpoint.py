@@ -168,18 +168,9 @@ def load_weight_file(path: str, model: torch.nn.Module,
     state = tensor.local_state_dict(model, {
         k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in
         state.items()}) if getattr(model, "_tp_plan", None) else state
-    applied, unmatched = [], []
-    for name, value in state.items():
-        if name not in own:
-            unmatched.append(name)
-            continue
-        if tuple(np.shape(value)) != tuple(own[name].shape):
-            raise ValueError(f"{name}: file shape {tuple(np.shape(value))} "
-                             f"vs model {tuple(own[name].shape)}")
-        with torch.no_grad():
-            own[name].copy_(torch.from_numpy(
-                np.ascontiguousarray(value, np.float32)))
-        applied.append(name)
+    unmatched = [name for name in state if name not in own]
+    applied = c2_loading.merge_into(
+        own, {k: np.asarray(v, np.float32) for k, v in state.items()})
     log.info("loaded %d tensors from %s", len(applied), path)
     if unmatched:
         log.info("names in %s the model lacks (first 10): %s", path,

@@ -1,13 +1,14 @@
 """Metric logging (the port's own copy of what the training loop needs from
 ``da_detect_tpu/utils/metric_logger.py``): windowed median and global mean
-of each meter, the ETA string, and ``TensorboardLogger`` (the CLIs'
-``--use-tensorboard``), which also writes each update as TensorBoard
+of each meter, the ETA string, ``Timer``, and ``TensorboardLogger`` (the
+CLIs' ``--use-tensorboard``), which also writes each update as TensorBoard
 scalars through ``torch.utils.tensorboard``."""
 
 from __future__ import annotations
 
 import datetime
 import logging
+import time
 from collections import defaultdict, deque
 
 log = logging.getLogger(__name__)
@@ -89,3 +90,30 @@ class TensorboardLogger(MetricLogger):
 def eta_string(avg_iter_time: float, remaining_iters: int) -> str:
     return str(datetime.timedelta(seconds=int(avg_iter_time
                                               * remaining_iters)))
+
+
+class Timer:
+    """Wall-clock time over ``tic``/``toc`` pairs (reference
+    utils/timer.py): ``toc`` returns the seconds since the last ``tic`` and
+    adds them to ``total_time``; ``average_time`` is over ``calls``."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.total_time = 0.0
+        self.calls = 0
+        self.start_time = 0.0
+
+    def tic(self):
+        self.start_time = time.perf_counter()
+
+    def toc(self) -> float:
+        dt = time.perf_counter() - self.start_time
+        self.total_time += dt
+        self.calls += 1
+        return dt
+
+    @property
+    def average_time(self) -> float:
+        return self.total_time / max(self.calls, 1)

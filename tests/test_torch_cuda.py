@@ -90,6 +90,14 @@ bit for bit the plain run's, a copy) and the scatter-add kernel (its
 gradients within 1e-5 of the plain run's largest, and bit for bit their
 rerun); PAM, CAM, the multi-level DA heads, Boxes and the deraining nets
 on the card against the CPU (1e-5 of the largest value; KPNRef 1e-4).
+
+The last public functions and serving moves: the keypoint predictor (a
+channel product and a fold; its upsample's gradient two matmuls) reruns
+bit for bit, forward and backward, in both dtypes; ROIPool on a C4-sized map equals the CPU's bit for bit; a
+narrowed flagship ``stablehlo`` artifact exported on the card answers on
+the CPU as the eager CPU forward does, and one exported on the CPU answers
+on the card as the card's own export does, bit for bit, launching the
+flagship's kernels.
 """
 
 import time
@@ -2018,3 +2026,124 @@ def test_derain_nets_on_the_card(dev):
             got = mod.to(dev)(x.to(dev)).cpu()
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=rel * float(want.abs().max()))
+
+
+# ------------------------------------- the last public functions, serving moves
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_keypoint_predictor_reruns_bit_for_bit(dev, dtype):
+    """The keypoint predictor (a channel product and a fold, no cuDNN
+    transposed conv; the upsample's gradient as two matmuls, no atomics)
+    on a request's 100 ROIs and a step's 2 x 512: a rerun gives the same
+    logits, and the same input and weight gradients, bit for bit."""
+    from da_detect_tpu_torch.models import keypoint_head
+
+    gen = torch.Generator().manual_seed(43)
+    mod = keypoint_head.KeypointRCNNPredictor(512, 17, dtype=dtype).to(dev)
+    for b, r in ((1, 100), (2, 512)):
+        x = torch.randn(b, r, 512, 14, 14, generator=gen).to(dev, dtype)
+        g = torch.randn(b, r, 17, 52, 52, generator=gen).to(dev)
+        runs = []
+        for _ in range(2):
+            xi = x.clone().requires_grad_(True)
+            y = mod(xi)
+            grads = torch.autograd.grad(y, [xi, mod.kps_score_lowres.weight,
+                                            mod.kps_score_lowres.bias], g)
+            runs.append((y.detach(), *grads))
+        for what, a, b_ in zip(("logits", "input gradient",
+                                "weight gradient", "bias gradient"), *runs):
+            assert torch.equal(a, b_), (what, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_pool_image_card_equals_cpu(dev, dtype):
+    """ROIPool on a C4-sized map (1024 x 38 x 76), 256 ROIs over the 608 x
+    1216 canvas (some past its edges), P 7: the card's output equals the
+    CPU's bit for bit (a max picks an input value)."""
+    from da_detect_tpu_torch.ops.roi_align import roi_pool_image
+
+    gen = torch.Generator().manual_seed(44)
+    feat = torch.randn(1024, 38, 76, generator=gen).to(dtype)
+    xy = torch.rand(256, 2, generator=gen) * torch.tensor([1300.0, 650.0]) \
+        - 40
+    rois = torch.cat([xy, xy + 8 + torch.rand(256, 2, generator=gen) * 500],
+                     1)
+    want = roi_pool_image(feat, rois, spatial_scale=1 / 16, output_size=7)
+    got = roi_pool_image(feat.to(dev), rois.to(dev), spatial_scale=1 / 16,
+                         output_size=7)
+    assert got.dtype == dtype and bool((want == 0).all(1).any())
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_pool_image_gradient_reruns_bit_for_bit(dev, dtype):
+    """ROIPool's gradient on the card, on a C4-sized map (1024 x 38 x 76)
+    and 256 ROIs (many sharing rows of the map, so the row reads' backward
+    adds several terms a row): a rerun gives the same bits."""
+    from da_detect_tpu_torch.ops.roi_align import roi_pool_image
+
+    gen = torch.Generator().manual_seed(45)
+    feat = torch.randn(1024, 38, 76, generator=gen).to(dev, dtype)
+    xy = torch.rand(256, 2, generator=gen) * torch.tensor([1100.0, 500.0])
+    rois = torch.cat([xy, xy + 16 + torch.rand(256, 2, generator=gen) * 300],
+                     1).to(dev)
+    g = torch.randn(256, 1024, 7, 7, generator=gen).to(dev, dtype)
+    grads = []
+    for _ in range(2):
+        f = feat.clone().requires_grad_(True)
+        out = roi_pool_image(f, rois, spatial_scale=1 / 16, output_size=7)
+        grads.append(torch.autograd.grad(out, f, g)[0])
+    assert bool(grads[0].ne(0).any())
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_serving_artifact_moves_between_card_and_cpu(dev, dtype, tmp_path):
+    """The flagship at 128x256 (full width, 600 -> 100 proposals) as
+    ``stablehlo`` artifacts: the card's export loaded on the CPU equals
+    the eager forward of a CPU copy bit for bit; the CPU's export loaded on
+    the card equals the card's export bit for bit and launches the
+    flagship's kernels (NMS 2, ROIAlign 1, counted in kernels.LAUNCHES)."""
+    from da_detect_tpu_torch.engine.serving import (devices_named,
+                                                    export_serving,
+                                                    load_serving)
+    from da_detect_tpu_torch.models import build_detection_model
+
+    cfg = entry.flagship_cfg(canvas=(128, 256), test_tops=(600, 100),
+                             dtype=dtype)
+    fn, (model, batch) = entry.entry(device="cuda", seed=0, cfg=cfg)
+    with torch.no_grad():
+        model.rpn["head"].cls_logits.weight.mul_(30.0)
+        model.roi_heads["box"]["predictor"].cls_score.weight.mul_(30.0)
+    host = entry.prepare_model(build_detection_model(cfg),
+                               torch.device("cpu"))
+    host.load_state_dict(model.state_dict())
+    cpu_vars, cpu_batch = host.state_dict(), batch.to("cpu")
+    card_art, cpu_art = str(tmp_path / "card.pt2"), str(tmp_path / "cpu.pt2")
+    export_serving(cfg, model, model.state_dict(), card_art, fmt="stablehlo")
+    export_serving(cfg, host, cpu_vars, cpu_art, fmt="stablehlo")
+
+    on_cpu = load_serving(card_art, device="cpu")
+    assert on_cpu.meta["exported_on"] == "cuda:0"
+    with torch.no_grad():
+        want = host(cpu_batch)
+    got = on_cpu(cpu_vars, cpu_batch)
+    assert int(want.valid.sum()) > 0
+    for a, b in zip(got, want):
+        assert a.device.type == "cpu" and torch.equal(a, b)
+
+    on_card = load_serving(card_art)
+    moved = load_serving(cpu_art, device="cuda")
+    ep = torch.export.load(cpu_art)
+    assert devices_named(ep) == {"cpu"}
+    want = on_card(model.state_dict(), batch)
+    before = dict(kernels.LAUNCHES)
+    got = moved(model.state_dict(), batch)
+    torch.cuda.synchronize()
+    per = {"nms": 2, "roi_align_fwd": 1}
+    assert {k: kernels.LAUNCHES[k] - before.get(k, 0) for k in per} == per
+    for a, b in zip(got, want):
+        assert a.is_cuda and torch.equal(a, b)
+    with pytest.raises(ValueError, match="runs on cuda:0"):
+        moved(cpu_vars, cpu_batch)

@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import tests.data_factory as factory
 import tests.test_coco_eval as jax_coco_tests
@@ -176,6 +177,40 @@ def test_keypoint_predictor_matches_jax(dtype):
     assert got.dtype == torch.float32
     np.testing.assert_allclose(_to_jax_layout(got), want, rtol=1e-5,
                                atol=1e-5 * float(np.abs(want).max()))
+
+
+def test_keypoint_predictor_gradients_match_jax():
+    """The predictor's input and bias gradients (through the fold's and
+    the upsample's fixed-order adjoints, ``upsample2x``) against
+    ``jax.grad`` of the same weighted sum, float32, within 1e-5 of the
+    largest |gradient|; the upsample's values stay ``F.interpolate``'s."""
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, 3, 14, 14, 24).astype(np.float32)
+    g = rng.randn(2, 3, 52, 52, 17).astype(np.float32)
+    jmod = jkh.KeypointRCNNPredictor(num_keypoints=17, dtype=jnp.float32)
+    variables = random_variables(jax.eval_shape(
+        lambda: jmod.init(jax.random.PRNGKey(0), jnp.asarray(x))), seed=4)
+
+    def loss(v, xx):
+        return jnp.sum(jmod.apply(v, xx) * g)
+    want_v, want_x = jax.grad(loss, argnums=(0, 1))(variables, jnp.asarray(x))
+    pmod = pkh.KeypointRCNNPredictor(24, 17)
+    pmod.load_state_dict(module_state(variables, "keypoint_head/predictor",
+                                      "roi_heads.keypoint.predictor."))
+    xt = torch.from_numpy(x).permute(0, 1, 4, 2, 3).requires_grad_(True)
+    y = pmod(xt)
+    gx, gb = torch.autograd.grad(
+        y, [xt, pmod.kps_score_lowres.bias],
+        torch.from_numpy(g).permute(0, 1, 4, 2, 3))
+    for got, want in (
+            (gx.permute(0, 1, 3, 4, 2).numpy(), np.asarray(want_x)),
+            (gb.numpy(), np.asarray(
+                want_v["params"]["kps_score_lowres"]["bias"]))):
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * float(np.abs(want).max()))
+    z = torch.from_numpy(g[0]).requires_grad_(True)
+    assert torch.equal(pkh.upsample2x(z), F.interpolate(
+        z, scale_factor=2, mode="bilinear", align_corners=False))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -503,7 +538,7 @@ def test_keypoint_head_init_is_kaiming_fan_out():
     head = build_detection_model(cfg).keypoint_head
     convs = pkh.keypoint_layers(head)
     assert [type(c).__name__ for c in convs] == \
-        ["Conv2d"] * 8 + ["ConvTranspose2d"]
+        ["Conv2d"] * 8 + ["FoldedConvTranspose2d"]
     for conv, fan_out in zip(convs, [512 * 9] * 8 + [16 * 17]):
         std = float(conv.weight.detach().std())
         assert abs(std / (2.0 / fan_out) ** 0.5 - 1) < 0.05, (conv, std)
